@@ -4,9 +4,10 @@ card.  Every test here skips where ``torch.cuda.is_available()`` is False
 the CPU through the plain versions in test_torch_int8_serve_kernels.py).
 
 The shapes are ragged on purpose (widths that are not multiples of the
-kernels' 32-column tiles, odd heights, stage 3's channel counts), so the
-edge masking is exercised; chip_smoke.py covers the serving shapes.  This
-file imports no JAX, so on a machine without it run it without the suite's
+kernels' 32-column tiles, odd heights, stage 3's and stage 4's channel
+counts, output sizes that are not multiples of 32 or 128), so the edge
+masking is exercised; chip_smoke.py covers the serving shapes.  This file
+imports no JAX, so on a machine without it run it without the suite's
 conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
+from torchseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +109,81 @@ def test_down_stage_kernel_bit_exact(dev, cin, h, w):
     e0 = _block(g, cin, 2 * cin, 2, dev)
     e1 = _block(g, 2 * cin, 2 * cin, 1, dev)
     _exact(K.down_stage_i8(x, e0, e1), K.down_stage_i8_plain(x, e0, e1))
+
+
+@pytest.mark.parametrize("cin,h,w", [(256, 9, 13), (256, 16, 33)])
+def test_down_block_kernel_bit_exact(dev, cin, h, w):
+    g = _gen(5)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _block(g, cin, 2 * cin, 2, dev)
+    before = K.down_block_i8.launches
+    _exact(K.down_block_i8(x, e), K.down_block_i8_plain(x, e))
+    assert K.down_block_i8.launches == before + 1
+
+
+@pytest.mark.parametrize("c,h,w", [(512, 5, 7), (512, 32, 64), (256, 3, 35)])
+def test_res_block_kernel_bit_exact(dev, c, h, w):
+    g = _gen(6)
+    x = _codes(g, (1, h, w, c)).to(dev)
+    e = _block(g, c, c, 1, dev)
+    before = K.res_block_i8.launches
+    _exact(K.res_block_i8(x, e), K.res_block_i8_plain(x, e))
+    assert K.res_block_i8.launches == before + 1
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_conv_kernel_at_cin_512(dev, mode):
+    """One conv_i8_kernel launch at cin=512 (its weights staged in four
+    chunks) in each epilogue mode, against the plain formula."""
+    g = _gen(7)
+    x = _codes(g, (1, 7, 37, 512)).to(dev)
+    e = _cbr(g, 3, 512, 192, dev)
+    y = K.qconv(x, e["w"], 1, 1).float()
+    z = K.fma(y, e["m"], e["c"])
+    kw = {}
+    if mode == 1:
+        res = _codes(g, (1, 7, 37, 192)).to(dev)
+        kw = {"res": res, "rr": 0.75}
+        z = K.fma(res.float(), 0.75, z)
+    elif mode == 2:
+        xd = _codes(g, (1, 13, 73, 256)).to(dev)
+        down = _cbr(g, 1, 256, 192, dev)
+        kw = {"xd": xd, "down": down, "sd": 2}
+        z = K.fma(K.qconv(xd, down["w"], 2, 0).float(), down["m"], z) \
+            + down["c"]
+    _exact(K._launch_conv(x, e, 1, 1, mode=mode, **kw),
+           K.requant(torch.relu(z)))
+
+
+def test_conv_launch_over_shared_memory_raises(dev):
+    """A call whose shared memory exceeds the device's limit raises a
+    ValueError naming cin, k and stride before any launch (a 7x7 kernel
+    stages 7*7*32*64 weight words per chunk)."""
+    g = _gen(8)
+    x = _codes(g, (1, 9, 9, 128)).to(dev)
+    e = _cbr(g, 7, 128, 64, dev)
+    with pytest.raises(ValueError, match=r"cin=128, k=7, stride=1"):
+        K._launch_conv(x, e, 1, 3)
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    ((1, 13, 21, 19), (100, 167)),   # neither H nor W a multiple of 32
+    ((2, 16, 24, 150), (97, 131)),   # ADE's 150 classes, batch 2
+    ((1, 128, 256, 19), (1024, 2048)),  # the serving shape
+    ((1, 1, 9, 19), (5, 40)),        # a single source row
+])
+def test_upsample_argmax_kernel_meets_its_bar(dev, shape, out_hw):
+    g = _gen(9)
+    x = torch.randn(shape, generator=g).to(dev)
+    before = U.fused_upsample_argmax.launches
+    got = U.fused_upsample_argmax(x, out_hw)
+    torch.cuda.synchronize()
+    assert U.fused_upsample_argmax.launches == before + 1
+    ref = U.fused_upsample_argmax_plain(x, out_hw)
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.int32
+    scores = resize_bilinear_align_corners(x.permute(0, 3, 1, 2), out_hw)
+    share, n_clear = U.label_agreement(got, ref, scores.permute(0, 2, 3, 1))
+    assert share >= U.MIN_SHARE and n_clear == 0, (share, n_clear)
 
 
 def test_kernels_launch_on_the_current_stream(dev):

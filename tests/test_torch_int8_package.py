@@ -151,4 +151,8 @@ def test_unported_arms_raise(models, jax_stats):
             tm, {k: v for k, v in jax_stats.items() if k != "refine0/conv"})
     pkg = ti8.build_int8_package(tm, jax_stats)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ti8.make_int8_through_infer(tm, {**pkg, "kind": "x39"})
+    # the full-resolution epilogue is ported; .speed heads refuse it, as
+    # in JAX
+    with pytest.raises(ValueError, match="full-res"):
         ti8.make_int8_through_infer(tm, pkg, argmax="tiled")

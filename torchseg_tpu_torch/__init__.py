@@ -2,9 +2,13 @@
 
 The JAX package ``torchseg_tpu`` is the reference; this package mirrors its
 module names and layout so every module has an obvious counterpart.  The
-ported slice is the int8-through BiSeNet-R18.speed serving graph
-(``deploy/int8_serve.py``) with its four hand-written CUDA kernels
-(``ops/kernels/int8_serve_kernels.py``, ``csrc/int8_serve_kernels.cu``).
+ported slices are the int8-through BiSeNet-R18 serving graph
+(``deploy/int8_serve.py``) with six hand-written CUDA kernel entry points
+(``ops/kernels/int8_serve_kernels.py``, ``csrc/int8_serve_kernels.cu``),
+and the full-resolution R18 serving graphs (the bf16 fused-stem graph of
+``deploy/fused_stem.py`` and the int8-through graph), which end in the
+upsample-argmax kernel (``ops/kernels/upsample_argmax.py``,
+``csrc/upsample_argmax.cu``).
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

@@ -2,7 +2,7 @@
 // serving graph.  Python side: torchseg_tpu_torch/ops/kernels/
 // int8_serve_kernels.py (wrappers, shape checks, plain PyTorch versions).
 //
-// Two kernels, four entry points of the serving graph:
+// Two kernels, six entry points of the serving graph:
 //
 //   stem_pool_i8_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
@@ -13,9 +13,14 @@
 //                         forward through spatial_path_i8 (:569/:587);
 //       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763):
 //                         a chain of four launches;
-//       K4 down_stage_i8  replacing down_stage_i8_from_paired (:986):
-//                         a chain of four launches, the 1x1/2 projection
-//                         fused into the first block's conv2 launch.
+//       K4 down_stage_i8  replacing down_stage_i8_from_paired (:986),
+//                         stages 2 and 3: a chain of four launches, the
+//                         1x1/2 projection fused into the first block's
+//                         conv2 launch;
+//       K5 down_block_i8  replacing down_block_i8_from_paired (:1136),
+//                         stage 4's strided block: two launches;
+//       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
+//                         stride-1 block: two launches.
 //
 // Numerics (the spec is the JAX XLA path, deploy/int8_serve.py:909-958 and
 // :1274-1295, as XLA compiles it on the CPU where the tests run it):
@@ -179,7 +184,7 @@ size_t stem_smem_bytes(int cin, int cout, int n_sp) {
 }
 
 // ---------------------------------------------------------------------------
-// Shared int8 conv + epilogue (K2, and the links of the K3/K4 chains).
+// Shared int8 conv + epilogue (K2, and the links of the K3-K6 chains).
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (k, k, cin, cout), stride s, symmetric pad, exact in
@@ -194,19 +199,43 @@ size_t stem_smem_bytes(int cin, int cout, int n_sp) {
 // conv at 1024x2048), which at dp4a rates is a fraction of a millisecond
 // against ~8-16 MB of traffic; a simple kernel is bounded instead by its
 // shared-memory loads.  Design: one block owns kConvTH output rows x kConvTW
-// columns x kConvCO channels; its weight slice is packed once into shared
-// memory as 4-channel int32 words ([k][k][cin/4][kConvCO]), each row's
-// input patch is staged as int32 words, and each thread computes eight
-// pixels of one output channel with __dp4a: one weight word feeds eight
-// dot products, and the eight input words are warp-wide broadcasts.
+// columns x kConvCO channels.  The input channels are walked in chunks of
+// kConvChunk 4-channel words; each chunk's weight slice is packed into
+// shared memory as int32 words ([k][k][chunk][kConvCO]), and each row's
+// input patch is staged in turn as int32 words.  Each thread computes
+// eight pixels of one output channel with __dp4a: one weight word feeds
+// eight dot products, and the eight input words are warp-wide broadcasts.
+// Chunking bounds shared memory by the chunk, not by cin: a whole 3x3
+// cin=512 slice (288 KB) would not fit a block's 227 KB; a chunk takes
+// 72 KB.  The sums are exact integers, so the chunk order changes no code.
+//
+// kRows is how many rows' sums a thread holds at once.  When the weight
+// slice is one chunk (cin <= 128), it is packed once per block and the
+// rows are finished one at a time (kRows = 1: 62 registers, four blocks
+// per SM).  When it takes several chunks, every chunk serves all the
+// block's rows before the next is packed, so all their sums stay in
+// registers (kRows = kConvTH: 128 registers, two blocks per SM, which is
+// also what a chunk's shared memory allows).  Holding four rows' sums at
+// cin <= 128 too cost those convs 5-8 % on an H100 (80 registers, three
+// blocks per SM).
 // ---------------------------------------------------------------------------
 
 constexpr int kConvTW = 32;       // output columns per block
 constexpr int kConvTH = 4;        // output rows per block (weights reused)
 constexpr int kConvCO = 64;       // output channels per block
 constexpr int kConvPX = 8;        // pixels per thread
+constexpr int kConvChunk = 32;    // input-channel words (x4 channels) per chunk
 constexpr int kConvThreads = kConvCO * kConvTW / kConvPX;  // 256
 
+__device__ __forceinline__ int pack4(const int8_t* src, int step) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    word |= (static_cast<uint32_t>(static_cast<uint8_t>(src[b * step])) << (8 * b));
+  return static_cast<int>(word);
+}
+
+template <int kRows>
 __global__ void __launch_bounds__(kConvThreads)
 conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
                const int8_t* __restrict__ wt, int k, int stride, int pad,
@@ -220,47 +249,29 @@ conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   extern __shared__ __align__(16) unsigned char smem[];
   const int cin4 = cin / 4;
   const int cdin4 = cdin / 4;
+  const int chunk = min(cin4, kConvChunk);
   const int kw_in = (kConvTW - 1) * stride + k;   // staged input columns
-  int* w_s = reinterpret_cast<int*>(smem);                   // [k*k*cin4][CO]
-  int* x_s = w_s + k * k * cin4 * kConvCO;                   // [k][kw_in][cin4]
-  int* wd_s = x_s + k * kw_in * cin4;                        // [cdin4][CO]
+  int* w_s = reinterpret_cast<int*>(smem);                   // [k*k][chunk][CO]
+  int* x_s = w_s + k * k * chunk * kConvCO;                  // [k][kw_in][chunk]
+  int* wd_s = x_s + k * kw_in * chunk;                       // [cdin4][CO]
   int* xd_s = wd_s + (mode == 2 ? cdin4 * kConvCO : 0);      // [TW][cdin4]
 
   const int tid = threadIdx.x;
   const int co_l = tid % kConvCO;
   const int pg = tid / kConvCO;                 // pixel group 0..3
   const int ox0 = blockIdx.x * kConvTW;
+  const int oy_begin = blockIdx.y * kConvTH;
+  const int oy_end = min(ho, oy_begin + kConvTH);
   const int co0 = blockIdx.z * kConvCO;
   const int co = co0 + co_l;
 
-  // pack this block's weight slice: 4 consecutive input channels per word
-  for (int i = tid; i < k * k * cin4 * kConvCO; i += blockDim.x) {
-    const int cl = i % kConvCO;
-    const int kc = i / kConvCO;                  // (ky*k + kx)*cin4 + ci4
-    const int tap = kc / cin4, ci4 = kc % cin4;
-    uint32_t word = 0;
-    if (co0 + cl < cout) {
-      const int8_t* src = wt + (static_cast<size_t>(tap) * cin + 4 * ci4) * cout + co0 + cl;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        word |= (static_cast<uint32_t>(static_cast<uint8_t>(src[b * cout])) << (8 * b));
-    }
-    w_s[i] = static_cast<int>(word);
-  }
-  if (mode == 2) {
+  if (mode == 2) {  // the projection's weights, packed once
     for (int i = tid; i < cdin4 * kConvCO; i += blockDim.x) {
       const int cl = i % kConvCO, ci4 = i / kConvCO;
-      uint32_t word = 0;
-      if (co0 + cl < cout) {
-        const int8_t* src = wdt + static_cast<size_t>(4 * ci4) * cout + co0 + cl;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          word |= (static_cast<uint32_t>(static_cast<uint8_t>(src[b * cout])) << (8 * b));
-      }
-      wd_s[i] = static_cast<int>(word);
+      wd_s[i] = co0 + cl < cout
+          ? pack4(wdt + static_cast<size_t>(4 * ci4) * cout + co0 + cl, cout) : 0;
     }
   }
-
   float mv = 0.f, cv = 0.f, mdv = 0.f, cdv = 0.f;
   if (co < cout) {
     mv = m[co];
@@ -270,78 +281,105 @@ conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
       cdv = cd[co];
     }
   }
-
   const int* x32 = reinterpret_cast<const int*>(x);
   const int* xd32 = reinterpret_cast<const int*>(xd);
-  const int oy_end = min(ho, (static_cast<int>(blockIdx.y) + 1) * kConvTH);
-  for (int oy = static_cast<int>(blockIdx.y) * kConvTH; oy < oy_end; ++oy) {
-    __syncthreads();  // previous row's readers are done with x_s / xd_s
-    const int iy0 = oy * stride - pad;
-    const int ix0 = ox0 * stride - pad;
-    for (int i = tid; i < k * kw_in * cin4; i += blockDim.x) {
-      const int ci4 = i % cin4;
-      const int t = (i / cin4) % kw_in;
-      const int ky = i / (cin4 * kw_in);
-      const int iy = iy0 + ky, ix = ix0 + t;
-      int v = 0;
-      if (iy >= 0 && iy < h && ix >= 0 && ix < w)
-        v = x32[(static_cast<size_t>(iy) * w + ix) * cin4 + ci4];
-      x_s[i] = v;
-    }
-    if (mode == 2) {
-      const int iy = oy * sd;
-      for (int i = tid; i < kConvTW * cdin4; i += blockDim.x) {
-        const int ci4 = i % cdin4, p = i / cdin4;
-        const int ix = (ox0 + p) * sd;
-        int v = 0;
-        if (iy < hd && ix < wd_)
-          v = xd32[(static_cast<size_t>(iy) * wd_ + ix) * cdin4 + ci4];
-        xd_s[i] = v;
+
+  for (int g0 = oy_begin; g0 < oy_end; g0 += kRows) {
+    const int nrows = min(kRows, oy_end - g0);   // block-uniform
+    int acc[kRows][kConvPX];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kConvPX; ++j) acc[r][j] = 0;
+
+    for (int c0 = 0; c0 < cin4; c0 += chunk) {
+      const int cn = min(chunk, cin4 - c0);
+      __syncthreads();  // the previous readers are done with shared memory
+      if (cn != cin4 || g0 == oy_begin) {  // one chunk: packed once per block
+        // 4 consecutive input channels per word
+        for (int i = tid; i < k * k * cn * kConvCO; i += blockDim.x) {
+          const int cl = i % kConvCO;
+          const int kc = i / kConvCO;              // tap * cn + ci
+          const int tap = kc / cn, ci4 = c0 + kc % cn;
+          w_s[i] = co0 + cl < cout
+              ? pack4(wt + (static_cast<size_t>(tap) * cin + 4 * ci4) * cout + co0 + cl,
+                      cout)
+              : 0;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r >= nrows) break;
+        if (r > 0) __syncthreads();  // the previous row's readers are done with x_s
+        const int iy0 = (g0 + r) * stride - pad;
+        const int ix0 = ox0 * stride - pad;
+        for (int i = tid; i < k * kw_in * cn; i += blockDim.x) {
+          const int ci = i % cn;
+          const int t = (i / cn) % kw_in;
+          const int ky = i / (cn * kw_in);
+          const int iy = iy0 + ky, ix = ix0 + t;
+          int v = 0;
+          if (iy >= 0 && iy < h && ix >= 0 && ix < w)
+            v = x32[(static_cast<size_t>(iy) * w + ix) * cin4 + c0 + ci];
+          x_s[i] = v;
+        }
+        __syncthreads();
+        for (int ky = 0; ky < k; ++ky) {
+          for (int kx = 0; kx < k; ++kx) {
+            const int* wrow = w_s + ((ky * k + kx) * cn) * kConvCO + co_l;
+            const int* xrow = x_s + (ky * kw_in + pg * kConvPX * stride + kx) * cn;
+            for (int ci = 0; ci < cn; ++ci) {
+              const int wv = wrow[ci * kConvCO];
+#pragma unroll
+              for (int j = 0; j < kConvPX; ++j)
+                acc[r][j] = __dp4a(xrow[j * stride * cn + ci], wv, acc[r][j]);
+            }
+          }
+        }
       }
     }
-    __syncthreads();
 
-    int acc[kConvPX];
 #pragma unroll
-    for (int j = 0; j < kConvPX; ++j) acc[j] = 0;
-    for (int ky = 0; ky < k; ++ky) {
-      for (int kx = 0; kx < k; ++kx) {
-        const int* wrow = w_s + ((ky * k + kx) * cin4) * kConvCO + co_l;
-        const int* xrow = x_s + (ky * kw_in + pg * kConvPX * stride + kx) * cin4;
-        for (int ci4 = 0; ci4 < cin4; ++ci4) {
-          const int wv = wrow[ci4 * kConvCO];
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= nrows) break;
+      const int oy = g0 + r;
+      int accd[kConvPX];
+#pragma unroll
+      for (int j = 0; j < kConvPX; ++j) accd[j] = 0;
+      if (mode == 2) {
+        __syncthreads();  // the previous readers are done with xd_s
+        const int iy = oy * sd;
+        for (int i = tid; i < kConvTW * cdin4; i += blockDim.x) {
+          const int ci4 = i % cdin4, p = i / cdin4;
+          const int ix = (ox0 + p) * sd;
+          int v = 0;
+          if (iy < hd && ix < wd_)
+            v = xd32[(static_cast<size_t>(iy) * wd_ + ix) * cdin4 + ci4];
+          xd_s[i] = v;
+        }
+        __syncthreads();
+        const int* xrow = xd_s + pg * kConvPX * cdin4;
+        for (int ci4 = 0; ci4 < cdin4; ++ci4) {
+          const int wv = wd_s[ci4 * kConvCO + co_l];
 #pragma unroll
           for (int j = 0; j < kConvPX; ++j)
-            acc[j] = __dp4a(xrow[j * stride * cin4 + ci4], wv, acc[j]);
+            accd[j] = __dp4a(xrow[j * cdin4 + ci4], wv, accd[j]);
         }
       }
-    }
-    int accd[kConvPX];
+      if (co < cout) {
 #pragma unroll
-    for (int j = 0; j < kConvPX; ++j) accd[j] = 0;
-    if (mode == 2) {
-      const int* xrow = xd_s + pg * kConvPX * cdin4;
-      for (int ci4 = 0; ci4 < cdin4; ++ci4) {
-        const int wv = wd_s[ci4 * kConvCO + co_l];
-#pragma unroll
-        for (int j = 0; j < kConvPX; ++j)
-          accd[j] = __dp4a(xrow[j * cdin4 + ci4], wv, accd[j]);
-      }
-    }
-
-    if (co < cout) {
-#pragma unroll
-      for (int j = 0; j < kConvPX; ++j) {
-        const int ox = ox0 + pg * kConvPX + j;
-        if (ox >= wo) continue;
-        const size_t o = (static_cast<size_t>(oy) * wo + ox) * cout + co;
-        float z = __fmaf_rn(__int2float_rn(acc[j]), mv, cv);
-        if (mode == 1) {
-          z = __fmaf_rn(static_cast<float>(res[o]), rr, z);
-        } else if (mode == 2) {
-          z = __fadd_rn(__fmaf_rn(__int2float_rn(accd[j]), mdv, z), cdv);
+        for (int j = 0; j < kConvPX; ++j) {
+          const int ox = ox0 + pg * kConvPX + j;
+          if (ox >= wo) continue;
+          const size_t o = (static_cast<size_t>(oy) * wo + ox) * cout + co;
+          float z = __fmaf_rn(__int2float_rn(acc[r][j]), mv, cv);
+          if (mode == 1) {
+            z = __fmaf_rn(static_cast<float>(res[o]), rr, z);
+          } else if (mode == 2) {
+            z = __fadd_rn(__fmaf_rn(__int2float_rn(accd[j]), mdv, z), cdv);
+          }
+          out[o] = requant(fmaxf(z, 0.f));
         }
-        out[o] = requant(fmaxf(z, 0.f));
       }
     }
   }
@@ -349,8 +387,9 @@ conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 
 size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin) {
   const size_t cin4 = cin / 4, cdin4 = cdin / 4;
+  const size_t chunk = cin4 < static_cast<size_t>(kConvChunk) ? cin4 : kConvChunk;
   const size_t kw_in = (kConvTW - 1) * stride + k;
-  size_t words = k * k * cin4 * kConvCO + k * kw_in * cin4;
+  size_t words = k * k * chunk * kConvCO + k * kw_in * chunk;
   if (mode == 2) words += cdin4 * kConvCO + kConvTW * cdin4;
   return 4 * words;
 }
@@ -359,9 +398,10 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin) {
 
 extern "C" {
 
-// Once per device, before the first launch on it: lets both kernels take
+// Once per device, before the first launch on it: lets every kernel take
 // up to the device's opt-in dynamic shared memory.  A launch that needs
-// more fails, and its entry point returns that error.
+// more fails, and its entry point returns that error (the wrappers check
+// tsg_conv_smem_bytes against tsg_smem_optin first).
 int tsg_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -369,12 +409,29 @@ int tsg_init(void) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* kernels[] = {reinterpret_cast<const void*>(stem_pool_i8_kernel),
-                           reinterpret_cast<const void*>(conv_i8_kernel)};
+                           reinterpret_cast<const void*>(conv_i8_kernel<1>),
+                           reinterpret_cast<const void*>(conv_i8_kernel<kConvTH>)};
   for (const void* fn : kernels) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The current device's opt-in shared memory per block, in bytes (-1 on a
+// CUDA error).
+int tsg_smem_optin(void) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return optin;
+}
+
+// Dynamic shared memory one tsg_conv_i8 launch with these arguments takes.
+long long tsg_conv_smem_bytes(int cin, int k, int stride, int mode, int cdin) {
+  return static_cast<long long>(conv_smem_bytes(cin, k, stride, mode, cdin));
 }
 
 int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
@@ -398,7 +455,9 @@ int tsg_conv_i8(const void* x, int h, int w, int cin, const void* wt, int k,
   const size_t smem = conv_smem_bytes(cin, k, stride, mode, cdin);
   dim3 grid((wo + kConvTW - 1) / kConvTW, (ho + kConvTH - 1) / kConvTH,
             (cout + kConvCO - 1) / kConvCO);
-  conv_i8_kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // several weight chunks: hold all the block's rows (see conv_i8_kernel)
+  const auto kernel = cin / 4 > kConvChunk ? conv_i8_kernel<kConvTH> : conv_i8_kernel<1>;
+  kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt),
       k, stride, pad, cout, static_cast<const float*>(m),
       static_cast<const float*>(c), mode, static_cast<const int8_t*>(res), rr,

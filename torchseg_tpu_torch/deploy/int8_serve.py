@@ -3,17 +3,22 @@ torchseg_tpu/deploy/int8_serve.py).
 
 The graph: the raw uint8 image in the pre-padded s2d layout, the fused
 7x7/2 dual stem with its backbone max pool (kernel K1), the two SpatialPath
-3x3/2 CBRs (K2, twice) and its 1x1, ResNet-18 stage 1 (K3), stage 2 (K4),
-stages 3 and 4 as plain BasicBlock chains, and the int8 ARM / refine / FFM /
-head decoder, then /8 logits and their argmax.  Every conv consumes int8 and
-produces int8; BN, ReLU and the requant to the consumer's scale fold into a
-per-channel epilogue on the int32 accumulator.
+3x3/2 CBRs (K2, twice) and its 1x1, ResNet-18 stage 1 (K3), stages 2 and 3
+(K4, twice), stage 4 as its strided block (K5) and its stride-1 block (K6),
+and the int8 ARM / refine / FFM / head decoder, then the head's logits: at
+/8 for the .speed heads, and for the full-resolution heads either upsampled
+(``argmax=True``) or handed raw to the upsample-argmax kernel K7
+(``argmax="tiled"``).  Every conv consumes int8 and produces int8; BN, ReLU
+and the requant to the consumer's scale fold into a per-channel epilogue on
+the int32 accumulator.
 
 Ported is the one path ``build_int8_serving_for_experiment`` picks for R18:
-the r18 kind with ``decoder="int8"``.  The TPU-only arms of the JAX module
-(stem modes, carrier dtypes, block-size and layout knobs) have no
-counterpart.  Still to port (ROADMAP A3/A8): the X39 kind, the bf16-decoder
-branch, ``argmax="tiled"``, and the other families' int8 wrappers.
+the r18 kind with ``decoder="int8"``, whose stages 3 and 4 run as the JAX
+graph runs them with its stage-3/4 kernel gates on (``perf_probe.py
+--variant int8-l34``).  The TPU-only arms of the JAX module (stem modes,
+carrier dtypes, the ``_L3_ENABLE``/``_L4_ENABLE`` gates, block-size and
+layout knobs) have no counterpart.  Still to port (ROADMAP A3/A8): the X39
+kind, the bf16-decoder branch, and the other families' int8 wrappers.
 
 Weights: per-output-channel symmetric int8 (scale = absmax/127).
 Activations: per-tensor scales from a float-graph calibration run.
@@ -30,14 +35,16 @@ from torch import nn
 
 from ..models.resnet import BasicBlock, ResNet
 from ..ops.kernels.int8_serve_kernels import (
-    apply_block as _apply_block,
     apply_cbr as _apply_cbr,
+    down_block_i8,
     down_stage_i8,
     l1_stage_i8,
     requant as _requant,
+    res_block_i8,
     spatial_path_i8,
     stem_pool_i8,
 )
+from ..ops.kernels.upsample_argmax import fused_upsample_argmax
 from ..ops.resize import resize_bilinear_align_corners, upsample_by_scale
 from .fused_stem import _stem_weights, fold_bn_affine, hwio
 
@@ -371,13 +378,11 @@ def int8_body(pkg, xs):
     spatial_out = _apply_cbr(spatial_path_i8(sp_q, pkg["sp1"], pkg["sp2"]),
                              pkg["sp3"], 1, 0)
     feats = [l1_stage_i8(pooled, pkg["l1_0"], pkg["l1_1"])]
-    feats.append(down_stage_i8(feats[-1], pkg["l2_0"], pkg["l2_1"]))
-    x = feats[-1]
-    for li in (3, 4):
-        for bi in range(2):
-            e = pkg[f"l{li}_{bi}"]
-            x = _apply_block(x, e, e["stride"])
-        feats.append(x)
+    for li in (2, 3):
+        feats.append(down_stage_i8(feats[-1], pkg[f"l{li}_0"],
+                                   pkg[f"l{li}_1"]))
+    feats.append(res_block_i8(down_block_i8(feats[-1], pkg["l4_0"]),
+                              pkg["l4_1"]))
     return spatial_out, tuple(feats)
 
 
@@ -386,19 +391,32 @@ def make_int8_through_infer(model, pkg, *, argmax=True):
 
     Returns ``(infer, pkg)``: ``infer(pkg, xs)`` takes the pre-padded int8
     s2d input from ``prepare_s2d_input_u8`` on the package's device and
-    returns (1, H/8, W/8) int32 labels, or with ``argmax=False`` the
-    (1, H/8, W/8, classes) float32 log-probs."""
-    if argmax not in (True, False):
-        raise NotImplementedError(f"argmax={argmax!r} is {_NOT_PORTED}")
+    returns (1, H/s, W/s) int32 labels, where s is 8 over the model's main
+    head scale (8 for the .speed heads, 1 for the full-resolution ones), or
+    with ``argmax=False`` the (1, H/s, W/s, classes) float32 log-probs.
+    ``argmax="tiled"`` (full-resolution heads only) skips the head's
+    x-scale upsample and takes the labels from the /8 logits with K7,
+    ``fused_upsample_argmax``: the (H, W, classes) scores never exist."""
+    scale = model.head_scales[2]
+    if argmax == "tiled" and scale <= 1:
+        raise ValueError(
+            "argmax='tiled' targets full-res heads (head_scales[2] > 1); "
+            "the .speed variants already emit /8 logits — use argmax=True")
+    if argmax not in (True, False, "tiled"):
+        raise ValueError(f"argmax must be True, False or 'tiled', got "
+                         f"{argmax!r}")
     if pkg.get("kind") != "r18" or "dec" not in pkg:
         raise NotImplementedError(f"this package is {_NOT_PORTED}")
-    scale = model.head_scales[2]
 
     @torch.inference_mode()
     def infer(pkg, xs):
         spatial_out, feats = int8_body(pkg, xs)
         scores = _apply_int8_decoder(pkg["dec"], spatial_out, feats[-2],
                                      feats[-1])
+        if argmax == "tiled":
+            h, w = scores.shape[1:3]
+            return fused_upsample_argmax(scores.contiguous(),
+                                         (h * scale, w * scale))
         scores = upsample_by_scale(scores.permute(0, 3, 1, 2), scale
                                    ).permute(0, 2, 3, 1)
         if argmax:

@@ -38,8 +38,10 @@ class SpatialPath(nn.Module):
         self.conv_3x3_2 = ConvBnRelu(inner, inner, 3, 2, 1, norm=norm)
         self.conv_1x1 = ConvBnRelu(inner, out_planes, 1, 1, 0, norm=norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_7x7(x)
+    def forward(self, x: torch.Tensor, stem_features=None) -> torch.Tensor:
+        """stem_features: the deploy-time fused stem's SpatialPath half
+        (deploy/fused_stem.py), in place of conv_7x7(x)."""
+        x = self.conv_7x7(x) if stem_features is None else stem_features
         x = self.conv_3x3_1(x)
         x = self.conv_3x3_2(x)
         return self.conv_1x1(x)
@@ -47,7 +49,7 @@ class SpatialPath(nn.Module):
 
 class BiSeNetHead(nn.Module):
     """3x3 CBR (mid) -> 1x1 conv -> optional x-scale bilinear upsample
-    (network.py:140-168)."""
+    (network.py:140-168), in float32 as the JAX head upsamples."""
 
     def __init__(self, in_planes: int, out_planes: int, scale: int, mid: int,
                  norm: NormFactory = BatchNorm2d):
@@ -56,8 +58,11 @@ class BiSeNetHead(nn.Module):
         self.conv_1x1 = nn.Conv2d(mid, out_planes, 1, bias=True)
         self.scale = scale
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample_by_scale(self.conv_1x1(self.conv_3x3(x)), self.scale)
+    def forward(self, x: torch.Tensor, upsample: bool = True) -> torch.Tensor:
+        out = self.conv_1x1(self.conv_3x3(x))
+        if upsample and self.scale > 1:
+            out = upsample_by_scale(out.float(), self.scale)
+        return out
 
 
 class BiSeNet(nn.Module):
@@ -85,13 +90,24 @@ class BiSeNet(nn.Module):
         self.head2 = BiSeNetHead(cc * 2, num_classes, head_scales[2],
                                  main_mid, norm=norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW normalized image -> NCHW main-head log-probs."""
+    def forward(self, x: torch.Tensor, stem_outs=None,
+                raw_logits: bool = False) -> torch.Tensor:
+        """NCHW normalized image -> NCHW main-head log-probs.
+
+        stem_outs: optional (spatial_stem, backbone_stem, backbone_pooled)
+        from the deploy-time fused stem (deploy/fused_stem.py), which runs
+        both 7x7/2 stems as one conv; with it, ``x`` is unused.  One of the
+        two backbone entries is None.  raw_logits: return the main head's
+        logits before its x-scale upsample and log_softmax, for an epilogue
+        that fuses upsample and argmax (ops/kernels/upsample_argmax.py)."""
         if self.training:
             raise NotImplementedError(
                 "BiSeNet train heads are not ported yet (ROADMAP A5)")
-        spatial_out = self.spatial_path(x)
-        context = list(self.backbone(x))
+        sp_stem, bb_stem, bb_pooled = (stem_outs if stem_outs is not None
+                                       else (None, None, None))
+        spatial_out = self.spatial_path(x, stem_features=sp_stem)
+        context = list(self.backbone(x, stem_features=bb_stem,
+                                     stem_pooled=bb_pooled))
         context.reverse()  # [/32, /16, /8, /4]
 
         gc = self.global_context(context[0].mean(dim=(2, 3), keepdim=True))
@@ -101,5 +117,8 @@ class BiSeNet(nn.Module):
             fm = arm(context[i]) + last_fm
             last_fm = refine(resize_bilinear_align_corners(
                 fm, context[i + 1].shape[2:]))
-        main = self.head2(self.ffm(spatial_out, last_fm))
+        main = self.head2(self.ffm(spatial_out, last_fm),
+                          upsample=not raw_logits)
+        if raw_logits:
+            return main
         return torch.log_softmax(main.float(), dim=1)

@@ -77,8 +77,18 @@ class ResNet(nn.Module):
                 names.append(name)
             self.stage_names.append(names)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = stem_pool(torch.relu(self.bn1(self.conv1(x))))
+    def forward(self, x: torch.Tensor, stem_features=None,
+                stem_pooled=None) -> Tuple[torch.Tensor, ...]:
+        """stem_features: precomputed post-stem (conv1/bn1/relu, before the
+        max pool) activations; stem_pooled: post-pool activations.  The
+        deploy-time fused stem (deploy/fused_stem.py) computes these jointly
+        with the SpatialPath stem; ``x`` is then unused."""
+        if stem_pooled is not None:
+            x = stem_pooled
+        else:
+            if stem_features is None:
+                stem_features = torch.relu(self.bn1(self.conv1(x)))
+            x = stem_pool(stem_features)
         feats = []
         for names in self.stage_names:
             for name in names:

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's CUDA kernels (nvcc -> shared libraries -> ctypes).
 
-The library is compiled at first use from ``torchseg_tpu_torch/csrc/*.cu``
-into ``torchseg_tpu_torch/_build/`` (git-ignored), named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the cached file.  The C entry points take raw device pointers and the CUDA
-stream as ``void*`` and return ``cudaGetLastError()``; ``ready(device)``
-also runs the library's one-time set-up on that device.
+Each source ``torchseg_tpu_torch/csrc/<name>.cu`` is one library, compiled
+at first use into ``torchseg_tpu_torch/_build/`` (git-ignored) and named by
+a hash of its source and the flags, so an edited source rebuilds and an
+unchanged one loads the cached file.  The first ``load`` starts one nvcc per
+missing library, all at once, and waits for them together.  The C entry
+points take raw device pointers and the CUDA stream as ``void*`` and return
+``cudaGetLastError()``; ``ready(device, name)`` also runs the library's
+one-time set-up (``tsg_init``, where it has one) on that device.
 """
 
 import ctypes
@@ -16,13 +18,12 @@ import shutil
 import subprocess
 import tempfile
 import time
-from ctypes import c_float, c_int, c_void_p
+from ctypes import c_float, c_int, c_longlong, c_void_p
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("int8_serve_kernels.cu",)
 # -fmad=false: nvcc must not contract a multiply and an add that the JAX
 # reference rounds twice; the kernels write every fused multiply-add that
 # the reference does perform explicitly (__fmaf_rn).
@@ -30,25 +31,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_SIGNATURES = {
-    # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
-    "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
-    # x, h, w, cin, wt, k, stride, pad, cout, m, c, mode, res, rr,
-    # xd, hd, wd, cdin, sd, wdt, md, cd, out, ho, wo, stream
-    "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 4
-                    + [c_void_p] * 2 + [c_int] + [c_void_p, c_float]
-                    + [c_void_p] + [c_int] * 4 + [c_void_p] * 4
-                    + [c_int] * 2 + [c_void_p]),
+# library (= source stem) -> {entry point: argtypes}
+LIBRARIES = {
+    "int8_serve_kernels": {
+        "tsg_init": [],
+        "tsg_smem_optin": [],
+        "tsg_conv_smem_bytes": [c_int] * 5,  # cin, k, stride, mode, cdin
+        # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
+        "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
+        # x, h, w, cin, wt, k, stride, pad, cout, m, c, mode, res, rr,
+        # xd, hd, wd, cdin, sd, wdt, md, cd, out, ho, wo, stream
+        "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 4
+                        + [c_void_p] * 2 + [c_int] + [c_void_p, c_float]
+                        + [c_void_p] + [c_int] * 4 + [c_void_p] * 4
+                        + [c_int] * 2 + [c_void_p]),
+    },
+    "upsample_argmax": {
+        # x, batch, h, w, nc, out, oh, ow, stream
+        "tsg_upsample_argmax": ([c_void_p] + [c_int] * 4 + [c_void_p]
+                                + [c_int] * 2 + [c_void_p]),
+    },
 }
+# entry points that return something other than int
+_RESTYPES = {"tsg_conv_smem_bytes": c_longlong}
 
 
 class BuildInfo:
-    """What the last ``load()`` did: library path, seconds spent compiling
-    (0.0 when the cached library was loaded) and nvcc's ptxas report."""
+    """What the build did: per library its path and nvcc's ptxas report
+    (empty when the cached library was loaded), and the wall seconds of
+    the parallel nvcc run (0.0 when every library was cached)."""
 
-    path = None
+    paths = {}
+    logs = {}
     seconds = 0.0
-    log = ""
 
 
 def _nvcc() -> str:
@@ -61,54 +76,85 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _source_hash() -> str:
+def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC_DIR)):
-        if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(CSRC_DIR, name), "rb") as f:
-                h.update(name.encode() + f.read())
-    return h.hexdigest()[:16]
+    for fname in sorted(os.listdir(CSRC_DIR)):  # shared headers count too
+        if fname == f"{name}.cu" or fname.endswith(".cuh"):
+            with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+                h.update(fname.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; one per process."""
+def build() -> dict:
+    """Compile every library that is not cached, one nvcc each, in
+    parallel; returns {name: library path}.  Raises if any nvcc fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"int8_serve_kernels_{_source_hash()}.so")
-    if not os.path.exists(lib_path):
-        t0 = time.perf_counter()
+    paths = {name: _lib_path(name) for name in LIBRARIES}
+    jobs = {}
+    t0 = time.perf_counter()
+    for name, path in paths.items():
+        if os.path.exists(path):
+            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        jobs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        BuildInfo.logs[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, paths[name])  # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    if jobs:
         BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-    BuildInfo.path = lib_path
-    lib = ctypes.CDLL(lib_path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    BuildInfo.paths = paths
+    return paths
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library; one per process."""
+    lib = ctypes.CDLL(build()[name])
+    for fn_name, argtypes in LIBRARIES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
-        fn.restype = c_int
-    lib.tsg_init.argtypes = []
-    lib.tsg_init.restype = c_int
+        fn.restype = _RESTYPES.get(fn_name, c_int)
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def ready(device_index: int) -> ctypes.CDLL:
+def ready(device_index: int, name: str = "int8_serve_kernels") -> ctypes.CDLL:
     """The loaded library, with its one-time per-device set-up (the
     kernels' dynamic shared-memory limit) done on ``cuda:device_index``."""
     import torch
 
-    lib = load()
-    with torch.cuda.device(device_index):
-        rc = lib.tsg_init()
-    if rc != 0:
-        raise RuntimeError(f"tsg_init on cuda:{device_index}: CUDA error {rc}")
+    lib = load(name)
+    if "tsg_init" in LIBRARIES[name]:
+        with torch.cuda.device(device_index):
+            rc = lib.tsg_init()
+        if rc != 0:
+            raise RuntimeError(
+                f"{name} tsg_init on cuda:{device_index}: CUDA error {rc}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """Bytes of shared memory one block may opt in to on that device."""
+    import torch
+
+    with torch.cuda.device(device_index):
+        n = ready(device_index).tsg_smem_optin()
+    if n < 0:
+        raise RuntimeError(f"cuda:{device_index}: cannot read the shared "
+                           "memory limit")
+    return n

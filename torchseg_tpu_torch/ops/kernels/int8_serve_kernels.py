@@ -8,6 +8,8 @@ version, plus the exact integer primitives both are specified by.
 | conv3x3s2_i8     | conv_i8_kernel, mode 0               | conv3x3s2_i8_quad (:515) |
 | l1_stage_i8      | conv_i8_kernel x4 (modes 0,1,0,1)    | l1_stage_i8_paired_view (:763) |
 | down_stage_i8    | conv_i8_kernel x4 (modes 0,2,0,1)    | down_stage_i8_from_paired (:986) |
+| down_block_i8    | conv_i8_kernel x2 (modes 0,2)        | down_block_i8_from_paired (:1136) |
+| res_block_i8     | conv_i8_kernel x2 (modes 0,1)        | res_block_i8_std (:1226) |
 
 Line numbers are in the JAX file.  Every public function takes and returns
 NHWC int8 codes and HWIO weights, batch 1, as the JAX functions do.
@@ -116,6 +118,13 @@ def _check(name, t, dtype, shape=None, ndim=None):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_codes(x):
+    _check("x", x, torch.int8, ndim=4)
+    if x.shape[0] != 1 or x.shape[3] % 4:
+        raise ValueError(f"x must be (1, H, W, C) with C % 4 == 0, got "
+                         f"{tuple(x.shape)}")
+
+
 def _on_cuda(*tensors) -> bool:
     """True for CUDA tensors (the kernel path), False for CPU tensors (the
     plain path); raises on a mix or any other device."""
@@ -146,16 +155,26 @@ def _check_conv_entry(name, e, k, cin, cout):
 
 def _launch_conv(x, e, stride, pad, mode=0, res=None, rr=0.0, xd=None,
                  down=None, sd=1):
-    """One launch of the shared conv kernel; returns the new codes."""
+    """One launch of the shared conv kernel; returns the new codes.
+    Raises ValueError, before launching, for a call whose shared memory
+    exceeds what the device gives a block."""
     _, h, w, cin = x.shape
     k, cout = e["w"].shape[0], e["w"].shape[3]
     ho = (h + 2 * pad - k) // stride + 1
     wo = (w + 2 * pad - k) // stride + 1
-    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
     hd = wd = cdin = 0
     if mode == 2:
         _, hd, wd, cdin = xd.shape
-    rc = _build.ready(x.device.index).tsg_conv_i8(
+    lib = _build.ready(x.device.index)
+    smem = lib.tsg_conv_smem_bytes(cin, k, stride, mode, cdin)
+    limit = _build.smem_optin(x.device.index)
+    if smem > limit:
+        raise ValueError(
+            f"conv_i8_kernel: cin={cin}, k={k}, stride={stride} (mode "
+            f"{mode}, projection cin={cdin}) needs {smem} bytes of shared "
+            f"memory per block; the device allows {limit}")
+    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
+    rc = lib.tsg_conv_i8(
         x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, pad, cout,
         e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
@@ -225,13 +244,10 @@ def conv3x3s2_i8_plain(x, w, m, c):
 def conv3x3s2_i8(x, w, m, c):
     """_apply_cbr(x, e, stride=2, pad=1): (1, H, W, cin) s8 -> (1, ceil(H/2),
     ceil(W/2), cout) s8."""
-    _check("x", x, torch.int8, ndim=4)
-    _, h, wdt, cin = x.shape
-    if x.shape[0] != 1 or cin % 4:
-        raise ValueError(f"x must be (1, H, W, cin) with cin % 4 == 0, got "
-                         f"{tuple(x.shape)}")
+    _check_codes(x)
     _check("w", w, torch.int8, ndim=4)
-    _check_conv_entry("e", {"w": w, "m": m, "c": c}, 3, cin, w.shape[3])
+    _check_conv_entry("e", {"w": w, "m": m, "c": c}, 3, x.shape[3],
+                      w.shape[3])
     if not _on_cuda(x, w, m, c):
         return conv3x3s2_i8_plain(x, w, m, c)
     out = _launch_conv(x, {"w": w, "m": m, "c": c}, 2, 1)
@@ -260,25 +276,51 @@ def _check_res_block(name, e, c):
     _check_conv_entry(f"{name}['conv2']", e["conv2"], 3, c, c)
 
 
+def _check_down_block(name, e, cin):
+    """A stride-2 BasicBlock with projection, cin -> its conv1's cout."""
+    if "down" not in e or e.get("stride", 2) != 2:
+        raise ValueError(f"{name} must be a stride-2 BasicBlock with "
+                         "projection")
+    _check(f"{name}['conv1']['w']", e["conv1"]["w"], torch.int8, ndim=4)
+    cout = e["conv1"]["w"].shape[3]
+    if cout % 4:
+        raise ValueError(f"{name} must have cout % 4 == 0, got {cout}")
+    _check_conv_entry(f"{name}['conv1']", e["conv1"], 3, cin, cout)
+    _check_conv_entry(f"{name}['conv2']", e["conv2"], 3, cout, cout)
+    _check_conv_entry(f"{name}['down']", e["down"], 1, cin, cout)
+    return cout
+
+
+def _block_tensors(x, *blocks):
+    return [x] + [e[k][f] for e in blocks
+                  for k in ("conv1", "conv2", "down") if k in e
+                  for f in ("w", "m", "c")]
+
+
+def _res_block_launches(x, e):
+    """apply_block(x, e, 1) as two launches: conv1, then conv2 with the
+    identity residual in its epilogue."""
+    t = _launch_conv(x, e["conv1"], 1, 1)
+    return _launch_conv(t, e["conv2"], 1, 1, mode=1, res=x,
+                        rr=e["res_ratio"])
+
+
+def _down_block_launches(x, e):
+    """apply_block(x, e, 2) as two launches: conv1 3x3/2, then conv2 with
+    the 1x1/2 projection of x fused into its epilogue."""
+    t = _launch_conv(x, e["conv1"], 2, 1)
+    return _launch_conv(t, e["conv2"], 1, 1, mode=2, xd=x, down=e["down"],
+                        sd=2)
+
+
 def l1_stage_i8(x, e0, e1):
     """apply_block(apply_block(x, e0, 1), e1, 1) on (1, H, W, C) s8."""
-    _check("x", x, torch.int8, ndim=4)
-    c = x.shape[3]
-    if x.shape[0] != 1 or c % 4:
-        raise ValueError(f"x must be (1, H, W, C) with C % 4 == 0, got "
-                         f"{tuple(x.shape)}")
-    _check_res_block("e0", e0, c)
-    _check_res_block("e1", e1, c)
-    tensors = [x] + [e[k][f] for e in (e0, e1) for k in ("conv1", "conv2")
-                     for f in ("w", "m", "c")]
-    if not _on_cuda(*tensors):
+    _check_codes(x)
+    _check_res_block("e0", e0, x.shape[3])
+    _check_res_block("e1", e1, x.shape[3])
+    if not _on_cuda(*_block_tensors(x, e0, e1)):
         return l1_stage_i8_plain(x, e0, e1)
-    t = _launch_conv(x, e0["conv1"], 1, 1)
-    x1 = _launch_conv(t, e0["conv2"], 1, 1, mode=1, res=x,
-                      rr=e0["res_ratio"])
-    t = _launch_conv(x1, e1["conv1"], 1, 1)
-    out = _launch_conv(t, e1["conv2"], 1, 1, mode=1, res=x1,
-                       rr=e1["res_ratio"])
+    out = _res_block_launches(_res_block_launches(x, e0), e1)
     l1_stage_i8.launches += 1
     return out
 
@@ -294,36 +336,58 @@ def down_stage_i8_plain(x, e0, e1):
 
 def down_stage_i8(x, e0, e1):
     """apply_block(apply_block(x, e0, 2), e1, 1): (1, H, W, cin) s8 ->
-    (1, ceil(H/2), ceil(W/2), 2 cin) s8; any cin % 4 == 0 (stage 2 on the
-    serving path; stage 3 later)."""
-    _check("x", x, torch.int8, ndim=4)
-    cin = x.shape[3]
-    if x.shape[0] != 1 or cin % 4:
-        raise ValueError(f"x must be (1, H, W, cin) with cin % 4 == 0, got "
-                         f"{tuple(x.shape)}")
-    cout = 2 * cin
-    if "down" not in e0 or e0.get("stride", 2) != 2:
-        raise ValueError("e0 must be a stride-2 BasicBlock with projection")
-    _check_conv_entry("e0['conv1']", e0["conv1"], 3, cin, cout)
-    _check_conv_entry("e0['conv2']", e0["conv2"], 3, cout, cout)
-    _check_conv_entry("e0['down']", e0["down"], 1, cin, cout)
+    (1, ceil(H/2), ceil(W/2), cout) s8; any cin, cout % 4 == 0 (stages 2
+    and 3 on the serving path)."""
+    _check_codes(x)
+    cout = _check_down_block("e0", e0, x.shape[3])
     _check_res_block("e1", e1, cout)
-    tensors = [x] + [e[k][f] for e, keys in ((e0, ("conv1", "conv2", "down")),
-                                             (e1, ("conv1", "conv2")))
-                     for k in keys for f in ("w", "m", "c")]
-    if not _on_cuda(*tensors):
+    if not _on_cuda(*_block_tensors(x, e0, e1)):
         return down_stage_i8_plain(x, e0, e1)
-    t = _launch_conv(x, e0["conv1"], 2, 1)
-    x1 = _launch_conv(t, e0["conv2"], 1, 1, mode=2, xd=x, down=e0["down"],
-                      sd=2)
-    t = _launch_conv(x1, e1["conv1"], 1, 1)
-    out = _launch_conv(t, e1["conv2"], 1, 1, mode=1, res=x1,
-                       rr=e1["res_ratio"])
+    out = _res_block_launches(_down_block_launches(x, e0), e1)
     down_stage_i8.launches += 1
     return out
 
 
-KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8)
+# ----------------------------------------------------------------------
+# K5, K6: ResNet-18 stage 4 as its two blocks (the strided block, then
+# the stride-1 block), each a chain of two launches
+# ----------------------------------------------------------------------
+
+def down_block_i8_plain(x, e):
+    return apply_block(x, e, 2)
+
+
+def down_block_i8(x, e):
+    """apply_block(x, e, 2), a strided BasicBlock with 1x1/2 projection:
+    (1, H, W, cin) s8 -> (1, ceil(H/2), ceil(W/2), cout) s8; any cin,
+    cout % 4 == 0 up to 512 (stage 4: 256 -> 512)."""
+    _check_codes(x)
+    _check_down_block("e", e, x.shape[3])
+    if not _on_cuda(*_block_tensors(x, e)):
+        return down_block_i8_plain(x, e)
+    out = _down_block_launches(x, e)
+    down_block_i8.launches += 1
+    return out
+
+
+def res_block_i8_plain(x, e):
+    return apply_block(x, e, 1)
+
+
+def res_block_i8(x, e):
+    """apply_block(x, e, 1), a stride-1 identity BasicBlock on (1, H, W, C)
+    s8; any C % 4 == 0 up to 512 (stage 4: C = 512)."""
+    _check_codes(x)
+    _check_res_block("e", e, x.shape[3])
+    if not _on_cuda(*_block_tensors(x, e)):
+        return res_block_i8_plain(x, e)
+    out = _res_block_launches(x, e)
+    res_block_i8.launches += 1
+    return out
+
+
+KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8,
+           down_block_i8, res_block_i8)
 
 
 def reset_launches():
