@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -38,10 +39,30 @@ script
      the fused-stem graph in float32 for that bar, and in bf16 against
      bf16 to a bar of 97 %, see BF16_AGREE); both forwards are timed
      (median, p90), and K7 against its plain version and against the
-     materialized upsample + argmax.
+     materialized upsample + argmax;
+  8. training path: the BiSeNet-R18 training step (``train_entry``,
+     1024x1024 crops, batch 2, float32, three OHEM heads, group-lr SGD)
+     launches K8 and K9 35 times each in one step (22 of the K9 launches
+     with the ReLU fused), and no BN runs torch's own batch norm; K9 is held
+     bit-exact to its plain version on the float32 tensors that step fed it
+     and on the same tensors in bfloat16, K8 within 1e-5 of sum |x| (sum x)
+     and 1e-5 relative (sum x^2); one step on the card agrees with the same
+     step on the CPU, run in float64, at 64x64, batch 8 (CHECK_CROP: where
+     the float32 step is well-conditioned, see there), with cuDNN off: the
+     loss within 1e-4 relative, each parameter's change within 1e-3 of its
+     largest entry, the running stats within 1e-4 of their scale (the same
+     step with cuDNN, and the CPU's float32 step, are measured beside it);
+     20 steps on
+     the learnable synthetic batch lower the loss; the step is timed
+     (median, p90, host enqueue, peak memory), K8 and K9 against their
+     plain versions and the one-call library yardsticks, K8 + K9 against
+     ``F.batch_norm``, and, as a comparison only, the same step with
+     ``nn.BatchNorm2d`` as the model's norm.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
-last is a JSON object with the kernels' numbers; the last line is
+last is a JSON object with the kernels' numbers (each with its bound: the
+larger of its bytes over 3.35 TB/s and its operations over the peak rate
+for their type, from the H100 SXM data sheet); the last line is
 ``{"ok": true, "device": {...}}``.  Only the port is imported (no JAX).
 TF32 is off for cuDNN and matmuls, set here and by the entry: calibration
 runs the float graph in float32 on the card.  The script uses one card:
@@ -49,11 +70,13 @@ it makes only the first visible one visible to itself.
 """
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
     "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -67,10 +90,27 @@ N_IMAGES = 4
 FWD_ROUNDS = 25  # 100 timed forwards: p90 has ten samples beyond it
 FULLRES_ROUNDS = 10  # 40 timed forwards per full-resolution graph
 BF16_AGREE = 0.97  # bf16 card vs bf16 CPU labels (see the full-res phase)
+TRAIN_CROP, TRAIN_BATCH = (1024, 1024), 2
+# card-vs-CPU step, at a size and seed where the float32 step is
+# well-conditioned: at batch 2 BiSeNet's (B, C, 1, 1) BNs see two values a
+# channel, and ReLU and max-pool comparisons that rounding flips reroute
+# gradients.  scripts/torch_step_conditioning.py measures the CPU float32
+# step's largest per-tensor gradient error against float64: 2.3e-2 to
+# 1.9e-1 at 2 x 128x128 and 3.6e-3 to 5.5e-2 at 8 x 128x128 (seeds 0-2),
+# 1.3e-5 here
+CHECK_CROP, CHECK_BATCH, CHECK_SEED = (64, 64), 8, 2
+TRAIN_STEPS = 12  # timed steps (after two warm-up steps)
+DRYRUN_STEPS = 20
+PROFILED_STEPS = 3
+BN_LAUNCHES, BN_RELU = 35, 22  # per training step (BiSeNet-R18's 35 BNs)
 SRC = "torchseg_tpu_torch/csrc/int8_serve_kernels.cu"
 SRC_K7 = "torchseg_tpu_torch/csrc/upsample_argmax.cu"
+SRC_BN = "torchseg_tpu_torch/csrc/bn_kernels.cu"
 TPU = "torchseg_tpu/ops/pallas/int8_serve_kernels.py"
 TPU_K7 = "torchseg_tpu/ops/pallas/upsample_argmax.py:49"
+TPU_BN = "torchseg_tpu/ops/pallas/bn_kernel.py"
+HBM = 3.35e12  # bytes/s
+PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense, ops/s
 
 
 def log(msg):
@@ -127,6 +167,45 @@ def enqueue_ms(fn, inputs):
     ms = (time.perf_counter() - t0) * 1000.0 / len(inputs)
     torch.cuda.synchronize()
     return ms
+
+
+def tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from tensors(v)
+
+
+def nbytes(*trees):
+    return sum(t.numel() * t.element_size() for tr in trees
+               for t in tensors(tr))
+
+
+def conv_weights(tree):
+    """Every int8 conv weight (key "w") in package entry trees."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "w" and torch.is_tensor(v):
+                yield v
+            else:
+                yield from conv_weights(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from conv_weights(v)
+
+
+def bound(n_bytes, ops, kind):
+    """(least ms the card could take, what sets it): the larger of the
+    bytes over the memory rate and the operations over the peak rate for
+    their type."""
+    t_bytes = n_bytes / HBM * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def to_device(tree, device):
@@ -188,15 +267,17 @@ def main():
     )
     from torchseg_tpu_torch.models import init_weights
     from torchseg_tpu_torch.ops.kernels import _build
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
     from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
     from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
     from torchseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-    all_kernels = K.KERNELS + U.KERNELS
+    all_kernels = K.KERNELS + U.KERNELS + B.KERNELS
 
     def reset_all():
         K.reset_launches()
         U.reset_launches()
+        B.reset_launches()
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -246,7 +327,8 @@ def main():
     log(f"launches in one served forward: {launches}")
     expected = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "l1_stage_i8": 1,
                 "down_stage_i8": 2, "down_block_i8": 1, "res_block_i8": 1,
-                "fused_upsample_argmax": 0}
+                "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
+                "fused_scale_bias_act": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
@@ -295,37 +377,59 @@ def main():
         y4 = K.down_block_i8(c16, pkg["l4_0"])
         per_image.append({"xs": x, "sp": sp, "s1": s1, "pooled": pooled,
                           "c4": c4, "c8": c8, "c16": c16, "y4": y4})
+    # (bytes, operations, their type) of one call: K1's conv is 7x7x3 ->
+    # 128 at stride 2 with bf16 weights on int8 codes; K2-K6 are int8
+    # convs (2 operations per multiply-accumulate)
+    def stem_work(a, o):
+        return (nbytes(a, o), 2 * o[0].shape[1] * o[0].shape[2] * 128 * 147,
+                "bf16")
+
+    def conv_work(a, o):
+        return (nbytes(a, o), 2 * o.shape[1] * o.shape[2] * sum(
+            w.numel() for w in conv_weights({"w": a[1]} if torch.is_tensor(
+                a[1]) else a[1:])), "int8")
+
     cases = [
         ("stem_pool_i8", K.stem_pool_i8, K.stem_pool_i8_plain, 384,
          [(d["xs"], st["wf"], st["mf"], st["cf"], st["n_sp"])
-          for d in per_image]),
+          for d in per_image], stem_work),
         ("conv3x3s2_i8", K.conv3x3s2_i8, K.conv3x3s2_i8_plain, 515,
          [(d[k], *(pkg[p][f] for f in ("w", "m", "c")))
-          for d in per_image for k, p in (("sp", "sp1"), ("s1", "sp2"))]),
+          for d in per_image for k, p in (("sp", "sp1"), ("s1", "sp2"))],
+         conv_work),
         ("l1_stage_i8", K.l1_stage_i8, K.l1_stage_i8_plain, 763,
-         [(d["pooled"], pkg["l1_0"], pkg["l1_1"]) for d in per_image]),
+         [(d["pooled"], pkg["l1_0"], pkg["l1_1"]) for d in per_image],
+         conv_work),
         ("down_stage_i8:stage2", K.down_stage_i8, K.down_stage_i8_plain, 986,
-         [(d["c4"], pkg["l2_0"], pkg["l2_1"]) for d in per_image]),
+         [(d["c4"], pkg["l2_0"], pkg["l2_1"]) for d in per_image],
+         conv_work),
         ("down_stage_i8:stage3", K.down_stage_i8, K.down_stage_i8_plain, 986,
-         [(d["c8"], pkg["l3_0"], pkg["l3_1"]) for d in per_image]),
+         [(d["c8"], pkg["l3_0"], pkg["l3_1"]) for d in per_image],
+         conv_work),
         ("down_block_i8", K.down_block_i8, K.down_block_i8_plain, 1136,
-         [(d["c16"], pkg["l4_0"]) for d in per_image]),
+         [(d["c16"], pkg["l4_0"]) for d in per_image], conv_work),
         ("res_block_i8", K.res_block_i8, K.res_block_i8_plain, 1226,
-         [(d["y4"], pkg["l4_1"]) for d in per_image]),
+         [(d["y4"], pkg["l4_1"]) for d in per_image], conv_work),
     ]
     rows = []
     kernel_ms = {}
-    for name, kern, plain, line, inputs in cases:
+    for name, kern, plain, line, inputs, work in cases:
         worst = compare_codes(name.split(":")[0], kern, plain, inputs)
         ms = cuda_ms(kern, inputs, reps=5)
         plain_ms = cuda_ms(plain, inputs, reps=1)
         kernel_ms[name] = ms
+        n_bytes, ops, kind = work(inputs[0], kern(*inputs[0]))
+        bound_ms, bound_by = bound(n_bytes, ops, kind)
         log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call "
-            f"({len(inputs)} distinct inputs)")
+            f"({len(inputs)} distinct inputs); bound {bound_ms:.5f} ms "
+            f"({bound_by}: {n_bytes / 1e6:.2f} MB, {ops / 1e9:.2f} G {kind} "
+            f"operations) = {100 * bound_ms / ms:.2f} % of the kernel's time")
         rows.append({"name": name, "route": "cuda", "source": SRC,
                      "replaces": f"{TPU}:{line}",
                      "launches": launches[name.split(":")[0]],
-                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
 
     # -- the served graph against the plain graph on the CPU, small input -
     cpu_infer, (cpu_pkg, cpu_xs) = entry(device="cpu", image_hw=SMALL,
@@ -476,13 +580,22 @@ def main():
     k7_plain_ms = cuda_ms(U.fused_upsample_argmax_plain, k7_inputs)
     mat_ms = cuda_ms(lambda x, hw: resize_bilinear_align_corners(
         x.permute(0, 3, 1, 2), hw).argmax(dim=1).to(torch.int32), k7_inputs)
+    # bytes: the logits in, the labels out; operations: the kernel's 9
+    # float32 flops per class and output pixel (two row lerps, one column
+    # lerp)
+    k7_x = k7_inputs[0][0]
+    k7_bound = bound(nbytes(k7_x) + 4 * k7_x.shape[0] * H * W,
+                     9 * k7_x.shape[0] * H * W * k7_x.shape[3], "f32")
     log(f"fused_upsample_argmax: kernel {k7_ms:.4f} ms, plain (row-tiled "
         f"einsum) {k7_plain_ms:.4f} ms, materialized upsample + argmax "
-        f"{mat_ms:.4f} ms per call")
+        f"{mat_ms:.4f} ms per call; bound {k7_bound[0]:.5f} ms "
+        f"({k7_bound[1]}) = {100 * k7_bound[0] / k7_ms:.2f} %")
     rows.append({"name": "fused_upsample_argmax", "route": "cuda",
                  "source": SRC_K7, "replaces": TPU_K7,
                  "launches": k7_launches, "max_abs_err": worst_err,
-                 "ms": k7_ms, "plain_ms": k7_plain_ms})
+                 "ms": k7_ms, "plain_ms": k7_plain_ms,
+                 "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+                 "library_ms": None})
 
     # each graph's card labels against the same graph on the CPU, small.
     # The fused-stem graph is held to the bar in float32: in bf16 these
@@ -518,13 +631,319 @@ def main():
             f"same graph on the CPU on {agree:.6f} of pixels (bar {bar})")
         if agree < bar:
             fail(f"{gname}: card vs CPU label agreement {agree} < {bar}")
-    log(f"peak device memory: "
+    log(f"peak device memory (serving phases): "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
+    rows += train_phase(dev, all_kernels, reset_all)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def step_ms(trainer, data, n):
+    """CUDA-event ms of each of ``n`` back-to-back training steps (after
+    two warm-up steps): (median, p90, mean), and the mean host ms to
+    enqueue one step without a sync."""
+    for _ in range(2):
+        trainer.train_step(data)
+    torch.cuda.synchronize()
+    marks, enq = [], []
+    for _ in range(n):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        trainer.train_step(data)
+        ev[1].record()
+        enq.append(time.perf_counter() - t0)
+        marks.append(ev)
+    torch.cuda.synchronize()
+    samples = np.array([a.elapsed_time(b) for a, b in marks])
+    return (float(np.median(samples)), float(np.percentile(samples, 90)),
+            float(samples.mean()), 1000.0 * float(np.mean(enq)))
+
+
+def train_phase(dev, all_kernels, reset_all):
+    """The training path (see the module docstring, item 8); returns the
+    kernels line's rows for K8 and K9."""
+    import functools
+
+    import torch.nn.functional as F
+    from torch import nn
+
+    from torchseg_tpu_torch import models
+    from torchseg_tpu_torch.engine.trainer import Trainer
+    from torchseg_tpu_torch.entry import dryrun, train_entry
+    from torchseg_tpu_torch.experiments.registry import (
+        build_loss_fn,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.ops import norm as N
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+
+    # -- the step on the card; launches over exactly one step -------------
+    t0 = time.perf_counter()
+    trainer, (_, data) = train_entry(device=dev, crop=TRAIN_CROP,
+                                     batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    log(f"training step built (BiSeNet-R18, seeded weights, {TRAIN_BATCH}x"
+        f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]} synthetic batch): "
+        f"{time.perf_counter() - t0:.2f} s")
+    trainer.train_step(data)  # warm-up: library load, cuDNN plans
+    torch.cuda.synchronize()
+    fed, acts, torch_bn = [], [], []
+    f_bn, t_bn = F.batch_norm, torch.batch_norm
+
+    def spy_k9(x, a, b, act="none"):
+        fed.append((x, a.detach().clone(), b.detach().clone()))
+        acts.append(act)
+        return B.fused_scale_bias_act(x, a, b, act)
+
+    def spy_bn(fn):
+        def run(*args, **kwargs):
+            torch_bn.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return run
+
+    # the BNs reach K9 through ops/norm.py's module reference ``K``: a
+    # stand-in records what each call is fed and calls the wrapper
+    spy = types.SimpleNamespace(**vars(B))
+    spy.fused_scale_bias_act = spy_k9
+    reset_all()
+    N.K = spy
+    F.batch_norm, torch.batch_norm = spy_bn(f_bn), spy_bn(t_bn)
+    try:
+        loss0, _ = trainer.train_step(data)
+        torch.cuda.synchronize()
+    finally:
+        N.K = B
+        F.batch_norm, torch.batch_norm = f_bn, t_bn
+    got = launch_counts(all_kernels)
+    want = dict.fromkeys(got, 0)
+    want.update(channel_sum_sumsq=BN_LAUNCHES,
+                fused_scale_bias_act=BN_LAUNCHES)
+    log(f"launches in one training step: {got}; K9 with the ReLU fused: "
+        f"{acts.count('relu')}; torch batch-norm calls: {len(torch_bn)}")
+    if got != want:
+        fail(f"training step launches {got}, expected {want}")
+    if acts.count("relu") != BN_RELU:
+        fail(f"{acts.count('relu')} K9 launches fused a ReLU, expected "
+             f"{BN_RELU}")
+    if torch_bn:
+        fail(f"the training step ran torch's own batch norm: {torch_bn}")
+    if not bool(torch.isfinite(loss0)):
+        fail(f"non-finite training loss {float(loss0)}")
+
+    # -- K8 and K9 against their plain versions, on the step's tensors ----
+    fed = [(x.detach(), a, b) for x, a, b in fed]
+    k9_diff = 0
+    for (x, a, b), act in zip(fed, acts):
+        for xx in (x, x.to(torch.bfloat16)):
+            got9 = B.fused_scale_bias_act(xx, a, b, act)
+            ref9 = B.fused_scale_bias_act_plain(xx, a, b, act)
+            if got9.dtype != ref9.dtype or not torch.equal(got9, ref9):
+                fail(f"fused_scale_bias_act ({xx.dtype}, {act}, "
+                     f"{tuple(xx.shape)}) differs from its plain version "
+                     f"on {int((got9 != ref9).sum())} elements")
+            k9_diff = max(k9_diff, float((got9.float() - ref9.float()
+                                          ).abs().max()))
+    k8_err, k8_rel = 0.0, 0.0
+    for x, _, _ in fed:
+        got8 = B.channel_sum_sumsq(x)
+        ref8 = B.channel_sum_sumsq_plain(x)
+        abs_sum = x.double().abs().sum(dim=(0, 2, 3))
+        d = (got8 - ref8).abs().double()
+        k8_err = max(k8_err, float(d.max()))
+        sq = ref8[1].double().abs().clamp_min(1e-30)
+        k8_rel = max(k8_rel, float((d[0] / abs_sum.clamp_min(1e-30)).max()),
+                     float((d[1] / sq).max()))
+        if bool((d[0] > 1e-5 * abs_sum).any()) or bool(
+                (d[1] > 1e-5 * sq).any()):
+            fail(f"channel_sum_sumsq {tuple(x.shape)}: sum x off by more "
+                 f"than 1e-5 of sum |x|, or sum x^2 by more than 1e-5 "
+                 f"relative, against its plain version")
+    log(f"fused_scale_bias_act: bit-exact to its plain version on all "
+        f"{len(fed)} BN inputs of the step, float32 and bfloat16; "
+        f"channel_sum_sumsq: worst error {k8_rel:.3e} of its bar's scale "
+        f"(1e-5), {k8_err:.3e} absolute")
+
+    # -- one step on the card against the CPU, small crop -----------------
+    # The card's step is gated with cuDNN off (torch's own CUDA convs):
+    # cuDNN's float32 algorithms round ~1e-5 away from the CPU's, which
+    # flips ReLU masks and max-pool routes and moves single gradient
+    # entries; with cuDNN the same step is measured, not gated.
+    def check_step(device, dtype=torch.float32, cudnn=True):
+        tr, (_, d) = train_entry(device=device, crop=CHECK_CROP,
+                                 batch=CHECK_BATCH, seed=CHECK_SEED)
+        tr.model.to(dtype)
+        d = {"image": d["image"].to(dtype), "label": d["label"]}
+        start = {n: p.detach().double().cpu().clone()
+                 for n, p in tr.model.named_parameters()}
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            loss = float(tr.train_step(d)[0])
+        return (loss, {n: p.detach().double().cpu() - start[n]
+                       for n, p in tr.model.named_parameters()},
+                {n: b.detach().double().cpu()
+                 for n, b in tr.model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))})
+
+    l64, d64, s64 = check_step("cpu", torch.float64)
+
+    def distance(loss, delta, stats):
+        """(loss error, per-tensor change errors relative to the largest
+        float64 change, per-buffer stat errors relative to max(1, scale),
+        whole-update relative L2 error) against the float64 step."""
+        errs = {n: float((delta[n] - r).abs().max() / r.abs().max())
+                for n, r in d64.items()}
+        serrs = {n: float((stats[n] - r).abs().max()
+                          / max(1.0, float(r.abs().max())))
+                 for n, r in s64.items()}
+        l2 = float(sum(((delta[n] - r) ** 2).sum() for n, r in d64.items())
+                   .sqrt() / sum((r ** 2).sum() for r in d64.values()).sqrt())
+        return abs(loss - l64) / abs(l64), errs, serrs, l2
+
+    for tag, device, cudnn in (("CPU float32", "cpu", True),
+                               ("card, cuDNN", dev, True),
+                               ("card, cuDNN off", dev, False)):
+        lerr, errs, serrs, l2 = distance(*check_step(device, cudnn=cudnn))
+        worst = max(errs, key=errs.get)
+        log(f"{CHECK_BATCH}x{CHECK_CROP[0]}x{CHECK_CROP[1]} step, {tag} vs "
+            f"CPU float64: loss {lerr:.2e} relative; largest change error "
+            f"{errs[worst]:.2e} ({worst}); {sum(e > 1e-3 for e in errs.values())}"
+            f" of {len(errs)} tensors above 1e-3; update L2 {l2:.2e}; "
+            f"running stats {max(serrs.values()):.2e}")
+    # the gate: the last one, the card with cuDNN off
+    bad = [n for n, e in errs.items() if e > 1e-3] + [
+        n for n, e in serrs.items() if e > 1e-4]
+    if lerr > 1e-4 or bad:
+        fail(f"card step vs CPU float64 step: loss {lerr:.2e} (bar 1e-4); "
+             f"tensors beyond 1e-3 (changes) or 1e-4 (stats): {bad}")
+
+    # -- 20 steps on the learnable batch ----------------------------------
+    t0 = time.perf_counter()
+    losses = dryrun(DRYRUN_STEPS, device=dev, crop=TRAIN_CROP,
+                    batch=TRAIN_BATCH)
+    log(f"dryrun, {DRYRUN_STEPS} steps at {TRAIN_BATCH}x{TRAIN_CROP[0]}x"
+        f"{TRAIN_CROP[1]} ({time.perf_counter() - t0:.1f} s): loss "
+        f"{np.mean(losses[:3]):.4f} (first 3) -> {np.mean(losses[-3:]):.4f}"
+        f" (last 3); {[round(v, 4) for v in losses]}")
+
+    # -- timings ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    med, p90, mean_ms, enq = step_ms(trainer, data, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"training step ({TRAIN_STEPS} steps back to back): median "
+        f"{med:.4f} ms, p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
+        f"{1000.0 * TRAIN_BATCH / mean_ms:.2f} images/s; host enqueue "
+        f"{enq:.4f} ms per step; peak device memory {peak:.1f} MiB")
+    inputs8 = [(x,) for x, _, _ in fed]
+    inputs9 = [(x, a, b, act) for (x, a, b), act in zip(fed, acts)]
+    k8_ms = cuda_ms(B.channel_sum_sumsq, inputs8, reps=5) * len(fed)
+    k8_plain = cuda_ms(B.channel_sum_sumsq_plain, inputs8) * len(fed)
+    k8_lib = cuda_ms(lambda x: torch.batch_norm_stats(x, 1e-5),
+                     inputs8, reps=5) * len(fed)
+    k9_ms = cuda_ms(B.fused_scale_bias_act, inputs9, reps=5) * len(fed)
+    k9_plain = cuda_ms(B.fused_scale_bias_act_plain, inputs9) * len(fed)
+    stats = [torch.batch_norm_stats(x, 1e-5) for x, _, _ in fed]
+    k9_lib = cuda_ms(lambda x, m, s: torch.batch_norm_elemt(
+        x, None, None, m, s, 1e-5), [(x, *st) for (x, _, _), st in zip(
+            fed, stats)], reps=5) * len(fed)
+    ones = [(x, torch.zeros(x.shape[1], device=dev),
+             torch.ones(x.shape[1], device=dev)) for x, _, _ in fed]
+    fbn_ms = cuda_ms(lambda x, rm, rv: F.batch_norm(
+        x, rm, rv, training=True, momentum=0.1, eps=1e-5), ones,
+        reps=5) * len(fed)
+    n_el = sum(x.numel() for x, _, _ in fed)
+    x_bytes = sum(nbytes(x) for x, _, _ in fed)
+    c_all = sum(x.shape[1] for x, _, _ in fed)
+    # K8 reads x, writes (2, C); 3 flops an element (add; multiply-add).
+    # K9 reads x (and a, b), writes y; 2 flops an element (one FMA)
+    k8_bound = bound(x_bytes + 8 * c_all, 3 * n_el, "f32")
+    k9_bound = bound(2 * x_bytes + 8 * c_all, 2 * n_el, "f32")
+    biggest = max(fed, key=lambda t: t[0].numel())[0]
+    big8 = cuda_ms(B.channel_sum_sumsq, [(biggest,)], reps=20)
+    big9 = cuda_ms(B.fused_scale_bias_act, [(biggest, torch.ones(
+        biggest.shape[1], device=dev), torch.zeros(biggest.shape[1],
+                                                   device=dev))], reps=20)
+    log(f"per step, summed over the {len(fed)} BN inputs ({x_bytes / 1e6:.1f}"
+        f" MB): channel_sum_sumsq {k8_ms:.4f} ms (plain {k8_plain:.4f}, "
+        f"torch.batch_norm_stats {k8_lib:.4f}; bound {k8_bound[0]:.4f} ms, "
+        f"{k8_bound[1]}); fused_scale_bias_act {k9_ms:.4f} ms (plain "
+        f"{k9_plain:.4f}, torch.batch_norm_elemt {k9_lib:.4f}; bound "
+        f"{k9_bound[0]:.4f} ms, {k9_bound[1]}); K8 + K9 {k8_ms + k9_ms:.4f}"
+        f" ms vs F.batch_norm(training=True) {fbn_ms:.4f} ms")
+    log(f"largest BN input {tuple(biggest.shape)} "
+        f"({nbytes(biggest) / 1e6:.1f} MB): channel_sum_sumsq {big8:.4f} ms"
+        f" ({nbytes(biggest) / big8 / 1e6:.0f} GB/s), fused_scale_bias_act "
+        f"{big9:.4f} ms ({2 * nbytes(biggest) / big9 / 1e6:.0f} GB/s)")
+
+    # -- device time of a step: torch.profiler over PROFILED_STEPS ---------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            trainer.train_step(data)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1000.0 / PROFILED_STEPS
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1000.0 / (
+        PROFILED_STEPS)
+    log(f"profiled {PROFILED_STEPS} steps: device busy {busy:.4f} ms of "
+        f"{wall:.4f} ms wall per step under the profiler = idle share "
+        f"{1 - busy / wall:.3f}")
+    for kname, tag in (("channel_sums", "channel_sum_sumsq"),
+                       ("scale_bias_act", "fused_scale_bias_act")):
+        dev_ms = sum(e.self_device_time_total for e in kernels
+                     if kname in e.key) / 1000.0 / PROFILED_STEPS
+        log(f"  {tag}: {dev_ms:.4f} ms of kernel time per step (its CUDA-"
+            f"event time above also holds the gaps while the host runs the "
+            f"wrapper)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  device {e.self_device_time_total / 1000.0 / PROFILED_STEPS:9.4f}"
+            f" ms per step, {e.count // PROFILED_STEPS:4d} calls: "
+            f"{e.key[:110]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.key.startswith("aten::")) // PROFILED_STEPS
+    log(f"host: {n_ops} aten calls per step; largest self host times:")
+    for e in host[:8]:
+        log(f"  host {e.self_cpu_time_total / 1000.0 / PROFILED_STEPS:9.4f} ms"
+            f" per step, {e.count // PROFILED_STEPS:4d} calls: {e.key[:80]}")
+
+    # -- comparison only: the same step with nn.BatchNorm2d ---------------
+    cfg = get_experiment("cityscapes.bisenet.R18")
+    tnorm = functools.partial(nn.BatchNorm2d, eps=cfg.bn_eps,
+                              momentum=cfg.bn_momentum)
+    tmodel = models.init_weights(
+        models.bisenet_r18(num_classes=cfg.num_classes, norm=tnorm),
+        torch.Generator().manual_seed(0)).to(dev)
+    ttrainer = Trainer(tmodel, build_loss_fn(dataclasses.replace(
+        cfg, image_height=TRAIN_CROP[0], image_width=TRAIN_CROP[1],
+        batch_size=TRAIN_BATCH)), trainer.lr_schedule,
+        sgd_momentum=cfg.momentum, lr_mult=trainer.lr_mult, wd=trainer.wd)
+    ttrainer.init_state()
+    tmed, tp90, tmean, tenq = step_ms(ttrainer, data, TRAIN_STEPS)
+    log(f"comparison only, nn.BatchNorm2d as the norm: median {tmed:.4f} ms,"
+        f" p90 {tp90:.4f} ms, mean {tmean:.4f} ms; enqueue {tenq:.4f} ms")
+
+    return [
+        {"name": "channel_sum_sumsq", "route": "cuda", "source": SRC_BN,
+         "replaces": f"{TPU_BN}:41", "launches": got["channel_sum_sumsq"],
+         "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_plain,
+         "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
+         "library_ms": k8_lib},
+        {"name": "fused_scale_bias_act", "route": "cuda", "source": SRC_BN,
+         "replaces": f"{TPU_BN}:68",
+         "launches": got["fused_scale_bias_act"], "max_abs_err": k9_diff,
+         "ms": k9_ms, "plain_ms": k9_plain, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": k9_lib},
+    ]
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ the CPU through the plain versions in test_torch_int8_serve_kernels.py).
 
 The shapes are ragged on purpose (widths that are not multiples of the
 kernels' 32-column tiles, odd heights, stage 3's and stage 4's channel
-counts, output sizes that are not multiples of 32 or 128), so the edge
-masking is exercised; chip_smoke.py covers the serving shapes.  This file
+counts, output sizes that are not multiples of 32 or 128, BN inputs whose
+H*W is odd or 1, a misaligned BN input), so the edge masking and the
+scalar paths are exercised; chip_smoke.py covers the serving and training
+shapes.  This file
 imports no JAX, so on a machine without it run it without the suite's
 conftest:
 
@@ -17,8 +19,10 @@ conftest:
 import pytest
 import torch
 
+from torchseg_tpu_torch.ops.kernels import bn_kernels as B
 from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
 from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
+from torchseg_tpu_torch.ops.norm import BatchNorm2d
 from torchseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 pytestmark = pytest.mark.cuda
@@ -197,3 +201,99 @@ def test_kernels_launch_on_the_current_stream(dev):
         got = K.l1_stage_i8(x, e0, e1)
     side.synchronize()
     _exact(got, ref)
+
+
+# -- K8 / K9, the train-mode BN kernels ----------------------------------
+
+BN_SHAPES = [(2, 64, 512, 512), (3, 5, 7, 11), (1, 19, 45, 47),
+             (4, 3, 1, 1), (2, 128, 4, 4)]
+
+
+def _bn_input(shape, dtype, dev, seed=11):
+    g = _gen(seed)
+    return (torch.randn(shape, generator=g) * 2 + 0.5).to(dtype).to(dev)
+
+
+def _check_k8(x):
+    before = B.channel_sum_sumsq.launches
+    got = B.channel_sum_sumsq(x)
+    torch.cuda.synchronize()
+    assert B.channel_sum_sumsq.launches == before + 1
+    ref = B.channel_sum_sumsq_plain(x)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    dims = (0, 2, 3) if x.dim() == 4 else (0,)
+    abs_sum = x.double().abs().sum(dim=dims)
+    d = (got - ref).abs().double()
+    assert bool((d[0] <= 1e-5 * abs_sum).all())
+    assert bool((d[1] <= 1e-5 * ref[1].double().abs()).all())
+    assert torch.equal(got, B.channel_sum_sumsq(x))  # the same every run
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_sum_sumsq_kernel(dev, shape, dtype):
+    _check_k8(_bn_input(shape, dtype, dev))
+
+
+def test_channel_sum_sumsq_kernel_2d_and_misaligned(dev):
+    _check_k8(_bn_input((37, 13), torch.float32, dev))
+    flat = _bn_input((1 + 2 * 8 * 16 * 16,), torch.float32, dev)
+    x = flat[1:].view(2, 8, 16, 16)  # 4 bytes past a 16-byte boundary
+    assert x.data_ptr() % 16
+    _check_k8(x)
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_fused_scale_bias_act_kernel_bit_exact(dev, shape, dtype, act):
+    x = _bn_input(shape, dtype, dev, seed=12)
+    g = _gen(13)
+    a = (torch.rand(shape[1], generator=g) * 2 - 0.5).to(dev)
+    b = torch.randn(shape[1], generator=g).to(dev)
+    before = B.fused_scale_bias_act.launches
+    got = B.fused_scale_bias_act(x, a, b, act)
+    torch.cuda.synchronize()
+    assert B.fused_scale_bias_act.launches == before + 1
+    _exact(got, B.fused_scale_bias_act_plain(x, a, b, act))
+
+
+def test_fused_scale_bias_act_kernel_misaligned(dev):
+    flat = _bn_input((1 + 2 * 8 * 16 * 16,), torch.float32, dev)
+    x = flat[1:].view(2, 8, 16, 16)
+    a, b = torch.rand(8, device=dev), torch.randn(8, device=dev)
+    _exact(B.fused_scale_bias_act(x, a, b, "relu"),
+           B.fused_scale_bias_act_plain(x, a, b, "relu"))
+
+
+def test_bn_kernels_refuse_float64_and_mixed_devices(dev):
+    x = torch.zeros(2, 3, 4, 4, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        B.channel_sum_sumsq(x)
+    with pytest.raises(ValueError, match="one CUDA device or all on"):
+        B.fused_scale_bias_act(x.float(), torch.ones(3), torch.zeros(3))
+
+
+@pytest.mark.parametrize("shape,relu", [((2, 64, 48, 40), True),
+                                        ((8, 64, 1, 1), False)])
+def test_train_batch_norm_on_card_matches_cpu(dev, shape, relu):
+    """SyncBN's Function (no group) on K8/K9: output, running stats and
+    gradients on the card against the same module on the CPU."""
+    g = _gen(14)
+    x = torch.randn(shape, generator=g) * 1.5 + 0.3
+    w = torch.randn(shape, generator=g)
+    outs = []
+    for device in ("cpu", dev):
+        bn = BatchNorm2d(shape[1]).to(device).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, shape[1]))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, shape[1]))
+        xt = x.to(device).detach().requires_grad_(True)
+        y = bn(xt, relu=relu)
+        (y * w.to(device)).sum().backward()
+        outs.append([t.detach().cpu() for t in (
+            y, xt.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            bn.running_var)])
+    for got, ref in zip(outs[1], outs[0]):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-5 * scale + 1e-7

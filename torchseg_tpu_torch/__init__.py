@@ -8,7 +8,10 @@ ported slices are the int8-through BiSeNet-R18 serving graph
 and the full-resolution R18 serving graphs (the bf16 fused-stem graph of
 ``deploy/fused_stem.py`` and the int8-through graph), which end in the
 upsample-argmax kernel (``ops/kernels/upsample_argmax.py``,
-``csrc/upsample_argmax.cu``).
+``csrc/upsample_argmax.cu``).  The training step of BiSeNet-R18
+(``entry.train_entry``; ``engine/``, ``ops/losses.py``) runs its SyncBN
+(``ops/norm.py``) on the moment and affine kernels of
+``ops/kernels/bn_kernels.py`` / ``csrc/bn_kernels.cu``.
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

@@ -7,27 +7,106 @@ the int8-through graph with seeded random weights, calibrated on two random
 returns ``infer, (pkg, xs)``; ``infer(pkg, xs)`` gives (1, H/8, W/8) int32
 labels.
 
+``train_entry()`` builds the training step of BiSeNet-R18
+(``cityscapes.bisenet.R18``) on one device, the counterpart of the first
+leg of ``__graft_entry__.dryrun_multichip``: seeded random weights, three
+OHEM heads, SGD with the reference's parameter groups and PolyLR, batch 2
+of 1024x1024 crops by default, and a synthetic batch of seeded smooth
+random images whose labels are a function of the image (channel 0 > 0;
+``synthetic_batch``), so that repeated steps must lower the loss.
+``dryrun()`` runs it and checks that.
+
 TF32 is switched off for cuDNN convolutions and matmuls: calibration runs
 the float graph in float32, and TF32 would round its convolutions to ~10
-mantissa bits on the card.
+mantissa bits on the card; training runs in float32 too.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .deploy.int8_serve import build_int8_serving_for_experiment
-from .experiments.registry import build_model, get_experiment
+from .engine.lr_policy import PolyLR
+from .engine.optim import make_lr_mult_tree, make_wd_tree
+from .engine.trainer import Trainer
+from .experiments.registry import build_loss_fn, build_model, get_experiment
 from .models import init_weights
 
 EXPERIMENT = "cityscapes.bisenet.R18.speed"
+TRAIN_EXPERIMENT = "cityscapes.bisenet.R18"
+
+
+def _no_tf32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def entry(device="cuda", image_hw=(1024, 2048), seed: int = 0):
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _no_tf32()
     cfg = get_experiment(EXPERIMENT)
     model = init_weights(build_model(cfg),
                          torch.Generator().manual_seed(seed)).to(device)
     infer, pkg, prepare = build_int8_serving_for_experiment(cfg, model)
     xs = prepare(np.zeros((1, *image_hw, 3), np.uint8))
     return infer, (pkg, xs)
+
+
+def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda"):
+    """{"image": (B, 3, H, W) float32, "label": (B, H, W) int64} from
+    ``np.random.default_rng(seed)``: each image a smooth normal field (a
+    grid of one sample per 32x32 pixels, upsampled bilinearly) plus pixel
+    noise of std 0.1, and the label (smooth field's channel 0 > 0).
+
+    The JAX dryrun draws i.i.d. normal pixels and labels them the same way;
+    at 1024x1024 such labels vary pixel by pixel, finer than the /8 heads
+    can follow, so the OHEM loss there oscillates instead of falling.  The
+    smooth field keeps the labels a function of the image that the model
+    can learn."""
+    rng = np.random.default_rng(seed)
+    grid = (max(crop[0] // 32, 2), max(crop[1] // 32, 2))
+    field = torch.nn.functional.interpolate(
+        torch.from_numpy(rng.normal(size=(batch, 3, *grid)).astype(
+            np.float32)), size=tuple(crop), mode="bilinear",
+        align_corners=True)
+    noise = torch.from_numpy(rng.normal(0, 0.1, size=(batch, 3, *crop))
+                             .astype(np.float32))
+    return {"image": (field + noise).to(device),
+            "label": (field[:, 0] > 0).long().to(device)}
+
+
+def train_entry(device="cuda", crop=(1024, 1024), batch: int = 2,
+                seed: int = 0):
+    """The BiSeNet-R18 training step on one device; returns ``trainer,
+    (state, batch)``: ``trainer.train_step(batch)`` gives (loss, lr)."""
+    _no_tf32()
+    cfg = dataclasses.replace(get_experiment(TRAIN_EXPERIMENT),
+                              image_height=crop[0], image_width=crop[1],
+                              batch_size=batch)
+    model = build_model(cfg).to(device)
+    trainer = Trainer(
+        model, build_loss_fn(cfg),
+        PolyLR(cfg.lr, cfg.lr_power, cfg.nepochs * cfg.niters_per_epoch),
+        sgd_momentum=cfg.momentum,
+        lr_mult=make_lr_mult_tree(model, cfg.business_lr_mult),
+        wd=make_wd_tree(model, cfg.weight_decay))
+    state = trainer.init_state(torch.Generator().manual_seed(seed))
+    return trainer, (state, synthetic_batch(batch, crop, seed, device))
+
+
+def dryrun(n_steps: int = 20, device="cuda", crop=(1024, 1024),
+           batch: int = 2, seed: int = 0):
+    """``n_steps`` training steps on one fixed learnable batch; raises
+    unless every loss is finite and the mean of the last three is below
+    that of the first three (``__graft_entry__.py:120-134``).  Returns the
+    losses."""
+    trainer, (_, data) = train_entry(device, crop, batch, seed)
+    losses = [float(trainer.train_step(data)[0]) for _ in range(n_steps)]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    start, end = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not end < start:
+        raise RuntimeError(f"training did not reduce the loss: {start:.4f} "
+                           f"-> {end:.4f} over {n_steps} steps; losses "
+                           f"{[round(v, 4) for v in losses]}")
+    return losses

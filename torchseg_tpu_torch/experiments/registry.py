@@ -3,6 +3,9 @@
 The config dataclass is copied field for field from the JAX registry; so
 far only the two BiSeNet-R18 Cityscapes entries are registered (JAX
 registry.py:146 and :163).  Other experiments come with their families.
+``build_model`` binds the model's BatchNorms to a process group (SyncBN)
+when given one; ``build_loss_fn`` gives the per-process training loss
+(``ce`` and ``ohem``; ``dfn`` comes with DFN, ROADMAP A8).
 """
 
 import dataclasses
@@ -12,6 +15,11 @@ from typing import Optional, Sequence, Tuple
 from torch import nn
 
 from .. import models
+from ..ops.losses import (
+    CITYSCAPES_CLASS_WEIGHTS,
+    cross_entropy_with_ignore,
+    prob_ohem_cross_entropy,
+)
 from ..ops.norm import BatchNorm2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -109,11 +117,52 @@ def get_experiment(name: str) -> ExperimentConfig:
     return EXPERIMENTS[name]
 
 
-def build_model(cfg: ExperimentConfig) -> nn.Module:
+def build_model(cfg: ExperimentConfig, process_group=None) -> nn.Module:
     """Instantiate the model with the experiment's BN eps and momentum, in
-    eval mode, on the CPU (move it with ``.to(device)``)."""
+    eval mode, on the CPU (move it with ``.to(device)``).  In train mode its
+    BatchNorms sync their moments over ``process_group`` (SyncBN) when it is
+    given and ``torch.distributed`` is initialized."""
     norm = functools.partial(BatchNorm2d, eps=cfg.bn_eps,
-                             momentum=cfg.bn_momentum)
+                             momentum=cfg.bn_momentum,
+                             process_group=process_group)
     factory = models.MODEL_REGISTRY[cfg.model]
     return factory(num_classes=cfg.num_classes, norm=norm,
                    **cfg.model_kwargs).eval()
+
+
+def build_loss_fn(cfg: ExperimentConfig, num_shards: int = 1):
+    """Per-process loss ``(outputs, batch) -> scalar`` with the reference's
+    per-process criterion semantics: OHEM's min_kept counts the pixels of
+    this process's share of the global batch (model/bisenet/*/train.py:
+    48-52; JAX registry.py:329-365)."""
+    ignore = cfg.ignore_label
+    if cfg.loss == "ce":
+        ratio = cfg.aux_loss_ratio
+
+        def ce_loss(outs, batch):
+            loss = cross_entropy_with_ignore(outs["main"], batch["label"],
+                                             ignore)
+            if "aux" in outs:
+                loss = loss + ratio * cross_entropy_with_ignore(
+                    outs["aux"], batch["label"], ignore)
+            return loss
+
+        return ce_loss
+    if cfg.loss == "ohem":
+        local_b = max(cfg.batch_size // num_shards, 1)
+        h = cfg.image_height // cfg.gt_down_sampling
+        w = cfg.image_width // cfg.gt_down_sampling
+        min_kept = int(local_b * h * w // cfg.ohem_min_kept_divisor)
+        weights = CITYSCAPES_CLASS_WEIGHTS if cfg.ohem_use_weight else None
+
+        def ohem_loss(outs, batch):
+            return sum(prob_ohem_cross_entropy(
+                outs[key], batch["label"], ignore, thresh=cfg.ohem_thresh,
+                min_kept=min_kept, class_weights=weights,
+                approx_threshold=cfg.ohem_approx)
+                for key in ("aux0", "aux1", "main"))
+
+        return ohem_loss
+    if cfg.loss == "dfn":
+        raise NotImplementedError("the DFN loss comes with DFN (ROADMAP A8)")
+    raise ValueError(f"unknown loss {cfg.loss}")

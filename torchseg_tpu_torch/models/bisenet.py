@@ -1,14 +1,15 @@
-"""BiSeNet (counterpart of torchseg_tpu/models/bisenet.py), eval mode.
+"""BiSeNet (counterpart of torchseg_tpu/models/bisenet.py).
 
 Architecture (reference network.py:18-111): a SpatialPath (/8, 128 ch), a
 ResNet context path whose reversed stage features feed a global-context
 vector and two AttentionRefinement arms with top-down upsampling and refine
 convs, fused with the spatial path by a FeatureFusion module; three heads.
 Eval returns ``log_softmax`` of the main head (reference :111), NCHW.
-
-The two aux heads (``head0``, ``head1``) exist so the parameter tree matches
-the JAX model's; the train-mode forward that runs them comes with the
-training slice.
+Train mode returns the three heads' logits, ``{"aux0", "aux1", "main"}``
+(head0 on refine0, head1 on refine1, head2 on the FFM), each upsampled by
+its head scale in float32 (JAX models/bisenet.py:163-181).  JAX's
+``train_raw_logits`` (raw heads for the fused upsample+loss) is not ported:
+that path is off for every family there (``FUSED_UPSAMPLE_LOSS_MODELS``).
 """
 
 from typing import Sequence
@@ -16,6 +17,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops import wide
 from ..ops.blocks import (
     AttentionRefinement,
     ConvBnRelu,
@@ -61,7 +63,7 @@ class BiSeNetHead(nn.Module):
     def forward(self, x: torch.Tensor, upsample: bool = True) -> torch.Tensor:
         out = self.conv_1x1(self.conv_3x3(x))
         if upsample and self.scale > 1:
-            out = upsample_by_scale(out.float(), self.scale)
+            out = upsample_by_scale(wide(out), self.scale)
         return out
 
 
@@ -91,8 +93,9 @@ class BiSeNet(nn.Module):
                                  main_mid, norm=norm)
 
     def forward(self, x: torch.Tensor, stem_outs=None,
-                raw_logits: bool = False) -> torch.Tensor:
-        """NCHW normalized image -> NCHW main-head log-probs.
+                raw_logits: bool = False):
+        """NCHW normalized image -> NCHW main-head log-probs (eval), or the
+        dict of the three upsampled head logits (train).
 
         stem_outs: optional (spatial_stem, backbone_stem, backbone_pooled)
         from the deploy-time fused stem (deploy/fused_stem.py), which runs
@@ -100,9 +103,10 @@ class BiSeNet(nn.Module):
         two backbone entries is None.  raw_logits: return the main head's
         logits before its x-scale upsample and log_softmax, for an epilogue
         that fuses upsample and argmax (ops/kernels/upsample_argmax.py)."""
-        if self.training:
+        if self.training and (stem_outs is not None or raw_logits):
             raise NotImplementedError(
-                "BiSeNet train heads are not ported yet (ROADMAP A5)")
+                "stem_outs and raw_logits are eval-only; raw train heads "
+                "(JAX train_raw_logits) are not ported (ROADMAP A9)")
         sp_stem, bb_stem, bb_pooled = (stem_outs if stem_outs is not None
                                        else (None, None, None))
         spatial_out = self.spatial_path(x, stem_features=sp_stem)
@@ -112,13 +116,19 @@ class BiSeNet(nn.Module):
 
         gc = self.global_context(context[0].mean(dim=(2, 3), keepdim=True))
         last_fm = resize_bilinear_align_corners(gc, context[0].shape[2:])
+        refined = []
         for i, (arm, refine) in enumerate(((self.arm0, self.refine0),
                                            (self.arm1, self.refine1))):
             fm = arm(context[i]) + last_fm
             last_fm = refine(resize_bilinear_align_corners(
                 fm, context[i + 1].shape[2:]))
-        main = self.head2(self.ffm(spatial_out, last_fm),
-                          upsample=not raw_logits)
+            refined.append(last_fm)
+        fused = self.ffm(spatial_out, last_fm)
+        if self.training:
+            return {"aux0": self.head0(refined[0]),
+                    "aux1": self.head1(refined[1]),
+                    "main": self.head2(fused)}
+        main = self.head2(fused, upsample=not raw_logits)
         if raw_logits:
             return main
         return torch.log_softmax(main.float(), dim=1)

@@ -3,7 +3,10 @@ torchseg_tpu/models/resnet.py).
 
 Only what BiSeNet-R18 needs is ported: the 7x7/2 conv stem, the 3x3/2 max
 pool and BasicBlocks.  The deep stem, Bottleneck and dilation come with
-their families.  Submodule names are the flax names (``conv1``, ``bn1``,
+their families.  Train mode runs the same code: each BN with a ReLU after
+it takes the ReLU (``ops.norm.bn_act``), and the stem pool is
+``F.max_pool2d``, whose gradient goes to the first maximum of each window
+in row-major order, JAX's tie rule (ops/maxpool.py:93-107 there).  Submodule names are the flax names (``conv1``, ``bn1``,
 ``layer1_0`` ... ``layer4_1`` with ``conv1/bn1/conv2/bn2`` and
 ``downsample_conv/downsample_bn``).  Tensors are NCHW.
 """
@@ -15,7 +18,7 @@ from torch import nn
 
 from ..ops.blocks import NormFactory
 from ..ops.maxpool import stem_pool
-from ..ops.norm import BatchNorm2d
+from ..ops.norm import BatchNorm2d, bn_act
 
 
 def _conv(cin: int, cout: int, ksize: int, stride: int = 1) -> nn.Conv2d:
@@ -44,11 +47,12 @@ class BasicBlock(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = bn_act(self.bn1, self.conv1(x), relu=True)
+        out = bn_act(self.bn2, self.conv2(out), relu=False)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = bn_act(self.downsample_bn, self.downsample_conv(x),
+                              relu=False)
         return torch.relu(out + residual)
 
 
@@ -87,7 +91,7 @@ class ResNet(nn.Module):
             x = stem_pooled
         else:
             if stem_features is None:
-                stem_features = torch.relu(self.bn1(self.conv1(x)))
+                stem_features = bn_act(self.bn1, self.conv1(x), relu=True)
             x = stem_pool(stem_features)
         feats = []
         for names in self.stage_names:

@@ -4,7 +4,10 @@ Only the three blocks BiSeNet uses are ported here; the other seven come
 with their model families.  Submodule names are the flax module names
 (``conv``, ``bn``, ``conv_3x3``, ``channel_attention``, ``conv_1x1``,
 ``ca1``, ``ca2``), so ``named_modules()`` with ``.`` -> ``/`` gives the
-JAX parameter and calibration paths.  Tensors are NCHW.
+JAX parameter and calibration paths.  Tensors are NCHW.  In train mode a
+ConvBnRelu hands its ReLU to the BN (``ops.norm.bn_act``), whose affine
+kernel applies it; the ARM and FFM gates normalize (B, C, 1, 1) tensors,
+n = B per channel, which the port's BN accepts down to n = 1.
 """
 
 from typing import Callable
@@ -12,7 +15,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from .norm import BatchNorm2d
+from .norm import BatchNorm2d, bn_act
 
 NormFactory = Callable[[int], nn.Module]
 
@@ -34,10 +37,8 @@ class ConvBnRelu(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
-        if self.has_relu:
-            x = torch.relu(x)
-        return x
+            return bn_act(self.bn, x, self.has_relu)
+        return torch.relu(x) if self.has_relu else x
 
 
 class AttentionRefinement(nn.Module):

@@ -46,6 +46,15 @@ LIBRARIES = {
                         + [c_void_p] + [c_int] * 4 + [c_void_p] * 4
                         + [c_int] * 2 + [c_void_p]),
     },
+    "bn_kernels": {
+        "tsg_channel_sums_pieces": [c_longlong],  # hw
+        # x, n, c, hw, bf16, vec, partial, out, stream
+        "tsg_channel_sums": ([c_void_p] + [c_int] * 2 + [c_longlong]
+                             + [c_int] * 2 + [c_void_p] * 3),
+        # x, a, b, n, c, hw, bf16, vec, relu, y, stream
+        "tsg_scale_bias_act": ([c_void_p] * 3 + [c_int] * 2 + [c_longlong]
+                               + [c_int] * 3 + [c_void_p] * 2),
+    },
     "upsample_argmax": {
         # x, batch, h, w, nc, out, oh, ow, stream
         "tsg_upsample_argmax": ([c_void_p] + [c_int] * 4 + [c_void_p]

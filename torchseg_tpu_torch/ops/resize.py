@@ -17,18 +17,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import wide
+
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Resize an NCHW tensor to ``out_hw`` (align_corners=True).
 
-    Interpolates in float32 and rounds once to the input's dtype, as the
+    Interpolates in float32 (float64 for a float64 input) and rounds once
+    to the input's dtype, as the
     JAX matmul form accumulates: PyTorch's CPU kernel rounds a bf16
     input's intermediates in bf16 (half its outputs then differ from the
     once-rounded value), its CUDA kernel does not."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(x.float(), size=(oh, ow), mode="bilinear",
+    return F.interpolate(wide(x), size=(oh, ow), mode="bilinear",
                          align_corners=True).to(x.dtype)
 
 
