@@ -40,7 +40,20 @@ script
      bf16 to a bar of 97 %, see BF16_AGREE); both forwards are timed
      (median, p90), and K7 against its plain version and against the
      materialized upsample + argmax;
-  8. training path: the BiSeNet-R18 training step (``train_entry``,
+  8. PSPNet path: int8-through PSPNet-R50 (``ade.pspnet.R50_v1c``) at
+     480x480 through ``serve_entry``, the graph's calibration and package
+     as the JAX package builds them: four seeded images served, (1, 480,
+     480) labels in [0, 150); one forward launches K10 once, cbr_i8 twice
+     (stem2, stem3) and bottleneck_i8's 48 conv launches (16 blocks x 3)
+     and nothing else; K10 and each of the 16 bottleneck_i8 calls are held
+     bit-exact to their plain versions on the tensors the forwards fed
+     them; the card's labels agree with the same package run on the CPU
+     at 160x160, the head in float32 on both (>= 99 %, PSP_AGREE); the
+     forward is timed (median, p90), with K10 against its plain version,
+     its bound and ``F.max_pool2d`` on a float16 copy, the body's blocks
+     and the parts of the forward, and a profiler pass gives the card's
+     idle share;
+  9. training path: the BiSeNet-R18 training step (``train_entry``,
      1024x1024 crops, batch 2, float32, three OHEM heads, group-lr SGD)
      launches K8 and K9 35 times each in one step (22 of the K9 launches
      with the ReLU fused), and no BN runs torch's own batch norm; K9 is held
@@ -90,6 +103,10 @@ N_IMAGES = 4
 FWD_ROUNDS = 25  # 100 timed forwards: p90 has ten samples beyond it
 FULLRES_ROUNDS = 10  # 40 timed forwards per full-resolution graph
 BF16_AGREE = 0.97  # bf16 card vs bf16 CPU labels (see the full-res phase)
+PSP_HW, PSP_SMALL = (480, 480), (160, 160)
+PSP_ROUNDS = 10  # 40 timed forwards
+PSP_AGREE = 0.99  # card vs CPU labels, the head in float32 on both
+PSP_LAUNCHES = {"maxpool2d_3x3s2_i8": 1, "cbr_i8": 2, "bottleneck_i8": 48}
 TRAIN_CROP, TRAIN_BATCH = (1024, 1024), 2
 # card-vs-CPU step, at a size and seed where the float32 step is
 # well-conditioned: at batch 2 BiSeNet's (B, C, 1, 1) BNs see two values a
@@ -106,6 +123,9 @@ BN_LAUNCHES, BN_RELU = 35, 22  # per training step (BiSeNet-R18's 35 BNs)
 SRC = "torchseg_tpu_torch/csrc/int8_serve_kernels.cu"
 SRC_K7 = "torchseg_tpu_torch/csrc/upsample_argmax.cu"
 SRC_BN = "torchseg_tpu_torch/csrc/bn_kernels.cu"
+# the Bottleneck body and the deep stem's CBRs replace XLA convs in JAX
+XLA_BOTTLENECK = "torchseg_tpu/deploy/int8_serve.py:716 (XLA, no TPU kernel)"
+XLA_STEM_CBR = "torchseg_tpu/deploy/int8_serve.py:756 (XLA, no TPU kernel)"
 TPU = "torchseg_tpu/ops/pallas/int8_serve_kernels.py"
 TPU_K7 = "torchseg_tpu/ops/pallas/upsample_argmax.py:49"
 TPU_BN = "torchseg_tpu/ops/pallas/bn_kernel.py"
@@ -327,6 +347,7 @@ def main():
     log(f"launches in one served forward: {launches}")
     expected = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "l1_stage_i8": 1,
                 "down_stage_i8": 2, "down_block_i8": 1, "res_block_i8": 1,
+                "maxpool2d_3x3s2_i8": 0, "cbr_i8": 0, "bottleneck_i8": 0,
                 "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
                 "fused_scale_bias_act": 0}
     if launches != expected:
@@ -634,11 +655,259 @@ def main():
     log(f"peak device memory (serving phases): "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
+    rows += psp_phase(dev, all_kernels, reset_all)
     rows += train_phase(dev, all_kernels, reset_all)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def block_work(x, e, stride, dilation, emit_int8, out):
+    """(bytes, int8 operations) of one Bottleneck: its input, weights,
+    epilogue constants and output once; 2 operations a multiply-accumulate
+    (conv1 at the input's resolution, the rest at the output's)."""
+    hw_in = x.shape[1] * x.shape[2]
+    hw_out = out.shape[1] * out.shape[2]
+    ops = 2 * hw_in * e["conv1"]["w"].numel() + 2 * hw_out * sum(
+        e[k]["w"].numel() for k in ("conv2", "conv3", "down") if k in e)
+    return nbytes(x, out, {k: e[k] for k in ("conv1", "conv2", "conv3",
+                                             "down") if k in e}), ops
+
+
+def psp_phase(dev, all_kernels, reset_all):
+    """The PSPNet path (see the module docstring, item 8); returns the
+    kernels line's rows for K10, bottleneck_i8 and cbr_i8."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchseg_tpu_torch.deploy import int8_serve as i8
+    from torchseg_tpu_torch.entry import PSP_EXPERIMENT, serve_entry
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+    from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+
+    cfg = get_experiment(PSP_EXPERIMENT)
+    t0 = time.perf_counter()
+    infer, (pkg, _) = serve_entry(PSP_EXPERIMENT, image_hw=PSP_HW,
+                                  device=dev)
+    torch.cuda.synchronize()
+    log(f"PSPNet-R50 serving graph built (seeded weights, calibration on "
+        f"two 256x512 images, int8 package, bf16 head): "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (1, *PSP_HW, 3), dtype=np.uint8)
+              for _ in range(N_IMAGES)]
+    xss = [i8.prepare_u8_input(u, image_mean=cfg.image_mean, device=dev)
+           for u in images]
+    infer(pkg, xss[0])  # warm-up: cuDNN plans for stem1 and the head
+    torch.cuda.synchronize()
+
+    reset_all()
+    labels = infer(pkg, xss[0])
+    torch.cuda.synchronize()
+    got = launch_counts(all_kernels)
+    want = dict.fromkeys(got, 0)
+    want.update(PSP_LAUNCHES)
+    log(f"PSPNet: launches in one served forward: {got}")
+    if got != want:
+        fail(f"PSPNet forward launches {got}, expected {want}")
+    outs = [labels] + [infer(pkg, x) for x in xss[1:]]
+    for y in outs:
+        check_labels("PSPNet", y, PSP_HW, cfg.num_classes)
+    log(f"PSPNet: labels {tuple(labels.shape)} {labels.dtype}; distinct "
+        f"labels per image: {[int(y.unique().numel()) for y in outs]}")
+
+    # -- K10 and every Bottleneck against their plain versions, on what
+    # the forwards fed them ------------------------------------------------
+    fed_pool, fed_blocks, fed_cbr = [], [], []
+    pool, block, cbr = i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8, i8.cbr_i8
+
+    def spy_pool(x):
+        fed_pool.append((x,))
+        return pool(x)
+
+    def spy_block(x, e, stride, dilation, emit_int8=True):
+        fed_blocks.append((x, e, stride, dilation, emit_int8))
+        return block(x, e, stride, dilation, emit_int8)
+
+    def spy_cbr(x, e, stride, pad, dilation=1):
+        fed_cbr.append((x, e, stride, pad))
+        return cbr(x, e, stride, pad, dilation)
+
+    i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8, i8.cbr_i8 = (spy_pool,
+                                                          spy_block, spy_cbr)
+    try:
+        with torch.inference_mode():
+            for x in xss:
+                i8.int8_backbone(pkg, x)
+    finally:
+        i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8, i8.cbr_i8 = pool, block, cbr
+    k10_err = compare_codes("maxpool2d_3x3s2_i8", K.maxpool2d_3x3s2_i8,
+                            K.maxpool_i8, fed_pool)
+    for args in fed_blocks:
+        g, r = K.bottleneck_i8(*args), K.apply_bottleneck(*args)
+        if g.dtype != r.dtype or not torch.equal(g, r):
+            fail(f"bottleneck_i8 (stride {args[2]}, dilation {args[3]}, "
+                 f"{tuple(args[0].shape)}) differs from apply_bottleneck on "
+                 f"{int((g != r).sum())} of {r.numel()} elements")
+    for args in fed_cbr:
+        if not torch.equal(K.cbr_i8(*args), K.apply_cbr(*args)):
+            fail("cbr_i8 differs from apply_cbr")
+    log(f"bottleneck_i8: bit-exact to apply_bottleneck on all "
+        f"{len(fed_blocks)} blocks the {N_IMAGES} forwards ran (16 each, the "
+        f"last emitting float32); cbr_i8 bit-exact to apply_cbr on "
+        f"{len(fed_cbr)} calls")
+
+    # -- the card against the CPU at a small size, float32 heads ----------
+    model = init_weights(build_model(cfg),
+                         torch.Generator().manual_seed(0))
+    cpu_pkg = to_device(pkg, "cpu")
+    cpu_infer, _ = i8.make_int8_pspnet_infer(model, cpu_pkg,
+                                             dtype=torch.float32)
+    card_infer, _ = i8.make_int8_pspnet_infer(copy.deepcopy(model).to(dev),
+                                              pkg, dtype=torch.float32)
+    su8 = np.random.default_rng(6).integers(0, 256, (1, *PSP_SMALL, 3),
+                                            dtype=np.uint8)
+    sxs = i8.prepare_u8_input(su8, image_mean=cfg.image_mean)
+    t0 = time.perf_counter()
+    cpu_y = cpu_infer(cpu_pkg, sxs)
+    cpu_s = time.perf_counter() - t0
+    card_y = card_infer(pkg, sxs.to(dev)).cpu()
+    stem_eq = float((i8.stem1_i8(sxs, cpu_pkg["stem1"])
+                     == i8.stem1_i8(sxs.to(dev), pkg["stem1"]).cpu())
+                    .float().mean())
+    agree = float((card_y == cpu_y).float().mean())
+    log(f"PSPNet at {PSP_SMALL[0]}x{PSP_SMALL[1]}, float32 heads: card labels "
+        f"agree with the CPU on {agree:.6f} of pixels (bar {PSP_AGREE}); "
+        f"stem1 codes equal on {stem_eq:.6f} (float32 sums in another "
+        f"order); CPU forward {cpu_s:.2f} s")
+    if agree < PSP_AGREE:
+        fail(f"PSPNet card vs CPU label agreement {agree} < {PSP_AGREE}")
+
+    # -- timings -------------------------------------------------------------
+    inputs = [(pkg, x) for x in xss]
+    med, p90, mean_ms = forward_ms(infer, inputs, PSP_ROUNDS)
+    enq = enqueue_ms(infer, inputs)
+    log(f"PSPNet forward ({N_IMAGES} distinct images, "
+        f"{PSP_ROUNDS * N_IMAGES} forwards back to back): median {med:.4f} "
+        f"ms, p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
+        f"{1000.0 / mean_ms:.2f} FPS; host time to enqueue one forward (no "
+        f"sync) {enq:.4f} ms")
+    k10_ms = cuda_ms(K.maxpool2d_3x3s2_i8, fed_pool, reps=50)
+    k10_plain = cuda_ms(K.maxpool_i8, fed_pool, reps=5)
+    halves = [(x.half(),) for (x,) in fed_pool]
+    k10_lib = cuda_ms(lambda x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1),
+                      halves, reps=50)
+    cast_ms = cuda_ms(lambda x: x.half(), fed_pool, reps=50)
+    x0 = fed_pool[0][0]
+    k10_out = K.maxpool2d_3x3s2_i8(x0)
+    # bytes: the codes in, the pooled codes out; 8 maxes an output element
+    k10_bound = bound(nbytes(x0, k10_out), 8 * k10_out.numel(), "int8")
+    log(f"maxpool2d_3x3s2_i8 {tuple(x0.shape)} -> {tuple(k10_out.shape)}: "
+        f"kernel {k10_ms * 1000:.2f} us, plain {k10_plain * 1000:.2f} us, "
+        f"F.max_pool2d on a float16 copy {k10_lib * 1000:.2f} us (+ the cast "
+        f"{cast_ms * 1000:.2f} us); bound {k10_bound[0] * 1000:.2f} us "
+        f"({k10_bound[1]}: {nbytes(x0, k10_out) / 1e6:.2f} MB) = "
+        f"{100 * k10_bound[0] / k10_ms:.1f} % of the kernel's time")
+
+    one = fed_blocks[:16]  # the first forward's blocks
+    blk_ms = [cuda_ms(K.bottleneck_i8, [a], reps=5) for a in one]
+    blk_plain = sum(cuda_ms(K.apply_bottleneck, [a]) for a in one)
+    blk_bytes, blk_ops = 0, 0
+    for a in one:
+        b, o = block_work(*a, K.bottleneck_i8(*a))
+        blk_bytes, blk_ops = blk_bytes + b, blk_ops + o
+    body_bound = bound(blk_bytes, blk_ops, "int8")
+    log(f"bottleneck_i8, the 16 blocks of one forward: {sum(blk_ms):.4f} ms "
+        f"(plain float64 {blk_plain:.4f} ms); {blk_ops / 2e9:.2f} G int8 "
+        f"multiply-accumulates, bound {body_bound[0]:.5f} ms "
+        f"({body_bound[1]}) = {100 * body_bound[0] / sum(blk_ms):.2f} %")
+    for (x, e, s, d, emit), ms in zip(one, blk_ms):
+        log(f"  block {tuple(x.shape)} stride {s} dilation {d} "
+            f"{'int8' if emit else 'float32'} out: {ms:.4f} ms")
+    cbr_ms = cuda_ms(K.cbr_i8, fed_cbr[:2], reps=5) * 2
+    cbr_plain = cuda_ms(K.apply_cbr, fed_cbr[:2]) * 2
+    cbr_out = [K.cbr_i8(*a) for a in fed_cbr[:2]]
+    cbr_bound = bound(nbytes([a[:2] for a in fed_cbr[:2]], cbr_out), sum(
+        2 * o.shape[1] * o.shape[2] * a[1]["w"].numel()
+        for a, o in zip(fed_cbr[:2], cbr_out)), "int8")
+    log(f"cbr_i8, stem2 + stem3: {cbr_ms:.4f} ms (plain {cbr_plain:.4f} "
+        f"ms); bound {cbr_bound[0]:.5f} ms ({cbr_bound[1]})")
+
+    # the parts of the forward, each alone on the first forward's tensors
+    with torch.inference_mode():
+        feats = [i8.int8_backbone(pkg, x) for x in xss]
+    head = copy.deepcopy(model).to(dev).to(torch.bfloat16).eval()
+
+    def head_logits(f):
+        with torch.inference_mode():
+            return head.psp_layer(f[-1].permute(0, 3, 1, 2))
+
+    def head_tail(z):
+        with torch.inference_mode():
+            up = i8.upsample_by_scale(z.float(), 8)
+            return torch.log_softmax(up, dim=1).argmax(dim=1)
+
+    logits = [head_logits(f) for f in feats]
+    parts = [("stem1 (cuDNN float32 conv + requant)", cuda_ms(
+                 lambda x: i8.stem1_i8(x, pkg["stem1"]), [(x,) for x in xss])),
+             ("stem2 + stem3 (cbr_i8)", cbr_ms),
+             ("max pool (K10)", k10_ms),
+             ("16 Bottlenecks (bottleneck_i8)", sum(blk_ms)),
+             ("PPM head, bf16 (cuDNN)", cuda_ms(head_logits,
+                                                [(f,) for f in feats])),
+             ("x8 upsample + log_softmax + argmax", cuda_ms(
+                 head_tail, [(z,) for z in logits]))]
+    for part, ms in sorted(parts, key=lambda p: -p[1]):
+        log(f"  part {part}: {ms:.4f} ms = {100 * ms / mean_ms:.1f} % of the "
+            f"mean forward")
+    log(f"  sum of parts {sum(ms for _, ms in parts):.4f} ms vs mean forward "
+        f"{mean_ms:.4f} ms")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            infer(*args)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1000.0 / len(inputs)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1000.0 / len(inputs)
+    # the profiler's own start-up fills its wall time, so the idle share
+    # is taken against the forward's CUDA-event time instead
+    log(f"PSPNet profiled {len(inputs)} forwards: kernels {busy:.4f} ms per "
+        f"forward ({wall:.1f} ms wall under the profiler); against the "
+        f"mean forward of {mean_ms:.4f} ms the card is idle "
+        f"{max(0.0, 1 - busy / mean_ms):.3f} of the time")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1000.0 / len(inputs):9.4f}"
+            f" ms per forward, {e.count // len(inputs):4d} calls: "
+            f"{e.key[:100]}")
+
+    return [
+        {"name": "maxpool2d_3x3s2_i8", "route": "cuda", "source": SRC,
+         "replaces": f"{TPU}:1308",
+         "launches": got["maxpool2d_3x3s2_i8"], "max_abs_err": k10_err,
+         "ms": k10_ms, "plain_ms": k10_plain, "bound_ms": k10_bound[0],
+         "bound_by": k10_bound[1], "library_ms": k10_lib},
+        {"name": "bottleneck_i8", "route": "cuda", "source": SRC,
+         "replaces": XLA_BOTTLENECK, "launches": got["bottleneck_i8"],
+         "max_abs_err": 0, "ms": sum(blk_ms), "plain_ms": blk_plain,
+         "bound_ms": body_bound[0], "bound_by": body_bound[1],
+         "library_ms": None},
+        {"name": "cbr_i8", "route": "cuda", "source": SRC,
+         "replaces": XLA_STEM_CBR, "launches": got["cbr_i8"],
+         "max_abs_err": 0, "ms": cbr_ms, "plain_ms": cbr_plain,
+         "bound_ms": cbr_bound[0], "bound_by": cbr_bound[1],
+         "library_ms": None},
+    ]
 
 
 def step_ms(trainer, data, n):

@@ -170,6 +170,110 @@ def test_conv_launch_over_shared_memory_raises(dev):
         K._launch_conv(x, e, 1, 3)
 
 
+# -- K10 and the dilated Bottleneck body (PSPNet) ------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 240, 240, 128), (1, 15, 17, 8),
+                                   (1, 1, 1, 4), (1, 2, 3, 12),
+                                   (1, 64, 130, 64)])
+def test_maxpool_kernel_bit_exact(dev, shape):
+    """Any H, W (odd ones too) and any code, the pad identity -128 among
+    them."""
+    g = _gen(15)
+    x = _codes(g, shape, lo=-128)
+    x.view(-1)[:8] = -128
+    x = x.to(dev)
+    before = K.maxpool2d_3x3s2_i8.launches
+    got = K.maxpool2d_3x3s2_i8(x)
+    torch.cuda.synchronize()
+    assert K.maxpool2d_3x3s2_i8.launches == before + 1
+    assert got.shape == (1, (shape[1] + 1) // 2, (shape[2] + 1) // 2,
+                         shape[3])
+    _exact(got, K.maxpool_i8(x))
+
+
+def _cbr_k(g, k, cin, cout, dev):
+    """_cbr with the epilogue scale of a k x k conv (1x1 convs included)."""
+    e = _cbr(g, k, cin, cout, dev)
+    e["m"] = e["m"] * (9 / (k * k)) ** 0.5
+    return e
+
+
+@pytest.mark.parametrize("cin,stride,dilation", [(64, 1, 2), (64, 1, 4),
+                                                 (256, 1, 2), (512, 1, 4),
+                                                 (128, 2, 1), (64, 2, 2)])
+def test_conv_kernel_dilated_bit_exact(dev, cin, stride, dilation):
+    """cbr_i8 at the body's dilations, one weight chunk (cin <= 128) and
+    several (cin 256, 512)."""
+    g = _gen(16)
+    x = _codes(g, (1, 19, 45, cin)).to(dev)
+    e = _cbr_k(g, 3, cin, 96, dev)
+    before = K.cbr_i8.launches
+    got = K.cbr_i8(x, e, stride, dilation, dilation=dilation)
+    assert K.cbr_i8.launches == before + 1
+    _exact(got, K.apply_cbr(x, e, stride, dilation, dilation=dilation))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_conv_kernel_out_f32_bit_exact(dev, mode):
+    """The float32 epilogue (the body's last block) in each mode."""
+    g = _gen(17)
+    x = _codes(g, (1, 9, 37, 512)).to(dev)
+    e = _cbr_k(g, 1, 512, 256, dev)
+    z = K.fma(K.qconv(x, e["w"], 1, 0).float(), e["m"], e["c"])
+    kw = {}
+    if mode == 1:
+        res = _codes(g, (1, 9, 37, 256)).to(dev)
+        rr = float(torch.tensor(0.0371))  # the kernel takes a float32
+        kw = {"res": res, "rr": rr}
+        z = K.fma(res.float(), rr, z)
+    elif mode == 2:
+        xd = _codes(g, (1, 9, 37, 1024)).to(dev)
+        down = _cbr_k(g, 1, 1024, 256, dev)
+        kw = {"xd": xd, "down": down, "sd": 1}
+        z = K.fma(K.qconv(xd, down["w"], 1, 0).float(), down["m"], z) \
+            + down["c"]
+    got = K._launch_conv(x, e, 1, 0, mode=mode, out_f32=True, **kw)
+    assert got.dtype == torch.float32
+    _exact(got, torch.relu(z))
+
+
+def _bottleneck(g, cin, mid, cout, projection, dev):
+    e = {"conv1": _cbr_k(g, 1, cin, mid, dev),
+         "conv2": _cbr_k(g, 3, mid, mid, dev),
+         "conv3": _cbr_k(g, 1, mid, cout, dev),
+         "res_ratio": float(torch.rand((), generator=g)) + 0.3}
+    if projection:
+        e["down"] = _cbr_k(g, 1, cin, cout, dev)
+    return e
+
+
+# ResNet-50 at output stride 8: (cin, mid, cout, stride, dilation,
+# projection, emit_int8); layer4_0's projection reads cin = 1024
+R50_BLOCKS = [(64, 64, 256, 1, 1, True, True), (256, 64, 256, 1, 1, False,
+                                                  True),
+              (256, 128, 512, 2, 1, True, True),
+              (512, 256, 1024, 1, 1, True, True),
+              (1024, 256, 1024, 1, 2, False, True),
+              (1024, 512, 2048, 1, 2, True, True),
+              (2048, 512, 2048, 1, 4, False, True),
+              (2048, 512, 2048, 1, 4, False, False)]
+
+
+@pytest.mark.parametrize("case", R50_BLOCKS)
+def test_bottleneck_kernel_bit_exact(dev, case):
+    cin, mid, cout, stride, dilation, proj, emit = case
+    g = _gen(18)
+    x = _codes(g, (1, 23, 30, cin)).to(dev)
+    e = _bottleneck(g, cin, mid, cout, proj, dev)
+    before = K.bottleneck_i8.launches
+    got = K.bottleneck_i8(x, e, stride, dilation, emit)
+    torch.cuda.synchronize()
+    assert K.bottleneck_i8.launches == before + 3
+    ref = K.apply_bottleneck(x, e, stride, dilation, emit)
+    _exact(got, ref)
+    assert 0 < float((ref > 0).float().mean()) < 1
+
+
 @pytest.mark.parametrize("shape,out_hw", [
     ((1, 13, 21, 19), (100, 167)),   # neither H nor W a multiple of 32
     ((2, 16, 24, 150), (97, 131)),   # ADE's 150 classes, batch 2

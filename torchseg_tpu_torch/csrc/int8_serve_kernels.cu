@@ -1,14 +1,15 @@
-// Hand-written Hopper (sm_90a) kernels for the int8-through BiSeNet-R18
-// serving graph.  Python side: torchseg_tpu_torch/ops/kernels/
-// int8_serve_kernels.py (wrappers, shape checks, plain PyTorch versions).
+// Hand-written Hopper (sm_90a) kernels for the int8-through serving graphs
+// (BiSeNet-R18 and the dilated Bottleneck body of PSPNet).  Python side:
+// torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
+// checks, plain PyTorch versions).
 //
-// Two kernels, six entry points of the serving graph:
+// Three kernels, nine entry points of the serving graphs:
 //
 //   stem_pool_i8_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
 //       s2d_stem_pool_quad_i8 (and the v1/v2 stems at :128 and :214).
-//   conv_i8_kernel             the shared int8 3x3/1x1 conv + epilogue,
-//       launched by
+//   conv_i8_kernel             the shared int8 conv + epilogue (any k,
+//       stride, dilation), launched by
 //       K2 conv3x3s2_i8   replacing conv3x3s2_i8_quad (:515), twice per
 //                         forward through spatial_path_i8 (:569/:587);
 //       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763):
@@ -20,9 +21,17 @@
 //       K5 down_block_i8  replacing down_block_i8_from_paired (:1136),
 //                         stage 4's strided block: two launches;
 //       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
-//                         stride-1 block: two launches.
+//                         stride-1 block: two launches;
+//       cbr_i8            the deep stem's stem2/stem3 CBRs, one launch
+//                         each (XLA convs in JAX, deploy/int8_serve.py:756);
+//       bottleneck_i8     a dilated Bottleneck, three launches: 1x1, 3x3
+//                         with stride and dilation, 1x1 with the residual
+//                         or the 1x1/s projection in its epilogue (XLA
+//                         in JAX, deploy/int8_serve.py:716 _apply_bottleneck).
+//   maxpool_i8_kernel    (K10) replaces maxpool2d_3x3s2_i8 (:1308), the
+//       standalone 3x3/2 pad-1 max pool after the deep stem.
 //
-// Numerics (the spec is the JAX XLA path, deploy/int8_serve.py:909-958 and
+// Numerics (the spec is the JAX XLA path, deploy/int8_serve.py:716-958 and
 // :1274-1295, as XLA compiles it on the CPU where the tests run it):
 //   * int8 x int8 products accumulate exactly in int32 (__dp4a);
 //   * the stem reads bf16 weights as f32 and accumulates in f32 (its order
@@ -33,9 +42,11 @@
 //         cbr:        z = fma(y, m, c)
 //         identity:   z = fma(x, rr, fma(y, m, c))
 //         projection: z = fma(yd, md, fma(y, m, c)) + cd
-//     so the kernels write exactly these with __fmaf_rn and __fadd_rn, and
-//     the library is built with -fmad=false so nvcc contracts nothing else;
-//   * rintf rounds half to even, as jnp.round does.
+//     (the BasicBlock's conv2 and the Bottleneck's conv3 alike), so the
+//     kernels write exactly these with __fmaf_rn and __fadd_rn, and the
+//     library is built with -fmad=false so nvcc contracts nothing else;
+//   * rintf rounds half to even, as jnp.round does;
+//   * the pool only compares codes: it is exact for any code.
 //
 // Every launching entry point runs on the caller's stream, allocates
 // nothing and returns cudaGetLastError(); tsg_init() runs once per device
@@ -184,16 +195,20 @@ size_t stem_smem_bytes(int cin, int cout, int n_sp) {
 }
 
 // ---------------------------------------------------------------------------
-// Shared int8 conv + epilogue (K2, and the links of the K3-K6 chains).
+// Shared int8 conv + epilogue (K2, the links of the K3-K6 chains, the deep
+// stem's CBRs and the Bottleneck chains).
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
-// HWIO int8 weights (k, k, cin, cout), stride s, symmetric pad, exact in
-// int32; then one of three epilogues, all ending in ReLU and requant to
-// int8 codes (ho, wo, cout):
+// HWIO int8 weights (k, k, cin, cout), stride s, dilation d, symmetric pad,
+// exact in int32; then one of three epilogues, all ending in ReLU and
+// either the requant to int8 codes or (out_f32) the float32 value itself,
+// (ho, wo, cout):
 //   mode 0 (CBR):        z = fma(y, m, c)
 //   mode 1 (identity):   z = fma(res, rr, fma(y, m, c)), res (ho, wo, cout)
 //   mode 2 (projection): z = fma(yd, md, fma(y, m, c)) + cd, with
 //        yd = 1x1/sd conv of the block input xd (hd, wd, cdin) by wd.
+// The projection's weights are staged whole (cdin4 x kConvCO words: 64 KB
+// at cdin = 1024, the widest projection of ResNet-50/101).
 //
 // What bounds it: int8 MACs, 2*ho*wo*cout*k*k*cin (9.7 GOP for one stage-1
 // conv at 1024x2048), which at dp4a rates is a fraction of a millisecond
@@ -239,18 +254,18 @@ template <int kRows>
 __global__ void __launch_bounds__(kConvThreads)
 conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
                const int8_t* __restrict__ wt, int k, int stride, int pad,
-               int cout, const float* __restrict__ m,
+               int dil, int cout, const float* __restrict__ m,
                const float* __restrict__ c, int mode,
                const int8_t* __restrict__ res, float rr,
                const int8_t* __restrict__ xd, int hd, int wd_, int cdin,
                int sd, const int8_t* __restrict__ wdt,
                const float* __restrict__ md, const float* __restrict__ cd,
-               int8_t* __restrict__ out, int ho, int wo) {
+               void* __restrict__ out, int out_f32, int ho, int wo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int cin4 = cin / 4;
   const int cdin4 = cdin / 4;
   const int chunk = min(cin4, kConvChunk);
-  const int kw_in = (kConvTW - 1) * stride + k;   // staged input columns
+  const int kw_in = (kConvTW - 1) * stride + (k - 1) * dil + 1;  // staged columns
   int* w_s = reinterpret_cast<int*>(smem);                   // [k*k][chunk][CO]
   int* x_s = w_s + k * k * chunk * kConvCO;                  // [k][kw_in][chunk]
   int* wd_s = x_s + k * kw_in * chunk;                       // [cdin4][CO]
@@ -317,7 +332,7 @@ conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
           const int ci = i % cn;
           const int t = (i / cn) % kw_in;
           const int ky = i / (cn * kw_in);
-          const int iy = iy0 + ky, ix = ix0 + t;
+          const int iy = iy0 + ky * dil, ix = ix0 + t;
           int v = 0;
           if (iy >= 0 && iy < h && ix >= 0 && ix < w)
             v = x32[(static_cast<size_t>(iy) * w + ix) * cin4 + c0 + ci];
@@ -327,7 +342,7 @@ conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
         for (int ky = 0; ky < k; ++ky) {
           for (int kx = 0; kx < k; ++kx) {
             const int* wrow = w_s + ((ky * k + kx) * cn) * kConvCO + co_l;
-            const int* xrow = x_s + (ky * kw_in + pg * kConvPX * stride + kx) * cn;
+            const int* xrow = x_s + (ky * kw_in + pg * kConvPX * stride + kx * dil) * cn;
             for (int ci = 0; ci < cn; ++ci) {
               const int wv = wrow[ci * kConvCO];
 #pragma unroll
@@ -378,20 +393,71 @@ conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
           } else if (mode == 2) {
             z = __fadd_rn(__fmaf_rn(__int2float_rn(accd[j]), mdv, z), cdv);
           }
-          out[o] = requant(fmaxf(z, 0.f));
+          if (out_f32)
+            static_cast<float*>(out)[o] = fmaxf(z, 0.f);
+          else
+            static_cast<int8_t*>(out)[o] = requant(fmaxf(z, 0.f));
         }
       }
     }
   }
 }
 
-size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin) {
+size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) {
   const size_t cin4 = cin / 4, cdin4 = cdin / 4;
   const size_t chunk = cin4 < static_cast<size_t>(kConvChunk) ? cin4 : kConvChunk;
-  const size_t kw_in = (kConvTW - 1) * stride + k;
+  const size_t kw_in = (kConvTW - 1) * stride + (k - 1) * dil + 1;
   size_t words = k * k * chunk * kConvCO + k * kw_in * chunk;
   if (mode == 2) words += cdin4 * kConvCO + kConvTW * cdin4;
   return 4 * words;
+}
+
+// ---------------------------------------------------------------------------
+// K10: standalone 3x3 stride-2 pad-1 max pool on NHWC int8 codes.
+//
+// Replaces torchseg_tpu/ops/pallas/int8_serve_kernels.py:1308
+// maxpool2d_3x3s2_i8 (_maxpool_kernel at :1271), the pool after the deep
+// stem of the dilated Bottleneck body (deploy/int8_serve.py:758).
+//
+// What it computes: out (ceil(h/2), ceil(w/2), C) = the max over each 3x3
+// window at stride 2, with the pad at -128 (XLA's s8 reduce-window
+// identity, int8_serve.py:1026-1029), so it is exact for any code: the
+// window's centre is always a real element.  The Pallas kernel assumes
+// non-negative codes, h % 8 == 0 and computes in bf16 over a width-paired
+// view; none of that is needed here.
+//
+// What bounds it: bytes.  It reads h*w*C and writes a quarter of that (9.2
+// MB at (240, 240, 128), 2.75 us at 3.35 TB/s) and does nine byte-maxes an
+// output.  Design: one thread per four channels of an output pixel; each
+// of the nine window words is one 4-byte load (neighbouring threads read
+// neighbouring words) and one __vmaxs4, the four signed byte maxes at once.
+// The windows overlap by a row and a column, and those re-reads hit L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kPoolThreads = 256;
+
+__global__ void __launch_bounds__(kPoolThreads)
+maxpool_i8_kernel(const int* __restrict__ x, int h, int w, int c4,
+                  unsigned int* __restrict__ out, int ho, int wo) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(ho) * wo * c4) return;
+  const int ch = static_cast<int>(i % c4);
+  const long long p = i / c4;
+  const int ox = static_cast<int>(p % wo), oy = static_cast<int>(p / wo);
+  unsigned int mx = 0x80808080u;  // -128 in every byte
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const int iy = 2 * oy - 1 + dy;
+    if (iy < 0 || iy >= h) continue;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int ix = 2 * ox - 1 + dx;
+      if (ix < 0 || ix >= w) continue;
+      mx = __vmaxs4(mx, static_cast<unsigned int>(
+                            x[(static_cast<size_t>(iy) * w + ix) * c4 + ch]));
+    }
+  }
+  out[i] = mx;
 }
 
 }  // namespace
@@ -430,8 +496,9 @@ int tsg_smem_optin(void) {
 }
 
 // Dynamic shared memory one tsg_conv_i8 launch with these arguments takes.
-long long tsg_conv_smem_bytes(int cin, int k, int stride, int mode, int cdin) {
-  return static_cast<long long>(conv_smem_bytes(cin, k, stride, mode, cdin));
+long long tsg_conv_smem_bytes(int cin, int k, int stride, int mode, int cdin,
+                              int dil) {
+  return static_cast<long long>(conv_smem_bytes(cin, k, stride, mode, cdin, dil));
 }
 
 int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
@@ -447,23 +514,35 @@ int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// out is int8 codes, or float32 values with out_f32 != 0.
 int tsg_conv_i8(const void* x, int h, int w, int cin, const void* wt, int k,
-                int stride, int pad, int cout, const void* m, const void* c,
-                int mode, const void* res, float rr, const void* xd, int hd,
-                int wd, int cdin, int sd, const void* wdt, const void* md,
-                const void* cd, void* out, int ho, int wo, void* stream) {
-  const size_t smem = conv_smem_bytes(cin, k, stride, mode, cdin);
+                int stride, int pad, int dil, int cout, const void* m,
+                const void* c, int mode, const void* res, float rr,
+                const void* xd, int hd, int wd, int cdin, int sd,
+                const void* wdt, const void* md, const void* cd, void* out,
+                int out_f32, int ho, int wo, void* stream) {
+  const size_t smem = conv_smem_bytes(cin, k, stride, mode, cdin, dil);
   dim3 grid((wo + kConvTW - 1) / kConvTW, (ho + kConvTH - 1) / kConvTH,
             (cout + kConvCO - 1) / kConvCO);
   // several weight chunks: hold all the block's rows (see conv_i8_kernel)
   const auto kernel = cin / 4 > kConvChunk ? conv_i8_kernel<kConvTH> : conv_i8_kernel<1>;
   kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt),
-      k, stride, pad, cout, static_cast<const float*>(m),
+      k, stride, pad, dil, cout, static_cast<const float*>(m),
       static_cast<const float*>(c), mode, static_cast<const int8_t*>(res), rr,
       static_cast<const int8_t*>(xd), hd, wd, cdin, sd,
       static_cast<const int8_t*>(wdt), static_cast<const float*>(md),
-      static_cast<const float*>(cd), static_cast<int8_t*>(out), ho, wo);
+      static_cast<const float*>(cd), out, out_f32, ho, wo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (h, w, C) int8, 4-byte aligned, C % 4 == 0 -> out (ho, wo, C) int8.
+int tsg_maxpool_i8(const void* x, int h, int w, int c, void* out, int ho,
+                   int wo, void* stream) {
+  const long long n = static_cast<long long>(ho) * wo * (c / 4);
+  const unsigned int blocks = static_cast<unsigned int>((n + kPoolThreads - 1) / kPoolThreads);
+  maxpool_i8_kernel<<<blocks, kPoolThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), h, w, c / 4, static_cast<unsigned int*>(out), ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,24 +1,32 @@
-"""Int8-through serving for classic-stem BiSeNet-R18 (counterpart of
-torchseg_tpu/deploy/int8_serve.py).
+"""Int8-through serving (counterpart of torchseg_tpu/deploy/int8_serve.py)
+for classic-stem BiSeNet-R18 and for PSPNet on the dilated deep-stem
+Bottleneck ResNet.
 
-The graph: the raw uint8 image in the pre-padded s2d layout, the fused
+BiSeNet-R18: the raw uint8 image in the pre-padded s2d layout, the fused
 7x7/2 dual stem with its backbone max pool (kernel K1), the two SpatialPath
 3x3/2 CBRs (K2, twice) and its 1x1, ResNet-18 stage 1 (K3), stages 2 and 3
 (K4, twice), stage 4 as its strided block (K5) and its stride-1 block (K6),
 and the int8 ARM / refine / FFM / head decoder, then the head's logits: at
 /8 for the .speed heads, and for the full-resolution heads either upsampled
 (``argmax=True``) or handed raw to the upsample-argmax kernel K7
-(``argmax="tiled"``).  Every conv consumes int8 and produces int8; BN, ReLU
-and the requant to the consumer's scale fold into a per-channel epilogue on
-the int32 accumulator.
+(``argmax="tiled"``).
 
-Ported is the one path ``build_int8_serving_for_experiment`` picks for R18:
-the r18 kind with ``decoder="int8"``, whose stages 3 and 4 run as the JAX
-graph runs them with its stage-3/4 kernel gates on (``perf_probe.py
---variant int8-l34``).  The TPU-only arms of the JAX module (stem modes,
-carrier dtypes, the ``_L3_ENABLE``/``_L4_ENABLE`` gates, block-size and
-layout knobs) have no counterpart.  Still to port (ROADMAP A3/A8): the X39
-kind, the bf16-decoder branch, and the other families' int8 wrappers.
+PSPNet-R50/R101 (``build_int8_backbone_package``,
+``make_int8_pspnet_infer``): the raw uint8 image pre-padded by one pixel,
+the deep stem's first 3x3/2 conv in bf16 with the normalization folded
+(an XLA conv in JAX; ``F.conv2d`` here), the stem's two int8 3x3 CBRs
+(``cbr_i8``), the standalone int8 3x3/2 max pool (K10), the 16 (R50) or 33
+(R101) dilated Bottlenecks (``bottleneck_i8``, three launches each, the
+last block emitting float), then the PPM head in ``dtype`` through the
+model's ``context_blocks`` passthrough, x8 upsampled in float32.
+
+Every conv consumes int8 and produces int8; BN, ReLU and the requant to
+the consumer's scale fold into a per-channel epilogue on the int32
+accumulator.  The TPU-only arms of the JAX module (stem modes, carrier
+dtypes, the ``_L3_ENABLE``/``_L4_ENABLE`` gates, block-size and layout
+knobs) have no counterpart.  Still to port (ROADMAP A3/A8): the X39 kind,
+the BiSeNet bf16-decoder branch, BiSeNet-R101, and the PSANet, DFN and
+FCN heads over the Bottleneck body.
 
 Weights: per-output-channel symmetric int8 (scale = absmax/127).
 Activations: per-tensor scales from a float-graph calibration run.
@@ -27,18 +35,25 @@ package built here from the same float weights and statistics holds the
 same int8 codes.
 """
 
+import copy
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models.resnet import BasicBlock, ResNet
+from ..ops import wide
 from ..ops.kernels.int8_serve_kernels import (
     apply_cbr as _apply_cbr,
+    bottleneck_i8,
+    cbr_i8,
     down_block_i8,
     down_stage_i8,
+    fma as _fma,
     l1_stage_i8,
+    maxpool2d_3x3s2_i8,
     requant as _requant,
     res_block_i8,
     spatial_path_i8,
@@ -50,6 +65,8 @@ from .fused_stem import _stem_weights, fold_bn_affine, hwio
 
 _NOT_PORTED = ("not ported yet (ROADMAP A3: the port's int8-through graph "
                "has only the R18 kind with the int8 decoder)")
+_NOT_PORTED_A8 = ("not ported yet (ROADMAP A8: the port's int8 Bottleneck "
+                  "body serves only the PSPNet head)")
 
 
 # ----------------------------------------------------------------------
@@ -320,6 +337,133 @@ def build_int8_package(model: nn.Module, stats: Dict[str, np.ndarray], *,
 
 
 # ----------------------------------------------------------------------
+# dilated Bottleneck backbones (PSPNet: resnet50/101 v1c, output stride 8)
+# ----------------------------------------------------------------------
+
+RESNET_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+DILATED = {"strides": (1, 2, 1, 1), "dilations": (1, 1, 2, 4)}
+
+
+def block_statics(depth: int):
+    """{"l{li}_{bi}": (stride, dilation)} of each Bottleneck of the
+    dilated body (JAX int8_serve.py:564-595): a dilated stage's first
+    block gets dilation // 2 and the stage's stride, every later block
+    stride 1 and the full dilation."""
+    out = {}
+    for li, nblocks in enumerate(RESNET_LAYERS[depth]):
+        dilation = DILATED["dilations"][li]
+        first_dil = max(dilation // 2, 1) if dilation > 1 else 1
+        for bi in range(nblocks):
+            out[f"l{li + 1}_{bi}"] = ((DILATED["strides"][li], first_dil)
+                                      if bi == 0 else (1, dilation))
+    return out
+
+
+def build_int8_backbone_package(model: nn.Module,
+                                stats: Dict[str, np.ndarray], *, depth: int,
+                                eps: float = 1e-5,
+                                image_mean=(0.485, 0.456, 0.406),
+                                image_std=(0.229, 0.224, 0.225),
+                                device=None):
+    """Int8-through package for a v1c deep-stem Bottleneck ResNet at
+    ``model.backbone`` with PSPNet's dilated strides (``DILATED``; JAX
+    int8_serve.py:512-609), on ``device`` (default: the model's).
+
+    stem1 (3x3/2 over the raw image) keeps bf16 weights with /255, mean
+    and std folded in and the 128 shift in its bias; stem2, stem3 and
+    every Bottleneck conv are int8 with BN and the requant folded into
+    their epilogues.  The body's last block emits float (``s_out`` None);
+    ``s_c4``/``s_c8``/``s_c16`` dequantize the earlier stages."""
+    bb = model.backbone
+    if not getattr(bb, "deep_stem", False):
+        raise ValueError(
+            "build_int8_backbone_package expects a v1c deep-stem resnet "
+            "(backbone.stem_conv1)")
+    if device is None:
+        device = next(model.parameters()).device
+    layers = RESNET_LAYERS[depth]
+    st = lambda path: _scale(stats, path)  # noqa: E731
+    mean = np.asarray(image_mean, np.float32)
+    std = np.asarray(image_std, np.float32)
+    pkg = {"kind": f"bottleneck{depth}"}
+
+    k1 = hwio(bb.stem_conv1)  # (3, 3, 3, 64)
+    kf = k1 / (255.0 * std)[None, None, :, None]
+    cshift = (128.0 / 255.0 - mean) / std
+    shift = np.einsum("hwio,i->o", k1, cshift)
+    a1, b1 = fold_bn_affine(bb.stem_bn1, eps)
+    s_c2 = st("backbone/stem_conv2")
+    pkg["stem1"] = {
+        "wf": _to_dev(kf, device, torch.float32).to(torch.bfloat16),
+        "m": _to_dev(a1 / s_c2, device, torch.float32),
+        "c": _to_dev((shift * a1 + b1) / s_c2, device, torch.float32),
+    }
+    s_c3 = st("backbone/stem_conv3")
+    pkg["stem2"] = _convbn_pack(bb.stem_conv2, bb.stem_bn2, eps, s_c2, s_c3,
+                                device)
+    s_l1 = st("backbone/layer1_0/conv1")
+    pkg["stem3"] = _convbn_pack(bb.stem_conv3, bb.bn1, eps, s_c3, s_l1,
+                                device)
+
+    statics = block_statics(depth)
+    s_block_in = s_l1  # post-maxpool (max is monotone)
+    for li, nblocks in enumerate(layers):
+        for bi in range(nblocks):
+            name = f"layer{li + 1}_{bi}"
+            blk = getattr(bb, name)
+            s_m1 = st(f"backbone/{name}/conv2")
+            s_m2 = st(f"backbone/{name}/conv3")
+            if li == 3 and bi == nblocks - 1:
+                s_out = None
+            elif bi + 1 < nblocks:
+                s_out = st(f"backbone/layer{li + 1}_{bi + 1}/conv1")
+            else:
+                s_out = st(f"backbone/layer{li + 2}_0/conv1")
+            stride, dilation = statics[f"l{li + 1}_{bi}"]
+            e = {
+                "conv1": _convbn_pack(blk.conv1, blk.bn1, eps, s_block_in,
+                                      s_m1, device),
+                "conv2": _convbn_pack(blk.conv2, blk.bn2, eps, s_m1, s_m2,
+                                      device),
+                "conv3": _convbn_pack(blk.conv3, blk.bn3, eps, s_m2, s_out,
+                                      device),
+                "res_ratio": _f32(s_block_in / (s_out if s_out is not None
+                                                else 1.0)),
+                "stride": stride,
+                "dilation": dilation,
+            }
+            if blk.downsample_conv is not None:
+                e["down"] = _convbn_pack(blk.downsample_conv,
+                                         blk.downsample_bn, eps, s_block_in,
+                                         s_out, device)
+            pkg[f"l{li + 1}_{bi}"] = e
+            if s_out is not None:
+                s_block_in = s_out
+    pkg["s_c16"] = _f32(st("backbone/layer4_0/conv1"))
+    pkg["s_c4"] = _f32(st("backbone/layer2_0/conv1"))
+    pkg["s_c8"] = _f32(st("backbone/layer3_0/conv1"))
+    pkg["layers"] = layers
+    return pkg
+
+
+def prepare_u8_input(img_u8, pad: int = 1,
+                     image_mean=(0.485, 0.456, 0.406), device=None):
+    """(1, H, W, 3) uint8 -> pre-padded (1, H+2p, W+2p, 3) int8 (value-128)
+    for the deep-stem int8 path; the pad is the int8 code closest to
+    normalized zero (JAX int8_serve.py:701-713)."""
+    x = np.asarray(img_u8)
+    if x.dtype != np.uint8:
+        raise TypeError(f"img_u8 must be uint8, got {x.dtype}")
+    b, h, w, c = x.shape
+    padv = (np.round(np.asarray(image_mean) * 255.0) - 128).astype(np.int16)
+    out = np.empty((b, h + 2 * pad, w + 2 * pad, c), np.int16)
+    out[...] = padv
+    out[:, pad:pad + h, pad:pad + w, :] = x.astype(np.int16) - 128
+    return torch.from_numpy(np.clip(out, -128, 127).astype(np.int8)).to(
+        device)
+
+
+# ----------------------------------------------------------------------
 # device-side forward
 # ----------------------------------------------------------------------
 
@@ -426,22 +570,98 @@ def make_int8_through_infer(model, pkg, *, argmax=True):
     return infer, pkg
 
 
+def stem1_i8(x_i8, s1):
+    """The deep stem's first conv, 3x3/2 valid over the pre-padded codes
+    with the bf16 weights, then fma + ReLU + requant (JAX int8_serve.py:
+    749-755, an XLA bf16 conv with a float32 accumulator).  The products
+    of codes and bf16 weights are exact in float32, so only the order of
+    the sum is free: on the card a float32 cuDNN conv (TF32 keeps them
+    exact too), on the CPU a float64 conv rounded once to float32, as
+    ``stem_pool_i8_plain`` does."""
+    dt = torch.float64 if x_i8.device.type == "cpu" else torch.float32
+    y = F.conv2d(x_i8.permute(0, 3, 1, 2).to(dt),
+                 s1["wf"].permute(3, 2, 0, 1).to(dt), stride=2)
+    y = y.float().permute(0, 2, 3, 1)
+    return _requant(torch.relu(_fma(y, s1["m"], s1["c"])))
+
+
+def int8_backbone(pkg, x_i8, dtype=torch.bfloat16):
+    """The int8 Bottleneck body (JAX make_int8_backbone_fn's ``run``):
+    the pre-padded (1, H+2, W+2, 3) int8 image -> the four stage features
+    NHWC, the first two as int8 codes, the third dequantized and the last
+    (the float emitted by the final block) in ``dtype``."""
+    q = stem1_i8(x_i8, pkg["stem1"])
+    q = cbr_i8(q, pkg["stem2"], 1, 1)
+    q = cbr_i8(q, pkg["stem3"], 1, 1)
+    x = maxpool2d_3x3s2_i8(q)
+    layers = pkg["layers"]
+    feats = []
+    for li, nblocks in enumerate(layers):
+        for bi in range(nblocks):
+            e = pkg[f"l{li + 1}_{bi}"]
+            last = li == len(layers) - 1 and bi == nblocks - 1
+            x = bottleneck_i8(x, e, e["stride"], e["dilation"],
+                              emit_int8=not last)
+        feats.append(x)
+    c16_f = (feats[2].float() * pkg["s_c16"]).to(dtype)
+    return feats[0], feats[1], c16_f, feats[3].to(dtype)
+
+
+def make_int8_pspnet_infer(model, pkg, *, argmax=True, dtype=torch.bfloat16):
+    """Int8-through PSPNet serving (JAX int8_serve.py:778-797): the int8
+    Bottleneck body, then the model's PPM head in ``dtype`` through its
+    ``context_blocks`` passthrough (a copy of the model in ``dtype`` when
+    it is in another type), x8 upsampled in float32.
+
+    Returns ``(infer, pkg)``: ``infer(pkg, x_i8)`` takes the pre-padded
+    int8 image from ``prepare_u8_input`` on the package's device and
+    returns (1, H, W) int32 labels, or with ``argmax=False`` the (1, H, W,
+    classes) float32 log-probs."""
+    if not str(pkg.get("kind", "")).startswith("bottleneck"):
+        raise NotImplementedError(f"this package is {_NOT_PORTED_A8}")
+    head_model = model
+    if next(model.parameters()).dtype != dtype:
+        head_model = copy.deepcopy(model).to(dtype)
+    head_model.eval()
+
+    @torch.inference_mode()
+    def infer(pkg, x_i8):
+        feats = int8_backbone(pkg, x_i8, dtype)
+        blocks = tuple(f.permute(0, 3, 1, 2) for f in feats)
+        logp = head_model(None, context_blocks=blocks)
+        if argmax:
+            return logp.argmax(dim=1).to(torch.int32)
+        return wide(logp).permute(0, 2, 3, 1)
+
+    return infer, pkg
+
+
 def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
                                       calib_images=None,
                                       calib_shape=(1, 256, 512, 3),
                                       seed: int = 0):
     """Calibrate, pack and wrap the int8-through graph for an experiment,
-    on the model's device.
+    on the model's device: BiSeNet-R18 (int8 decoder) or PSPNet-R50/R101
+    (the int8 Bottleneck body and the PPM head in bf16; JAX
+    int8_serve.py:1541-1556).  Calibration runs the float model as it is.
 
     calib_images: uint8 NHWC arrays (None: two random images of
     ``calib_shape`` from ``np.random.default_rng(seed)``, as the JAX
     function draws them).  Returns ``(infer, pkg, prepare)``:
     ``infer(pkg, xs)`` serves and ``prepare(img_u8)`` is the host-side
-    input prep onto the model's device."""
+    input prep onto the model's device.  PSANet, DFN, FCN and
+    BiSeNet-R101 raise NotImplementedError (ROADMAP A8)."""
+    if cfg.model.startswith(("psanet", "dfn", "fcn")) or \
+            cfg.model == "bisenet_r101":
+        raise NotImplementedError(f"{cfg.model} is {_NOT_PORTED_A8}")
+    psp = cfg.model.startswith("pspnet")
     classic_stem = cfg.model in ("bisenet_r18", "bisenet_x39")
     if decoder is None:
         decoder = "int8" if classic_stem else "bf16"
-    if cfg.model != "bisenet_r18" or decoder != "int8":
+    if psp and decoder != "bf16":
+        raise ValueError("decoder='int8' only applies to the classic-stem "
+                         f"BiSeNet int8-through path (got {cfg.model})")
+    if not psp and (cfg.model != "bisenet_r18" or decoder != "int8"):
         raise NotImplementedError(
             f"{cfg.model} with decoder={decoder!r} is {_NOT_PORTED}")
     device = next(model.parameters()).device
@@ -455,6 +675,18 @@ def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
              .permute(0, 3, 1, 2).contiguous().to(device)
              for u in calib_images]
     stats = calibrate_channelwise(model.eval(), calib)
+    if psp:
+        pkg = build_int8_backbone_package(
+            model, stats, depth=int(cfg.model.rsplit("r", 1)[-1]),
+            eps=cfg.bn_eps, image_mean=cfg.image_mean,
+            image_std=cfg.image_std, device=device)
+        infer, pkg = make_int8_pspnet_infer(model, pkg)
+
+        def prepare(u8):
+            return prepare_u8_input(u8, image_mean=cfg.image_mean,
+                                    device=device)
+
+        return infer, pkg, prepare
     pkg = build_int8_package(model, stats, eps=cfg.bn_eps,
                              image_mean=cfg.image_mean,
                              image_std=cfg.image_std, decoder=decoder,

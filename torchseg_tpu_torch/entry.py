@@ -1,11 +1,16 @@
 """Main-path entry (counterpart of ``__graft_entry__.entry``).
 
-``entry()`` builds the shipped serving graph for the flagship model,
-BiSeNet-R18 real-time (``cityscapes.bisenet.R18.speed``) at 1024x2048, as
-the int8-through graph with seeded random weights, calibrated on two random
-256x512 images from ``np.random.default_rng(0)`` as the JAX entry is.  It
-returns ``infer, (pkg, xs)``; ``infer(pkg, xs)`` gives (1, H/8, W/8) int32
-labels.
+``serve_entry(experiment)`` builds an experiment's int8-through serving
+graph, the graph ``torchseg_tpu.tools.speed --int8-through`` builds in
+JAX, with random weights from ``seed``, calibrated on two random 256x512
+images from ``np.random.default_rng(0)`` as the JAX function is.  It returns
+``infer, (pkg, xs)`` for a zero image of ``image_hw``.  Served so far:
+BiSeNet-R18 (``infer(pkg, xs)`` gives (1, H/8, W/8) int32 labels for the
+.speed model) and PSPNet-R50/R101 on ADE (``PSP_EXPERIMENT``, 480x480;
+(1, H, W) int32 labels, the PPM head in bf16).
+
+``entry()`` is ``serve_entry`` for the flagship model, BiSeNet-R18
+real-time (``cityscapes.bisenet.R18.speed``) at 1024x2048.
 
 ``train_entry()`` builds the training step of BiSeNet-R18
 (``cityscapes.bisenet.R18``) on one device, the counterpart of the first
@@ -34,6 +39,7 @@ from .experiments.registry import build_loss_fn, build_model, get_experiment
 from .models import init_weights
 
 EXPERIMENT = "cityscapes.bisenet.R18.speed"
+PSP_EXPERIMENT = "ade.pspnet.R50_v1c"
 TRAIN_EXPERIMENT = "cityscapes.bisenet.R18"
 
 
@@ -42,14 +48,21 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def entry(device="cuda", image_hw=(1024, 2048), seed: int = 0):
+def serve_entry(experiment: str = PSP_EXPERIMENT, image_hw=(480, 480),
+                device="cuda", seed: int = 0):
+    """The int8-through serving graph of ``experiment`` on ``device``;
+    returns ``infer, (pkg, xs)``."""
     _no_tf32()
-    cfg = get_experiment(EXPERIMENT)
+    cfg = get_experiment(experiment)
     model = init_weights(build_model(cfg),
                          torch.Generator().manual_seed(seed)).to(device)
     infer, pkg, prepare = build_int8_serving_for_experiment(cfg, model)
     xs = prepare(np.zeros((1, *image_hw, 3), np.uint8))
     return infer, (pkg, xs)
+
+
+def entry(device="cuda", image_hw=(1024, 2048), seed: int = 0):
+    return serve_entry(EXPERIMENT, image_hw, device, seed)
 
 
 def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda"):

@@ -1,8 +1,9 @@
 """Experiment registry (counterpart of torchseg_tpu/experiments/registry.py).
 
 The config dataclass is copied field for field from the JAX registry; so
-far only the two BiSeNet-R18 Cityscapes entries are registered (JAX
-registry.py:146 and :163).  Other experiments come with their families.
+far the two BiSeNet-R18 Cityscapes entries (JAX registry.py:146 and :163)
+and the two PSPNet ADE entries (:139-140) are registered.  Other
+experiments come with their families.
 ``build_model`` binds the model's BatchNorms to a process group (SyncBN)
 when given one; ``build_loss_fn`` gives the per-process training loss
 (``ce`` and ``ohem``; ``dfn`` comes with DFN, ROADMAP A8).
@@ -88,6 +89,20 @@ _CITY = dict(
     eval_base_size=1024, eval_crop_size=1024, eval_stride_rate=5 / 6,
 )
 
+_ADE = dict(
+    dataset="ade", num_classes=150, ignore_label=-1,
+    image_height=480, image_width=480,
+    train_scale_array=(0.5, 0.75, 1, 1.5, 1.75, 2),
+    preprocess="ade",
+    lr=1e-2, weight_decay=1e-4, batch_size=16,
+    nepochs=120, niters_per_epoch=1262,  # ceil(20210 // 16)
+    loss="ce", aux_loss_ratio=0.4,
+    eval_scale_array=(1.0,), eval_flip=False,
+    eval_ms_scale_array=(0.5, 0.75, 1.0, 1.5, 1.75),
+    eval_base_size=480, eval_crop_size=480, eval_stride_rate=2 / 3,
+    eval_label_offset=-1,
+)
+
 EXPERIMENTS = {}
 
 
@@ -96,6 +111,10 @@ def _register(cfg: ExperimentConfig) -> ExperimentConfig:
     return cfg
 
 
+_register(ExperimentConfig(name="ade.pspnet.R50_v1c", model="pspnet_r50",
+                           **_ADE))
+_register(ExperimentConfig(name="ade.pspnet.R101_v1c", model="pspnet_r101",
+                           **_ADE))
 _register(ExperimentConfig(
     name="cityscapes.bisenet.R18", model="bisenet_r18", loss="ohem",
     nepochs=80, **_CITY,

@@ -1,7 +1,8 @@
 """Model zoo (counterpart of torchseg_tpu/models/__init__.py).
 
-Ported so far: BiSeNet-R18 and its real-time ``.speed`` variant.  The other
-families come with ROADMAP A8.
+Ported so far: BiSeNet-R18 and its real-time ``.speed`` variant, and
+PSPNet on the dilated deep-stem ResNet-50/101 (eval).  The other families
+come with ROADMAP A8.
 """
 
 import torch
@@ -10,7 +11,10 @@ from torch import nn
 from ..ops.blocks import NormFactory
 from ..ops.norm import BatchNorm2d
 from .bisenet import BiSeNet
-from .resnet import ResNet, resnet18
+from .pspnet import PSPNet
+from .resnet import ResNet, resnet18, resnet50, resnet101
+
+_DILATED = dict(layer_strides=(1, 2, 1, 1), layer_dilations=(1, 1, 2, 4))
 
 
 def bisenet_r18(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
@@ -27,8 +31,24 @@ def bisenet_r18(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
     )
 
 
+def pspnet_r50(num_classes: int = 150,
+               norm: NormFactory = BatchNorm2d) -> PSPNet:
+    """PSPNet on the v1c deep-stem ResNet-50 at output stride 8
+    (models/__init__.py:36-41 of the JAX package)."""
+    return PSPNet(num_classes, resnet50(norm=norm, deep_stem=True,
+                                        **_DILATED), norm=norm)
+
+
+def pspnet_r101(num_classes: int = 150,
+                norm: NormFactory = BatchNorm2d) -> PSPNet:
+    return PSPNet(num_classes, resnet101(norm=norm, deep_stem=True,
+                                         **_DILATED), norm=norm)
+
+
 MODEL_REGISTRY = {
     "bisenet_r18": bisenet_r18,
+    "pspnet_r50": pspnet_r50,
+    "pspnet_r101": pspnet_r101,
 }
 
 
@@ -51,5 +71,5 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-__all__ = ["BiSeNet", "ResNet", "bisenet_r18", "init_weights",
-           "MODEL_REGISTRY"]
+__all__ = ["BiSeNet", "PSPNet", "ResNet", "bisenet_r18", "pspnet_r50",
+           "pspnet_r101", "init_weights", "MODEL_REGISTRY"]

@@ -36,15 +36,19 @@ LIBRARIES = {
     "int8_serve_kernels": {
         "tsg_init": [],
         "tsg_smem_optin": [],
-        "tsg_conv_smem_bytes": [c_int] * 5,  # cin, k, stride, mode, cdin
+        # cin, k, stride, mode, cdin, dilation
+        "tsg_conv_smem_bytes": [c_int] * 6,
         # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
         "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
-        # x, h, w, cin, wt, k, stride, pad, cout, m, c, mode, res, rr,
-        # xd, hd, wd, cdin, sd, wdt, md, cd, out, ho, wo, stream
-        "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 4
+        # x, h, w, cin, wt, k, stride, pad, dilation, cout, m, c, mode, res,
+        # rr, xd, hd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, stream
+        "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 5
                         + [c_void_p] * 2 + [c_int] + [c_void_p, c_float]
                         + [c_void_p] + [c_int] * 4 + [c_void_p] * 4
-                        + [c_int] * 2 + [c_void_p]),
+                        + [c_int] * 3 + [c_void_p]),
+        # x, h, w, c, out, ho, wo, stream
+        "tsg_maxpool_i8": ([c_void_p] + [c_int] * 3 + [c_void_p]
+                           + [c_int] * 2 + [c_void_p]),
     },
     "bn_kernels": {
         "tsg_channel_sums_pieces": [c_longlong],  # hw

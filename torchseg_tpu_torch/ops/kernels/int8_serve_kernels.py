@@ -10,13 +10,20 @@ version, plus the exact integer primitives both are specified by.
 | down_stage_i8    | conv_i8_kernel x4 (modes 0,2,0,1)    | down_stage_i8_from_paired (:986) |
 | down_block_i8    | conv_i8_kernel x2 (modes 0,2)        | down_block_i8_from_paired (:1136) |
 | res_block_i8     | conv_i8_kernel x2 (modes 0,1)        | res_block_i8_std (:1226) |
+| maxpool2d_3x3s2_i8 | maxpool_i8_kernel (K10)            | maxpool2d_3x3s2_i8 (:1308) |
+| cbr_i8           | conv_i8_kernel, mode 0               | none: an XLA conv in JAX |
+| bottleneck_i8    | conv_i8_kernel x3 (modes 0,0,1 or 2) | none: XLA (_apply_bottleneck) |
 
-Line numbers are in the JAX file.  Every public function takes and returns
+Line numbers are in the JAX file.  ``cbr_i8`` (the deep stem's stem2 and
+stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of PSPNet) run
+on the same conv kernel; JAX computes them with XLA convs
+(deploy/int8_serve.py:716-758).  Every public function takes and returns
 NHWC int8 codes and HWIO weights, batch 1, as the JAX functions do.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts in ``.launches`` the
-calls in which it launched its CUDA kernel (or kernel chain).
+calls in which it launched its CUDA kernel (or kernel chain);
+``bottleneck_i8`` counts each of its three launches.
 
 The plain int8 convolution (``qconv``) runs in float64 because
 ``F.conv2d`` takes no int8: every partial sum is an integer below 2**53,
@@ -50,8 +57,8 @@ def fma(a, b, c) -> torch.Tensor:
     return (a * b + c).float()
 
 
-def qconv(xq: torch.Tensor, wq: torch.Tensor, stride: int,
-          pad: int) -> torch.Tensor:
+def qconv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
+          dilation: int = 1) -> torch.Tensor:
     """Exact int8 conv: NHWC codes x HWIO int8 weights -> NHWC int32.
 
     Rounded before the cast: cuDNN may pick a float64 algorithm (a
@@ -59,7 +66,7 @@ def qconv(xq: torch.Tensor, wq: torch.Tensor, stride: int,
     cast would truncate it."""
     x = xq.permute(0, 3, 1, 2).to(torch.float64)
     w = wq.permute(3, 2, 0, 1).to(torch.float64)
-    y = F.conv2d(x, w, stride=stride, padding=pad)
+    y = F.conv2d(x, w, stride=stride, padding=pad, dilation=dilation)
     return torch.round(y).permute(0, 2, 3, 1).to(torch.int32)
 
 
@@ -68,19 +75,20 @@ def requant(z: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(z), -127, 127).to(torch.int8)
 
 
-def apply_cbr(xq, e, stride: int, pad: int, emit_int8: bool = True):
+def apply_cbr(xq, e, stride: int, pad: int, emit_int8: bool = True,
+              dilation: int = 1):
     """ConvBnRelu int8-through: relu(fma(y, m, c)), requantized."""
-    y = qconv(xq, e["w"], stride, pad).float()
+    y = qconv(xq, e["w"], stride, pad, dilation).float()
     z = torch.relu(fma(y, e["m"], e["c"]))
     return requant(z) if emit_int8 else z
 
 
-def apply_block(xq, e, stride: int, emit_int8: bool = True):
-    """BasicBlock int8-through; the residual joins the conv2 epilogue as
-    fma(x, rr, .) (identity) or fma(yd, md, .) + cd (projection)."""
-    q1 = apply_cbr(xq, e["conv1"], stride, 1)
-    y2 = qconv(q1, e["conv2"]["w"], 1, 1).float()
-    z = fma(y2, e["conv2"]["m"], e["conv2"]["c"])
+def _shortcut_epilogue(y, last, xq, e, stride: int, emit_int8: bool):
+    """A block's last conv sums ``y`` through its epilogue ``last`` with
+    the shortcut joined as XLA contracts it: fma(x, rr, fma(y, m, c))
+    (identity) or fma(yd, md, fma(y, m, c)) + cd (the 1x1/stride
+    projection yd of the block input), then ReLU and the requant."""
+    z = fma(y, last["m"], last["c"])
     if "down" in e:
         yd = qconv(xq, e["down"]["w"], stride, 0).float()
         z = fma(yd, e["down"]["m"], z) + e["down"]["c"]
@@ -92,9 +100,30 @@ def apply_block(xq, e, stride: int, emit_int8: bool = True):
     return requant(z) if emit_int8 else z
 
 
+def apply_block(xq, e, stride: int, emit_int8: bool = True):
+    """BasicBlock int8-through: conv1 3x3/stride CBR, then conv2 with the
+    shortcut in its epilogue."""
+    q1 = apply_cbr(xq, e["conv1"], stride, 1)
+    y2 = qconv(q1, e["conv2"]["w"], 1, 1).float()
+    return _shortcut_epilogue(y2, e["conv2"], xq, e, stride, emit_int8)
+
+
+def apply_bottleneck(xq, e, stride: int, dilation: int,
+                     emit_int8: bool = True):
+    """Bottleneck int8-through (JAX _apply_bottleneck): 1x1 CBR, 3x3 CBR
+    with the block's stride and dilation (pad = dilation), then conv3 1x1
+    with the shortcut in its epilogue, contracted as the BasicBlock's
+    conv2.  The last block of the body emits the float32 value."""
+    q1 = apply_cbr(xq, e["conv1"], 1, 0)
+    q2 = apply_cbr(q1, e["conv2"], stride, dilation, dilation=dilation)
+    y3 = qconv(q2, e["conv3"]["w"], 1, 0).float()
+    return _shortcut_epilogue(y3, e["conv3"], xq, e, stride, emit_int8)
+
+
 def maxpool_i8(xq: torch.Tensor) -> torch.Tensor:
-    """3x3/2 pad-1 max pool on NHWC int8 codes (exact: every code is a
-    float32 integer and the window always holds a real element)."""
+    """3x3/2 pad-1 max pool on NHWC int8 codes (exact for any code: every
+    code is a float32 integer and the window always holds a real element,
+    so the implicit -inf pad acts as XLA's -128)."""
     y = F.max_pool2d(xq.permute(0, 3, 1, 2).float(), 3, 2, 1)
     return y.to(torch.int8).permute(0, 2, 3, 1).contiguous()
 
@@ -154,35 +183,37 @@ def _check_conv_entry(name, e, k, cin, cout):
 
 
 def _launch_conv(x, e, stride, pad, mode=0, res=None, rr=0.0, xd=None,
-                 down=None, sd=1):
-    """One launch of the shared conv kernel; returns the new codes.
-    Raises ValueError, before launching, for a call whose shared memory
-    exceeds what the device gives a block."""
+                 down=None, sd=1, dil=1, out_f32=False):
+    """One launch of the shared conv kernel; returns the new codes (the
+    float32 values with ``out_f32``).  Raises ValueError, before launching,
+    for a call whose shared memory exceeds what the device gives a block."""
     _, h, w, cin = x.shape
     k, cout = e["w"].shape[0], e["w"].shape[3]
-    ho = (h + 2 * pad - k) // stride + 1
-    wo = (w + 2 * pad - k) // stride + 1
+    ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
     hd = wd = cdin = 0
     if mode == 2:
         _, hd, wd, cdin = xd.shape
     lib = _build.ready(x.device.index)
-    smem = lib.tsg_conv_smem_bytes(cin, k, stride, mode, cdin)
+    smem = lib.tsg_conv_smem_bytes(cin, k, stride, mode, cdin, dil)
     limit = _build.smem_optin(x.device.index)
     if smem > limit:
         raise ValueError(
-            f"conv_i8_kernel: cin={cin}, k={k}, stride={stride} (mode "
-            f"{mode}, projection cin={cdin}) needs {smem} bytes of shared "
-            f"memory per block; the device allows {limit}")
-    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
+            f"conv_i8_kernel: cin={cin}, k={k}, stride={stride}, dilation="
+            f"{dil} (mode {mode}, projection cin={cdin}) needs {smem} bytes "
+            f"of shared memory per block; the device allows {limit}")
+    out = torch.empty((1, ho, wo, cout),
+                      dtype=torch.float32 if out_f32 else torch.int8,
+                      device=x.device)
     rc = lib.tsg_conv_i8(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, pad, cout,
-        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, pad, dil,
+        cout, e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
         xd.data_ptr() if xd is not None else None, hd, wd, cdin, sd,
         down["w"].data_ptr() if down is not None else None,
         down["m"].data_ptr() if down is not None else None,
         down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), ho, wo, _stream(x))
+        out.data_ptr(), int(out_f32), ho, wo, _stream(x))
     _raise_on(rc, "conv_i8_kernel")
     return out
 
@@ -293,24 +324,33 @@ def _check_down_block(name, e, cin):
 
 def _block_tensors(x, *blocks):
     return [x] + [e[k][f] for e in blocks
-                  for k in ("conv1", "conv2", "down") if k in e
+                  for k in ("conv1", "conv2", "conv3", "down") if k in e
                   for f in ("w", "m", "c")]
+
+
+def _shortcut_launch(t, last, x, e, stride, pad, out_f32=False):
+    """A block's last conv (weights ``last``, stride 1) over ``t`` with the
+    shortcut of the block input ``x`` in its epilogue: the identity
+    residual (mode 1) or the 1x1/stride projection (mode 2)."""
+    if "down" in e:
+        return _launch_conv(t, last, 1, pad, mode=2, xd=x, down=e["down"],
+                            sd=stride, out_f32=out_f32)
+    return _launch_conv(t, last, 1, pad, mode=1, res=x, rr=e["res_ratio"],
+                        out_f32=out_f32)
 
 
 def _res_block_launches(x, e):
     """apply_block(x, e, 1) as two launches: conv1, then conv2 with the
     identity residual in its epilogue."""
     t = _launch_conv(x, e["conv1"], 1, 1)
-    return _launch_conv(t, e["conv2"], 1, 1, mode=1, res=x,
-                        rr=e["res_ratio"])
+    return _shortcut_launch(t, e["conv2"], x, e, 1, 1)
 
 
 def _down_block_launches(x, e):
     """apply_block(x, e, 2) as two launches: conv1 3x3/2, then conv2 with
     the 1x1/2 projection of x fused into its epilogue."""
     t = _launch_conv(x, e["conv1"], 2, 1)
-    return _launch_conv(t, e["conv2"], 1, 1, mode=2, xd=x, down=e["down"],
-                        sd=2)
+    return _shortcut_launch(t, e["conv2"], x, e, 2, 1)
 
 
 def l1_stage_i8(x, e0, e1):
@@ -386,8 +426,94 @@ def res_block_i8(x, e):
     return out
 
 
+# ----------------------------------------------------------------------
+# K10: the standalone int8 3x3/2 pad-1 max pool (after the deep stem)
+# ----------------------------------------------------------------------
+
+def maxpool2d_3x3s2_i8(x):
+    """(1, H, W, C) s8 -> (1, ceil(H/2), ceil(W/2), C) s8, the 3x3/2 pad-1
+    max with a -128 pad: any H, W, any code, C % 4 == 0.  Plain version:
+    ``maxpool_i8``."""
+    _check_codes(x)
+    if not _on_cuda(x):
+        return maxpool_i8(x)
+    if x.data_ptr() % 4:
+        raise ValueError("x must start on a 4-byte boundary")
+    _, h, w, c = x.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    out = torch.empty((1, ho, wo, c), dtype=torch.int8, device=x.device)
+    rc = _build.ready(x.device.index).tsg_maxpool_i8(
+        x.data_ptr(), h, w, c, out.data_ptr(), ho, wo, _stream(x))
+    _raise_on(rc, "maxpool_i8_kernel")
+    maxpool2d_3x3s2_i8.launches += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# the deep stem's int8 CBRs and the dilated Bottleneck body, on the
+# shared conv kernel
+# ----------------------------------------------------------------------
+
+def cbr_i8(x, e, stride: int, pad: int, dilation: int = 1):
+    """apply_cbr(x, e, stride, pad, dilation=dilation) in one launch:
+    (1, H, W, cin) s8 with cin % 4 == 0 -> (1, Ho, Wo, cout) s8."""
+    _check_codes(x)
+    _check("e['w']", e["w"], torch.int8, ndim=4)
+    k, cout = e["w"].shape[0], e["w"].shape[3]
+    _check_conv_entry("e", e, k, x.shape[3], cout)
+    if not _on_cuda(x, e["w"], e["m"], e["c"]):
+        return apply_cbr(x, e, stride, pad, dilation=dilation)
+    out = _launch_conv(x, e, stride, pad, dil=dilation)
+    cbr_i8.launches += 1
+    return out
+
+
+def _check_bottleneck(name, e, cin, stride, dilation):
+    """A Bottleneck entry (1x1 cin -> cmid, 3x3 cmid -> cmid, 1x1 cmid ->
+    cout, a 1x1 projection cin -> cout or an identity shortcut); returns
+    cout."""
+    for key in ("conv1", "conv3"):
+        _check(f"{name}['{key}']['w']", e[key]["w"], torch.int8, ndim=4)
+    cmid, cout = e["conv1"]["w"].shape[3], e["conv3"]["w"].shape[3]
+    if cmid % 4 or cout % 4:
+        raise ValueError(f"{name} must have widths % 4 == 0, got {cmid}, "
+                         f"{cout}")
+    if stride < 1 or dilation < 1:
+        raise ValueError(f"stride and dilation must be >= 1, got {stride}, "
+                         f"{dilation}")
+    _check_conv_entry(f"{name}['conv1']", e["conv1"], 1, cin, cmid)
+    _check_conv_entry(f"{name}['conv2']", e["conv2"], 3, cmid, cmid)
+    _check_conv_entry(f"{name}['conv3']", e["conv3"], 1, cmid, cout)
+    if "down" in e:
+        _check_conv_entry(f"{name}['down']", e["down"], 1, cin, cout)
+    elif stride != 1 or cin != cout:
+        raise ValueError(f"{name} has an identity shortcut, so it needs "
+                         f"stride 1 and cin == cout, got stride {stride}, "
+                         f"{cin} -> {cout}")
+    return cout
+
+
+def bottleneck_i8(x, e, stride: int, dilation: int, emit_int8: bool = True):
+    """apply_bottleneck(x, e, stride, dilation, emit_int8) as three
+    launches: conv1 1x1, conv2 3x3 with stride and dilation, conv3 1x1
+    with the identity residual (mode 1) or the 1x1/stride projection of x
+    (mode 2) in its epilogue, writing codes or, for the body's last block,
+    the float32 values.  (1, H, W, cin) s8 -> (1, Ho, Wo, cout)."""
+    _check_codes(x)
+    _check_bottleneck("e", e, x.shape[3], stride, dilation)
+    if not _on_cuda(*_block_tensors(x, e)):
+        return apply_bottleneck(x, e, stride, dilation, emit_int8)
+    t = _launch_conv(x, e["conv1"], 1, 0)
+    t = _launch_conv(t, e["conv2"], stride, dilation, dil=dilation)
+    out = _shortcut_launch(t, e["conv3"], x, e, stride, 0,
+                           out_f32=not emit_int8)
+    bottleneck_i8.launches += 3
+    return out
+
+
 KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8,
-           down_block_i8, res_block_i8)
+           down_block_i8, res_block_i8, maxpool2d_3x3s2_i8, cbr_i8,
+           bottleneck_i8)
 
 
 def reset_launches():

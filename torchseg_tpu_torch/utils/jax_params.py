@@ -67,19 +67,50 @@ def _convert(tree, device):
     return out
 
 
+def _bottleneck_package(pkg, device) -> dict:
+    """A ``bottleneck{50,101}`` package (or its run package); the depth
+    comes from stage 3's block count, the strides and dilations are the
+    dilated body's (``DILATED``, the PSPNet layout)."""
+    from ..deploy.int8_serve import RESNET_LAYERS, block_statics
+
+    n3 = sum(1 for k in pkg if k.startswith("l3_"))
+    depth = next((d for d, layers in RESNET_LAYERS.items()
+                  if layers[2] == n3), None)
+    if depth is None or pkg.get("kind", f"bottleneck{depth}") != \
+            f"bottleneck{depth}":
+        raise NotImplementedError(
+            f"a Bottleneck package with {n3} stage-3 blocks is not ported "
+            "(ROADMAP A8)")
+    statics = block_statics(depth)
+    out = _convert({k: v for k, v in pkg.items()
+                    if k not in ("kind", "layers")}, device)
+    out["kind"] = f"bottleneck{depth}"
+    out["layers"] = RESNET_LAYERS[depth]
+    for name, (stride, dilation) in statics.items():
+        out[name]["stride"], out[name]["dilation"] = stride, dilation
+    return out
+
+
 def int8_package_from_numpy(pkg, device) -> dict:
-    """A JAX int8-through package for BiSeNet-R18 with the int8 decoder
-    (``build_int8_package`` output, or the ``run_pkg`` of
-    ``make_int8_through_infer`` with its statics stripped), as numpy
-    arrays -> the port's package on ``device``.  Scalars become Python
-    floats; the stripped statics (``kind``, ``n_sp``, block strides) are
-    restored from the shapes.  Entries the port's graph does not read (the
-    int8 stem variant, the bf16 decoder's ``s_c16``, TPU weight packings)
-    are dropped."""
+    """A JAX int8-through package (``build_int8_package`` /
+    ``build_int8_backbone_package`` output, or the ``run_pkg`` of
+    ``make_int8_through_infer`` / ``make_int8_pspnet_infer`` with its
+    statics stripped), as numpy arrays -> the port's package on
+    ``device``.  Scalars become Python floats.
+
+    BiSeNet-R18 with the int8 decoder: the stripped statics (``kind``,
+    ``n_sp``, block strides) are restored from the shapes, and entries the
+    port's graph does not read (the int8 stem variant, the bf16 decoder's
+    ``s_c16``, TPU weight packings) are dropped.  The dilated Bottleneck
+    body of PSPNet (``bottleneck50``/``bottleneck101``, recognized by its
+    ``stem1``): ``kind``, ``layers`` and each block's ``stride`` and
+    ``dilation`` are restored from ``RESNET_LAYERS`` and ``DILATED``."""
+    if "stem1" in pkg:
+        return _bottleneck_package(pkg, device)
     if pkg.get("kind", "r18") != "r18" or "dec" not in pkg:
         raise NotImplementedError(
-            "only R18 packages with the int8 decoder are ported "
-            "(ROADMAP A3)")
+            "only R18 packages with the int8 decoder and the PSPNet "
+            "Bottleneck body are ported (ROADMAP A3)")
     blocks = [f"l{li}_{bi}" for li in range(1, 5) for bi in range(2)]
     out = _convert({k: pkg[k] for k in ("sp1", "sp2", "sp3", "dec",
                                         *blocks)}, device)
