@@ -9,8 +9,10 @@ The main path is the int8-through BiSeNet-R18.speed serving graph at
 distinct seeded uint8 images served, (1, 128, 256) int32 labels out.  The
 full-resolution path is BiSeNet-R18 (head scales (16, 8, 8)) at 1024x2048
 serving (1, 1024, 2048) labels through two graphs: the bf16 fused-stem
-deploy graph with ``argmax="fused"`` and the int8-through graph with
-``argmax="tiled"``, both ending in the upsample-argmax kernel K7.  The
+deploy graph with ``argmax="fused"`` (its stem on K11) and the
+int8-through graph with ``argmax="tiled"``, both ending in the
+upsample-argmax kernel K7.  The X39 path is BiSeNet-X39.speed's bf16
+fused-stem graph at 768x1536 (``deploy_entry``), its stem on K11.  The
 script
 
   1. needs a CUDA card (exits non-zero without one, with no CPU fallback);
@@ -32,7 +34,12 @@ script
      its plain version, and the plain-PyTorch parts of the graph, with CUDA
      events after a warm-up;
   7. full-resolution path: each graph launches K7 exactly once per forward
-     (the int8 graph also K1-K6); K7 meets its bar against its plain
+     (the int8 graph also K1-K6, the bf16 graph K11 once); K11 meets its
+     bars against its plain version on the bf16 graph's stem inputs (bf16
+     out equal on >= 99.9 % of the elements and within one bf16 ulp, or
+     1e-5 of max |y| near zero, everywhere; float32 out within 1e-5 of max
+     |y|) and is timed against cuDNN's bf16 conv + affine + ReLU; K7 meets
+     its bar against its plain
      version on each graph's own /8 logits (equal labels on >= 99.9 % of
      pixels and wherever the top-two gap exceeds 1e-4); each graph's card
      labels agree with the same graph run on the CPU at 256x512 (>= 99 %;
@@ -40,7 +47,15 @@ script
      bf16 to a bar of 97 %, see BF16_AGREE); both forwards are timed
      (median, p90), and K7 against its plain version and against the
      materialized upsample + argmax;
-  8. PSPNet path: int8-through PSPNet-R50 (``ade.pspnet.R50_v1c``) at
+  8. X39 path: ``deploy_entry()`` (``cityscapes.bisenet.X39.speed``, bf16,
+     s2d input) serves four seeded images, (1, 96, 192) labels in [0, 19);
+     one forward launches K11 once and nothing else; K11 meets its bars on
+     the forwards' own stem inputs (72 channels: 64 SpatialPath + 8
+     Xception stem) and is timed against its bound and cuDNN's route; the
+     card's labels agree with the same graph on the CPU at 256x512 (>= 99
+     % in float32, >= BF16_AGREE in bf16); the forward is timed (median,
+     p90, enqueue) and a profiler pass gives the card's idle share;
+  9. PSPNet path: int8-through PSPNet-R50 (``ade.pspnet.R50_v1c``) at
      480x480 through ``serve_entry``, the graph's calibration and package
      as the JAX package builds them: four seeded images served, (1, 480,
      480) labels in [0, 150); one forward launches K10 once, cbr_i8 twice
@@ -53,7 +68,7 @@ script
      its bound and ``F.max_pool2d`` on a float16 copy, the body's blocks
      and the parts of the forward, and a profiler pass gives the card's
      idle share;
-  9. training path: the BiSeNet-R18 training step (``train_entry``,
+  10. training path: the BiSeNet-R18 training step (``train_entry``,
      1024x1024 crops, batch 2, float32, three OHEM heads, group-lr SGD)
      launches K8 and K9 35 times each in one step (22 of the K9 launches
      with the ReLU fused), and no BN runs torch's own batch norm; K9 is held
@@ -82,6 +97,7 @@ runs the float graph in float32 on the card.  The script uses one card:
 it makes only the first visible one visible to itself.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -103,6 +119,8 @@ N_IMAGES = 4
 FWD_ROUNDS = 25  # 100 timed forwards: p90 has ten samples beyond it
 FULLRES_ROUNDS = 10  # 40 timed forwards per full-resolution graph
 BF16_AGREE = 0.97  # bf16 card vs bf16 CPU labels (see the full-res phase)
+X39_HW, X39_SMALL = (768, 1536), (256, 512)
+X39_ROUNDS = 10  # 40 timed forwards
 PSP_HW, PSP_SMALL = (480, 480), (160, 160)
 PSP_ROUNDS = 10  # 40 timed forwards
 PSP_AGREE = 0.99  # card vs CPU labels, the head in float32 on both
@@ -123,12 +141,14 @@ BN_LAUNCHES, BN_RELU = 35, 22  # per training step (BiSeNet-R18's 35 BNs)
 SRC = "torchseg_tpu_torch/csrc/int8_serve_kernels.cu"
 SRC_K7 = "torchseg_tpu_torch/csrc/upsample_argmax.cu"
 SRC_BN = "torchseg_tpu_torch/csrc/bn_kernels.cu"
+SRC_K11 = "torchseg_tpu_torch/csrc/stem_conv.cu"
 # the Bottleneck body and the deep stem's CBRs replace XLA convs in JAX
 XLA_BOTTLENECK = "torchseg_tpu/deploy/int8_serve.py:716 (XLA, no TPU kernel)"
 XLA_STEM_CBR = "torchseg_tpu/deploy/int8_serve.py:756 (XLA, no TPU kernel)"
 TPU = "torchseg_tpu/ops/pallas/int8_serve_kernels.py"
 TPU_K7 = "torchseg_tpu/ops/pallas/upsample_argmax.py:49"
 TPU_BN = "torchseg_tpu/ops/pallas/bn_kernel.py"
+TPU_K11 = "torchseg_tpu/ops/pallas/stem_conv.py:75"
 HBM = 3.35e12  # bytes/s
 PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense, ops/s
 
@@ -289,15 +309,17 @@ def main():
     from torchseg_tpu_torch.ops.kernels import _build
     from torchseg_tpu_torch.ops.kernels import bn_kernels as B
     from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+    from torchseg_tpu_torch.ops.kernels import stem_conv as S
     from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
     from torchseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-    all_kernels = K.KERNELS + U.KERNELS + B.KERNELS
+    all_kernels = K.KERNELS + U.KERNELS + B.KERNELS + S.KERNELS
 
     def reset_all():
         K.reset_launches()
         U.reset_launches()
         B.reset_launches()
+        S.reset_launches()
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -349,7 +371,7 @@ def main():
                 "down_stage_i8": 2, "down_block_i8": 1, "res_block_i8": 1,
                 "maxpool2d_3x3s2_i8": 0, "cbr_i8": 0, "bottleneck_i8": 0,
                 "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
-                "fused_scale_bias_act": 0}
+                "fused_scale_bias_act": 0, "stem_conv7x7_s2": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
@@ -534,7 +556,7 @@ def main():
             lambda xs: i8_infer(i8_pkg, xs),
             [(i8_prepare(u),) for u in images]),
     }
-    k7_launches = 0
+    k7_launches, k11_launches = 0, 0
     for gname, (fn, inputs) in graphs.items():
         fn(*inputs[0])  # warm-up
         torch.cuda.synchronize()
@@ -543,12 +565,13 @@ def main():
         torch.cuda.synchronize()
         got = launch_counts(all_kernels)
         log(f"{gname}: launches in one forward: {got}")
-        want = dict(expected) if gname.startswith("int8") else dict.fromkeys(
-            got, 0)
+        want = dict(expected) if gname.startswith("int8") else (
+            dict.fromkeys(got, 0) | {"stem_conv7x7_s2": 1})
         want["fused_upsample_argmax"] = 1
         if got != want:
             fail(f"{gname}: launches {got}, expected {want}")
         k7_launches += got["fused_upsample_argmax"]
+        k11_launches += got["stem_conv7x7_s2"]
         outs = [y] + [fn(*a) for a in inputs[1:]]
         for y in outs:
             check_labels(gname, y, (H, W), fcfg.num_classes)
@@ -560,6 +583,13 @@ def main():
             f"p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
             f"{1000.0 / mean_ms:.2f} FPS; host time to enqueue one forward "
             f"(no sync) {enqueue_ms(fn, inputs):.4f} ms")
+
+    # K11 on the bf16 graph's own stem inputs (R18's 128 channels)
+    with record_stem_calls(fs) as fed_r18:
+        for args in graphs["bf16 fused-stem, argmax='fused'"][1]:
+            bf_infer(*args)
+    rows.append(k11_row("stem_conv7x7_s2:r18_fullres", fed_r18,
+                        k11_launches))
 
     # K7 against its plain version on each graph's own /8 logits
     def bf_logits(xs):
@@ -655,12 +685,194 @@ def main():
     log(f"peak device memory (serving phases): "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
+    rows += x39_phase(dev, all_kernels, reset_all)
     rows += psp_phase(dev, all_kernels, reset_all)
     rows += train_phase(dev, all_kernels, reset_all)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+@contextlib.contextmanager
+def record_stem_calls(fs):
+    """Within the block, every K11 call of ``deploy/fused_stem.py`` is
+    recorded as (args, kwargs) in the yielded list (and still runs)."""
+    calls, k11 = [], fs.stem_conv7x7_s2
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return k11(*args, **kwargs)
+
+    fs.stem_conv7x7_s2 = spy
+    try:
+        yield calls
+    finally:
+        fs.stem_conv7x7_s2 = k11
+
+
+def k11_row(name, fed, launches):
+    """K11 against its plain version on the recorded stem calls ``fed``
+    (bf16 as the graph ran them, and with float32 out), timed against the
+    plain version and cuDNN's route (a bf16 ``F.conv2d`` on the image,
+    then the affine and ReLU in bf16, as the graph ran before K11);
+    returns the kernels line's row."""
+    import torch.nn.functional as F
+
+    from torchseg_tpu_torch.ops.kernels import stem_conv as S
+
+    calls = [(*args, kwargs.get("out_dtype", torch.bfloat16))
+             for args, kwargs in fed]
+    worst, share_min = 0.0, 1.0
+    for x, w, a, b, n_sp, fmt, out_dtype in calls:
+        for od in (out_dtype, torch.float32):
+            err, share, n_beyond = S.agreement(
+                S.stem_conv7x7_s2(x, w, a, b, n_sp, fmt, od),
+                S.stem_conv7x7_s2_plain(x, w, a, b, n_sp, fmt, od))
+            if n_beyond:
+                fail(f"{name}: {n_beyond} {od} elements beyond K11's bar "
+                     f"against its plain version")
+            if od == torch.bfloat16:
+                share_min = min(share_min, share)
+                if share < S.MIN_SHARE:
+                    fail(f"{name}: bf16 out equal on {share:.6f} of the "
+                         f"elements, below {S.MIN_SHARE}")
+            worst = max(worst, err)
+    x, w, a, b, n_sp, fmt, out_dtype = calls[0]
+    y = S.stem_conv7x7_s2(x, w, a, b, n_sp, fmt, out_dtype)
+    log(f"{name}: K11 vs plain on {len(calls)} stem inputs "
+        f"{tuple(x.shape)} {x.dtype} {fmt} -> {y[0].shape[1]} + "
+        f"{y[1].shape[1]} channels: bf16 equal on >= {share_min:.6f} (bar "
+        f"{S.MIN_SHARE}), none beyond one bf16 ulp or {S.F32_TOL} of max "
+        f"|y| (float32 out too); max |kernel - plain| {worst}")
+    ms = cuda_ms(S.stem_conv7x7_s2, calls, reps=20)
+    plain_ms = cuda_ms(S.stem_conv7x7_s2_plain, calls, reps=2)
+    images = [(S.s2d_to_image(c[0]) if c[5] == "s2d" else c[0][..., :3])
+              .permute(0, 3, 1, 2).contiguous() for c in calls]
+    wk = w.permute(3, 2, 0, 1).to(x.dtype).contiguous()
+    ab = (a.to(x.dtype)[:, None, None], b.to(x.dtype)[:, None, None])
+    conv_ms = cuda_ms(lambda im: F.conv2d(im, wk, stride=2, padding=3),
+                      [(im,) for im in images], reps=20)
+    lib_ms = cuda_ms(lambda im: torch.relu(
+        F.conv2d(im, wk, stride=2, padding=3) * ab[0] + ab[1]),
+        [(im,) for im in images], reps=20)
+    # bytes: the input, the weights and affine, both halves out; operations:
+    # the 7x7x3 window with its zeros, 2 a multiply-add, at the peak rate
+    # for the inputs' type (bf16); the float32 CUDA-core rate the kernel
+    # runs at is logged beside it
+    ops = 2 * y[0].shape[2] * y[0].shape[3] * w.shape[3] * 147
+    bnd, by = bound(nbytes(x, w, a, b, y), ops,
+                    "bf16" if x.dtype == torch.bfloat16 else "f32")
+    log(f"{name}: kernel {ms * 1000:.2f} us, plain (float32 cuDNN) "
+        f"{plain_ms * 1000:.2f} us, cuDNN bf16 conv {conv_ms * 1000:.2f} us "
+        f"and with the affine + ReLU {lib_ms * 1000:.2f} us; bound "
+        f"{bnd * 1000:.2f} us ({by}: {nbytes(x, w, a, b, y) / 1e6:.2f} MB, "
+        f"{ops / 1e9:.2f} G operations) = {100 * bnd / ms:.1f} % of the "
+        f"kernel's time; at the float32 CUDA-core peak "
+        f"{ops / PEAK['f32'] * 1e6:.1f} us = "
+        f"{ops / PEAK['f32'] * 1e5 / ms:.1f} %")
+    return {"name": name, "route": "cuda", "source": SRC_K11,
+            "replaces": TPU_K11, "launches": launches, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def x39_phase(dev, all_kernels, reset_all):
+    """The X39 path (see the module docstring, item 8); returns the kernels
+    line's
+    row for K11 at X39's shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchseg_tpu_torch.deploy import fused_stem as fs
+    from torchseg_tpu_torch.entry import DEPLOY_EXPERIMENT, deploy_entry
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+
+    cfg = get_experiment(DEPLOY_EXPERIMENT)
+    t0 = time.perf_counter()
+    infer, _ = deploy_entry(device=dev)
+    torch.cuda.synchronize()
+    log(f"X39 bf16 fused-stem graph built ({DEPLOY_EXPERIMENT}, seeded "
+        f"weights): {time.perf_counter() - t0:.2f} s")
+    mean = np.asarray(cfg.image_mean, np.float32)
+    std = np.asarray(cfg.image_std, np.float32)
+
+    def s2d(u8, dtype, device):
+        img = (u8.astype(np.float32) / 255.0 - mean) / std
+        return fs.prepare_s2d_input(img, dtype, device=device)
+
+    rng = np.random.default_rng(8)
+    images = [rng.integers(0, 256, (1, *X39_HW, 3), dtype=np.uint8)
+              for _ in range(N_IMAGES)]
+    xss = [s2d(u, torch.bfloat16, dev) for u in images]
+    infer(xss[0])  # warm-up: library load, cuDNN plans
+    torch.cuda.synchronize()
+
+    reset_all()
+    labels = infer(xss[0])
+    torch.cuda.synchronize()
+    got = launch_counts(all_kernels)
+    want = dict.fromkeys(got, 0) | {"stem_conv7x7_s2": 1}
+    log(f"X39: launches in one served forward: {got}")
+    if got != want:
+        fail(f"X39 forward launches {got}, expected {want}")
+    with record_stem_calls(fs) as fed:
+        outs = [infer(x) for x in xss]
+    hw8 = (X39_HW[0] // 8, X39_HW[1] // 8)
+    for y in outs:
+        check_labels("X39", y, hw8, cfg.num_classes)
+    log(f"X39: labels {tuple(labels.shape)} {labels.dtype}; distinct labels "
+        f"per image: {[int(y.unique().numel()) for y in outs]}")
+    row = k11_row("stem_conv7x7_s2", fed, got["stem_conv7x7_s2"])
+
+    # -- the card against the CPU, same graph, smaller input -------------
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+    su8 = np.random.default_rng(9).integers(0, 256, (1, *X39_SMALL, 3),
+                                            dtype=np.uint8)
+    for dtype, bar in ((torch.float32, 0.99), (torch.bfloat16, BF16_AGREE)):
+        ys = []
+        for device in (dev, "cpu"):
+            m = copy.deepcopy(model).to(device=device, dtype=dtype)
+            ys.append(fs.make_bisenet_fused_infer(
+                m, cfg.bn_eps, argmax=True, input_format="s2d")(
+                    s2d(su8, dtype, device)).cpu())
+        agree = float((ys[0] == ys[1]).float().mean())
+        log(f"X39 at {X39_SMALL[0]}x{X39_SMALL[1]} in {dtype}: card labels "
+            f"agree with the CPU on {agree:.6f} of pixels (bar {bar})")
+        if agree < bar:
+            fail(f"X39 {dtype} card vs CPU label agreement {agree} < {bar}")
+
+    # -- timings -------------------------------------------------------------
+    inputs = [(x,) for x in xss]
+    med, p90, mean_ms = forward_ms(infer, inputs, X39_ROUNDS)
+    enq = enqueue_ms(infer, inputs)
+    log(f"X39 forward ({N_IMAGES} distinct images, {X39_ROUNDS * N_IMAGES} "
+        f"forwards back to back): median {med:.4f} ms, p90 {p90:.4f} ms, "
+        f"mean {mean_ms:.4f} ms = {1000.0 / mean_ms:.2f} FPS; host time to "
+        f"enqueue one forward (no sync) {enq:.4f} ms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            infer(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1000.0 / len(inputs)
+    n_launch = sum(e.count for e in kern) // len(inputs)
+    log(f"X39 profiled {len(inputs)} forwards: {n_launch} kernels, "
+        f"{busy:.4f} ms of kernel time per forward; against the mean "
+        f"forward of {mean_ms:.4f} ms the card is idle "
+        f"{max(0.0, 1 - busy / mean_ms):.3f} of the time")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  device {e.self_device_time_total / 1000.0 / len(inputs):9.4f}"
+            f" ms per forward, {e.count // len(inputs):4d} calls: "
+            f"{e.key[:100]}")
+    return [row]
 
 
 def block_work(x, e, stride, dilation, emit_int8, out):
@@ -676,7 +888,7 @@ def block_work(x, e, stride, dilation, emit_int8, out):
 
 
 def psp_phase(dev, all_kernels, reset_all):
-    """The PSPNet path (see the module docstring, item 8); returns the
+    """The PSPNet path (see the module docstring, item 9); returns the
     kernels line's rows for K10, bottleneck_i8 and cbr_i8."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
@@ -934,7 +1146,7 @@ def step_ms(trainer, data, n):
 
 
 def train_phase(dev, all_kernels, reset_all):
-    """The training path (see the module docstring, item 8); returns the
+    """The training path (see the module docstring, item 10); returns the
     kernels line's rows for K8 and K9."""
     import functools
 

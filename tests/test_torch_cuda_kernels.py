@@ -6,7 +6,8 @@ the CPU through the plain versions in test_torch_int8_serve_kernels.py).
 The shapes are ragged on purpose (widths that are not multiples of the
 kernels' 32-column tiles, odd heights, stage 3's and stage 4's channel
 counts, output sizes that are not multiples of 32 or 128, BN inputs whose
-H*W is odd or 1, a misaligned BN input), so the edge masking and the
+H*W is odd or 1, a misaligned BN input, stem outputs off K11's 64-column
+and 8-row strips), so the edge masking and the
 scalar paths are exercised; chip_smoke.py covers the serving and training
 shapes.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -21,6 +22,7 @@ import torch
 
 from torchseg_tpu_torch.ops.kernels import bn_kernels as B
 from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+from torchseg_tpu_torch.ops.kernels import stem_conv as S
 from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
 from torchseg_tpu_torch.ops.norm import BatchNorm2d
 from torchseg_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -401,3 +403,80 @@ def test_train_batch_norm_on_card_matches_cpu(dev, shape, relu):
     for got, ref in zip(outs[1], outs[0]):
         scale = float(ref.abs().max())
         assert float((got - ref).abs().max()) <= 1e-5 * scale + 1e-7
+
+
+# ----------------------------------------------------------------------
+# K11, the fused stem conv
+# ----------------------------------------------------------------------
+
+def _stem_operands(g, hw, cout, dev, batch=1):
+    img = torch.randn(batch, *hw, 3, generator=g)
+    k = torch.randn(7, 7, 3, cout, generator=g) * (2 / 147) ** 0.5
+    a = torch.rand(cout, generator=g) + 0.5
+    b = torch.randn(cout, generator=g) * 0.2
+    return img, k.to(dev), a.to(dev), b.to(dev)
+
+
+def _stem_input(img, fmt, dtype, dev):
+    if fmt == "s2d":
+        n, h, w, _ = img.shape
+        x = img.reshape(n, h // 2, 2, w // 2, 2, 3).permute(
+            0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 12)
+    elif fmt == "nhwc8":
+        x = torch.cat([img, torch.zeros(*img.shape[:3], 5)], dim=-1)
+    else:
+        x = img
+    return x.contiguous().to(dtype).to(dev), ("s2d" if fmt == "s2d"
+                                              else "nhwc")
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's conv
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("fmt", ["nhwc", "nhwc8", "s2d"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout,n_sp,hw,batch", [
+    (72, 64, (38, 202), 1), (128, 64, (64, 130), 1), (72, 64, (18, 2), 2),
+    (5, 0, (2, 2), 1), (128, 128, (20, 258), 1)])
+def test_stem_conv_kernel_meets_its_bars(dev, no_tf32, fmt, in_dtype, cout,
+                                         n_sp, hw, batch):
+    """Both input formats and dtypes, cout 72 (X39) and 128 (R18), output
+    sizes off the 64-column and 8-row strips, a batch, empty halves."""
+    img, k, a, b = _stem_operands(_gen(cout + hw[1]), hw, cout, dev, batch)
+    x, form = _stem_input(img, fmt, in_dtype, dev)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = S.stem_conv7x7_s2.launches
+        got = S.stem_conv7x7_s2(x, k, a, b, n_sp, form, out_dtype)
+        torch.cuda.synchronize()
+        assert S.stem_conv7x7_s2.launches == before + 1
+        ref = S.stem_conv7x7_s2_plain(x, k, a, b, n_sp, form, out_dtype)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape and g.dtype == r.dtype == out_dtype
+            assert g.is_contiguous()
+        _, share, n_beyond = S.agreement(got, ref)
+        assert n_beyond == 0
+        if out_dtype == torch.bfloat16:
+            assert share >= S.MIN_SHARE, share
+
+
+def test_stem_conv_kernel_at_the_serving_shapes(dev, no_tf32):
+    """X39.speed at 768x1536 and R18 at 1024x2048, s2d bf16 in and out."""
+    for hw, cout in (((768, 1536), 72), ((1024, 2048), 128)):
+        img, k, a, b = _stem_operands(_gen(hw[0]), hw, cout, dev)
+        x, form = _stem_input(img, "s2d", torch.bfloat16, dev)
+        got = S.stem_conv7x7_s2(x, k, a, b, 64, form)
+        ref = S.stem_conv7x7_s2_plain(x, k, a, b, 64, form)
+        _, share, n_beyond = S.agreement(got, ref)
+        assert n_beyond == 0 and share >= S.MIN_SHARE, share
+
+
+def test_stem_conv_kernel_refuses_float64(dev):
+    img, k, a, b = _stem_operands(_gen(1), (8, 8), 8, dev)
+    with pytest.raises(TypeError):
+        S.stem_conv7x7_s2(img.double().to(dev), k.double(), a.double(),
+                          b.double(), 4, out_dtype=torch.float64)

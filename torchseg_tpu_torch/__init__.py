@@ -11,7 +11,11 @@ upsample-argmax kernel (``ops/kernels/upsample_argmax.py``,
 ``csrc/upsample_argmax.cu``).  The training step of BiSeNet-R18
 (``entry.train_entry``; ``engine/``, ``ops/losses.py``) runs its SyncBN
 (``ops/norm.py``) on the moment and affine kernels of
-``ops/kernels/bn_kernels.py`` / ``csrc/bn_kernels.cu``.
+``ops/kernels/bn_kernels.py`` / ``csrc/bn_kernels.cu``.  PSPNet-R50
+serves int8-through (``entry.serve_entry``) on the same conv kernel and an
+int8 max pool.  BiSeNet-X39.speed serves in bf16 (``entry.deploy_entry``;
+``models/xception.py``), the fused stem of both classic-stem BiSeNets on
+``ops/kernels/stem_conv.py`` / ``csrc/stem_conv.cu``.
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

@@ -1,14 +1,21 @@
-"""Deploy-time graph for classic-stem BiSeNet-R18 inference (counterpart of
-torchseg_tpu/deploy/fused_stem.py): BN folding, the two /2 stems fused into
-one conv, and the serving function ``make_bisenet_fused_infer``.
+"""Deploy-time graph for classic-stem BiSeNet inference, R18 and X39
+(counterpart of torchseg_tpu/deploy/fused_stem.py): BN folding, the two /2
+stems fused into one conv, and the serving function
+``make_bisenet_fused_infer``.
 
-Both the SpatialPath and the context path start with a 7x7/2 conv over the
-same input; the deploy graph folds their eval BN into per-channel affines,
-concatenates the two kernels into one (7, 7, 3, 128) conv, runs conv +
-affine + ReLU once, splits the halves and feeds them to the model through
-``stem_outs``.  With ``input_format="s2d"`` the conv is the equivalent 4x4
-stride-1 conv over the 2x2 space-to-depth input.  The stem conv is
-``F.conv2d``: the JAX package computes it in XLA, not in a Pallas kernel.
+Both the SpatialPath and the context path start with a stride-2 conv over
+the same input (Xception39's 3x3 stem embedded in the centre of the 7x7
+window); the deploy graph folds their eval BN into per-channel affines,
+concatenates the two kernels into one (7, 7, 3, cout) conv (cout 128 for
+R18, 64 + 8 = 72 for X39), runs conv + affine + ReLU once, splits the
+halves and feeds them to the model through ``stem_outs``.  The stem is
+K11, ``ops/kernels/stem_conv.stem_conv7x7_s2``, the counterpart of the
+JAX package's Pallas ``stem_conv7x7_s2`` (which computes this function;
+the JAX graph itself runs it in XLA): it takes the NHWC image or the 2x2
+space-to-depth input as it is, with the same 7x7 weights, and sums and
+applies the affine in float32 before one cast to the model's dtype.  A
+bf16 graph's stem therefore rounds once, where JAX's XLA stem (a bf16
+conv, then a bf16 multiply and add) rounds three times.
 
 The host-side folds are numpy on float32 with HWIO kernels, like the JAX
 functions, so the int8 package built from them is the JAX package bit for
@@ -18,84 +25,79 @@ model, and so the stems handed to it, are NCHW.
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.stem_conv import stem_conv7x7_s2
 from ..ops.kernels.upsample_argmax import fused_upsample_argmax
 
 
-def hwio(conv: nn.Conv2d) -> np.ndarray:
-    """A conv's OIHW weight as a float32 HWIO numpy array."""
-    return conv.weight.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
+def hwio(conv: nn.Conv2d, dtype=np.float32) -> np.ndarray:
+    """A conv's OIHW weight as an HWIO numpy array (float32 by default)."""
+    w = conv.weight.detach().cpu().double().numpy().astype(dtype)
+    return w.transpose(2, 3, 1, 0)
 
 
-def fold_bn_affine(bn: nn.BatchNorm2d, eps: float = 1e-5):
-    """Eval-mode BN -> float32 (a, b) with y = x * a + b."""
-    def f32(t):
-        return t.detach().float().cpu().numpy()
+def fold_bn_affine(bn: nn.BatchNorm2d, eps: float = 1e-5, dtype=np.float32):
+    """Eval-mode BN -> (a, b) with y = x * a + b, computed in ``dtype``
+    (float32 by default)."""
+    def arr(t):
+        return t.detach().cpu().double().numpy().astype(dtype)
 
-    inv = np.float32(1.0) / np.sqrt(f32(bn.running_var) + np.float32(eps))
-    a = inv * f32(bn.weight)
-    b = f32(bn.bias) - f32(bn.running_mean) * a
+    inv = dtype(1.0) / np.sqrt(arr(bn.running_var) + dtype(eps))
+    a = inv * arr(bn.weight)
+    b = arr(bn.bias) - arr(bn.running_mean) * a
     return a, b
 
 
-def _stem_weights(model, eps: float):
-    """Both 7x7/2 stems' (HWIO kernel, a, b): the SpatialPath conv_7x7 and
-    the ResNet classic stem conv1/bn1."""
+def _stem_weights(model, eps: float, dtype=np.float32):
+    """Both /2 stems' (HWIO kernel, a, b): the SpatialPath conv_7x7 and the
+    backbone's stem, ResNet's classic conv1/bn1 or Xception39's ConvBnRelu
+    conv1 (3x3/2 pad 1).  A smaller backbone kernel is embedded in the
+    centre of the 7x7 window: exact, because both convs stride 2 and the
+    centred zeros reproduce its pad-1 footprint (JAX fused_stem.py:32-61).
+    Folded in ``dtype``."""
     sp = model.spatial_path.conv_7x7
-    a_sp, b_sp = fold_bn_affine(sp.bn, eps)
     bb = model.backbone
-    a_bb, b_bb = fold_bn_affine(bb.bn1, eps)
-    return hwio(sp.conv), a_sp, b_sp, hwio(bb.conv1), a_bb, b_bb
+    # ResNet: conv1 and a separate bn1; Xception: a ConvBnRelu
+    conv, bn = ((bb.conv1, bb.bn1) if isinstance(bb.conv1, nn.Conv2d)
+                else (bb.conv1.conv, bb.conv1.bn))
+    k_sp, (a_sp, b_sp) = hwio(sp.conv, dtype), fold_bn_affine(sp.bn, eps,
+                                                              dtype)
+    k_bb, (a_bb, b_bb) = hwio(conv, dtype), fold_bn_affine(bn, eps, dtype)
+    m = (k_sp.shape[0] - k_bb.shape[0]) // 2
+    k_bb = np.pad(k_bb, ((m, m), (m, m), (0, 0), (0, 0)))
+    return k_sp, a_sp, b_sp, k_bb, a_bb, b_bb
 
 
-def _fused_stem_params(model, eps: float, cin: int = 3, s2d: bool = False):
-    """The fused stem conv's OIHW weight and its per-channel affine, in the
-    model's dtype on its device; for ``s2d`` the 4x4 kernel over the
-    (a, b, c)-ordered 12-channel input, else the 7x7 kernel zero-padded to
-    ``cin`` input channels (the 8-channel serving input)."""
-    k_sp, a_sp, b_sp, k_bb, a_bb, b_bb = _stem_weights(model, eps)
-    kernel = np.concatenate([k_sp, k_bb], axis=-1)  # (7, 7, 3, 128)
-    c, cout = kernel.shape[2], kernel.shape[3]
-    if s2d:
-        # pad 7x7 to 8x8 at top/left, regroup 2x2 space into channels
-        wpad = np.pad(kernel, ((1, 0), (1, 0), (0, 0), (0, 0)))
-        kernel = wpad.reshape(4, 2, 4, 2, c, cout).transpose(0, 2, 1, 3, 4, 5)
-        kernel = kernel.reshape(4, 4, 4 * c, cout)
-    elif cin != c:
-        if cin != 8:
-            raise ValueError(f"the nhwc input has 3 or 8 channels, got {cin}")
-        kernel = np.pad(kernel, ((0, 0), (0, 0), (0, cin - c), (0, 0)))
+def _fused_stem_params(model, eps: float):
+    """K11's operands on the model's device, for either input format: the
+    (7, 7, 3, cout) HWIO kernel of both stems, their affine, and the
+    SpatialPath's channel count ``n_sp``; float32, or float64 for a float64
+    model (the plain version's CPU parity path)."""
     p = next(model.parameters())
+    dtype = np.float64 if p.dtype == torch.float64 else np.float32
+    k_sp, a_sp, b_sp, k_bb, a_bb, b_bb = _stem_weights(model, eps, dtype)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(p.device, p.dtype)
+    def cat(*parts):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.concatenate(parts, axis=-1))).to(p.device)
 
-    a = np.concatenate([a_sp, a_bb])[:, None, None]
-    b = np.concatenate([b_sp, b_bb])[:, None, None]
-    return {"w": dev(kernel.transpose(3, 2, 0, 1)), "a": dev(a), "b": dev(b),
-            "n_sp": int(k_sp.shape[-1]), "s2d": s2d}
+    return {"w": cat(k_sp, k_bb), "a": cat(a_sp, a_bb), "b": cat(b_sp, b_bb),
+            "n_sp": int(k_sp.shape[-1])}
 
 
-def _apply_fused_stem(params, x):
-    """NHWC input (in the model's dtype) -> the (spatial, backbone) stem
-    activations, NCHW, post BN and ReLU, at /2."""
-    x = x.permute(0, 3, 1, 2)
-    if params["s2d"]:
-        out = F.conv2d(F.pad(x, (2, 1, 2, 1)), params["w"])
-    else:
-        out = F.conv2d(x, params["w"], stride=2, padding=3)
-    out = torch.relu(out * params["a"] + params["b"])
-    n = params["n_sp"]
-    return out[:, :n], out[:, n:]
+def _apply_fused_stem(params, x, input_format: str = "nhwc"):
+    """The image (NHWC (1, H, W, 3|8), or s2d) in the model's dtype -> the
+    (spatial, backbone) stem activations, NCHW, post BN and ReLU, at /2,
+    in that dtype: one K11 launch on a card."""
+    return stem_conv7x7_s2(x, params["w"], params["a"], params["b"],
+                           params["n_sp"], input_format, out_dtype=x.dtype)
 
 
 def _fused_stem(model, x, eps: float = 1e-5):
     """One conv for both /2 stems over the NHWC (1, H, W, 3|8) input;
     returns ``stem_outs`` (spatial_stem, backbone_stem, None)."""
-    params = _fused_stem_params(model, eps, cin=x.shape[-1])
-    return (*_apply_fused_stem(params, x), None)
+    return (*_apply_fused_stem(_fused_stem_params(model, eps), x), None)
 
 
 def prepare_s2d_input(img, dtype=torch.bfloat16, device=None):
@@ -110,19 +112,20 @@ def prepare_s2d_input(img, dtype=torch.bfloat16, device=None):
 
 
 def _fused_stem_s2d(model, xs, eps: float = 1e-5):
-    """Both stems as one 4x4 stride-1 conv over the s2d input (1, H/2, W/2,
-    12); returns ``stem_outs`` (spatial_stem, backbone_stem, None).  (The
+    """Both stems over the s2d input (1, H/2, W/2, 12), which K11 reads as
+    the image it holds (JAX runs a 4x4 stride-1 conv on it); returns
+    ``stem_outs`` (spatial_stem, backbone_stem, None).  (The
     JAX function's ``pool`` A/B arm has no caller outside its probe
     script and is not ported.)"""
-    params = _fused_stem_params(model, eps, s2d=True)
-    return (*_apply_fused_stem(params, xs), None)
+    params = _fused_stem_params(model, eps)
+    return (*_apply_fused_stem(params, xs, "s2d"), None)
 
 
 def make_bisenet_fused_infer(model, bn_eps: float = 1e-5, argmax=False,
                              input_format: str = "nhwc"):
-    """Serving function for a classic-stem (R18) BiSeNet: fused stems + the
-    standard eval forward, in the model's dtype (the card serves it in
-    bf16: ``model.to(torch.bfloat16)``).
+    """Serving function for a classic-stem BiSeNet (R18, X39): fused stems
+    (K11) + the standard eval forward, in the model's dtype (the card serves
+    it in bf16: ``model.to(torch.bfloat16)``).
 
     input_format: 'nhwc' takes (1, H, W, 3|8); 's2d' takes the
     (1, H/2, W/2, 12) tensor from ``prepare_s2d_input``.  argmax: False
@@ -154,11 +157,9 @@ def make_bisenet_fused_infer(model, bn_eps: float = 1e-5, argmax=False,
 
     @torch.inference_mode()
     def infer(x):
-        cin = x.shape[-1]
-        if cin not in stems:
-            stems[cin] = _fused_stem_params(model, bn_eps, cin=cin,
-                                            s2d=input_format == "s2d")
-        sp, bb = _apply_fused_stem(stems[cin], x.to(dtype))
+        if not stems:
+            stems.update(_fused_stem_params(model, bn_eps))
+        sp, bb = _apply_fused_stem(stems, x.to(dtype), input_format)
         scores = model(None, stem_outs=(sp, bb, None), raw_logits=raw)
         if raw:
             scores = scores.float().permute(0, 2, 3, 1).contiguous()

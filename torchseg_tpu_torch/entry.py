@@ -12,6 +12,15 @@ BiSeNet-R18 (``infer(pkg, xs)`` gives (1, H/8, W/8) int32 labels for the
 ``entry()`` is ``serve_entry`` for the flagship model, BiSeNet-R18
 real-time (``cityscapes.bisenet.R18.speed``) at 1024x2048.
 
+``deploy_entry(experiment)`` builds a classic-stem BiSeNet's bf16
+fused-stem serving graph, the graph ``torchseg_tpu.tools.speed --deploy``
+and ``bench.py``'s ``build()`` build in JAX: seeded random weights, the
+model in ``dtype`` (bf16 by default), both stems on K11 over the
+space-to-depth input, argmax labels.  It returns ``infer, xs`` for a zero
+image of ``image_hw``.  By default BiSeNet-X39 real-time
+(``cityscapes.bisenet.X39.speed``) at its own protocol's 768x1536:
+``infer(xs)`` gives (1, 96, 192) int32 labels.
+
 ``train_entry()`` builds the training step of BiSeNet-R18
 (``cityscapes.bisenet.R18``) on one device, the counterpart of the first
 leg of ``__graft_entry__.dryrun_multichip``: seeded random weights, three
@@ -31,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .deploy.fused_stem import make_bisenet_fused_infer, prepare_s2d_input
 from .deploy.int8_serve import build_int8_serving_for_experiment
 from .engine.lr_policy import PolyLR
 from .engine.optim import make_lr_mult_tree, make_wd_tree
@@ -40,6 +50,7 @@ from .models import init_weights
 
 EXPERIMENT = "cityscapes.bisenet.R18.speed"
 PSP_EXPERIMENT = "ade.pspnet.R50_v1c"
+DEPLOY_EXPERIMENT = "cityscapes.bisenet.X39.speed"
 TRAIN_EXPERIMENT = "cityscapes.bisenet.R18"
 
 
@@ -63,6 +74,23 @@ def serve_entry(experiment: str = PSP_EXPERIMENT, image_hw=(480, 480),
 
 def entry(device="cuda", image_hw=(1024, 2048), seed: int = 0):
     return serve_entry(EXPERIMENT, image_hw, device, seed)
+
+
+def deploy_entry(experiment: str = DEPLOY_EXPERIMENT, image_hw=(768, 1536),
+                 device="cuda", seed: int = 0, dtype=torch.bfloat16):
+    """The bf16 fused-stem serving graph of a classic-stem BiSeNet
+    ``experiment`` on ``device``; returns ``infer, xs``: ``infer(xs)``
+    gives int32 labels of the model's output size."""
+    _no_tf32()
+    cfg = get_experiment(experiment)
+    model = init_weights(build_model(cfg),
+                         torch.Generator().manual_seed(seed))
+    model = model.to(device=device, dtype=dtype)
+    infer = make_bisenet_fused_infer(model, cfg.bn_eps, argmax=True,
+                                     input_format="s2d")
+    xs = prepare_s2d_input(np.zeros((1, *image_hw, 3), np.float32), dtype,
+                           device=device)
+    return infer, xs
 
 
 def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda"):

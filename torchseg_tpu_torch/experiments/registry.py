@@ -1,8 +1,9 @@
 """Experiment registry (counterpart of torchseg_tpu/experiments/registry.py).
 
 The config dataclass is copied field for field from the JAX registry; so
-far the two BiSeNet-R18 Cityscapes entries (JAX registry.py:146 and :163)
-and the two PSPNet ADE entries (:139-140) are registered.  Other
+far the two BiSeNet-R18 Cityscapes entries (JAX registry.py:146 and :163),
+the two BiSeNet-X39 entries (:153, :170) and the two PSPNet ADE entries
+(:139-140) are registered.  Other
 experiments come with their families.
 ``build_model`` binds the model's BatchNorms to a process group (SyncBN)
 when given one; ``build_loss_fn`` gives the per-process training loss
@@ -119,6 +120,10 @@ _register(ExperimentConfig(
     name="cityscapes.bisenet.R18", model="bisenet_r18", loss="ohem",
     nepochs=80, **_CITY,
 ))
+_register(ExperimentConfig(
+    name="cityscapes.bisenet.X39", model="bisenet_x39", loss="ohem",
+    nepochs=140, **_CITY,
+))
 _speed = dict(_CITY)
 _speed.update(
     image_height=768, image_width=1536, eval_stride_rate=2 / 3,
@@ -129,6 +134,14 @@ _register(ExperimentConfig(
     nepochs=80, gt_down_sampling=8, eval_mode="whole",
     eval_gt_down_sampling=8, eval_resize_to=(768, 1536),
     model_kwargs={"speed": True}, **_speed,
+))
+_x39speed = dict(_speed)
+_x39speed.update(train_scale_array=(0.5, 0.75, 1, 1.25, 1.5, 1.75))
+_register(ExperimentConfig(
+    name="cityscapes.bisenet.X39.speed", model="bisenet_x39", loss="ohem",
+    nepochs=140, gt_down_sampling=8, eval_mode="whole",
+    eval_gt_down_sampling=8, eval_resize_to=(768, 1536),
+    model_kwargs={"speed": True}, **_x39speed,
 ))
 
 

@@ -1,8 +1,8 @@
 """Model zoo (counterpart of torchseg_tpu/models/__init__.py).
 
-Ported so far: BiSeNet-R18 and its real-time ``.speed`` variant, and
-PSPNet on the dilated deep-stem ResNet-50/101 (eval).  The other families
-come with ROADMAP A8.
+Ported so far: BiSeNet-R18 and BiSeNet-X39 with their real-time ``.speed``
+variants, and PSPNet on the dilated deep-stem ResNet-50/101 (eval).  The
+other families come with ROADMAP A8.
 """
 
 import torch
@@ -13,6 +13,7 @@ from ..ops.norm import BatchNorm2d
 from .bisenet import BiSeNet
 from .pspnet import PSPNet
 from .resnet import ResNet, resnet18, resnet50, resnet101
+from .xception import Xception, xception39
 
 _DILATED = dict(layer_strides=(1, 2, 1, 1), layer_dilations=(1, 1, 2, 4))
 
@@ -25,6 +26,22 @@ def bisenet_r18(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
         num_classes, resnet18(norm=norm),
         conv_channel=128,
         aux_mid=128 if speed else 256,
+        main_mid=64,
+        head_scales=(2, 1, 1) if speed else (16, 8, 8),
+        norm=norm,
+    )
+
+
+def bisenet_x39(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
+                speed: bool = False) -> BiSeNet:
+    """BiSeNet on Xception39 (stage outputs 64/128/256 channels); ``speed``
+    is the real-time variant, models/__init__.py:96-106 of the JAX
+    package."""
+    return BiSeNet(
+        num_classes, xception39(norm=norm),
+        stage_channels=(64, 128, 256),
+        conv_channel=128,
+        aux_mid=128,
         main_mid=64,
         head_scales=(2, 1, 1) if speed else (16, 8, 8),
         norm=norm,
@@ -47,6 +64,7 @@ def pspnet_r101(num_classes: int = 150,
 
 MODEL_REGISTRY = {
     "bisenet_r18": bisenet_r18,
+    "bisenet_x39": bisenet_x39,
     "pspnet_r50": pspnet_r50,
     "pspnet_r101": pspnet_r101,
 }
@@ -56,7 +74,8 @@ MODEL_REGISTRY = {
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init on the CPU generator's stream, then copied to the
     model's device: convs kaiming-normal (relu gain, fan_in) as the
-    reference's business layers, biases zero, BN gamma=1 / beta=0 with
+    reference's business layers (a depthwise conv's fan-in is its k*k
+    window, as for flax's (k, k, 1, C) kernel), biases zero, BN gamma=1 / beta=0 with
     running stats (0, 1) as a freshly initialized JAX model."""
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
@@ -71,5 +90,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-__all__ = ["BiSeNet", "PSPNet", "ResNet", "bisenet_r18", "pspnet_r50",
-           "pspnet_r101", "init_weights", "MODEL_REGISTRY"]
+__all__ = ["BiSeNet", "PSPNet", "ResNet", "Xception", "bisenet_r18",
+           "bisenet_x39", "pspnet_r50", "pspnet_r101", "xception39",
+           "init_weights", "MODEL_REGISTRY"]

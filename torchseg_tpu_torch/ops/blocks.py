@@ -1,9 +1,10 @@
 """Composite conv blocks (counterpart of torchseg_tpu/ops/blocks.py).
 
-Only the three blocks BiSeNet uses are ported here; the other seven come
-with their model families.  Submodule names are the flax module names
-(``conv``, ``bn``, ``conv_3x3``, ``channel_attention``, ``conv_1x1``,
-``ca1``, ``ca2``), so ``named_modules()`` with ``.`` -> ``/`` gives the
+Ported here: the three blocks BiSeNet uses and Xception39's
+SeparableConvBnRelu; the other six come with their model families.
+Submodule names are the flax module names (``conv``, ``bn``, ``conv_3x3``,
+``channel_attention``, ``conv_1x1``, ``ca1``, ``ca2``, ``depthwise``,
+``pointwise``), so ``named_modules()`` with ``.`` -> ``/`` gives the
 JAX parameter and calibration paths.  Tensors are NCHW.  In train mode a
 ConvBnRelu hands its ReLU to the BN (``ops.norm.bn_act``), whose affine
 kernel applies it; the ARM and FFM gates normalize (B, C, 1, 1) tensors,
@@ -39,6 +40,31 @@ class ConvBnRelu(nn.Module):
         if self.bn is not None:
             return bn_act(self.bn, x, self.has_relu)
         return torch.relu(x) if self.has_relu else x
+
+
+class SeparableConvBnRelu(nn.Module):
+    """Depthwise conv [-> BN] -> pointwise 1x1 ConvBnRelu (JAX
+    ops/blocks.py:133-184).  ``depthwise_bn=True`` is the reference's
+    seg_oprs.py:76-94 variant; ``False`` Xception39's, with no BN after the
+    depthwise conv (reference base_model/xception.py:10-26)."""
+
+    def __init__(self, in_planes: int, out_planes: int, ksize: int = 1,
+                 stride: int = 1, pad: int = 0, dilation: int = 1,
+                 has_relu: bool = True, depthwise_bn: bool = True,
+                 norm: NormFactory = BatchNorm2d):
+        super().__init__()
+        self.depthwise = nn.Conv2d(in_planes, in_planes, ksize, stride=stride,
+                                   padding=pad, dilation=dilation,
+                                   groups=in_planes, bias=False)
+        self.bn = norm(in_planes) if depthwise_bn else None
+        self.pointwise = ConvBnRelu(in_planes, out_planes, 1, 1, 0,
+                                    has_relu=has_relu, norm=norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.depthwise(x)
+        if self.bn is not None:
+            x = bn_act(self.bn, x, relu=False)
+        return self.pointwise(x)
 
 
 class AttentionRefinement(nn.Module):

@@ -64,6 +64,14 @@ LIBRARIES = {
         "tsg_upsample_argmax": ([c_void_p] + [c_int] * 4 + [c_void_p]
                                 + [c_int] * 2 + [c_void_p]),
     },
+    "stem_conv": {
+        "tsg_init": [],
+        # x, batch, h, w, cx, s2d, in_bf16, wt, a, b, cout, n_sp, out1,
+        # out2, out_bf16, stream
+        "tsg_stem_conv": ([c_void_p] + [c_int] * 6 + [c_void_p] * 3
+                          + [c_int] * 2 + [c_void_p] * 2 + [c_int]
+                          + [c_void_p]),
+    },
 }
 # entry points that return something other than int
 _RESTYPES = {"tsg_conv_smem_bytes": c_longlong}
