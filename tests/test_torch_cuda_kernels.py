@@ -7,7 +7,8 @@ The shapes are ragged on purpose (widths that are not multiples of the
 kernels' 32-column tiles, odd heights, stage 3's and stage 4's channel
 counts, output sizes that are not multiples of 32 or 128, BN inputs whose
 H*W is odd or 1, a misaligned BN input, stem outputs off K11's 64-column
-and 8-row strips), so the edge masking and the
+and 8-row strips, focal-loss element counts that are not multiples of the
+block), so the edge masking and the
 scalar paths are exercised; chip_smoke.py covers the serving and training
 shapes.  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+from torchseg_tpu_torch.ops.kernels import focal_loss as FL
 from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
 from torchseg_tpu_torch.ops.kernels import stem_conv as S
 from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
@@ -480,3 +482,123 @@ def test_stem_conv_kernel_refuses_float64(dev):
     with pytest.raises(TypeError):
         S.stem_conv7x7_s2(img.double().to(dev), k.double(), a.double(),
                           b.double(), 4, out_dtype=torch.float64)
+
+
+@pytest.mark.parametrize("shape", [(2, 512, 1, 1), (2, 21, 200, 200)])
+def test_dfn_batch_norm_layers_on_card_match_cpu(dev, shape):
+    """DFN's global-context BN (n = 2 values a channel at batch 2) and a
+    border RefineResidual's 21-channel BN at x4 of 800x800, with ReLU.
+    At n = 2 the variance sum x^2 / n - mean^2 (JAX's formula) keeps
+    only what rounding leaves of a pair that lies within ~sqrt(eps) of
+    itself, so the pairs drawn here lie 0.5 to 3 apart; and the input
+    gradient is what is left after the BN's projection removes both of a
+    channel's directions: rounding alone, so it is held to the size of the
+    terms that cancel (|g| * gamma / std)."""
+    g = _gen(15)
+    x = torch.randn(shape, generator=g) * 1.5 + 0.3
+    if shape[0] * shape[2] * shape[3] == 2:
+        half = torch.rand(shape[1], generator=g) * 1.25 + 0.25
+        sign = torch.randint(0, 2, (shape[1],), generator=g) * 2 - 1
+        x[1] = x[0] + (2 * half * sign)[:, None, None]
+    w = torch.randn(shape, generator=g)
+    weight = torch.linspace(0.5, 1.5, shape[1])
+    outs = []
+    for device in ("cpu", dev):
+        bn = BatchNorm2d(shape[1]).to(device).train()
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, shape[1]))
+        xt = x.to(device).detach().requires_grad_(True)
+        y = bn(xt, relu=True)
+        (y * w.to(device)).sum().backward()
+        outs.append([t.detach().cpu() for t in (
+            y, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            bn.running_var, xt.grad)])
+    *got, got_dx = outs[1]
+    *ref, ref_dx = outs[0]
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-5 * float(
+            b.abs().max()) + 1e-7
+    inv = torch.rsqrt(x.var(dim=(0, 2, 3), unbiased=False) + 1e-5)
+    terms = float((w.abs() * (weight * inv)[None, :, None, None]).max())
+    assert float((got_dx - ref_dx).abs().max()) <= 1e-5 * max(
+        terms, float(ref_dx.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# K12 / K13, the multi-class sigmoid focal loss
+# ----------------------------------------------------------------------
+
+def _focal_operands(g, n, c, dtype, tdtype, dev):
+    x = torch.randn(n, c, generator=g) * 4
+    x.view(-1)[:3] = torch.tensor([30.0, -30.0, 0.0])
+    t = torch.randint(-1, c + 2, (n,), generator=g)
+    t[:4] = torch.tensor([-1, 0, 1, c + 1])
+    return x.to(dtype).to(dev), t.to(tdtype).to(dev)
+
+
+def _focal_close(got, ref, rel=1e-5):
+    """Element by element within rel * max |ref| + 1e-6 (the kernels' exp,
+    log and log1p against torch's CUDA ones: a few ulps)."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    bar = rel * float(ref.float().abs().max()) + 1e-6
+    assert float((got.float() - ref.float()).abs().max()) <= bar
+
+
+@pytest.mark.parametrize("n", [131, 1000, 20011])
+@pytest.mark.parametrize("c", [1, 19, 150])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tdtype", [torch.int32, torch.int64])
+def test_focal_loss_kernels_match_plain(dev, n, c, dtype, tdtype):
+    x, t = _focal_operands(_gen(n + c), n, c, dtype, tdtype, dev)
+    g = torch.randn(n, c, generator=_gen(n)).to(dev)
+    before = (FL.sigmoid_focal_loss_fwd.launches,
+              FL.sigmoid_focal_loss_bwd.launches)
+    out = FL.sigmoid_focal_loss_fwd(x, t)
+    dx = FL.sigmoid_focal_loss_bwd(x, t, g)
+    torch.cuda.synchronize()
+    assert (FL.sigmoid_focal_loss_fwd.launches,
+            FL.sigmoid_focal_loss_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert out.dtype == torch.float32 and dx.dtype == dtype
+    _focal_close(out, FL.sigmoid_focal_loss_multiclass_plain(x, t))
+    # bf16 dx: both round a float32 value once, which may land one bf16
+    # ulp apart
+    _focal_close(dx, FL.sigmoid_focal_loss_multiclass_bwd_plain(x, t, g),
+                 rel=1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("gamma,alpha", [(2.0, 0.25), (1.5, 0.4)])
+def test_focal_loss_stride0_dloss_through_autograd(dev, gamma, alpha):
+    """``.sum()`` hands K13 an expanded scalar: the scalar-dloss mode gives
+    the dense result, and the module's loss and gradient match the plain
+    versions."""
+    x, t = _focal_operands(_gen(5), 4099, 19, torch.float32, torch.int64,
+                           dev)
+    xk = x.clone().requires_grad_(True)
+    (FL.sigmoid_focal_loss_multiclass(xk, t, gamma, alpha).sum()
+     * 0.75).backward()
+    ref = FL.sigmoid_focal_loss_multiclass_bwd_plain(
+        x, t, torch.full_like(x, 0.75), gamma, alpha)
+    _focal_close(xk.grad, ref)
+    dense = FL.sigmoid_focal_loss_bwd(x, t, torch.full_like(x, 0.75), gamma,
+                                      alpha)
+    _focal_close(xk.grad, dense)
+    xm = x.clone().requires_grad_(True)
+    loss = FL.SigmoidFocalLossMulti(xm, t, gamma, alpha)
+    loss.backward()
+    pos = float((t > 0).sum())
+    ref_loss = FL.sigmoid_focal_loss_multiclass_plain(x, t, gamma,
+                                                      alpha).sum() / pos
+    assert abs(float(loss.detach()) - float(ref_loss)) <= 1e-5 * abs(
+        float(ref_loss))
+    _focal_close(xm.grad, FL.sigmoid_focal_loss_multiclass_bwd_plain(
+        x, t, torch.full_like(x, 1.0 / pos), gamma, alpha))
+
+
+def test_focal_loss_kernels_refuse_float64(dev):
+    x, t = _focal_operands(_gen(1), 8, 3, torch.float64, torch.int64, dev)
+    with pytest.raises(TypeError):
+        FL.sigmoid_focal_loss_fwd(x, t)
+    with pytest.raises(TypeError):
+        FL.sigmoid_focal_loss_bwd(x, t, torch.ones_like(x))

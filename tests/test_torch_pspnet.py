@@ -474,10 +474,10 @@ def test_serve_entry_on_cpu():
 def test_unported_families_raise(psp, packages):
     cfg = treg.get_experiment(PSP_EXPERIMENT)
     for model in ("psanet_r50", "dfn_r101", "fcn32s_r101", "bisenet_r101"):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A4"):
             ti8.build_int8_serving_for_experiment(
                 dataclasses.replace(cfg, model=model), psp["tm"])
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A4"):
         ti8.make_int8_pspnet_infer(psp["tm"], {"kind": "r18"})
     with pytest.raises(ValueError, match="deep-stem"):
         ti8.build_int8_backbone_package(tmodels.bisenet_r18(),

@@ -65,7 +65,7 @@ from .fused_stem import _stem_weights, fold_bn_affine, hwio
 
 _NOT_PORTED = ("not ported yet (ROADMAP A3: the port's int8-through graph "
                "has only the R18 kind with the int8 decoder)")
-_NOT_PORTED_A8 = ("not ported yet (ROADMAP A8: the port's int8 Bottleneck "
+_NOT_PORTED_A4 = ("not ported yet (ROADMAP A4: the port's int8 Bottleneck "
                   "body serves only the PSPNet head)")
 
 
@@ -618,7 +618,7 @@ def make_int8_pspnet_infer(model, pkg, *, argmax=True, dtype=torch.bfloat16):
     returns (1, H, W) int32 labels, or with ``argmax=False`` the (1, H, W,
     classes) float32 log-probs."""
     if not str(pkg.get("kind", "")).startswith("bottleneck"):
-        raise NotImplementedError(f"this package is {_NOT_PORTED_A8}")
+        raise NotImplementedError(f"this package is {_NOT_PORTED_A4}")
     head_model = model
     if next(model.parameters()).dtype != dtype:
         head_model = copy.deepcopy(model).to(dtype)
@@ -650,10 +650,10 @@ def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
     function draws them).  Returns ``(infer, pkg, prepare)``:
     ``infer(pkg, xs)`` serves and ``prepare(img_u8)`` is the host-side
     input prep onto the model's device.  PSANet, DFN, FCN and
-    BiSeNet-R101 raise NotImplementedError (ROADMAP A8)."""
+    BiSeNet-R101 raise NotImplementedError (ROADMAP A4)."""
     if cfg.model.startswith(("psanet", "dfn", "fcn")) or \
             cfg.model == "bisenet_r101":
-        raise NotImplementedError(f"{cfg.model} is {_NOT_PORTED_A8}")
+        raise NotImplementedError(f"{cfg.model} is {_NOT_PORTED_A4}")
     psp = cfg.model.startswith("pspnet")
     classic_stem = cfg.model in ("bisenet_r18", "bisenet_x39")
     if decoder is None:

@@ -28,7 +28,10 @@ OHEM heads, SGD with the reference's parameter groups and PolyLR, batch 2
 of 1024x1024 crops by default, and a synthetic batch of seeded smooth
 random images whose labels are a function of the image (channel 0 > 0;
 ``synthetic_batch``), so that repeated steps must lower the loss.
-``dryrun()`` runs it and checks that.
+``train_entry(DFN_EXPERIMENT, crop=(800, 800))`` builds DFN-R101's step
+the same way (``cityscapes.dfn.R101_v1c``: four smooth CE heads, four
+border focal heads against a synthetic border label, lr 7e-4).
+``dryrun()`` runs the steps and checks that the loss falls.
 
 TF32 is switched off for cuDNN convolutions and matmuls: calibration runs
 the float graph in float32, and TF32 would round its convolutions to ~10
@@ -52,6 +55,8 @@ EXPERIMENT = "cityscapes.bisenet.R18.speed"
 PSP_EXPERIMENT = "ade.pspnet.R50_v1c"
 DEPLOY_EXPERIMENT = "cityscapes.bisenet.X39.speed"
 TRAIN_EXPERIMENT = "cityscapes.bisenet.R18"
+DFN_EXPERIMENT = "cityscapes.dfn.R101_v1c"
+BORDER_BAND = 2  # the synthetic border label's half-width, in pixels
 
 
 def _no_tf32():
@@ -93,7 +98,8 @@ def deploy_entry(experiment: str = DEPLOY_EXPERIMENT, image_hw=(768, 1536),
     return infer, xs
 
 
-def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda"):
+def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda",
+                    border: bool = False):
     """{"image": (B, 3, H, W) float32, "label": (B, H, W) int64} from
     ``np.random.default_rng(seed)``: each image a smooth normal field (a
     grid of one sample per 32x32 pixels, upsampled bilinearly) plus pixel
@@ -103,7 +109,13 @@ def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda"):
     at 1024x1024 such labels vary pixel by pixel, finer than the /8 heads
     can follow, so the OHEM loss there oscillates instead of falling.  The
     smooth field keeps the labels a function of the image that the model
-    can learn."""
+    can learn.
+
+    ``border``: also an "aux_label" (B, H, W) int64 for DFN's border
+    heads, 1 within ``BORDER_BAND`` pixels of a pixel whose label differs
+    from a 4-neighbour's, else 0: again a function of the image.  It is
+    not the Canny edge label of JAX's ``DFNTrainPre``, which comes with
+    the data pipeline (ROADMAP A6)."""
     rng = np.random.default_rng(seed)
     grid = (max(crop[0] // 32, 2), max(crop[1] // 32, 2))
     field = torch.nn.functional.interpolate(
@@ -112,16 +124,30 @@ def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda"):
         align_corners=True)
     noise = torch.from_numpy(rng.normal(0, 0.1, size=(batch, 3, *crop))
                              .astype(np.float32))
-    return {"image": (field + noise).to(device),
-            "label": (field[:, 0] > 0).long().to(device)}
+    label = (field[:, 0] > 0).long()
+    out = {"image": (field + noise).to(device), "label": label.to(device)}
+    if border:
+        edge = torch.zeros(label.shape, dtype=torch.bool)
+        dv = label[:, 1:] != label[:, :-1]
+        dh = label[:, :, 1:] != label[:, :, :-1]
+        edge[:, 1:] |= dv
+        edge[:, :-1] |= dv
+        edge[:, :, 1:] |= dh
+        edge[:, :, :-1] |= dh
+        band = torch.nn.functional.max_pool2d(
+            edge[:, None].float(), 2 * BORDER_BAND + 1, stride=1,
+            padding=BORDER_BAND)[:, 0]
+        out["aux_label"] = band.long().to(device)
+    return out
 
 
-def train_entry(device="cuda", crop=(1024, 1024), batch: int = 2,
-                seed: int = 0):
-    """The BiSeNet-R18 training step on one device; returns ``trainer,
-    (state, batch)``: ``trainer.train_step(batch)`` gives (loss, lr)."""
+def train_entry(experiment: str = TRAIN_EXPERIMENT, device="cuda",
+                crop=(1024, 1024), batch: int = 2, seed: int = 0):
+    """The training step of ``experiment`` on one device; returns
+    ``trainer, (state, batch)``: ``trainer.train_step(batch)`` gives (loss,
+    lr)."""
     _no_tf32()
-    cfg = dataclasses.replace(get_experiment(TRAIN_EXPERIMENT),
+    cfg = dataclasses.replace(get_experiment(experiment),
                               image_height=crop[0], image_width=crop[1],
                               batch_size=batch)
     model = build_model(cfg).to(device)
@@ -132,16 +158,17 @@ def train_entry(device="cuda", crop=(1024, 1024), batch: int = 2,
         lr_mult=make_lr_mult_tree(model, cfg.business_lr_mult),
         wd=make_wd_tree(model, cfg.weight_decay))
     state = trainer.init_state(torch.Generator().manual_seed(seed))
-    return trainer, (state, synthetic_batch(batch, crop, seed, device))
+    return trainer, (state, synthetic_batch(batch, crop, seed, device,
+                                            border=cfg.loss == "dfn"))
 
 
-def dryrun(n_steps: int = 20, device="cuda", crop=(1024, 1024),
-           batch: int = 2, seed: int = 0):
-    """``n_steps`` training steps on one fixed learnable batch; raises
-    unless every loss is finite and the mean of the last three is below
-    that of the first three (``__graft_entry__.py:120-134``).  Returns the
-    losses."""
-    trainer, (_, data) = train_entry(device, crop, batch, seed)
+def dryrun(n_steps: int = 20, experiment: str = TRAIN_EXPERIMENT,
+           device="cuda", crop=(1024, 1024), batch: int = 2, seed: int = 0):
+    """``n_steps`` training steps of ``experiment`` on one fixed learnable
+    batch; raises unless every loss is finite and the mean of the last
+    three is below that of the first three
+    (``__graft_entry__.py:120-134``).  Returns the losses."""
+    trainer, (_, data) = train_entry(experiment, device, crop, batch, seed)
     losses = [float(trainer.train_step(data)[0]) for _ in range(n_steps)]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite training loss: {losses}")

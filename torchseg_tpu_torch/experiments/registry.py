@@ -2,12 +2,14 @@
 
 The config dataclass is copied field for field from the JAX registry; so
 far the two BiSeNet-R18 Cityscapes entries (JAX registry.py:146 and :163),
-the two BiSeNet-X39 entries (:153, :170) and the two PSPNet ADE entries
-(:139-140) are registered.  Other
-experiments come with their families.
+the two BiSeNet-X39 entries (:153, :170), the two PSPNet ADE entries
+(:139-140) and the two DFN entries (:178-199) are registered.  Other
+experiments come with their families (ROADMAP A4).
 ``build_model`` binds the model's BatchNorms to a process group (SyncBN)
 when given one; ``build_loss_fn`` gives the per-process training loss
-(``ce`` and ``ohem``; ``dfn`` comes with DFN, ROADMAP A8).
+(``ce``, ``ohem`` and ``dfn``).  JAX's fused upsample+loss branch is off for
+every family there (``_use_fused_head_loss``, registry.py:235-250), so
+the port has none.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ from ..ops.losses import (
     CITYSCAPES_CLASS_WEIGHTS,
     cross_entropy_with_ignore,
     prob_ohem_cross_entropy,
+    sigmoid_focal_loss_border,
 )
 from ..ops.norm import BatchNorm2d
 
@@ -144,6 +147,26 @@ _register(ExperimentConfig(
     model_kwargs={"speed": True}, **_x39speed,
 ))
 
+_dfn_city = dict(_CITY)
+_dfn_city.update(
+    image_height=800, image_width=800, lr=7e-4, weight_decay=1e-4,
+    train_scale_array=(0.5, 0.75, 1, 1.5, 1.75, 2.0),
+    eval_base_size=800, eval_crop_size=800, eval_stride_rate=2 / 3,
+)
+_register(ExperimentConfig(
+    name="cityscapes.dfn.R101_v1c", model="dfn_r101", loss="dfn",
+    preprocess="dfn", nepochs=80, **_dfn_city,
+))
+_register(ExperimentConfig(
+    name="voc.dfn.R101_v1c", model="dfn_r101", dataset="voc",
+    num_classes=21, ignore_label=255, loss="dfn", preprocess="dfn",
+    image_height=512, image_width=512,
+    train_scale_array=(0.5, 0.75, 1, 1.5, 1.75, 2.0),
+    lr=8e-4, weight_decay=1e-5, batch_size=32, nepochs=120,
+    niters_per_epoch=330,
+    eval_base_size=512, eval_crop_size=512, eval_stride_rate=2 / 3,
+))
+
 
 def get_experiment(name: str) -> ExperimentConfig:
     return EXPERIMENTS[name]
@@ -196,5 +219,20 @@ def build_loss_fn(cfg: ExperimentConfig, num_shards: int = 1):
 
         return ohem_loss
     if cfg.loss == "dfn":
-        raise NotImplementedError("the DFN loss comes with DFN (ROADMAP A8)")
+        alpha = cfg.dfn_alpha
+        border_ignore = cfg.border_ignore_label
+
+        def dfn_loss(outs, batch):
+            """CE with ignore on each upsampled smooth head, plus
+            ``dfn_alpha`` times the border focal loss of each border head
+            against ``aux_label`` (JAX registry.py:369-393)."""
+            label = batch["label"]
+            loss = sum(cross_entropy_with_ignore(s, label, ignore)
+                       for s in outs["smooth"])
+            aux = sum(sigmoid_focal_loss_border(b, batch["aux_label"],
+                                                border_ignore)
+                      for b in outs["border"])
+            return loss + alpha * aux
+
+        return dfn_loss
     raise ValueError(f"unknown loss {cfg.loss}")

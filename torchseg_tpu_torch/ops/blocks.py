@@ -1,11 +1,13 @@
 """Composite conv blocks (counterpart of torchseg_tpu/ops/blocks.py).
 
-Ported here: the three blocks BiSeNet uses and Xception39's
-SeparableConvBnRelu; the other six come with their model families.
-Submodule names are the flax module names (``conv``, ``bn``, ``conv_3x3``,
+Ported here: the three blocks BiSeNet uses, Xception39's
+SeparableConvBnRelu and DFN's SELayer, ChannelAttention and
+RefineResidual; the other three come with their users.  Submodule names
+are the flax module names (``conv``, ``bn``, ``conv_3x3``,
 ``channel_attention``, ``conv_1x1``, ``ca1``, ``ca2``, ``depthwise``,
-``pointwise``), so ``named_modules()`` with ``.`` -> ``/`` gives the
-JAX parameter and calibration paths.  Tensors are NCHW.  In train mode a
+``pointwise``, ``fc1``, ``fc2``, ``se``, ``cbr``, ``conv_refine``), so
+``named_modules()`` with ``.`` -> ``/`` gives the JAX parameter and
+calibration paths.  Tensors are NCHW.  In train mode a
 ConvBnRelu hands its ReLU to the BN (``ops.norm.bn_act``), whose affine
 kernel applies it; the ARM and FFM gates normalize (B, C, 1, 1) tensors,
 n = B per channel, which the port's BN accepts down to n = 1.
@@ -103,3 +105,52 @@ class FeatureFusion(nn.Module):
         se = fm.mean(dim=(2, 3), keepdim=True)
         se = torch.sigmoid(self.ca2(self.ca1(se)))
         return fm + fm * se
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excite gate: global mean -> fc1 -> ReLU -> fc2 ->
+    sigmoid; returns the (B, out, 1, 1) gate (reference seg_oprs.py:110-126,
+    JAX ops/blocks.py:196-225)."""
+
+    def __init__(self, in_planes: int, out_planes: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = nn.Linear(in_planes, out_planes // reduction)
+        self.fc2 = nn.Linear(out_planes // reduction, out_planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.fc1(x.mean(dim=(2, 3))))
+        return torch.sigmoid(self.fc2(y))[:, :, None, None]
+
+
+class ChannelAttention(nn.Module):
+    """DFN's channel-attention block: concat -> SE gate -> x1 * gate + x2
+    (reference seg_oprs.py:130-140, JAX ops/blocks.py:228-243)."""
+
+    def __init__(self, in_planes: int, out_planes: int, reduction: int = 1):
+        super().__init__()
+        self.se = SELayer(in_planes, out_planes, reduction)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        return x1 * self.se(torch.cat([x1, x2], dim=1)) + x2
+
+
+class RefineResidual(nn.Module):
+    """1x1 conv -> [3x3 CBR -> 3x3 conv, residual add] [-> ReLU] (reference
+    seg_oprs.py:165-188, JAX ops/blocks.py:283-327), without biases, as
+    DFN builds it (JAX's ``has_bias`` has no caller)."""
+
+    def __init__(self, in_planes: int, out_planes: int, ksize: int,
+                 has_relu: bool = False, norm: NormFactory = BatchNorm2d):
+        super().__init__()
+        pad = ksize // 2
+        self.conv_1x1 = nn.Conv2d(in_planes, out_planes, 1, bias=False)
+        self.cbr = ConvBnRelu(out_planes, out_planes, ksize, 1, pad,
+                              norm=norm)
+        self.conv_refine = nn.Conv2d(out_planes, out_planes, ksize,
+                                     padding=pad, bias=False)
+        self.has_relu = has_relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_1x1(x)
+        out = self.conv_refine(self.cbr(x)) + x
+        return torch.relu(out) if self.has_relu else out

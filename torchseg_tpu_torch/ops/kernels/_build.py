@@ -72,6 +72,18 @@ LIBRARIES = {
                           + [c_int] * 2 + [c_void_p] * 2 + [c_int]
                           + [c_void_p]),
     },
+    "focal_loss": {
+        # x, x_bf16, t, t_i64, n, c, gamma, square, alpha, 1 - alpha, out,
+        # stream
+        "tsg_focal_fwd": ([c_void_p, c_int, c_void_p] + [c_int] * 3
+                          + [c_float, c_int, c_float, c_float]
+                          + [c_void_p] * 2),
+        # x, x_bf16, t, t_i64, g, g_scalar, n, c, gamma, square, alpha,
+        # 1 - alpha, dx, stream
+        "tsg_focal_bwd": ([c_void_p, c_int, c_void_p, c_int, c_void_p]
+                          + [c_int] * 3 + [c_float, c_int, c_float, c_float]
+                          + [c_void_p] * 2),
+    },
 }
 # entry points that return something other than int
 _RESTYPES = {"tsg_conv_smem_bytes": c_longlong}

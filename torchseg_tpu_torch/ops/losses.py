@@ -8,8 +8,9 @@ smallest probability.  (``torch.kthvalue`` gives the same value, but on
 CUDA it reduces a single slice in one block: 10 ms per call on 2M pixels
 on an H100, against well under 1 ms for the sort.)
 The histogram approximation (``approx_threshold``) is a TPU knob and is not
-ported.  Ported so far: the losses BiSeNet-R18 trains with; the upsampled
-(fused) variants and the DFN losses come with their paths (ROADMAP A5, A9).
+ported.  Ported so far: the losses BiSeNet and DFN train with (CE with
+ignore, OHEM, DFN's border focal loss); the upsampled (fused) variants are
+not ported, that path being off for every family in JAX (ROADMAP A8).
 """
 
 from typing import Optional
@@ -96,3 +97,28 @@ def _ohem_tail(gt_logp, valid, safe, thresh, min_kept, class_weights):
             # min_kept > num_valid: no filtering (reference loss_opr.py:80)
             keep = torch.where(valid.sum() < min_kept, valid, kept)
     return _weighted_mean(-gt_logp, keep, safe, class_weights)
+
+
+def sigmoid_focal_loss_border(pred: torch.Tensor, target: torch.Tensor,
+                              ignore_label: int, gamma: float = 2.0,
+                              alpha: float = 0.25):
+    """DFN's border-branch focal loss (reference loss_opr.py:14-45; JAX
+    ops/losses.py:372-401), with both of the reference's quirks, since
+    trained checkpoints depend on them: the focal terms are fed the
+    sigmoid *outputs* s where logits are expected, and the mean runs over
+    all B*H*W pixels, ignored ones included in the denominator:
+
+      s = sigmoid(pred); t = target on valid pixels, 0 elsewhere
+      loss = mean(-(alpha * (1-s)^gamma * (s - s*t)
+                    + (1-alpha) * s^gamma * log(1 + exp(-s))) * valid)
+
+    ``pred`` (B, 1, H, W) border logits, ``target`` (B, H, W) in {0, 1,
+    ignore}.  Plain PyTorch: not the multi-class focal kernel (K12)."""
+    pred = wide(pred).reshape(pred.shape[0], -1)
+    target = target.reshape(target.shape[0], -1)
+    mask = (target != ignore_label).to(pred.dtype)
+    t = mask * target.to(pred.dtype)
+    s = torch.sigmoid(pred)
+    pos_part = (1.0 - s) ** gamma * (s - s * t)
+    neg_part = s ** gamma * torch.log1p(torch.exp(-s))
+    return (-(alpha * pos_part + (1.0 - alpha) * neg_part) * mask).mean()

@@ -4,7 +4,8 @@ torchseg_tpu/utils/torch_convert.py, in the other direction).
 Both functions take trees of numpy arrays (``jax.device_get`` output), so
 this module imports no JAX.  The port's submodules carry the flax module
 names, so a flax path maps to a ``state_dict`` key mechanically:
-``params/a/b/kernel`` -> ``a.b.weight`` (HWIO -> OIHW), ``scale`` ->
+``params/a/b/kernel`` -> ``a.b.weight`` (conv HWIO -> OIHW, dense (in,
+out) -> (out, in)), ``scale`` ->
 ``weight``, ``bias`` -> ``bias``; ``batch_stats/a/b/mean`` and ``var`` ->
 ``running_mean`` and ``running_var``.
 """
@@ -39,6 +40,8 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
             a = np.asarray(arr, np.float32)
             if leaf == "kernel" and a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif leaf == "kernel" and a.ndim == 2:
+                a = a.T  # flax Dense (in, out) -> nn.Linear (out, in)
             prefix = ".".join(mods)
             sd[f"{prefix}.{names[leaf]}"] = torch.from_numpy(
                 np.ascontiguousarray(a))
