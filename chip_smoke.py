@@ -76,7 +76,12 @@ script
      with the ReLU fused), and no BN runs torch's own batch norm; K9 is held
      bit-exact to its plain version on the float32 tensors that step fed it
      and on the same tensors in bfloat16, K8 within 1e-5 of sum |x| (sum x)
-     and 1e-5 relative (sum x^2); one step on the card agrees with the same
+     and 1e-5 relative (sum x^2) and to the same bits on a second call, and
+     K8's fold (the SyncBN epilogue: mean, inv, a, b, d, the running stats
+     and num_batches_tracked) bit-exact against ``bn_fold_plain`` on K8's
+     own sums with the step's own BN operands, its a and b those the step
+     fed K9; one SyncBN forward launches at most 3 device kernels (the
+     profiler; it is K8 and K9); one step on the card agrees with the same
      step on the CPU, run in float64, at 64x64, batch 8 (CHECK_CROP: where
      the float32 step is well-conditioned, see there), with cuDNN off: the
      loss within 1e-4 relative, each parameter's change within 1e-3 of its
@@ -85,7 +90,8 @@ script
      20 steps on
      the learnable synthetic batch lower the loss; the step is timed
      (median, p90, host enqueue, peak memory), K8 and K9 against their
-     plain versions and the one-call library yardsticks, K8 + K9 against
+     plain versions and the one-call library yardsticks, with their
+     wrappers' host microseconds a call, K8 + K9 against
      ``F.batch_norm``, and, as a comparison only, the same step with
      ``nn.BatchNorm2d`` as the model's norm;
   11. DFN path: the DFN-R101 training step (``train_entry(
@@ -1184,19 +1190,30 @@ def step_ms(trainer, data, n):
             float(samples.mean()), 1000.0 * float(np.mean(enq)))
 
 
+def clone_bn(bn):
+    """K8's BN operands with the tensors cloned."""
+    return tuple(t.detach().clone() if torch.is_tensor(t) else t for t in bn)
+
+
 def spied_step(trainer, data, all_kernels, reset_all, hooks=()):
     """One training step with the launch counts set to 0 just before it and
-    read just after; every K9 call recorded as it was fed ((x, a, b), act)
+    read just after; every K8 call recorded as it was fed ((x, BN operands
+    as they were before the call: weight, bias, running stats,
+    num_batches_tracked, eps, momentum)), every K9 call ((x, a, b), act)
     and every call of torch's own batch norm counted.  ``hooks``: (module,
     forward hook) pairs registered for the step.  Returns (loss, launches,
-    fed, acts, torch_bn)."""
+    fed, acts, torch_bn, folds): fed/acts K9's, folds K8's."""
     import torch.nn.functional as F
 
     from torchseg_tpu_torch.ops import norm as N
     from torchseg_tpu_torch.ops.kernels import bn_kernels as B
 
-    fed, acts, torch_bn = [], [], []
+    fed, acts, torch_bn, folds = [], [], [], []
     f_bn, t_bn = F.batch_norm, torch.batch_norm
+
+    def spy_k8(x, bn=None):
+        folds.append((x, None if bn is None else clone_bn(bn)))
+        return B.channel_sum_sumsq(x, bn)
 
     def spy_k9(x, a, b, act="none"):
         fed.append((x, a.detach().clone(), b.detach().clone()))
@@ -1209,10 +1226,10 @@ def spied_step(trainer, data, all_kernels, reset_all, hooks=()):
             return fn(*args, **kwargs)
         return run
 
-    # the BNs reach K9 through ops/norm.py's module reference ``K``: a
-    # stand-in records what each call is fed and calls the wrapper
+    # the BNs reach K8 and K9 through ops/norm.py's module reference ``K``:
+    # a stand-in records what each call is fed and calls the wrapper
     spy = types.SimpleNamespace(**vars(B))
-    spy.fused_scale_bias_act = spy_k9
+    spy.channel_sum_sumsq, spy.fused_scale_bias_act = spy_k8, spy_k9
     handles = [m.register_forward_hook(h) for m, h in hooks]
     reset_all()
     N.K = spy
@@ -1226,7 +1243,8 @@ def spied_step(trainer, data, all_kernels, reset_all, hooks=()):
         for h in handles:
             h.remove()
     got = launch_counts(all_kernels)
-    return loss, got, [(x.detach(), a, b) for x, a, b in fed], acts, torch_bn
+    return (loss, got, [(x.detach(), a, b) for x, a, b in fed], acts,
+            torch_bn, [(x.detach(), bn) for x, bn in folds])
 
 
 def check_step_launches(tag, loss, got, acts, torch_bn, n_bn, n_relu):
@@ -1248,10 +1266,14 @@ def check_step_launches(tag, loss, got, acts, torch_bn, n_bn, n_relu):
         fail(f"non-finite {tag} training loss {float(loss)}")
 
 
-def check_bn_kernels(tag, fed, acts):
+def check_bn_kernels(tag, fed, acts, folds):
     """K9 bit-exact to its plain version on the step's tensors (float32 and
-    the same in bfloat16), K8 within 1e-5 of sum |x| (sum x) and 1e-5
-    relative (sum x^2); returns (K8's and K9's largest absolute error)."""
+    the same in bfloat16), K8's sums within 1e-5 of sum |x| (sum x) and
+    1e-5 relative (sum x^2) and the same bits on a second call; K8's fold
+    (the step's own BN operands, as they were before the step) bit-exact
+    against ``bn_fold_plain`` on K8's own sums, running stats and
+    num_batches_tracked included, and its a and b the ones the step fed
+    K9; returns (K8's and K9's largest absolute error)."""
     from torchseg_tpu_torch.ops.kernels import bn_kernels as B
 
     k9_diff = 0.0
@@ -1266,8 +1288,11 @@ def check_bn_kernels(tag, fed, acts):
             k9_diff = max(k9_diff, float((got9.float() - ref9.float()
                                           ).abs().max()))
     k8_err, k8_rel = 0.0, 0.0
-    for x, _, _ in fed:
+    for (x, bn), (_, a, b) in zip(folds, fed):
         got8 = B.channel_sum_sumsq(x)
+        if not torch.equal(got8, B.channel_sum_sumsq(x)):
+            fail(f"channel_sum_sumsq {tuple(x.shape)}: two calls on the "
+                 f"same input differ")
         ref8 = B.channel_sum_sumsq_plain(x)
         abs_sum = x.double().abs().sum(dim=(0, 2, 3))
         d = (got8 - ref8).abs().double()
@@ -1280,10 +1305,29 @@ def check_bn_kernels(tag, fed, acts):
             fail(f"channel_sum_sumsq {tuple(x.shape)}: sum x off by more "
                  f"than 1e-5 of sum |x|, or sum x^2 by more than 1e-5 "
                  f"relative, against its plain version")
+        k_bn, p_bn = clone_bn(bn), clone_bn(bn)
+        stats = B.channel_sum_sumsq(x, k_bn)
+        ref = B.bn_fold_plain(got8, x.numel() // x.shape[1], *p_bn)
+        bad = [name for name, g, r in zip(
+            ("(mean, inv, a, b, d)", "weight", "bias", "running_mean",
+             "running_var", "num_batches_tracked"),
+            (stats,) + k_bn[:5], (ref,) + p_bn[:5]) if not torch.equal(g, r)]
+        if bad:
+            fail(f"channel_sum_sumsq's fold {tuple(x.shape)} differs from "
+                 f"bn_fold_plain on its own sums: {bad}")
+        if not torch.equal(stats, B.channel_sum_sumsq(x, clone_bn(bn))):
+            fail(f"channel_sum_sumsq's fold {tuple(x.shape)}: two calls "
+                 f"differ")
+        if not (torch.equal(stats[2], a) and torch.equal(stats[3], b)):
+            fail(f"the step fed K9 {tuple(x.shape)} other a, b than K8's "
+                 f"fold gives")
     log(f"{tag}: fused_scale_bias_act bit-exact to its plain version on all "
         f"{len(fed)} BN inputs of the step, float32 and bfloat16; "
         f"channel_sum_sumsq: worst error {k8_rel:.3e} of its bar's scale "
-        f"(1e-5), {k8_err:.3e} absolute")
+        f"(1e-5), {k8_err:.3e} absolute, the same bits on every call; its "
+        f"fold (mean, inv, a, b, d, running stats, counter) bit-exact "
+        f"against bn_fold_plain on its own sums on all {len(folds)}, and "
+        f"the a, b the step fed K9")
     return k8_err, k9_diff
 
 
@@ -1364,27 +1408,73 @@ def step_vs_cpu(dev, experiment, crop, batch, seed, as_float32=False):
     log(f"card vs CPU step comparison: {time.perf_counter() - t0:.1f} s")
 
 
-def bn_kernel_rows(tag, dev, fed, acts, launches):
-    """K8 and K9 timed per step over the step's BN inputs, against their
-    plain versions, the one-call library yardsticks and their bounds; K8 +
-    K9 against ``F.batch_norm``; returns the kernels line's two rows
-    (without max_abs_err)."""
+def host_us(fn, inputs, reps=5):
+    """Host microseconds per call without a sync (after one warm-up
+    pass), mean over ``reps`` passes over ``inputs``."""
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for args in inputs:
+            fn(*args)
+    us = (time.perf_counter() - t0) * 1e6 / (reps * len(inputs))
+    torch.cuda.synchronize()
+    return us
+
+
+def bn_forward_launches(folds, acts):
+    """Device events (kernels, copies, memsets) per train-mode SyncBN
+    forward (no process group), by torch.profiler, over one forward on
+    each of the step's BN inputs with its own operands (cloned)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchseg_tpu_torch.ops.norm import SyncBatchNormFn
+
+    calls = [(x, clone_bn(bn), act == "relu")
+             for (x, bn), act in zip(folds, acts)]
+    for x, bn, relu in calls:  # warm-up
+        SyncBatchNormFn.apply(x, *bn, relu, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x, bn, relu in calls:
+            SyncBatchNormFn.apply(x, *bn, relu, None)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n / len(calls)
+
+
+def bn_kernel_rows(tag, dev, fed, acts, folds, launches):
+    """K8 (with its fold, as the SyncBN forward calls it) and K9 timed per
+    step over the step's BN inputs, against their plain versions, the
+    one-call library yardsticks and their bounds; their host microseconds
+    per call; the SyncBN forward's launches per BN (at most 3); K8 + K9
+    against ``F.batch_norm``; returns the kernels line's two rows (without
+    max_abs_err)."""
     import torch.nn.functional as F
 
     from torchseg_tpu_torch.ops.kernels import bn_kernels as B
 
-    inputs8 = [(x,) for x, _, _ in fed]
+    inputs8 = [(x, clone_bn(bn)) for x, bn in folds]
+    sums8 = [(x,) for x, _ in folds]
     inputs9 = [(x, a, b, act) for (x, a, b), act in zip(fed, acts)]
     k8_ms = cuda_ms(B.channel_sum_sumsq, inputs8, reps=5) * len(fed)
+    k8_sums_ms = cuda_ms(B.channel_sum_sumsq, sums8, reps=5) * len(fed)
     k8_plain = cuda_ms(B.channel_sum_sumsq_plain, inputs8) * len(fed)
     k8_lib = cuda_ms(lambda x: torch.batch_norm_stats(x, 1e-5),
-                     inputs8, reps=5) * len(fed)
+                     sums8, reps=5) * len(fed)
     k9_ms = cuda_ms(B.fused_scale_bias_act, inputs9, reps=5) * len(fed)
     k9_plain = cuda_ms(B.fused_scale_bias_act_plain, inputs9) * len(fed)
     stats = [torch.batch_norm_stats(x, 1e-5) for x, _, _ in fed]
     k9_lib = cuda_ms(lambda x, m, s: torch.batch_norm_elemt(
         x, None, None, m, s, 1e-5), [(x, *st) for (x, _, _), st in zip(
             fed, stats)], reps=5) * len(fed)
+    k8_host = host_us(B.channel_sum_sumsq, inputs8)
+    k9_host = host_us(B.fused_scale_bias_act, inputs9)
+    fwd_launches = bn_forward_launches(folds, acts)
     ones = [(x, torch.zeros(x.shape[1], device=dev),
              torch.ones(x.shape[1], device=dev)) for x, _, _ in fed]
     fbn_ms = cuda_ms(lambda x, rm, rv: F.batch_norm(
@@ -1393,9 +1483,10 @@ def bn_kernel_rows(tag, dev, fed, acts, launches):
     n_el = sum(x.numel() for x, _, _ in fed)
     x_bytes = sum(nbytes(x) for x, _, _ in fed)
     c_all = sum(x.shape[1] for x, _, _ in fed)
-    # K8 reads x, writes (2, C); 3 flops an element (add; multiply-add).
-    # K9 reads x (and a, b), writes y; 2 flops an element (one FMA)
-    k8_bound = bound(x_bytes + 8 * c_all, 3 * n_el, "f32")
+    # K8 reads x and four (C,) float32 vectors, writes (5, C) and the two
+    # running stats; 3 flops an element (add; multiply-add).  K9 reads x
+    # (and a, b), writes y; 2 flops an element (one FMA)
+    k8_bound = bound(x_bytes + 4 * 11 * c_all, 3 * n_el, "f32")
     k9_bound = bound(2 * x_bytes + 8 * c_all, 2 * n_el, "f32")
     biggest = max(fed, key=lambda t: t[0].numel())[0]
     big8 = cuda_ms(B.channel_sum_sumsq, [(biggest,)], reps=20)
@@ -1403,27 +1494,37 @@ def bn_kernel_rows(tag, dev, fed, acts, launches):
         biggest.shape[1], device=dev), torch.zeros(biggest.shape[1],
                                                    device=dev))], reps=20)
     log(f"{tag} per step, summed over the {len(fed)} BN inputs "
-        f"({x_bytes / 1e6:.1f} MB): channel_sum_sumsq {k8_ms:.4f} ms (plain "
-        f"{k8_plain:.4f}, torch.batch_norm_stats {k8_lib:.4f}; bound "
-        f"{k8_bound[0]:.4f} ms, {k8_bound[1]}); fused_scale_bias_act "
-        f"{k9_ms:.4f} ms (plain {k9_plain:.4f}, torch.batch_norm_elemt "
-        f"{k9_lib:.4f}; bound {k9_bound[0]:.4f} ms, {k9_bound[1]}); K8 + K9 "
+        f"({x_bytes / 1e6:.1f} MB): channel_sum_sumsq with its fold "
+        f"{k8_ms:.4f} ms (sums only {k8_sums_ms:.4f}; plain {k8_plain:.4f}, "
+        f"torch.batch_norm_stats {k8_lib:.4f}; bound {k8_bound[0]:.4f} ms, "
+        f"{k8_bound[1]}); fused_scale_bias_act {k9_ms:.4f} ms (plain "
+        f"{k9_plain:.4f}, torch.batch_norm_elemt {k9_lib:.4f}; bound "
+        f"{k9_bound[0]:.4f} ms, {k9_bound[1]}); K8 + K9 "
         f"{k8_ms + k9_ms:.4f} ms vs F.batch_norm(training=True) "
         f"{fbn_ms:.4f} ms")
+    log(f"{tag} wrapper host time per call (no sync, {len(fed)} inputs x "
+        f"5): channel_sum_sumsq with its fold {k8_host:.2f} us, "
+        f"fused_scale_bias_act {k9_host:.2f} us; one SyncBN forward: "
+        f"{fwd_launches:.2f} device launches (profiler)")
     log(f"{tag} largest BN input {tuple(biggest.shape)} "
         f"({nbytes(biggest) / 1e6:.1f} MB): channel_sum_sumsq {big8:.4f} ms"
         f" ({nbytes(biggest) / big8 / 1e6:.0f} GB/s), fused_scale_bias_act "
         f"{big9:.4f} ms ({2 * nbytes(biggest) / big9 / 1e6:.0f} GB/s)")
+    if fwd_launches > 3:
+        fail(f"{tag}: one SyncBN forward launches {fwd_launches:.2f} device "
+             f"kernels, more than 3")
     return [
         {"name": "channel_sum_sumsq", "route": "cuda", "source": SRC_BN,
          "replaces": f"{TPU_BN}:41", "launches": launches["channel_sum_sumsq"],
          "ms": k8_ms, "plain_ms": k8_plain, "bound_ms": k8_bound[0],
-         "bound_by": k8_bound[1], "library_ms": k8_lib},
+         "bound_by": k8_bound[1], "library_ms": k8_lib, "host_us": k8_host,
+         "bn_forward_launches": fwd_launches},
         {"name": "fused_scale_bias_act", "route": "cuda", "source": SRC_BN,
          "replaces": f"{TPU_BN}:68",
          "launches": launches["fused_scale_bias_act"], "ms": k9_ms,
          "plain_ms": k9_plain, "bound_ms": k9_bound[0],
-         "bound_by": k9_bound[1], "library_ms": k9_lib},
+         "bound_by": k9_bound[1], "library_ms": k9_lib, "host_us": k9_host,
+         "bn_forward_launches": fwd_launches},
     ]
 
 
@@ -1495,13 +1596,13 @@ def train_phase(dev, all_kernels, reset_all):
         f"{time.perf_counter() - t0:.2f} s")
     trainer.train_step(data)  # warm-up: library load, cuDNN plans
     torch.cuda.synchronize()
-    loss0, got, fed, acts, torch_bn = spied_step(trainer, data, all_kernels,
-                                                 reset_all)
+    loss0, got, fed, acts, torch_bn, folds = spied_step(
+        trainer, data, all_kernels, reset_all)
     check_step_launches("training", loss0, got, acts, torch_bn, BN_LAUNCHES,
                         BN_RELU)
 
     # -- K8 and K9 against their plain versions, on the step's tensors ----
-    k8_err, k9_diff = check_bn_kernels("training step", fed, acts)
+    k8_err, k9_diff = check_bn_kernels("training step", fed, acts, folds)
 
     # -- one step on the card against the CPU, small crop -----------------
     step_vs_cpu(dev, TRAIN_EXPERIMENT, CHECK_CROP, CHECK_BATCH, CHECK_SEED)
@@ -1523,7 +1624,7 @@ def train_phase(dev, all_kernels, reset_all):
         f"{med:.4f} ms, p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
         f"{1000.0 * TRAIN_BATCH / mean_ms:.2f} images/s; host enqueue "
         f"{enq:.4f} ms per step; peak device memory {peak:.1f} MiB")
-    rows = bn_kernel_rows("BiSeNet-R18 step", dev, fed, acts, got)
+    rows = bn_kernel_rows("BiSeNet-R18 step", dev, fed, acts, folds, got)
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = k8_err, k9_diff
 
     # -- device time of a step: torch.profiler over PROFILED_STEPS ---------
@@ -1683,11 +1784,11 @@ def dfn_phase(dev, all_kernels, reset_all):
     heads = {}
     hook = (model.smooth_head3,
             lambda mod, args, out: heads.__setitem__("last", out.detach()))
-    loss0, got, fed, acts, torch_bn = spied_step(
+    loss0, got, fed, acts, torch_bn, folds = spied_step(
         trainer, data, all_kernels, reset_all, hooks=[hook])
     check_step_launches("DFN-R101", loss0, got, acts, torch_bn, len(bns),
                         None)
-    k8_err, k9_diff = check_bn_kernels("DFN-R101 step", fed, acts)
+    k8_err, k9_diff = check_bn_kernels("DFN-R101 step", fed, acts, folds)
 
     # -- K12 / K13 on the step's last smooth head -------------------------
     head = heads["last"]
@@ -1732,7 +1833,7 @@ def dfn_phase(dev, all_kernels, reset_all):
         f"{med:.4f} ms, p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
         f"{1000.0 * DFN_BATCH / mean_ms:.2f} images/s; host enqueue "
         f"{enq:.4f} ms per step; peak device memory {peak:.1f} MiB")
-    bn_rows = bn_kernel_rows("DFN-R101 step", dev, fed, acts, got)
+    bn_rows = bn_kernel_rows("DFN-R101 step", dev, fed, acts, folds, got)
     bn_rows[0]["max_abs_err"], bn_rows[1]["max_abs_err"] = k8_err, k9_diff
     for r in bn_rows:
         r["name"] += ":dfn_r101"

@@ -6,11 +6,13 @@ the CPU through the plain versions in test_torch_int8_serve_kernels.py).
 The shapes are ragged on purpose (widths that are not multiples of the
 kernels' 32-column tiles, odd heights, stage 3's and stage 4's channel
 counts, output sizes that are not multiples of 32 or 128, BN inputs whose
-H*W is odd or 1, a misaligned BN input, stem outputs off K11's 64-column
+H*W is odd or 1, misaligned BN inputs, stem outputs off K11's 64-column
 and 8-row strips, focal-loss element counts that are not multiples of the
 block), so the edge masking and the
 scalar paths are exercised; chip_smoke.py covers the serving and training
-shapes.  This file
+shapes, and K8/K9 are also held at every distinct BN input shape of the
+DFN-R101 and BiSeNet-R18 training steps (K8 in its one-thread-per-channel,
+one-block and cluster forms; K9 on its per-run and flat grids).  This file
 imports no JAX, so on a machine without it run it without the suite's
 conftest:
 
@@ -315,11 +317,41 @@ def test_kernels_launch_on_the_current_stream(dev):
 
 BN_SHAPES = [(2, 64, 512, 512), (3, 5, 7, 11), (1, 19, 45, 47),
              (4, 3, 1, 1), (2, 128, 4, 4)]
+# every distinct BN input of the DFN-R101 step at 2 x 800x800 (24) and of
+# the BiSeNet-R18 step at 2 x 1024x1024 (10), as chip_smoke.py drives them
+DFN_BN_SHAPES = [
+    (2, 64, 400, 400), (2, 128, 400, 400), (2, 64, 200, 200),
+    (2, 256, 200, 200), (2, 128, 200, 200), (2, 512, 200, 200),
+    (2, 171, 200, 200), (2, 21, 200, 200), (2, 9, 200, 200),
+    (2, 128, 100, 100), (2, 512, 100, 100), (2, 256, 100, 100),
+    (2, 171, 100, 100), (2, 21, 100, 100), (2, 256, 50, 50),
+    (2, 1024, 50, 50), (2, 512, 50, 50), (2, 171, 50, 50), (2, 21, 50, 50),
+    (2, 512, 25, 25), (2, 2048, 25, 25), (2, 171, 25, 25), (2, 21, 25, 25),
+    (2, 512, 1, 1)]
+BISENET_BN_SHAPES = [
+    (2, 64, 512, 512), (2, 64, 256, 256), (2, 64, 128, 128),
+    (2, 128, 128, 128), (2, 256, 128, 128), (2, 256, 64, 64),
+    (2, 128, 64, 64), (2, 512, 32, 32), (2, 128, 32, 32), (2, 128, 1, 1)]
+# n = 1 (a gate at batch 1), HW = 1 with many images, odd HW
+EDGE_BN_SHAPES = [(1, 7, 1, 1), (64, 13, 1, 1), (2, 3, 25, 25),
+                  (2, 5, 101, 103)]
+K8_SHAPES = sorted(set(BN_SHAPES + DFN_BN_SHAPES + BISENET_BN_SHAPES
+                       + EDGE_BN_SHAPES))
 
 
 def _bn_input(shape, dtype, dev, seed=11):
     g = _gen(seed)
     return (torch.randn(shape, generator=g) * 2 + 0.5).to(dtype).to(dev)
+
+
+def _misaligned(shape, dev, dtype=torch.float32):
+    """A contiguous view one element past a 16-byte boundary."""
+    n = 1
+    for d in shape:
+        n *= d
+    x = _bn_input((1 + n,), dtype, dev)[1:].view(shape)
+    assert x.data_ptr() % 16
+    return x
 
 
 def _check_k8(x):
@@ -337,7 +369,7 @@ def _check_k8(x):
     assert torch.equal(got, B.channel_sum_sumsq(x))  # the same every run
 
 
-@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("shape", K8_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_channel_sum_sumsq_kernel(dev, shape, dtype):
     _check_k8(_bn_input(shape, dtype, dev))
@@ -345,16 +377,82 @@ def test_channel_sum_sumsq_kernel(dev, shape, dtype):
 
 def test_channel_sum_sumsq_kernel_2d_and_misaligned(dev):
     _check_k8(_bn_input((37, 13), torch.float32, dev))
-    flat = _bn_input((1 + 2 * 8 * 16 * 16,), torch.float32, dev)
-    x = flat[1:].view(2, 8, 16, 16)  # 4 bytes past a 16-byte boundary
-    assert x.data_ptr() % 16
-    _check_k8(x)
+    _check_k8(_misaligned((2, 8, 16, 16), dev))  # 4 bytes past a boundary
+    _check_k8(_misaligned((2, 9, 200, 200), dev))  # the cluster path
+    _check_k8(_misaligned((2, 21, 25, 25), dev, torch.bfloat16))
 
 
-@pytest.mark.parametrize("shape", BN_SHAPES)
+def _bn_operands(c, dev, seed):
+    g = _gen(seed)
+    return [(torch.rand(c, generator=g) + 0.5).to(dev),
+            (torch.randn(c, generator=g) * 0.2).to(dev),
+            (torch.randn(c, generator=g) * 0.1).to(dev),
+            (torch.rand(c, generator=g) + 0.5).to(dev),
+            torch.tensor(3, dtype=torch.int64, device=dev), 1e-5, 0.1]
+
+
+def _clone_bn(bn):
+    return tuple(t.clone() if torch.is_tensor(t) else t for t in bn)
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_sum_sumsq_fold_bit_exact(dev, shape, dtype):
+    """K8's epilogue against ``bn_fold_plain`` on K8's own sums (the card
+    runs the plain fold too): (mean, inv, a, b, d), the running stats and
+    num_batches_tracked bit for bit, and the same bits on a second call
+    (one launch each, the cluster path at the largest inputs)."""
+    x = _bn_input(shape, dtype, dev, seed=16)
+    bn = _bn_operands(shape[1], dev, seed=17)
+    k_bn, p_bn = _clone_bn(bn), _clone_bn(bn)
+    before = B.channel_sum_sumsq.launches
+    got = B.channel_sum_sumsq(x, k_bn)
+    torch.cuda.synchronize()
+    assert B.channel_sum_sumsq.launches == before + 1
+    n = x.numel() // shape[1]
+    ref = B.bn_fold_plain(B.channel_sum_sumsq(x), n, *p_bn)
+    assert got.shape == (5, shape[1]) and got.dtype == torch.float32
+    _exact(got, ref)
+    for k, p in zip(k_bn[:5], p_bn[:5]):
+        _exact(k, p)
+    assert int(k_bn[4]) == 4
+    again = B.channel_sum_sumsq(x, _clone_bn(bn))
+    _exact(again, got)
+
+
+def test_channel_sum_sumsq_fold_misaligned_and_no_counter(dev):
+    for x in (_misaligned((2, 21, 25, 25), dev),
+              _misaligned((2, 64, 200, 200), dev)):
+        bn = _bn_operands(x.shape[1], dev, seed=18)
+        bn[4] = None
+        k_bn, p_bn = _clone_bn(bn), _clone_bn(bn)
+        got = B.channel_sum_sumsq(x, k_bn)
+        ref = B.bn_fold_plain(B.channel_sum_sumsq(x), x.numel() //
+                              x.shape[1], *p_bn)
+        _exact(got, ref)
+        _exact(k_bn[3], p_bn[3])
+
+
+def test_channel_sum_sumsq_fold_refuses_bad_operands(dev):
+    x = _bn_input((2, 6, 8, 8), torch.float32, dev)
+    bn = _bn_operands(6, dev, seed=19)
+    with pytest.raises(ValueError, match="one CUDA device or all on"):
+        B.channel_sum_sumsq(x, [bn[0].cpu()] + bn[1:])
+    with pytest.raises(ValueError, match=r"\(6,\)"):
+        B.channel_sum_sumsq(x, [bn[0][:5]] + bn[1:])
+    with pytest.raises(TypeError, match="float32"):
+        B.channel_sum_sumsq(x, [t.double() if torch.is_tensor(t) and
+                                t.dtype == torch.float32 else t
+                                for t in bn])
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES + DFN_BN_SHAPES
+                         + BISENET_BN_SHAPES + EDGE_BN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["none", "relu"])
 def test_fused_scale_bias_act_kernel_bit_exact(dev, shape, dtype, act):
+    """float32 a and b, most of them off the bf16 grid: with a bf16 x the
+    kernel rounds them to bf16 itself, as the plain version does."""
     x = _bn_input(shape, dtype, dev, seed=12)
     g = _gen(13)
     a = (torch.rand(shape[1], generator=g) * 2 - 0.5).to(dev)
@@ -366,12 +464,26 @@ def test_fused_scale_bias_act_kernel_bit_exact(dev, shape, dtype, act):
     _exact(got, B.fused_scale_bias_act_plain(x, a, b, act))
 
 
-def test_fused_scale_bias_act_kernel_misaligned(dev):
-    flat = _bn_input((1 + 2 * 8 * 16 * 16,), torch.float32, dev)
-    x = flat[1:].view(2, 8, 16, 16)
-    a, b = torch.rand(8, device=dev), torch.randn(8, device=dev)
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (2, 5, 7, 11),
+                                   (2, 8, 64, 65), (3, 512, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_scale_bias_act_kernel_misaligned(dev, shape, dtype):
+    """x one element past a 16-byte boundary and y aligned: scalar loads
+    on the flat small-run grid (HW < 4096) and on the per-run grid."""
+    x = _misaligned(shape, dev, dtype)
+    a, b = torch.rand(shape[1], device=dev), torch.randn(shape[1],
+                                                         device=dev)
     _exact(B.fused_scale_bias_act(x, a, b, "relu"),
            B.fused_scale_bias_act_plain(x, a, b, "relu"))
+
+
+def test_fused_scale_bias_act_takes_strided_and_bf16_vectors(dev):
+    x = _bn_input((2, 6, 9, 9), torch.bfloat16, dev)
+    ab = torch.randn(6, 2, device=dev)
+    for a, b in ((ab[:, 0], ab[:, 1]),
+                 (ab[:, 0].bfloat16(), ab[:, 1].double())):
+        _exact(B.fused_scale_bias_act(x, a, b),
+               B.fused_scale_bias_act_plain(x, a, b))
 
 
 def test_bn_kernels_refuse_float64_and_mixed_devices(dev):
@@ -380,6 +492,27 @@ def test_bn_kernels_refuse_float64_and_mixed_devices(dev):
         B.channel_sum_sumsq(x)
     with pytest.raises(ValueError, match="one CUDA device or all on"):
         B.fused_scale_bias_act(x.float(), torch.ones(3), torch.zeros(3))
+
+
+def test_train_batch_norm_forward_is_two_launches(dev):
+    """One train-mode SyncBN forward without a process group: K8 (the sums
+    and the fold, running stats and counter included) and K9, and no other
+    device work, by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bn = BatchNorm2d(64).to(dev).train()
+    x = _bn_input((2, 64, 50, 50), torch.float32, dev).requires_grad_(True)
+    bn(x, relu=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bn(x, relu=True)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in events) == 2, [e.key for e in events]
+    assert int(bn.num_batches_tracked) == 2
 
 
 @pytest.mark.parametrize("shape,relu", [((2, 64, 48, 40), True),

@@ -1,10 +1,11 @@
 """PyTorch port, train-mode BatchNorm (``ops.norm.BatchNorm2d`` on K8/K9's
 plain versions) against the flax ``BatchNorm`` of the JAX package, on the
 CPU: outputs, running mean and var after two calls (torch's momentum and
-unbiased-variance conventions), gradients with respect to x, gamma and
-beta against ``jax.grad`` (within 1e-5 of each tensor's largest
-magnitude), the n = 1 case, and SyncBN over two gloo processes against the
-JAX module under ``shard_map`` on two CPU devices.
+unbiased-variance conventions, and ``num_batches_tracked``), gradients
+with respect to x, gamma and beta against ``jax.grad`` (within 1e-5 of
+each tensor's largest magnitude), the n = 1 case, and SyncBN over two gloo
+processes (K8's sums all-reduced, then ``bn_fold_plain``) against the JAX
+module under ``shard_map`` on two CPU devices.
 """
 
 import os
@@ -119,6 +120,7 @@ def test_train_bn_matches_flax(shape, relu):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(bn.running_var.numpy(), stats["var"],
                                rtol=1e-5, atol=1e-6)
+    assert int(bn.num_batches_tracked) == 2  # counted in K8's fold
 
 
 def test_train_bn_accepts_one_value_per_channel():
@@ -183,7 +185,8 @@ def _sync_worker(rank, world, port, out_dir):
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
                  y=y.detach().numpy(), dx=xt.grad.numpy(),
                  dscale=bn.weight.grad.numpy(), dbias=bn.bias.grad.numpy(),
-                 mean=bn.running_mean.numpy(), var=bn.running_var.numpy())
+                 mean=bn.running_mean.numpy(), var=bn.running_var.numpy(),
+                 count=bn.num_batches_tracked.numpy())
     finally:
         dist.destroy_process_group()
 
@@ -235,3 +238,4 @@ def test_syncbn_two_gloo_ranks_match_shard_map(tmp_path):
         np.testing.assert_allclose(r["var"], stats["var"], rtol=1e-5)
         np.testing.assert_allclose(r["mean"], stats["mean"], rtol=1e-5,
                                    atol=1e-7)
+        assert int(r["count"]) == 1

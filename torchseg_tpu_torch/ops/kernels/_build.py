@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from ctypes import c_float, c_int, c_longlong, c_void_p
+from ctypes import c_double, c_float, c_int, c_longlong, c_void_p
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -51,13 +51,14 @@ LIBRARIES = {
                            + [c_int] * 2 + [c_void_p]),
     },
     "bn_kernels": {
-        "tsg_channel_sums_pieces": [c_longlong],  # hw
-        # x, n, c, hw, bf16, vec, partial, out, stream
-        "tsg_channel_sums": ([c_void_p] + [c_int] * 2 + [c_longlong]
-                             + [c_int] * 2 + [c_void_p] * 3),
-        # x, a, b, n, c, hw, bf16, vec, relu, y, stream
-        "tsg_scale_bias_act": ([c_void_p] * 3 + [c_int] * 2 + [c_longlong]
-                               + [c_int] * 3 + [c_void_p] * 2),
+        # x, n, c, hw, bf16, out, weight, bias, running_mean,
+        # running_var, num_batches_tracked, eps, momentum, stream
+        "tsg_channel_sums": ([c_void_p] + [c_int] * 2 + [c_longlong, c_int]
+                             + [c_void_p] * 6 + [c_double] * 2
+                             + [c_void_p]),
+        # x, a, b, n, c, hw, flags (bf16 | relu << 1), y, stream
+        "tsg_scale_bias_act": ([c_void_p] * 3 + [c_int] * 2
+                               + [c_longlong, c_int] + [c_void_p] * 2),
     },
     "upsample_argmax": {
         # x, batch, h, w, nc, out, oh, ow, stream

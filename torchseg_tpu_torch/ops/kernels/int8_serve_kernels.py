@@ -168,7 +168,13 @@ def _on_cuda(*tensors) -> bool:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _raw_stream(t.get_device())
+
+
+def _raw_stream(device_index: int) -> int:
+    """The handle of the current CUDA stream on that device, read without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def _raise_on(rc: int, what: str):

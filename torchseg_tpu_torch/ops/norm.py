@@ -8,15 +8,21 @@ mean * a``, as the JAX module does, so the float graph and the int8 package
 
 Train mode is SyncBN, ``SyncBatchNormFn``: a ``torch.autograd.Function``
 on the two hand-written kernels of ``ops/kernels/bn_kernels.py``:
-  * K8 gives the per-channel moments (sum x, sum x^2); with a process group
-    they are all-reduced (one float64 buffer with the element count), the
-    counterpart of the JAX module's fused ``pmean`` (norm.py:71-84);
-  * mean = sum x / n, var = max(sum x^2 / n - mean^2, 0), biased, to
-    normalize; the running stats move by torch's momentum convention
-    (``running = (1 - m) * running + m * batch``) with the unbiased variance
-    ``var * n / max(n - 1, 1)``, n counted over every process;
+  * without a process group, K8 reduces the per-channel moments (sum x,
+    sum x^2) and folds them in its epilogue (``bn_kernels.bn_fold_plain``
+    is the formula): mean, var = max(sum x^2 / n - mean^2, 0), biased, to
+    normalize, ``inv = 1 / sqrt(var + eps)``, the affine ``a = inv *
+    gamma``, ``b = beta - mean * a``; the running stats move by torch's
+    momentum convention (``running = (1 - m) * running + m * batch``) with
+    the unbiased variance ``var * n / max(n - 1, 1)``, and
+    ``num_batches_tracked`` by one, all in that one launch;
+  * with a process group, K8 gives the sums only; they are all-reduced
+    (one float64 buffer with the element count, n then counted over every
+    process), the counterpart of the JAX module's fused ``pmean``
+    (norm.py:71-84), and ``bn_fold_plain`` folds them;
   * K9 applies the folded affine, with the block's ReLU fused when it asks
     for one (``relu=True``).
+One forward on the card without a group is two launches.
 The backward is the gradient JAX's autodiff takes through the same
 formulas (through the batch moments, and through ``max`` with its 0.5 at a
 tie), in plain PyTorch: per channel sum g and sum g*x, all-reduced under a
@@ -34,51 +40,45 @@ from . import wide
 from .kernels import bn_kernels as K
 
 
-def _moments(sums, n, group):
-    """(mean, mean_sq, n_total) from this process's (2, C) sums, summed over
-    ``group`` when there is one (n_total then a float64 tensor)."""
-    if group is None:
-        return sums[0] / n, sums[1] / n, n
+def _group_sums(sums, n, group):
+    """This process's (2, C) sums and element count summed over ``group``:
+    (sums, n_total as a float64 tensor)."""
     c = sums.shape[1]
     buf = torch.cat([sums.double().reshape(-1),
                      torch.full((1,), float(n), dtype=torch.float64,
                                 device=sums.device)])
     dist.all_reduce(buf, group=group)
-    total = buf[:2 * c].to(sums.dtype).reshape(2, c)
-    n_total = buf[2 * c:].to(sums.dtype)
-    return total[0] / n_total, total[1] / n_total, n_total
+    return buf[:2 * c].to(sums.dtype).reshape(2, c), buf[2 * c:]
 
 
 class SyncBatchNormFn(torch.autograd.Function):
     """Train-mode BN over NCHW (N, H, W), optional ReLU, optional sync."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
-                momentum, relu, group):
+    def forward(ctx, x, weight, bias, running_mean, running_var,
+                num_batches_tracked, eps, momentum, relu, group):
         x = x.contiguous()
-        c = x.shape[1]
-        n = x.numel() // c
-        mean, mean_sq, n_total = _moments(K.channel_sum_sumsq(x), n, group)
-        d = mean_sq - mean * mean
-        var = torch.clamp(d, min=0.0)
-        with torch.no_grad():
-            unbias = n_total / max(n_total - 1, 1) if group is None else (
-                n_total / torch.clamp(n_total - 1, min=1))
-            # (1 - m) * running + m * batch, one kernel each
-            running_mean.lerp_(mean, momentum)
-            running_var.lerp_(var * unbias, momentum)
-        inv = torch.rsqrt(var + eps)
-        a = inv * weight
-        b = bias - mean * a
-        y = K.fused_scale_bias_act(x, a, b, "relu" if relu else "none")
-        ctx.save_for_backward(x, weight, mean, inv, a, d,
-                              y if relu else None)
+        bn = (weight, bias, running_mean, running_var, num_batches_tracked,
+              eps, momentum)
+        if group is None:
+            n_total = x.numel() // x.shape[1]
+            stats = K.channel_sum_sumsq(x, bn)
+        else:
+            sums, n_total = _group_sums(K.channel_sum_sumsq(x),
+                                        x.numel() // x.shape[1], group)
+            stats = K.bn_fold_plain(sums, n_total, *bn)
+            n_total = n_total.to(sums.dtype)
+        # stats rows: mean, inv, a, b, d
+        y = K.fused_scale_bias_act(x, stats[2], stats[3],
+                                   "relu" if relu else "none")
+        ctx.save_for_backward(x, weight, stats, y if relu else None)
         ctx.n_total, ctx.group = n_total, group
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, weight, mean, inv, a, d, y = ctx.saved_tensors
+        x, weight, stats, y = ctx.saved_tensors
+        mean, inv, a, d = stats[0], stats[1], stats[2], stats[4]
         g = wide(gy if y is None else gy * (y > 0))
         xf = wide(x)
         dims = (0, 2, 3) if x.dim() == 4 else (0,)
@@ -93,7 +93,7 @@ class SyncBatchNormFn(torch.autograd.Function):
             sg, sgx = both[0], both[1]
         n = ctx.n_total
         # y = x*a + b, b = beta - mean*a, a = inv*gamma,
-        # inv = rsqrt(var + eps), var = max(mean_sq - mean^2, 0)
+        # inv = 1/sqrt(var + eps), var = max(mean_sq - mean^2, 0)
         da = sgx - mean * sg
         dvar = da * weight * (-0.5) * inv * inv * inv
         tie = (d > 0).to(d.dtype) + 0.5 * (d == 0).to(d.dtype)
@@ -103,7 +103,7 @@ class SyncBatchNormFn(torch.autograd.Function):
         dx = (g * a.reshape(shape) + (dmean / n).reshape(shape)
               + xf * (2.0 * dmean_sq / n).reshape(shape))
         return (dx.to(x.dtype), dweight, dbias, None, None, None, None, None,
-                None)
+                None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -121,10 +121,10 @@ class BatchNorm2d(nn.BatchNorm2d):
             group = self.process_group
             if group is not None and not dist.is_initialized():
                 group = None
-            self.num_batches_tracked.add_(1)
             return SyncBatchNormFn.apply(
                 x, self.weight, self.bias, self.running_mean,
-                self.running_var, self.eps, self.momentum, relu, group)
+                self.running_var, self.num_batches_tracked, self.eps,
+                self.momentum, relu, group)
         a = torch.rsqrt(self.running_var + self.eps) * self.weight
         b = self.bias - self.running_mean * a
         y = x * a[None, :, None, None] + b[None, :, None, None]
