@@ -34,7 +34,9 @@ script
      run on the CPU on one small input;
   6. times the served forward over the distinct inputs, each kernel against
      its plain version, and the plain-PyTorch parts of the graph, with CUDA
-     events after a warm-up;
+     events after a warm-up, and logs two same-MACs vendor yardsticks (not
+     on the path): cuDNN's bf16 conv of K1's s2d 4x4 conv and
+     ``torch._int_mm`` of stage 3's conv2 as an im2col GEMM;
   7. full-resolution path: each graph launches K7 exactly once per forward
      (the int8 graph also K1-K6, the bf16 graph K11 once); K11 meets its
      bars against its plain version on the bf16 graph's stem inputs (bf16
@@ -336,6 +338,50 @@ def compare_codes(name, kern, plain, inputs):
     return worst
 
 
+def same_macs_yardsticks(dev, xs, wf, kernel_ms, main_ops):
+    """Vendor tensor-core calls with the same multiply-accumulates as K1 and
+    a K4 link, timed beside them (neither is on the path, and neither is a
+    PyTorch call for the kernels' whole functions, so they are logged here
+    and not as ``library_ms``): cuDNN's bf16 conv of K1's s2d 4x4 conv
+    (no requant, no pool; NCHW and channels-last), and ``torch._int_mm`` of
+    stage 3's conv2 as an im2col GEMM (8,192 x 2,304 x 256, int8 -> int32)."""
+    import torch.nn.functional as F
+
+    x = xs.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+    w = wf.permute(3, 2, 0, 1).contiguous()
+    conv = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        conv["nchw"] = cuda_ms(lambda: F.conv2d(x, w), [()], reps=20)
+        xl = x.contiguous(memory_format=torch.channels_last)
+        wl = w.contiguous(memory_format=torch.channels_last)
+        conv["channels_last"] = cuda_ms(lambda: F.conv2d(xl, wl), [()],
+                                        reps=20)
+    k1 = kernel_ms["stem_pool_i8"]
+    log(f"same-MACs yardstick, K1: cuDNN bf16 F.conv2d {tuple(x.shape)} * "
+        f"{tuple(w.shape)} (no requant, no pool) NCHW {conv['nchw']:.4f} ms, "
+        f"channels-last {conv['channels_last']:.4f} ms; K1 {k1:.4f} ms = "
+        f"{k1 / min(conv.values()):.2f}x the faster")
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-127, 128, (8192, 2304), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (256, 2304), generator=g, device=dev,
+                      dtype=torch.int8).t()  # column-major (2304, 256)
+    try:
+        mm_ms = cuda_ms(lambda: torch._int_mm(a, b), [()], reps=20)
+    except RuntimeError as err:  # a build that wants it row-major
+        log(f"torch._int_mm refused a column-major operand ({err}); "
+            f"timing it row-major")
+        b = b.contiguous()
+        mm_ms = cuda_ms(lambda: torch._int_mm(a, b), [()], reps=20)
+    ops = 2 * 8192 * 2304 * 256
+    k4 = kernel_ms["down_stage_i8:stage3"]
+    log(f"same-MACs yardstick, K4: torch._int_mm (8192, 2304) x (2304, 256) "
+        f"{mm_ms:.4f} ms = {ops / mm_ms / 1e9:.1f} TOP/s; K4 stage 3 (four "
+        f"links, {main_ops['down_stage_i8:stage3'] / 1e9:.2f} G int8 ops) "
+        f"{k4:.4f} ms = "
+        f"{main_ops['down_stage_i8:stage3'] / k4 / 1e9:.1f} TOP/s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -500,6 +546,7 @@ def main():
     ]
     rows = []
     kernel_ms = {}
+    main_ops = {}
     for name, kern, plain, line, inputs, work in cases:
         worst = compare_codes(name.split(":")[0], kern, plain, inputs)
         ms = cuda_ms(kern, inputs, reps=5)
@@ -517,6 +564,10 @@ def main():
                      "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
+        main_ops[name] = ops
+
+    same_macs_yardsticks(dev, per_image[0]["xs"], st["wf"], kernel_ms,
+                         main_ops)
 
     # -- the served graph against the plain graph on the CPU, small input -
     cpu_infer, (cpu_pkg, cpu_xs) = entry(device="cpu", image_hw=SMALL,

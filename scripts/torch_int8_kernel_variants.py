@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""K1 (``stem_pool_i8``) and K4 (``down_stage_i8``) on a CUDA card at the
+main path's shapes: this tree's tensor-core kernels against another
+checkout's (``--root``, e.g. the parent commit unpacked under ``_archive/``)
+in turns in one process, and this tree's source built with other values of
+its tuning constants (``--variant``).
+
+    python scripts/torch_int8_kernel_variants.py --root _archive/parent
+    python scripts/torch_int8_kernel_variants.py \\
+        --variant st3:kMmaStages=3 --variant st2:kMmaStages=2
+
+A variant is ``name:NAME=value,...``: each NAME is a ``constexpr int`` of
+``csrc/int8_serve_kernels.cu`` (``kMmaStages``, ...), replaced in a copy
+that nvcc builds with the repo's flags into ``torchseg_tpu_torch/_build/
+variants`` (all at once).  For each build (this tree, each variant, the
+other tree) it prints ptxas's registers and spills of every kernel of the
+library, the dynamic shared memory of a K1 and a K4 launch, and the count
+of HMMA (bf16/f16 tensor-core) and IMMA (int8 tensor-core) instructions of
+each kernel in ``cuobjdump -sass`` of the built library.  Then, on seeded
+random codes and weights at the main path's shapes (K1: xs (1, 515, 1027,
+12) -> 64 sp + 64 pooled channels; K4 stage 2: (1, 256, 512, 64) -> 128,
+stage 3: (1, 128, 256, 128) -> 256), the CUDA-event ms per call of K1, of
+each K4 link (conv1 3x3/2; conv2 with the 1x1/2 projection; the stride-1
+block's conv1; its conv2 with the residual) and of the whole down stage,
+measured in turns: other tree, this tree, variants, this tree, other tree
+(``--reps`` calls each after a warm-up).  Each row has its bound (int8 or
+bf16 operations over the dense peak, or bytes over 3.35 TB/s) and the
+outputs are checked against this tree's: K4 bit-exact, K1 within one code
+on at most 1e-3 of the codes.  Prints the card's name and power limit, and
+one JSON line (also to ``--out``).  With ``--forward N`` it also times the
+main path itself in both trees (``entry()``: BiSeNet-R18.speed int8-through
+at 1024x2048, seeded weights; four seeded uint8 images, N rounds of four
+forwards, CUDA events per forward) in turns: other tree, this tree, this
+tree, other tree, each with its median and p90.  Needs a card and nvcc.
+"""
+
+import argparse
+import ctypes
+import statistics
+import importlib
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from torchseg_tpu_torch.ops.kernels import _build  # noqa: E402
+from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K  # noqa: E402
+
+HBM = 3.35e12
+PEAK = {"int8": 1979e12, "bf16": 989e12}
+H2, W2 = 512, 1024          # the main path's stem output at 1024x2048
+STAGES = {"stage2": (256, 512, 64), "stage3": (128, 256, 128)}
+
+
+def import_tree(root, alias):
+    """The int8 serving kernels module of the checkout at ``root``,
+    imported as the package ``alias`` (its kernels build into that
+    checkout's ``_build``)."""
+    pkg = os.path.join(os.path.abspath(root), "torchseg_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.kernels.int8_serve_kernels")
+
+
+def variant_source(text, assignments):
+    for name, value in assignments.items():
+        text, n = re.subn(rf"(constexpr int {name} = )[^;]+;",
+                          rf"\g<1>{value};", text)
+        if n != 1:
+            raise SystemExit(f"no single constexpr {name} in the source")
+    return text
+
+
+def build_variants(variants):
+    """{name: (library path, ptxas log)}, one nvcc per variant, at once."""
+    out_dir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_build.CSRC_DIR, "int8_serve_kernels.cu")) as f:
+        text = f.read()
+    jobs = {}
+    for name, assignments in variants.items():
+        src = os.path.join(out_dir, f"i8_{name}.cu")
+        with open(src, "w") as f:
+            f.write(variant_source(text, assignments))
+        so = os.path.join(out_dir, f"i8_{name}.so")
+        jobs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
+        built[name] = (so, log)
+    return built
+
+
+def load_lib(so):
+    lib = ctypes.CDLL(so)
+    for fn_name, argtypes in _build.LIBRARIES["int8_serve_kernels"].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = _build._RESTYPES.get(fn_name, ctypes.c_int)
+    if lib.tsg_init():
+        raise SystemExit(f"{so}: tsg_init failed")
+    return lib
+
+
+def report_build(tag, so, log):
+    """ptxas registers / spills per kernel and the SASS tensor-core
+    instruction counts per kernel."""
+    fn = None
+    regs = {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+        if "spill" in line and fn and not line.strip().startswith("0 bytes"):
+            print(f"  [{tag}] {fn}: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HMMA": 0, "IMMA": 0}
+        elif fn:
+            for op in ("HMMA", "IMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+    rows = {}
+    for name in sorted(set(regs) | set(counts)):
+        short = re.sub(r"^_ZN\w*?_tsg_init\d+", "", name)
+        rows[short] = {"registers": regs.get(name), **counts.get(
+            name, {"HMMA": 0, "IMMA": 0})}
+        print(f"  [{tag}] {short[:60]:60s} registers {regs.get(name)} "
+              f"HMMA {rows[short]['HMMA']} IMMA {rows[short]['IMMA']}")
+    return rows
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def operands(dev):
+    g = torch.Generator().manual_seed(0)
+
+    def cbr(k, cin, cout):
+        scale = 40.0 / (127 * 64 * (9 * cin) ** 0.5)
+        return {"w": torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                                   dtype=torch.int8).to(dev),
+                "m": ((torch.rand(cout, generator=g) + 0.5) * scale).to(dev),
+                "c": (torch.randn(cout, generator=g) * 8).to(dev)}
+
+    stem = {"xs": torch.randint(-128, 128, (1, H2 + 3, W2 + 3, 12),
+                                generator=g, dtype=torch.int8).to(dev),
+            "wf": (torch.randn(4, 4, 12, 128, generator=g) * 0.05).to(
+                torch.bfloat16).to(dev),
+            "m": (torch.rand(128, generator=g) * 0.016 + 0.004).to(dev),
+            "c": (torch.randn(128, generator=g) * 2).to(dev)}
+    stages = {}
+    for name, (h, w, cin) in STAGES.items():
+        cout = 2 * cin
+        x = torch.randint(0, 128, (1, h, w, cin), generator=g,
+                          dtype=torch.int8).to(dev)
+        e0 = {"conv1": cbr(3, cin, cout), "conv2": cbr(3, cout, cout),
+              "down": cbr(1, cin, cout), "stride": 2,
+              "res_ratio": float(torch.rand((), generator=g)) + 0.3}
+        e1 = {"conv1": cbr(3, cout, cout), "conv2": cbr(3, cout, cout),
+              "stride": 1,
+              "res_ratio": float(torch.rand((), generator=g)) + 0.3}
+        stages[name] = (x, e0, e1)
+    return stem, stages
+
+
+def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
+             down=None):
+    _, h, w, cin = x.shape
+    _, ho, wo, cout = out.shape
+    rc = lib.tsg_conv_i8_mma(
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
+        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        res.data_ptr() if res is not None else None, float(rr),
+        xd.data_ptr() if xd is not None else None,
+        xd.shape[2] if xd is not None else 0,
+        xd.shape[3] if xd is not None else 0, 2,
+        down["w"].data_ptr() if down is not None else None,
+        down["m"].data_ptr() if down is not None else None,
+        down["c"].data_ptr() if down is not None else None,
+        out.data_ptr(), ho, wo, K._stream(x))
+    if rc:
+        raise RuntimeError(f"tsg_conv_i8_mma: CUDA error {rc}")
+    return out
+
+
+def links(x, e0, e1):
+    """(name, input, entry, stride, mode, extra) of the four links, with
+    this tree's intermediate codes as their inputs."""
+    t = K._launch_conv_mma(x, e0["conv1"], 2)
+    y = K._launch_conv_mma(t, e0["conv2"], 1, mode=2, xd=x, down=e0["down"],
+                           sd=2)
+    t2 = K._launch_conv_mma(y, e1["conv1"], 1)
+    return [("conv1_s2", x, e0["conv1"], 2, 0, {}),
+            ("conv2_proj", t, e0["conv2"], 1, 2,
+             {"xd": x, "down": e0["down"]}),
+            ("conv1b", y, e1["conv1"], 1, 0, {}),
+            ("conv2b_res", t2, e1["conv2"], 1, 1,
+             {"res": y, "rr": e1["res_ratio"]})]
+
+
+def link_work(x, e, stride, mode, extra):
+    _, h, w, cin = x.shape
+    cout = e["w"].shape[3]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    ops = 2 * ho * wo * cout * 9 * cin
+    n_bytes = x.numel() + e["w"].numel() + ho * wo * cout
+    if mode == 2:
+        ops += 2 * ho * wo * cout * extra["xd"].shape[3]
+        n_bytes += extra["xd"].numel() + extra["down"]["w"].numel()
+    if mode == 1:
+        n_bytes += extra["res"].numel()
+    return ops, n_bytes, (ho, wo, cout)
+
+
+def bound_ms(ops, n_bytes, kind):
+    return max(ops / PEAK[kind], n_bytes / HBM) * 1e3
+
+
+def forward_ms(entry_mod, dev, rounds):
+    """(median, p90) CUDA-event ms of one main-path forward of the tree whose
+    ``entry`` module this is, over four seeded images."""
+    i8 = importlib.import_module(entry_mod.__name__.rsplit(".", 1)[0]
+                                 + ".deploy.int8_serve")
+    infer, (pkg, _) = entry_mod.entry(device=dev)
+    cfg = entry_mod.get_experiment(entry_mod.EXPERIMENT)
+    rng = np.random.default_rng(1)
+    xss = [i8.prepare_s2d_input_u8(
+        rng.integers(0, 256, (1, 1024, 2048, 3), dtype=np.uint8),
+        image_mean=cfg.image_mean, device=dev) for _ in range(4)]
+
+    def run():
+        for x in xss:
+            infer(pkg, x)
+        marks = []
+        for _ in range(rounds):
+            for x in xss:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                infer(pkg, x)
+                ev[1].record()
+                marks.append(ev)
+        torch.cuda.synchronize()
+        t = sorted(a.elapsed_time(b) for a, b in marks)
+        return statistics.median(t), t[int(0.9 * (len(t) - 1))]
+    return run
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="another checkout to time against (the parent)")
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--forward", type=int, default=0,
+                    help="rounds of the main-path forward timing (0: none)")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    variants = {}
+    for v in args.variant:
+        name, _, spec = v.partition(":")
+        variants[name] = dict(kv.split("=") for kv in spec.split(",") if kv)
+    lib = _build.ready(dev.index)
+    log = _build.BuildInfo.logs.get("int8_serve_kernels")
+    so = _build.BuildInfo.paths["int8_serve_kernels"]
+    if not log:  # a cached library: build the same source once more
+        so, log = build_variants({"this_tree": {}})["this_tree"]
+    builds = {"change": report_build("change", so, log)}
+    print(f"  [change] dynamic shared memory: K1 "
+          f"{lib.tsg_stem_smem_bytes(128, 64)} B, K4 "
+          f"{lib.tsg_conv_mma_smem_bytes()} B a block", flush=True)
+    libs = {"change": lib}
+    for name, (so, log) in build_variants(variants).items():
+        builds[name] = report_build(name, so, log)
+        libs[name] = load_lib(so)
+    parent = None
+    if args.root:
+        parent = import_tree(args.root, "tsg_parent")
+        parent_build = importlib.import_module("tsg_parent.ops.kernels._build")
+        parent_build.ready(dev.index)
+        builds["parent"] = report_build(
+            "parent", parent_build.BuildInfo.paths["int8_serve_kernels"],
+            parent_build.BuildInfo.logs.get("int8_serve_kernels", ""))
+
+    stem, stages = operands(dev)
+    results = {}
+
+    def turns(item, calls, check):
+        """calls: {build: fn}; order parent, change, variants, change,
+        parent; returns {build: [ms, ...]}."""
+        ends = ["parent"] if "parent" in calls else []
+        order = ends + ["change"] + [
+            v for v in calls if v not in ("parent", "change")] + ["change"] + ends
+        times = {}
+        for b in order:
+            times.setdefault(b, []).append(cuda_ms(calls[b], args.reps))
+        for b in calls:
+            check(b)
+        results[item] = times
+        return times
+
+    # K1 at the main path's shape
+    sp = torch.empty((1, H2, W2, 64), dtype=torch.int8, device=dev)
+    pooled = torch.empty((1, H2 // 2, W2 // 2, 64), dtype=torch.int8,
+                         device=dev)
+    stem_out = {}
+
+    def stem_call(b):
+        def run():
+            if b == "parent":
+                stem_out[b] = parent.stem_pool_i8(stem["xs"], stem["wf"],
+                                                  stem["m"], stem["c"], 64)
+                return
+            rc = libs[b].tsg_stem_pool_i8(
+                stem["xs"].data_ptr(), stem["wf"].data_ptr(),
+                stem["m"].data_ptr(), stem["c"].data_ptr(), sp.data_ptr(),
+                pooled.data_ptr(), H2, W2, 12, 128, 64, K._stream(sp))
+            if rc:
+                raise RuntimeError(f"tsg_stem_pool_i8: CUDA error {rc}")
+            stem_out[b] = (sp.clone(), pooled.clone())
+        return run
+
+    ref = K.stem_pool_i8_plain(stem["xs"], stem["wf"], stem["m"], stem["c"],
+                               64)
+
+    def stem_check(b):
+        stem_call(b)()
+        torch.cuda.synchronize()
+        n_diff = worst = 0
+        for a, r in zip(stem_out[b], ref):
+            d = (a.int() - r.int()).abs()
+            worst = max(worst, int(d.max()))
+            n_diff += int((d > 0).sum())
+        share = n_diff / sum(r.numel() for r in ref)
+        print(f"  K1 [{b}] vs plain: max {worst} code(s), share {share:.3e}")
+        if worst > 1 or share > 1e-3:
+            raise SystemExit(f"K1 [{b}] misses its bar")
+
+    calls = {b: stem_call(b) for b in libs}
+    if parent:
+        calls["parent"] = stem_call("parent")
+    t = turns("stem_pool_i8", calls, stem_check)
+    ops, n_bytes = 2 * H2 * W2 * 128 * 147, stem["xs"].numel() + H2 * W2 * 80
+    print(f"stem_pool_i8 (1, {H2 + 3}, {W2 + 3}, 12): " + ", ".join(
+        f"{b} {ms}" for b, ms in t.items()) + f" ms; bound "
+        f"{bound_ms(ops, n_bytes, 'bf16'):.5f} ms (bf16, 7x7x3 MACs as "
+        f"chip_smoke counts them)", flush=True)
+
+    for sname, (x, e0, e1) in stages.items():
+        for name, xin, e, stride, mode, extra in links(x, e0, e1):
+            ops, n_bytes, (ho, wo, cout) = link_work(xin, e, stride, mode,
+                                                     extra)
+            outs = {b: torch.empty((1, ho, wo, cout), dtype=torch.int8,
+                                   device=dev) for b in libs}
+            got = {}
+
+            def link_call(b):
+                if b == "parent":
+                    def run():
+                        got[b] = parent._launch_conv(
+                            xin, e, stride, 1, mode=mode,
+                            res=extra.get("res"), rr=extra.get("rr", 0.0),
+                            xd=extra.get("xd"), down=extra.get("down"),
+                            sd=2)
+                    return run
+                return lambda: mma_call(libs[b], xin, e, stride, outs[b],
+                                        mode, extra.get("res"),
+                                        extra.get("rr", 0.0),
+                                        extra.get("xd"), extra.get("down"))
+
+            want = K._launch_conv_mma(xin, e, stride, mode=mode, sd=2,
+                                      **{k: v for k, v in extra.items()})
+
+            def link_check(b):
+                link_call(b)()
+                torch.cuda.synchronize()
+                have = got.get(b, outs.get(b))
+                if not torch.equal(have, want):
+                    raise SystemExit(f"{sname} {name} [{b}] differs from "
+                                     "this tree's codes")
+
+            calls = {b: link_call(b) for b in libs}
+            if parent:
+                calls["parent"] = link_call("parent")
+            item = f"{sname}:{name}"
+            t = turns(item, calls, link_check)
+            bnd = bound_ms(ops, n_bytes, "int8")
+            best = min(min(v) for b, v in t.items() if b != "parent")
+            print(f"{item} {tuple(xin.shape)} -> {cout} (stride {stride}, "
+                  f"mode {mode}): " + ", ".join(
+                      f"{b} {ms}" for b, ms in t.items())
+                  + f" ms; bound {bnd:.5f} ms ({ops / 1e9:.2f} G int8 ops); "
+                  f"this tree {ops / best / 1e9:.1f} TOP/s", flush=True)
+        calls = {"change": lambda: K.down_stage_i8(x, e0, e1)}
+        if parent:
+            calls["parent"] = lambda: parent.down_stage_i8(x, e0, e1)
+        want = K.down_stage_i8_plain(x, e0, e1)
+
+        def stage_check(b):
+            if not torch.equal(calls[b](), want):
+                raise SystemExit(f"{sname} down stage [{b}] differs from "
+                                 "the plain version")
+
+        t = turns(f"{sname}:down_stage_i8", calls, stage_check)
+        print(f"{sname} down_stage_i8 (four launches, wrapper included): "
+              + ", ".join(f"{b} {ms}" for b, ms in t.items()) + " ms",
+              flush=True)
+
+    if args.forward:
+        trees = {"change": importlib.import_module("torchseg_tpu_torch.entry")}
+        if parent:
+            trees["parent"] = importlib.import_module("tsg_parent.entry")
+        runs = {b: forward_ms(mod, dev, args.forward)
+                for b, mod in trees.items()}
+        order = (["parent"] if parent else []) + ["change", "change"] + (
+            ["parent"] if parent else [])
+        fwd = {}
+        for b in order:
+            fwd.setdefault(b, []).append(runs[b]())
+        results["main_path_forward_median_p90"] = fwd
+        print("main-path forward (median, p90) ms: " + ", ".join(
+            f"{b} {v}" for b, v in fwd.items()), flush=True)
+
+    line = json.dumps({"card": smi, "reps": args.reps, "variants": variants,
+                       "builds": builds, "ms": results})
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@ card.  Every test here skips where ``torch.cuda.is_available()`` is False
 the CPU through the plain versions in test_torch_int8_serve_kernels.py).
 
 The shapes are ragged on purpose (widths that are not multiples of the
-kernels' 32-column tiles, odd heights, stage 3's and stage 4's channel
+kernels' 32-column tiles, of K1's 126-column strips or of K4's
+128-pixel-by-64-channel tiles, odd heights, stage 3's and stage 4's channel
 counts, output sizes that are not multiples of 32 or 128, BN inputs whose
 H*W is odd or 1, misaligned BN inputs, stem outputs off K11's 64-column
 and 8-row strips, focal-loss element counts that are not multiples of the
@@ -72,26 +73,60 @@ def _exact(got, ref):
     assert torch.equal(got, ref), int((got != ref).sum())
 
 
-@pytest.mark.parametrize("h2,w2", [(36, 70), (8, 130), (512, 1024)])
-def test_stem_pool_kernel_within_one_code(dev, h2, w2):
-    g = _gen(0)
-    xs = _codes(g, (1, h2 + 3, w2 + 3, 12), lo=-128).to(dev)
-    wf = (torch.randn(4, 4, 12, 128, generator=g) * 0.05).to(
+def _k1_operands(g, h2, w2, cin, cout, dev):
+    xs = _codes(g, (1, h2 + 3, w2 + 3, cin), lo=-128).to(dev)
+    wf = (torch.randn(4, 4, cin, cout, generator=g) * 0.05).to(
         torch.bfloat16).to(dev)
-    m = (torch.rand(128, generator=g) * 0.016 + 0.004).to(dev)
-    c = (torch.randn(128, generator=g) * 2).to(dev)
+    m = (torch.rand(cout, generator=g) * 0.016 + 0.004).to(dev)
+    c = (torch.randn(cout, generator=g) * 2).to(dev)
+    return xs, wf, m, c
+
+
+def _check_stem(dev, xs, wf, m, c, n_sp):
+    """One K1 launch within one code of its plain version on at most 1e-3
+    of the codes."""
     before = K.stem_pool_i8.launches
-    got = K.stem_pool_i8(xs, wf, m, c, 64)
+    got = K.stem_pool_i8(xs, wf, m, c, n_sp)
     torch.cuda.synchronize()
     assert K.stem_pool_i8.launches == before + 1
-    ref = K.stem_pool_i8_plain(xs, wf, m, c, 64)
+    ref = K.stem_pool_i8_plain(xs, wf, m, c, n_sp)
     n_diff = 0
     for a, b in zip(got, ref):
-        assert a.shape == b.shape
+        assert a.shape == b.shape and a.dtype == b.dtype
         d = (a.int() - b.int()).abs()
         assert int(d.max()) <= 1
         n_diff += int((d > 0).sum())
     assert n_diff <= 1e-3 * sum(r.numel() for r in ref)
+
+
+# K1's block computes 128 stem columns for 63 pooled ones (126 sp columns)
+# and walks a band of pooled rows: widths around 126 and 252 cut its last
+# strip short by one column or leave one column alone, heights of 2 and
+# odd pooled-row counts cut its bands; (512, 1024) is the main path's.
+@pytest.mark.parametrize("h2,w2", [(36, 70), (8, 130), (2, 2), (2, 254),
+                                   (46, 252), (14, 256), (6, 1030),
+                                   (512, 1024)])
+def test_stem_pool_kernel_within_one_code(dev, h2, w2):
+    g = _gen(0)
+    _check_stem(dev, *_k1_operands(g, h2, w2, 12, 128, dev), 64)
+
+
+@pytest.mark.parametrize("cin,cout,n_sp", [(4, 64, 32), (16, 128, 64),
+                                           (8, 96, 48), (12, 32, 16)])
+def test_stem_pool_kernel_other_widths(dev, cin, cout, n_sp):
+    g = _gen(16)
+    _check_stem(dev, *_k1_operands(g, 18, 140, cin, cout, dev), n_sp)
+
+
+@pytest.mark.parametrize("cin,cout,n_sp", [(12, 128, 40), (12, 144, 64),
+                                           (20, 128, 64), (6, 128, 64)])
+def test_stem_pool_kernel_refuses_widths_before_launch(dev, cin, cout, n_sp):
+    g = _gen(17)
+    xs, wf, m, c = _k1_operands(g, 8, 16, cin, cout, dev)
+    before = K.stem_pool_i8.launches
+    with pytest.raises(ValueError, match="stem_pool_i8_mma_kernel"):
+        K.stem_pool_i8(xs, wf, m, c, n_sp)
+    assert K.stem_pool_i8.launches == before
 
 
 @pytest.mark.parametrize("h,w", [(37, 45), (64, 130), (1, 1)])
@@ -111,14 +146,64 @@ def test_l1_stage_kernel_bit_exact(dev, h, w):
     _exact(K.l1_stage_i8(x, e0, e1), K.l1_stage_i8_plain(x, e0, e1))
 
 
+# K4's tile is 128 output pixels (flattened over rows) x 64 channels: wo of
+# 19 or 35 leaves ragged tiles across rows, h of 1 or 2 gives ho = 1, cin
+# 16 and 48 leave part of a 64-byte K chunk zero-filled; (64, 256, 512)
+# and (128, 128, 256) are the main path's stage 2 and stage 3.
 @pytest.mark.parametrize("cin,h,w", [(64, 19, 37), (128, 10, 18),
-                                     (128, 64, 128)])
+                                     (128, 64, 128), (64, 1, 37),
+                                     (128, 2, 70), (16, 7, 9), (48, 13, 69),
+                                     (64, 256, 512), (128, 128, 256)])
 def test_down_stage_kernel_bit_exact(dev, cin, h, w):
     g = _gen(3)
     x = _codes(g, (1, h, w, cin)).to(dev)
     e0 = _block(g, cin, 2 * cin, 2, dev)
     e1 = _block(g, 2 * cin, 2 * cin, 1, dev)
+    before = K.down_stage_i8.launches
     _exact(K.down_stage_i8(x, e0, e1), K.down_stage_i8_plain(x, e0, e1))
+    assert K.down_stage_i8.launches == before + 1
+
+
+@pytest.mark.parametrize("cin,cout", [(20, 40), (64, 72), (36, 64)])
+def test_down_stage_kernel_refuses_widths_before_launch(dev, cin, cout):
+    g = _gen(18)
+    x = _codes(g, (1, 6, 10, cin)).to(dev)
+    e0 = _block(g, cin, cout, 2, dev)
+    e1 = _block(g, cout, cout, 1, dev)
+    before = K.down_stage_i8.launches
+    with pytest.raises(ValueError, match="conv_i8_mma_kernel"):
+        K.down_stage_i8(x, e0, e1)
+    assert K.down_stage_i8.launches == before
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("cin,cout,cdin,stride,h,w", [
+    (48, 24, 80, 2, 11, 23), (64, 128, 64, 1, 9, 70),
+    (128, 256, 128, 2, 16, 33), (256, 40, 32, 1, 5, 6)])
+def test_conv_mma_kernel_modes_bit_exact(dev, mode, cin, cout, cdin, stride,
+                                         h, w):
+    """One conv_i8_mma_kernel launch in each epilogue mode against the
+    plain formula: cout % 16 == 8 (8-byte stores), projections whose cin is
+    not a multiple of the 64-byte chunk, both strides."""
+    g = _gen(19)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _cbr(g, 3, cin, cout, dev)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    y = K.qconv(x, e["w"], stride, 1).float()
+    z = K.fma(y, e["m"], e["c"])
+    kw = {}
+    if mode == 1:
+        res = _codes(g, (1, ho, wo, cout)).to(dev)
+        kw = {"res": res, "rr": 0.75}
+        z = K.fma(res.float(), 0.75, z)
+    elif mode == 2:
+        xd = _codes(g, (1, 2 * ho, 2 * wo - 1, cdin)).to(dev)
+        down = _cbr(g, 1, cdin, cout, dev)
+        kw = {"xd": xd, "down": down, "sd": 2}
+        z = K.fma(K.qconv(xd, down["w"], 2, 0).float(), down["m"], z) \
+            + down["c"]
+    _exact(K._launch_conv_mma(x, e, stride, mode=mode, **kw),
+           K.requant(torch.relu(z)))
 
 
 @pytest.mark.parametrize("cin,h,w", [(256, 9, 13), (256, 16, 33)])

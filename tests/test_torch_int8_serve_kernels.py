@@ -239,3 +239,44 @@ def test_wrapper_guards_raise(name):
     exc, call = cases[name]
     with pytest.raises(exc):
         call()
+
+
+# The tensor-core K1 and K4 kernels' width limits, checked before any
+# launch (pure functions: None where the kernel takes the widths).
+SHAPE_LIMITS = [
+    (K.stem_pool_i8_shape_error, (12, 128, 64), None),
+    (K.stem_pool_i8_shape_error, (16, 128, 64), None),
+    (K.stem_pool_i8_shape_error, (4, 32, 16), None),
+    (K.stem_pool_i8_shape_error, (20, 128, 64), "cin"),
+    (K.stem_pool_i8_shape_error, (6, 128, 64), "cin"),
+    (K.stem_pool_i8_shape_error, (12, 144, 64), "cout"),
+    (K.stem_pool_i8_shape_error, (12, 128, 40), "n_sp"),
+    (K.stem_pool_i8_shape_error, (12, 72, 64), "n_sp"),
+    (K.conv_i8_mma_shape_error, (64, 128, 0), None),
+    (K.conv_i8_mma_shape_error, (48, 24, 80), None),
+    (K.conv_i8_mma_shape_error, (20, 128, 0), "cin"),
+    (K.conv_i8_mma_shape_error, (64, 60, 0), "cout"),
+    (K.conv_i8_mma_shape_error, (64, 128, 40), "projection"),
+    (K.down_stage_i8_shape_error, (64, 128), None),
+    (K.down_stage_i8_shape_error, (128, 256), None),
+    (K.down_stage_i8_shape_error, (36, 64), "cin"),
+    (K.down_stage_i8_shape_error, (64, 72), "cin"),
+]
+
+
+@pytest.mark.parametrize("fn,args,expect", SHAPE_LIMITS,
+                         ids=[f"{f.__name__}{a}" for f, a, _ in SHAPE_LIMITS])
+def test_tensor_core_kernels_shape_limits(fn, args, expect):
+    why = fn(*args)
+    if expect is None:
+        assert why is None
+    else:
+        assert why is not None and expect in why
+
+
+def test_shape_limits_take_the_serving_widths():
+    """The main path's stem (12 s2d channels -> 64 + 64) and both down
+    stages (64 -> 128, 128 -> 256) are within the kernels' limits."""
+    assert K.stem_pool_i8_shape_error(12, 128, 64) is None
+    for cin in (64, 128):
+        assert K.down_stage_i8_shape_error(cin, 2 * cin) is None

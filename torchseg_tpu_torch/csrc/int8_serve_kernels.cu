@@ -3,21 +3,23 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Three kernels, nine entry points of the serving graphs:
+// Four kernels, nine entry points of the serving graphs:
 //
-//   stem_pool_i8_kernel  (K1)  replaces the TPU kernel
+//   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
-//       s2d_stem_pool_quad_i8 (and the v1/v2 stems at :128 and :214).
-//   conv_i8_kernel             the shared int8 conv + epilogue (any k,
-//       stride, dilation), launched by
+//       s2d_stem_pool_quad_i8 (and the v1/v2 stems at :128 and :214):
+//       the s2d 4x4 stem conv on bf16 tensor cores (mma.sync m16n8k16),
+//       its requant, and the backbone half's 3x3/2 max pool.
+//   conv_i8_mma_kernel       (K4)  replaces down_stage_i8_from_paired
+//       (:986), stages 2 and 3: its four 3x3 links (the 1x1/2 projection
+//       fused into the first block's conv2 as a second GEMM) on int8
+//       tensor cores (mma.sync m16n8k32).
+//   conv_i8_kernel                 the shared int8 conv + epilogue on
+//       CUDA cores (__dp4a; any k, stride, dilation), launched by
 //       K2 conv3x3s2_i8   replacing conv3x3s2_i8_quad (:515), twice per
 //                         forward through spatial_path_i8 (:569/:587);
 //       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763):
 //                         a chain of four launches;
-//       K4 down_stage_i8  replacing down_stage_i8_from_paired (:986),
-//                         stages 2 and 3: a chain of four launches, the
-//                         1x1/2 projection fused into the first block's
-//                         conv2 launch;
 //       K5 down_block_i8  replacing down_block_i8_from_paired (:1136),
 //                         stage 4's strided block: two launches;
 //       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
@@ -33,10 +35,14 @@
 //
 // Numerics (the spec is the JAX XLA path, deploy/int8_serve.py:716-958 and
 // :1274-1295, as XLA compiles it on the CPU where the tests run it):
-//   * int8 x int8 products accumulate exactly in int32 (__dp4a);
-//   * the stem reads bf16 weights as f32 and accumulates in f32 (its order
-//     differs from any other implementation's, so round-half ties may move
-//     a code by one: the promised tolerance is +-1 code);
+//   * int8 x int8 products accumulate exactly in int32 (__dp4a, or the int8
+//     tensor cores: integer sums are exact in any order, so both kernels are
+//     bit-exact);
+//   * the stem's int8 codes are exact in bf16 and its weights are bf16, so
+//     the bf16 tensor cores form every product exactly and accumulate in
+//     f32; the order and rounding of that sum differ from any other
+//     implementation's, so round-half ties may move a code by one: the
+//     promised tolerance is +-1 code (the JAX kernel's, :31-33);
 //   * XLA contracts the epilogue's multiply-adds into fused multiply-adds.
 //     Measured on its CPU output, bit for bit:
 //         cbr:        z = fma(y, m, c)
@@ -46,7 +52,7 @@
 //     kernels write exactly these with __fmaf_rn and __fadd_rn, and the
 //     library is built with -fmad=false so nvcc contracts nothing else;
 //   * rintf rounds half to even, as jnp.round does;
-//   * the pool only compares codes: it is exact for any code.
+//   * the pools only compare codes: they are exact for any code.
 //
 // Every launching entry point runs on the caller's stream, allocates
 // nothing and returns cudaGetLastError(); tsg_init() runs once per device
@@ -63,140 +69,350 @@ __device__ __forceinline__ int8_t requant(float z) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-__device__ __forceinline__ float bf16_bits_to_f32(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+// Two requantized codes as the little-endian 16-bit word of adjacent bytes.
+__device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
+  return static_cast<uint16_t>(static_cast<uint8_t>(lo) |
+                               (static_cast<uint16_t>(static_cast<uint8_t>(hi)) << 8));
+}
+
+// --- PTX wrappers for the tensor-core kernels (K1, K4) ---------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes = 0 zero-fills the
+// destination and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
+}
+
+// Four 8x8 matrices of 16-bit elements (8 rows of 16 bytes each); lane l
+// gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// d += a (16x32 s8, row) * b (32x8 s8, col), exact in int32.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), accumulated in f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
-// K1: fused serving stem.
+// K1: fused serving stem on bf16 tensor cores.
 //
 // What it computes: a 4x4 stride-1 valid conv over the pre-padded s2d int8
 // image xs (h2+3, w2+3, cin) with bf16 weights (4, 4, cin, cout) and an f32
-// accumulator, the requant epilogue q = clip(rint(max(acc*m + c, 0))), then
-// the split: channels [0, n_sp) are the SpatialPath codes sp (h2, w2, n_sp),
-// channels [n_sp, cout) go through the backbone 3x3/2 pad-1 max pool into
-// pooled (h2/2, w2/2, cout - n_sp).  The backbone half never reaches device
-// memory at stem resolution.
+// accumulator, the requant epilogue q = clip(rint(max(fma(acc, m, c), 0))),
+// then the split: channels [0, n_sp) are the SpatialPath codes sp (h2, w2,
+// n_sp), channels [n_sp, cout) go through the backbone 3x3/2 pad-1 max pool
+// into pooled (h2/2, w2/2, cout - n_sp).  The backbone half never reaches
+// device memory at stem resolution.
 //
-// What bounds it: 2*h2*w2*cout*16*cin FLOP (26 GFLOP at 1024x2048) of f32
-// FMA outside the tensor cores; bytes are small (4.4 MB in, 50 MB out).
-// Design: one block owns one pooled row and PW pooled columns; it stages its
-// 6-row input patch as f32 and the whole bf16 weight tensor in shared
-// memory, computes the three stem rows that pooled row reads (the row and
-// column above and left are halo, recomputed for the backbone half only),
-// keeps the backbone codes in shared memory and pools them there.  Each
-// thread computes four neighbouring pixels of one channel, so one weight
-// load feeds four FMAs and the input loads are warp-wide broadcasts.
+// What bounds it on an H100: bf16 tensor-core operations, 2*h2*w2*cout*256
+// with each tap's cin channels padded to 16 (34 G at 1024x2048, ~35 us at
+// the 989 TFLOP/s dense peak), against ~48 MB of traffic (~14 us).  The
+// CUDA-core kernel it replaced ran the same sum as scalar f32 FMAs fed from
+// shared memory (~6 TFLOP/s, 4 ms).
+//
+// Design: one GEMM per stem row pair, M = stem pixels, N = cout, K = 16
+// taps x 16 channels (12 channels and 4 zeros per tap, so one k16 step is
+// one (dy, dx) tap and the A fragment of a tap is 16 pixels' 32-byte rows:
+// an implicit im2col by per-lane ldmatrix addresses; keeping K = 192 would
+// need fragments that straddle taps, for 25 % fewer MACs on a kernel far
+// from its bound).  A block owns 63 pooled columns (128 stem columns: the
+// pooled windows' left halo column is its first) and a band of pooled
+// rows, and walks down it two stem rows at a time, so no stem row is
+// computed twice except the one above the band:
+//   * the weights are staged once per block as [n][k] bf16 (64 KB), their
+//     16-byte chunks XOR-swizzled by n % 8 so ldmatrix is conflict-free;
+//   * input rows live in a ring of 7 rows x 132 columns x 16 bf16, each
+//     code converted once from int8 while it is staged (exact); the next
+//     pair of rows is loaded into registers before the MMAs and stored
+//     after them; each pixel's two 16-byte halves are swapped by bit 2 of
+//     its column, which makes any 8 consecutive pixels conflict-free;
+//   * 16 warps: 8 along M (two m16 tiles each: 16 pixels of one row) x 2
+//     along N (the sp half and the backbone half, eight n8 tiles each);
+//   * the epilogue writes sp codes and backbone codes to shared memory;
+//     sp leaves with 16-byte stores, and the backbone codes of three stem
+//     rows (a ring of 3; the row above is the previous pair's second) are
+//     max-pooled with __vmaxs4 and leave with 16-byte stores.  Padding is
+//     -128, which never wins: every code is >= 0 after the ReLU.
+// The host sizes the bands so the grid is about one block per SM (the
+// shared memory, ~134 KB, allows one).
 // ---------------------------------------------------------------------------
 
-constexpr int kStemPW = 32;                    // pooled columns per block
-constexpr int kStemG = kStemPW / 2 + 1;        // 4-pixel groups per stem row
-constexpr int kStemNC = 4 * kStemG;            // stem columns computed
-constexpr int kStemXW = kStemNC + 3;           // input columns staged
-constexpr int kStemThreads = 256;
+constexpr int kStemThreads = 512;
+constexpr int kStemCols = 128;             // stem columns a block computes
+constexpr int kStemPC = kStemCols / 2 - 1;  // pooled columns a block owns
+constexpr int kStemXW = kStemCols + 4;     // input columns staged (131 used)
+constexpr int kStemRing = 7;               // input rows staged
+constexpr int kStemN = 128;                // largest cout
+constexpr int kStemRowBytes = 512;         // one weight row: 256 bf16 of K
+constexpr int kStemPix = 32;               // one staged pixel: 16 bf16
+constexpr int kStemLoads = (2 * kStemXW * 4 + kStemThreads - 1) / kStemThreads;
 
-__global__ void __launch_bounds__(kStemThreads)
-stem_pool_i8_kernel(const int8_t* __restrict__ xs,
-                    const uint16_t* __restrict__ wf,
-                    const float* __restrict__ m, const float* __restrict__ c,
-                    int8_t* __restrict__ sp, int8_t* __restrict__ pooled,
-                    int h2, int w2, int cin, int cout, int n_sp) {
+__device__ __forceinline__ int ring_slot(int row, int n) {
+  return ((row % n) + n) % n;
+}
+
+__global__ void __launch_bounds__(kStemThreads, 1)
+stem_pool_i8_mma_kernel(const int8_t* __restrict__ xs,
+                        const uint16_t* __restrict__ wf,
+                        const float* __restrict__ m, const float* __restrict__ c,
+                        int8_t* __restrict__ sp, int8_t* __restrict__ pooled,
+                        int h2, int w2, int cin, int cout, int n_sp,
+                        int band) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nbb = cout - n_sp;
-  const int kk = 16 * cin;
-  uint16_t* w_s = reinterpret_cast<uint16_t*>(smem);            // [kk][cout]
-  float* m_s = reinterpret_cast<float*>(w_s + kk * cout + (kk * cout & 1));
-  float* c_s = m_s + cout;
-  float* x_s = c_s + cout;                                       // [6][XW][cin]
-  int8_t* bb_s = reinterpret_cast<int8_t*>(x_s + 6 * kStemXW * cin);
-                                                                 // [3][NC][nbb]
-  const int py = blockIdx.y;
-  const int px0 = blockIdx.x * kStemPW;
-  const int row0 = 2 * py - 1;    // first stem row (and first xs row) used
-  const int col0 = 2 * px0 - 1;   // first stem column (and xs column) used
-  const int hp = h2 + 3, wp = w2 + 3;
-  const int tid = threadIdx.x;
+  unsigned char* w_s = smem;                                // [128][256] bf16
+  unsigned char* x_s = w_s + kStemN * kStemRowBytes;        // [7][132][16] bf16
+  int8_t* bb_s = reinterpret_cast<int8_t*>(x_s + kStemRing * kStemXW * kStemPix);
+  int8_t* sp_s = bb_s + 3 * kStemCols * nbb;                // [2][128][n_sp]
+  float* m_s = reinterpret_cast<float*>(sp_s + 2 * kStemCols * n_sp);
+  float* c_s = m_s + kStemN;
 
-  for (int i = tid; i < kk * cout; i += blockDim.x) w_s[i] = wf[i];
-  for (int i = tid; i < cout; i += blockDim.x) {
-    m_s[i] = m[i];
-    c_s[i] = c[i];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pw = w2 / 2;
+  const int a = blockIdx.x * kStemPC;   // first pooled column owned
+  const int col0 = 2 * a - 1;           // stem (and xs) column of local column 0
+  const int py0 = blockIdx.y * band;
+  const int py1 = min(h2 / 2, py0 + band);
+  const int hp = h2 + 3, wp = w2 + 3;
+  const int ng = cin / 4;               // 4-channel words per input pixel
+
+  // weights -> [n][k = tap * 16 + channel], zero beyond cin and cout
+  for (int i = tid; i < kStemN * 256; i += kStemThreads) {
+    const int n = i % kStemN, ch = (i / kStemN) % 16, tap = i / (kStemN * 16);
+    uint16_t v = 0;
+    if (n < cout && ch < cin) v = wf[(tap * cin + ch) * cout + n];
+    const int chunk = (tap * 2 + ch / 8) ^ (n & 7);
+    *reinterpret_cast<uint16_t*>(w_s + n * kStemRowBytes + chunk * 16 +
+                                 (ch & 7) * 2) = v;
   }
-  for (int i = tid; i < 6 * kStemXW * cin; i += blockDim.x) {
-    const int ci = i % cin;
-    const int lc = (i / cin) % kStemXW;
-    const int lr = i / (cin * kStemXW);
-    const int gr = row0 + lr, gc = col0 + lc;
-    float v = 0.f;
-    if (gr >= 0 && gr < hp && gc >= 0 && gc < wp)
-      v = static_cast<float>(xs[(static_cast<size_t>(gr) * wp + gc) * cin + ci]);
-    x_s[i] = v;
+  for (int i = tid; i < kStemN; i += kStemThreads) {
+    m_s[i] = i < cout ? m[i] : 0.f;
+    c_s[i] = i < cout ? c[i] : 0.f;
   }
+  for (int i = tid; i < kStemRing * kStemXW * kStemPix / 16; i += kStemThreads)
+    reinterpret_cast<uint4*>(x_s)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
-  // items: (stem row r in 0..2, 4-column group g, channel co), co fastest
-  const int n_items = 3 * kStemG * cout;
-  for (int it = tid; it < n_items; it += blockDim.x) {
-    const int co = it % cout;
-    const int g = (it / cout) % kStemG;
-    const int r = it / (cout * kStemG);
-    const bool is_sp = co < n_sp;
-    if (is_sp && r == 0) continue;  // row 2py-1 belongs to the block above
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int dy = 0; dy < 4; ++dy) {
-      for (int dx = 0; dx < 4; ++dx) {
-        const float* xrow = x_s + ((r + dy) * kStemXW + 4 * g + dx) * cin;
-        const uint16_t* wrow = w_s + ((dy * 4 + dx) * cin) * cout + co;
-        for (int ci = 0; ci < cin; ++ci) {
-          const float wv = bf16_bits_to_f32(wrow[ci * cout]);
+  // Input rows r, r+1 (columns col0 .. col0+131) as 4-channel words, into
+  // registers; then into the ring as bf16.
+  const int n_units = 2 * kStemXW * ng;
+  uint32_t xv[kStemLoads];
+  auto load_rows = [&](int r) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[j] = __fmaf_rn(xrow[j * cin + ci], wv, acc[j]);
+    for (int q = 0; q < kStemLoads; ++q) {
+      const int u = tid + q * kStemThreads;
+      xv[q] = 0;
+      if (u < n_units) {
+        const int row = r + u / (kStemXW * ng);
+        const int col = col0 + (u / ng) % kStemXW;
+        if (row >= 0 && row < hp && col >= 0 && col < wp)
+          xv[q] = __ldg(reinterpret_cast<const uint32_t*>(
+              xs + (static_cast<size_t>(row) * wp + col) * cin + 4 * (u % ng)));
+      }
+    }
+  };
+  auto store_rows = [&](int r) {
+#pragma unroll
+    for (int q = 0; q < kStemLoads; ++q) {
+      const int u = tid + q * kStemThreads;
+      if (u < n_units) {
+        const int row = r + u / (kStemXW * ng);
+        const int lc = (u / ng) % kStemXW, grp = u % ng;
+        uint32_t bits[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)  // an int8 code is exact in bf16
+          bits[b] = __float_as_uint(static_cast<float>(
+                        static_cast<int8_t>(xv[q] >> (8 * b)))) >> 16;
+        const int half = (grp >> 1) ^ ((lc >> 2) & 1);
+        *reinterpret_cast<uint2*>(
+            x_s + (ring_slot(row, kStemRing) * kStemXW + lc) * kStemPix +
+            half * 16 + (grp & 1) * 8) =
+            make_uint2(bits[0] | (bits[1] << 16), bits[2] | (bits[3] << 16));
+      }
+    }
+  };
+
+  // prologue: input rows 2*py0-2 .. 2*py0+3
+  for (int r = 2 * py0 - 2; r < 2 * py0 + 4; r += 2) {
+    load_rows(r);
+    store_rows(r);
+  }
+
+  const int wm = warp & 7;    // M: tiles 2*wm, 2*wm+1 (tile t: row t/8, columns 16*(t%8)..)
+  const int wn = warp >> 3;   // N: channels 64*wn ..
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint32_t w_base = smem_addr(w_s);
+  const uint32_t x_base = smem_addr(x_s);
+
+  // step -1 computes the stem row above the band (its backbone codes only)
+  for (int s = -1; py0 + s < py1; ++s) {
+    const int ra = 2 * (py0 + s);   // this step's stem rows: ra, ra + 1
+    const bool more = py0 + s + 1 < py1;
+    __syncthreads();  // this step's input rows staged; last step's readers done
+    if (more) load_rows(ra + 5);
+
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    bool live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      live[i] = wn * 64 < cout && col0 + ((2 * wm + i) & 7) * 16 < w2 &&
+                (s >= 0 || 2 * wm + i >= 8);  // step -1 needs its second row only
+    if (live[0] || live[1]) {
+      // tile t = 2*wm + i lies in stem row ra + wm/4, columns 16*(t%8) ..
+      const uint32_t lane_pc = (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int k_half = (lane >> 3) & 1;
+      for (int dy = 0; dy < 4; ++dy) {
+        const uint32_t xrow =
+            x_base + ring_slot(ra + (wm >> 2) + dy, kStemRing) * kStemXW * kStemPix;
+#pragma unroll
+        for (int dx = 0; dx < 4; ++dx) {
+          const int tap = dy * 4 + dx;
+          uint32_t af[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int pc = ((2 * wm + i) & 7) * 16 + lane_pc + dx;
+            const int half = (lane >> 4) ^ ((pc >> 2) & 1);
+            ldmatrix_x4(xrow + pc * kStemPix + half * 16, af[i][0], af[i][1],
+                        af[i][2], af[i][3]);
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int n = wn * 64 + p * 16 + (lane & 7) + (lane >> 4) * 8;
+            const int chunk = (tap * 2 + k_half) ^ (lane & 7);  // n % 8 == lane % 8
+            uint32_t b0, b1, b2, b3;
+            ldmatrix_x4(w_base + n * kStemRowBytes + chunk * 16, b0, b1, b2, b3);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              if (!live[i]) continue;
+              mma_bf16(acc[i][2 * p], af[i], b0, b1);
+              mma_bf16(acc[i][2 * p + 1], af[i], b2, b3);
+            }
+          }
         }
       }
     }
-    const int sr = row0 + r;
+
+    // epilogue: requant; sp codes and backbone codes to shared memory
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int lj = 4 * g + j;
-      const int sc = col0 + lj;
-      const bool valid = sr >= 0 && sr < h2 && sc >= 0 && sc < w2;
-      const int8_t q = requant(fmaxf(__fmaf_rn(acc[j], m_s[co], c_s[co]), 0.f));
-      if (is_sp) {
-        if (valid && lj >= 1 && lj <= 2 * kStemPW)
-          sp[(static_cast<size_t>(sr) * w2 + sc) * n_sp + co] = q;
-      } else {
-        // padding never wins: the codes are >= 0 after the ReLU
-        bb_s[(r * kStemNC + lj) * nbb + (co - n_sp)] = valid ? q : int8_t(-128);
+    for (int i = 0; i < 2; ++i) {
+      const int t = 2 * wm + i;
+      const int rsel = t >> 3, sr = ra + rsel;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int lc = (t & 7) * 16 + g + 8 * hh;
+        const int sc = col0 + lc;
+        const bool valid = sr >= 0 && sr < h2 && sc >= 0 && sc < w2;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = wn * 64 + j * 8 + 2 * t4;
+          if (n >= cout) continue;
+          const int8_t q0 = requant(fmaxf(
+              __fmaf_rn(acc[i][j][2 * hh], m_s[n], c_s[n]), 0.f));
+          const int8_t q1 = requant(fmaxf(
+              __fmaf_rn(acc[i][j][2 * hh + 1], m_s[n + 1], c_s[n + 1]), 0.f));
+          if (n < n_sp) {
+            *reinterpret_cast<uint16_t*>(sp_s + (rsel * kStemCols + lc) * n_sp + n) =
+                pack2(q0, q1);
+          } else {
+            *reinterpret_cast<uint16_t*>(
+                bb_s + (ring_slot(sr, 3) * kStemCols + lc) * nbb + n - n_sp) =
+                valid ? pack2(q0, q1) : uint16_t(0x8080);
+          }
+        }
       }
     }
-  }
-  __syncthreads();
+    if (more) store_rows(ra + 5);
+    __syncthreads();
+    if (s < 0) continue;
 
-  const int pw = w2 / 2;
-  for (int it = tid; it < kStemPW * nbb; it += blockDim.x) {
-    const int ch = it % nbb;
-    const int j = it / nbb;
-    const int px = px0 + j;
-    if (px >= pw) continue;
-    int mx = -128;
-    for (int r = 0; r < 3; ++r)
-      for (int dc = 0; dc < 3; ++dc)
-        mx = max(mx, static_cast<int>(bb_s[(r * kStemNC + 2 * j + dc) * nbb + ch]));
-    pooled[(static_cast<size_t>(py) * pw + px) * nbb + ch] = static_cast<int8_t>(mx);
+    // sp rows ra, ra+1, owned columns (local 1..126): 16-byte stores
+    const int spc = n_sp / 16;
+    for (int u = tid; u < 2 * (kStemCols - 2) * spc; u += kStemThreads) {
+      const int ck = u % spc, lc = 1 + (u / spc) % (kStemCols - 2);
+      const int rsel = u / (spc * (kStemCols - 2));
+      const int sc = col0 + lc;
+      if (sc >= w2) continue;
+      *reinterpret_cast<uint4*>(sp + (static_cast<size_t>(ra + rsel) * w2 + sc) * n_sp +
+                                ck * 16) =
+          *reinterpret_cast<const uint4*>(sp_s + (rsel * kStemCols + lc) * n_sp + ck * 16);
+    }
+    // pooled row py0+s: the max over stem rows ra-1 .. ra+1
+    const int bbc = nbb / 16;
+    for (int u = tid; u < kStemPC * bbc; u += kStemThreads) {
+      const int ck = u % bbc, i = u / bbc;
+      const int px = a + i;
+      if (px >= pw) continue;
+      uint4 mx = make_uint4(0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);
+#pragma unroll
+      for (int r = -1; r < 2; ++r) {
+        const int8_t* row = bb_s + ring_slot(ra + r, 3) * kStemCols * nbb;
+#pragma unroll
+        for (int dc = 0; dc < 3; ++dc) {
+          const uint4 v = *reinterpret_cast<const uint4*>(row + (2 * i + dc) * nbb + ck * 16);
+          mx.x = __vmaxs4(mx.x, v.x);
+          mx.y = __vmaxs4(mx.y, v.y);
+          mx.z = __vmaxs4(mx.z, v.z);
+          mx.w = __vmaxs4(mx.w, v.w);
+        }
+      }
+      *reinterpret_cast<uint4*>(pooled + (static_cast<size_t>(py0 + s) * pw + px) * nbb +
+                                ck * 16) = mx;
+    }
   }
 }
 
-size_t stem_smem_bytes(int cin, int cout, int n_sp) {
-  const size_t kk = 16 * static_cast<size_t>(cin);
-  const size_t w = 2 * (kk * cout + ((kk * cout) & 1));
-  return w + 2 * 4 * cout + 4 * 6 * kStemXW * cin +
-         3 * kStemNC * static_cast<size_t>(cout - n_sp);
+size_t stem_smem_bytes(int cout, int n_sp) {
+  return static_cast<size_t>(kStemN) * kStemRowBytes +
+         static_cast<size_t>(kStemRing) * kStemXW * kStemPix +
+         static_cast<size_t>(kStemCols) * (3 * (cout - n_sp) + 2 * n_sp) +
+         2 * 4 * kStemN;
 }
 
 // ---------------------------------------------------------------------------
-// Shared int8 conv + epilogue (K2, the links of the K3-K6 chains, the deep
-// stem's CBRs and the Bottleneck chains).
+// Shared int8 conv + epilogue on CUDA cores (K2, the links of the K3, K5
+// and K6 chains, the deep stem's CBRs and the Bottleneck chains; K4 no
+// longer uses it: its links run on conv_i8_mma_kernel below).
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (k, k, cin, cout), stride s, dilation d, symmetric pad,
@@ -412,6 +628,328 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) 
   return 4 * words;
 }
 
+
+// ---------------------------------------------------------------------------
+// K4's links: int8 3x3 pad-1 conv + epilogue on int8 tensor cores.
+//
+// What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
+// HWIO int8 weights (3, 3, cin, cout), stride 1 or 2, pad 1, exact in
+// int32; then the requant epilogue of conv_i8_kernel, int8 out:
+//   mode 0 (CBR):        z = fma(y, m, c)
+//   mode 1 (identity):   z = fma(res, rr, fma(y, m, c)), res (ho, wo, cout)
+//   mode 2 (projection): z = fma(yd, md, fma(y, m, c)) + cd, with
+//        yd = 1x1/sd conv of the block input xd (hd, wd, cdin) by wd,
+//        a second GEMM into its own int32 accumulators.
+//
+// What bounds it on an H100: int8 tensor-core operations (34.4 G for a
+// whole stage-2 or stage-3 down stage, ~17 us at the 1,979 TOP/s dense
+// peak) against 13 MB (stage 2) or 8 MB (stage 3) of traffic (~4 us).
+// The __dp4a kernel it replaced for K4 (conv_i8_kernel) ran at ~35 TOP/s.
+//
+// Design: an implicit GEMM, M = output pixels (flattened, so a tile may
+// cross rows and the ragged edge is masked per pixel), N = cout, K = 9 taps
+// x cin (+ cdin for the projection).  A block owns kMmaBM = 128 pixels x
+// kMmaBN = 64 channels and walks K in 64-byte chunks, each inside one tap
+// (cin % 16 == 0; a chunk's channels past cin are zero-filled), tap by tap
+// without divisions (each A row keeps its window offset and a 9-bit mask
+// of the taps inside the image):
+//   * A tiles are gathered from x with 16-byte cp.async copies, zero-filled
+//     at the pad and past the edge (src-size 0), in a ring of kMmaStages;
+//   * B tiles are the HWIO weights, read as 4-channel x 4-k words into
+//     registers kMmaStages - 1 chunks ahead, transposed with byte permutes
+//     and stored K-major ([n][k]) as mma's col operand wants one chunk
+//     later, so the package's weights stay as they are;
+//   * both tiles' 16-byte chunks are XOR-swizzled by row bits, which makes
+//     every ldmatrix conflict-free (mma_chunk_addr);
+//   * 8 warps (4 along M x 2 along N), each 32 pixels x 32 channels: per
+//     32-byte k step two A and two B ldmatrix.x4 feed 8 mma.sync.m16n8k32;
+//   * the epilogue (the __fmaf_rn/__fadd_rn chain of conv_i8_kernel,
+//     unchanged) writes codes to shared memory, and they leave with 16-byte
+//     stores (8-byte where cout % 16 == 8).
+// Integer sums are exact in any order, so the kernel is bit-exact against
+// conv_i8_kernel and the plain version.  At stage 3 (8,192 pixels x 256
+// channels) the grid is 256 blocks: one wave at two blocks an SM.  Tuned
+// with scripts/torch_int8_kernel_variants.py on an H100: 64 x 64 tiles of
+// 4 warps were 20-45 % slower a link, 3 or 5 stages within 3 %, and 128 x
+// 32 tiles 6-14 % slower.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWM = 4;         // warps along M (32 pixels each)
+constexpr int kMmaWN = 2;         // warps along N (32 channels each)
+constexpr int kMmaStages = 4;     // cp.async ring depth (>= 3)
+constexpr int kMmaBM = 32 * kMmaWM;                 // output pixels per block
+constexpr int kMmaBN = 32 * kMmaWN;                 // output channels per block
+constexpr int kMmaBK = 64;                          // bytes of K per stage
+constexpr int kMmaThreads = 32 * kMmaWM * kMmaWN;
+constexpr int kMmaSlot = (kMmaBM + kMmaBN) * kMmaBK;  // one stage: A tile, B tile
+constexpr int kMmaOutPitch = kMmaBN + 16;           // bytes of a staged output row
+constexpr int kMmaARows = kMmaBM * 4 / kMmaThreads;  // 16-byte A copies a thread
+constexpr int kMmaBBlocks = kMmaBN * 4 / kMmaThreads;  // 4x4 B blocks a thread
+static_assert(kMmaStages >= 3, "B is stored two chunks behind its loads");
+static_assert(kMmaBM * 4 % kMmaThreads == 0 && kMmaBN * 4 % kMmaThreads == 0,
+              "whole copies per thread");
+
+// Byte offset of 16-byte chunk `chunk` of tile row `row` (64-byte rows).
+// ldmatrix reads 8 consecutive rows (r % 8 == 0) at one chunk; the
+// transposed B stores write rows 4i + q (i = 0..7) at one chunk: the XOR of
+// bits 1-2 and 3-4 of the row spreads both over the banks.
+__device__ __forceinline__ int mma_chunk_addr(int row, int chunk) {
+  return row * kMmaBK + ((chunk ^ (((row >> 1) ^ (row >> 3)) & 3)) << 4);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kMmaThreads, 512 / kMmaThreads)
+conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
+                   const int8_t* __restrict__ wt, int stride, int cout,
+                   const float* __restrict__ m, const float* __restrict__ c,
+                   const int8_t* __restrict__ res, float rr,
+                   const int8_t* __restrict__ xd, int wd_, int cdin, int sd,
+                   const int8_t* __restrict__ wdt, const float* __restrict__ md,
+                   const float* __restrict__ cd, int8_t* __restrict__ out,
+                   int ho, int wo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t s_base = smem_addr(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_pix = ho * wo;
+  const int m0 = blockIdx.x * kMmaBM;
+  const int n0 = blockIdx.y * kMmaBN;
+  const int cch = (cin + kMmaBK - 1) / kMmaBK;   // chunks per tap
+  const int n_main = 9 * cch;
+  const int nk = n_main + (kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0);
+
+  // The A rows this thread copies: rows tid/4 + i * threads/4, 16-byte
+  // column tid % 4.  Per row: the offset of its window's top-left input
+  // pixel (it may lie in the pad), the 9-bit mask of taps inside the
+  // image (bit 9: the pixel exists), and the offset of its projection
+  // pixel.
+  const int a_col = tid & 3;
+  long long a_off[kMmaARows], a_doff[kMmaARows];
+  int a_mask[kMmaARows];
+#pragma unroll
+  for (int i = 0; i < kMmaARows; ++i) {
+    const int p = m0 + (tid >> 2) + (kMmaThreads / 4) * i;
+    a_mask[i] = 0;
+    a_off[i] = a_doff[i] = 0;
+    if (p < n_pix) {
+      const int oy = p / wo, ox = p % wo;
+      const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
+      for (int t = 0; t < 9; ++t) {
+        const int iy = iy0 + t / 3, ix = ix0 + t % 3;
+        if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
+      }
+      a_mask[i] |= 1 << 9;  // the pixel exists: its projection row is read
+      a_off[i] = (static_cast<long long>(iy0) * w + ix0) * cin;
+      if (kMode == 2) a_doff[i] = (static_cast<long long>(oy) * sd * wd_ + ox * sd) * cdin;
+    }
+  }
+
+  // The chunk the next load_chunk call stages, walked without divisions:
+  // tap-major over the 3x3 window in channel chunks of kMmaBK, then (mode
+  // 2) the projection's channel chunks.
+  int ld_tap = 0, ld_c0 = 0;
+  auto next_chunk = [&]() {
+    ld_c0 += kMmaBK;
+    if (ld_tap < 9 && ld_c0 >= cin) {
+      ld_c0 = 0;
+      ++ld_tap;
+    }
+  };
+
+  // B: this thread's 4(k) x 4(n) byte blocks.  Block group G = warp + j *
+  // warps covers k rows 16*(G / WN) .. +16 and n 32*(G % WN) .. +32; a lane
+  // takes k 4*(lane/8) and n 4*(lane%8) in it, so eight lanes read 32
+  // contiguous bytes of one weight row.
+  auto b_kr = [&](int j) {
+    return 16 * ((warp + j * kMmaWM * kMmaWN) / kMmaWN) + 4 * (lane >> 3);
+  };
+  auto b_nn = [&](int j) {
+    return 32 * ((warp + j * kMmaWM * kMmaWN) % kMmaWN) + 4 * (lane & 7);
+  };
+
+  // Stage the chunk (ld_tap, ld_c0): its A rows by cp.async into `slot`,
+  // its B words into registers; then advance to the next chunk.
+  auto load_chunk = [&](int slot, uint32_t (&breg)[kMmaBBlocks][4]) {
+    const bool proj = kMode == 2 && ld_tap == 9;
+    const int ch = ld_c0 + a_col * 16;
+    const int8_t* a_src = proj ? xd + ch : x + (ld_tap / 3 * w + ld_tap % 3) *
+                                                   static_cast<long long>(cin) + ch;
+    const bool ch_ok = ch < (proj ? cdin : cin);
+#pragma unroll
+    for (int i = 0; i < kMmaARows; ++i) {
+      const bool ok = ch_ok && ((a_mask[i] >> (proj ? 9 : ld_tap)) & 1);
+      const int row = (tid >> 2) + (kMmaThreads / 4) * i;
+      cp_async16(s_base + slot * kMmaSlot + mma_chunk_addr(row, a_col),
+                 ok ? a_src + (proj ? a_doff[i] : a_off[i]) : x, ok ? 16 : 0);
+    }
+    const int klim = proj ? cdin : cin;
+    const int8_t* b_src = proj ? wdt + static_cast<size_t>(ld_c0) * cout
+                               : wt + (static_cast<size_t>(ld_tap) * cin + ld_c0) * cout;
+#pragma unroll
+    for (int j = 0; j < kMmaBBlocks; ++j) {
+      const int kr = b_kr(j), n = n0 + b_nn(j);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        breg[j][q] = (ld_c0 + kr + q < klim && n < cout)
+            ? __ldg(reinterpret_cast<const uint32_t*>(
+                  b_src + static_cast<size_t>(kr + q) * cout + n))
+            : 0u;
+    }
+    next_chunk();
+  };
+  auto store_b = [&](int slot, const uint32_t (&breg)[kMmaBBlocks][4]) {
+    unsigned char* b_s = smem + slot * kMmaSlot + kMmaBM * kMmaBK;
+#pragma unroll
+    for (int j = 0; j < kMmaBBlocks; ++j) {
+      const int kr = b_kr(j), nn = b_nn(j);
+      // 4x4 byte transpose: word q of the result is n = nn + q, k = kr..kr+3
+      const uint32_t t0 = __byte_perm(breg[j][0], breg[j][1], 0x5140);
+      const uint32_t t1 = __byte_perm(breg[j][0], breg[j][1], 0x7362);
+      const uint32_t t2 = __byte_perm(breg[j][2], breg[j][3], 0x5140);
+      const uint32_t t3 = __byte_perm(breg[j][2], breg[j][3], 0x7362);
+      const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                               __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<uint32_t*>(b_s + mma_chunk_addr(nn + q, kr >> 4) + (kr & 15)) =
+            col[q];
+    }
+  };
+  const int wm = warp % kMmaWM, wn = warp / kMmaWM;  // warp tile: 32 pixels x 32 channels
+  int acc[2][4][4], accd[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        accd[i][j][e] = 0;
+      }
+
+  auto compute = [&](int slot, int (&sum)[2][4][4]) {
+    const uint32_t a_s = s_base + slot * kMmaSlot;
+    const uint32_t b_s = a_s + kMmaBM * kMmaBK;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = wm * 32 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(a_s + mma_chunk_addr(row, ks * 2 + (lane >> 4)), af[i][0], af[i][1],
+                    af[i][2], af[i][3]);
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int row = wn * 32 + p * 16 + (lane & 7) + (lane >> 4) * 8;
+        ldmatrix_x4(b_s + mma_chunk_addr(row, ks * 2 + ((lane >> 3) & 1)), bf[2 * p][0],
+                    bf[2 * p][1], bf[2 * p + 1][0], bf[2 * p + 1][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(sum[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  };
+
+  // The ring: chunk kc's A copies are issued kMmaStages - 1 chunks ahead.
+  // Its B words are loaded into registers as many chunks ahead and stored
+  // (transposed) one chunk later, after the next chunk's MMAs, so two
+  // chunks' MMAs cover their latency.
+  uint32_t b_even[kMmaBBlocks][4], b_odd[kMmaBBlocks][4];
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 2; ++s) {
+    if (s < nk) {
+      load_chunk(s, b_even);
+      store_b(s, b_even);
+    }
+    cp_async_commit();
+  }
+  if (kMmaStages - 2 < nk) load_chunk(kMmaStages - 2, b_odd);
+  cp_async_commit();
+
+  // one chunk: ld receives chunk kc + S - 1, st holds chunk kc + S - 2
+  auto step = [&](int kc, uint32_t (&ld)[kMmaBBlocks][4],
+                  const uint32_t (&st)[kMmaBBlocks][4]) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // chunk kc staged; everyone is done with chunk kc - 1
+    const int nxt = kc + kMmaStages - 1;
+    if (nxt < nk) load_chunk(nxt % kMmaStages, ld);
+    cp_async_commit();
+    if (kMode == 2 && kc >= n_main)
+      compute(kc % kMmaStages, accd);
+    else
+      compute(kc % kMmaStages, acc);
+    if (nxt - 1 < nk) store_b((nxt - 1) % kMmaStages, st);
+  };
+  for (int kc = 0; kc < nk; kc += 2) {
+    step(kc, b_even, b_odd);
+    if (kc + 1 < nk) step(kc + 1, b_odd, b_even);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: codes to shared memory, then 16-byte stores
+  int8_t* o_s = reinterpret_cast<int8_t*>(smem);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int nl = wn * 32 + j * 8 + 2 * t4;
+    const int n = n0 + nl;
+    if (n >= cout) continue;   // cout % 8 == 0: n + 1 < cout too
+    float mv[2], cv[2], mdv[2] = {0.f, 0.f}, cdv[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mv[e] = m[n + e];
+      cv[e] = c[n + e];
+      if (kMode == 2) {
+        mdv[e] = md[n + e];
+        cdv[e] = cd[n + e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int ml = wm * 32 + i * 16 + g + 8 * hh;
+        const int p = m0 + ml;
+        if (p >= n_pix) continue;
+        int8_t q[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float z = __fmaf_rn(__int2float_rn(acc[i][j][2 * hh + e]), mv[e], cv[e]);
+          if (kMode == 1) {
+            z = __fmaf_rn(static_cast<float>(res[static_cast<size_t>(p) * cout + n + e]), rr, z);
+          } else if (kMode == 2) {
+            z = __fadd_rn(__fmaf_rn(__int2float_rn(accd[i][j][2 * hh + e]), mdv[e], z), cdv[e]);
+          }
+          q[e] = requant(fmaxf(z, 0.f));
+        }
+        *reinterpret_cast<uint16_t*>(o_s + ml * kMmaOutPitch + nl) = pack2(q[0], q[1]);
+      }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kMmaBM * (kMmaBN / 16); idx += kMmaThreads) {
+    const int row = idx / (kMmaBN / 16), n = n0 + (idx % (kMmaBN / 16)) * 16;
+    const int p = m0 + row;
+    if (p >= n_pix || n >= cout) continue;
+    int8_t* dst = out + static_cast<size_t>(p) * cout + n;
+    const int8_t* src = o_s + row * kMmaOutPitch + (n - n0);
+    if ((cout & 15) == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      if (n + 8 < cout)
+        *reinterpret_cast<uint2*>(dst + 8) = *reinterpret_cast<const uint2*>(src + 8);
+    }
+  }
+}
+
+size_t conv_mma_smem_bytes() {
+  const size_t ring = static_cast<size_t>(kMmaStages) * kMmaSlot;
+  const size_t out = static_cast<size_t>(kMmaBM) * kMmaOutPitch;
+  return ring > out ? ring : out;
+}
+
 // ---------------------------------------------------------------------------
 // K10: standalone 3x3 stride-2 pad-1 max pool on NHWC int8 codes.
 //
@@ -467,16 +1005,19 @@ extern "C" {
 // Once per device, before the first launch on it: lets every kernel take
 // up to the device's opt-in dynamic shared memory.  A launch that needs
 // more fails, and its entry point returns that error (the wrappers check
-// tsg_conv_smem_bytes against tsg_smem_optin first).
+// the smem_bytes entry points against tsg_smem_optin first).
 int tsg_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* kernels[] = {reinterpret_cast<const void*>(stem_pool_i8_kernel),
+  const void* kernels[] = {reinterpret_cast<const void*>(stem_pool_i8_mma_kernel),
                            reinterpret_cast<const void*>(conv_i8_kernel<1>),
-                           reinterpret_cast<const void*>(conv_i8_kernel<kConvTH>)};
+                           reinterpret_cast<const void*>(conv_i8_kernel<kConvTH>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<0>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<1>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<2>)};
   for (const void* fn : kernels) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -501,16 +1042,37 @@ long long tsg_conv_smem_bytes(int cin, int k, int stride, int mode, int cdin,
   return static_cast<long long>(conv_smem_bytes(cin, k, stride, mode, cdin, dil));
 }
 
+// Dynamic shared memory of one tsg_stem_pool_i8 / tsg_conv_i8_mma launch.
+long long tsg_stem_smem_bytes(int cout, int n_sp) {
+  return static_cast<long long>(stem_smem_bytes(cout, n_sp));
+}
+
+long long tsg_conv_mma_smem_bytes(void) {
+  return static_cast<long long>(conv_mma_smem_bytes());
+}
+
+// xs (h2+3, w2+3, cin) int8, 4-byte aligned, cin <= 16, cin % 4 == 0;
+// cout <= 128, n_sp and cout - n_sp multiples of 16; h2, w2 even.
 int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
                      const void* c, void* sp, void* pooled, int h2, int w2,
                      int cin, int cout, int n_sp, void* stream) {
-  const size_t smem = stem_smem_bytes(cin, cout, n_sp);
-  dim3 grid((w2 / 2 + kStemPW - 1) / kStemPW, h2 / 2);
-  stem_pool_i8_kernel<<<grid, kStemThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // bands of pooled rows: about one block per SM (one fits an SM)
+  const int ph = h2 / 2;
+  const int strips = (w2 / 2 + kStemPC - 1) / kStemPC;
+  const int target = sms / strips < 1 ? 1 : (sms / strips < ph ? sms / strips : ph);
+  const int band = (ph + target - 1) / target;
+  dim3 grid(strips, (ph + band - 1) / band);
+  stem_pool_i8_mma_kernel<<<grid, kStemThreads, stem_smem_bytes(cout, n_sp),
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(xs), static_cast<const uint16_t*>(wf),
       static_cast<const float*>(m), static_cast<const float*>(c),
       static_cast<int8_t*>(sp), static_cast<int8_t*>(pooled), h2, w2, cin,
-      cout, n_sp);
+      cout, n_sp, band);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,6 +1095,26 @@ int tsg_conv_i8(const void* x, int h, int w, int cin, const void* wt, int k,
       static_cast<const int8_t*>(xd), hd, wd, cdin, sd,
       static_cast<const int8_t*>(wdt), static_cast<const float*>(md),
       static_cast<const float*>(cd), out, out_f32, ho, wo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 3x3 pad-1 int8 conv on tensor cores: x (h, w, cin), cin % 16 == 0,
+// 16-byte aligned; cout % 8 == 0; mode 2's xd (hd, wd, cdin) with cdin % 16
+// == 0, 16-byte aligned; int8 out (ho, wo, cout).
+int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
+                    int stride, int cout, const void* m, const void* c,
+                    int mode, const void* res, float rr, const void* xd,
+                    int wd, int cdin, int sd, const void* wdt, const void* md,
+                    const void* cd, void* out, int ho, int wo, void* stream) {
+  dim3 grid((ho * wo + kMmaBM - 1) / kMmaBM, (cout + kMmaBN - 1) / kMmaBN);
+  const auto kernel = mode == 2 ? conv_i8_mma_kernel<2>
+                    : mode == 1 ? conv_i8_mma_kernel<1> : conv_i8_mma_kernel<0>;
+  kernel<<<grid, kMmaThreads, conv_mma_smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt),
+      stride, cout, static_cast<const float*>(m), static_cast<const float*>(c),
+      static_cast<const int8_t*>(res), rr, static_cast<const int8_t*>(xd), wd,
+      cdin, sd, static_cast<const int8_t*>(wdt), static_cast<const float*>(md),
+      static_cast<const float*>(cd), static_cast<int8_t*>(out), ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,8 +38,17 @@ LIBRARIES = {
         "tsg_smem_optin": [],
         # cin, k, stride, mode, cdin, dilation
         "tsg_conv_smem_bytes": [c_int] * 6,
+        # cout, n_sp
+        "tsg_stem_smem_bytes": [c_int] * 2,
+        "tsg_conv_mma_smem_bytes": [],
         # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
         "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
+        # x, h, w, cin, wt, stride, cout, m, c, mode, res, rr, xd, wd, cdin,
+        # sd, wdt, md, cd, out, ho, wo, stream
+        "tsg_conv_i8_mma": ([c_void_p] + [c_int] * 3 + [c_void_p]
+                            + [c_int] * 2 + [c_void_p] * 2 + [c_int]
+                            + [c_void_p, c_float, c_void_p] + [c_int] * 3
+                            + [c_void_p] * 4 + [c_int] * 2 + [c_void_p]),
         # x, h, w, cin, wt, k, stride, pad, dilation, cout, m, c, mode, res,
         # rr, xd, hd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, stream
         "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 5
@@ -87,7 +96,9 @@ LIBRARIES = {
     },
 }
 # entry points that return something other than int
-_RESTYPES = {"tsg_conv_smem_bytes": c_longlong}
+_RESTYPES = {"tsg_conv_smem_bytes": c_longlong,
+             "tsg_stem_smem_bytes": c_longlong,
+             "tsg_conv_mma_smem_bytes": c_longlong}
 
 
 class BuildInfo:

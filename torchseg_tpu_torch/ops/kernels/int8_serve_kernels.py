@@ -4,17 +4,20 @@ kernels in ``csrc/int8_serve_kernels.cu``, each beside its plain PyTorch
 version, plus the exact integer primitives both are specified by.
 
 | wrapper          | CUDA                                 | TPU kernel it replaces |
-| stem_pool_i8     | stem_pool_i8_kernel                  | s2d_stem_pool_quad_i8 (:384) |
+| stem_pool_i8     | stem_pool_i8_mma_kernel (bf16 mma)   | s2d_stem_pool_quad_i8 (:384) |
 | conv3x3s2_i8     | conv_i8_kernel, mode 0               | conv3x3s2_i8_quad (:515) |
 | l1_stage_i8      | conv_i8_kernel x4 (modes 0,1,0,1)    | l1_stage_i8_paired_view (:763) |
-| down_stage_i8    | conv_i8_kernel x4 (modes 0,2,0,1)    | down_stage_i8_from_paired (:986) |
+| down_stage_i8    | conv_i8_mma_kernel x4 (modes 0,2,0,1; int8 mma) | down_stage_i8_from_paired (:986) |
 | down_block_i8    | conv_i8_kernel x2 (modes 0,2)        | down_block_i8_from_paired (:1136) |
 | res_block_i8     | conv_i8_kernel x2 (modes 0,1)        | res_block_i8_std (:1226) |
 | maxpool2d_3x3s2_i8 | maxpool_i8_kernel (K10)            | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_kernel, mode 0               | none: an XLA conv in JAX |
 | bottleneck_i8    | conv_i8_kernel x3 (modes 0,0,1 or 2) | none: XLA (_apply_bottleneck) |
 
-Line numbers are in the JAX file.  ``cbr_i8`` (the deep stem's stem2 and
+Line numbers are in the JAX file.  K1 and K4 run on the tensor cores and
+take only the widths their kernels tile (``stem_pool_i8_shape_error``,
+``conv_i8_mma_shape_error``); the wrappers raise ValueError before
+launching for any other.  ``cbr_i8`` (the deep stem's stem2 and
 stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of PSPNet) run
 on the same conv kernel; JAX computes them with XLA convs
 (deploy/int8_serve.py:716-758).  Every public function takes and returns
@@ -182,6 +185,15 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def _check_smem(what, smem, device_index):
+    """Raise ValueError, before a launch, when ``what`` needs more shared
+    memory per block than the device gives one."""
+    limit = _build.smem_optin(device_index)
+    if smem > limit:
+        raise ValueError(f"{what} needs {smem} bytes of shared memory per "
+                         f"block; the device allows {limit}")
+
+
 def _check_conv_entry(name, e, k, cin, cout):
     _check(f"{name}['w']", e["w"], torch.int8, (k, k, cin, cout))
     _check(f"{name}['m']", e["m"], torch.float32, (cout,))
@@ -201,13 +213,10 @@ def _launch_conv(x, e, stride, pad, mode=0, res=None, rr=0.0, xd=None,
     if mode == 2:
         _, hd, wd, cdin = xd.shape
     lib = _build.ready(x.device.index)
-    smem = lib.tsg_conv_smem_bytes(cin, k, stride, mode, cdin, dil)
-    limit = _build.smem_optin(x.device.index)
-    if smem > limit:
-        raise ValueError(
-            f"conv_i8_kernel: cin={cin}, k={k}, stride={stride}, dilation="
-            f"{dil} (mode {mode}, projection cin={cdin}) needs {smem} bytes "
-            f"of shared memory per block; the device allows {limit}")
+    _check_smem(f"conv_i8_kernel: cin={cin}, k={k}, stride={stride}, "
+                f"dilation={dil} (mode {mode}, projection cin={cdin})",
+                lib.tsg_conv_smem_bytes(cin, k, stride, mode, cdin, dil),
+                x.device.index)
     out = torch.empty((1, ho, wo, cout),
                       dtype=torch.float32 if out_f32 else torch.int8,
                       device=x.device)
@@ -221,6 +230,54 @@ def _launch_conv(x, e, stride, pad, mode=0, res=None, rr=0.0, xd=None,
         down["c"].data_ptr() if down is not None else None,
         out.data_ptr(), int(out_f32), ho, wo, _stream(x))
     _raise_on(rc, "conv_i8_kernel")
+    return out
+
+
+def conv_i8_mma_shape_error(cin: int, cout: int, cdin: int = 0):
+    """Why ``conv_i8_mma_kernel`` does not take a 3x3 conv cin -> cout (with
+    a projection of cdin input channels, 0 for none), or None.  Its K loop
+    copies 16 channels at a time (cin % 16 == 0, cdin % 16 == 0) and its
+    weight and output tiles hold 8 channels a group (cout % 8 == 0)."""
+    if cin <= 0 or cin % 16:
+        return f"cin must be a positive multiple of 16, got {cin}"
+    if cout <= 0 or cout % 8:
+        return f"cout must be a positive multiple of 8, got {cout}"
+    if cdin < 0 or cdin % 16:
+        return f"the projection's cin must be a multiple of 16, got {cdin}"
+    return None
+
+
+def _aligned(name, t, n):
+    if t.data_ptr() % n:
+        raise ValueError(f"{name} must start on a {n}-byte boundary")
+
+
+def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
+                     down=None, sd=1):
+    """One launch of the tensor-core 3x3 pad-1 conv; returns the new codes.
+    The caller has checked the widths (``conv_i8_mma_shape_error``)."""
+    _, h, w, cin = x.shape
+    cout = e["w"].shape[3]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    wd = cdin = 0
+    _aligned("x", x, 16)
+    if mode == 2:
+        _, _, wd, cdin = xd.shape
+        _aligned("xd", xd, 16)
+    lib = _build.ready(x.device.index)
+    _check_smem("conv_i8_mma_kernel", lib.tsg_conv_mma_smem_bytes(),
+                x.device.index)
+    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
+    rc = lib.tsg_conv_i8_mma(
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
+        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        res.data_ptr() if res is not None else None, float(rr),
+        xd.data_ptr() if xd is not None else None, wd, cdin, sd,
+        down["w"].data_ptr() if down is not None else None,
+        down["m"].data_ptr() if down is not None else None,
+        down["c"].data_ptr() if down is not None else None,
+        out.data_ptr(), ho, wo, _stream(x))
+    _raise_on(rc, "conv_i8_mma_kernel")
     return out
 
 
@@ -239,10 +296,29 @@ def stem_pool_i8_plain(xs, wf, m, c, n_sp: int):
     return q[..., :n_sp].contiguous(), maxpool_i8(q[..., n_sp:])
 
 
+def stem_pool_i8_shape_error(cin: int, cout: int, n_sp: int):
+    """Why ``stem_pool_i8_mma_kernel`` does not take these widths, or None.
+    A tap's channels are padded to one k16 step (cin <= 16) and staged as
+    4-channel words (cin % 4 == 0); its N tile is 128 channels (cout <=
+    128), and both halves leave in 16-byte stores (n_sp % 16 == 0, (cout -
+    n_sp) % 16 == 0)."""
+    if not 0 < cin <= 16 or cin % 4:
+        return f"cin must be a multiple of 4 in [4, 16], got {cin}"
+    if cout > 128:
+        return f"cout must be at most 128, got {cout}"
+    if n_sp % 16 or (cout - n_sp) % 16:
+        return (f"n_sp and cout - n_sp must be multiples of 16, got n_sp="
+                f"{n_sp}, cout={cout}")
+    return None
+
+
 def stem_pool_i8(xs, wf, m, c, n_sp: int):
     """(1, h2+3, w2+3, cin) s8 pre-padded s2d image -> (sp (1, h2, w2,
     n_sp) s8, pooled (1, h2/2, w2/2, cout-n_sp) s8).  ``wf`` is the bf16
-    (4, 4, cin, cout) s2d stem kernel, ``m``/``c`` the f32 epilogue."""
+    (4, 4, cin, cout) s2d stem kernel, ``m``/``c`` the f32 epilogue.  On
+    the card: cin % 4 == 0 up to 16, cout <= 128, n_sp and cout - n_sp
+    multiples of 16 (``stem_pool_i8_shape_error``); ValueError otherwise,
+    before launching."""
     _check("xs", xs, torch.int8, ndim=4)
     b, hp, wp, cin = xs.shape
     h2, w2 = hp - 3, wp - 3
@@ -258,14 +334,21 @@ def stem_pool_i8(xs, wf, m, c, n_sp: int):
         raise ValueError(f"n_sp must be in (0, {cout}), got {n_sp}")
     if not _on_cuda(xs, wf, m, c):
         return stem_pool_i8_plain(xs, wf, m, c, n_sp)
+    why = stem_pool_i8_shape_error(cin, cout, n_sp)
+    if why:
+        raise ValueError(f"stem_pool_i8_mma_kernel: {why}")
+    _aligned("xs", xs, 4)
+    lib = _build.ready(xs.device.index)
+    _check_smem("stem_pool_i8_mma_kernel", lib.tsg_stem_smem_bytes(cout, n_sp),
+                xs.device.index)
     sp = torch.empty((1, h2, w2, n_sp), dtype=torch.int8, device=xs.device)
     pooled = torch.empty((1, h2 // 2, w2 // 2, cout - n_sp),
                          dtype=torch.int8, device=xs.device)
-    rc = _build.ready(xs.device.index).tsg_stem_pool_i8(
+    rc = lib.tsg_stem_pool_i8(
         xs.data_ptr(), wf.data_ptr(), m.data_ptr(), c.data_ptr(),
         sp.data_ptr(), pooled.data_ptr(), h2, w2, cin, cout, n_sp,
         _stream(xs))
-    _raise_on(rc, "stem_pool_i8_kernel")
+    _raise_on(rc, "stem_pool_i8_mma_kernel")
     stem_pool_i8.launches += 1
     return sp, pooled
 
@@ -380,16 +463,37 @@ def down_stage_i8_plain(x, e0, e1):
     return apply_block(apply_block(x, e0, 2), e1, 1)
 
 
+def down_stage_i8_shape_error(cin: int, cout: int):
+    """Why the four tensor-core launches of a down stage cin -> cout do not
+    take these widths (conv1 cin -> cout with the cin projection, then
+    three convs cout -> cout), or None: cin % 16 == 0, cout % 16 == 0."""
+    return (conv_i8_mma_shape_error(cin, cout, cin)
+            or conv_i8_mma_shape_error(cout, cout))
+
+
 def down_stage_i8(x, e0, e1):
     """apply_block(apply_block(x, e0, 2), e1, 1): (1, H, W, cin) s8 ->
-    (1, ceil(H/2), ceil(W/2), cout) s8; any cin, cout % 4 == 0 (stages 2
-    and 3 on the serving path)."""
+    (1, ceil(H/2), ceil(W/2), cout) s8 (stages 2 and 3 on the serving
+    path).  Plain version: any cin, cout % 4 == 0.  On the card, four
+    launches of the tensor-core conv (conv1 3x3/2; conv2 with the 1x1/2
+    projection of x as a second GEMM; the stride-1 block's conv1; its conv2
+    with the identity residual): cin % 16 == 0 and cout % 16 == 0
+    (``down_stage_i8_shape_error``), ValueError otherwise, before
+    launching."""
     _check_codes(x)
     cout = _check_down_block("e0", e0, x.shape[3])
     _check_res_block("e1", e1, cout)
     if not _on_cuda(*_block_tensors(x, e0, e1)):
         return down_stage_i8_plain(x, e0, e1)
-    out = _res_block_launches(_down_block_launches(x, e0), e1)
+    why = down_stage_i8_shape_error(x.shape[3], cout)
+    if why:
+        raise ValueError(f"conv_i8_mma_kernel: {why}")
+    t = _launch_conv_mma(x, e0["conv1"], 2)
+    y = _launch_conv_mma(t, e0["conv2"], 1, mode=2, xd=x, down=e0["down"],
+                         sd=2)
+    t = _launch_conv_mma(y, e1["conv1"], 1)
+    out = _launch_conv_mma(t, e1["conv2"], 1, mode=1, res=y,
+                           rr=e1["res_ratio"])
     down_stage_i8.launches += 1
     return out
 
@@ -443,8 +547,7 @@ def maxpool2d_3x3s2_i8(x):
     _check_codes(x)
     if not _on_cuda(x):
         return maxpool_i8(x)
-    if x.data_ptr() % 4:
-        raise ValueError("x must start on a 4-byte boundary")
+    _aligned("x", x, 4)
     _, h, w, c = x.shape
     ho, wo = (h + 1) // 2, (w + 1) // 2
     out = torch.empty((1, ho, wo, c), dtype=torch.int8, device=x.device)
