@@ -34,9 +34,10 @@ script
      run on the CPU on one small input;
   6. times the served forward over the distinct inputs, each kernel against
      its plain version, and the plain-PyTorch parts of the graph, with CUDA
-     events after a warm-up, and logs two same-MACs vendor yardsticks (not
+     events after a warm-up, and logs four same-MACs vendor yardsticks (not
      on the path): cuDNN's bf16 conv of K1's s2d 4x4 conv and
-     ``torch._int_mm`` of stage 3's conv2 as an im2col GEMM;
+     ``torch._int_mm`` of one K3 link, of stage 3's conv2 (K4) and of one
+     K6 link, each as an im2col GEMM;
   7. full-resolution path: each graph launches K7 exactly once per forward
      (the int8 graph also K1-K6, the bf16 graph K11 once); K11 meets its
      bars against its plain version on the bf16 graph's stem inputs (bf16
@@ -338,13 +339,32 @@ def compare_codes(name, kern, plain, inputs):
     return worst
 
 
+def int_mm_ms(dev, m, k, n):
+    """CUDA-event ms of ``torch._int_mm`` of seeded (m, k) x (k, n) int8
+    operands (the second column-major where the build takes it)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                      dtype=torch.int8).t()  # column-major (k, n)
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b), [()], reps=20)
+    except RuntimeError as err:  # a build that wants it row-major
+        log(f"torch._int_mm refused a column-major operand ({err}); "
+            f"timing it row-major")
+        b = b.contiguous()
+        return cuda_ms(lambda: torch._int_mm(a, b), [()], reps=20)
+
+
 def same_macs_yardsticks(dev, xs, wf, kernel_ms, main_ops):
     """Vendor tensor-core calls with the same multiply-accumulates as K1 and
-    a K4 link, timed beside them (neither is on the path, and neither is a
-    PyTorch call for the kernels' whole functions, so they are logged here
-    and not as ``library_ms``): cuDNN's bf16 conv of K1's s2d 4x4 conv
-    (no requant, no pool; NCHW and channels-last), and ``torch._int_mm`` of
-    stage 3's conv2 as an im2col GEMM (8,192 x 2,304 x 256, int8 -> int32)."""
+    single K3, K4 and K6 links, timed beside them (none is on the path, and
+    none is a PyTorch call for the kernels' whole functions, so they are
+    logged here and not as ``library_ms``): cuDNN's bf16 conv of K1's s2d
+    4x4 conv (no requant, no pool; NCHW and channels-last), and
+    ``torch._int_mm`` (int8 -> int32) of im2col GEMMs: a K3 link (131,072 x
+    576 x 64), stage 3's conv2 (8,192 x 2,304 x 256) and a K6 link (2,048 x
+    4,608 x 512)."""
     import torch.nn.functional as F
 
     x = xs.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
@@ -361,25 +381,16 @@ def same_macs_yardsticks(dev, xs, wf, kernel_ms, main_ops):
         f"{tuple(w.shape)} (no requant, no pool) NCHW {conv['nchw']:.4f} ms, "
         f"channels-last {conv['channels_last']:.4f} ms; K1 {k1:.4f} ms = "
         f"{k1 / min(conv.values()):.2f}x the faster")
-    g = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randint(-127, 128, (8192, 2304), generator=g, device=dev,
-                      dtype=torch.int8)
-    b = torch.randint(-127, 128, (256, 2304), generator=g, device=dev,
-                      dtype=torch.int8).t()  # column-major (2304, 256)
-    try:
-        mm_ms = cuda_ms(lambda: torch._int_mm(a, b), [()], reps=20)
-    except RuntimeError as err:  # a build that wants it row-major
-        log(f"torch._int_mm refused a column-major operand ({err}); "
-            f"timing it row-major")
-        b = b.contiguous()
-        mm_ms = cuda_ms(lambda: torch._int_mm(a, b), [()], reps=20)
-    ops = 2 * 8192 * 2304 * 256
-    k4 = kernel_ms["down_stage_i8:stage3"]
-    log(f"same-MACs yardstick, K4: torch._int_mm (8192, 2304) x (2304, 256) "
-        f"{mm_ms:.4f} ms = {ops / mm_ms / 1e9:.1f} TOP/s; K4 stage 3 (four "
-        f"links, {main_ops['down_stage_i8:stage3'] / 1e9:.2f} G int8 ops) "
-        f"{k4:.4f} ms = "
-        f"{main_ops['down_stage_i8:stage3'] / k4 / 1e9:.1f} TOP/s")
+    for tag, name, (m, k, n), links in (
+            ("K3", "l1_stage_i8", (131072, 576, 64), "four links"),
+            ("K4", "down_stage_i8:stage3", (8192, 2304, 256), "four links"),
+            ("K6", "res_block_i8", (2048, 4608, 512), "two links")):
+        mm_ms = int_mm_ms(dev, m, k, n)
+        ops, ms = main_ops[name], kernel_ms[name]
+        log(f"same-MACs yardstick, {tag}: torch._int_mm ({m}, {k}) x ({k}, "
+            f"{n}) {mm_ms:.4f} ms = {2 * m * k * n / mm_ms / 1e9:.1f} TOP/s; "
+            f"{tag} {name} ({links}, {ops / 1e9:.2f} G int8 ops) {ms:.4f} ms "
+            f"= {ops / ms / 1e9:.1f} TOP/s")
 
 
 def main():

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""K1 (``stem_pool_i8``) and K4 (``down_stage_i8``) on a CUDA card at the
-main path's shapes: this tree's tensor-core kernels against another
-checkout's (``--root``, e.g. the parent commit unpacked under ``_archive/``)
-in turns in one process, and this tree's source built with other values of
-its tuning constants (``--variant``).
+"""K1 (``stem_pool_i8``), K3 (``l1_stage_i8``), K4 (``down_stage_i8``) and
+K6 (``res_block_i8``) on a CUDA card at the main path's shapes: this tree's
+tensor-core kernels against another checkout's (``--root``, e.g. the parent
+commit unpacked under ``_archive/``) in turns in one process, and this
+tree's source built with other values of its tuning constants
+(``--variant``).
 
     python scripts/torch_int8_kernel_variants.py --root _archive/parent
     python scripts/torch_int8_kernel_variants.py \\
@@ -16,17 +17,24 @@ variants`` (all at once).  For each build (this tree, each variant, the
 other tree) it prints ptxas's registers and spills of every kernel of the
 library, the dynamic shared memory of a K1 and a K4 launch, and the count
 of HMMA (bf16/f16 tensor-core) and IMMA (int8 tensor-core) instructions of
-each kernel in ``cuobjdump -sass`` of the built library.  Then, on seeded
-random codes and weights at the main path's shapes (K1: xs (1, 515, 1027,
-12) -> 64 sp + 64 pooled channels; K4 stage 2: (1, 256, 512, 64) -> 128,
-stage 3: (1, 128, 256, 128) -> 256), the CUDA-event ms per call of K1, of
-each K4 link (conv1 3x3/2; conv2 with the 1x1/2 projection; the stride-1
-block's conv1; its conv2 with the residual) and of the whole down stage,
-measured in turns: other tree, this tree, variants, this tree, other tree
-(``--reps`` calls each after a warm-up).  Each row has its bound (int8 or
-bf16 operations over the dense peak, or bytes over 3.35 TB/s) and the
-outputs are checked against this tree's: K4 bit-exact, K1 within one code
-on at most 1e-3 of the codes.  Prints the card's name and power limit, and
+each kernel in ``cuobjdump -sass`` of the built library, and exits non-zero
+unless every tensor-core conv kernel (those K3, K4 and K6 launch) has IMMA.
+Then, on seeded random codes and weights at the main path's shapes (K1: xs
+(1, 515, 1027, 12) -> 64 sp + 64 pooled channels; K3: (1, 256, 512, 64);
+K4 stage 2: (1, 256, 512, 64) -> 128, stage 3: (1, 128, 256, 128) -> 256;
+K6: (1, 32, 64, 512)), the CUDA-event ms per call of K1, of each K4 link
+(conv1 3x3/2; conv2 with the 1x1/2 projection; the stride-1 block's conv1;
+its conv2 with the residual), of each K3 and K6 link (conv1; conv2 with
+the residual; K3 twice) and of each whole stage or block, measured in
+turns: other tree, this tree, variants and alternatives, this tree, other
+tree (``--reps`` calls each after a warm-up).  The alternatives are this
+tree's other launches of the same link: K3's links on the streaming kernel
+unsplit (K4's launch as it is, ``stream``), K6's without the K split
+(``split1``).  Each row has its bound (int8 or bf16 operations over the
+dense peak, or bytes over 3.35 TB/s) and the outputs are checked: K4's
+links bit-exact against this tree's codes, K3's and K6's links and every
+whole stage against the plain versions, K1 within one code on at most 1e-3
+of the codes.  Prints the card's name and power limit, and
 one JSON line (also to ``--out``).  With ``--forward N`` it also times the
 main path itself in both trees (``entry()``: BiSeNet-R18.speed int8-through
 at 1024x2048, seeded weights; four seeded uint8 images, N rounds of four
@@ -58,6 +66,7 @@ HBM = 3.35e12
 PEAK = {"int8": 1979e12, "bf16": 989e12}
 H2, W2 = 512, 1024          # the main path's stem output at 1024x2048
 STAGES = {"stage2": (256, 512, 64), "stage3": (128, 256, 128)}
+IDENTITY = {"K3": (256, 512, 64), "K6": (32, 64, 512)}  # (h, w, c)
 
 
 def import_tree(root, alias):
@@ -155,6 +164,18 @@ def report_build(tag, so, log):
     return rows
 
 
+def check_imma(tag, rows):
+    """Every tensor-core conv kernel (conv_i8_mma_kernel's and
+    conv_i8_mma_res_kernel's instantiations: all that K3, K4 and K6
+    launch) has IMMA instructions."""
+    mma = {k: v["IMMA"] for k, v in rows.items() if "conv_i8_mma" in k}
+    if not mma or min(mma.values()) == 0:
+        raise SystemExit(f"[{tag}] a tensor-core conv kernel has no IMMA: "
+                         f"{mma}")
+    print(f"  [{tag}] IMMA in all {len(mma)} tensor-core conv kernels: "
+          f"{sorted(mma.values())}", flush=True)
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -196,11 +217,21 @@ def operands(dev):
               "stride": 1,
               "res_ratio": float(torch.rand((), generator=g)) + 0.3}
         stages[name] = (x, e0, e1)
-    return stem, stages
+    identity = {}
+    for name, (h, w, c) in IDENTITY.items():
+        x = torch.randint(0, 128, (1, h, w, c), generator=g,
+                          dtype=torch.int8).to(dev)
+        blocks = [{"conv1": cbr(3, c, c), "conv2": cbr(3, c, c), "stride": 1,
+                   "res_ratio": float(torch.rand((), generator=g)) + 0.3}
+                  for _ in range(2 if name == "K3" else 1)]
+        identity[name] = (x, blocks)
+    return stem, stages, identity
 
 
 def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
-             down=None):
+             down=None, split=1):
+    """One tsg_conv_i8_mma call into ``out``; ``split`` None for a library
+    whose entry point has no split argument (the parent's)."""
     _, h, w, cin = x.shape
     _, ho, wo, cout = out.shape
     rc = lib.tsg_conv_i8_mma(
@@ -213,10 +244,60 @@ def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
         down["w"].data_ptr() if down is not None else None,
         down["m"].data_ptr() if down is not None else None,
         down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), ho, wo, K._stream(x))
+        out.data_ptr(), ho, wo, *([] if split is None else [split]),
+        K._stream(x))
     if rc:
         raise RuntimeError(f"tsg_conv_i8_mma: CUDA error {rc}")
     return out
+
+
+def res_call(lib, x, e, out, mode=0, res=None, rr=0.0):
+    _, h, w, cin = x.shape
+    rc = lib.tsg_conv_i8_mma_res(
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), out.shape[3],
+        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        res.data_ptr() if res is not None else None, float(rr),
+        out.data_ptr(), K._stream(x))
+    if rc:
+        raise RuntimeError(f"tsg_conv_i8_mma_res: CUDA error {rc}")
+    return out
+
+
+def identity_links(x, blocks):
+    """(name, input, entry, mode, residual, res_ratio) of each identity
+    block's two links, with the plain version's codes as their inputs
+    (made contiguous: the plain convs return NHWC views of NCHW memory,
+    and the kernels read NHWC memory)."""
+    out = []
+    for i, e in enumerate(blocks):
+        tag = "b" if i else ""
+        t = K.apply_cbr(x, e["conv1"], 1, 1).contiguous()
+        out.append((f"conv1{tag}", x, e["conv1"], 0, None, 0.0))
+        out.append((f"conv2{tag}_res", t, e["conv2"], 1, x, e["res_ratio"]))
+        x = K.apply_block(x, e, 1).contiguous()
+    return out
+
+
+MISMATCHES = []
+
+
+def same_codes(what, have, want):
+    """Record (and print) a mismatch instead of stopping at the first."""
+    if torch.equal(have, want):
+        return True
+    d = (have.int() - want.int()).abs()
+    msg = (f"{what}: {int((d > 0).sum())} of {d.numel()} codes differ, max "
+           f"{int(d.max())}")
+    print("  MISMATCH " + msg, flush=True)
+    MISMATCHES.append(msg)
+    return False
+
+
+def plain_link(x, e, mode, res, rr):
+    z = K.fma(K.qconv(x, e["w"], 1, 1).float(), e["m"], e["c"])
+    if mode == 1:
+        z = K.fma(res.float(), float(torch.tensor(rr, dtype=torch.float32)), z)
+    return K.requant(torch.relu(z))
 
 
 def links(x, e0, e1):
@@ -310,23 +391,25 @@ def main(argv=None):
     if not log:  # a cached library: build the same source once more
         so, log = build_variants({"this_tree": {}})["this_tree"]
     builds = {"change": report_build("change", so, log)}
+    check_imma("change", builds["change"])
     print(f"  [change] dynamic shared memory: K1 "
           f"{lib.tsg_stem_smem_bytes(128, 64)} B, K4 "
           f"{lib.tsg_conv_mma_smem_bytes()} B a block", flush=True)
     libs = {"change": lib}
     for name, (so, log) in build_variants(variants).items():
         builds[name] = report_build(name, so, log)
+        check_imma(name, builds[name])
         libs[name] = load_lib(so)
-    parent = None
+    parent = parent_lib = None
     if args.root:
         parent = import_tree(args.root, "tsg_parent")
         parent_build = importlib.import_module("tsg_parent.ops.kernels._build")
-        parent_build.ready(dev.index)
+        parent_lib = parent_build.ready(dev.index)
         builds["parent"] = report_build(
             "parent", parent_build.BuildInfo.paths["int8_serve_kernels"],
             parent_build.BuildInfo.logs.get("int8_serve_kernels", ""))
 
-    stem, stages = operands(dev)
+    stem, stages, identity = operands(dev)
     results = {}
 
     def turns(item, calls, check):
@@ -396,17 +479,16 @@ def main(argv=None):
                                                      extra)
             outs = {b: torch.empty((1, ho, wo, cout), dtype=torch.int8,
                                    device=dev) for b in libs}
-            got = {}
+
+            outs["parent"] = torch.empty_like(outs["change"])
 
             def link_call(b):
-                if b == "parent":
-                    def run():
-                        got[b] = parent._launch_conv(
-                            xin, e, stride, 1, mode=mode,
-                            res=extra.get("res"), rr=extra.get("rr", 0.0),
-                            xd=extra.get("xd"), down=extra.get("down"),
-                            sd=2)
-                    return run
+                if b == "parent":  # its library, without its wrapper
+                    return lambda: mma_call(parent_lib, xin, e, stride,
+                                            outs[b], mode, extra.get("res"),
+                                            extra.get("rr", 0.0),
+                                            extra.get("xd"),
+                                            extra.get("down"), split=None)
                 return lambda: mma_call(libs[b], xin, e, stride, outs[b],
                                         mode, extra.get("res"),
                                         extra.get("rr", 0.0),
@@ -418,10 +500,8 @@ def main(argv=None):
             def link_check(b):
                 link_call(b)()
                 torch.cuda.synchronize()
-                have = got.get(b, outs.get(b))
-                if not torch.equal(have, want):
-                    raise SystemExit(f"{sname} {name} [{b}] differs from "
-                                     "this tree's codes")
+                same_codes(f"{sname} {name} [{b}] vs this tree's codes",
+                           outs[b], want)
 
             calls = {b: link_call(b) for b in libs}
             if parent:
@@ -441,14 +521,79 @@ def main(argv=None):
         want = K.down_stage_i8_plain(x, e0, e1)
 
         def stage_check(b):
-            if not torch.equal(calls[b](), want):
-                raise SystemExit(f"{sname} down stage [{b}] differs from "
-                                 "the plain version")
+            same_codes(f"{sname} down stage [{b}] vs plain", calls[b](),
+                       want)
 
         t = turns(f"{sname}:down_stage_i8", calls, stage_check)
         print(f"{sname} down_stage_i8 (four launches, wrapper included): "
               + ", ".join(f"{b} {ms}" for b, ms in t.items()) + " ms",
               flush=True)
+
+    for kname, (x, blocks) in identity.items():
+        c = x.shape[3]
+        route = "resident" if c <= K.RESIDENT_MAX_CIN else "split"
+        alt = "stream" if route == "resident" else "split1"
+        for name, xin, e, mode, res, rr in identity_links(x, blocks):
+            out_shape = (1, *xin.shape[1:3], c)
+            outs = {b: torch.empty(out_shape, dtype=torch.int8, device=dev)
+                    for b in [*libs, alt]}
+            got = {}
+
+            def link_call(b):
+                if b == "parent":
+                    def run():
+                        got[b] = parent._launch_conv(xin, e, 1, 1, mode=mode,
+                                                     res=res, rr=rr)
+                    return run
+                if b == alt:
+                    return lambda: mma_call(libs["change"], xin, e, 1,
+                                            outs[b], mode, res, rr,
+                                            split=1)
+                if route == "resident":
+                    return lambda: res_call(libs[b], xin, e, outs[b], mode,
+                                            res, rr)
+                return lambda: mma_call(libs[b], xin, e, 1, outs[b], mode,
+                                        res, rr, split=0)
+
+            want = plain_link(xin, e, mode, res, rr)
+
+            def link_check(b):
+                link_call(b)()
+                torch.cuda.synchronize()
+                same_codes(f"{kname} {name} [{b}] vs plain",
+                           got.get(b, outs.get(b)), want)
+
+            calls = {b: link_call(b) for b in [*libs, alt]}
+            if parent:
+                calls["parent"] = link_call("parent")
+            item = f"{kname}:{name}"
+            t = turns(item, calls, link_check)
+            ops, n_bytes, _ = link_work(
+                xin, e, 1, mode, {"res": res} if mode == 1 else {})
+            bnd = bound_ms(ops, n_bytes, "int8")
+            best = min(min(v) for b, v in t.items() if b not in ("parent",
+                                                                  alt))
+            print(f"{item} {tuple(xin.shape)} -> {c} (mode {mode}, {route}): "
+                  + ", ".join(f"{b} {ms}" for b, ms in t.items())
+                  + f" ms; bound {bnd:.5f} ms ({ops / 1e9:.2f} G int8 ops); "
+                  f"this tree {ops / best / 1e9:.1f} TOP/s", flush=True)
+        wrapper = "l1_stage_i8" if kname == "K3" else "res_block_i8"
+        calls = {"change": lambda: getattr(K, wrapper)(x, *blocks)}
+        if parent:
+            calls["parent"] = lambda: getattr(parent, wrapper)(x, *blocks)
+        want = getattr(K, wrapper + "_plain")(x, *blocks)
+
+        def whole_check(b):
+            same_codes(f"{kname} {wrapper} [{b}] vs plain", calls[b](), want)
+
+        t = turns(f"{kname}:{wrapper}", calls, whole_check)
+        ops = 2 * x.shape[1] * x.shape[2] * c * 9 * c * 2 * len(blocks)
+        n_bytes = 2 * x.numel() + sum(e[k]["w"].numel() for e in blocks
+                                      for k in ("conv1", "conv2"))
+        print(f"{kname} {wrapper} ({2 * len(blocks)} launches, wrapper "
+              f"included): " + ", ".join(f"{b} {ms}" for b, ms in t.items())
+              + f" ms; bound {bound_ms(ops, n_bytes, 'int8'):.5f} ms "
+              f"({ops / 1e9:.2f} G int8 ops)", flush=True)
 
     if args.forward:
         trees = {"change": importlib.import_module("torchseg_tpu_torch.entry")}
@@ -471,6 +616,8 @@ def main(argv=None):
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")
+    if MISMATCHES:
+        raise SystemExit(f"{len(MISMATCHES)} mismatches: {MISMATCHES}")
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ counts, output sizes that are not multiples of 32 or 128, BN inputs whose
 H*W is odd or 1, misaligned BN inputs, stem outputs off K11's 64-column
 and 8-row strips, focal-loss element counts that are not multiples of the
 block), so the edge masking and the
-scalar paths are exercised; chip_smoke.py covers the serving and training
+scalar paths are exercised; K3's resident-weight kernel and K6's K split
+over a two-block cluster are held at the main path's shapes and at ragged
+ones; chip_smoke.py covers the serving and training
 shapes, and K8/K9 are also held at every distinct BN input shape of the
 DFN-R101 and BiSeNet-R18 training steps (K8 in its one-thread-per-channel,
 one-block and cluster forms; K9 on its per-run and flat grids).  This file
@@ -138,12 +140,21 @@ def test_conv3x3s2_kernel_bit_exact(dev, h, w):
            K.conv3x3s2_i8_plain(x, e["w"], e["m"], e["c"]))
 
 
-@pytest.mark.parametrize("h,w", [(20, 44), (3, 33)])
-def test_l1_stage_kernel_bit_exact(dev, h, w):
+# K3 at C <= 64 runs the resident-weight kernel: persistent blocks walk
+# 256-pixel M tiles flattened over rows, so odd H*W leaves a ragged last
+# tile and 1 x 1 a single pixel; C of 16 and 48 leave part of each tap's
+# 64-byte K chunk zero-filled; (64, 256, 512) is the main path's stage 1
+# (512 tiles over the persistent grid); C = 128 takes the streaming route.
+@pytest.mark.parametrize("c,h,w", [(64, 20, 44), (64, 3, 33), (64, 256, 512),
+                                   (64, 1, 1), (16, 7, 9), (48, 13, 69),
+                                   (128, 10, 18)])
+def test_l1_stage_kernel_bit_exact(dev, c, h, w):
     g = _gen(2)
-    x = _codes(g, (1, h, w, 64)).to(dev)
-    e0, e1 = _block(g, 64, 64, 1, dev), _block(g, 64, 64, 1, dev)
+    x = _codes(g, (1, h, w, c)).to(dev)
+    e0, e1 = _block(g, c, c, 1, dev), _block(g, c, c, 1, dev)
+    before = K.l1_stage_i8.launches
     _exact(K.l1_stage_i8(x, e0, e1), K.l1_stage_i8_plain(x, e0, e1))
+    assert K.l1_stage_i8.launches == before + 1
 
 
 # K4's tile is 128 output pixels (flattened over rows) x 64 channels: wo of
@@ -216,7 +227,13 @@ def test_down_block_kernel_bit_exact(dev, cin, h, w):
     assert K.down_block_i8.launches == before + 1
 
 
-@pytest.mark.parametrize("c,h,w", [(512, 5, 7), (512, 32, 64), (256, 3, 35)])
+# K6 at C > 64 runs the streaming kernel, its K walk split over a two-block
+# cluster when the launch has no more tiles than the card has SMs:
+# (512, 32, 64) is the main path's (128 tiles), (512, 1, 1) one pixel, C =
+# 192 an odd chunk count (27: the two blocks take 13 and 14); C = 64 takes
+# the resident-weight route.
+@pytest.mark.parametrize("c,h,w", [(512, 5, 7), (512, 32, 64), (256, 3, 35),
+                                   (512, 1, 1), (192, 9, 13), (64, 17, 23)])
 def test_res_block_kernel_bit_exact(dev, c, h, w):
     g = _gen(6)
     x = _codes(g, (1, h, w, c)).to(dev)
@@ -224,6 +241,74 @@ def test_res_block_kernel_bit_exact(dev, c, h, w):
     before = K.res_block_i8.launches
     _exact(K.res_block_i8(x, e), K.res_block_i8_plain(x, e))
     assert K.res_block_i8.launches == before + 1
+
+
+@pytest.mark.parametrize("fn", ["l1_stage_i8", "res_block_i8"])
+@pytest.mark.parametrize("c", [36, 20])
+def test_identity_blocks_refuse_widths_before_launch(dev, fn, c):
+    """K3 and K6 take C % 16 == 0 on the card; any other width raises
+    before a launch (the plain versions take any C % 4 == 0)."""
+    g = _gen(20)
+    x = _codes(g, (1, 6, 10, c)).to(dev)
+    e = _block(g, c, c, 1, dev)
+    kern = getattr(K, fn)
+    args = (x, e, e) if fn == "l1_stage_i8" else (x, e)
+    before = kern.launches
+    with pytest.raises(ValueError, match="cin must be a positive multiple"):
+        kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before
+
+
+def _conv_mma_reference(g, x, e, mode, dev):
+    """The plain stride-1 3x3 link in mode 0 or 1 (residual codes drawn
+    from g) and the residual keywords for the launch."""
+    z = K.fma(K.qconv(x, e["w"], 1, 1).float(), e["m"], e["c"])
+    if mode == 0:
+        return K.requant(torch.relu(z)), {}
+    res = _codes(g, (*x.shape[:3], e["w"].shape[3])).to(dev)
+    z = K.fma(res.float(), 0.75, z)
+    return K.requant(torch.relu(z)), {"res": res, "rr": 0.75}
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("cin,cout,h,w", [(48, 24, 11, 23), (64, 136, 9, 70),
+                                          (16, 72, 2, 3), (128, 40, 5, 6)])
+def test_conv_mma_res_kernel_bit_exact(dev, mode, cin, cout, h, w):
+    """One resident-weight launch against the plain formula: cout % 16 ==
+    8 (8-byte stores), cout above one 64-channel block, part-filled K
+    chunks, and cin = 128 (two chunks a tap, 74 KB of weights)."""
+    g = _gen(21)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _cbr(g, 3, cin, cout, dev)
+    ref, kw = _conv_mma_reference(g, x, e, mode, dev)
+    _exact(K._launch_conv_mma_res(x, e, mode=mode, **kw), ref)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("cin,cout,h,w", [(48, 24, 11, 23), (256, 40, 5, 6),
+                                          (192, 64, 3, 4), (512, 512, 32, 64)])
+def test_conv_mma_kernel_split_bit_exact(dev, mode, cin, cout, h, w):
+    """The streaming kernel with each tile's K walk split over a two-block
+    cluster, against the plain formula and the unsplit launch: odd chunk
+    counts (9 and 27) and the main path's stage-4 link."""
+    g = _gen(22)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _cbr(g, 3, cin, cout, dev)
+    ref, kw = _conv_mma_reference(g, x, e, mode, dev)
+    _exact(K._launch_conv_mma(x, e, 1, mode=mode, split=2, **kw), ref)
+    _exact(K._launch_conv_mma(x, e, 1, mode=mode, split=1, **kw), ref)
+
+
+def test_conv_mma_kernel_refuses_a_split_projection(dev):
+    g = _gen(23)
+    x = _codes(g, (1, 4, 6, 64)).to(dev)
+    e = _cbr(g, 3, 64, 64, dev)
+    xd = _codes(g, (1, 8, 12, 32)).to(dev)
+    with pytest.raises(RuntimeError, match="conv_i8_mma_kernel"):
+        K._launch_conv_mma(x, e, 1, mode=2, xd=xd, down=_cbr(g, 1, 32, 64,
+                                                             dev), sd=2,
+                           split=2)
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

@@ -5,7 +5,10 @@ XLA functions they replace (CPU), on identical inputs:
                     code (float32 sums in another order flip round-half
                     ties), with the share of differing codes bounded;
   K2 conv3x3s2_i8   vs _apply_cbr(x, e, 2, 1): bit-exact;
-  K3 l1_stage_i8    vs two chained _apply_block(., 1): bit-exact;
+  K3 l1_stage_i8    vs two chained _apply_block(., 1): bit-exact, at the
+                    serving width and at C = 36 (the plain versions take
+                    any C % 4 == 0; the card's kernels C % 16 == 0);
+  K6 res_block_i8   vs _apply_block(., 1): bit-exact, likewise;
   K4 down_stage_i8  vs _apply_block(., 2) then _apply_block(., 1):
                     bit-exact, at stage 2's and stage 3's channel counts.
 
@@ -128,16 +131,44 @@ def test_conv3x3s2_plain_bit_exact(h, w):
     assert 0 < (ref > 0).mean() < 1  # not degenerate
 
 
-def test_l1_stage_plain_bit_exact():
+@pytest.mark.parametrize("c,h,w", [(64, 16, 32), (36, 9, 13)])
+def test_l1_stage_plain_bit_exact(c, h, w):
     rng = RNG(3)
-    x = _codes(rng, (1, 16, 32, 64))
-    j0, t0 = _block(rng, 64, 64, 1)
-    j1, t1 = _block(rng, 64, 64, 1)
+    x = _codes(rng, (1, h, w, c))
+    j0, t0 = _block(rng, c, c, 1)
+    j1, t1 = _block(rng, c, c, 1)
     ref = np.asarray(jax.jit(lambda x: ji8._apply_block(
         ji8._apply_block(x, j0, 1), j1, 1))(x))
     got = K.l1_stage_i8_plain(_t(x), t0, t1)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert 0 < (ref > 0).mean() < 1
+
+
+@pytest.mark.parametrize("c,h,w", [(36, 7, 11), (64, 5, 9)])
+def test_res_block_plain_bit_exact(c, h, w):
+    rng = RNG(7)
+    x = _codes(rng, (1, h, w, c))
+    j, t = _block(rng, c, c, 1)
+    ref = np.asarray(jax.jit(lambda x: ji8._apply_block(x, j, 1))(x))
+    got = K.res_block_i8_plain(_t(x), t)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0 < (ref > 0).mean() < 1
+
+
+@pytest.mark.parametrize("c", [36, 20])
+def test_identity_blocks_on_cpu_take_any_width_multiple_of_4(c):
+    """Widths the tensor-core kernels refuse on the card still run the
+    plain versions on CPU tensors, and count no launch."""
+    rng = RNG(8)
+    K.reset_launches()
+    x = _t(_codes(rng, (1, 6, 9, c)))
+    _, t0 = _block(rng, c, c, 1)
+    _, t1 = _block(rng, c, c, 1)
+    assert K.l1_stage_i8_shape_error(c) is not None
+    assert torch.equal(K.l1_stage_i8(x, t0, t1),
+                       K.l1_stage_i8_plain(x, t0, t1))
+    assert torch.equal(K.res_block_i8(x, t0), K.res_block_i8_plain(x, t0))
+    assert K.l1_stage_i8.launches == K.res_block_i8.launches == 0
 
 
 @pytest.mark.parametrize("cin,h,w", [(64, 16, 32), (128, 9, 13)])
@@ -221,6 +252,17 @@ def _guard_cases():
          lambda: K.down_stage_i8(x, b0, d1)),
         ("down wrong cin", ValueError,
          lambda: K.down_stage_i8(x[..., :32].contiguous(), d0, d1)),
+        ("l1 f64 epilogue", TypeError,
+         lambda: K.l1_stage_i8(x, b0, {**b0, "conv2": {
+             **b0["conv2"], "m": b0["conv2"]["m"].double()}})),
+        ("l1 cin % 4", ValueError,
+         lambda: K.l1_stage_i8(x[..., :62].contiguous(), b0, b0)),
+        ("res given a down block", ValueError,
+         lambda: K.res_block_i8(x, d0)),
+        ("res wrong weight shape", ValueError,
+         lambda: K.res_block_i8(x[..., :32].contiguous(), b0)),
+        ("res stride 2", ValueError,
+         lambda: K.res_block_i8(x, {**b0, "stride": 2})),
     ])
 
 
@@ -229,7 +271,9 @@ GUARDS = ["stem float input", "stem f32 weights", "stem odd h2",
           "conv non-contiguous", "conv uint8", "conv cin % 4",
           "conv wrong weight shape", "conv f64 epilogue", "conv meta device",
           "l1 given a down block", "down given an identity block",
-          "down wrong cin"]
+          "down wrong cin", "l1 f64 epilogue", "l1 cin % 4",
+          "res given a down block", "res wrong weight shape",
+          "res stride 2"]
 
 
 @pytest.mark.parametrize("name", GUARDS)
@@ -241,8 +285,8 @@ def test_wrapper_guards_raise(name):
         call()
 
 
-# The tensor-core K1 and K4 kernels' width limits, checked before any
-# launch (pure functions: None where the kernel takes the widths).
+# The tensor-core K1, K3, K4 and K6 kernels' width limits, checked before
+# any launch (pure functions: None where the kernels take the widths).
 SHAPE_LIMITS = [
     (K.stem_pool_i8_shape_error, (12, 128, 64), None),
     (K.stem_pool_i8_shape_error, (16, 128, 64), None),
@@ -261,6 +305,16 @@ SHAPE_LIMITS = [
     (K.down_stage_i8_shape_error, (128, 256), None),
     (K.down_stage_i8_shape_error, (36, 64), "cin"),
     (K.down_stage_i8_shape_error, (64, 72), "cin"),
+    (K.l1_stage_i8_shape_error, (64,), None),
+    (K.l1_stage_i8_shape_error, (512,), None),
+    (K.l1_stage_i8_shape_error, (36,), "cin"),
+    (K.l1_stage_i8_shape_error, (20,), "cin"),
+    (K.l1_stage_i8_shape_error, (8,), "cin"),
+    (K.res_block_i8_shape_error, (64,), None),
+    (K.res_block_i8_shape_error, (512,), None),
+    (K.res_block_i8_shape_error, (36,), "cin"),
+    (K.res_block_i8_shape_error, (20,), "cin"),
+    (K.res_block_i8_shape_error, (8,), "cin"),
 ]
 
 
@@ -275,8 +329,11 @@ def test_tensor_core_kernels_shape_limits(fn, args, expect):
 
 
 def test_shape_limits_take_the_serving_widths():
-    """The main path's stem (12 s2d channels -> 64 + 64) and both down
-    stages (64 -> 128, 128 -> 256) are within the kernels' limits."""
+    """The main path's stem (12 s2d channels -> 64 + 64), stage 1 (64),
+    both down stages (64 -> 128, 128 -> 256) and stage 4's identity block
+    (512) are within the kernels' limits."""
     assert K.stem_pool_i8_shape_error(12, 128, 64) is None
+    assert K.l1_stage_i8_shape_error(64) is None
     for cin in (64, 128):
         assert K.down_stage_i8_shape_error(cin, 2 * cin) is None
+    assert K.res_block_i8_shape_error(512) is None

@@ -3,27 +3,36 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Four kernels, nine entry points of the serving graphs:
+// Five kernels, nine entry points of the serving graphs:
 //
 //   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
 //       s2d_stem_pool_quad_i8 (and the v1/v2 stems at :128 and :214):
 //       the s2d 4x4 stem conv on bf16 tensor cores (mma.sync m16n8k16),
 //       its requant, and the backbone half's 3x3/2 max pool.
-//   conv_i8_mma_kernel       (K4)  replaces down_stage_i8_from_paired
-//       (:986), stages 2 and 3: its four 3x3 links (the 1x1/2 projection
-//       fused into the first block's conv2 as a second GEMM) on int8
-//       tensor cores (mma.sync m16n8k32).
+//   conv_i8_mma_kernel             the streaming int8 tensor-core 3x3 conv
+//       (mma.sync m16n8k32, weights staged chunk by chunk), launched by
+//       K4 down_stage_i8  replacing down_stage_i8_from_paired (:986),
+//                         stages 2 and 3: four launches (the 1x1/2
+//                         projection fused into the first block's conv2
+//                         as a second GEMM);
+//       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
+//                         stride-1 block: two launches, K split over a
+//                         two-block cluster (128 output tiles on 132 SMs);
+//       K3 l1_stage_i8    (below) at widths whose weights do not fit
+//                         conv_i8_mma_res_kernel.
+//   conv_i8_mma_res_kernel         the int8 tensor-core stride-1 3x3 conv
+//       with the link's whole weight resident in shared memory, persistent
+//       blocks; launched by
+//       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763),
+//                         stage 1: a chain of four launches (and K6 at
+//                         widths up to 64).
 //   conv_i8_kernel                 the shared int8 conv + epilogue on
 //       CUDA cores (__dp4a; any k, stride, dilation), launched by
 //       K2 conv3x3s2_i8   replacing conv3x3s2_i8_quad (:515), twice per
 //                         forward through spatial_path_i8 (:569/:587);
-//       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763):
-//                         a chain of four launches;
 //       K5 down_block_i8  replacing down_block_i8_from_paired (:1136),
 //                         stage 4's strided block: two launches;
-//       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
-//                         stride-1 block: two launches;
 //       cbr_i8            the deep stem's stem2/stem3 CBRs, one launch
 //                         each (XLA convs in JAX, deploy/int8_serve.py:756);
 //       bottleneck_i8     a dilated Bottleneck, three launches: 1x1, 3x3
@@ -58,8 +67,11 @@
 // nothing and returns cudaGetLastError(); tsg_init() runs once per device
 // before them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,7 +87,7 @@ __device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
                                (static_cast<uint16_t>(static_cast<uint8_t>(hi)) << 8));
 }
 
-// --- PTX wrappers for the tensor-core kernels (K1, K4) ---------------------
+// --- PTX wrappers for the tensor-core kernels (K1, K3, K4, K6) -------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -91,6 +103,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 8-byte asynchronous copy global -> shared (cached in L1 too); src_bytes
+// = 0 zero-fills the destination and reads nothing.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
 }
 
 template <int kPending>
@@ -410,9 +430,9 @@ size_t stem_smem_bytes(int cout, int n_sp) {
 }
 
 // ---------------------------------------------------------------------------
-// Shared int8 conv + epilogue on CUDA cores (K2, the links of the K3, K5
-// and K6 chains, the deep stem's CBRs and the Bottleneck chains; K4 no
-// longer uses it: its links run on conv_i8_mma_kernel below).
+// Shared int8 conv + epilogue on CUDA cores (K2, the links of the K5
+// chain, the deep stem's CBRs and the Bottleneck chains; K3, K4 and K6 no
+// longer use it: their links run on the tensor-core kernels below).
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (k, k, cin, cout), stride s, dilation d, symmetric pad,
@@ -630,7 +650,8 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) 
 
 
 // ---------------------------------------------------------------------------
-// K4's links: int8 3x3 pad-1 conv + epilogue on int8 tensor cores.
+// K4's and K6's links: int8 3x3 pad-1 conv + epilogue on int8 tensor cores,
+// the weights streamed chunk by chunk.
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (3, 3, cin, cout), stride 1 or 2, pad 1, exact in
@@ -672,6 +693,18 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) 
 // with scripts/torch_int8_kernel_variants.py on an H100: 64 x 64 tiles of
 // 4 warps were 20-45 % slower a link, 3 or 5 stages within 3 %, and 128 x
 // 32 tiles 6-14 % slower.
+//
+// K6 (stage 4's identity block, 2,048 pixels x 512 channels, K = 4,608 in
+// 72 chunks) gives this tiling 16 x 8 = 128 tiles on 132 SMs: one block an
+// SM, below one wave, each with the longest K walk of the path and nothing
+// beside it to hide its latency.  With kSplit = 2 the K walk of a tile is
+// split over a thread-block cluster of two blocks (256 blocks, 36 chunks
+// each): the second block leaves its int32 sums in its shared memory, the
+// first adds them through distributed shared memory and runs the epilogue.
+// Integer sums are exact in any order, so the split stays bit-exact.  The
+// host splits a launch (modes 0 and 1) when its tiles do not outnumber the
+// SMs; K4's launches on the serving path have 256 or more tiles and stay
+// whole.
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWM = 4;         // warps along M (32 pixels each)
@@ -688,6 +721,8 @@ constexpr int kMmaBBlocks = kMmaBN * 4 / kMmaThreads;  // 4x4 B blocks a thread
 static_assert(kMmaStages >= 3, "B is stored two chunks behind its loads");
 static_assert(kMmaBM * 4 % kMmaThreads == 0 && kMmaBN * 4 % kMmaThreads == 0,
               "whole copies per thread");
+static_assert(32 * kMmaThreads * 4 <= kMmaStages * kMmaSlot,
+              "a split block's int32 sums fit in its ring");
 
 // Byte offset of 16-byte chunk `chunk` of tile row `row` (64-byte rows).
 // ldmatrix reads 8 consecutive rows (r % 8 == 0) at one chunk; the
@@ -697,7 +732,7 @@ __device__ __forceinline__ int mma_chunk_addr(int row, int chunk) {
   return row * kMmaBK + ((chunk ^ (((row >> 1) ^ (row >> 3)) & 3)) << 4);
 }
 
-template <int kMode>
+template <int kMode, int kSplit>
 __global__ void __launch_bounds__(kMmaThreads, 512 / kMmaThreads)
 conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
                    const int8_t* __restrict__ wt, int stride, int cout,
@@ -710,12 +745,16 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t s_base = smem_addr(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  static_assert(kSplit == 1 || kMode != 2, "the projection is never split");
   const int n_pix = ho * wo;
-  const int m0 = blockIdx.x * kMmaBM;
+  const int m0 = blockIdx.x / kSplit * kMmaBM;
   const int n0 = blockIdx.y * kMmaBN;
+  const int rank = blockIdx.x % kSplit;          // rank in the K-split cluster
   const int cch = (cin + kMmaBK - 1) / kMmaBK;   // chunks per tap
   const int n_main = 9 * cch;
-  const int nk = n_main + (kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0);
+  const int nk_all = n_main + (kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0);
+  const int kc0 = rank * nk_all / kSplit;        // this block's first chunk
+  const int nk = (rank + 1) * nk_all / kSplit - kc0;
 
   // The A rows this thread copies: rows tid/4 + i * threads/4, 16-byte
   // column tid % 4.  Per row: the offset of its window's top-left input
@@ -746,7 +785,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // The chunk the next load_chunk call stages, walked without divisions:
   // tap-major over the 3x3 window in channel chunks of kMmaBK, then (mode
   // 2) the projection's channel chunks.
-  int ld_tap = 0, ld_c0 = 0;
+  int ld_tap = kc0 / cch, ld_c0 = kc0 % cch * kMmaBK;
   auto next_chunk = [&]() {
     ld_c0 += kMmaBK;
     if (ld_tap < 9 && ld_c0 >= cin) {
@@ -875,7 +914,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     const int nxt = kc + kMmaStages - 1;
     if (nxt < nk) load_chunk(nxt % kMmaStages, ld);
     cp_async_commit();
-    if (kMode == 2 && kc >= n_main)
+    if (kMode == 2 && kc0 + kc >= n_main)
       compute(kc % kMmaStages, accd);
     else
       compute(kc % kMmaStages, acc);
@@ -887,6 +926,38 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   }
   cp_async_wait<0>();
   __syncthreads();
+
+  if constexpr (kSplit > 1) {
+    // The other ranks leave their sums in their own ring; rank 0 adds them
+    // through distributed shared memory, thread by thread, and alone runs
+    // the epilogue.  The second sync keeps each part alive until it is read.
+    cg::cluster_group cluster = cg::this_cluster();
+    int* part = reinterpret_cast<int*>(smem);  // [32 sums][kMmaThreads]
+    if (rank != 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            part[((i * 4 + j) * 4 + e) * kMmaThreads + tid] = acc[i][j][e];
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < kSplit; ++r) {
+        const int* rp = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][e] += rp[((i * 4 + j) * 4 + e) * kMmaThreads + tid];
+      }
+    }
+    cluster.sync();
+    if (rank != 0) return;
+  }
 
   // epilogue: codes to shared memory, then 16-byte stores
   int8_t* o_s = reinterpret_cast<int8_t*>(smem);
@@ -948,6 +1019,306 @@ size_t conv_mma_smem_bytes() {
   const size_t ring = static_cast<size_t>(kMmaStages) * kMmaSlot;
   const size_t out = static_cast<size_t>(kMmaBM) * kMmaOutPitch;
   return ring > out ? ring : out;
+}
+
+// ---------------------------------------------------------------------------
+// K3's links: int8 stride-1 3x3 pad-1 conv + epilogue on int8 tensor cores,
+// the link's whole weight resident in shared memory, persistent blocks.
+//
+// Replaces, four launches per call, the TPU kernel l1_stage_i8_paired_view
+// (torchseg_tpu/ops/pallas/int8_serve_kernels.py:763): ResNet-18's stage 1,
+// two identity BasicBlocks at (1, 256, 512, 64) on the main path.
+//
+// What it computes: conv_i8_mma_kernel's modes 0 and 1 at stride 1 (the
+// same __fmaf_rn chain, int8 out), for cin % 16 == 0 and cout % 8 == 0.
+//
+// What bounds it on an H100: int8 tensor-core operations, 9.66 G a link
+// at stage 1 (M = 131,072 pixels, N = 64, K = 9 x 64 = 576), ~4.9 us at the
+// 1,979 TOP/s dense peak, against 16.8 MB a link (~5 us).  The streaming
+// kernel above is badly matched to this shape: K is 9 chunks against its
+// 4-stage ring, so a third of each block's loop is fill and drain; each
+// of its 1,024 blocks loads and byte-transposes the link's whole 36,864-byte
+// weight; its epilogue overlaps no load.
+//
+// Design:
+//   * a block stages the weights of its 64 output channels once, K-major
+//     ([n][k = tap * cpad + channel], each tap's channels padded to the
+//     64-byte chunk with zeros), rows padded to an odd number of 16-byte
+//     chunks so ldmatrix is conflict-free: 37,888 bytes at cin = 64;
+//   * the grid is as many blocks as fit on the card at once (two an SM at
+//     cin = 64), and each walks the M tiles blockIdx.x, + gridDim.x, ...;
+//     the cp.async ring of A chunks runs across the tile
+//     boundaries, so the next tile's first chunks load while this tile's
+//     last chunks compute and its epilogue runs;
+//   * A chunks are gathered as in conv_i8_mma_kernel (per-row window
+//     offset and tap mask, zero-fill at the pad and past cin); the chunk
+//     loop holds no weight loads, no transposes and no divisions;
+//   * 8 warps along M, each 32 pixels x 64 channels (a 256 x 64 tile): per
+//     32-byte k step two A and four B ldmatrix.x4 feed 16 mma.sync.m16n8k32;
+//     a 2-stage ring (one chunk loads while one computes) keeps two blocks
+//     an SM (109 KB of shared memory each at cin = 64).  Tuned with
+//     scripts/torch_int8_kernel_variants.py on an H100: against 128 x 64
+//     tiles of 4 x 2 warps (32 x 32) and a 4-stage ring, 2-8 % faster a
+//     link; 3 stages at 256 x 64 leave one block an SM and were 25-35 %
+//     slower;
+//   * mode 1's residual tile is copied into shared memory by cp.async at
+//     the tile's first chunk, in that chunk's group, so the epilogue reads
+//     it from shared memory (read from device memory by the epilogue, 2
+//     bytes a thread at a time, it made the residual links ~25 % slower);
+//   * the epilogue stages codes in a buffer of its own (the ring keeps
+//     loading) and they leave with 16-byte stores.
+// Integer sums are exact in any order: bit-exact against the plain version.
+// ---------------------------------------------------------------------------
+
+constexpr int kResWM = 8;         // warps along M (32 pixels each)
+constexpr int kResWN = 1;         // warps along N
+constexpr int kResStages = 2;     // cp.async ring depth (>= 2)
+constexpr int kResBN = 64;        // output channels per block
+constexpr int kResBM = 32 * kResWM;                 // output pixels per tile
+constexpr int kResTN = kResBN / kResWN;             // channels per warp
+constexpr int kResThreads = 32 * kResWM * kResWN;
+constexpr int kResARows = kResBM * 4 / kResThreads;  // 16-byte A copies a thread
+constexpr int kResSlot = kResBM * kMmaBK;           // one stage: an A chunk
+constexpr int kResOutPitch = kResBN + 16;           // bytes of a staged output / residual row
+static_assert(kResStages >= 2 && kResTN % 16 == 0, "ring depth, warp tile");
+static_assert(kResBM * 4 % kResThreads == 0, "whole copies per thread");
+
+// Bytes of one resident weight row: 9 taps x cin padded to 64-byte chunks,
+// plus 16 so the row is an odd number of 16-byte chunks.
+__host__ __device__ __forceinline__ int res_w_pitch(int cin) {
+  return 9 * ((cin + kMmaBK - 1) / kMmaBK) * kMmaBK + 16;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kResThreads, 2)
+conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
+                       const int8_t* __restrict__ wt, int cout,
+                       const float* __restrict__ m, const float* __restrict__ c,
+                       const int8_t* __restrict__ res, float rr,
+                       int8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_pix = h * w;
+  const int n0 = blockIdx.y * kResBN;
+  const int cpad = (cin + kMmaBK - 1) / kMmaBK * kMmaBK;
+  const int nk = 9 * cpad / kMmaBK;   // chunks per tile
+  const int pitch = res_w_pitch(cin);
+  const int m_tiles = (n_pix + kResBM - 1) / kResBM;
+  const int my_tiles = (m_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+  const int total = my_tiles * nk;    // chunks this block computes
+  unsigned char* w_s = smem;                                     // [kResBN][pitch]
+  const uint32_t w_base = smem_addr(w_s);
+  const uint32_t a_base = w_base + kResBN * pitch;               // [stages][BM][64]
+  int8_t* o_s = reinterpret_cast<int8_t*>(smem + kResBN * pitch +
+                                          kResStages * kResSlot);  // [BM][kResOutPitch]
+  const int8_t* r_s = o_s + kResBM * kResOutPitch;  // mode 1: [BM][kResOutPitch]
+
+  // The A rows this thread copies (rows tid/4 + i * threads/4, 16-byte
+  // column tid % 4) of the tile being loaded: the offset of each window's
+  // top-left input pixel and its 9-bit mask of taps inside the image.
+  const int a_col = tid & 3;
+  long long a_off[kResARows];
+  int a_mask[kResARows];
+  auto setup_rows = [&](int tile) {
+#pragma unroll
+    for (int i = 0; i < kResARows; ++i) {
+      const int p = tile * kResBM + (tid >> 2) + (kResThreads / 4) * i;
+      a_mask[i] = 0;
+      a_off[i] = 0;
+      if (p < n_pix) {
+        const int oy = p / w, ox = p - oy * w;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int iy = oy - 1 + t / 3, ix = ox - 1 + t % 3;
+          if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
+        }
+        a_off[i] = (static_cast<long long>(oy - 1) * w + ox - 1) * cin;
+      }
+    }
+  };
+  setup_rows(blockIdx.x);
+
+  // The load cursor: the ld_i-th of this block's tiles, tap, channel chunk.
+  int ld_i = 0, ld_tap = 0, ld_c0 = 0;
+  auto load_chunk = [&](int slot) {
+    const int ch = ld_c0 + a_col * 16;
+    const int8_t* src =
+        x + static_cast<long long>(ld_tap / 3 * w + ld_tap % 3) * cin + ch;
+#pragma unroll
+    for (int i = 0; i < kResARows; ++i) {
+      const bool ok = ch < cin && ((a_mask[i] >> ld_tap) & 1);
+      const int row = (tid >> 2) + (kResThreads / 4) * i;
+      cp_async16(a_base + slot * kResSlot + mma_chunk_addr(row, a_col),
+                 ok ? src + a_off[i] : x, ok ? 16 : 0);
+    }
+    ld_c0 += kMmaBK;
+    if (ld_c0 >= cin) {
+      ld_c0 = 0;
+      if (++ld_tap == 9) {
+        ld_tap = 0;
+        if (++ld_i < my_tiles) setup_rows(blockIdx.x + ld_i * gridDim.x);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kResStages - 1; ++s) {
+    if (s < total) load_chunk(s);
+    cp_async_commit();
+  }
+
+  // The weights of channels n0 .. n0 + 63, K-major, while the first A
+  // chunks load: each 4(k) x 4(n) byte block read as four words and
+  // transposed with byte permutes.
+  for (int i = tid; i < 9 * cpad / 4 * (kResBN / 4); i += kResThreads) {
+    const int nn = 4 * (i % (kResBN / 4)), kk = 4 * (i / (kResBN / 4));
+    const int tap = kk / cpad, ch = kk - tap * cpad, n = n0 + nn;
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)  // cin % 16 == 0, cout % 8 == 0: all four or none
+      v[q] = ch < cin && n < cout
+          ? __ldg(reinterpret_cast<const uint32_t*>(
+                wt + (static_cast<long long>(tap) * cin + ch + q) * cout + n))
+          : 0u;
+    const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);
+    const uint32_t t1 = __byte_perm(v[0], v[1], 0x7362);
+    const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140);
+    const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
+    const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<uint32_t*>(w_s + (nn + q) * pitch + kk) = col[q];
+  }
+
+  const int wm = warp % kResWM, wn = warp / kResWM;
+  constexpr int kJ = kResTN / 8;   // n8 tiles a warp
+  int acc[2][kJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  auto compute = [&](int slot, int kc) {
+    const uint32_t a_s = a_base + slot * kResSlot;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t af[2][4], bf[kJ][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = wm * 32 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(a_s + mma_chunk_addr(row, ks * 2 + (lane >> 4)), af[i][0], af[i][1],
+                    af[i][2], af[i][3]);
+      }
+#pragma unroll
+      for (int p = 0; p < kJ / 2; ++p) {
+        const int n = wn * kResTN + p * 16 + (lane & 7) + (lane >> 4) * 8;
+        ldmatrix_x4(w_base + n * pitch + kc * kMmaBK + (ks * 2 + ((lane >> 3) & 1)) * 16,
+                    bf[2 * p][0], bf[2 * p][1], bf[2 * p + 1][0], bf[2 * p + 1][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  };
+
+  // Mode 1: the residual tile (rows m0.., channels n0..n0+63) into r_s,
+  // 8 bytes a copy (cout % 16 may be 8), zero past the edges.
+  auto load_res = [&](int tile) {
+    const int m0 = tile * kResBM;
+    for (int idx = tid; idx < kResBM * kResBN / 8; idx += kResThreads) {
+      const int row = idx / (kResBN / 8), col = 8 * (idx % (kResBN / 8));
+      const bool ok = m0 + row < n_pix && n0 + col < cout;
+      cp_async8(smem_addr(r_s + row * kResOutPitch + col),
+                ok ? res + static_cast<size_t>(m0 + row) * cout + n0 + col : res,
+                ok ? 8 : 0);
+    }
+  };
+
+  // The tile's epilogue (conv_i8_mma_kernel's chain), then the sums reset.
+  const int g = lane >> 2, t4 = lane & 3;
+  auto epilogue = [&](int tile) {
+    const int m0 = tile * kResBM;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int nl = wn * kResTN + j * 8 + 2 * t4;
+      const int n = n0 + nl;
+      if (n < cout) {   // cout % 8 == 0: n + 1 < cout too
+        const float mv[2] = {__ldg(m + n), __ldg(m + n + 1)};
+        const float cv[2] = {__ldg(c + n), __ldg(c + n + 1)};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ml = wm * 32 + i * 16 + g + 8 * hh;
+            const int p = m0 + ml;
+            if (p >= n_pix) continue;
+            uint32_t rv = 0;
+            if (kMode == 1) rv = *reinterpret_cast<const uint16_t*>(r_s + ml * kResOutPitch + nl);
+            int8_t q[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float z = __fmaf_rn(__int2float_rn(acc[i][j][2 * hh + e]), mv[e], cv[e]);
+              if (kMode == 1)
+                z = __fmaf_rn(static_cast<float>(static_cast<int8_t>(rv >> (8 * e))), rr, z);
+              q[e] = requant(fmaxf(z, 0.f));
+            }
+            *reinterpret_cast<uint16_t*>(o_s + ml * kResOutPitch + nl) = pack2(q[0], q[1]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < kResBM * (kResBN / 16); idx += kResThreads) {
+      const int row = idx / (kResBN / 16), n = n0 + (idx % (kResBN / 16)) * 16;
+      const int p = m0 + row;
+      if (p >= n_pix || n >= cout) continue;
+      int8_t* dst = out + static_cast<size_t>(p) * cout + n;
+      const int8_t* src = o_s + row * kResOutPitch + (n - n0);
+      if ((cout & 15) == 0) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+        if (n + 8 < cout)
+          *reinterpret_cast<uint2*>(dst + 8) = *reinterpret_cast<const uint2*>(src + 8);
+      }
+    }
+  };
+
+  // One flat walk over this block's (tile, chunk) pairs: chunk q's copies
+  // are issued kResStages - 1 chunks ahead, across tile boundaries.  The
+  // barrier of each step also orders an epilogue's reads of o_s and r_s
+  // before the next tile's residual copies and epilogue writes; the
+  // residual copies join the group of the tile's first step, which is
+  // complete before its epilogue (a tile has at least 9 >= kResStages
+  // chunks).
+  static_assert(kResStages <= 9, "a tile's residual lands before its epilogue");
+  int kc = 0, tile_i = 0;
+  for (int q = 0; q < total; ++q) {
+    cp_async_wait<kResStages - 2>();
+    __syncthreads();  // chunk q staged (and the weights); chunk q - 1's readers done
+    if (kMode == 1 && kc == 0) load_res(blockIdx.x + tile_i * gridDim.x);
+    if (q + kResStages - 1 < total) load_chunk((q + kResStages - 1) % kResStages);
+    cp_async_commit();
+    compute(q % kResStages, kc);
+    if (++kc == nk) {
+      epilogue(blockIdx.x + tile_i * gridDim.x);
+      kc = 0;
+      ++tile_i;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+size_t conv_mma_res_smem_bytes(int cin) {
+  return static_cast<size_t>(kResBN) * res_w_pitch(cin) +
+         static_cast<size_t>(kResStages) * kResSlot +
+         2 * static_cast<size_t>(kResBM) * kResOutPitch;
 }
 
 // ---------------------------------------------------------------------------
@@ -1015,9 +1386,13 @@ int tsg_init(void) {
   const void* kernels[] = {reinterpret_cast<const void*>(stem_pool_i8_mma_kernel),
                            reinterpret_cast<const void*>(conv_i8_kernel<1>),
                            reinterpret_cast<const void*>(conv_i8_kernel<kConvTH>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<0>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<1>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<2>)};
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<0, 1>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<1, 1>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<2, 1>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<0, 2>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<1, 2>),
+                           reinterpret_cast<const void*>(conv_i8_mma_res_kernel<0>),
+                           reinterpret_cast<const void*>(conv_i8_mma_res_kernel<1>)};
   for (const void* fn : kernels) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1049,6 +1424,11 @@ long long tsg_stem_smem_bytes(int cout, int n_sp) {
 
 long long tsg_conv_mma_smem_bytes(void) {
   return static_cast<long long>(conv_mma_smem_bytes());
+}
+
+// Dynamic shared memory of one tsg_conv_i8_mma_res launch at this cin.
+long long tsg_conv_mma_res_smem_bytes(int cin) {
+  return static_cast<long long>(conv_mma_res_smem_bytes(cin));
 }
 
 // xs (h2+3, w2+3, cin) int8, 4-byte aligned, cin <= 16, cin % 4 == 0;
@@ -1100,21 +1480,87 @@ int tsg_conv_i8(const void* x, int h, int w, int cin, const void* wt, int k,
 
 // The 3x3 pad-1 int8 conv on tensor cores: x (h, w, cin), cin % 16 == 0,
 // 16-byte aligned; cout % 8 == 0; mode 2's xd (hd, wd, cdin) with cdin % 16
-// == 0, 16-byte aligned; int8 out (ho, wo, cout).
+// == 0, 16-byte aligned; int8 out (ho, wo, cout).  split: the blocks of a
+// cluster that share a tile's K walk, 1 or 2 (modes 0 and 1 only), or 0:
+// 2 where the launch has no more tiles than the device has SMs (and is not
+// mode 2), else 1.
 int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
                     int stride, int cout, const void* m, const void* c,
                     int mode, const void* res, float rr, const void* xd,
                     int wd, int cdin, int sd, const void* wdt, const void* md,
-                    const void* cd, void* out, int ho, int wo, void* stream) {
-  dim3 grid((ho * wo + kMmaBM - 1) / kMmaBM, (cout + kMmaBN - 1) / kMmaBN);
-  const auto kernel = mode == 2 ? conv_i8_mma_kernel<2>
-                    : mode == 1 ? conv_i8_mma_kernel<1> : conv_i8_mma_kernel<0>;
-  kernel<<<grid, kMmaThreads, conv_mma_smem_bytes(), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt),
-      stride, cout, static_cast<const float*>(m), static_cast<const float*>(c),
-      static_cast<const int8_t*>(res), rr, static_cast<const int8_t*>(xd), wd,
-      cdin, sd, static_cast<const int8_t*>(wdt), static_cast<const float*>(md),
-      static_cast<const float*>(cd), static_cast<int8_t*>(out), ho, wo);
+                    const void* cd, void* out, int ho, int wo, int split,
+                    void* stream) {
+  const int m_tiles = (ho * wo + kMmaBM - 1) / kMmaBM;
+  const int n_tiles = (cout + kMmaBN - 1) / kMmaBN;
+  if (split == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    split = mode != 2 && m_tiles * n_tiles <= sms ? 2 : 1;
+  }
+  if (split != 1 && (split != 2 || mode == 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto kernel, cudaLaunchConfig_t* cfg) {
+    return cudaLaunchKernelEx(
+        cfg, kernel, static_cast<const int8_t*>(x), h, w, cin,
+        static_cast<const int8_t*>(wt), stride, cout, static_cast<const float*>(m),
+        static_cast<const float*>(c), static_cast<const int8_t*>(res), rr,
+        static_cast<const int8_t*>(xd), wd, cdin, sd, static_cast<const int8_t*>(wdt),
+        static_cast<const float*>(md), static_cast<const float*>(cd),
+        static_cast<int8_t*>(out), ho, wo);
+  };
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(m_tiles * split, n_tiles);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = conv_mma_smem_bytes();
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  cudaError_t err;
+  if (split > 1)
+    err = mode == 1 ? args(conv_i8_mma_kernel<1, 2>, &cfg) : args(conv_i8_mma_kernel<0, 2>, &cfg);
+  else
+    err = mode == 2   ? args(conv_i8_mma_kernel<2, 1>, &cfg)
+          : mode == 1 ? args(conv_i8_mma_kernel<1, 1>, &cfg)
+                      : args(conv_i8_mma_kernel<0, 1>, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stride-1 3x3 pad-1 int8 conv with resident weights (K3's links):
+// x (h, w, cin), cin % 16 == 0, 16-byte aligned; cout % 8 == 0; mode 0 or 1
+// (res (h, w, cout), 8-byte aligned); int8 out (h, w, cout).  The grid is
+// as many blocks as fit on the device at once, capped by the M tiles.
+int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
+                        int cout, const void* m, const void* c, int mode,
+                        const void* res, float rr, void* out, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = conv_mma_res_smem_bytes(cin);
+  const auto kernel = mode == 1 ? conv_i8_mma_res_kernel<1> : conv_i8_mma_res_kernel<0>;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kResThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m_tiles = (h * w + kResBM - 1) / kResBM;
+  const int n_tiles = (cout + kResBN - 1) / kResBN;
+  int gx = (per_sm > 0 ? per_sm : 1) * sms / n_tiles;
+  gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
+  kernel<<<dim3(gx, n_tiles), kResThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt), cout,
+      static_cast<const float*>(m), static_cast<const float*>(c),
+      static_cast<const int8_t*>(res), rr, static_cast<int8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,14 +41,20 @@ LIBRARIES = {
         # cout, n_sp
         "tsg_stem_smem_bytes": [c_int] * 2,
         "tsg_conv_mma_smem_bytes": [],
+        # cin
+        "tsg_conv_mma_res_smem_bytes": [c_int],
         # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
         "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
         # x, h, w, cin, wt, stride, cout, m, c, mode, res, rr, xd, wd, cdin,
-        # sd, wdt, md, cd, out, ho, wo, stream
+        # sd, wdt, md, cd, out, ho, wo, split, stream
         "tsg_conv_i8_mma": ([c_void_p] + [c_int] * 3 + [c_void_p]
                             + [c_int] * 2 + [c_void_p] * 2 + [c_int]
                             + [c_void_p, c_float, c_void_p] + [c_int] * 3
-                            + [c_void_p] * 4 + [c_int] * 2 + [c_void_p]),
+                            + [c_void_p] * 4 + [c_int] * 3 + [c_void_p]),
+        # x, h, w, cin, wt, cout, m, c, mode, res, rr, out, stream
+        "tsg_conv_i8_mma_res": ([c_void_p] + [c_int] * 3 + [c_void_p, c_int]
+                                + [c_void_p] * 2 + [c_int]
+                                + [c_void_p, c_float] + [c_void_p] * 2),
         # x, h, w, cin, wt, k, stride, pad, dilation, cout, m, c, mode, res,
         # rr, xd, hd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, stream
         "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 5
@@ -98,7 +104,8 @@ LIBRARIES = {
 # entry points that return something other than int
 _RESTYPES = {"tsg_conv_smem_bytes": c_longlong,
              "tsg_stem_smem_bytes": c_longlong,
-             "tsg_conv_mma_smem_bytes": c_longlong}
+             "tsg_conv_mma_smem_bytes": c_longlong,
+             "tsg_conv_mma_res_smem_bytes": c_longlong}
 
 
 class BuildInfo:

@@ -6,18 +6,21 @@ version, plus the exact integer primitives both are specified by.
 | wrapper          | CUDA                                 | TPU kernel it replaces |
 | stem_pool_i8     | stem_pool_i8_mma_kernel (bf16 mma)   | s2d_stem_pool_quad_i8 (:384) |
 | conv3x3s2_i8     | conv_i8_kernel, mode 0               | conv3x3s2_i8_quad (:515) |
-| l1_stage_i8      | conv_i8_kernel x4 (modes 0,1,0,1)    | l1_stage_i8_paired_view (:763) |
+| l1_stage_i8      | conv_i8_mma_res_kernel x4 (modes 0,1,0,1; int8 mma) | l1_stage_i8_paired_view (:763) |
 | down_stage_i8    | conv_i8_mma_kernel x4 (modes 0,2,0,1; int8 mma) | down_stage_i8_from_paired (:986) |
 | down_block_i8    | conv_i8_kernel x2 (modes 0,2)        | down_block_i8_from_paired (:1136) |
-| res_block_i8     | conv_i8_kernel x2 (modes 0,1)        | res_block_i8_std (:1226) |
+| res_block_i8     | conv_i8_mma_kernel x2 (modes 0,1; int8 mma, K split) | res_block_i8_std (:1226) |
 | maxpool2d_3x3s2_i8 | maxpool_i8_kernel (K10)            | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_kernel, mode 0               | none: an XLA conv in JAX |
 | bottleneck_i8    | conv_i8_kernel x3 (modes 0,0,1 or 2) | none: XLA (_apply_bottleneck) |
 
-Line numbers are in the JAX file.  K1 and K4 run on the tensor cores and
-take only the widths their kernels tile (``stem_pool_i8_shape_error``,
-``conv_i8_mma_shape_error``); the wrappers raise ValueError before
-launching for any other.  ``cbr_i8`` (the deep stem's stem2 and
+Line numbers are in the JAX file.  K1, K3, K4 and K6 run on the tensor
+cores and take only the widths their kernels tile
+(``stem_pool_i8_shape_error``, ``l1_stage_i8_shape_error``,
+``down_stage_i8_shape_error``, ``res_block_i8_shape_error``); the wrappers
+raise ValueError before launching for any other.  K3 and K6 share their
+route (``_identity_block_launches``): the resident-weight kernel up to 64
+channels, the streaming one above.  ``cbr_i8`` (the deep stem's stem2 and
 stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of PSPNet) run
 on the same conv kernel; JAX computes them with XLA convs
 (deploy/int8_serve.py:716-758).  Every public function takes and returns
@@ -253,8 +256,12 @@ def _aligned(name, t, n):
 
 
 def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
-                     down=None, sd=1):
-    """One launch of the tensor-core 3x3 pad-1 conv; returns the new codes.
+                     down=None, sd=1, split=0):
+    """One launch of the streaming tensor-core 3x3 pad-1 conv; returns the
+    new codes.  ``split``: 0 lets the kernel's host code share each tile's
+    K walk between a two-block cluster where the launch has no more tiles
+    than the device has SMs (modes 0 and 1: K6; K4's launches on the
+    serving path have 256 or more tiles and stay whole); 1 or 2 forces it.
     The caller has checked the widths (``conv_i8_mma_shape_error``)."""
     _, h, w, cin = x.shape
     cout = e["w"].shape[3]
@@ -276,8 +283,34 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
         down["w"].data_ptr() if down is not None else None,
         down["m"].data_ptr() if down is not None else None,
         down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), ho, wo, _stream(x))
+        out.data_ptr(), ho, wo, split, _stream(x))
     _raise_on(rc, "conv_i8_mma_kernel")
+    return out
+
+
+# widest input whose resident weights (9 taps x 64 channels x 64 outputs,
+# 37,888 bytes with the row padding) leave two blocks an SM
+RESIDENT_MAX_CIN = 64
+
+
+def _launch_conv_mma_res(x, e, mode=0, res=None, rr=0.0):
+    """One launch of the resident-weight tensor-core stride-1 3x3 pad-1
+    conv (mode 0, or 1 with the identity residual ``res``); returns the new
+    codes.  The caller has checked the widths."""
+    _, h, w, cin = x.shape
+    cout = e["w"].shape[3]
+    _aligned("x", x, 16)
+    if res is not None:
+        _aligned("res", res, 8)
+    lib = _build.ready(x.device.index)
+    _check_smem(f"conv_i8_mma_res_kernel: cin={cin}",
+                lib.tsg_conv_mma_res_smem_bytes(cin), x.device.index)
+    out = torch.empty((1, h, w, cout), dtype=torch.int8, device=x.device)
+    rc = lib.tsg_conv_i8_mma_res(
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), cout, e["m"].data_ptr(),
+        e["c"].data_ptr(), mode, res.data_ptr() if res is not None else None,
+        float(rr), out.data_ptr(), _stream(x))
+    _raise_on(rc, "conv_i8_mma_res_kernel")
     return out
 
 
@@ -428,11 +461,33 @@ def _shortcut_launch(t, last, x, e, stride, pad, out_f32=False):
                         out_f32=out_f32)
 
 
-def _res_block_launches(x, e):
-    """apply_block(x, e, 1) as two launches: conv1, then conv2 with the
-    identity residual in its epilogue."""
-    t = _launch_conv(x, e["conv1"], 1, 1)
-    return _shortcut_launch(t, e["conv2"], x, e, 1, 1)
+def _identity_block_launches(x, e):
+    """apply_block(x, e, 1) as two tensor-core launches: conv1, then conv2
+    with the identity residual in its epilogue.  Up to RESIDENT_MAX_CIN
+    channels (K3) on the resident-weight kernel; wider (K6) on the
+    streaming kernel, its K walk split over a cluster where the launch has
+    no more tiles than the device has SMs."""
+    if x.shape[3] <= RESIDENT_MAX_CIN:
+        t = _launch_conv_mma_res(x, e["conv1"])
+        return _launch_conv_mma_res(t, e["conv2"], mode=1, res=x,
+                                    rr=e["res_ratio"])
+    t = _launch_conv_mma(x, e["conv1"], 1)
+    return _launch_conv_mma(t, e["conv2"], 1, mode=1, res=x,
+                            rr=e["res_ratio"])
+
+
+def res_block_i8_shape_error(c: int):
+    """Why the tensor-core launches of a stride-1 identity BasicBlock of
+    width c do not take it, or None: c % 16 == 0
+    (``conv_i8_mma_shape_error``).  Both kernels of the route tile every
+    such width; the resident one's shared memory is checked at launch."""
+    return conv_i8_mma_shape_error(c, c)
+
+
+def l1_stage_i8_shape_error(c: int):
+    """Why the four tensor-core launches of two identity BasicBlocks of
+    width c do not take it, or None (``res_block_i8_shape_error``)."""
+    return res_block_i8_shape_error(c)
 
 
 def _down_block_launches(x, e):
@@ -443,13 +498,20 @@ def _down_block_launches(x, e):
 
 
 def l1_stage_i8(x, e0, e1):
-    """apply_block(apply_block(x, e0, 1), e1, 1) on (1, H, W, C) s8."""
+    """apply_block(apply_block(x, e0, 1), e1, 1) on (1, H, W, C) s8 (stage
+    1 on the serving path, C = 64).  Plain version: any C % 4 == 0.  On the
+    card, four tensor-core launches (``_identity_block_launches``): C % 16
+    == 0 (``l1_stage_i8_shape_error``), ValueError otherwise, before
+    launching."""
     _check_codes(x)
     _check_res_block("e0", e0, x.shape[3])
     _check_res_block("e1", e1, x.shape[3])
     if not _on_cuda(*_block_tensors(x, e0, e1)):
         return l1_stage_i8_plain(x, e0, e1)
-    out = _res_block_launches(_res_block_launches(x, e0), e1)
+    why = l1_stage_i8_shape_error(x.shape[3])
+    if why:
+        raise ValueError(f"l1_stage_i8 (int8 tensor cores): {why}")
+    out = _identity_block_launches(_identity_block_launches(x, e0), e1)
     l1_stage_i8.launches += 1
     return out
 
@@ -500,7 +562,8 @@ def down_stage_i8(x, e0, e1):
 
 # ----------------------------------------------------------------------
 # K5, K6: ResNet-18 stage 4 as its two blocks (the strided block, then
-# the stride-1 block), each a chain of two launches
+# the stride-1 block), each a chain of two launches (K5 on CUDA cores, K6
+# on the tensor cores)
 # ----------------------------------------------------------------------
 
 def down_block_i8_plain(x, e):
@@ -509,8 +572,10 @@ def down_block_i8_plain(x, e):
 
 def down_block_i8(x, e):
     """apply_block(x, e, 2), a strided BasicBlock with 1x1/2 projection:
-    (1, H, W, cin) s8 -> (1, ceil(H/2), ceil(W/2), cout) s8; any cin,
-    cout % 4 == 0 up to 512 (stage 4: 256 -> 512)."""
+    (1, H, W, cin) s8 -> (1, ceil(H/2), ceil(W/2), cout) s8 (stage 4: 256
+    -> 512).  Any cin and cout % 4 == 0; on the card two launches of the
+    CUDA-core conv, which raise ValueError before launching where their
+    shared memory exceeds the device's."""
     _check_codes(x)
     _check_down_block("e", e, x.shape[3])
     if not _on_cuda(*_block_tensors(x, e)):
@@ -526,12 +591,18 @@ def res_block_i8_plain(x, e):
 
 def res_block_i8(x, e):
     """apply_block(x, e, 1), a stride-1 identity BasicBlock on (1, H, W, C)
-    s8; any C % 4 == 0 up to 512 (stage 4: C = 512)."""
+    s8 (stage 4: C = 512).  Plain version: any C % 4 == 0.  On the card,
+    two tensor-core launches (``_identity_block_launches``): C % 16 == 0
+    (``res_block_i8_shape_error``), ValueError otherwise, before
+    launching."""
     _check_codes(x)
     _check_res_block("e", e, x.shape[3])
     if not _on_cuda(*_block_tensors(x, e)):
         return res_block_i8_plain(x, e)
-    out = _res_block_launches(x, e)
+    why = res_block_i8_shape_error(x.shape[3])
+    if why:
+        raise ValueError(f"res_block_i8 (int8 tensor cores): {why}")
+    out = _identity_block_launches(x, e)
     res_block_i8.launches += 1
     return out
 
