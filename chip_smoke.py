@@ -27,17 +27,20 @@ script
      1, conv3x3s2_i8 2, l1_stage_i8 1, down_stage_i8 2 (stages 2 and 3),
      down_block_i8 1, res_block_i8 1, K7 0) and checks that the forward's
      only float64 conv is the spatial path's 1x1 (stages 3 and 4 run on
-     K4-K6);
+     K4-K6); lists the device kernels of one forward (torch.profiler) and
+     checks that no CUDA-core conv (conv_i8_kernel) runs and that K5's
+     conv2 is the cluster-split projection launch;
   5. compares every kernel with its plain PyTorch version on the tensors
      the main path fed it (K2-K6 bit-exact, K1 within one code on at most
      a 1e-3 share of its codes), and the served graph with the plain graph
      run on the CPU on one small input;
   6. times the served forward over the distinct inputs, each kernel against
-     its plain version, and the plain-PyTorch parts of the graph, with CUDA
-     events after a warm-up, and logs four same-MACs vendor yardsticks (not
-     on the path): cuDNN's bf16 conv of K1's s2d 4x4 conv and
-     ``torch._int_mm`` of one K3 link, of stage 3's conv2 (K4) and of one
-     K6 link, each as an im2col GEMM;
+     its plain version (K2's two launches, sp1 and sp2, as rows of their
+     own), and the plain-PyTorch parts of the graph, with CUDA events after
+     a warm-up, and logs same-MACs vendor yardsticks (not on the path):
+     cuDNN's bf16 conv of K1's s2d 4x4 conv and ``torch._int_mm`` of K2's
+     sp1, of one K3 link, of stage 3's conv2 (K4), of K5's two links and of
+     one K6 link, each as an im2col GEMM;
   7. full-resolution path: each graph launches K7 exactly once per forward
      (the int8 graph also K1-K6, the bf16 graph K11 once); K11 meets its
      bars against its plain version on the bf16 graph's stem inputs (bf16
@@ -358,13 +361,14 @@ def int_mm_ms(dev, m, k, n):
 
 def same_macs_yardsticks(dev, xs, wf, kernel_ms, main_ops):
     """Vendor tensor-core calls with the same multiply-accumulates as K1 and
-    single K3, K4 and K6 links, timed beside them (none is on the path, and
-    none is a PyTorch call for the kernels' whole functions, so they are
-    logged here and not as ``library_ms``): cuDNN's bf16 conv of K1's s2d
-    4x4 conv (no requant, no pool; NCHW and channels-last), and
-    ``torch._int_mm`` (int8 -> int32) of im2col GEMMs: a K3 link (131,072 x
-    576 x 64), stage 3's conv2 (8,192 x 2,304 x 256) and a K6 link (2,048 x
-    4,608 x 512)."""
+    single K2-K6 links, timed beside them (none is on the path, and none is
+    a PyTorch call for the kernels' whole functions, so they are logged
+    here and not as ``library_ms``): cuDNN's bf16 conv of K1's s2d 4x4 conv
+    (no requant, no pool; NCHW and channels-last), and ``torch._int_mm``
+    (int8 -> int32) of im2col GEMMs: K2's sp1 and a K3 link (131,072 x 576
+    x 64), stage 3's conv2 (8,192 x 2,304 x 256), K5's conv1 (2,048 x 2,304
+    x 512) and conv2 (2,048 x 4,608 x 512, without its projection) and a K6
+    link (2,048 x 4,608 x 512)."""
     import torch.nn.functional as F
 
     x = xs.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
@@ -381,16 +385,65 @@ def same_macs_yardsticks(dev, xs, wf, kernel_ms, main_ops):
         f"{tuple(w.shape)} (no requant, no pool) NCHW {conv['nchw']:.4f} ms, "
         f"channels-last {conv['channels_last']:.4f} ms; K1 {k1:.4f} ms = "
         f"{k1 / min(conv.values()):.2f}x the faster")
-    for tag, name, (m, k, n), links in (
-            ("K3", "l1_stage_i8", (131072, 576, 64), "four links"),
-            ("K4", "down_stage_i8:stage3", (8192, 2304, 256), "four links"),
-            ("K6", "res_block_i8", (2048, 4608, 512), "two links")):
-        mm_ms = int_mm_ms(dev, m, k, n)
+    for tag, name, gemms, links in (
+            ("K2", "conv3x3s2_i8:sp1", [(131072, 576, 64)], "one launch"),
+            ("K3", "l1_stage_i8", [(131072, 576, 64)], "four links"),
+            ("K4", "down_stage_i8:stage3", [(8192, 2304, 256)],
+             "four links"),
+            ("K5", "down_block_i8", [(2048, 2304, 512), (2048, 4608, 512)],
+             "two links"),
+            ("K6", "res_block_i8", [(2048, 4608, 512)], "two links")):
         ops, ms = main_ops[name], kernel_ms[name]
-        log(f"same-MACs yardstick, {tag}: torch._int_mm ({m}, {k}) x ({k}, "
-            f"{n}) {mm_ms:.4f} ms = {2 * m * k * n / mm_ms / 1e9:.1f} TOP/s; "
-            f"{tag} {name} ({links}, {ops / 1e9:.2f} G int8 ops) {ms:.4f} ms "
-            f"= {ops / ms / 1e9:.1f} TOP/s")
+        for m, k, n in gemms:
+            mm_ms = int_mm_ms(dev, m, k, n)
+            log(f"same-MACs yardstick, {tag}: torch._int_mm ({m}, {k}) x "
+                f"({k}, {n}) {mm_ms:.4f} ms = "
+                f"{2 * m * k * n / mm_ms / 1e9:.1f} TOP/s; {tag} {name} "
+                f"({links}, {ops / 1e9:.2f} G int8 ops) {ms:.4f} ms = "
+                f"{ops / ms / 1e9:.1f} TOP/s")
+
+
+# one served forward's tensor-core conv launches (K2 and K3 on the
+# resident-weight kernel, K4 unsplit, K5 and K6 split over two-block
+# clusters), as torch.profiler names their instantiations
+MAIN_PATH_CONVS = {"conv_i8_mma_res_kernel<0>": 4,
+                   "conv_i8_mma_res_kernel<1>": 2,
+                   "conv_i8_mma_kernel<0, 1>": 4,
+                   "conv_i8_mma_kernel<1, 1>": 2,
+                   "conv_i8_mma_kernel<2, 1>": 2,
+                   "conv_i8_mma_kernel<0, 2>": 2,
+                   "conv_i8_mma_kernel<1, 2>": 1,
+                   "conv_i8_mma_kernel<2, 2>": 1}
+
+
+def main_path_kernels(infer, pkg, xs):
+    """The device kernels of one served forward by torch.profiler: no
+    CUDA-core conv (conv_i8_kernel) runs, and the tensor-core convs are
+    MAIN_PATH_CONVS (K5's conv2 the projection split over a cluster)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        infer(pkg, xs)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    convs = {}
+    for key, n in kernels.items():
+        m = re.search(r"(conv_i8\w*kernel<[\d, ]+>)", key)
+        if m:
+            convs[m.group(1)] = convs.get(m.group(1), 0) + n
+    log(f"one served forward: {sum(kernels.values())} device kernels, "
+        f"{len(kernels)} distinct; int8 convs {convs}")
+    if not kernels:
+        fail("the profiler saw no device kernel in a served forward")
+    if convs != MAIN_PATH_CONVS:
+        fail(f"a served forward's int8 conv launches are {convs}, expected "
+             f"{MAIN_PATH_CONVS}")
 
 
 def main():
@@ -476,6 +529,8 @@ def main():
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
+    main_path_kernels(infer, pkg, xss[0])
+
     # stages 3 and 4 make no float64 conv: the body's only one is sp3
     n_qconv = []
     qconv = K.qconv
@@ -537,10 +592,12 @@ def main():
         ("stem_pool_i8", K.stem_pool_i8, K.stem_pool_i8_plain, 384,
          [(d["xs"], st["wf"], st["mf"], st["cf"], st["n_sp"])
           for d in per_image], stem_work),
-        ("conv3x3s2_i8", K.conv3x3s2_i8, K.conv3x3s2_i8_plain, 515,
-         [(d[k], *(pkg[p][f] for f in ("w", "m", "c")))
-          for d in per_image for k, p in (("sp", "sp1"), ("s1", "sp2"))],
-         conv_work),
+        ("conv3x3s2_i8:sp1", K.conv3x3s2_i8, K.conv3x3s2_i8_plain, 515,
+         [(d["sp"], *(pkg["sp1"][f] for f in ("w", "m", "c")))
+          for d in per_image], conv_work),
+        ("conv3x3s2_i8:sp2", K.conv3x3s2_i8, K.conv3x3s2_i8_plain, 515,
+         [(d["s1"], *(pkg["sp2"][f] for f in ("w", "m", "c")))
+          for d in per_image], conv_work),
         ("l1_stage_i8", K.l1_stage_i8, K.l1_stage_i8_plain, 763,
          [(d["pooled"], pkg["l1_0"], pkg["l1_1"]) for d in per_image],
          conv_work),
@@ -619,7 +676,8 @@ def main():
     log(f"plain float64 route: sp3 {sp3_ms:.4f} ms, int8 decoder "
         f"{dec_ms:.4f} ms")
     parts = [("stem + pool (K1)", kernel_ms["stem_pool_i8"]),
-             ("spatial path 3x3/2 x2 (K2)", 2 * kernel_ms["conv3x3s2_i8"]),
+             ("spatial path 3x3/2 x2 (K2)", kernel_ms["conv3x3s2_i8:sp1"]
+              + kernel_ms["conv3x3s2_i8:sp2"]),
              ("sp3 1x1 (plain)", sp3_ms),
              ("stage 1 (K3)", kernel_ms["l1_stage_i8"]),
              ("stage 2 (K4)", kernel_ms["down_stage_i8:stage2"]),

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""K1 (``stem_pool_i8``), K3 (``l1_stage_i8``), K4 (``down_stage_i8``) and
-K6 (``res_block_i8``) on a CUDA card at the main path's shapes: this tree's
-tensor-core kernels against another checkout's (``--root``, e.g. the parent
-commit unpacked under ``_archive/``) in turns in one process, and this
-tree's source built with other values of its tuning constants
-(``--variant``).
+"""K1 (``stem_pool_i8``), K2 (``conv3x3s2_i8``), K3 (``l1_stage_i8``), K4
+(``down_stage_i8``), K5 (``down_block_i8``) and K6 (``res_block_i8``) on a
+CUDA card at the main path's shapes: this tree's tensor-core kernels against
+another checkout's (``--root``, e.g. the parent commit unpacked under
+``_archive/``) in turns in one process, and this tree's source built with
+other values of its tuning constants (``--variant``).
 
     python scripts/torch_int8_kernel_variants.py --root _archive/parent
     python scripts/torch_int8_kernel_variants.py \\
@@ -18,23 +18,27 @@ other tree) it prints ptxas's registers and spills of every kernel of the
 library, the dynamic shared memory of a K1 and a K4 launch, and the count
 of HMMA (bf16/f16 tensor-core) and IMMA (int8 tensor-core) instructions of
 each kernel in ``cuobjdump -sass`` of the built library, and exits non-zero
-unless every tensor-core conv kernel (those K3, K4 and K6 launch) has IMMA.
-Then, on seeded random codes and weights at the main path's shapes (K1: xs
-(1, 515, 1027, 12) -> 64 sp + 64 pooled channels; K3: (1, 256, 512, 64);
-K4 stage 2: (1, 256, 512, 64) -> 128, stage 3: (1, 128, 256, 128) -> 256;
-K6: (1, 32, 64, 512)), the CUDA-event ms per call of K1, of each K4 link
-(conv1 3x3/2; conv2 with the 1x1/2 projection; the stride-1 block's conv1;
-its conv2 with the residual), of each K3 and K6 link (conv1; conv2 with
-the residual; K3 twice) and of each whole stage or block, measured in
-turns: other tree, this tree, variants and alternatives, this tree, other
-tree (``--reps`` calls each after a warm-up).  The alternatives are this
-tree's other launches of the same link: K3's links on the streaming kernel
-unsplit (K4's launch as it is, ``stream``), K6's without the K split
-(``split1``).  Each row has its bound (int8 or bf16 operations over the
-dense peak, or bytes over 3.35 TB/s) and the outputs are checked: K4's
-links bit-exact against this tree's codes, K3's and K6's links and every
-whole stage against the plain versions, K1 within one code on at most 1e-3
-of the codes.  Prints the card's name and power limit, and
+unless every tensor-core conv kernel (those K2-K6 launch, K5's split
+projection launch among them) has IMMA.  Then, on seeded random codes and
+weights at the main path's shapes (K1: xs (1, 515, 1027, 12) -> 64 sp + 64
+pooled channels; K2: (1, 512, 1024, 64) -> 64 and on to (1, 128, 256, 64);
+K3: (1, 256, 512, 64); K4 stage 2: (1, 256, 512, 64) -> 128, stage 3: (1,
+128, 256, 128) -> 256; K5: (1, 64, 128, 256) -> 512; K6: (1, 32, 64,
+512)), the CUDA-event ms per call of K1, of each K4 link (conv1 3x3/2;
+conv2 with the 1x1/2 projection; the stride-1 block's conv1; its conv2 with
+the residual), of each K3 and K6 link (conv1; conv2 with the residual; K3
+twice), of each K2 launch (sp1, sp2) and K5 link (conv1 3x3/2; conv2 with
+the projection) and of each whole stage or block, measured in turns: other
+tree, this tree, variants and alternatives, this tree, other tree
+(``--reps`` calls each after a warm-up); the other tree's links run as its
+wrappers launch them (``parent_link``).  The alternatives are this tree's
+other launches of the same link: K3's and K2's links on the streaming
+kernel (K4's launch as it is, ``stream``), K6's and K5's without the K
+split (``split1``).  Each row has its bound (int8 or bf16 operations over
+the dense peak, or bytes over 3.35 TB/s) and the outputs are checked: K4's
+links bit-exact against this tree's codes, K2's, K3's, K5's and K6's links
+and every whole stage against the plain versions, K1 within one code on at
+most 1e-3 of the codes.  Prints the card's name and power limit, and
 one JSON line (also to ``--out``).  With ``--forward N`` it also times the
 main path itself in both trees (``entry()``: BiSeNet-R18.speed int8-through
 at 1024x2048, seeded weights; four seeded uint8 images, N rounds of four
@@ -67,6 +71,11 @@ PEAK = {"int8": 1979e12, "bf16": 989e12}
 H2, W2 = 512, 1024          # the main path's stem output at 1024x2048
 STAGES = {"stage2": (256, 512, 64), "stage3": (128, 256, 128)}
 IDENTITY = {"K3": (256, 512, 64), "K6": (32, 64, 512)}  # (h, w, c)
+SPATIAL = (512, 1024, 64)    # K2: sp1's input (h, w, c); sp2 takes sp1's codes
+DOWN_BLOCK = (64, 128, 256)  # K5: stage 4's input (h, w, cin), cout 2 cin
+# the tensor-core instantiations K2 and K5 launch (mangled-name parts)
+K2_K5_KERNELS = ("conv_i8_mma_res_kernelILi0E", "conv_i8_mma_kernelILi0ELi2E",
+                 "conv_i8_mma_kernelILi2ELi2E")
 
 
 def import_tree(root, alias):
@@ -166,12 +175,16 @@ def report_build(tag, so, log):
 
 def check_imma(tag, rows):
     """Every tensor-core conv kernel (conv_i8_mma_kernel's and
-    conv_i8_mma_res_kernel's instantiations: all that K3, K4 and K6
-    launch) has IMMA instructions."""
+    conv_i8_mma_res_kernel's instantiations: all that K2-K6 launch) has
+    IMMA instructions, and those K2 and K5 launch are among them."""
     mma = {k: v["IMMA"] for k, v in rows.items() if "conv_i8_mma" in k}
     if not mma or min(mma.values()) == 0:
         raise SystemExit(f"[{tag}] a tensor-core conv kernel has no IMMA: "
                          f"{mma}")
+    missing = [n for n in K2_K5_KERNELS if not any(n in k for k in mma)]
+    if missing:
+        raise SystemExit(f"[{tag}] no tensor-core kernel {missing} in the "
+                         f"library")
     print(f"  [{tag}] IMMA in all {len(mma)} tensor-core conv kernels: "
           f"{sorted(mma.values())}", flush=True)
 
@@ -225,13 +238,23 @@ def operands(dev):
                    "res_ratio": float(torch.rand((), generator=g)) + 0.3}
                   for _ in range(2 if name == "K3" else 1)]
         identity[name] = (x, blocks)
-    return stem, stages, identity
+    h, w, c = SPATIAL
+    spatial = (torch.randint(0, 128, (1, h, w, c), generator=g,
+                             dtype=torch.int8).to(dev),
+               cbr(3, c, c), cbr(3, c, c))
+    h, w, cin = DOWN_BLOCK
+    x = torch.randint(0, 128, (1, h, w, cin), generator=g,
+                      dtype=torch.int8).to(dev)
+    k5 = (x, {"conv1": cbr(3, cin, 2 * cin), "conv2": cbr(3, 2 * cin, 2 * cin),
+              "down": cbr(1, cin, 2 * cin), "stride": 2,
+              "res_ratio": float(torch.rand((), generator=g)) + 0.3})
+    return stem, stages, identity, spatial, k5
 
 
 def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
              down=None, split=1):
-    """One tsg_conv_i8_mma call into ``out``; ``split`` None for a library
-    whose entry point has no split argument (the parent's)."""
+    """One tsg_conv_i8_mma call into ``out`` (``split`` as the entry
+    point takes it: 0 for its host rule, 1 or 2)."""
     _, h, w, cin = x.shape
     _, ho, wo, cout = out.shape
     rc = lib.tsg_conv_i8_mma(
@@ -244,17 +267,16 @@ def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
         down["w"].data_ptr() if down is not None else None,
         down["m"].data_ptr() if down is not None else None,
         down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), ho, wo, *([] if split is None else [split]),
-        K._stream(x))
+        out.data_ptr(), ho, wo, split, K._stream(x))
     if rc:
         raise RuntimeError(f"tsg_conv_i8_mma: CUDA error {rc}")
     return out
 
 
-def res_call(lib, x, e, out, mode=0, res=None, rr=0.0):
+def res_call(lib, x, e, out, mode=0, res=None, rr=0.0, stride=1):
     _, h, w, cin = x.shape
     rc = lib.tsg_conv_i8_mma_res(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), out.shape[3],
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, out.shape[3],
         e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
         out.data_ptr(), K._stream(x))
@@ -298,6 +320,27 @@ def plain_link(x, e, mode, res, rr):
     if mode == 1:
         z = K.fma(res.float(), float(torch.tensor(rr, dtype=torch.float32)), z)
     return K.requant(torch.relu(z))
+
+
+def parent_link(parent, kname, x, e, stride, mode, res=None, rr=0.0,
+                xd=None, down=None):
+    """One link of K2, K3, K5 or K6 launched as the other tree's wrapper
+    launches it: on its tensor-core route where that tree has one (K3 and
+    K6 from the resident-weight kernel's tree on, K2 and K5 from their
+    shape checks' tree on), else on its CUDA-core conv."""
+    tensor_cores = hasattr(parent, {"K2": "conv3x3s2_i8_shape_error",
+                                    "K5": "down_block_i8_shape_error"}.get(
+                                        kname, "RESIDENT_MAX_CIN"))
+    if not tensor_cores:
+        return parent._launch_conv(x, e, stride, 1, mode=mode, res=res,
+                                   rr=rr, xd=xd, down=down, sd=2)
+    if kname == "K2":
+        return parent._launch_conv_mma_res(x, e, stride=2)
+    if kname == "K3" or (kname == "K6"
+                         and x.shape[3] <= parent.RESIDENT_MAX_CIN):
+        return parent._launch_conv_mma_res(x, e, mode=mode, res=res, rr=rr)
+    return parent._launch_conv_mma(x, e, stride, mode=mode, res=res, rr=rr,
+                                   xd=xd, down=down, sd=2)
 
 
 def links(x, e0, e1):
@@ -409,7 +452,7 @@ def main(argv=None):
             "parent", parent_build.BuildInfo.paths["int8_serve_kernels"],
             parent_build.BuildInfo.logs.get("int8_serve_kernels", ""))
 
-    stem, stages, identity = operands(dev)
+    stem, stages, identity, spatial, k5 = operands(dev)
     results = {}
 
     def turns(item, calls, check):
@@ -444,7 +487,7 @@ def main(argv=None):
                 pooled.data_ptr(), H2, W2, 12, 128, 64, K._stream(sp))
             if rc:
                 raise RuntimeError(f"tsg_stem_pool_i8: CUDA error {rc}")
-            stem_out[b] = (sp.clone(), pooled.clone())
+            stem_out[b] = (sp, pooled)  # checked before the next call
         return run
 
     ref = K.stem_pool_i8_plain(stem["xs"], stem["wf"], stem["m"], stem["c"],
@@ -488,7 +531,7 @@ def main(argv=None):
                                             outs[b], mode, extra.get("res"),
                                             extra.get("rr", 0.0),
                                             extra.get("xd"),
-                                            extra.get("down"), split=None)
+                                            extra.get("down"), split=0)
                 return lambda: mma_call(libs[b], xin, e, stride, outs[b],
                                         mode, extra.get("res"),
                                         extra.get("rr", 0.0),
@@ -542,8 +585,8 @@ def main(argv=None):
             def link_call(b):
                 if b == "parent":
                     def run():
-                        got[b] = parent._launch_conv(xin, e, 1, 1, mode=mode,
-                                                     res=res, rr=rr)
+                        got[b] = parent_link(parent, kname, xin, e, 1, mode,
+                                             res=res, rr=rr)
                     return run
                 if b == alt:
                     return lambda: mma_call(libs["change"], xin, e, 1,
@@ -594,6 +637,73 @@ def main(argv=None):
               f"included): " + ", ".join(f"{b} {ms}" for b, ms in t.items())
               + f" ms; bound {bound_ms(ops, n_bytes, 'int8'):.5f} ms "
               f"({ops / 1e9:.2f} G int8 ops)", flush=True)
+
+    # K2's two launches and K5's two links: (item, input, entry, stride,
+    # mode, extra, the plain codes), the plain version's codes as inputs
+    x, p1, p2 = spatial
+    s1 = K.conv3x3s2_i8_plain(x, p1["w"], p1["m"], p1["c"]).contiguous()
+    x5, e5 = k5
+    t5 = K.apply_cbr(x5, e5["conv1"], 2, 1).contiguous()
+    new_links = [
+        ("K2:sp1", x, p1, 2, 0, {}, s1),
+        ("K2:sp2", s1, p2, 2, 0, {},
+         K.conv3x3s2_i8_plain(s1, p2["w"], p2["m"], p2["c"])),
+        ("K5:conv1_s2", x5, e5["conv1"], 2, 0, {}, t5),
+        ("K5:conv2_proj", t5, e5["conv2"], 1, 2,
+         {"xd": x5, "down": e5["down"]}, K.apply_block(x5, e5, 2))]
+    for item, xin, e, stride, mode, extra, want in new_links:
+        ops, n_bytes, (ho, wo, cout) = link_work(xin, e, stride, mode, extra)
+        alt = "stream" if item.startswith("K2") else "split1"
+        outs = {b: torch.empty((1, ho, wo, cout), dtype=torch.int8,
+                               device=dev) for b in [*libs, alt]}
+        got = {}
+
+        def link_call(b):
+            if b == "parent":
+                def run():
+                    got[b] = parent_link(parent, item[:2], xin, e, stride,
+                                         mode, xd=extra.get("xd"),
+                                         down=extra.get("down"))
+                return run
+            if item.startswith("K2") and b != alt:
+                return lambda: res_call(libs[b], xin, e, outs[b], stride=2)
+            return lambda: mma_call(
+                libs["change"] if b == alt else libs[b], xin, e, stride,
+                outs[b], mode, xd=extra.get("xd"), down=extra.get("down"),
+                split=1 if b == "split1" else 0)
+
+        def link_check(b):
+            link_call(b)()
+            torch.cuda.synchronize()
+            same_codes(f"{item} [{b}] vs plain", got.get(b, outs.get(b)),
+                       want)
+
+        calls = {b: link_call(b) for b in [*libs, alt]}
+        if parent:
+            calls["parent"] = link_call("parent")
+        t = turns(item, calls, link_check)
+        bnd = bound_ms(ops, n_bytes, "int8")
+        best = min(min(v) for b, v in t.items() if b not in ("parent", alt))
+        print(f"{item} {tuple(xin.shape)} -> {cout} (stride {stride}, mode "
+              f"{mode}): " + ", ".join(f"{b} {ms}" for b, ms in t.items())
+              + f" ms; bound {bnd:.5f} ms ({ops / 1e9:.2f} G int8 ops, "
+              f"{n_bytes / 1e6:.1f} MB); this tree {ops / best / 1e9:.1f} "
+              f"TOP/s", flush=True)
+    for item, fn, fargs, want in (
+            ("K2:spatial_path_i8", "spatial_path_i8", (x, p1, p2),
+             K.conv3x3s2_i8_plain(s1, p2["w"], p2["m"], p2["c"])),
+            ("K5:down_block_i8", "down_block_i8", (x5, e5),
+             K.apply_block(x5, e5, 2))):
+        calls = {"change": lambda: getattr(K, fn)(*fargs)}
+        if parent:
+            calls["parent"] = lambda: getattr(parent, fn)(*fargs)
+
+        def whole_check(b):
+            same_codes(f"{item} [{b}] vs plain", calls[b](), want)
+
+        t = turns(item, calls, whole_check)
+        print(f"{item} (two launches, wrapper included): " + ", ".join(
+            f"{b} {ms}" for b, ms in t.items()) + " ms", flush=True)
 
     if args.forward:
         trees = {"change": importlib.import_module("torchseg_tpu_torch.entry")}

@@ -10,9 +10,10 @@ counts, output sizes that are not multiples of 32 or 128, BN inputs whose
 H*W is odd or 1, misaligned BN inputs, stem outputs off K11's 64-column
 and 8-row strips, focal-loss element counts that are not multiples of the
 block), so the edge masking and the
-scalar paths are exercised; K3's resident-weight kernel and K6's K split
-over a two-block cluster are held at the main path's shapes and at ragged
-ones; chip_smoke.py covers the serving and training
+scalar paths are exercised; K3's and K2's resident-weight kernel (K2 at
+stride 2), and K6's and K5's K split over a two-block cluster (K5's with
+the projection's chunks on the first block), are held at the main path's
+shapes and at ragged ones; chip_smoke.py covers the serving and training
 shapes, and K8/K9 are also held at every distinct BN input shape of the
 DFN-R101 and BiSeNet-R18 training steps (K8 in its one-thread-per-channel,
 one-block and cluster forms; K9 on its per-run and flat grids).  This file
@@ -131,13 +132,24 @@ def test_stem_pool_kernel_refuses_widths_before_launch(dev, cin, cout, n_sp):
     assert K.stem_pool_i8.launches == before
 
 
-@pytest.mark.parametrize("h,w", [(37, 45), (64, 130), (1, 1)])
-def test_conv3x3s2_kernel_bit_exact(dev, h, w):
+# K2 runs the resident-weight kernel at stride 2: odd H and W leave a
+# window on the bottom and right pad, 256-pixel tiles cross output rows
+# (ragged at (37, 45)), (64, 130) gives a 65-wide output, (1, 1) one pixel;
+# (512, 1024) is the main path's first launch (half an output row a tile).
+# Off the serving width: part-filled K chunks (cin 16, 48), cout % 16 == 8
+# (8-byte stores), cin = 128 (two chunks a tap), cout above one 64-channel
+# block.
+@pytest.mark.parametrize("cin,cout,h,w", [
+    (64, 64, 37, 45), (64, 64, 64, 130), (64, 64, 1, 1), (64, 64, 512, 1024),
+    (16, 72, 9, 14), (48, 24, 11, 23), (128, 40, 5, 6), (64, 136, 8, 70)])
+def test_conv3x3s2_kernel_bit_exact(dev, cin, cout, h, w):
     g = _gen(1)
-    x = _codes(g, (1, h, w, 64)).to(dev)
-    e = _cbr(g, 3, 64, 64, dev)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _cbr(g, 3, cin, cout, dev)
+    before = K.conv3x3s2_i8.launches
     _exact(K.conv3x3s2_i8(x, e["w"], e["m"], e["c"]),
            K.conv3x3s2_i8_plain(x, e["w"], e["m"], e["c"]))
+    assert K.conv3x3s2_i8.launches == before + 1
 
 
 # K3 at C <= 64 runs the resident-weight kernel: persistent blocks walk
@@ -217,7 +229,11 @@ def test_conv_mma_kernel_modes_bit_exact(dev, mode, cin, cout, cdin, stride,
            K.requant(torch.relu(z)))
 
 
-@pytest.mark.parametrize("cin,h,w", [(256, 9, 13), (256, 16, 33)])
+# K5 is K4's first two launches; at (256, 64, 128), the main path's stage
+# 4, both have 128 output tiles and split each tile's K walk over a
+# two-block cluster (conv2 with the projection's chunks on the first).
+@pytest.mark.parametrize("cin,h,w", [(256, 9, 13), (256, 16, 33),
+                                     (256, 64, 128), (64, 7, 9)])
 def test_down_block_kernel_bit_exact(dev, cin, h, w):
     g = _gen(5)
     x = _codes(g, (1, h, w, cin)).to(dev)
@@ -301,6 +317,8 @@ def test_conv_mma_kernel_split_bit_exact(dev, mode, cin, cout, h, w):
 
 
 def test_conv_mma_kernel_refuses_a_split_projection(dev):
+    """A projection launch splits over one or two blocks only: a split of
+    three is refused at launch."""
     g = _gen(23)
     x = _codes(g, (1, 4, 6, 64)).to(dev)
     e = _cbr(g, 3, 64, 64, dev)
@@ -308,7 +326,49 @@ def test_conv_mma_kernel_refuses_a_split_projection(dev):
     with pytest.raises(RuntimeError, match="conv_i8_mma_kernel"):
         K._launch_conv_mma(x, e, 1, mode=2, xd=xd, down=_cbr(g, 1, 32, 64,
                                                              dev), sd=2,
-                           split=2)
+                           split=3)
+
+
+# (cin, cout, cdin, h, w): the main path's K5 conv2 (72 main chunks and 4
+# projection chunks: 34 + 4 on the first block, 38 on the second); 9 main
+# and 2 projection chunks, cout % 16 == 8; cdin = 1024 (16 projection
+# chunks against 9 main: the first block walks the projection alone).
+@pytest.mark.parametrize("cin,cout,cdin,h,w", [
+    (512, 512, 256, 32, 64), (48, 24, 80, 11, 23), (16, 32, 1024, 5, 7)])
+def test_conv_mma_kernel_split_projection_bit_exact(dev, cin, cout, cdin, h,
+                                                    w):
+    """Mode 2 with each tile's K walk split over a two-block cluster, against
+    the unsplit launch and the plain formula."""
+    g = _gen(25)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _cbr(g, 3, cin, cout, dev)
+    xd = _codes(g, (1, 2 * h, 2 * w, cdin)).to(dev)
+    down = _cbr(g, 1, cdin, cout, dev)
+    z = K.fma(K.qconv(x, e["w"], 1, 1).float(), e["m"], e["c"])
+    z = K.fma(K.qconv(xd, down["w"], 2, 0).float(), down["m"], z) + down["c"]
+    ref = K.requant(torch.relu(z))
+    kw = {"xd": xd, "down": down, "sd": 2}
+    _exact(K._launch_conv_mma(x, e, 1, mode=2, split=2, **kw), ref)
+    _exact(K._launch_conv_mma(x, e, 1, mode=2, split=1, **kw), ref)
+
+
+@pytest.mark.parametrize("fn", ["conv3x3s2_i8", "down_block_i8"])
+def test_k2_k5_refuse_widths_before_launch(dev, fn):
+    """K2 and K5 take cin % 16 == 0 on the card; cin = 36 raises before a
+    launch (the plain versions take any cin)."""
+    g = _gen(26)
+    x = _codes(g, (1, 6, 10, 36)).to(dev)
+    kern = getattr(K, fn)
+    if fn == "conv3x3s2_i8":
+        e = _cbr(g, 3, 36, 64, dev)
+        args = (x, e["w"], e["m"], e["c"])
+    else:
+        args = (x, _block(g, 36, 64, 2, dev))
+    before = kern.launches
+    with pytest.raises(ValueError, match="cin must be a positive multiple"):
+        kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

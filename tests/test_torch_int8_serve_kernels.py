@@ -315,6 +315,17 @@ SHAPE_LIMITS = [
     (K.res_block_i8_shape_error, (36,), "cin"),
     (K.res_block_i8_shape_error, (20,), "cin"),
     (K.res_block_i8_shape_error, (8,), "cin"),
+    (K.down_block_i8_shape_error, (256, 512), None),
+    (K.down_block_i8_shape_error, (64, 128), None),
+    (K.down_block_i8_shape_error, (36, 512), "cin"),
+    (K.down_block_i8_shape_error, (256, 72), "cin"),
+    (K.down_block_i8_shape_error, (40, 512), "cin"),
+    (K.down_block_i8_shape_error, (256, 60), "cout"),
+    (K.conv3x3s2_i8_shape_error, (64, 64), None),
+    (K.conv3x3s2_i8_shape_error, (16, 72), None),
+    (K.conv3x3s2_i8_shape_error, (36, 64), "cin"),
+    (K.conv3x3s2_i8_shape_error, (40, 64), "cin"),
+    (K.conv3x3s2_i8_shape_error, (64, 60), "cout"),
 ]
 
 
@@ -329,11 +340,14 @@ def test_tensor_core_kernels_shape_limits(fn, args, expect):
 
 
 def test_shape_limits_take_the_serving_widths():
-    """The main path's stem (12 s2d channels -> 64 + 64), stage 1 (64),
-    both down stages (64 -> 128, 128 -> 256) and stage 4's identity block
+    """The main path's stem (12 s2d channels -> 64 + 64), both SpatialPath
+    3x3/2 CBRs (64 -> 64), stage 1 (64), both down stages (64 -> 128, 128
+    -> 256), stage 4's strided block (256 -> 512) and its identity block
     (512) are within the kernels' limits."""
     assert K.stem_pool_i8_shape_error(12, 128, 64) is None
+    assert K.conv3x3s2_i8_shape_error(64, 64) is None
     assert K.l1_stage_i8_shape_error(64) is None
     for cin in (64, 128):
         assert K.down_stage_i8_shape_error(cin, 2 * cin) is None
+    assert K.down_block_i8_shape_error(256, 512) is None
     assert K.res_block_i8_shape_error(512) is None

@@ -16,23 +16,26 @@
 //                         stages 2 and 3: four launches (the 1x1/2
 //                         projection fused into the first block's conv2
 //                         as a second GEMM);
+//       K5 down_block_i8  replacing down_block_i8_from_paired (:1136),
+//                         stage 4's strided block: K4's first two
+//                         launches, each tile's K walk split over a
+//                         two-block cluster (128 output tiles on 132 SMs;
+//                         the projection's chunks all on the first block);
 //       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
-//                         stride-1 block: two launches, K split over a
-//                         two-block cluster (128 output tiles on 132 SMs);
+//                         stride-1 block: two launches, K split as K5's;
 //       K3 l1_stage_i8    (below) at widths whose weights do not fit
 //                         conv_i8_mma_res_kernel.
-//   conv_i8_mma_res_kernel         the int8 tensor-core stride-1 3x3 conv
-//       with the link's whole weight resident in shared memory, persistent
-//       blocks; launched by
+//   conv_i8_mma_res_kernel         the int8 tensor-core 3x3 conv (stride 1
+//       or 2) with the link's whole weight resident in shared memory,
+//       persistent blocks; launched by
 //       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763),
 //                         stage 1: a chain of four launches (and K6 at
-//                         widths up to 64).
+//                         widths up to 64);
+//       K2 conv3x3s2_i8   replacing conv3x3s2_i8_quad (:515), twice per
+//                         forward through spatial_path_i8 (:569/:587),
+//                         at stride 2.
 //   conv_i8_kernel                 the shared int8 conv + epilogue on
 //       CUDA cores (__dp4a; any k, stride, dilation), launched by
-//       K2 conv3x3s2_i8   replacing conv3x3s2_i8_quad (:515), twice per
-//                         forward through spatial_path_i8 (:569/:587);
-//       K5 down_block_i8  replacing down_block_i8_from_paired (:1136),
-//                         stage 4's strided block: two launches;
 //       cbr_i8            the deep stem's stem2/stem3 CBRs, one launch
 //                         each (XLA convs in JAX, deploy/int8_serve.py:756);
 //       bottleneck_i8     a dilated Bottleneck, three launches: 1x1, 3x3
@@ -87,7 +90,7 @@ __device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
                                (static_cast<uint16_t>(static_cast<uint8_t>(hi)) << 8));
 }
 
-// --- PTX wrappers for the tensor-core kernels (K1, K3, K4, K6) -------------
+// --- PTX wrappers for the tensor-core kernels (K1-K6) ----------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -430,9 +433,9 @@ size_t stem_smem_bytes(int cout, int n_sp) {
 }
 
 // ---------------------------------------------------------------------------
-// Shared int8 conv + epilogue on CUDA cores (K2, the links of the K5
-// chain, the deep stem's CBRs and the Bottleneck chains; K3, K4 and K6 no
-// longer use it: their links run on the tensor-core kernels below).
+// Shared int8 conv + epilogue on CUDA cores (the deep stem's CBRs and the
+// Bottleneck chains; K2-K6 no longer use it: their links run on the
+// tensor-core kernels below).
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (k, k, cin, cout), stride s, dilation d, symmetric pad,
@@ -650,8 +653,8 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) 
 
 
 // ---------------------------------------------------------------------------
-// K4's and K6's links: int8 3x3 pad-1 conv + epilogue on int8 tensor cores,
-// the weights streamed chunk by chunk.
+// K4's, K5's and K6's links: int8 3x3 pad-1 conv + epilogue on int8 tensor
+// cores, the weights streamed chunk by chunk.
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (3, 3, cin, cout), stride 1 or 2, pad 1, exact in
@@ -701,10 +704,15 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) 
 // split over a thread-block cluster of two blocks (256 blocks, 36 chunks
 // each): the second block leaves its int32 sums in its shared memory, the
 // first adds them through distributed shared memory and runs the epilogue.
+// K5 (stage 4's strided block) has the same 128 tiles in both links; its
+// conv2 adds the projection's 4 chunks (cdin = 256) to the 72 of the main
+// walk.  Only one set of sums fits a block's ring (32 KB of 48), so in a
+// split the first block takes every projection chunk into its own second
+// accumulator set and correspondingly fewer main chunks (34 + 4 against
+// the second block's 38), and only main sums cross between the blocks.
 // Integer sums are exact in any order, so the split stays bit-exact.  The
-// host splits a launch (modes 0 and 1) when its tiles do not outnumber the
-// SMs; K4's launches on the serving path have 256 or more tiles and stay
-// whole.
+// host splits a launch (any mode) when its tiles do not outnumber the SMs;
+// K4's launches on the serving path have 256 or more tiles and stay whole.
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWM = 4;         // warps along M (32 pixels each)
@@ -745,16 +753,25 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t s_base = smem_addr(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  static_assert(kSplit == 1 || kMode != 2, "the projection is never split");
   const int n_pix = ho * wo;
   const int m0 = blockIdx.x / kSplit * kMmaBM;
   const int n0 = blockIdx.y * kMmaBN;
   const int rank = blockIdx.x % kSplit;          // rank in the K-split cluster
   const int cch = (cin + kMmaBK - 1) / kMmaBK;   // chunks per tap
   const int n_main = 9 * cch;
-  const int nk_all = n_main + (kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0);
-  const int kc0 = rank * nk_all / kSplit;        // this block's first chunk
-  const int nk = (rank + 1) * nk_all / kSplit - kc0;
+  const int n_proj = kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0;
+  // This block's main chunks [mc0, mc1), then (rank 0) the projection's:
+  // rank 0 takes main chunks [0, lead) and every projection chunk, so only
+  // main sums cross the cluster; the other ranks share [lead, n_main).
+  // lead evens the chunk counts: (n_main + n_proj) / kSplit - n_proj.
+  int mc0 = 0, mc1 = n_main;
+  if (kSplit > 1) {
+    const int lead = max(0, (n_main + n_proj) / kSplit - n_proj);
+    mc0 = rank == 0 ? 0 : lead + (rank - 1) * (n_main - lead) / (kSplit - 1);
+    mc1 = rank == 0 ? lead : lead + rank * (n_main - lead) / (kSplit - 1);
+  }
+  const int nk_main = mc1 - mc0;
+  const int nk = nk_main + (rank == 0 ? n_proj : 0);  // chunks this block walks
 
   // The A rows this thread copies: rows tid/4 + i * threads/4, 16-byte
   // column tid % 4.  Per row: the offset of its window's top-left input
@@ -784,9 +801,17 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 
   // The chunk the next load_chunk call stages, walked without divisions:
   // tap-major over the 3x3 window in channel chunks of kMmaBK, then (mode
-  // 2) the projection's channel chunks.
-  int ld_tap = kc0 / cch, ld_c0 = kc0 % cch * kMmaBK;
+  // 2, rank 0) the projection's channel chunks (tap 9).  Only a split
+  // projection's rank 0 leaves the main walk early, after lead chunks.
+  int ld_main = nk_main;   // main chunks still to stage
+  int ld_tap = nk_main > 0 ? mc0 / cch : 9;
+  int ld_c0 = nk_main > 0 ? mc0 % cch * kMmaBK : 0;
   auto next_chunk = [&]() {
+    if (kMode == 2 && kSplit > 1 && ld_tap < 9 && --ld_main == 0) {
+      ld_tap = 9;
+      ld_c0 = 0;
+      return;
+    }
     ld_c0 += kMmaBK;
     if (ld_tap < 9 && ld_c0 >= cin) {
       ld_c0 = 0;
@@ -914,7 +939,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     const int nxt = kc + kMmaStages - 1;
     if (nxt < nk) load_chunk(nxt % kMmaStages, ld);
     cp_async_commit();
-    if (kMode == 2 && kc0 + kc >= n_main)
+    if (kMode == 2 && kc >= nk_main)
       compute(kc % kMmaStages, accd);
     else
       compute(kc % kMmaStages, acc);
@@ -928,9 +953,10 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   __syncthreads();
 
   if constexpr (kSplit > 1) {
-    // The other ranks leave their sums in their own ring; rank 0 adds them
-    // through distributed shared memory, thread by thread, and alone runs
-    // the epilogue.  The second sync keeps each part alive until it is read.
+    // The other ranks leave their main sums in their own ring; rank 0 adds
+    // them through distributed shared memory, thread by thread, and alone
+    // runs the epilogue (with its own projection sums, mode 2).  The second
+    // sync keeps each part alive until it is read.
     cg::cluster_group cluster = cg::this_cluster();
     int* part = reinterpret_cast<int*>(smem);  // [32 sums][kMmaThreads]
     if (rank != 0) {
@@ -1022,19 +1048,28 @@ size_t conv_mma_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// K3's links: int8 stride-1 3x3 pad-1 conv + epilogue on int8 tensor cores,
-// the link's whole weight resident in shared memory, persistent blocks.
+// K3's and K2's links: int8 3x3 pad-1 conv + epilogue on int8 tensor
+// cores, the link's whole weight resident in shared memory, persistent
+// blocks.
 //
 // Replaces, four launches per call, the TPU kernel l1_stage_i8_paired_view
 // (torchseg_tpu/ops/pallas/int8_serve_kernels.py:763): ResNet-18's stage 1,
-// two identity BasicBlocks at (1, 256, 512, 64) on the main path.
+// two identity BasicBlocks at (1, 256, 512, 64) on the main path; and, one
+// launch per call at stride 2, conv3x3s2_i8_quad (:515): the SpatialPath's
+// two 3x3/2 CBRs, (1, 512, 1024, 64) -> (1, 256, 512, 64) and on to (1,
+// 128, 256, 64).
 //
-// What it computes: conv_i8_mma_kernel's modes 0 and 1 at stride 1 (the
-// same __fmaf_rn chain, int8 out), for cin % 16 == 0 and cout % 8 == 0.
+// What it computes: conv_i8_mma_kernel's modes 0 and 1 at stride 1 or 2
+// (the same __fmaf_rn chain, int8 out), for cin % 16 == 0 and cout % 8 ==
+// 0.  At stride 2 only the gather changes: output pixel (oy, ox)'s window
+// starts at input (2 oy - 1, 2 ox - 1), and its tap mask and the zero fill
+// at the pad follow from that; the shared-memory tiles, and so every
+// ldmatrix, are laid out as at stride 1.
 //
 // What bounds it on an H100: int8 tensor-core operations, 9.66 G a link
 // at stage 1 (M = 131,072 pixels, N = 64, K = 9 x 64 = 576), ~4.9 us at the
-// 1,979 TOP/s dense peak, against 16.8 MB a link (~5 us).  The streaming
+// 1,979 TOP/s dense peak, against 16.8 MB a link (~5 us); the same GEMM
+// at K2's first launch against 42 MB (~12.5 us: bytes).  The streaming
 // kernel above is badly matched to this shape: K is 9 chunks against its
 // 4-stage ring, so a third of each block's loop is fill and drain; each
 // of its 1,024 blocks loads and byte-transposes the link's whole 36,864-byte
@@ -1092,13 +1127,13 @@ __host__ __device__ __forceinline__ int res_w_pitch(int cin) {
 template <int kMode>
 __global__ void __launch_bounds__(kResThreads, 2)
 conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
-                       const int8_t* __restrict__ wt, int cout,
+                       int stride, const int8_t* __restrict__ wt, int cout,
                        const float* __restrict__ m, const float* __restrict__ c,
                        const int8_t* __restrict__ res, float rr,
-                       int8_t* __restrict__ out) {
+                       int8_t* __restrict__ out, int ho, int wo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_pix = h * w;
+  const int n_pix = ho * wo;
   const int n0 = blockIdx.y * kResBN;
   const int cpad = (cin + kMmaBK - 1) / kMmaBK * kMmaBK;
   const int nk = 9 * cpad / kMmaBK;   // chunks per tile
@@ -1126,13 +1161,14 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
       a_mask[i] = 0;
       a_off[i] = 0;
       if (p < n_pix) {
-        const int oy = p / w, ox = p - oy * w;
+        const int oy = p / wo, ox = p - oy * wo;
+        const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
 #pragma unroll
         for (int t = 0; t < 9; ++t) {
-          const int iy = oy - 1 + t / 3, ix = ox - 1 + t % 3;
+          const int iy = iy0 + t / 3, ix = ix0 + t % 3;
           if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
         }
-        a_off[i] = (static_cast<long long>(oy - 1) * w + ox - 1) * cin;
+        a_off[i] = (static_cast<long long>(iy0) * w + ix0) * cin;
       }
     }
   };
@@ -1391,6 +1427,7 @@ int tsg_init(void) {
                            reinterpret_cast<const void*>(conv_i8_mma_kernel<2, 1>),
                            reinterpret_cast<const void*>(conv_i8_mma_kernel<0, 2>),
                            reinterpret_cast<const void*>(conv_i8_mma_kernel<1, 2>),
+                           reinterpret_cast<const void*>(conv_i8_mma_kernel<2, 2>),
                            reinterpret_cast<const void*>(conv_i8_mma_res_kernel<0>),
                            reinterpret_cast<const void*>(conv_i8_mma_res_kernel<1>)};
   for (const void* fn : kernels) {
@@ -1481,9 +1518,9 @@ int tsg_conv_i8(const void* x, int h, int w, int cin, const void* wt, int k,
 // The 3x3 pad-1 int8 conv on tensor cores: x (h, w, cin), cin % 16 == 0,
 // 16-byte aligned; cout % 8 == 0; mode 2's xd (hd, wd, cdin) with cdin % 16
 // == 0, 16-byte aligned; int8 out (ho, wo, cout).  split: the blocks of a
-// cluster that share a tile's K walk, 1 or 2 (modes 0 and 1 only), or 0:
-// 2 where the launch has no more tiles than the device has SMs (and is not
-// mode 2), else 1.
+// cluster that share a tile's K walk, 1 or 2 (any mode; in mode 2 the first
+// block takes the projection's chunks), or 0: 2 where the launch has no
+// more tiles than the device has SMs, else 1.
 int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
                     int stride, int cout, const void* m, const void* c,
                     int mode, const void* res, float rr, const void* xd,
@@ -1498,10 +1535,9 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    split = mode != 2 && m_tiles * n_tiles <= sms ? 2 : 1;
+    split = m_tiles * n_tiles <= sms ? 2 : 1;
   }
-  if (split != 1 && (split != 2 || mode == 2))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (split != 1 && split != 2) return static_cast<int>(cudaErrorInvalidValue);
   const auto args = [&](auto kernel, cudaLaunchConfig_t* cfg) {
     return cudaLaunchKernelEx(
         cfg, kernel, static_cast<const int8_t*>(x), h, w, cin,
@@ -1525,7 +1561,9 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
   cfg.numAttrs = split > 1 ? 1 : 0;
   cudaError_t err;
   if (split > 1)
-    err = mode == 1 ? args(conv_i8_mma_kernel<1, 2>, &cfg) : args(conv_i8_mma_kernel<0, 2>, &cfg);
+    err = mode == 2   ? args(conv_i8_mma_kernel<2, 2>, &cfg)
+          : mode == 1 ? args(conv_i8_mma_kernel<1, 2>, &cfg)
+                      : args(conv_i8_mma_kernel<0, 2>, &cfg);
   else
     err = mode == 2   ? args(conv_i8_mma_kernel<2, 1>, &cfg)
           : mode == 1 ? args(conv_i8_mma_kernel<1, 1>, &cfg)
@@ -1537,13 +1575,16 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The stride-1 3x3 pad-1 int8 conv with resident weights (K3's links):
-// x (h, w, cin), cin % 16 == 0, 16-byte aligned; cout % 8 == 0; mode 0 or 1
-// (res (h, w, cout), 8-byte aligned); int8 out (h, w, cout).  The grid is
-// as many blocks as fit on the device at once, capped by the M tiles.
+// The 3x3 pad-1 int8 conv with resident weights (K3's and K2's links): x
+// (h, w, cin), cin % 16 == 0, 16-byte aligned; stride 1 or 2; cout % 8 ==
+// 0; mode 0 or 1 (res (ho, wo, cout), 8-byte aligned); int8 out (ho, wo,
+// cout).  The grid is as many blocks as fit on the device at once, capped
+// by the M tiles.
 int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
-                        int cout, const void* m, const void* c, int mode,
-                        const void* res, float rr, void* out, void* stream) {
+                        int stride, int cout, const void* m, const void* c,
+                        int mode, const void* res, float rr, void* out,
+                        void* stream) {
+  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1553,14 +1594,15 @@ int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
   const auto kernel = mode == 1 ? conv_i8_mma_res_kernel<1> : conv_i8_mma_res_kernel<0>;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kResThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int m_tiles = (h * w + kResBM - 1) / kResBM;
+  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
+  const int m_tiles = (ho * wo + kResBM - 1) / kResBM;
   const int n_tiles = (cout + kResBN - 1) / kResBN;
   int gx = (per_sm > 0 ? per_sm : 1) * sms / n_tiles;
   gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
   kernel<<<dim3(gx, n_tiles), kResThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt), cout,
-      static_cast<const float*>(m), static_cast<const float*>(c),
-      static_cast<const int8_t*>(res), rr, static_cast<int8_t*>(out));
+      static_cast<const int8_t*>(x), h, w, cin, stride, static_cast<const int8_t*>(wt),
+      cout, static_cast<const float*>(m), static_cast<const float*>(c),
+      static_cast<const int8_t*>(res), rr, static_cast<int8_t*>(out), ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 

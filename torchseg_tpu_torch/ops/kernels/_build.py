@@ -51,9 +51,9 @@ LIBRARIES = {
                             + [c_int] * 2 + [c_void_p] * 2 + [c_int]
                             + [c_void_p, c_float, c_void_p] + [c_int] * 3
                             + [c_void_p] * 4 + [c_int] * 3 + [c_void_p]),
-        # x, h, w, cin, wt, cout, m, c, mode, res, rr, out, stream
-        "tsg_conv_i8_mma_res": ([c_void_p] + [c_int] * 3 + [c_void_p, c_int]
-                                + [c_void_p] * 2 + [c_int]
+        # x, h, w, cin, wt, stride, cout, m, c, mode, res, rr, out, stream
+        "tsg_conv_i8_mma_res": ([c_void_p] + [c_int] * 3 + [c_void_p]
+                                + [c_int] * 2 + [c_void_p] * 2 + [c_int]
                                 + [c_void_p, c_float] + [c_void_p] * 2),
         # x, h, w, cin, wt, k, stride, pad, dilation, cout, m, c, mode, res,
         # rr, xd, hd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, stream

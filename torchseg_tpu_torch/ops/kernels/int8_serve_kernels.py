@@ -5,24 +5,25 @@ version, plus the exact integer primitives both are specified by.
 
 | wrapper          | CUDA                                 | TPU kernel it replaces |
 | stem_pool_i8     | stem_pool_i8_mma_kernel (bf16 mma)   | s2d_stem_pool_quad_i8 (:384) |
-| conv3x3s2_i8     | conv_i8_kernel, mode 0               | conv3x3s2_i8_quad (:515) |
+| conv3x3s2_i8     | conv_i8_mma_res_kernel, mode 0, stride 2 (int8 mma) | conv3x3s2_i8_quad (:515) |
 | l1_stage_i8      | conv_i8_mma_res_kernel x4 (modes 0,1,0,1; int8 mma) | l1_stage_i8_paired_view (:763) |
 | down_stage_i8    | conv_i8_mma_kernel x4 (modes 0,2,0,1; int8 mma) | down_stage_i8_from_paired (:986) |
-| down_block_i8    | conv_i8_kernel x2 (modes 0,2)        | down_block_i8_from_paired (:1136) |
+| down_block_i8    | conv_i8_mma_kernel x2 (modes 0,2; int8 mma, K split) | down_block_i8_from_paired (:1136) |
 | res_block_i8     | conv_i8_mma_kernel x2 (modes 0,1; int8 mma, K split) | res_block_i8_std (:1226) |
 | maxpool2d_3x3s2_i8 | maxpool_i8_kernel (K10)            | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_kernel, mode 0               | none: an XLA conv in JAX |
 | bottleneck_i8    | conv_i8_kernel x3 (modes 0,0,1 or 2) | none: XLA (_apply_bottleneck) |
 
-Line numbers are in the JAX file.  K1, K3, K4 and K6 run on the tensor
-cores and take only the widths their kernels tile
-(``stem_pool_i8_shape_error``, ``l1_stage_i8_shape_error``,
-``down_stage_i8_shape_error``, ``res_block_i8_shape_error``); the wrappers
-raise ValueError before launching for any other.  K3 and K6 share their
-route (``_identity_block_launches``): the resident-weight kernel up to 64
+Line numbers are in the JAX file.  K1-K6 run on the tensor cores and take
+only the widths their kernels tile (``stem_pool_i8_shape_error``,
+``conv3x3s2_i8_shape_error``, ``l1_stage_i8_shape_error``,
+``down_stage_i8_shape_error``, ``down_block_i8_shape_error``,
+``res_block_i8_shape_error``); the wrappers raise ValueError before
+launching for any other.  K3 and K6 share their route
+(``_identity_block_launches``): the resident-weight kernel up to 64
 channels, the streaming one above.  ``cbr_i8`` (the deep stem's stem2 and
 stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of PSPNet) run
-on the same conv kernel; JAX computes them with XLA convs
+on the CUDA-core conv kernel; JAX computes them with XLA convs
 (deploy/int8_serve.py:716-758).  Every public function takes and returns
 NHWC int8 codes and HWIO weights, batch 1, as the JAX functions do.
 
@@ -260,7 +261,7 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
     """One launch of the streaming tensor-core 3x3 pad-1 conv; returns the
     new codes.  ``split``: 0 lets the kernel's host code share each tile's
     K walk between a two-block cluster where the launch has no more tiles
-    than the device has SMs (modes 0 and 1: K6; K4's launches on the
+    than the device has SMs (any mode: K5 and K6; K4's launches on the
     serving path have 256 or more tiles and stay whole); 1 or 2 forces it.
     The caller has checked the widths (``conv_i8_mma_shape_error``)."""
     _, h, w, cin = x.shape
@@ -293,23 +294,26 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
 RESIDENT_MAX_CIN = 64
 
 
-def _launch_conv_mma_res(x, e, mode=0, res=None, rr=0.0):
-    """One launch of the resident-weight tensor-core stride-1 3x3 pad-1
-    conv (mode 0, or 1 with the identity residual ``res``); returns the new
-    codes.  The caller has checked the widths."""
+def _launch_conv_mma_res(x, e, mode=0, res=None, rr=0.0, stride=1):
+    """One launch of the resident-weight tensor-core 3x3 pad-1 conv at
+    stride 1 or 2 (mode 0, or 1 with the residual ``res``); returns the new
+    codes.  The caller has checked the widths; a cin whose resident weights
+    exceed the device's shared memory raises ValueError before launching."""
     _, h, w, cin = x.shape
     cout = e["w"].shape[3]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     _aligned("x", x, 16)
     if res is not None:
         _aligned("res", res, 8)
     lib = _build.ready(x.device.index)
     _check_smem(f"conv_i8_mma_res_kernel: cin={cin}",
                 lib.tsg_conv_mma_res_smem_bytes(cin), x.device.index)
-    out = torch.empty((1, h, w, cout), dtype=torch.int8, device=x.device)
+    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
     rc = lib.tsg_conv_i8_mma_res(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), cout, e["m"].data_ptr(),
-        e["c"].data_ptr(), mode, res.data_ptr() if res is not None else None,
-        float(rr), out.data_ptr(), _stream(x))
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
+        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        res.data_ptr() if res is not None else None, float(rr),
+        out.data_ptr(), _stream(x))
     _raise_on(rc, "conv_i8_mma_res_kernel")
     return out
 
@@ -394,16 +398,29 @@ def conv3x3s2_i8_plain(x, w, m, c):
     return apply_cbr(x, {"w": w, "m": m, "c": c}, 2, 1)
 
 
+def conv3x3s2_i8_shape_error(cin: int, cout: int):
+    """Why the resident-weight tensor-core conv does not take a 3x3/2 CBR
+    cin -> cout, or None: cin % 16 == 0, cout % 8 == 0
+    (``conv_i8_mma_shape_error``); its shared memory is checked at launch."""
+    return conv_i8_mma_shape_error(cin, cout)
+
+
 def conv3x3s2_i8(x, w, m, c):
     """_apply_cbr(x, e, stride=2, pad=1): (1, H, W, cin) s8 -> (1, ceil(H/2),
-    ceil(W/2), cout) s8."""
+    ceil(W/2), cout) s8.  Plain version: any cin, cout.  On the card, one
+    launch of the resident-weight tensor-core conv at stride 2: cin % 16 ==
+    0 and cout % 8 == 0 (``conv3x3s2_i8_shape_error``), ValueError
+    otherwise, before launching."""
     _check_codes(x)
     _check("w", w, torch.int8, ndim=4)
-    _check_conv_entry("e", {"w": w, "m": m, "c": c}, 3, x.shape[3],
-                      w.shape[3])
+    e = {"w": w, "m": m, "c": c}
+    _check_conv_entry("e", e, 3, x.shape[3], w.shape[3])
     if not _on_cuda(x, w, m, c):
         return conv3x3s2_i8_plain(x, w, m, c)
-    out = _launch_conv(x, {"w": w, "m": m, "c": c}, 2, 1)
+    why = conv3x3s2_i8_shape_error(x.shape[3], w.shape[3])
+    if why:
+        raise ValueError(f"conv3x3s2_i8 (int8 tensor cores): {why}")
+    out = _launch_conv_mma_res(x, e, stride=2)
     conv3x3s2_i8.launches += 1
     return out
 
@@ -490,13 +507,6 @@ def l1_stage_i8_shape_error(c: int):
     return res_block_i8_shape_error(c)
 
 
-def _down_block_launches(x, e):
-    """apply_block(x, e, 2) as two launches: conv1 3x3/2, then conv2 with
-    the 1x1/2 projection of x fused into its epilogue."""
-    t = _launch_conv(x, e["conv1"], 2, 1)
-    return _shortcut_launch(t, e["conv2"], x, e, 2, 1)
-
-
 def l1_stage_i8(x, e0, e1):
     """apply_block(apply_block(x, e0, 1), e1, 1) on (1, H, W, C) s8 (stage
     1 on the serving path, C = 64).  Plain version: any C % 4 == 0.  On the
@@ -525,12 +535,19 @@ def down_stage_i8_plain(x, e0, e1):
     return apply_block(apply_block(x, e0, 2), e1, 1)
 
 
-def down_stage_i8_shape_error(cin: int, cout: int):
-    """Why the four tensor-core launches of a down stage cin -> cout do not
-    take these widths (conv1 cin -> cout with the cin projection, then
-    three convs cout -> cout), or None: cin % 16 == 0, cout % 16 == 0."""
+def down_block_i8_shape_error(cin: int, cout: int):
+    """Why the two tensor-core launches of a strided BasicBlock cin -> cout
+    do not take these widths (conv1 cin -> cout with the cin projection,
+    then conv2 cout -> cout), or None: cin % 16 == 0, cout % 16 == 0."""
     return (conv_i8_mma_shape_error(cin, cout, cin)
             or conv_i8_mma_shape_error(cout, cout))
+
+
+def down_stage_i8_shape_error(cin: int, cout: int):
+    """Why the four tensor-core launches of a down stage cin -> cout do not
+    take these widths (the strided block's, ``down_block_i8_shape_error``,
+    then two convs cout -> cout), or None."""
+    return down_block_i8_shape_error(cin, cout)
 
 
 def down_stage_i8(x, e0, e1):
@@ -562,8 +579,8 @@ def down_stage_i8(x, e0, e1):
 
 # ----------------------------------------------------------------------
 # K5, K6: ResNet-18 stage 4 as its two blocks (the strided block, then
-# the stride-1 block), each a chain of two launches (K5 on CUDA cores, K6
-# on the tensor cores)
+# the stride-1 block), each a chain of two tensor-core launches whose tiles
+# share their K walk over a two-block cluster at the serving shape
 # ----------------------------------------------------------------------
 
 def down_block_i8_plain(x, e):
@@ -573,14 +590,22 @@ def down_block_i8_plain(x, e):
 def down_block_i8(x, e):
     """apply_block(x, e, 2), a strided BasicBlock with 1x1/2 projection:
     (1, H, W, cin) s8 -> (1, ceil(H/2), ceil(W/2), cout) s8 (stage 4: 256
-    -> 512).  Any cin and cout % 4 == 0; on the card two launches of the
-    CUDA-core conv, which raise ValueError before launching where their
-    shared memory exceeds the device's."""
+    -> 512).  Plain version: any cin, cout % 4 == 0.  On the card, K4's
+    first two launches (conv1 3x3/2; conv2 with the 1x1/2 projection of x
+    as a second GEMM), each tile's K walk split over a two-block cluster
+    where the launch has no more tiles than the device has SMs: cin % 16 ==
+    0 and cout % 16 == 0 (``down_block_i8_shape_error``), ValueError
+    otherwise, before launching."""
     _check_codes(x)
-    _check_down_block("e", e, x.shape[3])
+    cout = _check_down_block("e", e, x.shape[3])
     if not _on_cuda(*_block_tensors(x, e)):
         return down_block_i8_plain(x, e)
-    out = _down_block_launches(x, e)
+    why = down_block_i8_shape_error(x.shape[3], cout)
+    if why:
+        raise ValueError(f"down_block_i8 (int8 tensor cores): {why}")
+    t = _launch_conv_mma(x, e["conv1"], 2)
+    out = _launch_conv_mma(t, e["conv2"], 1, mode=2, xd=x, down=e["down"],
+                           sd=2)
     down_block_i8.launches += 1
     return out
 
