@@ -25,22 +25,29 @@ script
   4. main path: builds the serving graph and serves the images; counts each
      kernel wrapper's launches over exactly one served forward (stem_pool_i8
      1, conv3x3s2_i8 2, l1_stage_i8 1, down_stage_i8 2 (stages 2 and 3),
-     down_block_i8 1, res_block_i8 1, K7 0) and checks that the forward's
-     only float64 conv is the spatial path's 1x1 (stages 3 and 4 run on
-     K4-K6); lists the device kernels of one forward (torch.profiler) and
-     checks that no CUDA-core conv (conv_i8_kernel) runs and that K5's
-     conv2 is the cluster-split projection launch;
+     down_block_i8 1, res_block_i8 1, cbr_i8 7 (sp3 and the decoder's six
+     convs), K7 0) and checks that the forward runs no float64 conv (no
+     plain version); lists the device kernels of the forwards
+     (torch.profiler) with their device time, and checks that the int8
+     convs are exactly MAIN_PATH_CONVS (no CUDA-core conv_i8_kernel; K5's
+     conv2 the cluster-split projection launch; the decoder's on the
+     tensor cores);
   5. compares every kernel with its plain PyTorch version on the tensors
-     the main path fed it (K2-K6 bit-exact, K1 within one code on at most
-     a 1e-3 share of its codes), and the served graph with the plain graph
-     run on the CPU on one small input;
-  6. times the served forward over the distinct inputs, each kernel against
-     its plain version (K2's two launches, sp1 and sp2, as rows of their
-     own), and the plain-PyTorch parts of the graph, with CUDA events after
-     a warm-up, and logs same-MACs vendor yardsticks (not on the path):
-     cuDNN's bf16 conv of K1's s2d 4x4 conv and ``torch._int_mm`` of K2's
-     sp1, of one K3 link, of stage 3's conv2 (K4), of K5's two links and of
-     one K6 link, each as an im2col GEMM;
+     the main path fed it (K2-K6 and each of the seven cbr_i8 calls
+     bit-exact, K1 within one code on at most a 1e-3 share of its codes),
+     the main path's /8 logits with the plain decoder's on the same body
+     codes (bit-identical), and the served graph with the plain graph run
+     on the CPU on one small input;
+  6. times the served forward over the distinct inputs (median, p90,
+     enqueue, and the card's idle share against the profiler's device
+     time), each kernel against its plain version (K2's two launches, sp1
+     and sp2, as rows of their own; the seven cbr_i8 calls each, and as one
+     row), the decoder on the kernels and on the plain route, and the
+     parts of the graph, with CUDA events after a warm-up, and logs
+     same-MACs vendor yardsticks (not on the path): cuDNN's bf16 conv of
+     K1's s2d 4x4 conv and ``torch._int_mm`` of K2's sp1, of one K3 link,
+     of stage 3's conv2 (K4), of K5's two links, of one K6 link and of
+     each cbr_i8 call, each as an im2col GEMM;
   7. full-resolution path: each graph launches K7 exactly once per forward
      (the int8 graph also K1-K6, the bf16 graph K11 once); K11 meets its
      bars against its plain version on the bf16 graph's stem inputs (bf16
@@ -68,14 +75,15 @@ script
      as the JAX package builds them: four seeded images served, (1, 480,
      480) labels in [0, 150); one forward launches K10 once, cbr_i8 twice
      (stem2, stem3) and bottleneck_i8's 48 conv launches (16 blocks x 3)
-     and nothing else; K10 and each of the 16 bottleneck_i8 calls are held
-     bit-exact to their plain versions on the tensors the forwards fed
-     them; the card's labels agree with the same package run on the CPU
+     and nothing else, all 50 convs on the tensor cores (the profiler: no
+     conv_i8_kernel); K10, both cbr_i8 calls and each of the 16
+     bottleneck_i8 calls are held bit-exact to their plain versions on the
+     tensors the forwards fed them; the card's labels agree with the same package run on the CPU
      at 160x160, the head in float32 on both (>= 99 %, PSP_AGREE); the
      forward is timed (median, p90), with K10 against its plain version,
      its bound and ``F.max_pool2d`` on a float16 copy, the body's blocks
-     and the parts of the forward, and a profiler pass gives the card's
-     idle share;
+     (against ``torch._int_mm`` of their GEMMs) and the parts of the
+     forward, and a profiler pass gives the card's idle share;
   10. training path: the BiSeNet-R18 training step (``train_entry``,
      1024x1024 crops, batch 2, float32, three OHEM heads, group-lr SGD)
      launches K8 and K9 35 times each in one step (22 of the K9 launches
@@ -191,6 +199,8 @@ SRC_FOCAL = "torchseg_tpu_torch/csrc/focal_loss.cu"
 # the Bottleneck body and the deep stem's CBRs replace XLA convs in JAX
 XLA_BOTTLENECK = "torchseg_tpu/deploy/int8_serve.py:716 (XLA, no TPU kernel)"
 XLA_STEM_CBR = "torchseg_tpu/deploy/int8_serve.py:756 (XLA, no TPU kernel)"
+# sp3 and the R18 decoder's convs: _apply_cbr, XLA convs in JAX
+XLA_CBR = "torchseg_tpu/deploy/int8_serve.py:940 (XLA, no TPU kernel)"
 TPU = "torchseg_tpu/ops/pallas/int8_serve_kernels.py"
 TPU_K7 = "torchseg_tpu/ops/pallas/upsample_argmax.py:49"
 TPU_BN = "torchseg_tpu/ops/pallas/bn_kernel.py"
@@ -403,47 +413,189 @@ def same_macs_yardsticks(dev, xs, wf, kernel_ms, main_ops):
                 f"{ops / ms / 1e9:.1f} TOP/s")
 
 
-# one served forward's tensor-core conv launches (K2 and K3 on the
-# resident-weight kernel, K4 unsplit, K5 and K6 split over two-block
-# clusters), as torch.profiler names their instantiations
-MAIN_PATH_CONVS = {"conv_i8_mma_res_kernel<0>": 4,
-                   "conv_i8_mma_res_kernel<1>": 2,
-                   "conv_i8_mma_kernel<0, 1>": 4,
-                   "conv_i8_mma_kernel<1, 1>": 2,
-                   "conv_i8_mma_kernel<2, 1>": 2,
-                   "conv_i8_mma_kernel<0, 2>": 2,
-                   "conv_i8_mma_kernel<1, 2>": 1,
-                   "conv_i8_mma_kernel<2, 2>": 1}
+# one served forward's tensor-core conv launches, as torch.profiler names
+# their instantiations: <mode, window, float32 out> of the resident-weight
+# kernel, <mode, split, window, float32 out> of the streaming one (window
+# 0: 3x3 pad 1, 2: 1x1).  K2 (stride 2) and K3 on the resident kernel, sp3
+# its 1x1; K4 and refine1 unsplit; K5 and K6, and arm0, refine0 and arm1
+# (32 and 128 tiles) split over two-block clusters, the three with float32
+# out; the head (256 tiles) unsplit with float32 out; the FFM 1x1 (1,024
+# tiles) unsplit with float32 out
+MAIN_PATH_CONVS = {"conv_i8_mma_res_kernel<0, 0, false>": 4,
+                   "conv_i8_mma_res_kernel<1, 0, false>": 2,
+                   "conv_i8_mma_res_kernel<0, 2, false>": 1,
+                   "conv_i8_mma_kernel<0, 1, 0, false>": 5,
+                   "conv_i8_mma_kernel<1, 1, 0, false>": 2,
+                   "conv_i8_mma_kernel<2, 1, 0, false>": 2,
+                   "conv_i8_mma_kernel<0, 2, 0, false>": 2,
+                   "conv_i8_mma_kernel<1, 2, 0, false>": 1,
+                   "conv_i8_mma_kernel<2, 2, 0, false>": 1,
+                   "conv_i8_mma_kernel<0, 2, 0, true>": 3,
+                   "conv_i8_mma_kernel<0, 1, 0, true>": 1,
+                   "conv_i8_mma_kernel<0, 1, 2, true>": 1}
+# the seven cbr_i8 calls of a served forward, in order
+MAIN_CBRS = ("sp3", "arm0", "refine0", "arm1", "refine1", "ffm", "head")
 
 
-def main_path_kernels(infer, pkg, xs):
-    """The device kernels of one served forward by torch.profiler: no
-    CUDA-core conv (conv_i8_kernel) runs, and the tensor-core convs are
-    MAIN_PATH_CONVS (K5's conv2 the projection split over a cluster)."""
+def int8_convs(prof, n_calls):
+    """{instantiation: launches per call} of the int8 conv kernels in a
+    profile of ``n_calls`` calls, and the device kernels by key."""
     import re
 
     from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    convs = {}
+    for e in kernels:
+        m = re.search(r"(conv_i8\w*kernel(<[\w, ]+>)?)", e.key)
+        if m:
+            convs[m.group(1)] = convs.get(m.group(1), 0) + e.count // n_calls
+    return convs, kernels
+
+
+def main_path_kernels(infer, pkg, xss):
+    """The device kernels of the served forwards over ``xss`` by
+    torch.profiler: the int8 convs of each are MAIN_PATH_CONVS (no
+    CUDA-core conv; K5's conv2 the projection split over a cluster; the
+    decoder's on the tensor cores).  Returns the kernels' device ms per
+    forward."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        infer(pkg, xs)
+        for xs in xss:
+            infer(pkg, xs)
         torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
-    convs = {}
-    for key, n in kernels.items():
-        m = re.search(r"(conv_i8\w*kernel<[\d, ]+>)", key)
-        if m:
-            convs[m.group(1)] = convs.get(m.group(1), 0) + n
-    log(f"one served forward: {sum(kernels.values())} device kernels, "
-        f"{len(kernels)} distinct; int8 convs {convs}")
+    convs, kernels = int8_convs(prof, len(xss))
+    busy = sum(e.self_device_time_total for e in kernels) / 1000.0 / len(xss)
+    log(f"one served forward: {sum(e.count for e in kernels) // len(xss)} "
+        f"device kernels, {len(kernels)} distinct, {busy:.4f} ms of device "
+        f"time (profiler, {len(xss)} forwards); int8 convs {convs}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  device {e.self_device_time_total / 1000.0 / len(xss):9.4f}"
+            f" ms per forward, {e.count // len(xss):4d} calls: "
+            f"{e.key[:100]}")
     if not kernels:
         fail("the profiler saw no device kernel in a served forward")
     if convs != MAIN_PATH_CONVS:
         fail(f"a served forward's int8 conv launches are {convs}, expected "
              f"{MAIN_PATH_CONVS}")
+    return busy
+
+
+@contextlib.contextmanager
+def record_cbr_calls(i8):
+    """Collect the arguments of every cbr_i8 call the serving graphs make
+    (x, e, stride, pad, emit_int8, dilation) while the context is open."""
+    fed, cbr = [], i8.cbr_i8
+
+    def spy(x, e, stride, pad, emit_int8=True, dilation=1):
+        fed.append((x, e, stride, pad, emit_int8, dilation))
+        return cbr(x, e, stride, pad, emit_int8, dilation)
+
+    i8.cbr_i8 = spy
+    try:
+        yield fed
+    finally:
+        i8.cbr_i8 = cbr
+
+
+def cbr_work(args, out):
+    """(bytes, int8 operations, GEMM (m, k, n)) of one cbr_i8 call: its
+    input, weights, epilogue constants and output once, 2 operations a
+    multiply-accumulate."""
+    x, e = args[:2]
+    k, cin, cout = e["w"].shape[0], e["w"].shape[2], e["w"].shape[3]
+    m = out.shape[1] * out.shape[2]
+    return nbytes(x, e, out), 2 * m * k * k * cin * cout, (m, k * k * cin,
+                                                           cout)
+
+
+def main_path_cbr(dev, infer, pkg, xss, launches, i8, K):
+    """sp3 and the decoder's six convs, the seven cbr_i8 calls of a served
+    forward: each bit-exact against apply_cbr on the tensors the forwards
+    fed it; each timed (CUDA events, wrapper included) against its plain
+    version, its bound and ``torch._int_mm`` of its im2col GEMM (a
+    same-MACs yardstick); the main path's /8 logits bit-identical to the
+    plain decoder's on the same body codes; the decoder timed as a part on
+    the kernels and on the plain float64 route.  Returns (the kernels
+    line's row, sp3 ms, decoder ms, plain decoder ms)."""
+    with record_cbr_calls(i8) as fed, torch.inference_mode():
+        for x in xss:
+            infer(pkg, x)
+    if len(fed) != len(MAIN_CBRS) * len(xss):
+        fail(f"{len(fed)} cbr_i8 calls in {len(xss)} served forwards, "
+             f"expected {len(MAIN_CBRS)} each")
+    per = {n: fed[i::len(MAIN_CBRS)] for i, n in enumerate(MAIN_CBRS)}
+    for name, calls in per.items():
+        for args in calls:
+            g, r = K.cbr_i8(*args), K.apply_cbr(*args)
+            if g.dtype != r.dtype or not torch.equal(g, r):
+                fail(f"cbr_i8:{name} differs from apply_cbr on "
+                     f"{int((g != r).sum())} of {r.numel()} elements")
+    log(f"cbr_i8: bit-exact to apply_cbr on all {len(fed)} calls of the "
+        f"{len(xss)} served forwards (sp3 and refine1 codes, the other five "
+        f"float32)")
+    tot = {"ms": 0.0, "plain": 0.0, "bytes": 0, "ops": 0}
+    sp3_ms = 0.0
+    for name, calls in per.items():
+        ms = cuda_ms(K.cbr_i8, calls, reps=5)
+        plain_ms = cuda_ms(K.apply_cbr, calls)
+        n_bytes, ops, (m, kk, n) = cbr_work(calls[0], K.cbr_i8(*calls[0]))
+        b_ms, b_by = bound(n_bytes, ops, "int8")
+        mm_ms = int_mm_ms(dev, m, kk, n)
+        x, e = calls[0][:2]
+        log(f"cbr_i8:{name} {tuple(x.shape)} -> {tuple(e['w'].shape)} "
+            f"{'codes' if calls[0][4] else 'float32'}: kernel {ms:.4f} ms "
+            f"(wrapper included) = {ops / ms / 1e9:.1f} TOP/s, plain "
+            f"{plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+            f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G int8 operations) = "
+            f"{100 * b_ms / ms:.2f} %; same-MACs yardstick torch._int_mm "
+            f"({m}, {kk}) x ({kk}, {n}) {mm_ms:.4f} ms = "
+            f"{ops / mm_ms / 1e9:.1f} TOP/s")
+        tot["ms"] += ms
+        tot["plain"] += plain_ms
+        tot["bytes"] += n_bytes
+        tot["ops"] += ops
+        if name == "sp3":
+            sp3_ms = ms
+    b_ms, b_by = bound(tot["bytes"], tot["ops"], "int8")
+    log(f"cbr_i8, the seven convs of a forward: {tot['ms']:.4f} ms (plain "
+        f"{tot['plain']:.4f} ms); {tot['ops'] / 1e9:.2f} G int8 operations, "
+        f"bound {b_ms:.5f} ms ({b_by}) = {100 * b_ms / tot['ms']:.2f} %")
+
+    def plain_cbr(*args, **kwargs):  # NHWC-contiguous, as the kernels write
+        return K.apply_cbr(*args, **kwargs).contiguous()
+
+    def decoder(body):
+        s, f = body
+        return i8._apply_int8_decoder(pkg["dec"], s, f[-2], f[-1])
+
+    with torch.inference_mode():
+        bodies = [i8.int8_body(pkg, x) for x in xss]
+        logits = [decoder(b) for b in bodies]
+        cbr, i8.cbr_i8 = i8.cbr_i8, plain_cbr
+        try:
+            ref = [decoder(b) for b in bodies]
+            dec_plain_ms = cuda_ms(decoder, [(b,) for b in bodies])
+        finally:
+            i8.cbr_i8 = cbr
+        dec_ms = cuda_ms(decoder, [(b,) for b in bodies], reps=5)
+    for got, want in zip(logits, ref):
+        if not torch.equal(got, want) or not torch.equal(
+                got.argmax(-1), want.argmax(-1)):
+            fail("the main path's /8 logits differ from the plain "
+                 "decoder's on the same body codes")
+    log(f"main path /8 logits bit-identical to the plain decoder's on the "
+        f"same body codes ({len(xss)} images); int8 decoder {dec_ms:.4f} ms "
+        f"on the kernels, {dec_plain_ms:.4f} ms on the plain float64 route")
+    row = {"name": "cbr_i8:r18_main", "route": "cuda", "source": SRC,
+           "replaces": XLA_CBR, "launches": launches["cbr_i8"],
+           "max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain"],
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return row, sp3_ms, dec_ms
 
 
 def main():
@@ -522,16 +674,16 @@ def main():
     log(f"launches in one served forward: {launches}")
     expected = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "l1_stage_i8": 1,
                 "down_stage_i8": 2, "down_block_i8": 1, "res_block_i8": 1,
-                "maxpool2d_3x3s2_i8": 0, "cbr_i8": 0, "bottleneck_i8": 0,
+                "maxpool2d_3x3s2_i8": 0, "cbr_i8": 7, "bottleneck_i8": 0,
                 "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
                 "fused_scale_bias_act": 0, "stem_conv7x7_s2": 0,
                 "sigmoid_focal_loss_fwd": 0, "sigmoid_focal_loss_bwd": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
-    main_path_kernels(infer, pkg, xss[0])
+    busy = main_path_kernels(infer, pkg, xss)
 
-    # stages 3 and 4 make no float64 conv: the body's only one is sp3
+    # no float64 conv (a plain version's qconv) in a whole served forward
     n_qconv = []
     qconv = K.qconv
 
@@ -541,15 +693,14 @@ def main():
 
     K.qconv = counting_qconv
     try:
+        infer(pkg, xss[0])
         with torch.inference_mode():
             spatial_out, feats = i8.int8_body(pkg, xss[0])
     finally:
         K.qconv = qconv
-    log(f"float64 convs in the int8 body (stem to stage 4): "
-        f"{[tuple(s) for s in n_qconv]}")
-    if len(n_qconv) != 1 or tuple(n_qconv[0][:2]) != (1, 1):
-        fail("the int8 body ran float64 convs other than the spatial "
-             "path's 1x1")
+    log(f"float64 convs in a served forward: {[tuple(s) for s in n_qconv]}")
+    if n_qconv:
+        fail("a served forward ran float64 convs (plain versions)")
 
     outs = [labels] + [infer(pkg, x) for x in xss[1:]]
     for y in outs:
@@ -636,6 +787,9 @@ def main():
 
     same_macs_yardsticks(dev, per_image[0]["xs"], st["wf"], kernel_ms,
                          main_ops)
+    cbr_row, sp3_ms, dec_ms = main_path_cbr(
+        dev, infer, pkg, xss, launches, i8, K)
+    rows.append(cbr_row)
 
     # -- the served graph against the plain graph on the CPU, small input -
     cpu_infer, (cpu_pkg, cpu_xs) = entry(device="cpu", image_hw=SMALL,
@@ -657,6 +811,9 @@ def main():
     log(f"host time to enqueue one forward (no sync): {enq:.4f} ms "
         f"({'below' if enq < fwd_ms else 'ABOVE'} the forward's "
         f"{fwd_ms:.4f} ms on the card)")
+    log(f"device time of a forward (profiler) {busy:.4f} ms: against the "
+        f"mean forward of {fwd_ms:.4f} ms the card is idle "
+        f"{max(0.0, 1 - busy / fwd_ms):.3f} of the time")
     t0 = time.perf_counter()
     for u in images:
         infer(pkg, i8.prepare_s2d_input_u8(u, image_mean=cfg.image_mean,
@@ -664,27 +821,16 @@ def main():
     torch.cuda.synchronize()
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / len(images)
     log(f"served forward incl. host s2d prep + copy: {e2e_ms:.4f} ms")
-    sp3_in = [K.conv3x3s2_i8(d["s1"], pkg["sp2"]["w"], pkg["sp2"]["m"],
-                             pkg["sp2"]["c"]) for d in per_image]
-    sp3_ms = cuda_ms(lambda x: i8._apply_cbr(x, pkg["sp3"], 1, 0),
-                     [(x,) for x in sp3_in])
-    with torch.inference_mode():
-        body = [i8.int8_body(pkg, x) for x in xss]
-    dec_ms = cuda_ms(
-        lambda s, f: i8._apply_int8_decoder(pkg["dec"], s, f[-2], f[-1]),
-        body)
-    log(f"plain float64 route: sp3 {sp3_ms:.4f} ms, int8 decoder "
-        f"{dec_ms:.4f} ms")
     parts = [("stem + pool (K1)", kernel_ms["stem_pool_i8"]),
              ("spatial path 3x3/2 x2 (K2)", kernel_ms["conv3x3s2_i8:sp1"]
               + kernel_ms["conv3x3s2_i8:sp2"]),
-             ("sp3 1x1 (plain)", sp3_ms),
+             ("sp3 1x1 (cbr_i8)", sp3_ms),
              ("stage 1 (K3)", kernel_ms["l1_stage_i8"]),
              ("stage 2 (K4)", kernel_ms["down_stage_i8:stage2"]),
              ("stage 3 (K4)", kernel_ms["down_stage_i8:stage3"]),
              ("stage 4 block 0 (K5)", kernel_ms["down_block_i8"]),
              ("stage 4 block 1 (K6)", kernel_ms["res_block_i8"]),
-             ("int8 decoder (plain)", dec_ms)]
+             ("int8 decoder (six cbr_i8 + float glue)", dec_ms)]
     total = sum(ms for _, ms in parts)
     for part, ms in sorted(parts, key=lambda p: -p[1]):
         log(f"  part {part}: {ms:.4f} ms = {100 * ms / fwd_ms:.1f} % of the "
@@ -1101,8 +1247,8 @@ def psp_phase(dev, all_kernels, reset_all):
 
     # -- K10 and every Bottleneck against their plain versions, on what
     # the forwards fed them ------------------------------------------------
-    fed_pool, fed_blocks, fed_cbr = [], [], []
-    pool, block, cbr = i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8, i8.cbr_i8
+    fed_pool, fed_blocks = [], []
+    pool, block = i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8
 
     def spy_pool(x):
         fed_pool.append((x,))
@@ -1112,18 +1258,13 @@ def psp_phase(dev, all_kernels, reset_all):
         fed_blocks.append((x, e, stride, dilation, emit_int8))
         return block(x, e, stride, dilation, emit_int8)
 
-    def spy_cbr(x, e, stride, pad, dilation=1):
-        fed_cbr.append((x, e, stride, pad))
-        return cbr(x, e, stride, pad, dilation)
-
-    i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8, i8.cbr_i8 = (spy_pool,
-                                                          spy_block, spy_cbr)
+    i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8 = spy_pool, spy_block
     try:
-        with torch.inference_mode():
+        with record_cbr_calls(i8) as fed_cbr, torch.inference_mode():
             for x in xss:
                 i8.int8_backbone(pkg, x)
     finally:
-        i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8, i8.cbr_i8 = pool, block, cbr
+        i8.maxpool2d_3x3s2_i8, i8.bottleneck_i8 = pool, block
     k10_err = compare_codes("maxpool2d_3x3s2_i8", K.maxpool2d_3x3s2_i8,
                             K.maxpool_i8, fed_pool)
     for args in fed_blocks:
@@ -1203,7 +1344,25 @@ def psp_phase(dev, all_kernels, reset_all):
     log(f"bottleneck_i8, the 16 blocks of one forward: {sum(blk_ms):.4f} ms "
         f"(plain float64 {blk_plain:.4f} ms); {blk_ops / 2e9:.2f} G int8 "
         f"multiply-accumulates, bound {body_bound[0]:.5f} ms "
-        f"({body_bound[1]}) = {100 * body_bound[0] / sum(blk_ms):.2f} %")
+        f"({body_bound[1]}) = {100 * body_bound[0] / sum(blk_ms):.2f} %; "
+        f"{blk_ops / sum(blk_ms) / 1e9:.1f} TOP/s")
+    # same-MACs yardstick: torch._int_mm of each conv's im2col GEMM (the
+    # projection's too), summed over the 16 blocks
+    gemms = {}
+    for x, e, s, d, _ in one:
+        hw_in = x.shape[1] * x.shape[2]
+        hw_out = ((x.shape[1] - 1) // s + 1) * ((x.shape[2] - 1) // s + 1)
+        for key, m in (("conv1", hw_in), ("conv2", hw_out),
+                       ("conv3", hw_out), ("down", hw_out)):
+            if key in e:
+                w = e[key]["w"]
+                shape = (m, w.shape[0] * w.shape[1] * w.shape[2], w.shape[3])
+                gemms[shape] = gemms.get(shape, 0) + 1
+    mm_ms = sum(n * int_mm_ms(dev, *shape) for shape, n in gemms.items())
+    log(f"same-MACs yardstick, bottleneck_i8: torch._int_mm of the 16 "
+        f"blocks' {sum(gemms.values())} im2col GEMMs ({len(gemms)} "
+        f"distinct) {mm_ms:.4f} ms = {blk_ops / mm_ms / 1e9:.1f} TOP/s; "
+        f"the blocks {sum(blk_ms):.4f} ms")
     for (x, e, s, d, emit), ms in zip(one, blk_ms):
         log(f"  block {tuple(x.shape)} stride {s} dilation {d} "
             f"{'int8' if emit else 'float32'} out: {ms:.4f} ms")
@@ -1267,6 +1426,14 @@ def psp_phase(dev, all_kernels, reset_all):
         log(f"  device {e.self_device_time_total / 1000.0 / len(inputs):9.4f}"
             f" ms per forward, {e.count // len(inputs):4d} calls: "
             f"{e.key[:100]}")
+    convs, _ = int8_convs(prof, len(inputs))
+    log(f"PSPNet: int8 conv launches per forward (profiler): {convs}")
+    if any(k.startswith("conv_i8_kernel") for k in convs) or sum(
+            convs.values()) != PSP_LAUNCHES["cbr_i8"] + PSP_LAUNCHES[
+                "bottleneck_i8"]:
+        fail(f"PSPNet: a forward's int8 conv launches are {convs}: expected "
+             f"{PSP_LAUNCHES['cbr_i8']} + {PSP_LAUNCHES['bottleneck_i8']} "
+             f"tensor-core launches and no CUDA-core conv_i8_kernel")
 
     return [
         {"name": "maxpool2d_3x3s2_i8", "route": "cuda", "source": SRC,
@@ -1279,7 +1446,7 @@ def psp_phase(dev, all_kernels, reset_all):
          "max_abs_err": 0, "ms": sum(blk_ms), "plain_ms": blk_plain,
          "bound_ms": body_bound[0], "bound_by": body_bound[1],
          "library_ms": None},
-        {"name": "cbr_i8", "route": "cuda", "source": SRC,
+        {"name": "cbr_i8:psp_stem", "route": "cuda", "source": SRC,
          "replaces": XLA_STEM_CBR, "launches": got["cbr_i8"],
          "max_abs_err": 0, "ms": cbr_ms, "plain_ms": cbr_plain,
          "bound_ms": cbr_bound[0], "bound_by": cbr_bound[1],

@@ -43,7 +43,18 @@ one JSON line (also to ``--out``).  With ``--forward N`` it also times the
 main path itself in both trees (``entry()``: BiSeNet-R18.speed int8-through
 at 1024x2048, seeded weights; four seeded uint8 images, N rounds of four
 forwards, CUDA events per forward) in turns: other tree, this tree, this
-tree, other tree, each with its median and p90.  Needs a card and nvcc.
+tree, other tree, each with its median and p90; ``--psp-forward N`` does
+the same for PSPNet-R50 at 480x480 (``serve_entry``).
+
+cbr_i8's and bottleneck_i8's launches (``CBR_LINKS``: the R18.speed main
+path's sp3 and six decoder convs at 1024x2048, and every distinct conv of
+PSPNet-R50's deep stem and Bottleneck body at 480x480) are timed the same
+way on each route the kernels offer (the resident-weight kernel where cin
+<= 64, the streaming one by the host's split rule, unsplit and split over
+two blocks; "change" is the route the wrappers pick) against the other
+tree's CUDA-core ``conv_i8_kernel`` (its ``_launch_conv``, where it has
+one), each checked against its plain version, and summed over a
+forward's launches per path.  Needs a card and nvcc.
 """
 
 import argparse
@@ -251,38 +262,143 @@ def operands(dev):
     return stem, stages, identity, spatial, k5
 
 
+# libraries whose tsg_conv_i8_mma has the older argument list (no kernel
+# size, dilation or float32 output: the 3x3 pad-1 kernel with codes out)
+OLD_ABI = set()
+
+
 def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
-             down=None, split=1):
+             down=None, split=1, dilation=1, sd=2):
     """One tsg_conv_i8_mma call into ``out`` (``split`` as the entry
-    point takes it: 0 for its host rule, 1 or 2)."""
+    point takes it: 0 for its host rule, 1 or 2; float32 out where ``out``
+    is float32)."""
     _, h, w, cin = x.shape
     _, ho, wo, cout = out.shape
-    rc = lib.tsg_conv_i8_mma(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
-        e["m"].data_ptr(), e["c"].data_ptr(), mode,
-        res.data_ptr() if res is not None else None, float(rr),
-        xd.data_ptr() if xd is not None else None,
-        xd.shape[2] if xd is not None else 0,
-        xd.shape[3] if xd is not None else 0, 2,
-        down["w"].data_ptr() if down is not None else None,
-        down["m"].data_ptr() if down is not None else None,
-        down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), ho, wo, split, K._stream(x))
+    res_args = (res.data_ptr() if res is not None else None, float(rr),
+                xd.data_ptr() if xd is not None else None,
+                xd.shape[2] if xd is not None else 0,
+                xd.shape[3] if xd is not None else 0, sd,
+                down["w"].data_ptr() if down is not None else None,
+                down["m"].data_ptr() if down is not None else None,
+                down["c"].data_ptr() if down is not None else None,
+                out.data_ptr())
+    if id(lib) in OLD_ABI:
+        rc = lib.tsg_conv_i8_mma(
+            x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
+            e["m"].data_ptr(), e["c"].data_ptr(), mode, *res_args, ho, wo,
+            split, K._stream(x))
+    else:
+        rc = lib.tsg_conv_i8_mma(
+            x.data_ptr(), h, w, cin, e["w"].data_ptr(), e["w"].shape[0],
+            stride, dilation, cout, e["m"].data_ptr(), e["c"].data_ptr(),
+            mode, *res_args, int(out.dtype == torch.float32), ho, wo, split,
+            K._stream(x))
     if rc:
         raise RuntimeError(f"tsg_conv_i8_mma: CUDA error {rc}")
     return out
 
 
-def res_call(lib, x, e, out, mode=0, res=None, rr=0.0, stride=1):
+def res_call(lib, x, e, out, mode=0, res=None, rr=0.0, stride=1,
+             dilation=1):
     _, h, w, cin = x.shape
     rc = lib.tsg_conv_i8_mma_res(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, out.shape[3],
-        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), e["w"].shape[0], stride,
+        dilation, out.shape[3], e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
-        out.data_ptr(), K._stream(x))
+        out.data_ptr(), int(out.dtype == torch.float32), K._stream(x))
     if rc:
         raise RuntimeError(f"tsg_conv_i8_mma_res: CUDA error {rc}")
     return out
+
+
+# cbr_i8's and bottleneck_i8's launches: (item, input (h, w, cin), k, cout,
+# stride, dilation, mode, float32 out, projection (cdin, sd) or None).  The
+# R18.speed main path's sp3 and decoder convs at 1024x2048, and every
+# distinct conv of PSPNet-R50's stem and Bottleneck body at 480x480
+# (layer3 at dilation 2 and layer4 at 4 after each stage's first block, at
+# 1 and 2; the body's last conv3 in float32)
+CBR_LINKS = [
+    ("dec:sp3", (128, 256, 64), 1, 128, 1, 1, 0, False, None),
+    ("dec:arm0", (32, 64, 512), 3, 128, 1, 1, 0, True, None),
+    ("dec:refine0", (64, 128, 128), 3, 128, 1, 1, 0, True, None),
+    ("dec:arm1", (64, 128, 256), 3, 128, 1, 1, 0, True, None),
+    ("dec:refine1", (128, 256, 128), 3, 128, 1, 1, 0, False, None),
+    ("dec:ffm", (128, 256, 256), 1, 256, 1, 1, 0, True, None),
+    ("dec:head", (128, 256, 256), 3, 64, 1, 1, 0, True, None),
+    ("psp:stem2", (240, 240, 64), 3, 64, 1, 1, 0, False, None),
+    ("psp:stem3", (240, 240, 64), 3, 128, 1, 1, 0, False, None),
+    ("psp:l1_0.conv1", (120, 120, 64), 1, 64, 1, 1, 0, False, None),
+    ("psp:l1.conv2", (120, 120, 64), 3, 64, 1, 1, 0, False, None),
+    ("psp:l1_0.conv3", (120, 120, 64), 1, 256, 1, 1, 2, False, (64, 1)),
+    ("psp:l1.conv1", (120, 120, 256), 1, 64, 1, 1, 0, False, None),
+    ("psp:l1.conv3", (120, 120, 64), 1, 256, 1, 1, 1, False, None),
+    ("psp:l2_0.conv1", (120, 120, 256), 1, 128, 1, 1, 0, False, None),
+    ("psp:l2_0.conv2", (120, 120, 128), 3, 128, 2, 1, 0, False, None),
+    ("psp:l2_0.conv3", (60, 60, 128), 1, 512, 1, 1, 2, False, (256, 2)),
+    ("psp:l2.conv1", (60, 60, 512), 1, 128, 1, 1, 0, False, None),
+    ("psp:l2.conv2", (60, 60, 128), 3, 128, 1, 1, 0, False, None),
+    ("psp:l2.conv3", (60, 60, 128), 1, 512, 1, 1, 1, False, None),
+    ("psp:l3_0.conv1", (60, 60, 512), 1, 256, 1, 1, 0, False, None),
+    ("psp:l3_0.conv2", (60, 60, 256), 3, 256, 1, 1, 0, False, None),
+    ("psp:l3.conv2", (60, 60, 256), 3, 256, 1, 2, 0, False, None),
+    ("psp:l3_0.conv3", (60, 60, 256), 1, 1024, 1, 1, 2, False, (512, 1)),
+    ("psp:l3.conv1", (60, 60, 1024), 1, 256, 1, 1, 0, False, None),
+    ("psp:l3.conv3", (60, 60, 256), 1, 1024, 1, 1, 1, False, None),
+    ("psp:l4_0.conv1", (60, 60, 1024), 1, 512, 1, 1, 0, False, None),
+    ("psp:l4_0.conv2", (60, 60, 512), 3, 512, 1, 2, 0, False, None),
+    ("psp:l4.conv2", (60, 60, 512), 3, 512, 1, 4, 0, False, None),
+    ("psp:l4_0.conv3", (60, 60, 512), 1, 2048, 1, 1, 2, False, (1024, 1)),
+    ("psp:l4.conv1", (60, 60, 2048), 1, 512, 1, 1, 0, False, None),
+    ("psp:l4.conv3", (60, 60, 512), 1, 2048, 1, 1, 1, False, None),
+    ("psp:l4_2.conv3", (60, 60, 512), 1, 2048, 1, 1, 1, True, None),
+]
+# how many times a forward launches each: PSPNet-R50's blocks per stage
+# are 3, 4, 6, 3 (the first of each with the projection)
+CBR_LAUNCHES = {"psp:l1.conv2": 3, "psp:l1.conv1": 2, "psp:l1.conv3": 2,
+                "psp:l2.conv1": 3, "psp:l2.conv2": 3, "psp:l2.conv3": 3,
+                "psp:l3.conv2": 5, "psp:l3.conv1": 5, "psp:l3.conv3": 5,
+                "psp:l4.conv2": 2, "psp:l4.conv1": 2, "psp:l4.conv3": 1}
+
+
+def cbr_operands(g, dev, link):
+    """Seeded codes and weights of one CBR_LINKS launch: (x, e, extra)."""
+    _, (h, w, cin), k, cout, stride, _, mode, _, proj = link
+    scale = 40.0 / (127 * 64 * (k * k * cin) ** 0.5)
+
+    def entry(kk, ci, co):
+        return {"w": torch.randint(-127, 128, (kk, kk, ci, co), generator=g,
+                                   dtype=torch.int8).to(dev),
+                "m": ((torch.rand(co, generator=g) + 0.5) * scale).to(dev),
+                "c": (torch.randn(co, generator=g) * 8).to(dev)}
+
+    x = torch.randint(0, 128, (1, h, w, cin), generator=g,
+                      dtype=torch.int8).to(dev)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    extra = {}
+    if mode == 1:
+        extra = {"res": torch.randint(0, 128, (1, ho, wo, cout), generator=g,
+                                      dtype=torch.int8).to(dev), "rr": 0.75}
+    elif mode == 2:
+        cdin, sd = proj
+        extra = {"xd": torch.randint(0, 128, (1, ho * sd, wo * sd, cdin),
+                                     generator=g, dtype=torch.int8).to(dev),
+                 "down": entry(1, cdin, cout), "sd": sd}
+    return x, entry(k, cin, cout), extra
+
+
+def plain_cbr(x, e, stride, dilation, mode, out_f32, extra):
+    """The plain version of one CBR_LINKS launch."""
+    k = e["w"].shape[0]
+    z = K.fma(K.qconv(x, e["w"], stride, dilation if k == 3 else 0,
+                      dilation).float(), e["m"], e["c"])
+    if mode == 1:
+        z = K.fma(extra["res"].float(), extra["rr"], z)
+    elif mode == 2:
+        d = extra["down"]
+        z = K.fma(K.qconv(extra["xd"], d["w"], extra["sd"], 0).float(),
+                  d["m"], z) + d["c"]
+    z = torch.relu(z)
+    return z if out_f32 else K.requant(z)
 
 
 def identity_links(x, blocks):
@@ -376,17 +492,25 @@ def bound_ms(ops, n_bytes, kind):
     return max(ops / PEAK[kind], n_bytes / HBM) * 1e3
 
 
-def forward_ms(entry_mod, dev, rounds):
-    """(median, p90) CUDA-event ms of one main-path forward of the tree whose
-    ``entry`` module this is, over four seeded images."""
+def forward_ms(entry_mod, dev, rounds, psp=False):
+    """(median, p90) CUDA-event ms of one main-path forward (or, with
+    ``psp``, one PSPNet-R50 forward at 480x480) of the tree whose ``entry``
+    module this is, over four seeded images."""
     i8 = importlib.import_module(entry_mod.__name__.rsplit(".", 1)[0]
                                  + ".deploy.int8_serve")
-    infer, (pkg, _) = entry_mod.entry(device=dev)
-    cfg = entry_mod.get_experiment(entry_mod.EXPERIMENT)
     rng = np.random.default_rng(1)
-    xss = [i8.prepare_s2d_input_u8(
-        rng.integers(0, 256, (1, 1024, 2048, 3), dtype=np.uint8),
-        image_mean=cfg.image_mean, device=dev) for _ in range(4)]
+    if psp:
+        infer, (pkg, _) = entry_mod.serve_entry(device=dev)
+        cfg = entry_mod.get_experiment(entry_mod.PSP_EXPERIMENT)
+        xss = [i8.prepare_u8_input(
+            rng.integers(0, 256, (1, 480, 480, 3), dtype=np.uint8),
+            image_mean=cfg.image_mean, device=dev) for _ in range(4)]
+    else:
+        infer, (pkg, _) = entry_mod.entry(device=dev)
+        cfg = entry_mod.get_experiment(entry_mod.EXPERIMENT)
+        xss = [i8.prepare_s2d_input_u8(
+            rng.integers(0, 256, (1, 1024, 2048, 3), dtype=np.uint8),
+            image_mean=cfg.image_mean, device=dev) for _ in range(4)]
 
     def run():
         for x in xss:
@@ -414,6 +538,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--forward", type=int, default=0,
                     help="rounds of the main-path forward timing (0: none)")
+    ap.add_argument("--psp-forward", type=int, default=0,
+                    help="rounds of the PSPNet-R50 forward timing (0: none)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -448,6 +574,9 @@ def main(argv=None):
         parent = import_tree(args.root, "tsg_parent")
         parent_build = importlib.import_module("tsg_parent.ops.kernels._build")
         parent_lib = parent_build.ready(dev.index)
+        if len(parent_build.LIBRARIES["int8_serve_kernels"][
+                "tsg_conv_i8_mma"]) == 24:
+            OLD_ABI.add(id(parent_lib))
         builds["parent"] = report_build(
             "parent", parent_build.BuildInfo.paths["int8_serve_kernels"],
             parent_build.BuildInfo.logs.get("int8_serve_kernels", ""))
@@ -705,19 +834,105 @@ def main(argv=None):
         print(f"{item} (two launches, wrapper included): " + ", ".join(
             f"{b} {ms}" for b, ms in t.items()) + " ms", flush=True)
 
-    if args.forward:
-        trees = {"change": importlib.import_module("torchseg_tpu_torch.entry")}
-        if parent:
-            trees["parent"] = importlib.import_module("tsg_parent.entry")
-        runs = {b: forward_ms(mod, dev, args.forward)
+    # cbr_i8's and bottleneck_i8's launches on each route: the resident
+    # kernel (up to 64 input channels, modes 0 and 1), the streaming one by
+    # the host's split rule (split0), unsplit (split1) and split over two
+    # blocks (split2); "change" is the route the wrappers pick (conv_route;
+    # a projection streams whole); the other tree's CUDA-core
+    # conv_i8_kernel (its _launch_conv) where it has one
+    g = torch.Generator().manual_seed(1)
+    cbr_total = {}
+    for link in CBR_LINKS:
+        item, (h, w, cin), k, cout, stride, dil, mode, f32, _ = link
+        x, e, extra = cbr_operands(g, dev, link)
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        resident_ok = cin <= K.RESIDENT_MAX_CIN and mode <= 1 and stride <= 2
+        rule = "split1" if mode == 2 else K.conv_route(
+            cin, cout, ho, wo, k, stride, mode, _build.sm_count(dev.index))
+        routes = (["resident"] if resident_ok else []) + [
+            "split0", "split1", "split2"]
+        outs = {r: torch.empty((1, ho, wo, cout), device=dev,
+                               dtype=torch.float32 if f32 else torch.int8)
+                for r in routes}
+        got = {}
+
+        def route_call(r):
+            if r == "parent":
+                def run():
+                    got[r] = parent._launch_conv(
+                        x, e, stride, dil if k == 3 else 0, mode=mode,
+                        res=extra.get("res"), rr=extra.get("rr", 0.0),
+                        xd=extra.get("xd"), down=extra.get("down"),
+                        sd=extra.get("sd", 1), dil=dil, out_f32=f32)
+                return run
+            if r == "resident":
+                return lambda: res_call(lib, x, e, outs[r], mode,
+                                        extra.get("res"),
+                                        extra.get("rr", 0.0), stride, dil)
+            return lambda: mma_call(lib, x, e, stride, outs[r], mode,
+                                    extra.get("res"), extra.get("rr", 0.0),
+                                    extra.get("xd"), extra.get("down"),
+                                    split=int(r[-1]), dilation=dil,
+                                    sd=extra.get("sd", 1))
+
+        want = plain_cbr(x, e, stride, dil, mode, f32, extra)
+
+        def route_check(r):
+            r = rule if r == "change" else r
+            route_call(r)()
+            torch.cuda.synchronize()
+            have = got.get(r, outs.get(r))
+            if not torch.equal(have, want):
+                msg = (f"{item} [{r}] vs plain: "
+                       f"{int((have != want).sum())} of {want.numel()} differ")
+                print("  MISMATCH " + msg, flush=True)
+                MISMATCHES.append(msg)
+
+        calls = {"change": route_call(rule)}
+        calls.update({r: route_call(r) for r in routes if r != rule})
+        if parent and hasattr(parent, "_launch_conv"):
+            calls["parent"] = route_call("parent")
+        t = turns(item, calls, route_check)
+        ops = 2 * ho * wo * cout * k * k * cin
+        n_bytes = x.numel() + e["w"].numel() + outs[routes[0]].nbytes
+        if mode == 1:
+            n_bytes += extra["res"].numel()
+        elif mode == 2:
+            ops += 2 * ho * wo * cout * extra["xd"].shape[3]
+            n_bytes += extra["xd"].numel() + extra["down"]["w"].numel()
+        best = min(t["change"])
+        n = CBR_LAUNCHES.get(item, 1)
+        for b, v in t.items():
+            cbr_total.setdefault(item[:3], {}).setdefault(b, 0.0)
+            cbr_total[item[:3]][b] += n * min(v)
+        print(f"{item} {(1, h, w, cin)} -> {cout} (k {k}, stride {stride}, "
+              f"dilation {dil}, mode {mode}, {'float32' if f32 else 'codes'};"
+              f" change = {rule}; x{n} a forward): " + ", ".join(
+                  f"{b} {ms}" for b, ms in t.items())
+              + f" ms; bound {bound_ms(ops, n_bytes, 'int8'):.5f} ms "
+              f"({ops / 1e9:.3f} G int8 ops, {n_bytes / 1e6:.1f} MB); this "
+              f"tree {ops / best / 1e9:.1f} TOP/s", flush=True)
+    for path, v in cbr_total.items():
+        print(f"{path} convs, a forward's launches (sum of each route's best "
+              f"time x launches): " + ", ".join(
+                  f"{b} {ms:.4f}" for b, ms in v.items()) + " ms", flush=True)
+
+    trees = {"change": importlib.import_module("torchseg_tpu_torch.entry")}
+    if parent:
+        trees["parent"] = importlib.import_module("tsg_parent.entry")
+    for key, rounds, psp in (("main_path", args.forward, False),
+                             ("pspnet", args.psp_forward, True)):
+        if not rounds:
+            continue
+        runs = {b: forward_ms(mod, dev, rounds, psp)
                 for b, mod in trees.items()}
         order = (["parent"] if parent else []) + ["change", "change"] + (
             ["parent"] if parent else [])
         fwd = {}
         for b in order:
             fwd.setdefault(b, []).append(runs[b]())
-        results["main_path_forward_median_p90"] = fwd
-        print("main-path forward (median, p90) ms: " + ", ".join(
+        results[f"{key}_forward_median_p90"] = fwd
+        print(f"{key} forward (median, p90) ms: " + ", ".join(
             f"{b} {v}" for b, v in fwd.items()), flush=True)
 
     line = json.dumps({"card": smi, "reps": args.reps, "variants": variants,

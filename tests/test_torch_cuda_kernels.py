@@ -13,8 +13,10 @@ block), so the edge masking and the
 scalar paths are exercised; K3's and K2's resident-weight kernel (K2 at
 stride 2), and K6's and K5's K split over a two-block cluster (K5's with
 the projection's chunks on the first block), are held at the main path's
-shapes and at ragged ones; chip_smoke.py covers the serving and training
-shapes, and K8/K9 are also held at every distinct BN input shape of the
+shapes and at ragged ones; the same two kernels' 1x1 and dilated 3x3
+windows and float32 epilogue (cbr_i8, bottleneck_i8) on each route, in
+each mode, at cout 8, 64 and 200 and at the served decoder's shapes;
+chip_smoke.py covers the serving and training shapes, and K8/K9 are also held at every distinct BN input shape of the
 DFN-R101 and BiSeNet-R18 training steps (K8 in its one-thread-per-channel,
 one-block and cluster forms; K9 on its per-run and flat grids).  This file
 imports no JAX, so on a machine without it run it without the suite's
@@ -373,8 +375,9 @@ def test_k2_k5_refuse_widths_before_launch(dev, fn):
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_conv_kernel_at_cin_512(dev, mode):
-    """One conv_i8_kernel launch at cin=512 (its weights staged in four
-    chunks) in each epilogue mode, against the plain formula."""
+    """One streaming tensor-core launch at cin=512 (72 chunks; the host
+    rule splits the 10 tiles over two-block clusters) in each epilogue
+    mode, against the plain formula: ragged 7 x 37 output, cout 192."""
     g = _gen(7)
     x = _codes(g, (1, 7, 37, 512)).to(dev)
     e = _cbr(g, 3, 512, 192, dev)
@@ -391,19 +394,184 @@ def test_conv_kernel_at_cin_512(dev, mode):
         kw = {"xd": xd, "down": down, "sd": 2}
         z = K.fma(K.qconv(xd, down["w"], 2, 0).float(), down["m"], z) \
             + down["c"]
-    _exact(K._launch_conv(x, e, 1, 1, mode=mode, **kw),
+    _exact(K._launch_conv_mma(x, e, 1, mode=mode, **kw),
            K.requant(torch.relu(z)))
 
 
 def test_conv_launch_over_shared_memory_raises(dev):
-    """A call whose shared memory exceeds the device's limit raises a
-    ValueError naming cin, k and stride before any launch (a 7x7 kernel
-    stages 7*7*32*64 weight words per chunk)."""
+    """A resident-weight launch whose weights exceed the device's shared
+    memory raises a ValueError naming cin and k before any launch (9 taps
+    x 1024 channels x 64 outputs is ~590 KB)."""
     g = _gen(8)
-    x = _codes(g, (1, 9, 9, 128)).to(dev)
-    e = _cbr(g, 7, 128, 64, dev)
-    with pytest.raises(ValueError, match=r"cin=128, k=7, stride=1"):
-        K._launch_conv(x, e, 1, 3)
+    x = _codes(g, (1, 9, 9, 1024)).to(dev)
+    e = _cbr(g, 3, 1024, 64, dev)
+    with pytest.raises(ValueError, match=r"cin=1024, k=3"):
+        K._launch_conv_mma_res(x, e)
+
+
+# -- the tensor-core convs' 1x1 and dilated windows and float32 epilogue ------
+
+def _plain_conv(x, e, stride, dilation, mode, out_f32, res=None, rr=0.0,
+                xd=None, down=None, sd=1):
+    """The plain version of one tensor-core launch: the k x k conv (pad =
+    dilation for a 3x3, 0 for a 1x1) and its epilogue chain."""
+    k = e["w"].shape[0]
+    y = K.qconv(x, e["w"], stride, dilation if k == 3 else 0, dilation)
+    z = K.fma(y.float(), e["m"], e["c"])
+    if mode == 1:
+        z = K.fma(res.float(), rr, z)
+    elif mode == 2:
+        z = K.fma(K.qconv(xd, down["w"], sd, 0).float(), down["m"], z) \
+            + down["c"]
+    z = torch.relu(z)
+    return z if out_f32 else K.requant(z)
+
+
+def _launch(route, x, e, stride, dilation, mode, out_f32, **kw):
+    """One launch on a route: the resident-weight kernel, or the streaming
+    one unsplit or split over a two-block cluster."""
+    if route == "resident":
+        return K._launch_conv_mma_res(x, e, mode=mode, stride=stride,
+                                      dilation=dilation, out_f32=out_f32,
+                                      **kw)
+    return K._launch_conv_mma(x, e, stride, mode=mode, dilation=dilation,
+                              out_f32=out_f32, split=int(route[-1]), **kw)
+
+
+# the resident route at cin 48 (one part-filled chunk a tap), the streaming
+# one at cin 144 (three chunks a tap, the last part-filled); a ragged 13 x
+# 21 input; cout 8 (one n8 group), 64 (one block) and 200 (four blocks, the
+# last part-filled, cout % 16 == 8)
+ROUTES = [("resident", 48), ("split1", 144), ("split2", 144)]
+
+
+@pytest.mark.parametrize("cout", [8, 64, 200])
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("route,cin", ROUTES)
+def test_conv_1x1_bit_exact(dev, route, cin, mode, stride, out_f32, cout):
+    """A 1x1 launch (pad 0) in each mode, at stride 1 and 2, codes or
+    float32 out, on each route (mode 2, a projection, streams only)."""
+    if route == "resident" and mode == 2:
+        pytest.skip("a projection launch runs on the streaming kernel only")
+    g = _gen(30)
+    x = _codes(g, (1, 13, 21, cin)).to(dev)
+    e = _cbr(g, 1, cin, cout, dev)
+    ho, wo = (13 - 1) // stride + 1, (21 - 1) // stride + 1
+    kw = {}
+    if mode == 1:
+        kw = {"res": _codes(g, (1, ho, wo, cout)).to(dev), "rr": 0.75}
+    elif mode == 2:
+        kw = {"xd": _codes(g, (1, 2 * ho, 2 * wo - 1, 80)).to(dev),
+              "down": _cbr(g, 1, 80, cout, dev), "sd": 2}
+    got = _launch(route, x, e, stride, 1, mode, out_f32, **kw)
+    _exact(got, _plain_conv(x, e, stride, 1, mode, out_f32, **kw))
+
+
+@pytest.mark.parametrize("cout", [8, 64, 200])
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dilation", [1, 2, 4])
+@pytest.mark.parametrize("route,cin", ROUTES)
+def test_conv_3x3_dilated_bit_exact(dev, route, cin, dilation, stride,
+                                    out_f32, cout):
+    """A CBR 3x3 at pad = dilation (1, 2, 4), stride 1 and 2, codes or
+    float32 out, on each route: taps d apart, most in the pad at d = 4 on
+    a 13 x 21 input."""
+    g = _gen(31)
+    x = _codes(g, (1, 13, 21, cin)).to(dev)
+    e = _cbr(g, 3, cin, cout, dev)
+    got = _launch(route, x, e, stride, dilation, 0, out_f32)
+    _exact(got, _plain_conv(x, e, stride, dilation, 0, out_f32))
+
+
+@pytest.mark.parametrize("route", ["resident", "split1"])
+def test_conv_1x1_residual_waits_for_a_short_tile(dev, route):
+    """A 1x1 identity link whose tile is one K chunk (cin 64): the resident
+    kernel's residual tile lands before that tile's epilogue."""
+    g = _gen(32)
+    x = _codes(g, (1, 37, 45, 64)).to(dev)
+    e = _cbr(g, 1, 64, 256, dev)
+    res = _codes(g, (1, 37, 45, 256)).to(dev)
+    for out_f32 in (False, True):
+        got = _launch(route, x, e, 1, 1, 1, out_f32, res=res, rr=0.75)
+        _exact(got, _plain_conv(x, e, 1, 1, 1, out_f32, res=res, rr=0.75))
+
+
+@pytest.mark.parametrize("kw", [
+    {"mode": 1, "out_f32": True}, {"mode": 0, "dilation": 2, "k": 1},
+    {"mode": 1, "dilation": 2}])
+def test_conv_refuses_combinations_it_has_no_kernel_for(dev, kw):
+    """Float32 out from a 3x3 in mode 1, a dilated 1x1 and a dilated
+    residual link have no compiled instantiation: the entry points refuse
+    them at launch, on both kernels."""
+    g = _gen(33)
+    k = kw.get("k", 3)
+    x = _codes(g, (1, 6, 10, 64)).to(dev)
+    e = _cbr(g, k, 64, 64, dev)
+    res = _codes(g, (1, 6, 10, 64)).to(dev)
+    extra = {"res": res, "rr": 0.75} if kw["mode"] == 1 else {}
+    for route in ("resident", "split1"):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _launch(route, x, e, 1, kw.get("dilation", 1), kw["mode"],
+                    kw.get("out_f32", False), **extra)
+
+
+# the main path's sp3 and decoder convs at 1024x2048 and PSPNet's stem2 and
+# layer1 3x3 at 480x480 (the resident route and, below one resident tile a
+# SM, the streaming one): (name, input shape, k, cout, emit_int8)
+DECODER_CONVS = [("sp3", (1, 128, 256, 64), 1, 128, True),
+                 ("stem2", (1, 240, 240, 64), 3, 64, True),
+                 ("layer1_conv2", (1, 120, 120, 64), 3, 64, True),
+                 ("arm0", (1, 32, 64, 512), 3, 128, False),
+                 ("refine0", (1, 64, 128, 128), 3, 128, False),
+                 ("arm1", (1, 64, 128, 256), 3, 128, False),
+                 ("refine1", (1, 128, 256, 128), 3, 128, True),
+                 ("ffm", (1, 128, 256, 256), 1, 256, False),
+                 ("head", (1, 128, 256, 256), 3, 64, False)]
+
+
+@pytest.mark.parametrize("name,shape,k,cout,emit_int8", DECODER_CONVS,
+                         ids=[c[0] for c in DECODER_CONVS])
+def test_cbr_kernel_at_the_decoder_shapes(dev, name, shape, k, cout,
+                                          emit_int8):
+    """cbr_i8 at the served R18.speed graph's seven shapes and two of
+    PSPNet's, one launch each on the route ``conv_route`` picks, bit-exact
+    against apply_cbr (codes or float32)."""
+    g = _gen(34)
+    x = _codes(g, shape).to(dev)
+    e = _cbr(g, k, shape[3], cout, dev)
+    pad = 1 if k == 3 else 0
+    before = K.cbr_i8.launches
+    got = K.cbr_i8(x, e, 1, pad, emit_int8)
+    torch.cuda.synchronize()
+    assert K.cbr_i8.launches == before + 1
+    _exact(got, K.apply_cbr(x, e, 1, pad, emit_int8))
+
+
+@pytest.mark.parametrize("case", ["cin", "pad", "k", "bottleneck"])
+def test_cbr_and_bottleneck_refuse_widths_before_launch(dev, case):
+    """cbr_i8 and bottleneck_i8 take cin % 16 == 0, a 3x3 at pad =
+    dilation or a 1x1 at pad 0 on the card; anything else raises before a
+    launch (the plain versions take any)."""
+    g = _gen(35)
+    if case == "bottleneck":
+        x = _codes(g, (1, 6, 10, 64)).to(dev)
+        e = _bottleneck(g, 64, 36, 64, False, dev)
+        kern, call = K.bottleneck_i8, lambda: K.bottleneck_i8(x, e, 1, 1)
+    else:
+        cin = 36 if case == "cin" else 64
+        k = 5 if case == "k" else 3
+        x = _codes(g, (1, 6, 10, cin)).to(dev)
+        e = _cbr(g, k, cin, 64, dev)
+        pad = 2 if case == "pad" else k // 2
+        kern, call = K.cbr_i8, lambda: K.cbr_i8(x, e, 1, pad)
+    before = kern.launches
+    with pytest.raises(ValueError, match="tensor cores"):
+        call()
+    torch.cuda.synchronize()
+    assert kern.launches == before
 
 
 # -- K10 and the dilated Bottleneck body (PSPNet) ------------------------------
@@ -451,7 +619,8 @@ def test_conv_kernel_dilated_bit_exact(dev, cin, stride, dilation):
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_conv_kernel_out_f32_bit_exact(dev, mode):
-    """The float32 epilogue (the body's last block) in each mode."""
+    """The float32 epilogue (the body's last block: a 1x1 at cin 512) in
+    each mode, on the streaming kernel."""
     g = _gen(17)
     x = _codes(g, (1, 9, 37, 512)).to(dev)
     e = _cbr_k(g, 1, 512, 256, dev)
@@ -468,7 +637,7 @@ def test_conv_kernel_out_f32_bit_exact(dev, mode):
         kw = {"xd": xd, "down": down, "sd": 1}
         z = K.fma(K.qconv(xd, down["w"], 1, 0).float(), down["m"], z) \
             + down["c"]
-    got = K._launch_conv(x, e, 1, 0, mode=mode, out_f32=True, **kw)
+    got = K._launch_conv_mma(x, e, 1, mode=mode, out_f32=True, **kw)
     assert got.dtype == torch.float32
     _exact(got, torch.relu(z))
 

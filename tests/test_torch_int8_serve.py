@@ -105,7 +105,7 @@ def test_stem_codes_within_one(served):
 def test_body_bit_identical_given_jax_stem_codes(served):
     ref, pkg = served["ref"], served["pkg"]
     sq = K.spatial_path_i8(_t(ref["sp_q"]), pkg["sp1"], pkg["sp2"])
-    got = {"sq": sq, "spatial_out": ti8._apply_cbr(sq, pkg["sp3"], 1, 0)}
+    got = {"sq": sq, "spatial_out": ti8.cbr_i8(sq, pkg["sp3"], 1, 0)}
     x = K.l1_stage_i8(_t(ref["pooled"]), pkg["l1_0"], pkg["l1_1"])
     got["c4"] = x
     x = got["c8"] = K.down_stage_i8(x, pkg["l2_0"], pkg["l2_1"])

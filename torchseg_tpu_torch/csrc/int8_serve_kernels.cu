@@ -3,15 +3,16 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Five kernels, nine entry points of the serving graphs:
+// Four kernels, nine entry points of the serving graphs:
 //
 //   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
 //       s2d_stem_pool_quad_i8 (and the v1/v2 stems at :128 and :214):
 //       the s2d 4x4 stem conv on bf16 tensor cores (mma.sync m16n8k16),
 //       its requant, and the backbone half's 3x3/2 max pool.
-//   conv_i8_mma_kernel             the streaming int8 tensor-core 3x3 conv
-//       (mma.sync m16n8k32, weights staged chunk by chunk), launched by
+//   conv_i8_mma_kernel             the streaming int8 tensor-core conv
+//       (mma.sync m16n8k32, weights staged chunk by chunk; 3x3, dilated
+//       3x3 or 1x1 window), launched by
 //       K4 down_stage_i8  replacing down_stage_i8_from_paired (:986),
 //                         stages 2 and 3: four launches (the 1x1/2
 //                         projection fused into the first block's conv2
@@ -24,32 +25,36 @@
 //       K6 res_block_i8   replacing res_block_i8_std (:1226), stage 4's
 //                         stride-1 block: two launches, K split as K5's;
 //       K3 l1_stage_i8    (below) at widths whose weights do not fit
-//                         conv_i8_mma_res_kernel.
-//   conv_i8_mma_res_kernel         the int8 tensor-core 3x3 conv (stride 1
-//       or 2) with the link's whole weight resident in shared memory,
-//       persistent blocks; launched by
+//                         conv_i8_mma_res_kernel;
+//       cbr_i8            one CBR (any k in {1, 3}, stride, dilation;
+//                         codes or float32 out): the R18 decoder's six
+//                         convs and the spatial path's 1x1 (sp3), the
+//                         deep stem's stem2/stem3 (XLA convs in JAX,
+//                         deploy/int8_serve.py:940, :1038, :756);
+//       bottleneck_i8     a dilated Bottleneck, three launches: 1x1, 3x3
+//                         with stride and dilation, 1x1 with the residual
+//                         or the 1x1/s projection in its epilogue (XLA
+//                         in JAX, deploy/int8_serve.py:716 _apply_bottleneck);
+//                         the last block of the body writes float32.
+//   conv_i8_mma_res_kernel         the int8 tensor-core conv with the
+//       link's whole weight resident in shared memory, persistent blocks
+//       (stride 1 or 2; the same windows and outputs); launched by
 //       K3 l1_stage_i8    replacing l1_stage_i8_paired_view (:763),
 //                         stage 1: a chain of four launches (and K6 at
 //                         widths up to 64);
 //       K2 conv3x3s2_i8   replacing conv3x3s2_i8_quad (:515), twice per
 //                         forward through spatial_path_i8 (:569/:587),
-//                         at stride 2.
-//   conv_i8_kernel                 the shared int8 conv + epilogue on
-//       CUDA cores (__dp4a; any k, stride, dilation), launched by
-//       cbr_i8            the deep stem's stem2/stem3 CBRs, one launch
-//                         each (XLA convs in JAX, deploy/int8_serve.py:756);
-//       bottleneck_i8     a dilated Bottleneck, three launches: 1x1, 3x3
-//                         with stride and dilation, 1x1 with the residual
-//                         or the 1x1/s projection in its epilogue (XLA
-//                         in JAX, deploy/int8_serve.py:716 _apply_bottleneck).
+//                         at stride 2;
+//       cbr_i8, bottleneck_i8  their convs of up to 64 input channels
+//                         (sp3, stem2/stem3, layer1's).
 //   maxpool_i8_kernel    (K10) replaces maxpool2d_3x3s2_i8 (:1308), the
 //       standalone 3x3/2 pad-1 max pool after the deep stem.
 //
 // Numerics (the spec is the JAX XLA path, deploy/int8_serve.py:716-958 and
 // :1274-1295, as XLA compiles it on the CPU where the tests run it):
-//   * int8 x int8 products accumulate exactly in int32 (__dp4a, or the int8
-//     tensor cores: integer sums are exact in any order, so both kernels are
-//     bit-exact);
+//   * int8 x int8 products accumulate exactly in int32 on the int8 tensor
+//     cores: integer sums are exact in any order, so the convs are
+//     bit-exact;
 //   * the stem's int8 codes are exact in bf16 and its weights are bf16, so
 //     the bf16 tensor cores form every product exactly and accumulate in
 //     f32; the order and rounding of that sum differ from any other
@@ -433,250 +438,39 @@ size_t stem_smem_bytes(int cout, int n_sp) {
 }
 
 // ---------------------------------------------------------------------------
-// Shared int8 conv + epilogue on CUDA cores (the deep stem's CBRs and the
-// Bottleneck chains; K2-K6 no longer use it: their links run on the
-// tensor-core kernels below).
+// The streaming int8 tensor-core conv + epilogue, the weights streamed chunk
+// by chunk: K4's, K5's and K6's links, and the 3x3 and 1x1 convs of cbr_i8
+// (the R18 decoder, sp3) and bottleneck_i8 (PSPNet's body) above 64 input
+// channels.
 //
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
-// HWIO int8 weights (k, k, cin, cout), stride s, dilation d, symmetric pad,
-// exact in int32; then one of three epilogues, all ending in ReLU and
-// either the requant to int8 codes or (out_f32) the float32 value itself,
-// (ho, wo, cout):
-//   mode 0 (CBR):        z = fma(y, m, c)
-//   mode 1 (identity):   z = fma(res, rr, fma(y, m, c)), res (ho, wo, cout)
-//   mode 2 (projection): z = fma(yd, md, fma(y, m, c)) + cd, with
-//        yd = 1x1/sd conv of the block input xd (hd, wd, cdin) by wd.
-// The projection's weights are staged whole (cdin4 x kConvCO words: 64 KB
-// at cdin = 1024, the widest projection of ResNet-50/101).
-//
-// What bounds it: int8 MACs, 2*ho*wo*cout*k*k*cin (9.7 GOP for one stage-1
-// conv at 1024x2048), which at dp4a rates is a fraction of a millisecond
-// against ~8-16 MB of traffic; a simple kernel is bounded instead by its
-// shared-memory loads.  Design: one block owns kConvTH output rows x kConvTW
-// columns x kConvCO channels.  The input channels are walked in chunks of
-// kConvChunk 4-channel words; each chunk's weight slice is packed into
-// shared memory as int32 words ([k][k][chunk][kConvCO]), and each row's
-// input patch is staged in turn as int32 words.  Each thread computes
-// eight pixels of one output channel with __dp4a: one weight word feeds
-// eight dot products, and the eight input words are warp-wide broadcasts.
-// Chunking bounds shared memory by the chunk, not by cin: a whole 3x3
-// cin=512 slice (288 KB) would not fit a block's 227 KB; a chunk takes
-// 72 KB.  The sums are exact integers, so the chunk order changes no code.
-//
-// kRows is how many rows' sums a thread holds at once.  When the weight
-// slice is one chunk (cin <= 128), it is packed once per block and the
-// rows are finished one at a time (kRows = 1: 62 registers, four blocks
-// per SM).  When it takes several chunks, every chunk serves all the
-// block's rows before the next is packed, so all their sums stay in
-// registers (kRows = kConvTH: 128 registers, two blocks per SM, which is
-// also what a chunk's shared memory allows).  Holding four rows' sums at
-// cin <= 128 too cost those convs 5-8 % on an H100 (80 registers, three
-// blocks per SM).
-// ---------------------------------------------------------------------------
-
-constexpr int kConvTW = 32;       // output columns per block
-constexpr int kConvTH = 4;        // output rows per block (weights reused)
-constexpr int kConvCO = 64;       // output channels per block
-constexpr int kConvPX = 8;        // pixels per thread
-constexpr int kConvChunk = 32;    // input-channel words (x4 channels) per chunk
-constexpr int kConvThreads = kConvCO * kConvTW / kConvPX;  // 256
-
-__device__ __forceinline__ int pack4(const int8_t* src, int step) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    word |= (static_cast<uint32_t>(static_cast<uint8_t>(src[b * step])) << (8 * b));
-  return static_cast<int>(word);
-}
-
-template <int kRows>
-__global__ void __launch_bounds__(kConvThreads)
-conv_i8_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
-               const int8_t* __restrict__ wt, int k, int stride, int pad,
-               int dil, int cout, const float* __restrict__ m,
-               const float* __restrict__ c, int mode,
-               const int8_t* __restrict__ res, float rr,
-               const int8_t* __restrict__ xd, int hd, int wd_, int cdin,
-               int sd, const int8_t* __restrict__ wdt,
-               const float* __restrict__ md, const float* __restrict__ cd,
-               void* __restrict__ out, int out_f32, int ho, int wo) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cin4 = cin / 4;
-  const int cdin4 = cdin / 4;
-  const int chunk = min(cin4, kConvChunk);
-  const int kw_in = (kConvTW - 1) * stride + (k - 1) * dil + 1;  // staged columns
-  int* w_s = reinterpret_cast<int*>(smem);                   // [k*k][chunk][CO]
-  int* x_s = w_s + k * k * chunk * kConvCO;                  // [k][kw_in][chunk]
-  int* wd_s = x_s + k * kw_in * chunk;                       // [cdin4][CO]
-  int* xd_s = wd_s + (mode == 2 ? cdin4 * kConvCO : 0);      // [TW][cdin4]
-
-  const int tid = threadIdx.x;
-  const int co_l = tid % kConvCO;
-  const int pg = tid / kConvCO;                 // pixel group 0..3
-  const int ox0 = blockIdx.x * kConvTW;
-  const int oy_begin = blockIdx.y * kConvTH;
-  const int oy_end = min(ho, oy_begin + kConvTH);
-  const int co0 = blockIdx.z * kConvCO;
-  const int co = co0 + co_l;
-
-  if (mode == 2) {  // the projection's weights, packed once
-    for (int i = tid; i < cdin4 * kConvCO; i += blockDim.x) {
-      const int cl = i % kConvCO, ci4 = i / kConvCO;
-      wd_s[i] = co0 + cl < cout
-          ? pack4(wdt + static_cast<size_t>(4 * ci4) * cout + co0 + cl, cout) : 0;
-    }
-  }
-  float mv = 0.f, cv = 0.f, mdv = 0.f, cdv = 0.f;
-  if (co < cout) {
-    mv = m[co];
-    cv = c[co];
-    if (mode == 2) {
-      mdv = md[co];
-      cdv = cd[co];
-    }
-  }
-  const int* x32 = reinterpret_cast<const int*>(x);
-  const int* xd32 = reinterpret_cast<const int*>(xd);
-
-  for (int g0 = oy_begin; g0 < oy_end; g0 += kRows) {
-    const int nrows = min(kRows, oy_end - g0);   // block-uniform
-    int acc[kRows][kConvPX];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < kConvPX; ++j) acc[r][j] = 0;
-
-    for (int c0 = 0; c0 < cin4; c0 += chunk) {
-      const int cn = min(chunk, cin4 - c0);
-      __syncthreads();  // the previous readers are done with shared memory
-      if (cn != cin4 || g0 == oy_begin) {  // one chunk: packed once per block
-        // 4 consecutive input channels per word
-        for (int i = tid; i < k * k * cn * kConvCO; i += blockDim.x) {
-          const int cl = i % kConvCO;
-          const int kc = i / kConvCO;              // tap * cn + ci
-          const int tap = kc / cn, ci4 = c0 + kc % cn;
-          w_s[i] = co0 + cl < cout
-              ? pack4(wt + (static_cast<size_t>(tap) * cin + 4 * ci4) * cout + co0 + cl,
-                      cout)
-              : 0;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= nrows) break;
-        if (r > 0) __syncthreads();  // the previous row's readers are done with x_s
-        const int iy0 = (g0 + r) * stride - pad;
-        const int ix0 = ox0 * stride - pad;
-        for (int i = tid; i < k * kw_in * cn; i += blockDim.x) {
-          const int ci = i % cn;
-          const int t = (i / cn) % kw_in;
-          const int ky = i / (cn * kw_in);
-          const int iy = iy0 + ky * dil, ix = ix0 + t;
-          int v = 0;
-          if (iy >= 0 && iy < h && ix >= 0 && ix < w)
-            v = x32[(static_cast<size_t>(iy) * w + ix) * cin4 + c0 + ci];
-          x_s[i] = v;
-        }
-        __syncthreads();
-        for (int ky = 0; ky < k; ++ky) {
-          for (int kx = 0; kx < k; ++kx) {
-            const int* wrow = w_s + ((ky * k + kx) * cn) * kConvCO + co_l;
-            const int* xrow = x_s + (ky * kw_in + pg * kConvPX * stride + kx * dil) * cn;
-            for (int ci = 0; ci < cn; ++ci) {
-              const int wv = wrow[ci * kConvCO];
-#pragma unroll
-              for (int j = 0; j < kConvPX; ++j)
-                acc[r][j] = __dp4a(xrow[j * stride * cn + ci], wv, acc[r][j]);
-            }
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r >= nrows) break;
-      const int oy = g0 + r;
-      int accd[kConvPX];
-#pragma unroll
-      for (int j = 0; j < kConvPX; ++j) accd[j] = 0;
-      if (mode == 2) {
-        __syncthreads();  // the previous readers are done with xd_s
-        const int iy = oy * sd;
-        for (int i = tid; i < kConvTW * cdin4; i += blockDim.x) {
-          const int ci4 = i % cdin4, p = i / cdin4;
-          const int ix = (ox0 + p) * sd;
-          int v = 0;
-          if (iy < hd && ix < wd_)
-            v = xd32[(static_cast<size_t>(iy) * wd_ + ix) * cdin4 + ci4];
-          xd_s[i] = v;
-        }
-        __syncthreads();
-        const int* xrow = xd_s + pg * kConvPX * cdin4;
-        for (int ci4 = 0; ci4 < cdin4; ++ci4) {
-          const int wv = wd_s[ci4 * kConvCO + co_l];
-#pragma unroll
-          for (int j = 0; j < kConvPX; ++j)
-            accd[j] = __dp4a(xrow[j * cdin4 + ci4], wv, accd[j]);
-        }
-      }
-      if (co < cout) {
-#pragma unroll
-        for (int j = 0; j < kConvPX; ++j) {
-          const int ox = ox0 + pg * kConvPX + j;
-          if (ox >= wo) continue;
-          const size_t o = (static_cast<size_t>(oy) * wo + ox) * cout + co;
-          float z = __fmaf_rn(__int2float_rn(acc[r][j]), mv, cv);
-          if (mode == 1) {
-            z = __fmaf_rn(static_cast<float>(res[o]), rr, z);
-          } else if (mode == 2) {
-            z = __fadd_rn(__fmaf_rn(__int2float_rn(accd[j]), mdv, z), cdv);
-          }
-          if (out_f32)
-            static_cast<float*>(out)[o] = fmaxf(z, 0.f);
-          else
-            static_cast<int8_t*>(out)[o] = requant(fmaxf(z, 0.f));
-        }
-      }
-    }
-  }
-}
-
-size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) {
-  const size_t cin4 = cin / 4, cdin4 = cdin / 4;
-  const size_t chunk = cin4 < static_cast<size_t>(kConvChunk) ? cin4 : kConvChunk;
-  const size_t kw_in = (kConvTW - 1) * stride + (k - 1) * dil + 1;
-  size_t words = k * k * chunk * kConvCO + k * kw_in * chunk;
-  if (mode == 2) words += cdin4 * kConvCO + kConvTW * cdin4;
-  return 4 * words;
-}
-
-
-// ---------------------------------------------------------------------------
-// K4's, K5's and K6's links: int8 3x3 pad-1 conv + epilogue on int8 tensor
-// cores, the weights streamed chunk by chunk.
-//
-// What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
-// HWIO int8 weights (3, 3, cin, cout), stride 1 or 2, pad 1, exact in
-// int32; then the requant epilogue of conv_i8_kernel, int8 out:
+// HWIO int8 weights (k, k, cin, cout), exact in int32, for one of three
+// windows (kWin): 3x3 pad 1 (kWin3, K2-K6's), 3x3 with dilation d and pad
+// d (kWinDil), or 1x1 pad 0 (kWin1), at any stride; then one of three
+// epilogues, all ending in ReLU and either the requant to int8 codes or
+// (kF32) the float32 value itself:
 //   mode 0 (CBR):        z = fma(y, m, c)
 //   mode 1 (identity):   z = fma(res, rr, fma(y, m, c)), res (ho, wo, cout)
 //   mode 2 (projection): z = fma(yd, md, fma(y, m, c)) + cd, with
 //        yd = 1x1/sd conv of the block input xd (hd, wd, cdin) by wd,
 //        a second GEMM into its own int32 accumulators.
+// XLA contracts exactly these multiply-adds on the CPU, so the chain is
+// written with __fmaf_rn/__fadd_rn under -fmad=false.
 //
 // What bounds it on an H100: int8 tensor-core operations (34.4 G for a
 // whole stage-2 or stage-3 down stage, ~17 us at the 1,979 TOP/s dense
 // peak) against 13 MB (stage 2) or 8 MB (stage 3) of traffic (~4 us).
-// The __dp4a kernel it replaced for K4 (conv_i8_kernel) ran at ~35 TOP/s.
+// The __dp4a CUDA-core kernel it replaced ran at ~22-35 TOP/s.
 //
 // Design: an implicit GEMM, M = output pixels (flattened, so a tile may
-// cross rows and the ragged edge is masked per pixel), N = cout, K = 9 taps
+// cross rows and the ragged edge is masked per pixel), N = cout, K = taps
 // x cin (+ cdin for the projection).  A block owns kMmaBM = 128 pixels x
 // kMmaBN = 64 channels and walks K in 64-byte chunks, each inside one tap
 // (cin % 16 == 0; a chunk's channels past cin are zero-filled), tap by tap
-// without divisions (each A row keeps its window offset and a 9-bit mask
-// of the taps inside the image):
+// without divisions (each A row keeps its window offset and a mask of the
+// taps inside the image; the window is a template parameter, so the 3x3
+// pad-1 instantiations that K2-K6 launch are compiled as before: their
+// dilation is the constant 1):
 //   * A tiles are gathered from x with 16-byte cp.async copies, zero-filled
 //     at the pad and past the edge (src-size 0), in a ring of kMmaStages;
 //   * B tiles are the HWIO weights, read as 4-channel x 4-k words into
@@ -687,11 +481,14 @@ size_t conv_smem_bytes(int cin, int k, int stride, int mode, int cdin, int dil) 
 //     every ldmatrix conflict-free (mma_chunk_addr);
 //   * 8 warps (4 along M x 2 along N), each 32 pixels x 32 channels: per
 //     32-byte k step two A and two B ldmatrix.x4 feed 8 mma.sync.m16n8k32;
-//   * the epilogue (the __fmaf_rn/__fadd_rn chain of conv_i8_kernel,
-//     unchanged) writes codes to shared memory, and they leave with 16-byte
-//     stores (8-byte where cout % 16 == 8).
+//   * the epilogue writes codes to shared memory (over the ring), and they
+//     leave with 16-byte stores (8-byte where cout % 16 == 8); float32
+//     values (kF32) are staged the same way, 128 x 64 floats in rows
+//     padded by 32 bytes (36,864 bytes of the 49,152-byte ring: a
+//     half-warp's 8-byte stores hit 32 distinct banks), and leave with
+//     16-byte stores.
 // Integer sums are exact in any order, so the kernel is bit-exact against
-// conv_i8_kernel and the plain version.  At stage 3 (8,192 pixels x 256
+// the plain version.  At stage 3 (8,192 pixels x 256
 // channels) the grid is 256 blocks: one wave at two blocks an SM.  Tuned
 // with scripts/torch_int8_kernel_variants.py on an H100: 64 x 64 tiles of
 // 4 warps were 20-45 % slower a link, 3 or 5 stages within 3 %, and 128 x
@@ -724,6 +521,7 @@ constexpr int kMmaBK = 64;                          // bytes of K per stage
 constexpr int kMmaThreads = 32 * kMmaWM * kMmaWN;
 constexpr int kMmaSlot = (kMmaBM + kMmaBN) * kMmaBK;  // one stage: A tile, B tile
 constexpr int kMmaOutPitch = kMmaBN + 16;           // bytes of a staged output row
+constexpr int kMmaOutPitchF = kMmaBN + 8;           // floats of a staged float32 row
 constexpr int kMmaARows = kMmaBM * 4 / kMmaThreads;  // 16-byte A copies a thread
 constexpr int kMmaBBlocks = kMmaBN * 4 / kMmaThreads;  // 4x4 B blocks a thread
 static_assert(kMmaStages >= 3, "B is stored two chunks behind its loads");
@@ -731,6 +529,12 @@ static_assert(kMmaBM * 4 % kMmaThreads == 0 && kMmaBN * 4 % kMmaThreads == 0,
               "whole copies per thread");
 static_assert(32 * kMmaThreads * 4 <= kMmaStages * kMmaSlot,
               "a split block's int32 sums fit in its ring");
+static_assert(kMmaBM * kMmaOutPitchF * 4 <= kMmaStages * kMmaSlot,
+              "a float32 output tile fits in the ring");
+
+// The window of a tensor-core conv (a template parameter of both kernels):
+// 3x3 pad 1 (K2-K6), 3x3 with dilation d and pad d, or 1x1 pad 0.
+constexpr int kWin3 = 0, kWinDil = 1, kWin1 = 2;
 
 // Byte offset of 16-byte chunk `chunk` of tile row `row` (64-byte rows).
 // ldmatrix reads 8 consecutive rows (r % 8 == 0) at one chunk; the
@@ -740,16 +544,19 @@ __device__ __forceinline__ int mma_chunk_addr(int row, int chunk) {
   return row * kMmaBK + ((chunk ^ (((row >> 1) ^ (row >> 3)) & 3)) << 4);
 }
 
-template <int kMode, int kSplit>
+template <int kMode, int kSplit, int kWin, bool kF32>
 __global__ void __launch_bounds__(kMmaThreads, 512 / kMmaThreads)
 conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
-                   const int8_t* __restrict__ wt, int stride, int cout,
-                   const float* __restrict__ m, const float* __restrict__ c,
-                   const int8_t* __restrict__ res, float rr,
-                   const int8_t* __restrict__ xd, int wd_, int cdin, int sd,
-                   const int8_t* __restrict__ wdt, const float* __restrict__ md,
-                   const float* __restrict__ cd, int8_t* __restrict__ out,
-                   int ho, int wo) {
+                   const int8_t* __restrict__ wt, int stride, int dilation,
+                   int cout, const float* __restrict__ m,
+                   const float* __restrict__ c, const int8_t* __restrict__ res,
+                   float rr, const int8_t* __restrict__ xd, int wd_, int cdin,
+                   int sd, const int8_t* __restrict__ wdt,
+                   const float* __restrict__ md, const float* __restrict__ cd,
+                   void* __restrict__ out, int ho, int wo) {
+  constexpr int kTaps = kWin == kWin1 ? 1 : 9;  // the projection is "tap" kTaps
+  const int dil = kWin == kWinDil ? dilation : 1;
+  const int pad = kWin == kWin1 ? 0 : dil;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t s_base = smem_addr(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -758,7 +565,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   const int n0 = blockIdx.y * kMmaBN;
   const int rank = blockIdx.x % kSplit;          // rank in the K-split cluster
   const int cch = (cin + kMmaBK - 1) / kMmaBK;   // chunks per tap
-  const int n_main = 9 * cch;
+  const int n_main = kTaps * cch;
   const int n_proj = kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0;
   // This block's main chunks [mc0, mc1), then (rank 0) the projection's:
   // rank 0 takes main chunks [0, lead) and every projection chunk, so only
@@ -775,9 +582,8 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 
   // The A rows this thread copies: rows tid/4 + i * threads/4, 16-byte
   // column tid % 4.  Per row: the offset of its window's top-left input
-  // pixel (it may lie in the pad), the 9-bit mask of taps inside the
-  // image (bit 9: the pixel exists), and the offset of its projection
-  // pixel.
+  // pixel (it may lie in the pad), the mask of taps inside the image (bit
+  // 9: the pixel exists), and the offset of its projection pixel.
   const int a_col = tid & 3;
   long long a_off[kMmaARows], a_doff[kMmaARows];
   int a_mask[kMmaARows];
@@ -788,9 +594,9 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     a_off[i] = a_doff[i] = 0;
     if (p < n_pix) {
       const int oy = p / wo, ox = p % wo;
-      const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
-      for (int t = 0; t < 9; ++t) {
-        const int iy = iy0 + t / 3, ix = ix0 + t % 3;
+      const int iy0 = oy * stride - pad, ix0 = ox * stride - pad;
+      for (int t = 0; t < kTaps; ++t) {
+        const int iy = iy0 + t / 3 * dil, ix = ix0 + t % 3 * dil;
         if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
       }
       a_mask[i] |= 1 << 9;  // the pixel exists: its projection row is read
@@ -800,20 +606,20 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   }
 
   // The chunk the next load_chunk call stages, walked without divisions:
-  // tap-major over the 3x3 window in channel chunks of kMmaBK, then (mode
-  // 2, rank 0) the projection's channel chunks (tap 9).  Only a split
+  // tap-major over the window in channel chunks of kMmaBK, then (mode 2,
+  // rank 0) the projection's channel chunks (tap kTaps).  Only a split
   // projection's rank 0 leaves the main walk early, after lead chunks.
   int ld_main = nk_main;   // main chunks still to stage
-  int ld_tap = nk_main > 0 ? mc0 / cch : 9;
+  int ld_tap = nk_main > 0 ? mc0 / cch : kTaps;
   int ld_c0 = nk_main > 0 ? mc0 % cch * kMmaBK : 0;
   auto next_chunk = [&]() {
-    if (kMode == 2 && kSplit > 1 && ld_tap < 9 && --ld_main == 0) {
-      ld_tap = 9;
+    if (kMode == 2 && kSplit > 1 && ld_tap < kTaps && --ld_main == 0) {
+      ld_tap = kTaps;
       ld_c0 = 0;
       return;
     }
     ld_c0 += kMmaBK;
-    if (ld_tap < 9 && ld_c0 >= cin) {
+    if (ld_tap < kTaps && ld_c0 >= cin) {
       ld_c0 = 0;
       ++ld_tap;
     }
@@ -833,10 +639,12 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // Stage the chunk (ld_tap, ld_c0): its A rows by cp.async into `slot`,
   // its B words into registers; then advance to the next chunk.
   auto load_chunk = [&](int slot, uint32_t (&breg)[kMmaBBlocks][4]) {
-    const bool proj = kMode == 2 && ld_tap == 9;
+    const bool proj = kMode == 2 && ld_tap == kTaps;
     const int ch = ld_c0 + a_col * 16;
-    const int8_t* a_src = proj ? xd + ch : x + (ld_tap / 3 * w + ld_tap % 3) *
-                                                   static_cast<long long>(cin) + ch;
+    const int8_t* a_src =
+        proj ? xd + ch
+             : x + (kTaps == 1 ? 0 : (ld_tap / 3 * w + ld_tap % 3) *
+                                         static_cast<long long>(dil * cin)) + ch;
     const bool ch_ok = ch < (proj ? cdin : cin);
 #pragma unroll
     for (int i = 0; i < kMmaARows; ++i) {
@@ -985,8 +793,10 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     if (rank != 0) return;
   }
 
-  // epilogue: codes to shared memory, then 16-byte stores
+  // epilogue: codes (or float32 values) to shared memory, then 16-byte
+  // stores
   int8_t* o_s = reinterpret_cast<int8_t*>(smem);
+  float* o_f = reinterpret_cast<float*>(smem);
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -1010,26 +820,45 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
         const int ml = wm * 32 + i * 16 + g + 8 * hh;
         const int p = m0 + ml;
         if (p >= n_pix) continue;
-        int8_t q[2];
+        float z[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float z = __fmaf_rn(__int2float_rn(acc[i][j][2 * hh + e]), mv[e], cv[e]);
+          z[e] = __fmaf_rn(__int2float_rn(acc[i][j][2 * hh + e]), mv[e], cv[e]);
           if (kMode == 1) {
-            z = __fmaf_rn(static_cast<float>(res[static_cast<size_t>(p) * cout + n + e]), rr, z);
+            z[e] = __fmaf_rn(static_cast<float>(res[static_cast<size_t>(p) * cout + n + e]), rr,
+                             z[e]);
           } else if (kMode == 2) {
-            z = __fadd_rn(__fmaf_rn(__int2float_rn(accd[i][j][2 * hh + e]), mdv[e], z), cdv[e]);
+            z[e] = __fadd_rn(__fmaf_rn(__int2float_rn(accd[i][j][2 * hh + e]), mdv[e], z[e]),
+                             cdv[e]);
           }
-          q[e] = requant(fmaxf(z, 0.f));
+          z[e] = fmaxf(z[e], 0.f);
         }
-        *reinterpret_cast<uint16_t*>(o_s + ml * kMmaOutPitch + nl) = pack2(q[0], q[1]);
+        if constexpr (kF32)
+          *reinterpret_cast<float2*>(o_f + ml * kMmaOutPitchF + nl) = make_float2(z[0], z[1]);
+        else
+          *reinterpret_cast<uint16_t*>(o_s + ml * kMmaOutPitch + nl) =
+              pack2(requant(z[0]), requant(z[1]));
       }
   }
   __syncthreads();
+  if constexpr (kF32) {
+    // 4 channels a 16-byte store (cout % 8 == 0: all four or none)
+    float* outf = static_cast<float*>(out);
+    for (int idx = tid; idx < kMmaBM * (kMmaBN / 4); idx += kMmaThreads) {
+      const int row = idx / (kMmaBN / 4), n = n0 + (idx % (kMmaBN / 4)) * 4;
+      const int p = m0 + row;
+      if (p >= n_pix || n >= cout) continue;
+      *reinterpret_cast<float4*>(outf + static_cast<size_t>(p) * cout + n) =
+          *reinterpret_cast<const float4*>(o_f + row * kMmaOutPitchF + (n - n0));
+    }
+    return;
+  }
+  int8_t* outq = static_cast<int8_t*>(out);
   for (int idx = tid; idx < kMmaBM * (kMmaBN / 16); idx += kMmaThreads) {
     const int row = idx / (kMmaBN / 16), n = n0 + (idx % (kMmaBN / 16)) * 16;
     const int p = m0 + row;
     if (p >= n_pix || n >= cout) continue;
-    int8_t* dst = out + static_cast<size_t>(p) * cout + n;
+    int8_t* dst = outq + static_cast<size_t>(p) * cout + n;
     const int8_t* src = o_s + row * kMmaOutPitch + (n - n0);
     if ((cout & 15) == 0) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -1048,9 +877,9 @@ size_t conv_mma_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// K3's and K2's links: int8 3x3 pad-1 conv + epilogue on int8 tensor
-// cores, the link's whole weight resident in shared memory, persistent
-// blocks.
+// K3's and K2's links, and the convs of cbr_i8 and bottleneck_i8 up to 64
+// input channels: int8 conv + epilogue on int8 tensor cores, the link's
+// whole weight resident in shared memory, persistent blocks.
 //
 // Replaces, four launches per call, the TPU kernel l1_stage_i8_paired_view
 // (torchseg_tpu/ops/pallas/int8_serve_kernels.py:763): ResNet-18's stage 1,
@@ -1060,11 +889,14 @@ size_t conv_mma_smem_bytes() {
 // 128, 256, 64).
 //
 // What it computes: conv_i8_mma_kernel's modes 0 and 1 at stride 1 or 2
-// (the same __fmaf_rn chain, int8 out), for cin % 16 == 0 and cout % 8 ==
-// 0.  At stride 2 only the gather changes: output pixel (oy, ox)'s window
-// starts at input (2 oy - 1, 2 ox - 1), and its tap mask and the zero fill
-// at the pad follow from that; the shared-memory tiles, and so every
-// ldmatrix, are laid out as at stride 1.
+// (the same __fmaf_rn chain), for cin % 16 == 0 and cout % 8 == 0, over
+// the same windows (kWin: 3x3 pad 1, 3x3 dilated, 1x1), int8 codes or
+// (kF32) float32 values out.  Stride, dilation and window change only the
+// gather: output pixel (oy, ox)'s window starts at input (s oy - p, s ox -
+// p), its taps lie d apart, and its tap mask and the zero fill at the pad
+// follow from that; the shared-memory tiles, and so every ldmatrix, are
+// laid out as for the 3x3 at stride 1 (a 1x1 has one tap: 64 + 16 bytes
+// of weight a channel).
 //
 // What bounds it on an H100: int8 tensor-core operations, 9.66 G a link
 // at stage 1 (M = 131,072 pixels, N = 64, K = 9 x 64 = 576), ~4.9 us at the
@@ -1101,7 +933,11 @@ size_t conv_mma_smem_bytes() {
 //     it from shared memory (read from device memory by the epilogue, 2
 //     bytes a thread at a time, it made the residual links ~25 % slower);
 //   * the epilogue stages codes in a buffer of its own (the ring keeps
-//     loading) and they leave with 16-byte stores.
+//     loading) and they leave with 16-byte stores; float32 values (a 256
+//     x 64 tile is 64 KB, which does not fit beside the weights) leave
+//     straight from the accumulator fragments, each lane's two adjacent
+//     channels as one 8-byte store (a warp's store fills whole 32-byte
+//     sectors).
 // Integer sums are exact in any order: bit-exact against the plain version.
 // ---------------------------------------------------------------------------
 
@@ -1118,26 +954,29 @@ constexpr int kResOutPitch = kResBN + 16;           // bytes of a staged output 
 static_assert(kResStages >= 2 && kResTN % 16 == 0, "ring depth, warp tile");
 static_assert(kResBM * 4 % kResThreads == 0, "whole copies per thread");
 
-// Bytes of one resident weight row: 9 taps x cin padded to 64-byte chunks,
+// Bytes of one resident weight row: taps x cin padded to 64-byte chunks,
 // plus 16 so the row is an odd number of 16-byte chunks.
-__host__ __device__ __forceinline__ int res_w_pitch(int cin) {
-  return 9 * ((cin + kMmaBK - 1) / kMmaBK) * kMmaBK + 16;
+__host__ __device__ __forceinline__ int res_w_pitch(int cin, int taps) {
+  return taps * ((cin + kMmaBK - 1) / kMmaBK) * kMmaBK + 16;
 }
 
-template <int kMode>
+template <int kMode, int kWin, bool kF32>
 __global__ void __launch_bounds__(kResThreads, 2)
 conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
-                       int stride, const int8_t* __restrict__ wt, int cout,
-                       const float* __restrict__ m, const float* __restrict__ c,
-                       const int8_t* __restrict__ res, float rr,
-                       int8_t* __restrict__ out, int ho, int wo) {
+                       int stride, int dilation, const int8_t* __restrict__ wt,
+                       int cout, const float* __restrict__ m,
+                       const float* __restrict__ c, const int8_t* __restrict__ res,
+                       float rr, void* __restrict__ out, int ho, int wo) {
+  constexpr int kTaps = kWin == kWin1 ? 1 : 9;
+  const int dil = kWin == kWinDil ? dilation : 1;
+  const int pad = kWin == kWin1 ? 0 : dil;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_pix = ho * wo;
   const int n0 = blockIdx.y * kResBN;
   const int cpad = (cin + kMmaBK - 1) / kMmaBK * kMmaBK;
-  const int nk = 9 * cpad / kMmaBK;   // chunks per tile
-  const int pitch = res_w_pitch(cin);
+  const int nk = kTaps * cpad / kMmaBK;   // chunks per tile
+  const int pitch = res_w_pitch(cin, kTaps);
   const int m_tiles = (n_pix + kResBM - 1) / kResBM;
   const int my_tiles = (m_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
   const int total = my_tiles * nk;    // chunks this block computes
@@ -1150,7 +989,7 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 
   // The A rows this thread copies (rows tid/4 + i * threads/4, 16-byte
   // column tid % 4) of the tile being loaded: the offset of each window's
-  // top-left input pixel and its 9-bit mask of taps inside the image.
+  // top-left input pixel and its mask of taps inside the image.
   const int a_col = tid & 3;
   long long a_off[kResARows];
   int a_mask[kResARows];
@@ -1162,10 +1001,10 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
       a_off[i] = 0;
       if (p < n_pix) {
         const int oy = p / wo, ox = p - oy * wo;
-        const int iy0 = oy * stride - 1, ix0 = ox * stride - 1;
+        const int iy0 = oy * stride - pad, ix0 = ox * stride - pad;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          const int iy = iy0 + t / 3, ix = ix0 + t % 3;
+        for (int t = 0; t < kTaps; ++t) {
+          const int iy = iy0 + t / 3 * dil, ix = ix0 + t % 3 * dil;
           if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
         }
         a_off[i] = (static_cast<long long>(iy0) * w + ix0) * cin;
@@ -1179,7 +1018,7 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   auto load_chunk = [&](int slot) {
     const int ch = ld_c0 + a_col * 16;
     const int8_t* src =
-        x + static_cast<long long>(ld_tap / 3 * w + ld_tap % 3) * cin + ch;
+        x + static_cast<long long>(ld_tap / 3 * w + ld_tap % 3) * (dil * cin) + ch;
 #pragma unroll
     for (int i = 0; i < kResARows; ++i) {
       const bool ok = ch < cin && ((a_mask[i] >> ld_tap) & 1);
@@ -1190,7 +1029,7 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     ld_c0 += kMmaBK;
     if (ld_c0 >= cin) {
       ld_c0 = 0;
-      if (++ld_tap == 9) {
+      if (++ld_tap == kTaps) {
         ld_tap = 0;
         if (++ld_i < my_tiles) setup_rows(blockIdx.x + ld_i * gridDim.x);
       }
@@ -1205,7 +1044,7 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // The weights of channels n0 .. n0 + 63, K-major, while the first A
   // chunks load: each 4(k) x 4(n) byte block read as four words and
   // transposed with byte permutes.
-  for (int i = tid; i < 9 * cpad / 4 * (kResBN / 4); i += kResThreads) {
+  for (int i = tid; i < kTaps * cpad / 4 * (kResBN / 4); i += kResThreads) {
     const int nn = 4 * (i % (kResBN / 4)), kk = 4 * (i / (kResBN / 4));
     const int tap = kk / cpad, ch = kk - tap * cpad, n = n0 + nn;
     uint32_t v[4];
@@ -1293,15 +1132,21 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
             if (p >= n_pix) continue;
             uint32_t rv = 0;
             if (kMode == 1) rv = *reinterpret_cast<const uint16_t*>(r_s + ml * kResOutPitch + nl);
-            int8_t q[2];
+            float z[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              float z = __fmaf_rn(__int2float_rn(acc[i][j][2 * hh + e]), mv[e], cv[e]);
+              z[e] = __fmaf_rn(__int2float_rn(acc[i][j][2 * hh + e]), mv[e], cv[e]);
               if (kMode == 1)
-                z = __fmaf_rn(static_cast<float>(static_cast<int8_t>(rv >> (8 * e))), rr, z);
-              q[e] = requant(fmaxf(z, 0.f));
+                z[e] = __fmaf_rn(static_cast<float>(static_cast<int8_t>(rv >> (8 * e))), rr,
+                                 z[e]);
+              z[e] = fmaxf(z[e], 0.f);
             }
-            *reinterpret_cast<uint16_t*>(o_s + ml * kResOutPitch + nl) = pack2(q[0], q[1]);
+            if constexpr (kF32)
+              *reinterpret_cast<float2*>(static_cast<float*>(out) + static_cast<size_t>(p) * cout +
+                                         n) = make_float2(z[0], z[1]);
+            else
+              *reinterpret_cast<uint16_t*>(o_s + ml * kResOutPitch + nl) =
+                  pack2(requant(z[0]), requant(z[1]));
           }
       }
 #pragma unroll
@@ -1309,12 +1154,13 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
     }
+    if constexpr (kF32) return;
     __syncthreads();
     for (int idx = tid; idx < kResBM * (kResBN / 16); idx += kResThreads) {
       const int row = idx / (kResBN / 16), n = n0 + (idx % (kResBN / 16)) * 16;
       const int p = m0 + row;
       if (p >= n_pix || n >= cout) continue;
-      int8_t* dst = out + static_cast<size_t>(p) * cout + n;
+      int8_t* dst = static_cast<int8_t*>(out) + static_cast<size_t>(p) * cout + n;
       const int8_t* src = o_s + row * kResOutPitch + (n - n0);
       if ((cout & 15) == 0) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -1331,9 +1177,10 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // barrier of each step also orders an epilogue's reads of o_s and r_s
   // before the next tile's residual copies and epilogue writes; the
   // residual copies join the group of the tile's first step, which is
-  // complete before its epilogue (a tile has at least 9 >= kResStages
-  // chunks).
-  static_assert(kResStages <= 9, "a tile's residual lands before its epilogue");
+  // complete before its epilogue when the tile has at least kResStages
+  // chunks (every 3x3 tile: 9 or more); a 1x1 tile of fewer chunks waits
+  // for its residual (and the next chunk) before its epilogue.
+  static_assert(kResStages <= 9, "a 3x3 tile's residual lands before its epilogue");
   int kc = 0, tile_i = 0;
   for (int q = 0; q < total; ++q) {
     cp_async_wait<kResStages - 2>();
@@ -1343,6 +1190,10 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     cp_async_commit();
     compute(q % kResStages, kc);
     if (++kc == nk) {
+      if (kMode == 1 && kTaps == 1 && nk < kResStages) {
+        cp_async_wait<0>();
+        __syncthreads();
+      }
       epilogue(blockIdx.x + tile_i * gridDim.x);
       kc = 0;
       ++tile_i;
@@ -1351,8 +1202,8 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   cp_async_wait<0>();
 }
 
-size_t conv_mma_res_smem_bytes(int cin) {
-  return static_cast<size_t>(kResBN) * res_w_pitch(cin) +
+size_t conv_mma_res_smem_bytes(int cin, int taps) {
+  return static_cast<size_t>(kResBN) * res_w_pitch(cin, taps) +
          static_cast<size_t>(kResStages) * kResSlot +
          2 * static_cast<size_t>(kResBM) * kResOutPitch;
 }
@@ -1405,6 +1256,75 @@ maxpool_i8_kernel(const int* __restrict__ x, int h, int w, int c4,
   out[i] = mx;
 }
 
+// The conv window of a launch, from its kernel size and dilation (-1: no
+// kernel takes it).
+int window_of(int k, int dil) {
+  if (k == 3 && dil >= 1) return dil == 1 ? kWin3 : kWinDil;
+  return k == 1 && dil == 1 ? kWin1 : -1;
+}
+
+// The tensor-core conv instantiations, by (mode, window, float32 out):
+// every window in mode 0 (a CBR); in modes 1 and 2 (a block's last conv)
+// the 3x3 pad-1 window with codes out (K3-K6) and the 1x1 with either
+// output (the Bottleneck's conv3).  No other combination is compiled: its
+// lookup gives null and the entry point returns cudaErrorInvalidValue.
+using MmaKernel = void (*)(const int8_t*, int, int, int, const int8_t*, int, int, int,
+                           const float*, const float*, const int8_t*, float,
+                           const int8_t*, int, int, int, const int8_t*,
+                           const float*, const float*, void*, int, int);
+using ResKernel = void (*)(const int8_t*, int, int, int, int, int, const int8_t*, int,
+                           const float*, const float*, const int8_t*, float, void*,
+                           int, int);
+
+template <int kMode, int kSplit>
+MmaKernel mma_kernel_of(int win, int f32) {
+  if (win == kWin3 && !f32) return conv_i8_mma_kernel<kMode, kSplit, kWin3, false>;
+  if (win == kWin1)
+    return f32 ? conv_i8_mma_kernel<kMode, kSplit, kWin1, true>
+               : conv_i8_mma_kernel<kMode, kSplit, kWin1, false>;
+  if constexpr (kMode == 0) {
+    if (win == kWin3) return conv_i8_mma_kernel<0, kSplit, kWin3, true>;
+    if (win == kWinDil)
+      return f32 ? conv_i8_mma_kernel<0, kSplit, kWinDil, true>
+                 : conv_i8_mma_kernel<0, kSplit, kWinDil, false>;
+  }
+  return nullptr;
+}
+
+template <int kSplit>
+MmaKernel mma_kernel_split(int mode, int win, int f32) {
+  return mode == 0   ? mma_kernel_of<0, kSplit>(win, f32)
+         : mode == 1 ? mma_kernel_of<1, kSplit>(win, f32)
+         : mode == 2 ? mma_kernel_of<2, kSplit>(win, f32)
+                     : nullptr;
+}
+
+MmaKernel mma_kernel(int mode, int split, int win, int f32) {
+  return split == 1   ? mma_kernel_split<1>(mode, win, f32)
+         : split == 2 ? mma_kernel_split<2>(mode, win, f32)
+                      : nullptr;
+}
+
+template <int kMode>
+ResKernel res_kernel_of(int win, int f32) {
+  if (win == kWin3 && !f32) return conv_i8_mma_res_kernel<kMode, kWin3, false>;
+  if (win == kWin1)
+    return f32 ? conv_i8_mma_res_kernel<kMode, kWin1, true>
+               : conv_i8_mma_res_kernel<kMode, kWin1, false>;
+  if constexpr (kMode == 0) {
+    if (win == kWin3) return conv_i8_mma_res_kernel<0, kWin3, true>;
+    if (win == kWinDil)
+      return f32 ? conv_i8_mma_res_kernel<0, kWinDil, true>
+                 : conv_i8_mma_res_kernel<0, kWinDil, false>;
+  }
+  return nullptr;
+}
+
+ResKernel res_kernel(int mode, int win, int f32) {
+  return mode == 0 ? res_kernel_of<0>(win, f32) : mode == 1 ? res_kernel_of<1>(win, f32)
+                                                            : nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1419,22 +1339,20 @@ int tsg_init(void) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* kernels[] = {reinterpret_cast<const void*>(stem_pool_i8_mma_kernel),
-                           reinterpret_cast<const void*>(conv_i8_kernel<1>),
-                           reinterpret_cast<const void*>(conv_i8_kernel<kConvTH>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<0, 1>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<1, 1>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<2, 1>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<0, 2>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<1, 2>),
-                           reinterpret_cast<const void*>(conv_i8_mma_kernel<2, 2>),
-                           reinterpret_cast<const void*>(conv_i8_mma_res_kernel<0>),
-                           reinterpret_cast<const void*>(conv_i8_mma_res_kernel<1>)};
-  for (const void* fn : kernels) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const auto allow = [&](const void* fn) {
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  };
+  err = allow(reinterpret_cast<const void*>(stem_pool_i8_mma_kernel));
+  for (int mode = 0; mode < 3; ++mode)
+    for (int win = 0; win < 3; ++win)
+      for (int f32 = 0; f32 < 2; ++f32) {
+        for (int split = 1; split <= 2; ++split)
+          if (const MmaKernel fn = mma_kernel(mode, split, win, f32); fn && !err)
+            err = allow(reinterpret_cast<const void*>(fn));
+        if (const ResKernel fn = res_kernel(mode, win, f32); fn && !err)
+          err = allow(reinterpret_cast<const void*>(fn));
+      }
+  return static_cast<int>(err);
 }
 
 // The current device's opt-in shared memory per block, in bytes (-1 on a
@@ -1448,12 +1366,6 @@ int tsg_smem_optin(void) {
   return optin;
 }
 
-// Dynamic shared memory one tsg_conv_i8 launch with these arguments takes.
-long long tsg_conv_smem_bytes(int cin, int k, int stride, int mode, int cdin,
-                              int dil) {
-  return static_cast<long long>(conv_smem_bytes(cin, k, stride, mode, cdin, dil));
-}
-
 // Dynamic shared memory of one tsg_stem_pool_i8 / tsg_conv_i8_mma launch.
 long long tsg_stem_smem_bytes(int cout, int n_sp) {
   return static_cast<long long>(stem_smem_bytes(cout, n_sp));
@@ -1463,9 +1375,10 @@ long long tsg_conv_mma_smem_bytes(void) {
   return static_cast<long long>(conv_mma_smem_bytes());
 }
 
-// Dynamic shared memory of one tsg_conv_i8_mma_res launch at this cin.
-long long tsg_conv_mma_res_smem_bytes(int cin) {
-  return static_cast<long long>(conv_mma_res_smem_bytes(cin));
+// Dynamic shared memory of one tsg_conv_i8_mma_res launch at this cin and
+// kernel size (1 or 3).
+long long tsg_conv_mma_res_smem_bytes(int cin, int k) {
+  return static_cast<long long>(conv_mma_res_smem_bytes(cin, k * k));
 }
 
 // xs (h2+3, w2+3, cin) int8, 4-byte aligned, cin <= 16, cin % 4 == 0;
@@ -1493,40 +1406,21 @@ int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out is int8 codes, or float32 values with out_f32 != 0.
-int tsg_conv_i8(const void* x, int h, int w, int cin, const void* wt, int k,
-                int stride, int pad, int dil, int cout, const void* m,
-                const void* c, int mode, const void* res, float rr,
-                const void* xd, int hd, int wd, int cdin, int sd,
-                const void* wdt, const void* md, const void* cd, void* out,
-                int out_f32, int ho, int wo, void* stream) {
-  const size_t smem = conv_smem_bytes(cin, k, stride, mode, cdin, dil);
-  dim3 grid((wo + kConvTW - 1) / kConvTW, (ho + kConvTH - 1) / kConvTH,
-            (cout + kConvCO - 1) / kConvCO);
-  // several weight chunks: hold all the block's rows (see conv_i8_kernel)
-  const auto kernel = cin / 4 > kConvChunk ? conv_i8_kernel<kConvTH> : conv_i8_kernel<1>;
-  kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), h, w, cin, static_cast<const int8_t*>(wt),
-      k, stride, pad, dil, cout, static_cast<const float*>(m),
-      static_cast<const float*>(c), mode, static_cast<const int8_t*>(res), rr,
-      static_cast<const int8_t*>(xd), hd, wd, cdin, sd,
-      static_cast<const int8_t*>(wdt), static_cast<const float*>(md),
-      static_cast<const float*>(cd), out, out_f32, ho, wo);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The 3x3 pad-1 int8 conv on tensor cores: x (h, w, cin), cin % 16 == 0,
-// 16-byte aligned; cout % 8 == 0; mode 2's xd (hd, wd, cdin) with cdin % 16
-// == 0, 16-byte aligned; int8 out (ho, wo, cout).  split: the blocks of a
-// cluster that share a tile's K walk, 1 or 2 (any mode; in mode 2 the first
-// block takes the projection's chunks), or 0: 2 where the launch has no
-// more tiles than the device has SMs, else 1.
-int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
-                    int stride, int cout, const void* m, const void* c,
+// The int8 conv on tensor cores, the weights streamed: x (h, w, cin), cin
+// % 16 == 0, 16-byte aligned; weights (k, k, cin, cout) with k = 3 (pad =
+// dil) or k = 1 (pad 0, dil 1); any stride; cout % 8 == 0; mode 2's xd
+// (hd, wd, cdin) with cdin % 16 == 0, 16-byte aligned; out (ho, wo, cout)
+// int8 codes, or float32 values with out_f32 != 0 (in modes 1 and 2 only
+// for k = 1, and dil > 1 only in mode 0: see mma_kernel_of).  split: the
+// blocks of a cluster that share a tile's K walk, 1 or 2 (any mode; in
+// mode 2 the first block takes the projection's chunks), or 0: 2 where
+// the launch has no more tiles than the device has SMs, else 1.
+int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt, int k,
+                    int stride, int dil, int cout, const void* m, const void* c,
                     int mode, const void* res, float rr, const void* xd,
                     int wd, int cdin, int sd, const void* wdt, const void* md,
-                    const void* cd, void* out, int ho, int wo, int split,
-                    void* stream) {
+                    const void* cd, void* out, int out_f32, int ho, int wo,
+                    int split, void* stream) {
   const int m_tiles = (ho * wo + kMmaBM - 1) / kMmaBM;
   const int n_tiles = (cout + kMmaBN - 1) / kMmaBN;
   if (split == 0) {
@@ -1537,16 +1431,8 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
     if (err != cudaSuccess) return static_cast<int>(err);
     split = m_tiles * n_tiles <= sms ? 2 : 1;
   }
-  if (split != 1 && split != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const auto args = [&](auto kernel, cudaLaunchConfig_t* cfg) {
-    return cudaLaunchKernelEx(
-        cfg, kernel, static_cast<const int8_t*>(x), h, w, cin,
-        static_cast<const int8_t*>(wt), stride, cout, static_cast<const float*>(m),
-        static_cast<const float*>(c), static_cast<const int8_t*>(res), rr,
-        static_cast<const int8_t*>(xd), wd, cdin, sd, static_cast<const int8_t*>(wdt),
-        static_cast<const float*>(md), static_cast<const float*>(cd),
-        static_cast<int8_t*>(out), ho, wo);
-  };
+  const MmaKernel kernel = mma_kernel(mode, split, window_of(k, dil), out_f32 != 0);
+  if (!kernel || stride < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(m_tiles * split, n_tiles);
   cfg.blockDim = dim3(kMmaThreads);
@@ -1559,15 +1445,12 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  cudaError_t err;
-  if (split > 1)
-    err = mode == 2   ? args(conv_i8_mma_kernel<2, 2>, &cfg)
-          : mode == 1 ? args(conv_i8_mma_kernel<1, 2>, &cfg)
-                      : args(conv_i8_mma_kernel<0, 2>, &cfg);
-  else
-    err = mode == 2   ? args(conv_i8_mma_kernel<2, 1>, &cfg)
-          : mode == 1 ? args(conv_i8_mma_kernel<1, 1>, &cfg)
-                      : args(conv_i8_mma_kernel<0, 1>, &cfg);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int8_t*>(x), h, w, cin,
+      static_cast<const int8_t*>(wt), stride, dil, cout, static_cast<const float*>(m),
+      static_cast<const float*>(c), static_cast<const int8_t*>(res), rr,
+      static_cast<const int8_t*>(xd), wd, cdin, sd, static_cast<const int8_t*>(wdt),
+      static_cast<const float*>(md), static_cast<const float*>(cd), out, ho, wo);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it
     return static_cast<int>(err);
@@ -1575,23 +1458,27 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 3x3 pad-1 int8 conv with resident weights (K3's and K2's links): x
-// (h, w, cin), cin % 16 == 0, 16-byte aligned; stride 1 or 2; cout % 8 ==
-// 0; mode 0 or 1 (res (ho, wo, cout), 8-byte aligned); int8 out (ho, wo,
-// cout).  The grid is as many blocks as fit on the device at once, capped
-// by the M tiles.
+// The int8 conv on tensor cores with resident weights (K3's and K2's
+// links; cbr_i8's and bottleneck_i8's up to 64 input channels): x (h, w,
+// cin), cin % 16 == 0, 16-byte aligned; weights (k, k, cin, cout) with k =
+// 3 (pad = dil) or k = 1 (pad 0, dil 1); stride 1 or 2; cout % 8 == 0;
+// mode 0 or 1 (res (ho, wo, cout), 8-byte aligned); out (ho, wo, cout)
+// int8 codes, or float32 values with out_f32 != 0 (as tsg_conv_i8_mma).
+// The grid is as many blocks as fit on the device at once, capped by the
+// M tiles.
 int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
-                        int stride, int cout, const void* m, const void* c,
-                        int mode, const void* res, float rr, void* out,
-                        void* stream) {
-  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+                        int k, int stride, int dil, int cout, const void* m,
+                        const void* c, int mode, const void* res, float rr,
+                        void* out, int out_f32, void* stream) {
+  const ResKernel kernel = res_kernel(mode, window_of(k, dil), out_f32 != 0);
+  if (!kernel || (stride != 1 && stride != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = conv_mma_res_smem_bytes(cin);
-  const auto kernel = mode == 1 ? conv_i8_mma_res_kernel<1> : conv_i8_mma_res_kernel<0>;
+  const size_t smem = conv_mma_res_smem_bytes(cin, k * k);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kResThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
@@ -1600,9 +1487,9 @@ int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
   int gx = (per_sm > 0 ? per_sm : 1) * sms / n_tiles;
   gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
   kernel<<<dim3(gx, n_tiles), kResThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), h, w, cin, stride, static_cast<const int8_t*>(wt),
+      static_cast<const int8_t*>(x), h, w, cin, stride, dil, static_cast<const int8_t*>(wt),
       cout, static_cast<const float*>(m), static_cast<const float*>(c),
-      static_cast<const int8_t*>(res), rr, static_cast<int8_t*>(out), ho, wo);
+      static_cast<const int8_t*>(res), rr, out, ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 

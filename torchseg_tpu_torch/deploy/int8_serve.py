@@ -22,9 +22,13 @@ model's ``context_blocks`` passthrough, x8 upsampled in float32.
 
 Every conv consumes int8 and produces int8; BN, ReLU and the requant to
 the consumer's scale fold into a per-channel epilogue on the int32
-accumulator.  The TPU-only arms of the JAX module (stem modes, carrier
-dtypes, the ``_L3_ENABLE``/``_L4_ENABLE`` gates, block-size and layout
-knobs) have no counterpart.  Still to port (ROADMAP A3/A8): the X39 kind,
+accumulator; on the card every int8 conv is a hand-written tensor-core
+kernel, the decoder's six CBRs and sp3 too (``cbr_i8``), while the float
+glue between them (GAP, gates, resizes, requants, concat, SE, the final
+1x1) stays PyTorch, as JAX leaves it to XLA.  The TPU-only arms of the JAX
+module (stem modes, carrier dtypes, the ``_L3_ENABLE``/``_L4_ENABLE``
+gates, block-size and layout knobs) have no counterpart.  Still to port
+(ROADMAP A4): the X39 kind,
 the BiSeNet bf16-decoder branch, BiSeNet-R101, and the PSANet, DFN and
 FCN heads over the Bottleneck body.
 
@@ -46,7 +50,6 @@ from torch import nn
 from ..models.resnet import BasicBlock, ResNet
 from ..ops import wide
 from ..ops.kernels.int8_serve_kernels import (
-    apply_cbr as _apply_cbr,
     bottleneck_i8,
     cbr_i8,
     down_block_i8,
@@ -63,7 +66,7 @@ from ..ops.kernels.upsample_argmax import fused_upsample_argmax
 from ..ops.resize import resize_bilinear_align_corners, upsample_by_scale
 from .fused_stem import _stem_weights, fold_bn_affine, hwio
 
-_NOT_PORTED = ("not ported yet (ROADMAP A3: the port's int8-through graph "
+_NOT_PORTED = ("not ported yet (ROADMAP A4: the port's int8-through graph "
                "has only the R18 kind with the int8 decoder)")
 _NOT_PORTED_A4 = ("not ported yet (ROADMAP A4: the port's int8 Bottleneck "
                   "body serves only the PSPNet head)")
@@ -478,9 +481,18 @@ def _resize_nhwc(x, out_hw):
         x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
 
 
+def _requant_nhwc(x):
+    """The requant of a resized tensor into the NHWC-contiguous codes a conv
+    kernel reads (the resize works on an NCHW view; a copy only where its
+    result is not NHWC-contiguous already)."""
+    return _requant(x).contiguous()
+
+
 def _apply_int8_decoder(dec, spatial_q, c16q, c32q):
     """Int8-through BiSeNet decoder: ARM -> top-down refine -> FFM -> head
-    (JAX int8_serve.py:1038).  NHWC in, /8 raw class logits (f32) out."""
+    (JAX int8_serve.py:1038).  NHWC in, /8 raw class logits (f32) out.
+    Its six convs are ``cbr_i8`` launches on the card (plain ``apply_cbr``
+    on the CPU)."""
     # global context from the quantized c32 codes (GAP is linear: exact)
     # (a Python scalar, not a device tensor: no host-to-device copy, which
     # would synchronize the host with the card mid-forward)
@@ -489,27 +501,27 @@ def _apply_int8_decoder(dec, spatial_q, c16q, c32q):
     gvec = c32q.to(torch.int32).sum(dim=(1, 2), keepdim=True).float() * gscale
     gc = _vec_1x1(gvec, dec["gc"], relu=True)
 
-    fm0 = _apply_cbr(c32q, dec["arm0"], 1, 1, emit_int8=False)
+    fm0 = cbr_i8(c32q, dec["arm0"], 1, 1, emit_int8=False)
     att0 = torch.sigmoid(_vec_1x1(fm0.mean(dim=(1, 2), keepdim=True),
                                   dec["att0"], relu=False))
     x = _resize_nhwc(fm0 * att0 + gc, c16q.shape[1:3])
-    r0 = _apply_cbr(_requant(x * dec["inv_r0"]), dec["refine0"], 1, 1,
-                    emit_int8=False)
+    r0 = cbr_i8(_requant_nhwc(x * dec["inv_r0"]), dec["refine0"], 1, 1,
+                emit_int8=False)
 
-    fm1 = _apply_cbr(c16q, dec["arm1"], 1, 1, emit_int8=False)
+    fm1 = cbr_i8(c16q, dec["arm1"], 1, 1, emit_int8=False)
     att1 = torch.sigmoid(_vec_1x1(fm1.mean(dim=(1, 2), keepdim=True),
                                   dec["att1"], relu=False))
     x = _resize_nhwc(fm1 * att1 + r0, spatial_q.shape[1:3])
-    ctx_q = _apply_cbr(_requant(x * dec["inv_r1"]), dec["refine1"], 1, 1)
+    ctx_q = cbr_i8(_requant_nhwc(x * dec["inv_r1"]), dec["refine1"], 1, 1)
 
-    fm = _apply_cbr(torch.cat([spatial_q, ctx_q], dim=-1), dec["ffm"], 1, 0,
-                    emit_int8=False)
+    fm = cbr_i8(torch.cat([spatial_q, ctx_q], dim=-1), dec["ffm"], 1, 0,
+                emit_int8=False)
     se = torch.relu(fm.mean(dim=(1, 2), keepdim=True) @ dec["ca1"])
     se = torch.sigmoid(se @ dec["ca2"])
     v = fm + fm * se
 
-    h = _apply_cbr(_requant(v * dec["inv_h"]), dec["head"], 1, 1,
-                   emit_int8=False)
+    h = cbr_i8(_requant(v * dec["inv_h"]), dec["head"], 1, 1,
+               emit_int8=False)
     return h @ dec["out_w"] + dec["out_b"]
 
 
@@ -519,8 +531,8 @@ def int8_body(pkg, xs):
     stem = pkg["stem"]
     sp_q, pooled = stem_pool_i8(xs, stem["wf"], stem["mf"], stem["cf"],
                                 stem["n_sp"])
-    spatial_out = _apply_cbr(spatial_path_i8(sp_q, pkg["sp1"], pkg["sp2"]),
-                             pkg["sp3"], 1, 0)
+    spatial_out = cbr_i8(spatial_path_i8(sp_q, pkg["sp1"], pkg["sp2"]),
+                         pkg["sp3"], 1, 0)
     feats = [l1_stage_i8(pooled, pkg["l1_0"], pkg["l1_1"])]
     for li in (2, 3):
         feats.append(down_stage_i8(feats[-1], pkg[f"l{li}_0"],

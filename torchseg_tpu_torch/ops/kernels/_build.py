@@ -36,31 +36,25 @@ LIBRARIES = {
     "int8_serve_kernels": {
         "tsg_init": [],
         "tsg_smem_optin": [],
-        # cin, k, stride, mode, cdin, dilation
-        "tsg_conv_smem_bytes": [c_int] * 6,
         # cout, n_sp
         "tsg_stem_smem_bytes": [c_int] * 2,
         "tsg_conv_mma_smem_bytes": [],
-        # cin
-        "tsg_conv_mma_res_smem_bytes": [c_int],
+        # cin, k
+        "tsg_conv_mma_res_smem_bytes": [c_int] * 2,
         # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
         "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
-        # x, h, w, cin, wt, stride, cout, m, c, mode, res, rr, xd, wd, cdin,
-        # sd, wdt, md, cd, out, ho, wo, split, stream
+        # x, h, w, cin, wt, k, stride, dilation, cout, m, c, mode, res, rr,
+        # xd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, split, stream
         "tsg_conv_i8_mma": ([c_void_p] + [c_int] * 3 + [c_void_p]
-                            + [c_int] * 2 + [c_void_p] * 2 + [c_int]
+                            + [c_int] * 4 + [c_void_p] * 2 + [c_int]
                             + [c_void_p, c_float, c_void_p] + [c_int] * 3
-                            + [c_void_p] * 4 + [c_int] * 3 + [c_void_p]),
-        # x, h, w, cin, wt, stride, cout, m, c, mode, res, rr, out, stream
+                            + [c_void_p] * 4 + [c_int] * 4 + [c_void_p]),
+        # x, h, w, cin, wt, k, stride, dilation, cout, m, c, mode, res, rr,
+        # out, out_f32, stream
         "tsg_conv_i8_mma_res": ([c_void_p] + [c_int] * 3 + [c_void_p]
-                                + [c_int] * 2 + [c_void_p] * 2 + [c_int]
-                                + [c_void_p, c_float] + [c_void_p] * 2),
-        # x, h, w, cin, wt, k, stride, pad, dilation, cout, m, c, mode, res,
-        # rr, xd, hd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, stream
-        "tsg_conv_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] + [c_int] * 5
-                        + [c_void_p] * 2 + [c_int] + [c_void_p, c_float]
-                        + [c_void_p] + [c_int] * 4 + [c_void_p] * 4
-                        + [c_int] * 3 + [c_void_p]),
+                                + [c_int] * 4 + [c_void_p] * 2 + [c_int]
+                                + [c_void_p, c_float, c_void_p, c_int]
+                                + [c_void_p]),
         # x, h, w, c, out, ho, wo, stream
         "tsg_maxpool_i8": ([c_void_p] + [c_int] * 3 + [c_void_p]
                            + [c_int] * 2 + [c_void_p]),
@@ -102,8 +96,7 @@ LIBRARIES = {
     },
 }
 # entry points that return something other than int
-_RESTYPES = {"tsg_conv_smem_bytes": c_longlong,
-             "tsg_stem_smem_bytes": c_longlong,
+_RESTYPES = {"tsg_stem_smem_bytes": c_longlong,
              "tsg_conv_mma_smem_bytes": c_longlong,
              "tsg_conv_mma_res_smem_bytes": c_longlong}
 
@@ -197,6 +190,14 @@ def ready(device_index: int, name: str = "int8_serve_kernels") -> ctypes.CDLL:
             raise RuntimeError(
                 f"{name} tsg_init on cuda:{device_index}: CUDA error {rc}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The number of SMs of that device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

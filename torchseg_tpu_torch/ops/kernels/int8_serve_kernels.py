@@ -11,21 +11,22 @@ version, plus the exact integer primitives both are specified by.
 | down_block_i8    | conv_i8_mma_kernel x2 (modes 0,2; int8 mma, K split) | down_block_i8_from_paired (:1136) |
 | res_block_i8     | conv_i8_mma_kernel x2 (modes 0,1; int8 mma, K split) | res_block_i8_std (:1226) |
 | maxpool2d_3x3s2_i8 | maxpool_i8_kernel (K10)            | maxpool2d_3x3s2_i8 (:1308) |
-| cbr_i8           | conv_i8_kernel, mode 0               | none: an XLA conv in JAX |
-| bottleneck_i8    | conv_i8_kernel x3 (modes 0,0,1 or 2) | none: XLA (_apply_bottleneck) |
+| cbr_i8           | conv_i8_mma_res_kernel or conv_i8_mma_kernel, mode 0 (int8 mma; 1x1, 3x3, dilated 3x3; codes or float32 out) | none: an XLA conv in JAX |
+| bottleneck_i8    | the same, x3 (modes 0,0,1 or 2)      | none: XLA (_apply_bottleneck) |
 
-Line numbers are in the JAX file.  K1-K6 run on the tensor cores and take
-only the widths their kernels tile (``stem_pool_i8_shape_error``,
-``conv3x3s2_i8_shape_error``, ``l1_stage_i8_shape_error``,
-``down_stage_i8_shape_error``, ``down_block_i8_shape_error``,
-``res_block_i8_shape_error``); the wrappers raise ValueError before
-launching for any other.  K3 and K6 share their route
-(``_identity_block_launches``): the resident-weight kernel up to 64
-channels, the streaming one above.  ``cbr_i8`` (the deep stem's stem2 and
-stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of PSPNet) run
-on the CUDA-core conv kernel; JAX computes them with XLA convs
-(deploy/int8_serve.py:716-758).  Every public function takes and returns
-NHWC int8 codes and HWIO weights, batch 1, as the JAX functions do.
+Line numbers are in the JAX file.  Every conv runs on the int8 tensor
+cores and takes only the widths its kernels tile
+(``stem_pool_i8_shape_error``, ``conv_i8_mma_shape_error`` and the
+per-wrapper ``*_shape_error`` built on it); the wrappers raise ValueError
+before launching for any other.  Each conv launch picks its kernel by one
+rule (``_conv_launch``): the resident-weight kernel up to 64 input
+channels, the streaming one above (and for the projection).  ``cbr_i8``
+(the R18 decoder's convs, the spatial path's 1x1 sp3, the deep stem's
+stem2 and stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of
+PSPNet) replace what JAX computes with XLA convs (deploy/int8_serve.py:716-
+758, :940, :1038).  Every public function takes and returns NHWC int8
+codes (float32 values where a conv emits them) and HWIO weights, batch 1,
+as the JAX functions do.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts in ``.launches`` the
@@ -39,6 +40,8 @@ R18's cin=512 3x3 convs reach 9*512*127**2 ~ 7.4e7).  The epilogues
 reproduce the JAX XLA path bit for bit, including where XLA contracts a
 multiply and an add into one fused multiply-add (``fma`` below).
 """
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -204,50 +207,28 @@ def _check_conv_entry(name, e, k, cin, cout):
     _check(f"{name}['c']", e["c"], torch.float32, (cout,))
 
 
-def _launch_conv(x, e, stride, pad, mode=0, res=None, rr=0.0, xd=None,
-                 down=None, sd=1, dil=1, out_f32=False):
-    """One launch of the shared conv kernel; returns the new codes (the
-    float32 values with ``out_f32``).  Raises ValueError, before launching,
-    for a call whose shared memory exceeds what the device gives a block."""
-    _, h, w, cin = x.shape
-    k, cout = e["w"].shape[0], e["w"].shape[3]
-    ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
-    wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
-    hd = wd = cdin = 0
-    if mode == 2:
-        _, hd, wd, cdin = xd.shape
-    lib = _build.ready(x.device.index)
-    _check_smem(f"conv_i8_kernel: cin={cin}, k={k}, stride={stride}, "
-                f"dilation={dil} (mode {mode}, projection cin={cdin})",
-                lib.tsg_conv_smem_bytes(cin, k, stride, mode, cdin, dil),
-                x.device.index)
-    out = torch.empty((1, ho, wo, cout),
-                      dtype=torch.float32 if out_f32 else torch.int8,
-                      device=x.device)
-    rc = lib.tsg_conv_i8(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, pad, dil,
-        cout, e["m"].data_ptr(), e["c"].data_ptr(), mode,
-        res.data_ptr() if res is not None else None, float(rr),
-        xd.data_ptr() if xd is not None else None, hd, wd, cdin, sd,
-        down["w"].data_ptr() if down is not None else None,
-        down["m"].data_ptr() if down is not None else None,
-        down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), int(out_f32), ho, wo, _stream(x))
-    _raise_on(rc, "conv_i8_kernel")
-    return out
-
-
-def conv_i8_mma_shape_error(cin: int, cout: int, cdin: int = 0):
-    """Why ``conv_i8_mma_kernel`` does not take a 3x3 conv cin -> cout (with
-    a projection of cdin input channels, 0 for none), or None.  Its K loop
-    copies 16 channels at a time (cin % 16 == 0, cdin % 16 == 0) and its
-    weight and output tiles hold 8 channels a group (cout % 8 == 0)."""
+def conv_i8_mma_shape_error(cin: int, cout: int, cdin: int = 0, k: int = 3,
+                            dilation: int = 1, pad=None):
+    """Why the tensor-core convs do not take a k x k conv cin -> cout at
+    this dilation and pad (None: the window's own, ``dilation`` for the 3x3
+    and 0 for the 1x1), with a projection of cdin input channels (0 for
+    none), or None.  Their K loop copies 16 channels at a time (cin % 16 ==
+    0, cdin % 16 == 0), their weight and output tiles hold 8 channels a
+    group (cout % 8 == 0), and their windows are the 3x3 with pad =
+    dilation and the 1x1 with pad 0."""
     if cin <= 0 or cin % 16:
         return f"cin must be a positive multiple of 16, got {cin}"
     if cout <= 0 or cout % 8:
         return f"cout must be a positive multiple of 8, got {cout}"
     if cdin < 0 or cdin % 16:
         return f"the projection's cin must be a multiple of 16, got {cdin}"
+    if k not in (1, 3):
+        return f"the kernel must be 1x1 or 3x3, got k={k}"
+    if dilation < 1 or (k == 1 and dilation != 1):
+        return f"dilation must be >= 1 (1 for a 1x1), got {dilation} at k={k}"
+    want = dilation if k == 3 else 0
+    if pad is not None and pad != want:
+        return f"a {k}x{k} conv at dilation {dilation} takes pad {want}, got {pad}"
     return None
 
 
@@ -256,16 +237,27 @@ def _aligned(name, t, n):
         raise ValueError(f"{name} must start on a {n}-byte boundary")
 
 
+@functools.lru_cache(maxsize=None)
+def _check_mma_smem(device_index):
+    """The streaming kernel's shared memory (one size for every launch)
+    against the device's limit, once per device."""
+    _check_smem("conv_i8_mma_kernel",
+                _build.ready(device_index).tsg_conv_mma_smem_bytes(),
+                device_index)
+
+
 def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
-                     down=None, sd=1, split=0):
-    """One launch of the streaming tensor-core 3x3 pad-1 conv; returns the
-    new codes.  ``split``: 0 lets the kernel's host code share each tile's
-    K walk between a two-block cluster where the launch has no more tiles
-    than the device has SMs (any mode: K5 and K6; K4's launches on the
-    serving path have 256 or more tiles and stay whole); 1 or 2 forces it.
-    The caller has checked the widths (``conv_i8_mma_shape_error``)."""
+                     down=None, sd=1, split=0, dilation=1, out_f32=False):
+    """One launch of the streaming tensor-core conv (the 3x3 at pad =
+    ``dilation``, or the 1x1 at pad 0, by the weights' shape); returns the
+    new codes, or with ``out_f32`` the float32 values.  ``split``: 0 lets
+    the kernel's host code share each tile's K walk between a two-block
+    cluster where the launch has no more tiles than the device has SMs (any
+    mode: K5 and K6; K4's launches on the serving path have 256 or more
+    tiles and stay whole); 1 or 2 forces it.  The caller has checked the
+    widths (``conv_i8_mma_shape_error``)."""
     _, h, w, cin = x.shape
-    cout = e["w"].shape[3]
+    k, cout = e["w"].shape[0], e["w"].shape[3]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     wd = cdin = 0
     _aligned("x", x, 16)
@@ -273,18 +265,19 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
         _, _, wd, cdin = xd.shape
         _aligned("xd", xd, 16)
     lib = _build.ready(x.device.index)
-    _check_smem("conv_i8_mma_kernel", lib.tsg_conv_mma_smem_bytes(),
-                x.device.index)
-    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
+    _check_mma_smem(x.device.index)
+    out = torch.empty((1, ho, wo, cout),
+                      dtype=torch.float32 if out_f32 else torch.int8,
+                      device=x.device)
     rc = lib.tsg_conv_i8_mma(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, dilation, cout,
         e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
         xd.data_ptr() if xd is not None else None, wd, cdin, sd,
         down["w"].data_ptr() if down is not None else None,
         down["m"].data_ptr() if down is not None else None,
         down["c"].data_ptr() if down is not None else None,
-        out.data_ptr(), ho, wo, split, _stream(x))
+        out.data_ptr(), int(out_f32), ho, wo, split, _stream(x))
     _raise_on(rc, "conv_i8_mma_kernel")
     return out
 
@@ -294,26 +287,31 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
 RESIDENT_MAX_CIN = 64
 
 
-def _launch_conv_mma_res(x, e, mode=0, res=None, rr=0.0, stride=1):
-    """One launch of the resident-weight tensor-core 3x3 pad-1 conv at
-    stride 1 or 2 (mode 0, or 1 with the residual ``res``); returns the new
-    codes.  The caller has checked the widths; a cin whose resident weights
-    exceed the device's shared memory raises ValueError before launching."""
+def _launch_conv_mma_res(x, e, mode=0, res=None, rr=0.0, stride=1,
+                         dilation=1, out_f32=False):
+    """One launch of the resident-weight tensor-core conv (the 3x3 at pad =
+    ``dilation``, or the 1x1 at pad 0, by the weights' shape) at stride 1
+    or 2 (mode 0, or 1 with the residual ``res``); returns the new codes,
+    or with ``out_f32`` the float32 values.  The caller has checked the
+    widths; a cin whose resident weights exceed the device's shared memory
+    raises ValueError before launching."""
     _, h, w, cin = x.shape
-    cout = e["w"].shape[3]
+    k, cout = e["w"].shape[0], e["w"].shape[3]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     _aligned("x", x, 16)
     if res is not None:
         _aligned("res", res, 8)
     lib = _build.ready(x.device.index)
-    _check_smem(f"conv_i8_mma_res_kernel: cin={cin}",
-                lib.tsg_conv_mma_res_smem_bytes(cin), x.device.index)
-    out = torch.empty((1, ho, wo, cout), dtype=torch.int8, device=x.device)
+    _check_smem(f"conv_i8_mma_res_kernel: cin={cin}, k={k}",
+                lib.tsg_conv_mma_res_smem_bytes(cin, k), x.device.index)
+    out = torch.empty((1, ho, wo, cout),
+                      dtype=torch.float32 if out_f32 else torch.int8,
+                      device=x.device)
     rc = lib.tsg_conv_i8_mma_res(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
-        e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, dilation,
+        cout, e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
-        out.data_ptr(), _stream(x))
+        out.data_ptr(), int(out_f32), _stream(x))
     _raise_on(rc, "conv_i8_mma_res_kernel")
     return out
 
@@ -467,14 +465,68 @@ def _block_tensors(x, *blocks):
                   for f in ("w", "m", "c")]
 
 
-def _shortcut_launch(t, last, x, e, stride, pad, out_f32=False):
-    """A block's last conv (weights ``last``, stride 1) over ``t`` with the
-    shortcut of the block input ``x`` in its epilogue: the identity
-    residual (mode 1) or the 1x1/stride projection (mode 2)."""
+# resident-weight M tile (output pixels) and N tile (channels)
+RESIDENT_TILE = (256, 64)
+
+
+def conv_route(cin: int, cout: int, ho: int, wo: int, k: int, stride: int,
+               mode: int, sms: int) -> str:
+    """The kernel a cbr_i8 / bottleneck_i8 launch runs on: "resident" (the
+    resident-weight kernel), or the streaming kernel with its K walk split
+    by the host rule (a two-block cluster where the tiles do not outnumber
+    the ``sms`` SMs: "split0") or never ("split1").  From the probe's
+    per-route times (scripts/torch_int8_kernel_variants.py, recorded in
+    PERF.md) on an H100:
+      * up to RESIDENT_MAX_CIN input channels, modes 0 and 1, stride <= 2:
+        resident, except a 3x3 with fewer resident tiles than SMs (each
+        block then stages the whole 37 KB weight for one tile; PSPNet's
+        layer1 3x3 at 120x120, 57 tiles: 0.0151 ms resident, 0.0103
+        streaming; stem2 at 240x240, 225 tiles: 0.0199 resident, 0.0230);
+        a 1x1's resident weight is 5 KB, and it is resident at any count
+        (layer1_0's conv1, 57 tiles: 0.0126 against 0.0149);
+      * a 3x3 streams with the host split rule (arm0, 32 tiles and 72
+        chunks: 0.0271 split, 0.0430 whole; the 36-chunk 3x3s at 116-128
+        tiles 5-7 % faster split);
+      * a 1x1 streams whole: its walk is one tap of 1-32 chunks, and
+        split it measured no faster (layer3's conv1, 116 tiles: 0.0136
+        whole, 0.0151 split; calls this short vary 3-5 us from call to
+        call)."""
+    if cin <= RESIDENT_MAX_CIN and mode <= 1 and stride <= 2:
+        tiles = (-(-ho * wo // RESIDENT_TILE[0])
+                 * -(-cout // RESIDENT_TILE[1]))
+        if k == 1 or tiles >= sms:
+            return "resident"
+    return "split1" if k == 1 else "split0"
+
+
+def _conv_launch(x, e, stride, mode=0, res=None, rr=0.0, dilation=1,
+                 out_f32=False):
+    """One tensor-core conv launch of cbr_i8 or bottleneck_i8 (mode 0, or 1
+    with the residual ``res``) on the kernel ``conv_route`` picks.  Mode 2
+    (a projection) always streams (``_shortcut_launch``)."""
+    _, h, w, cin = x.shape
+    k, cout = e["w"].shape[0], e["w"].shape[3]
+    route = conv_route(cin, cout, (h - 1) // stride + 1,
+                       (w - 1) // stride + 1, k, stride, mode,
+                       _build.sm_count(x.device.index))
+    if route == "resident":
+        return _launch_conv_mma_res(x, e, mode=mode, res=res, rr=rr,
+                                    stride=stride, dilation=dilation,
+                                    out_f32=out_f32)
+    return _launch_conv_mma(x, e, stride, mode=mode, res=res, rr=rr,
+                            dilation=dilation, out_f32=out_f32,
+                            split=int(route[-1]))
+
+
+def _shortcut_launch(t, last, x, e, stride, out_f32=False):
+    """A Bottleneck's conv3 (weights ``last``, 1x1, stride 1) over ``t`` with
+    the shortcut of the block input ``x`` in its epilogue: the identity
+    residual (mode 1, ``_conv_launch``) or the 1x1/stride projection (mode
+    2, a second GEMM on the streaming kernel, whole as every 1x1)."""
     if "down" in e:
-        return _launch_conv(t, last, 1, pad, mode=2, xd=x, down=e["down"],
-                            sd=stride, out_f32=out_f32)
-    return _launch_conv(t, last, 1, pad, mode=1, res=x, rr=e["res_ratio"],
+        return _launch_conv_mma(t, last, 1, mode=2, xd=x, down=e["down"],
+                                sd=stride, out_f32=out_f32, split=1)
+    return _conv_launch(t, last, 1, mode=1, res=x, rr=e["res_ratio"],
                         out_f32=out_f32)
 
 
@@ -483,7 +535,8 @@ def _identity_block_launches(x, e):
     with the identity residual in its epilogue.  Up to RESIDENT_MAX_CIN
     channels (K3) on the resident-weight kernel; wider (K6) on the
     streaming kernel, its K walk split over a cluster where the launch has
-    no more tiles than the device has SMs."""
+    no more tiles than the device has SMs (at the serving shapes,
+    ``conv_route``'s choice too: K3's links have 512 resident tiles)."""
     if x.shape[3] <= RESIDENT_MAX_CIN:
         t = _launch_conv_mma_res(x, e["conv1"])
         return _launch_conv_mma_res(t, e["conv2"], mode=1, res=x,
@@ -655,20 +708,34 @@ def maxpool2d_3x3s2_i8(x):
 
 
 # ----------------------------------------------------------------------
-# the deep stem's int8 CBRs and the dilated Bottleneck body, on the
-# shared conv kernel
+# one int8 CBR (the R18 decoder, sp3, the deep stem's stem2/stem3) and the
+# dilated Bottleneck body, on the tensor-core convs
 # ----------------------------------------------------------------------
 
-def cbr_i8(x, e, stride: int, pad: int, dilation: int = 1):
-    """apply_cbr(x, e, stride, pad, dilation=dilation) in one launch:
-    (1, H, W, cin) s8 with cin % 4 == 0 -> (1, Ho, Wo, cout) s8."""
+def cbr_i8(x, e, stride: int, pad: int, emit_int8: bool = True,
+           dilation: int = 1):
+    """apply_cbr(x, e, stride, pad, emit_int8, dilation=dilation) in one
+    launch: (1, H, W, cin) s8 -> (1, Ho, Wo, cout) s8 codes, or with
+    ``emit_int8=False`` the float32 relu(fma(y, m, c)).  Plain version: any
+    cin % 4 == 0, k, pad.  On the card, one tensor-core launch
+    (``_conv_launch``): cin % 16 == 0, cout % 8 == 0, a 3x3 at pad =
+    dilation or a 1x1 at pad 0 (``conv_i8_mma_shape_error``), ValueError
+    otherwise, before launching."""
     _check_codes(x)
     _check("e['w']", e["w"], torch.int8, ndim=4)
     k, cout = e["w"].shape[0], e["w"].shape[3]
     _check_conv_entry("e", e, k, x.shape[3], cout)
+    if stride < 1 or dilation < 1:
+        raise ValueError(f"stride and dilation must be >= 1, got {stride}, "
+                         f"{dilation}")
     if not _on_cuda(x, e["w"], e["m"], e["c"]):
-        return apply_cbr(x, e, stride, pad, dilation=dilation)
-    out = _launch_conv(x, e, stride, pad, dil=dilation)
+        return apply_cbr(x, e, stride, pad, emit_int8, dilation=dilation)
+    why = conv_i8_mma_shape_error(x.shape[3], cout, k=k, dilation=dilation,
+                                  pad=pad)
+    if why:
+        raise ValueError(f"cbr_i8 (int8 tensor cores): {why}")
+    out = _conv_launch(x, e, stride, dilation=dilation,
+                       out_f32=not emit_int8)
     cbr_i8.launches += 1
     return out
 
@@ -698,19 +765,37 @@ def _check_bottleneck(name, e, cin, stride, dilation):
     return cout
 
 
+def bottleneck_i8_shape_error(cin: int, cmid: int, cout: int,
+                              dilation: int = 1, projection: bool = True):
+    """Why the three tensor-core launches of a Bottleneck cin -> cmid ->
+    cout do not take these widths (conv1 1x1 cin -> cmid, conv2 3x3 at the
+    dilation, conv3 1x1 cmid -> cout with the cin projection), or None."""
+    return (conv_i8_mma_shape_error(cin, cmid, k=1)
+            or conv_i8_mma_shape_error(cmid, cmid, dilation=dilation)
+            or conv_i8_mma_shape_error(cmid, cout, cin if projection else 0,
+                                       k=1))
+
+
 def bottleneck_i8(x, e, stride: int, dilation: int, emit_int8: bool = True):
     """apply_bottleneck(x, e, stride, dilation, emit_int8) as three
-    launches: conv1 1x1, conv2 3x3 with stride and dilation, conv3 1x1
-    with the identity residual (mode 1) or the 1x1/stride projection of x
-    (mode 2) in its epilogue, writing codes or, for the body's last block,
-    the float32 values.  (1, H, W, cin) s8 -> (1, Ho, Wo, cout)."""
+    tensor-core launches (``_conv_launch``): conv1 1x1, conv2 3x3 with
+    stride and dilation, conv3 1x1 with the identity residual (mode 1) or
+    the 1x1/stride projection of x (mode 2) in its epilogue, writing codes
+    or, for the body's last block, the float32 values.  (1, H, W, cin) s8
+    -> (1, Ho, Wo, cout).  Plain version: widths % 4 == 0.  On the card:
+    widths % 16 == 0 (cout % 8 == 0; ``bottleneck_i8_shape_error``),
+    ValueError otherwise, before launching."""
     _check_codes(x)
-    _check_bottleneck("e", e, x.shape[3], stride, dilation)
+    cout = _check_bottleneck("e", e, x.shape[3], stride, dilation)
     if not _on_cuda(*_block_tensors(x, e)):
         return apply_bottleneck(x, e, stride, dilation, emit_int8)
-    t = _launch_conv(x, e["conv1"], 1, 0)
-    t = _launch_conv(t, e["conv2"], stride, dilation, dil=dilation)
-    out = _shortcut_launch(t, e["conv3"], x, e, stride, 0,
+    why = bottleneck_i8_shape_error(x.shape[3], e["conv1"]["w"].shape[3],
+                                    cout, dilation, "down" in e)
+    if why:
+        raise ValueError(f"bottleneck_i8 (int8 tensor cores): {why}")
+    t = _conv_launch(x, e["conv1"], 1)
+    t = _conv_launch(t, e["conv2"], stride, dilation=dilation)
+    out = _shortcut_launch(t, e["conv3"], x, e, stride,
                            out_f32=not emit_int8)
     bottleneck_i8.launches += 3
     return out
