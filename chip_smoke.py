@@ -53,15 +53,18 @@ script
      bars against its plain version on the bf16 graph's stem inputs (bf16
      out equal on >= 99.9 % of the elements and within one bf16 ulp, or
      1e-5 of max |y| near zero, everywhere; float32 out within 1e-5 of max
-     |y|) and is timed against cuDNN's bf16 conv + affine + ReLU; K7 meets
-     its bar against its plain
-     version on each graph's own /8 logits (equal labels on >= 99.9 % of
+     |y|) on its bf16 tensor-core route (wgmma, the graph's packed
+     weights) and is timed against cuDNN's bf16 conv + affine + ReLU; K7
+     meets its bar against its plain version on each graph's own /8
+     logits (equal labels on >= 99.9 % of
      pixels and wherever the top-two gap exceeds 1e-4); each graph's card
      labels agree with the same graph run on the CPU at 256x512 (>= 99 %;
      the fused-stem graph in float32 for that bar, and in bf16 against
      bf16 to a bar of 97 %, see BF16_AGREE); both forwards are timed
-     (median, p90), and K7 against its plain version and against the
-     materialized upsample + argmax;
+     (median, p90, enqueue, and the device time per forward and the
+     card's idle share by the profiler), and K7 against its plain version
+     and against the materialized upsample + argmax, its bound from the
+     separable form's operations;
   8. X39 path: ``deploy_entry()`` (``cityscapes.bisenet.X39.speed``, bf16,
      s2d input) serves four seeded images, (1, 96, 192) labels in [0, 19);
      one forward launches K11 once and nothing else; K11 meets its bars on
@@ -485,6 +488,31 @@ def main_path_kernels(infer, pkg, xss):
     return busy
 
 
+def device_time(fn, inputs, top=6):
+    """torch.profiler over one call of ``fn`` per args tuple: (device ms of
+    all kernels per call, kernels per call, the ``top`` kernels as (ms per
+    call, calls per call, name))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            fn(*args)
+        torch.cuda.synchronize()
+    n = len(inputs)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not kern:
+        fail("the profiler saw no device kernel")
+    busy = sum(e.self_device_time_total for e in kern) / 1000.0 / n
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
+    return (busy, sum(e.count for e in kern) // n,
+            [(e.self_device_time_total / 1000.0 / n, e.count // n,
+              e.key[:100]) for e in ranked])
+
+
 @contextlib.contextmanager
 def record_cbr_calls(i8):
     """Collect the arguments of every cbr_i8 call the serving graphs make
@@ -888,11 +916,17 @@ def main():
         log(f"{gname}: labels {tuple(y.shape)} {y.dtype}; distinct labels "
             f"per image: {[int(y.unique().numel()) for y in outs]}")
         med, p90, mean_ms = forward_ms(fn, inputs, FULLRES_ROUNDS)
+        busy, n_kern, top = device_time(fn, inputs)
         log(f"{gname} forward ({N_IMAGES} distinct images, "
             f"{FULLRES_ROUNDS * N_IMAGES} forwards): median {med:.4f} ms, "
             f"p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
             f"{1000.0 / mean_ms:.2f} FPS; host time to enqueue one forward "
-            f"(no sync) {enqueue_ms(fn, inputs):.4f} ms")
+            f"(no sync) {enqueue_ms(fn, inputs):.4f} ms; device "
+            f"{busy:.4f} ms a forward ({n_kern} kernels, profiler), idle "
+            f"{max(0.0, 1 - busy / mean_ms):.3f} of the mean forward")
+        for ms, calls, key in top:
+            log(f"  device {ms:9.4f} ms per forward, {calls:4d} calls: "
+                f"{key}")
 
     # K11 on the bf16 graph's own stem inputs (R18's 128 channels)
     with record_stem_calls(fs) as fed_r18:
@@ -941,12 +975,20 @@ def main():
     k7_plain_ms = cuda_ms(U.fused_upsample_argmax_plain, k7_inputs)
     mat_ms = cuda_ms(lambda x, hw: resize_bilinear_align_corners(
         x.permute(0, 3, 1, 2), hw).argmax(dim=1).to(torch.int32), k7_inputs)
-    # bytes: the logits in, the labels out; operations: the kernel's 9
-    # float32 flops per class and output pixel (two row lerps, one column
-    # lerp)
+    # bytes: the logits in, the labels out; operations: the separable
+    # form's float32 flops, 3 a class and output pixel (the column lerp's
+    # two products and sum) plus the row pass, 3 a class, output row and
+    # source column (a one-thread-a-pixel kernel would count 9 a
+    # class and pixel: two row lerps and a column lerp)
     k7_x = k7_inputs[0][0]
-    k7_bound = bound(nbytes(k7_x) + 4 * k7_x.shape[0] * H * W,
-                     9 * k7_x.shape[0] * H * W * k7_x.shape[3], "f32")
+    k7_b, _, k7_w, k7_c = k7_x.shape
+    k7_ops = 3 * k7_b * k7_c * H * (W + k7_w)
+    k7_bound = bound(nbytes(k7_x) + 4 * k7_b * H * W, k7_ops, "f32")
+    log(f"fused_upsample_argmax: bound by {k7_ops / 1e6:.1f} M separable "
+        f"float32 operations ({k7_ops / PEAK['f32'] * 1e3:.5f} ms) and "
+        f"{(nbytes(k7_x) + 4 * k7_b * H * W) / 1e6:.2f} MB; the per-pixel "
+        f"count, 9 a class and pixel, would be "
+        f"{9 * k7_b * H * W * k7_c / PEAK['f32'] * 1e3:.5f} ms")
     log(f"fused_upsample_argmax: kernel {k7_ms:.4f} ms, plain (row-tiled "
         f"einsum) {k7_plain_ms:.4f} ms, materialized upsample + argmax "
         f"{mat_ms:.4f} ms per call; bound {k7_bound[0]:.5f} ms "
@@ -1032,13 +1074,13 @@ def k11_row(name, fed, launches):
 
     from torchseg_tpu_torch.ops.kernels import stem_conv as S
 
-    calls = [(*args, kwargs.get("out_dtype", torch.bfloat16))
-             for args, kwargs in fed]
+    calls = [(*args, kwargs.get("out_dtype", torch.bfloat16),
+              kwargs.get("pack")) for args, kwargs in fed]
     worst, share_min = 0.0, 1.0
-    for x, w, a, b, n_sp, fmt, out_dtype in calls:
+    for x, w, a, b, n_sp, fmt, out_dtype, pack in calls:
         for od in (out_dtype, torch.float32):
             err, share, n_beyond = S.agreement(
-                S.stem_conv7x7_s2(x, w, a, b, n_sp, fmt, od),
+                S.stem_conv7x7_s2(x, w, a, b, n_sp, fmt, od, pack),
                 S.stem_conv7x7_s2_plain(x, w, a, b, n_sp, fmt, od))
             if n_beyond:
                 fail(f"{name}: {n_beyond} {od} elements beyond K11's bar "
@@ -1049,15 +1091,19 @@ def k11_row(name, fed, launches):
                     fail(f"{name}: bf16 out equal on {share:.6f} of the "
                          f"elements, below {S.MIN_SHARE}")
             worst = max(worst, err)
-    x, w, a, b, n_sp, fmt, out_dtype = calls[0]
-    y = S.stem_conv7x7_s2(x, w, a, b, n_sp, fmt, out_dtype)
+    x, w, a, b, n_sp, fmt, out_dtype, pack = calls[0]
+    if pack is None:
+        fail(f"{name}: the served graph passed K11 no packed weights")
+    y = S.stem_conv7x7_s2(x, w, a, b, n_sp, fmt, out_dtype, pack)
     log(f"{name}: K11 vs plain on {len(calls)} stem inputs "
-        f"{tuple(x.shape)} {x.dtype} {fmt} -> {y[0].shape[1]} + "
+        f"{tuple(x.shape)} {x.dtype} {fmt} on {S.route(x)} -> "
+        f"{y[0].shape[1]} + "
         f"{y[1].shape[1]} channels: bf16 equal on >= {share_min:.6f} (bar "
         f"{S.MIN_SHARE}), none beyond one bf16 ulp or {S.F32_TOL} of max "
         f"|y| (float32 out too); max |kernel - plain| {worst}")
     ms = cuda_ms(S.stem_conv7x7_s2, calls, reps=20)
-    plain_ms = cuda_ms(S.stem_conv7x7_s2_plain, calls, reps=2)
+    plain_ms = cuda_ms(S.stem_conv7x7_s2_plain, [c[:7] for c in calls],
+                       reps=2)
     images = [(S.s2d_to_image(c[0]) if c[5] == "s2d" else c[0][..., :3])
               .permute(0, 3, 1, 2).contiguous() for c in calls]
     wk = w.permute(3, 2, 0, 1).to(x.dtype).contiguous()
@@ -1068,12 +1114,16 @@ def k11_row(name, fed, launches):
         F.conv2d(im, wk, stride=2, padding=3) * ab[0] + ab[1]),
         [(im,) for im in images], reps=20)
     # bytes: the input, the weights and affine, both halves out; operations:
-    # the 7x7x3 window with its zeros, 2 a multiply-add, at the peak rate
-    # for the inputs' type (bf16); the float32 CUDA-core rate the kernel
-    # runs at is logged beside it
+    # the function's 7x7x3 window with its zeros, 2 a multiply-add, at the
+    # peak rate for the inputs' type (bf16); the tensor-core route's own
+    # work (K = 192, three weight terms) is logged beside it
     ops = 2 * y[0].shape[2] * y[0].shape[3] * w.shape[3] * 147
+    tc_ops = 2 * y[0].shape[2] * y[0].shape[3] * pack.shape[2] * 8 * 192 * 3
     bnd, by = bound(nbytes(x, w, a, b, y), ops,
                     "bf16" if x.dtype == torch.bfloat16 else "f32")
+    log(f"{name}: the tensor-core route's own work {tc_ops / 1e9:.2f} G bf16 "
+        f"operations = {tc_ops / PEAK['bf16'] * 1e6:.2f} us at the dense "
+        f"peak; the kernel ran at {tc_ops / (ms * 1e9):.1f} TFLOP/s")
     log(f"{name}: kernel {ms * 1000:.2f} us, plain (float32 cuDNN) "
         f"{plain_ms * 1000:.2f} us, cuDNN bf16 conv {conv_ms * 1000:.2f} us "
         f"and with the affine + ReLU {lib_ms * 1000:.2f} us; bound "
@@ -1085,7 +1135,7 @@ def k11_row(name, fed, launches):
     return {"name": name, "route": "cuda", "source": SRC_K11,
             "replaces": TPU_K11, "launches": launches, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "instruction": S.route(x)}
 
 
 def x39_phase(dev, all_kernels, reset_all):

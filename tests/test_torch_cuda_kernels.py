@@ -8,7 +8,10 @@ kernels' 32-column tiles, of K1's 126-column strips or of K4's
 128-pixel-by-64-channel tiles, odd heights, stage 3's and stage 4's channel
 counts, output sizes that are not multiples of 32 or 128, BN inputs whose
 H*W is odd or 1, misaligned BN inputs, stem outputs off K11's 64-column
-and 8-row strips, focal-loss element counts that are not multiples of the
+tiles and 8-row strips (both its routes: the bf16 tensor-core kernel with
+the packed weights, the float32 CUDA-core kernel), K7 at 150 classes in
+column and class chunks and bit for bit against the per-pixel formula,
+focal-loss element counts that are not multiples of the
 block), so the edge masking and the
 scalar paths are exercised; K3's and K2's resident-weight kernel (K2 at
 stride 2), and K6's and K5's K split over a two-block cluster (K5's with
@@ -699,6 +702,66 @@ def test_upsample_argmax_kernel_meets_its_bar(dev, shape, out_hw):
     assert share >= U.MIN_SHARE and n_clear == 0, (share, n_clear)
 
 
+def _k7_per_pixel_labels(x, out_hw):
+    """The one-thread-a-pixel kernel's formula on the card (float32, each
+    operation rounded once: z0, z1 from the four corners, then s), first
+    maximum wins."""
+    def taps(n_in, n_out):
+        if n_in == 1 or n_out == 1:
+            z = torch.zeros(n_out, dtype=torch.long)
+            return z, z, torch.ones(n_out), torch.zeros(n_out)
+        src = (torch.arange(n_out, dtype=torch.float64) * (n_in - 1)
+               / (n_out - 1))
+        f = src.floor().long().clamp(0, n_in - 2)
+        frac = (src - f).float()
+        return f, f + 1, 1.0 - frac, frac
+
+    dev = x.device
+    y0, y1, a0, a1 = (t.to(dev) for t in taps(x.shape[1], out_hw[0]))
+    x0, x1, b0, b1 = (t.to(dev) for t in taps(x.shape[2], out_hw[1]))
+    a0, a1 = a0[:, None, None], a1[:, None, None]
+    b0, b1 = b0[None, :, None], b1[None, :, None]
+    labels = []
+    for n in range(x.shape[0]):  # one image at a time: (H, W, C) scores
+        r0, r1 = x[n, y0], x[n, y1]
+        z0 = a0 * r0[:, x0] + a1 * r1[:, x0]
+        z1 = a0 * r0[:, x1] + a1 * r1[:, x1]
+        labels.append((b0 * z0 + b1 * z1).argmax(dim=-1))
+    return torch.stack(labels).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    ((1, 13, 21, 19), (100, 167)), ((2, 16, 24, 150), (97, 131)),
+    ((1, 128, 256, 19), (1024, 2048)), ((1, 1, 9, 19), (5, 40)),
+    ((1, 32, 512, 150), (64, 4096)), ((1, 9, 3000, 7), (17, 50))])
+def test_upsample_argmax_kernel_is_the_per_pixel_formula(dev, shape, out_hw):
+    """The separable kernel's labels equal the per-pixel formula's bit for
+    bit (the same operations in the same rounding order), at the serving
+    shape, at 150 classes on a width that needs two column chunks and
+    class chunks, and downsampling 3000 source columns to 50."""
+    x = torch.randn(shape, generator=_gen(11)).to(dev)
+    got = U.fused_upsample_argmax(x, out_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _k7_per_pixel_labels(x, out_hw))
+
+
+def test_upsample_argmax_kernel_150_classes_in_column_chunks(dev):
+    """ADE's 150 classes, 4096 output columns (two 2048-column chunks) of
+    512 source columns (classes in chunks): K7's bar against the plain
+    version."""
+    shape, out_hw = (1, 32, 512, 150), (64, 4096)
+    from torchseg_tpu_torch.ops.kernels import _build
+    cols, cc, _ = U.block_plan(shape[2], shape[3], out_hw[1], _build.ready(
+        dev.index, "upsample_argmax").tsg_upsample_max_cols())
+    assert cols < out_hw[1] and cc < shape[3]
+    x = torch.randn(shape, generator=_gen(12)).to(dev)
+    got = U.fused_upsample_argmax(x, out_hw)
+    ref = U.fused_upsample_argmax_plain(x, out_hw)
+    scores = resize_bilinear_align_corners(x.permute(0, 3, 1, 2), out_hw)
+    share, n_clear = U.label_agreement(got, ref, scores.permute(0, 2, 3, 1))
+    assert share >= U.MIN_SHARE and n_clear == 0, (share, n_clear)
+
+
 def test_kernels_launch_on_the_current_stream(dev):
     g = _gen(4)
     x = _codes(g, (1, 16, 40, 64)).to(dev)
@@ -1007,6 +1070,93 @@ def test_stem_conv_kernel_at_the_serving_shapes(dev, no_tf32):
         ref = S.stem_conv7x7_s2_plain(x, k, a, b, 64, form)
         _, share, n_beyond = S.agreement(got, ref)
         assert n_beyond == 0 and share >= S.MIN_SHARE, share
+
+
+def _stem_bars(got, ref):
+    _, share, n_beyond = S.agreement(got, ref)
+    assert n_beyond == 0
+    if got[0].dtype == torch.bfloat16:
+        assert share >= S.MIN_SHARE, share
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_stem_conv_packed_route_at_the_serving_shapes(dev, no_tf32,
+                                                      out_dtype):
+    """The tensor-core route with the pack made once, as the served graph
+    passes it: X39.speed at 768x1536 (72 = 64 + 8) and R18 at 1024x2048
+    (64 + 64), s2d bf16 in."""
+    for hw, cout in (((768, 1536), 72), ((1024, 2048), 128)):
+        img, k, a, b = _stem_operands(_gen(hw[1]), hw, cout, dev)
+        x, form = _stem_input(img, "s2d", torch.bfloat16, dev)
+        pack = S.pack_stem_weights(k)
+        before = S.stem_conv7x7_s2.launches
+        got = S.stem_conv7x7_s2(x, k, a, b, 64, form, out_dtype, pack=pack)
+        torch.cuda.synchronize()
+        assert S.stem_conv7x7_s2.launches == before + 1
+        _stem_bars(got, S.stem_conv7x7_s2_plain(x, k, a, b, 64, form,
+                                                out_dtype))
+
+
+@pytest.mark.parametrize("fmt", ["s2d", "nhwc", "nhwc8"])
+@pytest.mark.parametrize("cout,n_sp,hw,batch", [
+    (72, 64, (36, 1000), 1), (128, 64, (50, 394), 2), (128, 0, (6, 130), 1),
+    (64, 32, (10, 66), 1), (100, 64, (14, 258), 1)])
+def test_stem_conv_packed_route_off_the_tile(dev, no_tf32, fmt, cout, n_sp,
+                                             hw, batch):
+    """cout 72 and 128 (and 64, 100) at widths that are not a multiple of
+    the tensor-core kernel's 64-column tile, a batch, an empty half."""
+    img, k, a, b = _stem_operands(_gen(cout + hw[0]), hw, cout, dev, batch)
+    x, form = _stem_input(img, fmt, torch.bfloat16, dev)
+    pack = S.pack_stem_weights(k)
+    assert "wgmma" in S.route(x)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = S.stem_conv7x7_s2(x, k, a, b, n_sp, form, out_dtype,
+                                pack=pack)
+        torch.cuda.synchronize()
+        _stem_bars(got, S.stem_conv7x7_s2_plain(x, k, a, b, n_sp, form,
+                                                out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_stem_conv_float32_input_on_the_cuda_core_route(dev, no_tf32,
+                                                        out_dtype):
+    """A float32 image (the float32 model's card checks, 256x512 and the
+    R18 width) runs the CUDA-core kernel and meets the same bars."""
+    for hw, cout in (((256, 512), 128), ((256, 512), 72), ((64, 2048), 128)):
+        img, k, a, b = _stem_operands(_gen(hw[0] + cout), hw, cout, dev)
+        x, form = _stem_input(img, "s2d", torch.float32, dev)
+        assert "CUDA cores" in S.route(x)
+        got = S.stem_conv7x7_s2(x, k, a, b, 64, form, out_dtype)
+        torch.cuda.synchronize()
+        _stem_bars(got, S.stem_conv7x7_s2_plain(x, k, a, b, 64, form,
+                                                out_dtype))
+
+
+@pytest.mark.parametrize("hw,cout,fmt", [((768, 1536), 72, "s2d"),
+                                         ((256, 512), 128, "s2d"),
+                                         ((50, 394), 128, "nhwc8")])
+def test_stem_conv_bf16_rounds_as_the_float32_chain(dev, hw, cout, fmt):
+    """The tensor-core route's bf16 output, its ambiguous roundings
+    recomputed in the reference order, equals bit for bit the CUDA-core
+    route's (one float32 FMA chain) on the same bf16 image."""
+    img, k, a, b = _stem_operands(_gen(hw[1] + cout), hw, cout, dev)
+    x, form = _stem_input(img, fmt, torch.bfloat16, dev)
+    got = S.stem_conv7x7_s2(x, k, a, b, 64, form, pack=S.pack_stem_weights(k))
+    ref = S.stem_conv7x7_s2(x.float(), k, a, b, 64, form)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _exact(g, r)
+
+
+def test_stem_conv_refuses_a_wrong_pack(dev):
+    img, k, a, b = _stem_operands(_gen(2), (8, 8), 72, dev)
+    x, form = _stem_input(img, "s2d", torch.bfloat16, dev)
+    before = S.stem_conv7x7_s2.launches
+    for bad in (S.pack_stem_weights(k[..., :64].contiguous()),
+                S.pack_stem_weights(k).float(), S.pack_stem_weights(k).cpu()):
+        with pytest.raises((ValueError, TypeError)):
+            S.stem_conv7x7_s2(x, k, a, b, 64, form, pack=bad)
+    assert S.stem_conv7x7_s2.launches == before
 
 
 def test_stem_conv_kernel_refuses_float64(dev):

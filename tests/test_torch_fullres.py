@@ -1,6 +1,10 @@
 """PyTorch port, full-resolution BiSeNet-R18 serving (head scales (16, 8, 8))
 against the JAX package (CPU), on identical weights and inputs:
 
+  * K7's separable order (row pass, then column pass) mirrored in torch
+    equals the per-pixel formula of the kernel it replaced, bit for bit,
+    and its labels meet K7's bar against the plain version and Pallas;
+    the kernel's block plan fits its shared memory;
   * ``tiled_upsample_argmax``, K7's plain version, against JAX's Pallas
     ``fused_upsample_argmax`` (interpret mode) and JAX's XLA
     ``tiled_upsample_argmax``, including a height that is not a multiple of
@@ -147,6 +151,122 @@ def test_label_agreement_counts_clear_margin_misses():
     assert U.label_agreement(got, ref, scores) == (0.75, 0)
     got[0, 1, 1] = 2  # differs where class 0 wins clearly
     assert U.label_agreement(got, ref, scores) == (0.5, 1)
+
+
+# ----------------------------------------------------------------------
+# K7's separable order, mirrored in torch (float32, one rounding an op)
+# ----------------------------------------------------------------------
+
+def _taps(n_in, n_out):
+    """The kernel's interp_taps for every output index: (t0, t1, w0, w1),
+    from the float64 source position (numpy's IEEE division)."""
+    if n_in == 1 or n_out == 1:
+        z = torch.zeros(n_out, dtype=torch.long)
+        return z, z, torch.ones(n_out), torch.zeros(n_out)
+    src = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+    f = np.clip(np.floor(src).astype(np.int64), 0, n_in - 2)
+    frac = torch.from_numpy((src - f).astype(np.float32))
+    f = torch.from_numpy(f)
+    return f, f + 1, 1.0 - frac, frac
+
+
+def _per_pixel(x, out_hw):
+    """The one-thread-a-pixel kernel's formula: z0, z1 from the four
+    corners, then s; returns the (B, H, W, C) scores."""
+    y0, y1, a0, a1 = _taps(x.shape[1], out_hw[0])
+    x0, x1, b0, b1 = _taps(x.shape[2], out_hw[1])
+    a0, a1 = a0[:, None, None], a1[:, None, None]
+    b0, b1 = b0[None, :, None], b1[None, :, None]
+    rows0, rows1 = x[:, y0], x[:, y1]                 # (B, H, w, C)
+    z0 = a0 * rows0[:, :, x0] + a1 * rows1[:, :, x0]  # (B, H, W, C)
+    z1 = a0 * rows0[:, :, x1] + a1 * rows1[:, :, x1]
+    return b0 * z0 + b1 * z1
+
+
+def _separable(x, out_hw):
+    """K7's order: the row pass r = a0 x[y0] + a1 x[y1] over every source
+    column once per output row, then the column pass b0 r[x0] + b1 r[x1]."""
+    y0, y1, a0, a1 = _taps(x.shape[1], out_hw[0])
+    x0, x1, b0, b1 = _taps(x.shape[2], out_hw[1])
+    r = a0[:, None, None] * x[:, y0] + a1[:, None, None] * x[:, y1]
+    return b0[None, :, None] * r[:, :, x0] + b1[None, :, None] * r[:, :, x1]
+
+
+@pytest.mark.parametrize("shape,out_hw", [((1, 16, 32, 19), (128, 256)),
+                                          ((2, 13, 21, 150), (100, 167)),
+                                          ((1, 1, 9, 19), (5, 40)),
+                                          ((1, 7, 1, 4), (30, 3)),
+                                          ((1, 9, 12, 6), (4, 5))])
+def test_separable_order_is_the_per_pixel_formula_bit_for_bit(shape,
+                                                              out_hw):
+    """Same values, so the same labels: the separable kernel gives the old
+    kernel's labels bit for bit; both match K7's bar against the plain
+    version and JAX's Pallas kernel (interpret mode; JAX's XLA epilogue
+    where the output is not a multiple of Pallas' tile)."""
+    x = torch.from_numpy(_logits(shape, 5))
+    per_pixel, sep = _per_pixel(x, out_hw), _separable(x, out_hw)
+    assert torch.equal(sep, per_pixel)
+    labels = sep.argmax(dim=-1).to(torch.int32)  # the first maximum wins
+    # the taps are _interp_matrix_np's non-zeros, bit for bit
+    for n_in, n_out, axis in ((shape[1], out_hw[0], 0),
+                              (shape[2], out_hw[1], 1)):
+        t0, t1, w0, w1 = _taps(n_in, n_out)
+        m = np.zeros((n_out, n_in), np.float32)
+        rows = np.arange(n_out)
+        m[rows, t0.numpy()] += w0.numpy()
+        m[rows, t1.numpy()] += w1.numpy()
+        np.testing.assert_array_equal(m, tresize._interp_matrix_np(n_in,
+                                                                   n_out))
+    scores = _upsampled(x.numpy(), out_hw)
+    _assert_k7_bar(labels, U.fused_upsample_argmax_plain(x, out_hw),
+                   scores)
+    if all(n % min(8, n) == 0 for n in out_hw):  # Pallas' tiles divide
+        with pltpu.force_tpu_interpret_mode():
+            ref = jax.jit(lambda v: pallas_upsample_argmax(
+                v, out_hw, tile=8))(jnp.asarray(x.numpy()))
+    else:
+        ref = jax.jit(lambda v: jresize.tiled_upsample_argmax(v, out_hw))(
+            jnp.asarray(x.numpy()))
+    _assert_k7_bar(labels, ref, scores)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(16, 128), (256, 2048), (13, 100),
+                                        (3000, 50), (1, 5), (5, 1), (2, 2)])
+def test_tap_table_is_the_interp_matrix_bit_for_bit(n_in, n_out):
+    """K7's tap table (taps and the bits of their float32 weights) holds
+    exactly the non-zeros of the plain version's interpolation matrix."""
+    tab = U.tap_table(n_in, n_out)
+    assert tab.dtype == np.int32 and tab.shape == (4, n_out)
+    m = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    m[rows, tab[0]] += tab[2].view(np.float32)
+    m[rows, tab[1]] += tab[3].view(np.float32)
+    np.testing.assert_array_equal(m, tresize._interp_matrix_np(n_in, n_out))
+    t0, t1, w0, w1 = _taps(n_in, n_out)
+    assert np.array_equal(tab[0], t0.numpy()) and np.array_equal(
+        tab[1], t1.numpy())
+    assert np.array_equal(tab[2].view(np.float32), w0.numpy())
+    assert np.array_equal(tab[3].view(np.float32), w1.numpy())
+
+
+@pytest.mark.parametrize("w,c,ow,cols", [(256, 19, 2048, 2048),
+                                         (24, 150, 131, 2048),
+                                         (512, 150, 4096, 2048),
+                                         (100000, 19, 2, 1),
+                                         (1, 5, 40, 2048), (9, 1, 1, 2048)])
+def test_block_plan_fits_the_shared_memory(w, c, ow, cols):
+    """The block's columns, class chunk and shared memory: the source span
+    of any chunk of ``cols`` output columns fits, with the classes split
+    where a whole row of them does not."""
+    got_cols, cc, smem = U.block_plan(w, c, ow, 2048)
+    assert got_cols == cols and 1 <= cc <= c
+    assert smem <= 4 * U.SMEM_FLOATS
+    t0, t1, _, _ = _taps(w, ow)
+    for j0 in range(0, ow, got_cols):
+        j1 = min(j0 + got_cols, ow) - 1
+        assert 4 * cc * (int(t1[j1]) - int(t0[j0]) + 1) <= smem
+    if (w, c) == (512, 150):
+        assert cc < c  # 150 classes of 257 source columns are chunked
 
 
 # ----------------------------------------------------------------------

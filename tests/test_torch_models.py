@@ -104,5 +104,5 @@ def test_registry_entries_copy_jax(name):
 
 def test_eval_only_forward_raises_in_train_mode():
     tm = tmodels.bisenet_r18(speed=True).train()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A8"):
         tm(torch.zeros(1, 3, 32, 64), raw_logits=True)

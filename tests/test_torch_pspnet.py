@@ -247,7 +247,7 @@ def test_registry_entries_copy_jax(name):
 
 
 def test_training_forward_is_not_ported(psp):
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A4"):
         tmodels.pspnet_r50().train()(torch.zeros(1, 3, 32, 32))
 
 

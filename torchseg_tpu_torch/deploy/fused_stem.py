@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.kernels.stem_conv import stem_conv7x7_s2
+from ..ops.kernels.stem_conv import pack_stem_weights, stem_conv7x7_s2
 from ..ops.kernels.upsample_argmax import fused_upsample_argmax
 
 
@@ -71,9 +71,10 @@ def _stem_weights(model, eps: float, dtype=np.float32):
 
 def _fused_stem_params(model, eps: float):
     """K11's operands on the model's device, for either input format: the
-    (7, 7, 3, cout) HWIO kernel of both stems, their affine, and the
-    SpatialPath's channel count ``n_sp``; float32, or float64 for a float64
-    model (the plain version's CPU parity path)."""
+    (7, 7, 3, cout) HWIO kernel of both stems, their affine, the
+    SpatialPath's channel count ``n_sp`` and the kernel's packed bf16
+    weight terms (``pack_stem_weights``); float32, or float64 without a
+    pack for a float64 model (the plain version's CPU parity path)."""
     p = next(model.parameters())
     dtype = np.float64 if p.dtype == torch.float64 else np.float32
     k_sp, a_sp, b_sp, k_bb, a_bb, b_bb = _stem_weights(model, eps, dtype)
@@ -82,8 +83,11 @@ def _fused_stem_params(model, eps: float):
         return torch.from_numpy(np.ascontiguousarray(
             np.concatenate(parts, axis=-1))).to(p.device)
 
-    return {"w": cat(k_sp, k_bb), "a": cat(a_sp, a_bb), "b": cat(b_sp, b_bb),
-            "n_sp": int(k_sp.shape[-1])}
+    w = cat(k_sp, k_bb)
+    # the tensor-core route's three bf16 weight terms, packed once here
+    pack = pack_stem_weights(w) if w.dtype == torch.float32 else None
+    return {"w": w, "a": cat(a_sp, a_bb), "b": cat(b_sp, b_bb),
+            "n_sp": int(k_sp.shape[-1]), "pack": pack}
 
 
 def _apply_fused_stem(params, x, input_format: str = "nhwc"):
@@ -91,7 +95,8 @@ def _apply_fused_stem(params, x, input_format: str = "nhwc"):
     (spatial, backbone) stem activations, NCHW, post BN and ReLU, at /2,
     in that dtype: one K11 launch on a card."""
     return stem_conv7x7_s2(x, params["w"], params["a"], params["b"],
-                           params["n_sp"], input_format, out_dtype=x.dtype)
+                           params["n_sp"], input_format, out_dtype=x.dtype,
+                           pack=params["pack"])
 
 
 def _fused_stem(model, x, eps: float = 1e-5):

@@ -106,7 +106,7 @@ class BiSeNet(nn.Module):
         if self.training and (stem_outs is not None or raw_logits):
             raise NotImplementedError(
                 "stem_outs and raw_logits are eval-only; raw train heads "
-                "(JAX train_raw_logits) are not ported (ROADMAP A9)")
+                "(JAX train_raw_logits) are not ported (ROADMAP A8)")
         sp_stem, bb_stem, bb_pooled = (stem_outs if stem_outs is not None
                                        else (None, None, None))
         spatial_out = self.spatial_path(x, stem_features=sp_stem)

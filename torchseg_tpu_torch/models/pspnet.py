@@ -7,7 +7,7 @@ PyramidPooling head (adaptive average pools to 1, 2, 3 and 6 -> 1x1 CBR
 upsamples the main logits x8 in float32 and returns their log_softmax,
 NCHW (JAX models/pspnet.py:107-109).  Dropout is the identity in eval.
 Only eval is ported: the training step of PSPNet (``{"main", "aux"}``)
-comes with ROADMAP A5/A8; the aux head exists so that the JAX parameters
+comes with ROADMAP A4; the aux head exists so that the JAX parameters
 load.  Submodule names are the flax names (``psp_layer.ppm{i}_cbr``,
 ``psp_layer.conv6_cbr``, ``psp_layer.conv6_out``, ``aux_layer.cbr``,
 ``aux_layer.out``).
@@ -81,7 +81,7 @@ class PSPNet(nn.Module):
         stages here (deploy/int8_serve.py), with ``x`` unused."""
         if self.training:
             raise NotImplementedError(
-                "PSPNet's training forward is not ported (ROADMAP A5/A8)")
+                "PSPNet's training forward is not ported (ROADMAP A4)")
         blocks = (context_blocks if context_blocks is not None
                   else self.backbone(x))
         psp = upsample_by_scale(wide(self.psp_layer(blocks[-1])), 8)

@@ -70,17 +70,28 @@ LIBRARIES = {
                                + [c_longlong, c_int] + [c_void_p] * 2),
     },
     "upsample_argmax": {
-        # x, batch, h, w, nc, out, oh, ow, stream
-        "tsg_upsample_argmax": ([c_void_p] + [c_int] * 4 + [c_void_p]
-                                + [c_int] * 2 + [c_void_p]),
+        "tsg_upsample_max_cols": [],
+        # x, batch, h, w, nc, rtab, ctab, out, oh, ow, cols, cc, smem_bytes,
+        # stream
+        "tsg_upsample_argmax": ([c_void_p] + [c_int] * 4 + [c_void_p] * 3
+                                + [c_int] * 5 + [c_void_p]),
     },
     "stem_conv": {
         "tsg_init": [],
-        # x, batch, h, w, cx, s2d, in_bf16, wt, a, b, cout, n_sp, out1,
-        # out2, out_bf16, stream
-        "tsg_stem_conv": ([c_void_p] + [c_int] * 6 + [c_void_p] * 3
-                          + [c_int] * 2 + [c_void_p] * 2 + [c_int]
-                          + [c_void_p]),
+        # n_pack
+        "tsg_stem_tc_smem_bytes": [c_int],
+        # batch, h, w, n_pack
+        "tsg_stem_tc_fix_ints": [c_int] * 4,
+        # x, batch, h, w, cx, s2d, wt, a, b, cout, n_sp, out1, out2,
+        # out_bf16, stream
+        "tsg_stem_conv_f32": ([c_void_p] + [c_int] * 5 + [c_void_p] * 3
+                              + [c_int] * 2 + [c_void_p] * 2 + [c_int]
+                              + [c_void_p]),
+        # x, batch, h, w, cx, s2d, pack, n_pack, wt, a, b, cout, n_sp, out1,
+        # out2, out_bf16, fix_list, n_rechecked, stream
+        "tsg_stem_conv_bf16": ([c_void_p] + [c_int] * 5 + [c_void_p, c_int]
+                               + [c_void_p] * 3 + [c_int] * 2
+                               + [c_void_p] * 2 + [c_int] + [c_void_p] * 3),
     },
     "focal_loss": {
         # x, x_bf16, t, t_i64, n, c, gamma, square, alpha, 1 - alpha, out,
@@ -97,6 +108,8 @@ LIBRARIES = {
 }
 # entry points that return something other than int
 _RESTYPES = {"tsg_stem_smem_bytes": c_longlong,
+             "tsg_stem_tc_smem_bytes": c_longlong,
+             "tsg_stem_tc_fix_ints": c_longlong,
              "tsg_conv_mma_smem_bytes": c_longlong,
              "tsg_conv_mma_res_smem_bytes": c_longlong}
 

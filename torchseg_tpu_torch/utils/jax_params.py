@@ -83,7 +83,7 @@ def _bottleneck_package(pkg, device) -> dict:
             f"bottleneck{depth}":
         raise NotImplementedError(
             f"a Bottleneck package with {n3} stage-3 blocks is not ported "
-            "(ROADMAP A8)")
+            "(ROADMAP A4)")
     statics = block_statics(depth)
     out = _convert({k: v for k, v in pkg.items()
                     if k not in ("kind", "layers")}, device)
@@ -113,7 +113,7 @@ def int8_package_from_numpy(pkg, device) -> dict:
     if pkg.get("kind", "r18") != "r18" or "dec" not in pkg:
         raise NotImplementedError(
             "only R18 packages with the int8 decoder and the PSPNet "
-            "Bottleneck body are ported (ROADMAP A3)")
+            "Bottleneck body are ported (ROADMAP A4)")
     blocks = [f"l{li}_{bi}" for li in range(1, 5) for bi in range(2)]
     out = _convert({k: pkg[k] for k in ("sp1", "sp2", "sp3", "dec",
                                         *blocks)}, device)
