@@ -125,8 +125,9 @@ script
      one step on the card agrees with the same step on the CPU in float64
      (DFN_CHECK_*); 20 steps lower the loss (DFN_DRYRUN_SEED); the step
      is timed (median, p90, enqueue, peak memory), K8 and K9 per step at
-     DFN's shapes, K12 and K13 against their plain versions and bounds,
-     and a profiler pass gives the card's idle share.
+     DFN's shapes, K12 and K13 against their plain versions and bounds
+     (with the achieved TB/s), and a profiler pass gives the card's idle
+     share.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -440,15 +441,23 @@ MAIN_PATH_CONVS = {"conv_i8_mma_res_kernel<0, 0, false>": 4,
 MAIN_CBRS = ("sp3", "arm0", "refine0", "arm1", "refine1", "ffm", "head")
 
 
+def device_kernels(prof):
+    """The device events of a profile, without the step annotations
+    (``ProfilerStep#``) that a profile with a schedule records on the
+    device as well."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
 def int8_convs(prof, n_calls):
     """{instantiation: launches per call} of the int8 conv kernels in a
     profile of ``n_calls`` calls, and the device kernels by key."""
     import re
 
-    from torch.autograd import DeviceType
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     convs = {}
     for e in kernels:
         m = re.search(r"(conv_i8\w*kernel(<[\w, ]+>)?)", e.key)
@@ -457,20 +466,32 @@ def int8_convs(prof, n_calls):
     return convs, kernels
 
 
+def profile_calls(calls):
+    """torch.profiler over ``calls`` (closures), each followed by a
+    synchronize, after one more call of the first in the profiler's
+    warm-up step, whose events are dropped.  A profile started cold has
+    been seen to miss one of four PSPNet forwards' kernels; the counts of
+    launches per call read from this one hold every counted call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=len(calls),
+                                   repeat=1)) as prof:
+        for fn in [calls[0], *calls]:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def main_path_kernels(infer, pkg, xss):
     """The device kernels of the served forwards over ``xss`` by
     torch.profiler: the int8 convs of each are MAIN_PATH_CONVS (no
     CUDA-core conv; K5's conv2 the projection split over a cluster; the
     decoder's on the tensor cores).  Returns the kernels' device ms per
     forward."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for xs in xss:
-            infer(pkg, xs)
-        torch.cuda.synchronize()
+    prof = profile_calls([lambda xs=xs: infer(pkg, xs) for xs in xss])
     convs, kernels = int8_convs(prof, len(xss))
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0 / len(xss)
     log(f"one served forward: {sum(e.count for e in kernels) // len(xss)} "
@@ -1252,8 +1273,6 @@ def psp_phase(dev, all_kernels, reset_all):
     """The PSPNet path (see the module docstring, item 9); returns the
     kernels line's rows for K10, bottleneck_i8 and cbr_i8."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from torchseg_tpu_torch.deploy import int8_serve as i8
     from torchseg_tpu_torch.entry import PSP_EXPERIMENT, serve_entry
@@ -1455,19 +1474,14 @@ def psp_phase(dev, all_kernels, reset_all):
     log(f"  sum of parts {sum(ms for _, ms in parts):.4f} ms vs mean forward "
         f"{mean_ms:.4f} ms")
 
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            infer(*args)
-        torch.cuda.synchronize()
+    prof = profile_calls([lambda a=a: infer(*a) for a in inputs])
     wall = (time.perf_counter() - t0) * 1000.0 / len(inputs)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1000.0 / len(inputs)
-    # the profiler's own start-up fills its wall time, so the idle share
-    # is taken against the forward's CUDA-event time instead
+    # the profiler's own start-up and the warm-up call fill its wall time,
+    # so the idle share is taken against the forward's CUDA-event time
+    # instead
     log(f"PSPNet profiled {len(inputs)} forwards: kernels {busy:.4f} ms per "
         f"forward ({wall:.1f} ms wall under the profiler); against the "
         f"mean forward of {mean_ms:.4f} ms the card is idle "
@@ -2067,20 +2081,25 @@ def focal_rows(dev, x, t, launches):
     # add 4 bytes an element); operations: ~20 (forward) and ~30
     # (backward) float32 operations an element, exp, log and log1p each
     # counted once
-    out_bytes = 4 * x.numel()
-    k12_bound = bound(nbytes(x, t) + out_bytes, 20 * x.numel(), "f32")
-    k13_bound = bound(nbytes(x, t) + 4 + nbytes(x), 30 * x.numel(), "f32")
-    dense_bound = bound(nbytes(x, t, dense, x), 30 * x.numel(), "f32")
+    k12_bytes = nbytes(x, t) + 4 * x.numel()
+    k13_bytes = nbytes(x, t) + 4 + nbytes(x)
+    dense_bytes = nbytes(x, t, dense, x)
+    k12_bound = bound(k12_bytes, 20 * x.numel(), "f32")
+    k13_bound = bound(k13_bytes, 30 * x.numel(), "f32")
+    dense_bound = bound(dense_bytes, 30 * x.numel(), "f32")
+    # achieved TB/s: those bytes over the measured time
     log(f"sigmoid_focal_loss_fwd (K12) on {tuple(x.shape)}: kernel "
-        f"{k12 * 1000:.2f} us, plain (eager formula) {k12_plain * 1000:.2f} "
-        f"us; bound {k12_bound[0] * 1000:.2f} us ({k12_bound[1]}) = "
+        f"{k12 * 1000:.2f} us = {k12_bytes / k12 / 1e9:.3f} TB/s, plain "
+        f"(eager formula) {k12_plain * 1000:.2f} us; bound "
+        f"{k12_bound[0] * 1000:.2f} us ({k12_bound[1]}) = "
         f"{100 * k12_bound[0] / k12:.1f} % of the kernel's time")
     log(f"sigmoid_focal_loss_bwd (K13), the sum's stride-0 dloss as on the "
-        f"path: kernel {k13 * 1000:.2f} us, plain (eager formula) "
-        f"{k13_plain * 1000:.2f} us; bound {k13_bound[0] * 1000:.2f} us "
-        f"({k13_bound[1]}) = {100 * k13_bound[0] / k13:.1f} %; dense dloss "
-        f"{k13_dense * 1000:.2f} us against a bound of "
-        f"{dense_bound[0] * 1000:.2f} us")
+        f"path: kernel {k13 * 1000:.2f} us = {k13_bytes / k13 / 1e9:.3f} "
+        f"TB/s, plain (eager formula) {k13_plain * 1000:.2f} us; bound "
+        f"{k13_bound[0] * 1000:.2f} us ({k13_bound[1]}) = "
+        f"{100 * k13_bound[0] / k13:.1f} %; dense dloss "
+        f"{k13_dense * 1000:.2f} us = {dense_bytes / k13_dense / 1e9:.3f} "
+        f"TB/s against a bound of {dense_bound[0] * 1000:.2f} us")
     return [
         {"name": "sigmoid_focal_loss_fwd", "route": "cuda",
          "source": SRC_FOCAL, "replaces": f"{TPU_FOCAL}:38",

@@ -11,8 +11,9 @@ H*W is odd or 1, misaligned BN inputs, stem outputs off K11's 64-column
 tiles and 8-row strips (both its routes: the bf16 tensor-core kernel with
 the packed weights, the float32 CUDA-core kernel), K7 at 150 classes in
 column and class chunks and bit for bit against the per-pixel formula,
-focal-loss element counts that are not multiples of the
-block), so the edge masking and the
+focal-loss element counts that are not multiples of the 16-byte vector,
+logits off 16-byte alignment and C in {1, 2, 3, 19, 150} over logits
+swept across [-100, 100]), so the edge masking and the
 scalar paths are exercised; K3's and K2's resident-weight kernel (K2 at
 stride 2), and K6's and K5's K split over a two-block cluster (K5's with
 the projection's chunks on the first block), are held at the main path's
@@ -1284,3 +1285,86 @@ def test_focal_loss_kernels_refuse_float64(dev):
         FL.sigmoid_focal_loss_fwd(x, t)
     with pytest.raises(TypeError):
         FL.sigmoid_focal_loss_bwd(x, t, torch.ones_like(x))
+
+
+FOCAL_EDGES = (87.3365, 87.3366, 88.7228, 88.7229, 0.0, 1e-30, 100.0)
+
+
+def _focal_sweep(n, c, dtype, tdtype, dev, offset, seed):
+    """(N, C) logits swept over [-100, 100] in a shuffled order, with the
+    edges of the FLT_MIN clamp and of exp's overflow, 0 and +-1e-30 at
+    the front, as a view ``offset`` elements into a contiguous buffer on
+    the card; targets in [-1, C + 1] with every kind present."""
+    g = _gen(seed)
+    v = torch.linspace(-100.0, 100.0, n * c)[torch.randperm(n * c,
+                                                            generator=g)]
+    edges = torch.tensor(FOCAL_EDGES)
+    v[:2 * len(edges)] = torch.cat([edges, -edges])
+    buf = torch.zeros(n * c + offset, dtype=dtype, device=dev)
+    buf[offset:] = v.to(dtype).to(dev)
+    t = torch.randint(-1, c + 2, (n,), generator=g)
+    t[:4] = torch.tensor([-1, 0, 1, c + 1])
+    return buf[offset:].view(n, c), t.to(tdtype).to(dev)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 8, 19, 150])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tdtype", [torch.int32, torch.int64])
+def test_focal_loss_kernels_sweep_offsets_and_classes(dev, offset, c, dtype,
+                                                      tdtype):
+    """The 16-byte body, the scalar head and tail and the class walk: C in
+    {1, 2, 3, 5, 8, 19, 150} (a thread's 16 elements span up to 16 rows;
+    below and at a 16-byte group's 4 or 8 elements the kernels walk
+    element by element, from there on two targets a group), N*C
+    not a multiple of 4 or 8, logits at 0-3 elements past a 16-byte
+    boundary (``x[k:]`` of a contiguous buffer), swept over [-100, 100];
+    forward, dense and stride-0 dloss against the plain versions."""
+    n = 1007
+    x, t = _focal_sweep(n, c, dtype, tdtype, dev, offset, seed=c + offset)
+    assert (n * c) % 4 or c == 8
+    dense = torch.randn(n, c, generator=_gen(c)).to(dev)
+    scalar = torch.full((), 0.75, device=dev).expand(n, c)
+    before = (FL.sigmoid_focal_loss_fwd.launches,
+              FL.sigmoid_focal_loss_bwd.launches)
+    out = FL.sigmoid_focal_loss_fwd(x, t)
+    dx = FL.sigmoid_focal_loss_bwd(x, t, dense)
+    dx0 = FL.sigmoid_focal_loss_bwd(x, t, scalar)
+    torch.cuda.synchronize()
+    assert (FL.sigmoid_focal_loss_fwd.launches,
+            FL.sigmoid_focal_loss_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 2)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    _focal_close(out, FL.sigmoid_focal_loss_multiclass_plain(x, t))
+    _focal_close(dx, FL.sigmoid_focal_loss_multiclass_bwd_plain(x, t, dense),
+                 rel=rel)
+    _focal_close(dx0, FL.sigmoid_focal_loss_multiclass_bwd_plain(
+        x, t, torch.full_like(dense, 0.75)), rel=rel)
+    assert bool(torch.isfinite(out).all()) and bool(
+        torch.isfinite(dx.float()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_focal_loss_bwd_dense_dloss_out_of_phase(dev, dtype):
+    """A dense dloss that is not 16-byte aligned where the logits are (a
+    view one element into a buffer) sends K13 down the scalar route: the
+    same gradient."""
+    x, t = _focal_sweep(513, 19, dtype, torch.int64, dev, 0, seed=3)
+    buf = torch.randn(513 * 19 + 1, generator=_gen(4)).to(dev)
+    g = buf[1:].view(513, 19)
+    _focal_close(FL.sigmoid_focal_loss_bwd(x, t, g),
+                 FL.sigmoid_focal_loss_multiclass_bwd_plain(x, t, g),
+                 rel=1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+def test_focal_loss_kernels_many_trips_of_the_persistent_grid(dev):
+    """5.7 M elements: every warp of the persistent grid takes several
+    512-element chunks."""
+    x, t = _focal_sweep(300_001, 19, torch.float32, torch.int32, dev, 0,
+                        seed=5)
+    _focal_close(FL.sigmoid_focal_loss_fwd(x, t),
+                 FL.sigmoid_focal_loss_multiclass_plain(x, t))
+    scalar = torch.full((), 0.5, device=dev).expand_as(x)
+    _focal_close(FL.sigmoid_focal_loss_bwd(x, t, scalar),
+                 FL.sigmoid_focal_loss_multiclass_bwd_plain(
+                     x, t, torch.full_like(x, 0.5)))

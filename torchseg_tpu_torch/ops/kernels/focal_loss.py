@@ -25,10 +25,18 @@ whose strides are all 0; K13 then reads its one value (the scalar-dloss
 mode) and never reads it as a dense tensor.  Any other dloss is made a
 dense float32 tensor first.
 
-The kernels and the plain versions compute in float32 in the JAX order,
-but the library's exp, log and log1p differ from torch's CPU ones (and
-XLA's) by a few ulps, so the two agree within rtol 1e-5 and atol 1e-6,
-not bit for bit.
+The plain versions compute in float32 in the JAX order.  The kernels
+form p and the two logs from one exp and one log1p (``csrc/focal_loss.cu``
+says how), and the library's exp and log1p differ from torch's CPU ones
+(and XLA's) by a few ulps, so the two agree within rtol 1e-5 and atol
+1e-6, not bit for bit.
+
+The kernels load the logits 16 bytes at a time from their first 16-byte
+boundary on (``head`` elements in); an output or a dense dloss that is not
+16-byte aligned there sends every element down the kernels' scalar route.
+So the wrappers allocate each output in the logits' phase
+(``phase_matched_empty``): a plain allocation where that already holds,
+else a view into a slightly longer one.
 """
 
 import torch
@@ -79,6 +87,28 @@ def _kernel_args(logits, targets, gamma, alpha):
         n, c, gamma, int(gamma == 2.0), alpha, 1.0 - alpha)
 
 
+def head_elements(ptr: int, item: int, total: int) -> int:
+    """Elements before the first 16-byte boundary at or after ``ptr`` (an
+    array of ``item``-byte elements), at most ``total``: the kernels'
+    scalar head."""
+    return min(((-ptr) % 16) // item, total)
+
+
+def phase_matched_empty(logits, dtype):
+    """An empty contiguous tensor of ``logits``' shape and ``dtype`` that is
+    16-byte aligned at the logits' first 16-byte boundary (element
+    ``head_elements``), so the kernels store it 16 bytes at a time."""
+    total = logits.numel()
+    head = head_elements(logits.data_ptr(), logits.element_size(), total)
+    out = torch.empty(logits.shape, dtype=dtype, device=logits.device)
+    item = out.element_size()
+    if (out.data_ptr() + head * item) % 16 == 0:
+        return out
+    buf = torch.empty(total + 16 // item, dtype=dtype, device=logits.device)
+    start = ((-(buf.data_ptr() + head * item)) % 16) // item
+    return buf[start:start + total].view(logits.shape)
+
+
 def _terms(logits, targets):
     """(x, c1, c2, p, log(1 - p)) in the compute dtype, as the JAX kernels
     form them (focal_loss.py:39-50)."""
@@ -122,7 +152,7 @@ def sigmoid_focal_loss_fwd(logits, targets, gamma: float = 2.0,
         return sigmoid_focal_loss_multiclass_plain(logits, targets, gamma,
                                                    alpha)
     ptrs, (n, c, *consts) = _kernel_args(logits, targets, gamma, alpha)
-    out = torch.empty((n, c), dtype=torch.float32, device=logits.device)
+    out = phase_matched_empty(logits, torch.float32)
     rc = _build.ready(logits.device.index, "focal_loss").tsg_focal_fwd(
         *ptrs, n, c, *consts, out.data_ptr(), _stream(logits))
     _raise_on(rc, "focal_fwd_kernel")
@@ -155,7 +185,7 @@ def sigmoid_focal_loss_bwd(logits, targets, dloss, gamma: float = 2.0,
     scalar = g is not None
     if not scalar:
         g = dloss.to(torch.float32).contiguous()
-    dx = torch.empty_like(logits)
+    dx = phase_matched_empty(logits, logits.dtype)
     rc = _build.ready(logits.device.index, "focal_loss").tsg_focal_bwd(
         *ptrs, g.data_ptr(), int(scalar), n, c, *consts, dx.data_ptr(),
         _stream(logits))
