@@ -76,15 +76,18 @@ script
   9. PSPNet path: int8-through PSPNet-R50 (``ade.pspnet.R50_v1c``) at
      480x480 through ``serve_entry``, the graph's calibration and package
      as the JAX package builds them: four seeded images served, (1, 480,
-     480) labels in [0, 150); one forward launches K10 once, cbr_i8 twice
+     480) labels in [0, 150); one forward launches K10 once (on its
+     16-byte route), cbr_i8 twice
      (stem2, stem3) and bottleneck_i8's 48 conv launches (16 blocks x 3)
      and nothing else, all 50 convs on the tensor cores (the profiler: no
      conv_i8_kernel); K10, both cbr_i8 calls and each of the 16
      bottleneck_i8 calls are held bit-exact to their plain versions on the
      tensors the forwards fed them; the card's labels agree with the same package run on the CPU
      at 160x160, the head in float32 on both (>= 99 %, PSP_AGREE); the
-     forward is timed (median, p90), with K10 against its plain version,
-     its bound and ``F.max_pool2d`` on a float16 copy, the body's blocks
+     forward is timed (median, p90), with K10 (its device time by the
+     profiler over eight inputs that outgrow the L2, and through its
+     wrapper by CUDA events) against its plain version, its bound and
+     ``F.max_pool2d`` on a float16 copy (device time), the body's blocks
      (against ``torch._int_mm`` of their GEMMs) and the parts of the
      forward, and a profiler pass gives the card's idle share;
   10. training path: the BiSeNet-R18 training step (``train_entry``,
@@ -510,21 +513,14 @@ def main_path_kernels(infer, pkg, xss):
 
 
 def device_time(fn, inputs, top=6):
-    """torch.profiler over one call of ``fn`` per args tuple: (device ms of
-    all kernels per call, kernels per call, the ``top`` kernels as (ms per
-    call, calls per call, name))."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            fn(*args)
-        torch.cuda.synchronize()
+    """torch.profiler over one call of ``fn`` per args tuple, through
+    ``profile_calls`` (a warm-up call first, each call synchronized; a cold
+    session missed one of 48 K10 launches): (device ms of all kernels per
+    call, kernels per call, the ``top`` kernels as (ms per call, calls per
+    call, name))."""
+    prof = profile_calls([lambda a=a: fn(*a) for a in inputs])
     n = len(inputs)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     if not kern:
         fail("the profiler saw no device kernel")
     busy = sum(e.self_device_time_total for e in kern) / 1000.0 / n
@@ -1305,9 +1301,13 @@ def psp_phase(dev, all_kernels, reset_all):
     got = launch_counts(all_kernels)
     want = dict.fromkeys(got, 0)
     want.update(PSP_LAUNCHES)
-    log(f"PSPNet: launches in one served forward: {got}")
+    log(f"PSPNet: launches in one served forward: {got}; K10 by route "
+        f"(bytes a load): {K.maxpool2d_3x3s2_i8.routes}")
     if got != want:
         fail(f"PSPNet forward launches {got}, expected {want}")
+    if K.maxpool2d_3x3s2_i8.routes != {16: 1, 4: 0}:
+        fail(f"PSPNet's K10 launch (C = 128, a fresh output) took route "
+             f"{K.maxpool2d_3x3s2_i8.routes}, expected the 16-byte one")
     outs = [labels] + [infer(pkg, x) for x in xss[1:]]
     for y in outs:
         check_labels("PSPNet", y, PSP_HW, cfg.num_classes)
@@ -1387,20 +1387,39 @@ def psp_phase(dev, all_kernels, reset_all):
         f"sync) {enq:.4f} ms")
     k10_ms = cuda_ms(K.maxpool2d_3x3s2_i8, fed_pool, reps=50)
     k10_plain = cuda_ms(K.maxpool_i8, fed_pool, reps=5)
-    halves = [(x.half(),) for (x,) in fed_pool]
-    k10_lib = cuda_ms(lambda x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1),
-                      halves, reps=50)
-    cast_ms = cuda_ms(lambda x: x.half(), fed_pool, reps=50)
+    # device time on inputs that outgrow the 50 MB L2 (the fed four and
+    # four seeded codes of the same shape, 59 MB), read by the profiler
+    # for the kernel and for the library yardstick alike
+    g = torch.Generator(device=dev).manual_seed(10)
+    cold = fed_pool + [(torch.randint(
+        -128, 128, fed_pool[0][0].shape, generator=g, device=dev,
+        dtype=torch.int8),) for _ in range(8 - len(fed_pool))]
+    halves = [(x.half(),) for (x,) in cold]
+    before = dict(K.maxpool2d_3x3s2_i8.routes)
+    k10_dev, k10_kernels, _ = device_time(K.maxpool2d_3x3s2_i8, cold * 6)
+    k10_routes = {r: n - before[r] - (r == 16)  # less the warm-up call
+                  for r, n in K.maxpool2d_3x3s2_i8.routes.items()}
+    k10_lib, _, lib_top = device_time(
+        lambda x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1), halves * 6)
+    cast_ms, _, _ = device_time(lambda x: x.half(), cold * 6)
     x0 = fed_pool[0][0]
     k10_out = K.maxpool2d_3x3s2_i8(x0)
     # bytes: the codes in, the pooled codes out; 8 maxes an output element
     k10_bound = bound(nbytes(x0, k10_out), 8 * k10_out.numel(), "int8")
-    log(f"maxpool2d_3x3s2_i8 {tuple(x0.shape)} -> {tuple(k10_out.shape)}: "
-        f"kernel {k10_ms * 1000:.2f} us, plain {k10_plain * 1000:.2f} us, "
-        f"F.max_pool2d on a float16 copy {k10_lib * 1000:.2f} us (+ the cast "
+    log(f"maxpool2d_3x3s2_i8 {tuple(x0.shape)} -> {tuple(k10_out.shape)}, "
+        f"{len(cold)} inputs in turn: kernel {k10_dev * 1000:.2f} us of "
+        f"device time (profiler; {k10_kernels} kernel a call, launches by "
+        f"route {k10_routes}), {k10_ms * 1000:.2f} us a call with the "
+        f"wrapper (CUDA events, host-bound), plain {k10_plain * 1000:.2f} "
+        f"us; F.max_pool2d on a float16 copy {k10_lib * 1000:.2f} us of "
+        f"device time ({lib_top[0][2][:60]}; + the cast "
         f"{cast_ms * 1000:.2f} us); bound {k10_bound[0] * 1000:.2f} us "
         f"({k10_bound[1]}: {nbytes(x0, k10_out) / 1e6:.2f} MB) = "
-        f"{100 * k10_bound[0] / k10_ms:.1f} % of the kernel's time")
+        f"{100 * k10_bound[0] / k10_dev:.1f} % of the kernel's device time")
+    if k10_routes != {16: len(cold) * 6, 4: 0} or k10_kernels != 1:
+        fail(f"K10 on PSPNet's shape took routes {k10_routes} with "
+             f"{k10_kernels} device kernels a call: expected one kernel a "
+             f"call, on the 16-byte route for all {len(cold) * 6} calls")
 
     one = fed_blocks[:16]  # the first forward's blocks
     blk_ms = [cuda_ms(K.bottleneck_i8, [a], reps=5) for a in one]
@@ -1503,8 +1522,9 @@ def psp_phase(dev, all_kernels, reset_all):
         {"name": "maxpool2d_3x3s2_i8", "route": "cuda", "source": SRC,
          "replaces": f"{TPU}:1308",
          "launches": got["maxpool2d_3x3s2_i8"], "max_abs_err": k10_err,
-         "ms": k10_ms, "plain_ms": k10_plain, "bound_ms": k10_bound[0],
-         "bound_by": k10_bound[1], "library_ms": k10_lib},
+         "ms": k10_dev, "plain_ms": k10_plain, "bound_ms": k10_bound[0],
+         "bound_by": k10_bound[1], "library_ms": k10_lib,
+         "wrapper_ms": k10_ms, "route": 16},
         {"name": "bottleneck_i8", "route": "cuda", "source": SRC,
          "replaces": XLA_BOTTLENECK, "launches": got["bottleneck_i8"],
          "max_abs_err": 0, "ms": sum(blk_ms), "plain_ms": blk_plain,

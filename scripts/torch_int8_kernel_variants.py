@@ -55,10 +55,31 @@ two blocks; "change" is the route the wrappers pick) against the other
 tree's CUDA-core ``conv_i8_kernel`` (its ``_launch_conv``, where it has
 one), each checked against its plain version, and summed over a
 forward's launches per path.  Needs a card and nvcc.
+
+K10 (``maxpool2d_3x3s2_i8``) comes first, at PSPNet-R50's pool input (1,
+240, 240, 128), over eight distinct seeded inputs and outputs (74 MB,
+more than the 50 MB L2, so each call reads its input from device memory):
+each build's library called directly, in turns (other tree, this tree,
+variants, this tree, other tree), torch.profiler's device time per call
+and the CUDA-event time of back-to-back calls; the two trees' wrappers
+(CUDA events, so the wrapper's host time included, and the profiler);
+the share of the bytes bound (9.2 MB over 3.35 TB/s); the library
+yardstick ``F.max_pool2d`` on float16 copies (the NHWC copy viewed as
+NCHW, as chip_smoke times it, and an NCHW-contiguous one) and the cast,
+by the profiler; the route each launch takes; registers, SASS
+instructions and global loads of the pool kernels.  Every build is held
+bit for bit to ``maxpool_i8`` on those inputs and on ragged shapes (odd
+sizes, C on the 4-byte route, an input 4 bytes off a 16-byte boundary).
+A variant sets K10's ``kPool*`` constants.  ``--k10-only`` runs K10 and
+the forward timings and nothing else:
+
+    python scripts/torch_int8_kernel_variants.py --root _archive/parent \\
+        --k10-only --psp-forward 10 --variant r4:kPoolRows=4
 """
 
 import argparse
 import ctypes
+import itertools
 import statistics
 import importlib
 import importlib.util
@@ -70,9 +91,13 @@ import sys
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+from torch_stem_upsample_probe import device_ms  # noqa: E402
 
 from torchseg_tpu_torch.ops.kernels import _build  # noqa: E402
 from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K  # noqa: E402
@@ -169,19 +194,44 @@ def report_build(tag, so, log):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HMMA": 0, "IMMA": 0}
-        elif fn:
+            counts[fn] = {"HMMA": 0, "IMMA": 0, "instructions": 0,
+                          "LDG": 0, "LDG.128": 0}
+        elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[fn]["instructions"] += 1
             for op in ("HMMA", "IMMA"):
                 if re.search(rf"\b{op}\.", line):
                     counts[fn][op] += 1
+            if re.search(r"\bLDG\b", line):
+                counts[fn]["LDG"] += 1
+                counts[fn]["LDG.128"] += ".128" in line
     rows = {}
     for name in sorted(set(regs) | set(counts)):
         short = re.sub(r"^_ZN\w*?_tsg_init\d+", "", name)
         rows[short] = {"registers": regs.get(name), **counts.get(
             name, {"HMMA": 0, "IMMA": 0})}
+        if "maxpool" in short:
+            continue  # printed with K10
         print(f"  [{tag}] {short[:60]:60s} registers {regs.get(name)} "
               f"HMMA {rows[short]['HMMA']} IMMA {rows[short]['IMMA']}")
     return rows
+
+
+def dump_pool_sass(so, path):
+    """Write the ``cuobjdump -sass`` listing of the library's K10 kernels
+    to ``path``."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    keep, out = False, []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            keep = "maxpool" in m.group(1)
+        if keep:
+            out.append(line)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
 
 
 def check_imma(tag, rows):
@@ -492,6 +542,178 @@ def bound_ms(ops, n_bytes, kind):
     return max(ops / PEAK[kind], n_bytes / HBM) * 1e3
 
 
+# K10 at PSPNet-R50's pool input (480x480: the deep stem's 240x240x128), on
+# K10_INPUTS distinct inputs and outputs (8 x 9.2 MB, more than the L2)
+K10_SHAPE = (1, 240, 240, 128)
+K10_INPUTS = 8
+# ragged shapes every build is held to bit for bit: (shape, byte offset of
+# the input from a 16-byte boundary)
+K10_CHECKS = [((1, 239, 237, 64), 0), ((1, 15, 17, 16), 0),
+              ((1, 1, 1, 16), 0), ((1, 2, 3, 16), 0), ((1, 9, 11, 20), 0),
+              ((1, 31, 29, 4), 0), ((1, 17, 19, 32), 4)]
+
+
+def k10_route(nargs, x, out):
+    """The route argument of a tsg_maxpool_i8 whose entry point takes
+    ``nargs`` arguments: none for the one-route kernel (8), else the bytes a
+    load that ``maxpool_i8_route`` picks."""
+    if nargs == 8:
+        return ()
+    return (K.maxpool_i8_route(x.shape[3], x.data_ptr(), out.data_ptr()),)
+
+
+def k10_call(lib, nargs, x, out, route=None):
+    """A closure of one direct tsg_maxpool_i8 call of ``lib`` into ``out``
+    (on ``route`` where given, else the one ``k10_route`` picks)."""
+    _, h, w, c = x.shape
+    _, ho, wo, _ = out.shape
+    args = (x.data_ptr(), h, w, c, out.data_ptr(), ho, wo,
+            *((route,) if route else k10_route(nargs, x, out)), K._stream(x))
+
+    def run():
+        rc = lib.tsg_maxpool_i8(*args)
+        if rc:
+            raise RuntimeError(f"tsg_maxpool_i8: CUDA error {rc}")
+    return run
+
+
+def cycle(fns):
+    """One closure that calls ``fns`` in turn, one a call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def k10_section(dev, libs, nargs, wrappers, builds, reps):
+    """K10 in turns (see the module docstring); libs / nargs: {build:
+    library / its entry point's argument count}; wrappers: {tree: its
+    maxpool2d_3x3s2_i8}.  A two-route library of this tree is also run on
+    its 4-byte route ("route4").  Returns the section's results."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    forced = {}
+    if nargs["change"] == 9:
+        libs, nargs = {**libs, "route4": libs["change"]}, {**nargs,
+                                                           "route4": 9}
+        forced["route4"] = 4
+
+    def codes(shape, offset=0):
+        n = int(np.prod(shape))
+        buf = torch.randint(-128, 128, (n + 16,), generator=g, device=dev,
+                            dtype=torch.int8)
+        x = buf[(-buf.data_ptr() + offset) % 16:][:n].view(shape)
+        x.view(-1)[::97] = -128  # the pad identity among the codes
+        return x
+
+    xs = [codes(K10_SHAPE) for _ in range(K10_INPUTS)]
+    want = [K.maxpool_i8(x) for x in xs]
+    for b, lib in libs.items():
+        outs = [torch.empty_like(w) for w in want]
+        for x, o in zip(xs, outs):
+            k10_call(lib, nargs[b], x, o, forced.get(b))()
+        for shape, offset in K10_CHECKS:
+            x = codes(shape, offset)
+            ref = K.maxpool_i8(x)
+            o = torch.empty_like(ref)
+            k10_call(lib, nargs[b], x, o, forced.get(b))()
+            torch.cuda.synchronize()
+            same_codes(f"K10 {shape} (input {offset} bytes off 16) [{b}] "
+                       f"vs plain", o, ref)
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            same_codes(f"K10 {K10_SHAPE} [{b}] vs plain", o, w)
+    route = {b: (forced[b],) if b in forced else k10_route(
+        nargs[b], xs[0], want[0]) for b in libs}
+    print("K10 route at " + str(K10_SHAPE) + ": " + ", ".join(
+        f"{b} {f'{r[0]}-byte' if r else 'one route (4-byte)'}"
+        for b, r in route.items()), flush=True)
+    for b in libs:
+        for fn, row in builds.get(b, {}).items():
+            if "maxpool" in fn:
+                print(f"  [{b}] {fn}: registers {row['registers']}, SASS "
+                      f"instructions {row.get('instructions')}, global loads "
+                      f"{row.get('LDG')} ({row.get('LDG.128')} of 16 bytes)",
+                      flush=True)
+
+    outs = {b: [torch.empty_like(w) for w in want] for b in libs}
+    calls = {b: cycle([k10_call(libs[b], nargs[b], x, o, forced.get(b))
+                       for x, o in zip(xs, outs[b])]) for b in libs}
+    ends = ["parent"] if "parent" in libs else []
+    order = ends + ["change"] + [b for b in libs if b not in (
+        "parent", "change")] + ["change"] + ends
+    n_calls = 6 * K10_INPUTS
+    dev_ms, ev_ms = {}, {}
+    for b in order:
+        dev_ms.setdefault(b, []).append(device_ms(calls[b], calls=n_calls))
+        ev_ms.setdefault(b, []).append(cuda_ms(calls[b], reps))
+    wrap = {t: cycle([lambda x=x, fn=fn: fn(x) for x in xs])
+            for t, fn in wrappers.items()}
+    wrap_ev, wrap_dev = {}, {}
+    for t in ends + ["change", "change"] + ends:
+        wrap_ev.setdefault(t, []).append(cuda_ms(wrap[t], reps))
+        wrap_dev.setdefault(t, []).append(device_ms(wrap[t], calls=n_calls))
+
+    # what the card does with the same bytes and with almost none: PyTorch's
+    # copy moving 9.2 MB (half of K10's input bytes read, as many written)
+    # over the same eight buffers, and a one-element fill (the least device
+    # time the profiler gives a kernel)
+    half_n = (xs[0].numel() + want[0].numel()) // 2
+    dsts = [torch.empty(half_n, dtype=torch.int8, device=dev) for _ in xs]
+    one = torch.empty(1, device=dev)
+    floor = {
+        "copy_same_bytes": device_ms(cycle(
+            [lambda x=x, d=d: d.copy_(x.view(-1)[:half_n])
+             for x, d in zip(xs, dsts)]), calls=n_calls),
+        "fill_one_element": device_ms(lambda: one.fill_(0.0), calls=n_calls)}
+    del dsts
+    halves = [x.half() for x in xs]
+    nchw = [h.permute(0, 3, 1, 2).contiguous() for h in halves]
+    for h, w in zip(halves, want):
+        lib_out = F.max_pool2d(h.permute(0, 3, 1, 2), 3, 2, 1)
+        same_codes("F.max_pool2d on the float16 copy vs plain",
+                   lib_out.permute(0, 2, 3, 1).to(torch.int8), w)
+    lib_parts = {}
+    library = {
+        "max_pool2d_nhwc_view": device_ms(cycle(
+            [lambda h=h: F.max_pool2d(h.permute(0, 3, 1, 2), 3, 2, 1)
+             for h in halves]), calls=n_calls, parts=lib_parts),
+        "max_pool2d_nchw": device_ms(cycle(
+            [lambda h=h: F.max_pool2d(h, 3, 2, 1) for h in nchw]),
+            calls=n_calls),
+        "cast_to_float16": device_ms(cycle(
+            [lambda x=x: x.half() for x in xs]), calls=n_calls)}
+
+    n_bytes = xs[0].numel() + want[0].numel()
+    bnd = n_bytes / HBM * 1e3
+    best = {b: min(v) for b, v in dev_ms.items()}
+    print(f"K10 maxpool2d_3x3s2_i8 {K10_SHAPE} -> {tuple(want[0].shape)}, "
+          f"{K10_INPUTS} inputs in turn; bound {bnd:.5f} ms (bytes: "
+          f"{n_bytes / 1e6:.2f} MB at 3.35 TB/s)", flush=True)
+    for b in dev_ms:
+        print(f"  [{b}] device (profiler) {dev_ms[b]} ms = "
+              f"{100 * bnd / best[b]:.1f} % of the bound, "
+              f"{n_bytes / best[b] / 1e9:.3f} TB/s; CUDA events "
+              f"(back-to-back direct calls) {ev_ms[b]} ms", flush=True)
+    for t in wrap_ev:
+        print(f"  [{t} wrapper] CUDA events {wrap_ev[t]} ms (the wrapper's "
+              f"host time included); device (profiler) {wrap_dev[t]} ms",
+              flush=True)
+    print("  the card with the same bytes, device (profiler): " + ", ".join(
+        f"{k} {v:.5f} ms" for k, v in floor.items()), flush=True)
+    print("  library yardstick, device (profiler): " + ", ".join(
+        f"{k} {v:.5f} ms" for k, v in library.items())
+        + f"; kernels {lib_parts}", flush=True)
+    if "parent" in best:
+        print(f"  this tree / other tree, device: "
+              f"{best['change'] / best['parent']:.3f}", flush=True)
+    return {"shape": K10_SHAPE, "bytes": n_bytes, "bound_ms": bnd,
+            "route": {b: (r[0] if r else 4) for b, r in route.items()},
+            "device_ms": dev_ms, "event_ms": ev_ms,
+            "wrapper_event_ms": wrap_ev, "wrapper_device_ms": wrap_dev,
+            "library_device_ms": library, "floor_device_ms": floor,
+            "registers": {b: {fn: row["registers"] for fn, row in
+                              builds.get(b, {}).items() if "maxpool" in fn}
+                          for b in libs}}
+
+
 def forward_ms(entry_mod, dev, rounds, psp=False):
     """(median, p90) CUDA-event ms of one main-path forward (or, with
     ``psp``, one PSPNet-R50 forward at 480x480) of the tree whose ``entry``
@@ -540,6 +762,10 @@ def main(argv=None):
                     help="rounds of the main-path forward timing (0: none)")
     ap.add_argument("--psp-forward", type=int, default=0,
                     help="rounds of the PSPNet-R50 forward timing (0: none)")
+    ap.add_argument("--k10-only", action="store_true",
+                    help="K10 and the forward timings only")
+    ap.add_argument("--sass", default=None,
+                    help="write this tree's SASS of the K10 kernels here")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -560,6 +786,8 @@ def main(argv=None):
     if not log:  # a cached library: build the same source once more
         so, log = build_variants({"this_tree": {}})["this_tree"]
     builds = {"change": report_build("change", so, log)}
+    if args.sass:
+        dump_pool_sass(so, args.sass)
     check_imma("change", builds["change"])
     print(f"  [change] dynamic shared memory: K1 "
           f"{lib.tsg_stem_smem_bytes(128, 64)} B, K4 "
@@ -581,8 +809,23 @@ def main(argv=None):
             "parent", parent_build.BuildInfo.paths["int8_serve_kernels"],
             parent_build.BuildInfo.logs.get("int8_serve_kernels", ""))
 
+    k10_libs = dict(libs)
+    nargs = dict.fromkeys(libs, len(
+        _build.LIBRARIES["int8_serve_kernels"]["tsg_maxpool_i8"]))
+    wrappers = {"change": K.maxpool2d_3x3s2_i8}
+    if parent:
+        k10_libs["parent"] = parent_lib
+        nargs["parent"] = len(
+            parent_build.LIBRARIES["int8_serve_kernels"]["tsg_maxpool_i8"])
+        wrappers["parent"] = parent.maxpool2d_3x3s2_i8
+    results = {"maxpool2d_3x3s2_i8": k10_section(dev, k10_libs, nargs,
+                                                  wrappers, builds,
+                                                  args.reps)}
+    if args.k10_only:
+        forward_section(args, dev, parent, results)
+        return finish(args, smi, variants, builds, results)
+
     stem, stages, identity, spatial, k5 = operands(dev)
-    results = {}
 
     def turns(item, calls, check):
         """calls: {build: fn}; order parent, change, variants, change,
@@ -917,6 +1160,13 @@ def main(argv=None):
               f"time x launches): " + ", ".join(
                   f"{b} {ms:.4f}" for b, ms in v.items()) + " ms", flush=True)
 
+    forward_section(args, dev, parent, results)
+    finish(args, smi, variants, builds, results)
+
+
+def forward_section(args, dev, parent, results):
+    """The main-path and PSPNet forwards of both trees in turns (other,
+    this, this, other), ``--forward`` / ``--psp-forward`` rounds each."""
     trees = {"change": importlib.import_module("torchseg_tpu_torch.entry")}
     if parent:
         trees["parent"] = importlib.import_module("tsg_parent.entry")
@@ -935,6 +1185,10 @@ def main(argv=None):
         print(f"{key} forward (median, p90) ms: " + ", ".join(
             f"{b} {v}" for b, v in fwd.items()), flush=True)
 
+
+def finish(args, smi, variants, builds, results):
+    """Print (and write to ``--out``) the JSON line; exit non-zero on any
+    mismatch."""
     line = json.dumps({"card": smi, "reps": args.reps, "variants": variants,
                        "builds": builds, "ms": results})
     print(line, flush=True)

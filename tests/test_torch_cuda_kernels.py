@@ -13,9 +13,11 @@ the packed weights, the float32 CUDA-core kernel), K7 at 150 classes in
 column and class chunks and bit for bit against the per-pixel formula,
 focal-loss element counts that are not multiples of the 16-byte vector,
 logits off 16-byte alignment and C in {1, 2, 3, 19, 150} over logits
-swept across [-100, 100]), so the edge masking and the
-scalar paths are exercised; K3's and K2's resident-weight kernel (K2 at
-stride 2), and K6's and K5's K split over a two-block cluster (K5's with
+swept across [-100, 100], K10 on its 16-byte route at odd sizes and
+output heights off its strips and on its 4-byte route at C % 16 != 0 and
+inputs off 16-byte alignment, with -128 on every edge), so the edge
+masking and the scalar paths are exercised; K3's and K2's
+resident-weight kernel (K2 at stride 2), and K6's and K5's K split over a two-block cluster (K5's with
 the projection's chunks on the first block), are held at the main path's
 shapes and at ragged ones; the same two kernels' 1x1 and dilated 3x3
 windows and float32 epilogue (cbr_i8, bottleneck_i8) on each route, in
@@ -597,6 +599,67 @@ def test_maxpool_kernel_bit_exact(dev, shape):
     assert got.shape == (1, (shape[1] + 1) // 2, (shape[2] + 1) // 2,
                          shape[3])
     _exact(got, K.maxpool_i8(x))
+
+
+def _pool_codes(g, shape, dev, offset=0):
+    """Seeded codes in [-128, 127] (every tenth -128) on the card, starting
+    ``offset`` bytes past a 16-byte boundary."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    buf = torch.empty(n + 16, dtype=torch.int8, device=dev)
+    x = buf[(-buf.data_ptr() + offset) % 16:][:n].view(shape)
+    x.copy_(_codes(g, shape, lo=-128))
+    x.view(-1)[::10] = -128
+    return x
+
+
+def _pool_launch(x, route):
+    """One K10 launch through the wrapper on ``route`` (checked by the
+    wrapper's route counts); bit-exact against maxpool_i8."""
+    before = K.maxpool2d_3x3s2_i8.launches
+    routes = dict(K.maxpool2d_3x3s2_i8.routes)
+    got = K.maxpool2d_3x3s2_i8(x)
+    torch.cuda.synchronize()
+    assert K.maxpool2d_3x3s2_i8.launches == before + 1
+    routes[route] += 1
+    assert K.maxpool2d_3x3s2_i8.routes == routes
+    _exact(got, K.maxpool_i8(x))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 240, 240, 128),                    # PSPNet's pool input
+    (1, 15, 17, 16), (1, 17, 15, 32), (1, 13, 9, 64), (1, 9, 13, 256),
+    (1, 13, 11, 16),                       # ho = 7: not a multiple of 2, 4, 8
+    (1, 5, 240, 128),                      # ho = 3
+    (1, 1, 1, 16), (1, 2, 3, 16)])
+def test_maxpool_16_byte_route_bit_exact(dev, shape):
+    _pool_launch(_pool_codes(_gen(16), shape, dev), 16)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((1, 15, 17, 4), 0), ((1, 15, 17, 8), 0), ((1, 13, 9, 12), 0),
+    ((1, 9, 13, 20), 0), ((1, 240, 240, 20), 0),
+    ((1, 15, 17, 128), 4),                 # a view 4 bytes off 16
+    ((1, 13, 9, 16), 4), ((1, 13, 9, 16), 8)])
+def test_maxpool_4_byte_route_bit_exact(dev, shape, offset):
+    _pool_launch(_pool_codes(_gen(17), shape, dev, offset), 4)
+
+
+@pytest.mark.parametrize("shape,route", [((1, 15, 17, 16), 16),
+                                         ((1, 16, 18, 128), 16),
+                                         ((1, 15, 17, 12), 4)])
+@pytest.mark.parametrize("fill", ["edges", "all"])
+def test_maxpool_pad_identity_bit_exact(dev, shape, route, fill):
+    """-128 planted on every edge row and column (where the pad meets
+    real codes), or everywhere."""
+    x = _pool_codes(_gen(18), shape, dev)
+    if fill == "all":
+        x.fill_(-128)
+    else:
+        for sl in ((slice(None), 0), (slice(None), -1),
+                   (slice(None), slice(None), 0),
+                   (slice(None), slice(None), -1)):
+            x[sl] = -128
+    _pool_launch(x, route)
 
 
 def _cbr_k(g, k, cin, cout, dev):

@@ -3,7 +3,7 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Four kernels, nine entry points of the serving graphs:
+// Five kernels, nine entry points of the serving graphs:
 //
 //   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
@@ -47,8 +47,11 @@
 //                         at stride 2;
 //       cbr_i8, bottleneck_i8  their convs of up to 64 input channels
 //                         (sp3, stem2/stem3, layer1's).
-//   maxpool_i8_kernel    (K10) replaces maxpool2d_3x3s2_i8 (:1308), the
-//       standalone 3x3/2 pad-1 max pool after the deep stem.
+//   maxpool_i8_vec16_kernel, maxpool_i8_kernel  (K10) replace
+//       maxpool2d_3x3s2_i8 (:1308), the standalone 3x3/2 pad-1 max pool
+//       after the deep stem: 16-byte loads and a strip of output rows a
+//       thread where C % 16 == 0 and the tensors are 16-byte aligned, else
+//       4-byte loads.
 //
 // Numerics (the spec is the JAX XLA path, deploy/int8_serve.py:716-958 and
 // :1274-1295, as XLA compiles it on the CPU where the tests run it):
@@ -1223,36 +1226,113 @@ size_t conv_mma_res_smem_bytes(int cin, int taps) {
 // view; none of that is needed here.
 //
 // What bounds it: bytes.  It reads h*w*C and writes a quarter of that (9.2
-// MB at (240, 240, 128), 2.75 us at 3.35 TB/s) and does nine byte-maxes an
-// output.  Design: one thread per four channels of an output pixel; each
-// of the nine window words is one 4-byte load (neighbouring threads read
-// neighbouring words) and one __vmaxs4, the four signed byte maxes at once.
-// The windows overlap by a row and a column, and those re-reads hit L2.
+// MB at (240, 240, 128), 2.75 us at 3.35 TB/s) and does eight byte maxes an
+// output.  Two routes, picked on the host (maxpool_i8_route):
+//
+//   16-byte (C % 16 == 0, x and out on 16-byte boundaries; PSPNet's C =
+//   128): a thread owns one 16-byte piece of channels of one output column
+//   and walks kPoolRows consecutive output rows.  For output row oy it takes
+//   the horizontal max of the three taps (columns 2ox-1, 2ox, 2ox+1) of
+//   input rows 2oy and 2oy+1, and the vertical max with the horizontal max
+//   of row 2oy-1, carried from the step before.  So each input row is
+//   fetched once a strip (its first row, 2oy-1, by the strip above as
+//   well), and only the one-column horizontal overlap is read again, from
+//   L1.  Neighbouring lanes take neighbouring pieces, then neighbouring
+//   output columns: a warp's loads and stores are runs of contiguous bytes.
+//   The grid is 2-D (x: pieces of a row of output columns, y: strips),
+//   which leaves one 32-bit divide a thread.
+//
+//   4-byte (any other C % 4 == 0, or x or out off a 16-byte boundary, such
+//   as a channel-sliced view): one thread per four channels of an output
+//   pixel, nine 4-byte loads.
+//
+// The pad: a tap past an edge (input row -1, column -1, and row or column
+// h or w where that is odd) reads the edge row or column instead, which is
+// in the same window, so the max is the -128-padded one bit for bit and
+// every load is unconditional: a load predicated on the edge, with -128
+// preset in its registers, makes ptxas hold each row's loads back until
+// the row before has arrived (1.2x slower at kPoolRows = 4 on an H100).
+// Index math is 32-bit: the wrapper refuses an input of 2^31 codes or
+// more.  The maxes are __vmaxs4, four signed byte maxes at once.  On an
+// H100 (700 W) it takes ~0.005 ms at PSPNet's shape, where PyTorch's copy
+// of the same 9.2 MB takes 0.0046; strips of 1, 2 or 4 rows, 256-thread
+// blocks, a persistent grid and an L2 prefetch of the strip's rows were
+// all within noise of it (scripts/torch_int8_kernel_variants.py
+// --k10-only).
 // ---------------------------------------------------------------------------
 
-constexpr int kPoolThreads = 256;
+constexpr int kPoolRows = 2;        // output rows a thread walks (16-byte route)
+constexpr int kPoolThreads = 128;   // threads a block, 16-byte route
+constexpr int kPool4Threads = 256;  // threads a block, 4-byte route
+
+__device__ __forceinline__ uint4 vmax16(uint4 a, uint4 b) {
+  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y), __vmaxs4(a.z, b.z),
+                    __vmaxs4(a.w, b.w));
+}
+
+// the horizontal max of a row's three taps
+__device__ __forceinline__ uint4 row_max16(const uint4 (&t)[3]) {
+  return vmax16(t[0], vmax16(t[1], t[2]));
+}
+
+// The window's first tap index on an axis of n elements at output o, and
+// the last; an edge tap clamped onto the edge element (in the window).
+__device__ __forceinline__ int tap_lo(int o) { return o > 0 ? 2 * o - 1 : 0; }
+__device__ __forceinline__ int tap_hi(int o, int n) {
+  return 2 * o + 1 < n ? 2 * o + 1 : 2 * o;
+}
 
 __global__ void __launch_bounds__(kPoolThreads)
-maxpool_i8_kernel(const int* __restrict__ x, int h, int w, int c4,
-                  unsigned int* __restrict__ out, int ho, int wo) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(ho) * wo * c4) return;
-  const int ch = static_cast<int>(i % c4);
-  const long long p = i / c4;
-  const int ox = static_cast<int>(p % wo), oy = static_cast<int>(p / wo);
-  unsigned int mx = 0x80808080u;  // -128 in every byte
+maxpool_i8_vec16_kernel(const uint4* __restrict__ x, int h, int w, int c16,
+                        uint4* __restrict__ out, int ho, int wo) {
+  const int t = blockIdx.x * kPoolThreads + threadIdx.x;  // piece + c16 * ox
+  if (t >= wo * c16) return;
+  const int ox = t / c16;
+  const int piece = t - ox * c16;
+  const int cols[3] = {tap_lo(ox) * c16 + piece, 2 * ox * c16 + piece,
+                       tap_hi(ox, w) * c16 + piece};
+  const int pitch = w * c16;  // 16-byte pieces an input row
+  const int oy0 = blockIdx.y * kPoolRows;
+  // the taps of input rows 2*oy0 - 1 + k, k = 0 .. 2R (clamped to the
+  // image: a clamped row serves only a window that holds it, or an output
+  // row past ho)
+  uint4 v[2 * kPoolRows + 1][3];
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int iy = 2 * oy - 1 + dy;
-    if (iy < 0 || iy >= h) continue;
+  for (int k = 0; k <= 2 * kPoolRows; ++k) {
+    const int iy = 2 * oy0 - 1 + k;
+    const uint4* row = x + (iy < 0 ? 0 : (iy < h ? iy : h - 1)) * pitch;
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int ix = 2 * ox - 1 + dx;
-      if (ix < 0 || ix >= w) continue;
-      mx = __vmaxs4(mx, static_cast<unsigned int>(
-                            x[(static_cast<size_t>(iy) * w + ix) * c4 + ch]));
-    }
+    for (int j = 0; j < 3; ++j) v[k][j] = __ldg(row + cols[j]);
   }
+  uint4 carry = row_max16(v[0]);  // row 2oy - 1
+#pragma unroll
+  for (int r = 0; r < kPoolRows; ++r) {
+    const uint4 a = row_max16(v[2 * r + 1]), b = row_max16(v[2 * r + 2]);
+    const int oy = oy0 + r;
+    if (oy < ho)
+      out[(oy * wo + ox) * c16 + piece] = vmax16(carry, vmax16(a, b));
+    carry = b;
+  }
+}
+
+__global__ void __launch_bounds__(kPool4Threads)
+maxpool_i8_kernel(const unsigned int* __restrict__ x, int h, int w, int c4,
+                  unsigned int* __restrict__ out, int ho, int wo) {
+  const int i = blockIdx.x * kPool4Threads + threadIdx.x;
+  if (i >= ho * wo * c4) return;
+  const int p = i / c4, ch = i - p * c4;
+  const int oy = p / wo, ox = p - oy * wo;
+  const int rows[3] = {tap_lo(oy), 2 * oy, tap_hi(oy, h)};
+  const int cols[3] = {tap_lo(ox), 2 * ox, tap_hi(ox, w)};
+  unsigned int v[3][3];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+      v[dy][dx] = __ldg(x + (rows[dy] * w + cols[dx]) * c4 + ch);
+  unsigned int mx = v[0][0];
+#pragma unroll
+  for (int k = 1; k < 9; ++k) mx = __vmaxs4(mx, v[k / 3][k % 3]);
   out[i] = mx;
 }
 
@@ -1493,13 +1573,27 @@ int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (h, w, C) int8, 4-byte aligned, C % 4 == 0 -> out (ho, wo, C) int8.
+// x (h, w, C) int8 -> out (ho, wo, C) int8, C % 4 == 0, fewer than 2^31
+// codes.  route 16: C % 16 == 0 and x, out on 16-byte boundaries (the
+// 16-byte kernel); route 4: on 4-byte boundaries (the 4-byte kernel).
 int tsg_maxpool_i8(const void* x, int h, int w, int c, void* out, int ho,
-                   int wo, void* stream) {
-  const long long n = static_cast<long long>(ho) * wo * (c / 4);
-  const unsigned int blocks = static_cast<unsigned int>((n + kPoolThreads - 1) / kPoolThreads);
-  maxpool_i8_kernel<<<blocks, kPoolThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), h, w, c / 4, static_cast<unsigned int*>(out), ho, wo);
+                   int wo, int route, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 4) {
+    const int n = ho * wo * (c / 4);
+    const int blocks = (n + kPool4Threads - 1) / kPool4Threads;
+    maxpool_i8_kernel<<<blocks, kPool4Threads, 0, s>>>(
+        static_cast<const unsigned int*>(x), h, w, c / 4,
+        static_cast<unsigned int*>(out), ho, wo);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != 16 || c % 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int c16 = c / 16;
+  const dim3 grid((wo * c16 + kPoolThreads - 1) / kPoolThreads,
+                  (ho + kPoolRows - 1) / kPoolRows);
+  maxpool_i8_vec16_kernel<<<grid, kPoolThreads, 0, s>>>(
+      static_cast<const uint4*>(x), h, w, c16, static_cast<uint4*>(out), ho,
+      wo);
   return static_cast<int>(cudaGetLastError());
 }
 

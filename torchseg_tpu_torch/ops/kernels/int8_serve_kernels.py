@@ -10,7 +10,7 @@ version, plus the exact integer primitives both are specified by.
 | down_stage_i8    | conv_i8_mma_kernel x4 (modes 0,2,0,1; int8 mma) | down_stage_i8_from_paired (:986) |
 | down_block_i8    | conv_i8_mma_kernel x2 (modes 0,2; int8 mma, K split) | down_block_i8_from_paired (:1136) |
 | res_block_i8     | conv_i8_mma_kernel x2 (modes 0,1; int8 mma, K split) | res_block_i8_std (:1226) |
-| maxpool2d_3x3s2_i8 | maxpool_i8_kernel (K10)            | maxpool2d_3x3s2_i8 (:1308) |
+| maxpool2d_3x3s2_i8 | maxpool_i8_vec16_kernel (16-byte loads) or maxpool_i8_kernel (4-byte), K10 | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_mma_res_kernel or conv_i8_mma_kernel, mode 0 (int8 mma; 1x1, 3x3, dilated 3x3; codes or float32 out) | none: an XLA conv in JAX |
 | bottleneck_i8    | the same, x3 (modes 0,0,1 or 2)      | none: XLA (_apply_bottleneck) |
 
@@ -689,21 +689,46 @@ def res_block_i8(x, e):
 # K10: the standalone int8 3x3/2 pad-1 max pool (after the deep stem)
 # ----------------------------------------------------------------------
 
+def maxpool_i8_route(c: int, x_ptr: int, out_ptr: int) -> int:
+    """K10's route, in bytes a load: 16 (``maxpool_i8_vec16_kernel``) where
+    C % 16 == 0 and the input and output start on 16-byte boundaries
+    (PSPNet's C = 128), else 4 (``maxpool_i8_kernel``)."""
+    aligned = x_ptr % 16 == 0 and out_ptr % 16 == 0
+    return 16 if c % 16 == 0 and aligned else 4
+
+
+def maxpool_i8_shape_error(h: int, w: int, c: int):
+    """Why K10 does not take a (1, h, w, c) input, or None: its index math
+    is 32-bit."""
+    if h * w * c >= 2 ** 31:
+        return f"{h} x {w} x {c} codes reach 2^31 (32-bit index math)"
+    return None
+
+
 def maxpool2d_3x3s2_i8(x):
     """(1, H, W, C) s8 -> (1, ceil(H/2), ceil(W/2), C) s8, the 3x3/2 pad-1
     max with a -128 pad: any H, W, any code, C % 4 == 0.  Plain version:
-    ``maxpool_i8``."""
+    ``maxpool_i8``.  On the card, one launch on the route
+    ``maxpool_i8_route`` picks (counted in ``routes``); fewer than 2^31
+    codes (``maxpool_i8_shape_error``), ValueError otherwise, before
+    launching."""
     _check_codes(x)
     if not _on_cuda(x):
         return maxpool_i8(x)
     _aligned("x", x, 4)
     _, h, w, c = x.shape
+    why = maxpool_i8_shape_error(h, w, c)
+    if why:
+        raise ValueError(f"maxpool2d_3x3s2_i8: {why}")
     ho, wo = (h + 1) // 2, (w + 1) // 2
     out = torch.empty((1, ho, wo, c), dtype=torch.int8, device=x.device)
+    route = maxpool_i8_route(c, x.data_ptr(), out.data_ptr())
     rc = _build.ready(x.device.index).tsg_maxpool_i8(
-        x.data_ptr(), h, w, c, out.data_ptr(), ho, wo, _stream(x))
-    _raise_on(rc, "maxpool_i8_kernel")
+        x.data_ptr(), h, w, c, out.data_ptr(), ho, wo, route, _stream(x))
+    _raise_on(rc, "maxpool_i8_vec16_kernel" if route == 16
+              else "maxpool_i8_kernel")
     maxpool2d_3x3s2_i8.launches += 1
+    maxpool2d_3x3s2_i8.routes[route] += 1
     return out
 
 
@@ -809,6 +834,7 @@ KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8,
 def reset_launches():
     for fn in KERNELS:
         fn.launches = 0
+    maxpool2d_3x3s2_i8.routes = {16: 0, 4: 0}  # K10's launches by route
 
 
 reset_launches()
