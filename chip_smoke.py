@@ -5,7 +5,9 @@ check them.
     python3 chip_smoke.py
 
 Besides serving, it drives two training steps: BiSeNet-R18 and DFN-R101
-(with the multi-class sigmoid focal loss run on the DFN step's logits).
+(with the multi-class sigmoid focal loss run on the DFN step's logits), and
+the training half across processes (``dryrun_multichip``, the two-process
+leg, whole-image evaluation).
 The main path is the int8-through BiSeNet-R18.speed serving graph at
 1024x2048 (``torchseg_tpu_torch.entry``): seeded random weights, four
 distinct seeded uint8 images served, (1, 128, 256) int32 labels out.  The
@@ -108,7 +110,9 @@ script
      largest entry, the running stats within 1e-4 of their scale (the same
      step with cuDNN, and the CPU's float32 step, are measured beside it);
      20 steps on
-     the learnable synthetic batch lower the loss; the step is timed
+     the learnable synthetic batch lower the loss, and a second run of the
+     same 20 steps in the same process gives the same loss curve bit for
+     bit (the resizes' backward is deterministic); the step is timed
      (median, p90, host enqueue, peak memory), K8 and K9 against their
      plain versions and the one-call library yardsticks, with their
      wrappers' host microseconds a call, K8 + K9 against
@@ -130,7 +134,23 @@ script
      is timed (median, p90, enqueue, peak memory), K8 and K9 per step at
      DFN's shapes, K12 and K13 against their plain versions and bounds
      (with the achieved TB/s), and a profiler pass gives the card's idle
-     share.
+     share;
+  12. the training half across processes: ``dryrun_multichip(1)`` with
+     this process as rank 0 of an NCCL group of one (DDP, SyncBN on the
+     process-group route: K8 for the sums only, a float64 all-reduce,
+     ``bn_fold_plain``, K9) trains BiSeNet-R18 at 32x32 for 20 steps (the
+     loss falls) and evaluates whole-image, sharded, with the histograms
+     summed over the group (every pixel counted once); K8 and K9 launch
+     35 times each a step and nothing else runs a kernel; on the first
+     step's tensors K8's sums meet the training phase's bars, the fold
+     folds exactly K8's sums and hands K9 its a, b, and K9 is bit-exact to
+     its plain version; the step is timed and profiled, and the group
+     route's SyncBN forward counted (profiler) and its all-reduce and fold
+     timed on the host; the two-process gloo leg
+     (``parallel._multihost_worker``) runs both ranks on this card: equal,
+     falling losses and equal merged pixel counts; whole-image evaluation
+     of BiSeNet-R18 at 1024x2048 on two ``SyntheticDataset`` images
+     counts every pixel once, and is timed per image.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -444,15 +464,19 @@ MAIN_PATH_CONVS = {"conv_i8_mma_res_kernel<0, 0, false>": 4,
 MAIN_CBRS = ("sp3", "arm0", "refine0", "arm1", "refine1", "ffm", "head")
 
 
+# annotations that the profiler records on the device beside the kernels:
+# a scheduled profile's steps, DDP's forward, the optimizer's step
+ANNOTATIONS = ("ProfilerStep", "DistributedDataParallel", "Optimizer.")
+
+
 def device_kernels(prof):
-    """The device events of a profile, without the step annotations
-    (``ProfilerStep#``) that a profile with a schedule records on the
-    device as well."""
+    """The device events of a profile, without the annotations
+    (``ANNOTATIONS``) that it records on the device as well."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith(ANNOTATIONS)]
 
 
 def int8_convs(prof, n_calls):
@@ -1057,6 +1081,7 @@ def main():
     rows += x39_phase(dev, all_kernels, reset_all)
     rows += psp_phase(dev, all_kernels, reset_all)
     rows += train_phase(dev, all_kernels, reset_all)
+    rows += multichip_phase(dev, all_kernels, reset_all)
     rows += dfn_phase(dev, all_kernels, reset_all)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1637,14 +1662,9 @@ def check_step_launches(tag, loss, got, acts, torch_bn, n_bn, n_relu):
         fail(f"non-finite {tag} training loss {float(loss)}")
 
 
-def check_bn_kernels(tag, fed, acts, folds):
-    """K9 bit-exact to its plain version on the step's tensors (float32 and
-    the same in bfloat16), K8's sums within 1e-5 of sum |x| (sum x) and
-    1e-5 relative (sum x^2) and the same bits on a second call; K8's fold
-    (the step's own BN operands, as they were before the step) bit-exact
-    against ``bn_fold_plain`` on K8's own sums, running stats and
-    num_batches_tracked included, and its a and b the ones the step fed
-    K9; returns (K8's and K9's largest absolute error)."""
+def check_k9(fed, acts):
+    """K9 bit-exact to its plain version on each (x, a, b) it was fed, in
+    float32 and the same in bfloat16; returns the largest difference."""
     from torchseg_tpu_torch.ops.kernels import bn_kernels as B
 
     k9_diff = 0.0
@@ -1658,24 +1678,49 @@ def check_bn_kernels(tag, fed, acts, folds):
                      f"on {int((got9 != ref9).sum())} elements")
             k9_diff = max(k9_diff, float((got9.float() - ref9.float()
                                           ).abs().max()))
+    return k9_diff
+
+
+def check_k8_sums(x):
+    """K8's sums of ``x`` (no fold) within 1e-5 of sum |x| (sum x) and 1e-5
+    relative (sum x^2) of its plain version, the same bits on a second
+    call; returns (the sums, the largest absolute error, the largest error
+    relative to its bar's scale)."""
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+
+    got8 = B.channel_sum_sumsq(x)
+    if not torch.equal(got8, B.channel_sum_sumsq(x)):
+        fail(f"channel_sum_sumsq {tuple(x.shape)}: two calls on the "
+             f"same input differ")
+    ref8 = B.channel_sum_sumsq_plain(x)
+    abs_sum = x.double().abs().sum(dim=(0, 2, 3))
+    d = (got8 - ref8).abs().double()
+    sq = ref8[1].double().abs().clamp_min(1e-30)
+    rel = max(float((d[0] / abs_sum.clamp_min(1e-30)).max()),
+              float((d[1] / sq).max()))
+    if bool((d[0] > 1e-5 * abs_sum).any()) or bool(
+            (d[1] > 1e-5 * sq).any()):
+        fail(f"channel_sum_sumsq {tuple(x.shape)}: sum x off by more "
+             f"than 1e-5 of sum |x|, or sum x^2 by more than 1e-5 "
+             f"relative, against its plain version")
+    return got8, float(d.max()), rel
+
+
+def check_bn_kernels(tag, fed, acts, folds):
+    """K9 bit-exact to its plain version on the step's tensors (float32 and
+    the same in bfloat16), K8's sums within 1e-5 of sum |x| (sum x) and
+    1e-5 relative (sum x^2) and the same bits on a second call; K8's fold
+    (the step's own BN operands, as they were before the step) bit-exact
+    against ``bn_fold_plain`` on K8's own sums, running stats and
+    num_batches_tracked included, and its a and b the ones the step fed
+    K9; returns (K8's and K9's largest absolute error)."""
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+
+    k9_diff = check_k9(fed, acts)
     k8_err, k8_rel = 0.0, 0.0
     for (x, bn), (_, a, b) in zip(folds, fed):
-        got8 = B.channel_sum_sumsq(x)
-        if not torch.equal(got8, B.channel_sum_sumsq(x)):
-            fail(f"channel_sum_sumsq {tuple(x.shape)}: two calls on the "
-                 f"same input differ")
-        ref8 = B.channel_sum_sumsq_plain(x)
-        abs_sum = x.double().abs().sum(dim=(0, 2, 3))
-        d = (got8 - ref8).abs().double()
-        k8_err = max(k8_err, float(d.max()))
-        sq = ref8[1].double().abs().clamp_min(1e-30)
-        k8_rel = max(k8_rel, float((d[0] / abs_sum.clamp_min(1e-30)).max()),
-                     float((d[1] / sq).max()))
-        if bool((d[0] > 1e-5 * abs_sum).any()) or bool(
-                (d[1] > 1e-5 * sq).any()):
-            fail(f"channel_sum_sumsq {tuple(x.shape)}: sum x off by more "
-                 f"than 1e-5 of sum |x|, or sum x^2 by more than 1e-5 "
-                 f"relative, against its plain version")
+        got8, err, rel = check_k8_sums(x)
+        k8_err, k8_rel = max(k8_err, err), max(k8_rel, rel)
         k_bn, p_bn = clone_bn(bn), clone_bn(bn)
         stats = B.channel_sum_sumsq(x, k_bn)
         ref = B.bn_fold_plain(got8, x.numel() // x.shape[1], *p_bn)
@@ -1914,8 +1959,7 @@ def profile_steps(tag, trainer, data, n_steps, kernel_names):
             trainer.train_step(data)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1000.0 / n_steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0 / n_steps
     log(f"{tag}: profiled {n_steps} steps: device busy {busy:.4f} ms of "
         f"{wall:.4f} ms wall per step under the profiler = idle share "
@@ -1978,14 +2022,22 @@ def train_phase(dev, all_kernels, reset_all):
     # -- one step on the card against the CPU, small crop -----------------
     step_vs_cpu(dev, TRAIN_EXPERIMENT, CHECK_CROP, CHECK_BATCH, CHECK_SEED)
 
-    # -- 20 steps on the learnable batch ----------------------------------
-    t0 = time.perf_counter()
-    losses = dryrun(DRYRUN_STEPS, device=dev, crop=TRAIN_CROP,
-                    batch=TRAIN_BATCH)
-    log(f"dryrun, {DRYRUN_STEPS} steps at {TRAIN_BATCH}x{TRAIN_CROP[0]}x"
-        f"{TRAIN_CROP[1]} ({time.perf_counter() - t0:.1f} s): loss "
-        f"{np.mean(losses[:3]):.4f} (first 3) -> {np.mean(losses[-3:]):.4f}"
-        f" (last 3); {[round(v, 4) for v in losses]}")
+    # -- 20 steps on the learnable batch, twice: the same curve (C1) ------
+    curves = []
+    for run in range(2):
+        t0 = time.perf_counter()
+        losses = dryrun(DRYRUN_STEPS, device=dev, crop=TRAIN_CROP,
+                        batch=TRAIN_BATCH)
+        curves.append(losses)
+        log(f"dryrun {run}, {DRYRUN_STEPS} steps at {TRAIN_BATCH}x"
+            f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]} ({time.perf_counter() - t0:.1f}"
+            f" s): loss {np.mean(losses[:3]):.4f} (first 3) -> "
+            f"{np.mean(losses[-3:]):.4f} (last 3); {losses}")
+    if curves[0] != curves[1]:
+        step = next(i for i, (a, b) in enumerate(zip(*curves)) if a != b)
+        fail(f"two dryruns in one process give different loss curves, "
+             f"from step {step}: {curves[0][step:]} vs {curves[1][step:]}")
+    log("dryrun: the two runs' loss curves are bit-identical")
 
     # -- timings ----------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -2017,6 +2069,256 @@ def train_phase(dev, all_kernels, reset_all):
     tmed, tp90, tmean, tenq = step_ms(ttrainer, data, TRAIN_STEPS)
     log(f"comparison only, nn.BatchNorm2d as the norm: median {tmed:.4f} ms,"
         f" p90 {tp90:.4f} ms, mean {tmean:.4f} ms; enqueue {tenq:.4f} ms")
+    return rows
+
+
+@contextlib.contextmanager
+def spy_bn_calls():
+    """Within the block, every K8 call (x, BN operands or None), every
+    ``bn_fold_plain`` call (sums, n, BN operands as they were, its output)
+    and every K9 call ((x, a, b), act) that ``ops/norm.py`` makes is
+    recorded (and still runs): yields (k8, folds, fed, acts)."""
+    from torchseg_tpu_torch.ops import norm as N
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+
+    k8, folds, fed, acts = [], [], [], []
+
+    def spy_k8(x, bn=None):
+        k8.append((x.detach(), None if bn is None else clone_bn(bn)))
+        return B.channel_sum_sumsq(x, bn)
+
+    def spy_fold(sums, n, *bn):
+        before = (sums.clone(), n.clone(), clone_bn(bn))
+        out = B.bn_fold_plain(sums, n, *bn)
+        folds.append(before + (out.clone(),))
+        return out
+
+    def spy_k9(x, a, b, act="none"):
+        fed.append((x.detach(), a.detach().clone(), b.detach().clone()))
+        acts.append(act)
+        return B.fused_scale_bias_act(x, a, b, act)
+
+    spy = types.SimpleNamespace(**vars(B))
+    spy.channel_sum_sumsq, spy.fused_scale_bias_act = spy_k8, spy_k9
+    spy.bn_fold_plain = spy_fold
+    N.K = spy
+    try:
+        yield k8, folds, fed, acts
+    finally:
+        N.K = B
+
+
+def group_route_rows(dev, group, k8, folds, fed, acts, launches):
+    """K8 (sums only, as the process-group route calls it) and K9 at the
+    32x32 step's BN inputs, per step, against their plain versions, the
+    one-call library yardsticks and their bounds; the group route's SyncBN
+    forward launches (profiler) and the host time of its all-reduce and
+    fold; returns the kernels line's two rows (without max_abs_err)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchseg_tpu_torch.ops import norm as N
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+
+    sums8 = [(x,) for x, _ in k8]
+    inputs9 = [(x, a, b, act) for (x, a, b), act in zip(fed, acts)]
+    n_bn = len(sums8)
+    k8_ms = cuda_ms(B.channel_sum_sumsq, sums8, reps=5) * n_bn
+    k8_plain = cuda_ms(B.channel_sum_sumsq_plain, sums8) * n_bn
+    k8_lib = cuda_ms(lambda x: torch.batch_norm_stats(x, 1e-5), sums8,
+                     reps=5) * n_bn
+    k9_ms = cuda_ms(B.fused_scale_bias_act, inputs9, reps=5) * n_bn
+    k9_plain = cuda_ms(B.fused_scale_bias_act_plain, inputs9) * n_bn
+    stats = [torch.batch_norm_stats(x, 1e-5) for x, _, _ in fed]
+    k9_lib = cuda_ms(lambda x, m, sd: torch.batch_norm_elemt(
+        x, None, None, m, sd, 1e-5), [(x, *st) for (x, _, _), st in zip(
+            fed, stats)], reps=5) * n_bn
+    k8_host = host_us(B.channel_sum_sumsq, sums8)
+    fold_in = [(sums, n, bn) for sums, n, bn, _ in folds]
+    fold_host = host_us(lambda sums, n, bn: B.bn_fold_plain(
+        *N._group_sums(sums, n, group), *clone_bn(bn)), fold_in)
+    allreduce_host = host_us(lambda sums, n, bn: N._group_sums(
+        sums, n, group), fold_in)
+    calls = [(x, clone_bn(bn), act == "relu")
+             for (x, _, _), (_, _, bn, _), act in zip(fed, folds, acts)]
+    for x, bn, relu in calls:  # warm-up
+        N.SyncBatchNormFn.apply(x, *bn, relu, group)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x, bn, relu in calls:
+            N.SyncBatchNormFn.apply(x, *bn, relu, group)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    fwd_launches = sum(e.count for e in events) / len(calls)
+    n_el = sum(x.numel() for x, _ in k8)
+    x_bytes = sum(nbytes(x) for x, _ in k8)
+    c_all = sum(x.shape[1] for x, _ in k8)
+    # K8 on the group route reads x, writes the (2, C) sums: 3 flops an
+    # element; K9 reads x (and a, b), writes y: one FMA an element
+    k8_bound = bound(x_bytes + 8 * c_all, 3 * n_el, "f32")
+    k9_bound = bound(2 * x_bytes + 8 * c_all, 2 * n_el, "f32")
+    log(f"group route, per 32x32 step over its {n_bn} BN inputs "
+        f"({x_bytes / 1e6:.3f} MB): channel_sum_sumsq (sums only) "
+        f"{k8_ms:.4f} ms (plain {k8_plain:.4f}, torch.batch_norm_stats "
+        f"{k8_lib:.4f}; bound {k8_bound[0]:.6f} ms, {k8_bound[1]}); "
+        f"fused_scale_bias_act {k9_ms:.4f} ms (plain {k9_plain:.4f}, "
+        f"torch.batch_norm_elemt {k9_lib:.4f}; bound {k9_bound[0]:.6f} ms, "
+        f"{k9_bound[1]})")
+    log(f"group route host time per BN (no sync): K8 wrapper "
+        f"{k8_host:.2f} us; the float64 all-reduce of the sums "
+        f"{allreduce_host:.2f} us; all-reduce + bn_fold_plain "
+        f"{fold_host:.2f} us; one SyncBN forward under the group: "
+        f"{fwd_launches:.2f} device launches (profiler: "
+        f"{sorted({e.key[:60] for e in events})})")
+    return [
+        {"name": "channel_sum_sumsq:group_route", "route": "cuda",
+         "source": SRC_BN, "replaces": f"{TPU_BN}:41",
+         "launches": launches["channel_sum_sumsq"], "ms": k8_ms,
+         "plain_ms": k8_plain, "bound_ms": k8_bound[0],
+         "bound_by": k8_bound[1], "library_ms": k8_lib, "host_us": k8_host,
+         "allreduce_fold_host_us": fold_host,
+         "bn_forward_launches": fwd_launches},
+        {"name": "fused_scale_bias_act:group_route", "route": "cuda",
+         "source": SRC_BN, "replaces": f"{TPU_BN}:68",
+         "launches": launches["fused_scale_bias_act"], "ms": k9_ms,
+         "plain_ms": k9_plain, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": k9_lib,
+         "bn_forward_launches": fwd_launches},
+    ]
+
+
+def multichip_phase(dev, all_kernels, reset_all):
+    """The training half across processes (module docstring, item 12);
+    returns the kernels line's rows for K8 and K9 on the group route."""
+    import socket
+
+    import torch.distributed as dist
+
+    from torchseg_tpu_torch.data.base import SyntheticDataset
+    from torchseg_tpu_torch.engine.evaluator import Evaluator
+    from torchseg_tpu_torch.entry import (
+        MULTICHIP_CROP,
+        MULTICHIP_STEPS,
+        TRAIN_EXPERIMENT,
+        dryrun_multichip,
+        multichip_trainer,
+    )
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+    from torchseg_tpu_torch.parallel._multihost_worker import (
+        run_two_process_leg,
+    )
+
+    # -- dryrun_multichip(1): NCCL at world size 1, this process rank 0 ----
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        t0 = time.perf_counter()
+        with spy_bn_calls() as (k8, folds, fed, acts):
+            reset_all()
+            losses, acc = dryrun_multichip(1, device=dev)
+            torch.cuda.synchronize()
+            got = launch_counts(all_kernels)
+        log(f"dryrun_multichip(1) over {dist.get_backend()} "
+            f"({time.perf_counter() - t0:.1f} s): loss "
+            f"{np.mean(losses[:3]):.4f} (first 3) -> "
+            f"{np.mean(losses[-3:]):.4f} (last 3); {losses}; merged "
+            f"histogram {int(acc.hist.sum())} pixels (2 x {MULTICHIP_CROP}"
+            f"x{MULTICHIP_CROP}), mIoU {acc.scores()[1]:.4f}")
+        want = dict.fromkeys(got, 0)
+        want.update(channel_sum_sumsq=BN_LAUNCHES * MULTICHIP_STEPS,
+                    fused_scale_bias_act=BN_LAUNCHES * MULTICHIP_STEPS)
+        log(f"launches in dryrun_multichip(1) ({MULTICHIP_STEPS} steps and "
+            f"the whole-image eval): {got}; K9 with the ReLU fused: "
+            f"{acts.count('relu')}; K8 calls with a fold: "
+            f"{sum(bn is not None for _, bn in k8)}")
+        if got != want:
+            fail(f"dryrun_multichip(1) launches {got}, expected {want}")
+        if acts.count("relu") != BN_RELU * MULTICHIP_STEPS:
+            fail(f"{acts.count('relu')} K9 launches fused a ReLU, expected "
+                 f"{BN_RELU * MULTICHIP_STEPS}")
+        if any(bn is not None for _, bn in k8) or \
+                len(folds) != len(k8):
+            fail("the group route must call K8 for the sums only and fold "
+                 "them with bn_fold_plain")
+        if int(acc.hist.sum()) != 2 * MULTICHIP_CROP ** 2:
+            fail(f"merged histogram {int(acc.hist.sum())} pixels")
+
+        # K8's sums-only launches and K9 against their plain versions on
+        # the first step's tensors; the fold's a, b are what K9 was fed
+        k8s, foldss, feds, actss = (k8[:BN_LAUNCHES], folds[:BN_LAUNCHES],
+                                    fed[:BN_LAUNCHES], acts[:BN_LAUNCHES])
+        k9_diff = check_k9(feds, actss)
+        k8_err = 0.0
+        for (x, _), (sums, n, _, out), (_, a, b) in zip(k8s, foldss, feds):
+            got8, err, _ = check_k8_sums(x)
+            k8_err = max(k8_err, err)
+            if not torch.equal(sums, got8) or float(n) != x.numel() // \
+                    x.shape[1]:
+                fail(f"group route {tuple(x.shape)}: the folded sums or "
+                     f"count are not K8's (world size 1)")
+            if not (torch.equal(out[2], a) and torch.equal(out[3], b)):
+                fail(f"group route {tuple(x.shape)}: K9 was fed other a, b "
+                     f"than bn_fold_plain gave")
+        log(f"group route: fused_scale_bias_act bit-exact to its plain "
+            f"version on the step's {len(feds)} BN inputs (float32 and "
+            f"bfloat16); channel_sum_sumsq's sums within its bars "
+            f"({k8_err:.3e} absolute), the same bits twice, and the sums "
+            f"bn_fold_plain folded; K9 fed the fold's a, b")
+
+        # the 32x32 step at world size 1, timed and profiled
+        trainer, data = multichip_trainer(0, 1, dev)
+        med, p90, mean_ms, enq = step_ms(trainer, data, TRAIN_STEPS)
+        log(f"dryrun_multichip step (world size 1, NCCL, 1 x 32x32, "
+            f"{TRAIN_STEPS} steps back to back): median {med:.4f} ms, p90 "
+            f"{p90:.4f} ms, mean {mean_ms:.4f} ms; host enqueue {enq:.4f} "
+            f"ms")
+        profile_steps("dryrun_multichip step", trainer, data,
+                      PROFILED_STEPS, BN_KERNEL_NAMES)
+        rows = group_route_rows(dev, group, k8s, foldss, feds, actss, got)
+        rows[0]["max_abs_err"], rows[1]["max_abs_err"] = k8_err, k9_diff
+        del trainer, data
+    finally:
+        dist.destroy_process_group()
+
+    # -- the two-process gloo leg, both ranks on this card ----------------
+    t0 = time.perf_counter()
+    a, b = run_two_process_leg("cuda")
+    log(f"two-process gloo leg, both ranks on cuda:0 "
+        f"({time.perf_counter() - t0:.1f} s): losses {a['losses']} (rank "
+        f"0) = {b['losses']} (rank 1); local pixels {a['local_pixels']} + "
+        f"{b['local_pixels']}, merged {a['merged_pixels']} on both")
+
+    # -- whole-image evaluation at the Cityscapes frame size ---------------
+    cfg = get_experiment(TRAIN_EXPERIMENT)
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(0)
+                         ).to(dev).eval()
+    ev = Evaluator(lambda m, x: m(x), model, cfg.num_classes, cfg.image_mean,
+                   cfg.image_std, device=dev)
+    ds = SyntheticDataset(num_items=2, image_hw=(H, W),
+                          num_classes=cfg.num_classes)
+    reset_all()
+    acc = ev.run_dataset(ds, mode="whole", process_index=0, process_count=1)
+    torch.cuda.synchronize()
+    if int(acc.hist.sum()) != 2 * H * W:
+        fail(f"whole-image eval at {H}x{W}: histogram {int(acc.hist.sum())}"
+             f" pixels, expected {2 * H * W}")
+    images = [(ds[i]["image"],) for i in range(2)]
+    med, p90, _ = forward_ms(ev.whole_eval, images, 5)
+    log(f"whole-image eval of {TRAIN_EXPERIMENT} at {H}x{W} (uint8 in, "
+        f"int32 labels on the card): 2 SyntheticDataset images, histogram "
+        f"{int(acc.hist.sum())} = 2 x {H} x {W} pixels, mIoU "
+        f"{acc.scores()[1]:.4f}; {med:.4f} ms an image (median of 10, p90 "
+        f"{p90:.4f}); kernel launches {launch_counts(all_kernels)}")
     return rows
 
 

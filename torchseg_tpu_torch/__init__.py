@@ -15,7 +15,10 @@ upsample-argmax kernel (``ops/kernels/upsample_argmax.py``,
 serves int8-through (``entry.serve_entry``) on the same conv kernel and an
 int8 max pool.  BiSeNet-X39.speed serves in bf16 (``entry.deploy_entry``;
 ``models/xception.py``), the fused stem of both classic-stem BiSeNets on
-``ops/kernels/stem_conv.py`` / ``csrc/stem_conv.cu``.
+``ops/kernels/stem_conv.py`` / ``csrc/stem_conv.cu``.  Training across
+processes (``entry.dryrun_multichip``) adds the distributed layer
+(``parallel/``), whole-image evaluation (``engine/evaluator.py``,
+``ops/metrics.py``) and the synthetic dataset (``data/``).
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

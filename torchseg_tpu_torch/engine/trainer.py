@@ -7,11 +7,21 @@ device mesh; here the state is the model and the optimizer, and data
 parallelism is ``DistributedDataParallel`` over an initialized process
 group (its gradient all-reduce averages, as JAX's ``pmean`` does), with
 the BatchNorms synced over the same group (``ops.norm``, SyncBN).  With no
-group the step runs on one device.
+group the step runs on one device.  Under a group each rank's step takes
+that rank's rows of the global batch (``parallel.shard_batch``, the split
+JAX's ``NamedSharding`` makes of the batch it shards), and its loss is the
+mean of the ranks' losses, as JAX's ``pmean`` of the per-device losses.
+The group must be initialized before the trainer is built.
 
 ``accum_steps`` splits the batch into that many microbatches, run one after
 another: each updates the BN running stats in turn, and the gradients and
 the loss are the microbatches' mean (JAX ``trainer.py:144-171``).
+
+``deterministic`` runs each step with cuDNN's deterministic convolution
+algorithms: the same steps then give the same bits on every run, as the
+JAX step does (ROADMAP C1).  cuDNN's default choices for the backward
+accumulate in an order that varies run to run; the deterministic ones are
+slower on the card (PERF.md, PR 15).
 """
 
 import contextlib
@@ -24,6 +34,16 @@ from torch import nn
 
 from ..models import init_weights
 from .optim import make_optimizer
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 @dataclasses.dataclass
@@ -46,13 +66,15 @@ class Trainer:
         it); None, or a group while ``torch.distributed`` is not
         initialized, trains on one device.
       accum_steps: microbatches per step.
+      deterministic: cuDNN's deterministic algorithms during each step.
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
                  lr_schedule: Callable, sgd_momentum: float = 0.9,
                  lr_mult: Optional[Dict[str, float]] = None,
                  wd: Optional[Dict[str, float]] = None,
-                 process_group=None, accum_steps: int = 1):
+                 process_group=None, accum_steps: int = 1,
+                 deterministic: bool = False):
         self.model = model
         self.loss_fn = loss_fn
         self.lr_schedule = lr_schedule
@@ -61,6 +83,7 @@ class Trainer:
         self.group = process_group if (
             process_group is not None and dist.is_initialized()) else None
         self.accum_steps = int(accum_steps)
+        self.deterministic = deterministic
         self.state: Optional[TrainState] = None
         self._net = model
 
@@ -73,9 +96,11 @@ class Trainer:
         self.model.train()
         if self.group is not None:
             # BN stats are synced by the SyncBN forward, so DDP need not
-            # broadcast buffers
+            # broadcast buffers; it broadcasts rank 0's weights
+            p = next(self.model.parameters())
             self._net = nn.parallel.DistributedDataParallel(
                 self.model, process_group=self.group,
+                device_ids=[p.device] if p.device.type == "cuda" else None,
                 broadcast_buffers=False)
         self.state = TrainState(self.model, make_optimizer(
             self.model, self.sgd_momentum, self.lr_mult, self.wd))
@@ -93,6 +118,11 @@ class Trainer:
         if n % self.accum_steps:
             raise ValueError(f"batch {n} not divisible by accum_steps "
                              f"{self.accum_steps}")
+        with (_cudnn_deterministic() if self.deterministic
+              else contextlib.nullcontext()):
+            return self._step(st, batch, n)
+
+    def _step(self, st, batch, n):
         lr = self.lr_schedule(st.step)
         for group in st.optimizer.param_groups:
             group["lr"] = lr * group["lr_mult"]

@@ -33,23 +33,41 @@ the same way (``cityscapes.dfn.R101_v1c``: four smooth CE heads, four
 border focal heads against a synthetic border label, lr 7e-4).
 ``dryrun()`` runs the steps and checks that the loss falls.
 
+``dryrun_multichip(n)`` is the counterpart of ``__graft_entry__.
+dryrun_multichip``'s data-parallel legs: BiSeNet-R18 at full width on
+32x32 crops, one image a rank, trained for 20 steps over n processes (DDP,
+SyncBN over the group: K8's sums all-reduced, folded, K9), then a
+whole-image evaluation sharded over the ranks and the histograms summed
+over the group.  Its two-process gloo leg is
+``parallel._multihost_worker.run_two_process_leg``; the dp x sp leg is not
+ported yet (ROADMAP A2b).
+
 TF32 is switched off for cuDNN convolutions and matmuls: calibration runs
 the float graph in float32, and TF32 would round its convolutions to ~10
-mantissa bits on the card; training runs in float32 too.
+mantissa bits on the card; training runs in float32 too.  The dry runs
+train with cuDNN's deterministic algorithms (``Trainer(deterministic=
+True)``), so that the same steps give the same losses on every run;
+``train_entry`` takes the choice, by default cuDNN's faster defaults.
 """
 
 import dataclasses
+import socket
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .deploy.fused_stem import make_bisenet_fused_infer, prepare_s2d_input
 from .deploy.int8_serve import build_int8_serving_for_experiment
+from .data.base import SyntheticDataset
+from .engine.evaluator import Evaluator
 from .engine.lr_policy import PolyLR
 from .engine.optim import make_lr_mult_tree, make_wd_tree
 from .engine.trainer import Trainer
 from .experiments.registry import build_loss_fn, build_model, get_experiment
 from .models import init_weights
+from .ops.metrics import ConfusionAccumulator
+from .parallel.mesh import gather_metrics, shard_batch
 
 EXPERIMENT = "cityscapes.bisenet.R18.speed"
 PSP_EXPERIMENT = "ade.pspnet.R50_v1c"
@@ -142,10 +160,12 @@ def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda",
 
 
 def train_entry(experiment: str = TRAIN_EXPERIMENT, device="cuda",
-                crop=(1024, 1024), batch: int = 2, seed: int = 0):
+                crop=(1024, 1024), batch: int = 2, seed: int = 0,
+                deterministic: bool = False):
     """The training step of ``experiment`` on one device; returns
     ``trainer, (state, batch)``: ``trainer.train_step(batch)`` gives (loss,
-    lr)."""
+    lr).  ``deterministic``: cuDNN's deterministic algorithms in each
+    step (the same bits on every run, slower)."""
     _no_tf32()
     cfg = dataclasses.replace(get_experiment(experiment),
                               image_height=crop[0], image_width=crop[1],
@@ -156,7 +176,7 @@ def train_entry(experiment: str = TRAIN_EXPERIMENT, device="cuda",
         PolyLR(cfg.lr, cfg.lr_power, cfg.nepochs * cfg.niters_per_epoch),
         sgd_momentum=cfg.momentum,
         lr_mult=make_lr_mult_tree(model, cfg.business_lr_mult),
-        wd=make_wd_tree(model, cfg.weight_decay))
+        wd=make_wd_tree(model, cfg.weight_decay), deterministic=deterministic)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
     return trainer, (state, synthetic_batch(batch, crop, seed, device,
                                             border=cfg.loss == "dfn"))
@@ -165,10 +185,12 @@ def train_entry(experiment: str = TRAIN_EXPERIMENT, device="cuda",
 def dryrun(n_steps: int = 20, experiment: str = TRAIN_EXPERIMENT,
            device="cuda", crop=(1024, 1024), batch: int = 2, seed: int = 0):
     """``n_steps`` training steps of ``experiment`` on one fixed learnable
-    batch; raises unless every loss is finite and the mean of the last
-    three is below that of the first three
-    (``__graft_entry__.py:120-134``).  Returns the losses."""
-    trainer, (_, data) = train_entry(experiment, device, crop, batch, seed)
+    batch, on cuDNN's deterministic algorithms; raises unless every loss
+    is finite and the mean of the last three is below that of the first
+    three (``__graft_entry__.py:120-134``).  Returns the losses, the same
+    on every run."""
+    trainer, (_, data) = train_entry(experiment, device, crop, batch, seed,
+                                     deterministic=True)
     losses = [float(trainer.train_step(data)[0]) for _ in range(n_steps)]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite training loss: {losses}")
@@ -178,3 +200,184 @@ def dryrun(n_steps: int = 20, experiment: str = TRAIN_EXPERIMENT,
                            f"-> {end:.4f} over {n_steps} steps; losses "
                            f"{[round(v, 4) for v in losses]}")
     return losses
+
+
+MULTICHIP_CROP = 32  # __graft_entry__.py:88-92: tiny shapes, one image a rank
+MULTICHIP_STEPS = 20
+MULTICHIP_TOTAL_ITERS = 100  # PolyLR's horizon there
+
+
+def multichip_batch(n: int):
+    """The JAX dryrun's fixed learnable global batch
+    (``__graft_entry__.py:113-118``): ``default_rng(0).normal((n, 32, 32,
+    3))`` images, NCHW here, labelled (channel 0 > 0) pixel by pixel."""
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(n, MULTICHIP_CROP, MULTICHIP_CROP, 3)).astype(
+        np.float32)
+    return {"image": torch.from_numpy(images).permute(0, 3, 1, 2)
+            .contiguous(),
+            "label": torch.from_numpy((images[..., 0] > 0).astype(np.int64))}
+
+
+def _rank_device(device, rank: int, backend: str) -> torch.device:
+    """The device of ``rank``: ``cuda:rank`` under NCCL (it refuses two
+    ranks on one device, so a rank without a device of its own raises);
+    under gloo the ranks share the visible cards round-robin."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    n = torch.cuda.device_count()
+    if backend == "nccl":
+        if rank >= n:
+            raise RuntimeError(f"NCCL rank {rank} needs cuda:{rank}, but "
+                               f"{n} CUDA device(s) are visible")
+        return torch.device("cuda", rank)
+    return torch.device("cuda", rank % n)
+
+
+def multichip_trainer(rank: int, world: int, device="cuda", seed: int = 0):
+    """This rank's training step of ``dryrun_multichip`` inside the
+    initialized group, on cuDNN's deterministic algorithms as ``dryrun``'s:
+    ``trainer, data``, the trainer's state initialized from ``seed`` and
+    ``data`` this rank's shard of ``multichip_batch`` on its device."""
+    dev = _rank_device(device, rank, dist.get_backend())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    _no_tf32()
+    cfg = dataclasses.replace(get_experiment(TRAIN_EXPERIMENT),
+                              image_height=MULTICHIP_CROP,
+                              image_width=MULTICHIP_CROP, batch_size=world)
+    group = dist.group.WORLD
+    model = build_model(cfg, process_group=group).to(dev)
+    trainer = Trainer(
+        model, build_loss_fn(cfg, num_shards=world),
+        PolyLR(cfg.lr, cfg.lr_power, MULTICHIP_TOTAL_ITERS),
+        sgd_momentum=cfg.momentum,
+        lr_mult=make_lr_mult_tree(model, cfg.business_lr_mult),
+        wd=make_wd_tree(model, cfg.weight_decay), process_group=group,
+        deterministic=True)
+    trainer.init_state(torch.Generator().manual_seed(seed))
+    data = {k: v.to(dev) for k, v in shard_batch(
+        multichip_batch(world), rank, world).items()}
+    return trainer, data
+
+
+def _dryrun_rank(rank: int, world: int, device, seed: int = 0):
+    """This rank's part of ``dryrun_multichip``: (losses, the accumulator
+    with the group's summed counts)."""
+    trainer, data = multichip_trainer(rank, world, device, seed)
+    state, model = trainer.state, trainer.model
+    dev = data["image"].device
+    cfg = get_experiment(TRAIN_EXPERIMENT)
+    losses = []
+    for _ in range(MULTICHIP_STEPS):
+        loss, lr = trainer.train_step(data)
+        losses.append(float(loss))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if state.step != MULTICHIP_STEPS:
+        raise RuntimeError(f"step {state.step} after {MULTICHIP_STEPS} "
+                           f"steps")
+    start, end = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not end < start:
+        raise RuntimeError(
+            f"multi-process training did not reduce the loss: {start:.4f} "
+            f"-> {end:.4f} over {MULTICHIP_STEPS} steps; losses "
+            f"{[round(v, 4) for v in losses]}")
+
+    # sharded whole-image evaluation of the trained weights: each rank its
+    # shard of the indices, the histograms summed over the group
+    model.eval()
+    ev = Evaluator(lambda m, x: m(x), model, cfg.num_classes,
+                   cfg.image_mean, cfg.image_std, device=dev)
+    n_img, hw = 2 * world, MULTICHIP_CROP
+    ds = SyntheticDataset(num_items=n_img, image_hw=(hw, hw),
+                          num_classes=cfg.num_classes)
+    acc = ev.run_dataset(ds, mode="whole", process_index=rank,
+                         process_count=world)
+    acc.hist = gather_metrics(acc.hist)
+    acc.labeled = gather_metrics(acc.labeled)
+    acc.correct = gather_metrics(acc.correct)
+    if int(acc.hist.sum()) != n_img * hw * hw:
+        raise RuntimeError(f"merged histogram holds {int(acc.hist.sum())} "
+                           f"pixels, expected {n_img * hw * hw}")
+    _, miou, _, _ = acc.scores()
+    if rank == 0:
+        print(f"dryrun_multichip dp{world} ({dist.get_backend()}, {dev}): "
+              f"loss {start:.4f} -> {end:.4f} over {MULTICHIP_STEPS} "
+              f"steps, lr={lr:.2e}; sharded whole eval over {world} "
+              f"rank(s): {n_img} imgs, hist ok, mIoU={miou:.4f}",
+              flush=True)
+    return losses, acc
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dryrun_worker(rank, world, port, backend, device, out):
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        losses, acc = _dryrun_rank(rank, world, device)
+        if rank == 0:
+            out.put((losses, acc.hist.cpu().numpy(), int(acc.labeled),
+                     int(acc.correct)))
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int, device="cuda", backend=None):
+    """Train BiSeNet-R18 for 20 steps over ``n_devices`` processes (DDP +
+    SyncBN, one 32x32 image a rank, the JAX dryrun's batch and schedule),
+    evaluate the trained weights on ``SyntheticDataset(2n, (32, 32))``
+    whole-image, sharded over the ranks, and sum the histograms over the
+    group; raises unless every loss is finite, the last three losses'
+    mean is below the first three's and the merged histogram counts every
+    pixel (``__graft_entry__.py:50-175``).  Returns (losses, merged
+    ``ConfusionAccumulator``).
+
+    Inside an initialized process group (``torchrun``, or a caller's own
+    group) it runs as this rank, on the group's world size, and returns
+    this rank's view.  Otherwise it starts ``n_devices`` ranks with the
+    spawn start method on localhost and returns rank 0's losses and
+    accumulator (on the CPU).  ``backend``: None is NCCL on the card
+    (one device a rank: more ranks than visible devices raise) and gloo on
+    the CPU; "gloo" on the card lets ranks share a device."""
+    if dist.is_initialized():
+        if dist.get_world_size() != n_devices:
+            raise ValueError(f"dryrun_multichip({n_devices}) inside a "
+                             f"group of {dist.get_world_size()}")
+        return _dryrun_rank(dist.get_rank(), n_devices, device)
+    dev = torch.device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("dryrun_multichip(device='cuda') needs a CUDA "
+                               "card")
+        if backend == "nccl" and n_devices > torch.cuda.device_count():
+            raise RuntimeError(
+                f"dryrun_multichip({n_devices}) over NCCL needs "
+                f"{n_devices} CUDA devices, {torch.cuda.device_count()} are "
+                f"visible (NCCL takes one device a rank; backend='gloo' "
+                f"lets ranks share one)")
+        from .ops.kernels import _build
+        _build.build()  # once, before the ranks load the libraries
+    import torch.multiprocessing as mp
+
+    out = mp.get_context("spawn").SimpleQueue()
+    mp.spawn(_dryrun_worker, args=(n_devices, _free_port(), backend,
+                                   str(dev), out),
+             nprocs=n_devices, join=True)
+    losses, hist, labeled, correct = out.get()
+    cfg = get_experiment(TRAIN_EXPERIMENT)
+    acc = ConfusionAccumulator(cfg.num_classes, device="cpu",
+                               hist=torch.from_numpy(hist),
+                               labeled=torch.tensor(labeled),
+                               correct=torch.tensor(correct))
+    return losses, acc

@@ -92,16 +92,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init on the CPU generator's stream, then copied to the
     model's device, with JAX's distributions: convs kaiming-normal (relu
     gain, fan_in) as the reference's business layers (a depthwise conv's
-    fan-in is its k*k window, as for flax's (k, k, 1, C) kernel); linear
-    layers torch's default, kaiming-uniform with a = sqrt(5) (JAX
-    ``torch_default_kernel_init``, variance-scaling 1/3 fan_in uniform);
+    fan-in is its k*k window, as for flax's (k, k, 1, C) kernel); the
+    ResNet backbone's convs and linear layers torch's default,
+    kaiming-uniform with a = sqrt(5) (JAX ``torch_default_kernel_init``,
+    variance-scaling 1/3 fan_in uniform; JAX ``models/resnet.py:28-60``);
     every bias U(+-1/sqrt(fan_in)) (``torch_default_bias_init``); BN
     gamma=1 / beta=0 with running stats (0, 1) as a freshly initialized
     JAX model."""
+    backbone = {id(m) for r in model.modules() if isinstance(r, ResNet)
+                for m in r.modules()}
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             w = torch.empty(mod.weight.shape)
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, nn.Conv2d) and id(mod) not in backbone:
                 nn.init.kaiming_normal_(w, nonlinearity="relu",
                                         generator=generator)
             else:

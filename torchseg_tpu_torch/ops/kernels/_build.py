@@ -4,13 +4,15 @@ Each source ``torchseg_tpu_torch/csrc/<name>.cu`` is one library, compiled
 at first use into ``torchseg_tpu_torch/_build/`` (git-ignored) and named by
 a hash of its source and the flags, so an edited source rebuilds and an
 unchanged one loads the cached file.  The first ``load`` starts one nvcc per
-missing library, all at once, and waits for them together.  The C entry
+missing library, all at once, and waits for them together, under a file
+lock in the build directory (concurrent processes build once).  The C entry
 points take raw device pointers and the CUDA stream as ``void*`` and return
 ``cudaGetLastError()``; ``ready(device, name)`` also runs the library's
 one-time set-up (``tsg_init``, where it has one) on that device.
 """
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -149,6 +151,14 @@ def build() -> dict:
     parallel; returns {name: library path}.  Raises if any nvcc fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {name: _lib_path(name) for name in LIBRARIES}
+    # one build at a time: processes that start together (the ranks of a
+    # multi-process run) wait for the first one's nvcc and load its files
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(paths)
+
+
+def _build_locked(paths: dict) -> dict:
     jobs = {}
     t0 = time.perf_counter()
     for name, path in paths.items():

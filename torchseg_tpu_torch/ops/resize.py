@@ -4,11 +4,21 @@ torchseg_tpu/ops/resize.py).
 The JAX package builds explicit interpolation matrices because TPU's matrix
 unit is faster than a gather; on the card ``F.interpolate`` is the native
 op and has exactly the reference's semantics, so the resizes inside the
-graphs use it (tensors NCHW).  The full-resolution argmax epilogue keeps
-the JAX matrices (``_interp_matrix_np``): ``tiled_upsample_argmax`` is the
-plain version of the CUDA kernel K7 (``ops/kernels/upsample_argmax.py``),
-which computes the same f32 weights, and takes NHWC logits as the JAX
-function does.
+graphs use it forward (tensors NCHW).  Its backward on CUDA
+(``upsample_bilinear2d_backward``) accumulates with atomics, so a training
+step that ran it differed run to run; under autograd the resize is
+``_ResizeAlignCorners``, whose backward is the one JAX's autodiff takes
+through the matrix form, ``grad_in = R_h^T . grad_out . R_w`` with the
+``_interp_matrix_np`` matrices: two matmuls, the same bits on every run.
+The full-resolution argmax epilogue keeps the JAX matrices too:
+``tiled_upsample_argmax`` is the plain version of the CUDA kernel K7
+(``ops/kernels/upsample_argmax.py``), which computes the same f32 weights,
+and takes NHWC logits as the JAX function does.
+
+``resize_linear`` is ``jax.image.resize(..., "linear")``: half-pixel
+centres, and when downscaling a triangle kernel widened by the scale
+(antialiased), which ``F.interpolate(mode="bilinear")`` is not; it is the
+evaluator's score resize, as matrices.
 """
 
 import functools
@@ -20,6 +30,36 @@ import torch.nn.functional as F
 from . import wide
 
 
+def _interpolate(x: torch.Tensor, out_hw) -> torch.Tensor:
+    return F.interpolate(wide(x), size=out_hw, mode="bilinear",
+                         align_corners=True).to(x.dtype)
+
+
+def _matrix(n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(_interp_matrix_np(n_in, n_out)).to(
+        device=like.device, dtype=like.dtype)
+
+
+class _ResizeAlignCorners(torch.autograd.Function):
+    """``F.interpolate`` forward; backward ``R_h^T . g . R_w`` in float32
+    (float64 for a float64 input), rounded once to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw, ctx.dtype = tuple(x.shape[-2:]), x.dtype
+        return _interpolate(x, out_hw)
+
+    @staticmethod
+    def backward(ctx, gy):
+        g = wide(gy)
+        (h, w), (oh, ow) = ctx.in_hw, gy.shape[-2:]
+        if ow != w:
+            g = torch.matmul(g, _matrix(w, ow, g))           # (.., oh, w)
+        if oh != h:
+            g = torch.matmul(_matrix(h, oh, g).t(), g)       # (.., h, w)
+        return g.to(ctx.dtype), None
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Resize an NCHW tensor to ``out_hw`` (align_corners=True).
 
@@ -27,12 +67,15 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     to the input's dtype, as the
     JAX matmul form accumulates: PyTorch's CPU kernel rounds a bf16
     input's intermediates in bf16 (half its outputs then differ from the
-    once-rounded value), its CUDA kernel does not."""
+    once-rounded value), its CUDA kernel does not.  Under autograd the
+    backward is JAX's, through the interpolation matrices (deterministic
+    on the card)."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(wide(x), size=(oh, ow), mode="bilinear",
-                         align_corners=True).to(x.dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ResizeAlignCorners.apply(x, (oh, ow))
+    return _interpolate(x, (oh, ow))
 
 
 def upsample_by_scale(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -64,6 +107,47 @@ def _interp_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     w[rows, i0] = 1.0 - frac
     w[rows, i0 + 1] = frac
     return w
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_matrix_np(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of ``jax.image.resize``'s "linear" method
+    along one axis (``jax._src.image.scale.compute_weight_mat`` with the
+    triangle kernel, antialias on, no translation), computed in float32
+    as JAX computes them (1 / scale in double, then float32): sample
+    ``(i + 0.5) / scale - 0.5``, the kernel
+    widened by ``1 / scale`` when downscaling, each row normalized to sum
+    1, rows whose sample falls outside the input zeroed."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))  # a Python float, then float32
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, f32(0.0)).T
+                                .astype(f32))
+
+
+def resize_linear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "linear")`` of the last two axes of
+    ``x`` (float32, float64 kept) to ``out_hw``: the height and the width
+    matrices of ``_linear_matrix_np`` (an axis of unchanged size is left
+    as it is, as JAX skips it)."""
+    x = wide(x)
+    h, w = x.shape[-2:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if ow != w:
+        x = torch.matmul(x, torch.from_numpy(_linear_matrix_np(w, ow)).to(
+            device=x.device, dtype=x.dtype).t())
+    if oh != h:
+        x = torch.matmul(torch.from_numpy(_linear_matrix_np(h, oh)).to(
+            device=x.device, dtype=x.dtype), x)
+    return x
 
 
 ROW_TILE = 128
