@@ -6,8 +6,9 @@ check them.
 
 Besides serving, it drives two training steps: BiSeNet-R18 and DFN-R101
 (with the multi-class sigmoid focal loss run on the DFN step's logits), and
-the training half across processes (``dryrun_multichip``, the two-process
-leg, whole-image evaluation).
+the training half across processes (``dryrun_multichip``, the four-rank
+leg, whole-image evaluation) with its dp x sp leg (the image height
+sharded over two ranks: the step, the dryrun, whole-image evaluation).
 The main path is the int8-through BiSeNet-R18.speed serving graph at
 1024x2048 (``torchseg_tpu_torch.entry``): seeded random weights, four
 distinct seeded uint8 images served, (1, 128, 256) int32 labels out.  The
@@ -146,11 +147,34 @@ script
      folds exactly K8's sums and hands K9 its a, b, and K9 is bit-exact to
      its plain version; the step is timed and profiled, and the group
      route's SyncBN forward counted (profiler) and its all-reduce and fold
-     timed on the host; the two-process gloo leg
-     (``parallel._multihost_worker``) runs both ranks on this card: equal,
-     falling losses and equal merged pixel counts; whole-image evaluation
-     of BiSeNet-R18 at 1024x2048 on two ``SyntheticDataset`` images
-     counts every pixel once, and is timed per image.
+     timed on the host; the four-rank gloo leg
+     (``parallel._multihost_worker``) runs every rank on this card: its dp4
+     and dp2 x sp2 losses equal on every rank and falling, equal merged
+     pixel counts; whole-image evaluation of BiSeNet-R18 at 1024x2048 on
+     two ``SyntheticDataset`` images counts every pixel once, and is timed
+     per image;
+  13. the dp x sp leg (``parallel/spatial.py``, ``ops/spatial.py``):
+     ``dryrun_multichip(2, backend="gloo")`` on this card runs its dp2 leg
+     and its dp1 x sp2 leg (both losses fall; the sp2 whole-image eval
+     counts 4 x 32x32 pixels once); then two gloo ranks on this card run
+     the BiSeNet-R18 step dp1 x sp2 (``SpatialTrainer``, the batches made
+     here and handed to the ranks) against ``train_entry``'s one-process
+     step on the same weights and batch, deterministic cuDNN on both
+     sides: at CHECK_BATCH x CHECK_CROP, where the float32 step is
+     well-conditioned, within JAX's bars (loss 3e-3 relative, each
+     gradient leaf's max |diff| under 3e-2 of its max |value|); at
+     TRAIN_BATCH x TRAIN_CROP, where every map down to /32 stays sharded,
+     the loss within 3e-3 and the whole gradient within SP_L2_BAR, each
+     leaf's difference recorded (see SP_L2_BAR); there K8 and K9 launch
+     35 times each a step on each rank and nothing else, K8 for the sums
+     only, 32 SyncBNs summing over the 2-D group and SP_GATE_BNS over the
+     data group, K9 bit-exact and K8 within its bars on the step's
+     tensors; the step is timed on both ranks (median, p90, peak memory,
+     the host time of the halo exchanges and of all the context's
+     collectives) beside the one-process step, and profiled on rank 0
+     (the card's idle share); the sp2 whole-image evaluation of
+     BiSeNet-R18 at 1024x2048 agrees with the one-rank evaluation on >=
+     SP_AGREE of the labels and is timed per image beside it.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -203,6 +227,22 @@ TRAIN_STEPS = 12  # timed steps (after two warm-up steps)
 DRYRUN_STEPS = 20
 PROFILED_STEPS = 3
 BN_LAUNCHES, BN_RELU = 35, 22  # per training step (BiSeNet-R18's 35 BNs)
+# the dp1 x sp2 phase: its step at TRAIN_BATCH x TRAIN_CROP, where every map
+# down to /32 stays sharded and only the three (B, C, 1, 1) gate BNs (the
+# global context's, the two ARMs') sum over the data group
+SP_STEPS = 6  # timed steps (after two warm-up steps)
+SP_GATE_BNS = 3
+SP_LOSS_RTOL, SP_GRAD_BAR = 3e-3, 3e-2  # JAX tests/test_spatial.py
+# JAX's per-leaf bar holds the step where the float32 step is well-
+# conditioned (CHECK_*: 1.4e-5 on the CPU).  At TRAIN_BATCH x TRAIN_CROP
+# the float32 step's own gradients move more than that bar when only its
+# conv algorithms change (one-process, cuDNN off vs deterministic cuDNN:
+# 5.8e-2 at the worst leaf, 2.6e-2 at the median, PERF.md), so there the
+# per-leaf numbers are recorded and the whole gradient's relative L2
+# difference is held to this guard against gross errors
+SP_L2_BAR = 3e-2
+SP_AGREE = 0.999  # sp2 vs one-rank eval labels (JAX tests/test_spatial.py)
+SP_EVAL_ROUNDS = 5  # 10 timed evaluations
 DFN_CROP, DFN_BATCH = (800, 800), 2
 # card-vs-CPU DFN step.  No size makes DFN-R101's float32 step close to
 # float64: scripts/torch_step_conditioning.py measures the CPU float32
@@ -348,6 +388,24 @@ def check_labels(name, y, hw, num_classes):
 
 def launch_counts(kernels):
     return {fn.__name__: fn.launches for fn in kernels}
+
+
+def kernel_counters():
+    """(every kernel wrapper of the port, a function that sets their
+    launch counts to 0)."""
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+    from torchseg_tpu_torch.ops.kernels import focal_loss as FL
+    from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+    from torchseg_tpu_torch.ops.kernels import stem_conv as S
+    from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
+
+    mods = (K, U, B, S, FL)
+
+    def reset_all():
+        for m in mods:
+            m.reset_launches()
+
+    return [fn for m in mods for fn in m.KERNELS], reset_all
 
 
 def compare_codes(name, kern, plain, inputs):
@@ -498,18 +556,26 @@ def profile_calls(calls):
     synchronize, after one more call of the first in the profiler's
     warm-up step, whose events are dropped.  A profile started cold has
     been seen to miss one of four PSPNet forwards' kernels; the counts of
-    launches per call read from this one hold every counted call."""
+    launches per call read from this one hold every counted call.  A
+    session that records no device activity at all (seen once, on the
+    full-resolution bf16 graph, after the main path's session had seen
+    its kernels) is run once more; the callers fail if that one is empty
+    too."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=len(calls),
-                                   repeat=1)) as prof:
-        for fn in [calls[0], *calls]:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return prof
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=len(calls),
+                                       repeat=1)) as prof:
+            for fn in [calls[0], *calls]:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if device_kernels(prof) or attempt:
+            return prof
+        log("torch.profiler recorded no device activity; profiling again")
 
 
 def main_path_kernels(infer, pkg, xss):
@@ -679,21 +745,11 @@ def main():
     )
     from torchseg_tpu_torch.models import init_weights
     from torchseg_tpu_torch.ops.kernels import _build
-    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
-    from torchseg_tpu_torch.ops.kernels import focal_loss as FL
     from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
-    from torchseg_tpu_torch.ops.kernels import stem_conv as S
     from torchseg_tpu_torch.ops.kernels import upsample_argmax as U
     from torchseg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-    all_kernels = K.KERNELS + U.KERNELS + B.KERNELS + S.KERNELS + FL.KERNELS
-
-    def reset_all():
-        K.reset_launches()
-        U.reset_launches()
-        B.reset_launches()
-        S.reset_launches()
-        FL.reset_launches()
+    all_kernels, reset_all = kernel_counters()
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -1082,6 +1138,7 @@ def main():
     rows += psp_phase(dev, all_kernels, reset_all)
     rows += train_phase(dev, all_kernels, reset_all)
     rows += multichip_phase(dev, all_kernels, reset_all)
+    rows += sp_phase(dev)
     rows += dfn_phase(dev, all_kernels, reset_all)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2211,7 +2268,7 @@ def multichip_phase(dev, all_kernels, reset_all):
     )
     from torchseg_tpu_torch.models import init_weights
     from torchseg_tpu_torch.parallel._multihost_worker import (
-        run_two_process_leg,
+        run_four_rank_leg,
     )
 
     # -- dryrun_multichip(1): NCCL at world size 1, this process rank 0 ----
@@ -2225,7 +2282,7 @@ def multichip_phase(dev, all_kernels, reset_all):
         t0 = time.perf_counter()
         with spy_bn_calls() as (k8, folds, fed, acts):
             reset_all()
-            losses, acc = dryrun_multichip(1, device=dev)
+            losses, acc, _, _ = dryrun_multichip(1, device=dev)
             torch.cuda.synchronize()
             got = launch_counts(all_kernels)
         log(f"dryrun_multichip(1) over {dist.get_backend()} "
@@ -2290,13 +2347,14 @@ def multichip_phase(dev, all_kernels, reset_all):
     finally:
         dist.destroy_process_group()
 
-    # -- the two-process gloo leg, both ranks on this card ----------------
+    # -- the four-rank gloo leg, every rank on this card ------------------
     t0 = time.perf_counter()
-    a, b = run_two_process_leg("cuda")
-    log(f"two-process gloo leg, both ranks on cuda:0 "
-        f"({time.perf_counter() - t0:.1f} s): losses {a['losses']} (rank "
-        f"0) = {b['losses']} (rank 1); local pixels {a['local_pixels']} + "
-        f"{b['local_pixels']}, merged {a['merged_pixels']} on both")
+    outs = run_four_rank_leg("cuda")
+    log(f"four-rank gloo leg, every rank on cuda:0 "
+        f"({time.perf_counter() - t0:.1f} s): dp4 losses {outs[0]['losses']}"
+        f", dp2 x sp2 losses {outs[0]['sp_losses']}, the same on all four "
+        f"ranks; local pixels {[o['local_pixels'] for o in outs]}, merged "
+        f"{outs[0]['merged_pixels']} on each")
 
     # -- whole-image evaluation at the Cityscapes frame size ---------------
     cfg = get_experiment(TRAIN_EXPERIMENT)
@@ -2319,6 +2377,393 @@ def multichip_phase(dev, all_kernels, reset_all):
         f"{int(acc.hist.sum())} = 2 x {H} x {W} pixels, mIoU "
         f"{acc.scores()[1]:.4f}; {med:.4f} ms an image (median of 10, p90 "
         f"{p90:.4f}); kernel launches {launch_counts(all_kernels)}")
+    return rows
+
+
+def dp_sp_rows(k8, fed, acts, launches, groups):
+    """K8 (sums only) and K9 at the dp1 x sp2 step's BN inputs (this
+    rank's shards of the sharded maps, the whole gate maps), per step,
+    against their plain versions, the one-call library yardsticks and their
+    bounds; the kernels line's two rows (without max_abs_err)."""
+    from torchseg_tpu_torch.ops.kernels import bn_kernels as B
+
+    sums8 = [(x,) for x, _ in k8]
+    inputs9 = [(x, a, b, act) for (x, a, b), act in zip(fed, acts)]
+    n_bn = len(sums8)
+    k8_ms = cuda_ms(B.channel_sum_sumsq, sums8, reps=5) * n_bn
+    k8_plain = cuda_ms(B.channel_sum_sumsq_plain, sums8) * n_bn
+    k8_lib = cuda_ms(lambda x: torch.batch_norm_stats(x, 1e-5), sums8,
+                     reps=5) * n_bn
+    k9_ms = cuda_ms(B.fused_scale_bias_act, inputs9, reps=5) * n_bn
+    k9_plain = cuda_ms(B.fused_scale_bias_act_plain, inputs9) * n_bn
+    stats = [torch.batch_norm_stats(x, 1e-5) for x, _, _ in fed]
+    k9_lib = cuda_ms(lambda x, m, sd: torch.batch_norm_elemt(
+        x, None, None, m, sd, 1e-5), [(x, *st) for (x, _, _), st in zip(
+            fed, stats)], reps=5) * n_bn
+    n_el = sum(x.numel() for x, _ in k8)
+    x_bytes = sum(nbytes(x) for x, _ in k8)
+    c_all = sum(x.shape[1] for x, _ in k8)
+    k8_bound = bound(x_bytes + 8 * c_all, 3 * n_el, "f32")
+    k9_bound = bound(2 * x_bytes + 8 * c_all, 2 * n_el, "f32")
+    log(f"dp1 x sp2 step (rank 0), per step over its {n_bn} BN inputs "
+        f"({x_bytes / 1e6:.3f} MB; {groups['2-D']} on the 2-D group, "
+        f"{groups['data']} on the data group): channel_sum_sumsq (sums "
+        f"only) {k8_ms:.4f} ms (plain {k8_plain:.4f}, "
+        f"torch.batch_norm_stats {k8_lib:.4f}; bound {k8_bound[0]:.6f} ms, "
+        f"{k8_bound[1]}); fused_scale_bias_act {k9_ms:.4f} ms (plain "
+        f"{k9_plain:.4f}, torch.batch_norm_elemt {k9_lib:.4f}; bound "
+        f"{k9_bound[0]:.6f} ms, {k9_bound[1]})")
+    extra = {"launches_2d_group": groups["2-D"],
+             "launches_data_group": groups["data"]}
+    return [
+        {"name": "channel_sum_sumsq:dp_sp", "route": "cuda",
+         "source": SRC_BN, "replaces": f"{TPU_BN}:41",
+         "launches": launches["channel_sum_sumsq"], "ms": k8_ms,
+         "plain_ms": k8_plain, "bound_ms": k8_bound[0],
+         "bound_by": k8_bound[1], "library_ms": k8_lib, **extra},
+        {"name": "fused_scale_bias_act:dp_sp", "route": "cuda",
+         "source": SRC_BN, "replaces": f"{TPU_BN}:68",
+         "launches": launches["fused_scale_bias_act"], "ms": k9_ms,
+         "plain_ms": k9_plain, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": k9_lib, **extra},
+    ]
+
+
+def sp_images(num_classes):
+    """The whole-image evaluation's two SyntheticDataset frames of H x W."""
+    from torchseg_tpu_torch.data.base import SyntheticDataset
+
+    ds = SyntheticDataset(num_items=2, image_hw=(H, W),
+                          num_classes=num_classes)
+    return [(ds[i]["image"],) for i in range(2)]
+
+
+def eval_model(dev):
+    """BiSeNet-R18 (the training configuration's model) from seed 0, in
+    eval mode on ``dev``, and its configuration."""
+    from torchseg_tpu_torch.entry import TRAIN_EXPERIMENT
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+
+    cfg = get_experiment(TRAIN_EXPERIMENT)
+    return init_weights(build_model(cfg), torch.Generator().manual_seed(
+        0)).to(dev).eval(), cfg
+
+
+def sp_trainer(cfg, dev, seed):
+    """``train_entry``'s step of ``cfg`` as a dp1 x sp2 ``SpatialTrainer``
+    over the initialized group (OHEM of ``num_shards=1``, the parameter
+    groups, cuDNN's deterministic algorithms), weights from ``seed``."""
+    from torchseg_tpu_torch.engine.lr_policy import PolyLR
+    from torchseg_tpu_torch.engine.optim import (
+        make_lr_mult_tree,
+        make_wd_tree,
+    )
+    from torchseg_tpu_torch.experiments.registry import (
+        build_loss_fn,
+        build_model,
+    )
+    from torchseg_tpu_torch.parallel.spatial import (
+        SpatialTrainer,
+        make_dp_sp_mesh,
+    )
+
+    model = build_model(cfg).to(dev)
+    trainer = SpatialTrainer(
+        model, build_loss_fn(cfg, num_shards=1),
+        PolyLR(cfg.lr, cfg.lr_power, cfg.nepochs * cfg.niters_per_epoch),
+        sgd_momentum=cfg.momentum,
+        lr_mult=make_lr_mult_tree(model, cfg.business_lr_mult),
+        wd=make_wd_tree(model, cfg.weight_decay),
+        mesh=make_dp_sp_mesh(1, 2), deterministic=True)
+    trainer.init_state(torch.Generator().manual_seed(seed))
+    return trainer
+
+
+def sp_config(crop, batch):
+    from torchseg_tpu_torch.entry import TRAIN_EXPERIMENT
+    from torchseg_tpu_torch.experiments.registry import get_experiment
+
+    return dataclasses.replace(get_experiment(TRAIN_EXPERIMENT),
+                               image_height=crop[0], image_width=crop[1],
+                               batch_size=batch)
+
+
+def grads_of(model):
+    return {n: p.grad.detach().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def sp_rank(rank, world, port, dev, batches, out):
+    """One of the two gloo ranks of the dp1 x sp2 phase, both on cuda:0
+    (module docstring, item 13): the step at CHECK_BATCH x CHECK_CROP (seed
+    CHECK_SEED) once; the step at TRAIN_BATCH x TRAIN_CROP (seed 0) once
+    spied (launches, the group of every SyncBN), then SP_STEPS timed
+    steps and a profiled pass (rank 0); then the sp2 whole-image
+    evaluation of the two H x W frames.  ``batches``: the two global
+    batches on the CPU, as the one-process steps had them.  Puts its
+    results (rank 0: the gradients, the K8/K9 checks and rows, the labels)
+    on ``out``."""
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from torchseg_tpu_torch.engine.evaluator import Evaluator
+    from torchseg_tpu_torch.ops import norm as N
+
+    dev = torch.device(dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        all_kernels, reset_all = kernel_counters()
+        res = {"rank": rank}
+        trainer = sp_trainer(sp_config(CHECK_CROP, CHECK_BATCH), dev,
+                             CHECK_SEED)
+        res["check_loss"] = float(trainer.train_step(batches["check"])[0])
+        if rank == 0:
+            res["check_grads"] = grads_of(trainer.model)
+        del trainer
+
+        trainer = sp_trainer(sp_config(TRAIN_CROP, TRAIN_BATCH), dev, 0)
+        mesh, model, data = trainer.mesh, trainer.model, batches["full"]
+        torch.cuda.reset_peak_memory_stats()
+        groups = Counter()
+        group_sums = N._group_sums
+
+        def spy_groups(sums, n, group):
+            groups["2-D" if group is mesh.full_group else
+                   "data" if group is mesh.data_group else "other"] += 1
+            return group_sums(sums, n, group)
+
+        N._group_sums = spy_groups
+        try:
+            with spy_bn_calls() as (k8, folds, fed, acts):
+                reset_all()
+                loss, _ = trainer.train_step(data)
+                torch.cuda.synchronize()
+                launches = launch_counts(all_kernels)
+        finally:
+            N._group_sums = group_sums
+        res.update(loss=float(loss), launches=launches, groups=dict(groups),
+                   relu=acts.count("relu"),
+                   k8_folded=sum(bn is not None for _, bn in k8),
+                   space=(dict(trainer.space.counts),
+                          dict(trainer.space.seconds)))
+        if rank == 0:
+            res["grads"] = grads_of(model)
+            res["k9_diff"] = check_k9(fed, acts)
+            res["k8_err"] = max(check_k8_sums(x)[1] for x, _ in k8)
+            res["rows"] = dp_sp_rows(k8, fed, acts, launches, groups)
+        del k8, folds, fed, acts
+        res["step"] = step_ms(trainer, data, SP_STEPS)
+        res["halo"] = (trainer.space.seconds["halo"] * 1e3,
+                       trainer.space.counts["halo"])
+        res["collectives_ms"] = sum(trainer.space.seconds.values()) * 1e3
+        res["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        if rank == 0:
+            profile_steps("dp1 x sp2 step (rank 0)", trainer, data,
+                          PROFILED_STEPS, BN_KERNEL_NAMES)
+        else:
+            for _ in range(PROFILED_STEPS):
+                trainer.train_step(data)
+            torch.cuda.synchronize()
+        del trainer, model, data
+        torch.cuda.empty_cache()
+
+        emodel, ecfg = eval_model(dev)
+        ev = Evaluator(lambda m, x: m(x), emodel, ecfg.num_classes,
+                       ecfg.image_mean, ecfg.image_std, device=dev,
+                       spatial_shards=world)
+        images = sp_images(ecfg.num_classes)
+        labels = [ev.whole_eval(*img).cpu().numpy() for img in images]
+        res["eval"] = forward_ms(ev.whole_eval, images, SP_EVAL_ROUNDS)
+        if rank == 0:
+            res["labels"] = labels
+        out.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def reference_step(dev, crop, batch, seed):
+    """``train_entry``'s one-process step (deterministic cuDNN): its
+    trainer, its batch on the CPU, the loss and the gradients."""
+    from torchseg_tpu_torch.entry import train_entry
+
+    trainer, (_, data) = train_entry(device=dev, crop=crop, batch=batch,
+                                     seed=seed, deterministic=True)
+    loss = float(trainer.train_step(data)[0])
+    return trainer, data, loss, grads_of(trainer.model)
+
+
+def grad_errors(got, ref):
+    """Each leaf's max |got - ref| over its max |ref|, largest first, and
+    the whole gradient's relative L2 difference."""
+    errs = sorted(((float(np.abs(got[n] - g).max())
+                    / max(float(np.abs(g).max()), 1e-30), n)
+                   for n, g in ref.items()), reverse=True)
+    l2 = float(np.sqrt(sum(float(((got[n] - g).astype(np.float64) ** 2)
+                                 .sum()) for n, g in ref.items())
+                       / sum(float((g.astype(np.float64) ** 2).sum())
+                             for g in ref.values())))
+    return errs, l2
+
+
+def sp_phase(dev):
+    """The dp x sp leg (module docstring, item 13); returns the kernels
+    line's rows for K8 and K9 on the dp1 x sp2 step."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from torchseg_tpu_torch.engine.evaluator import Evaluator
+    from torchseg_tpu_torch.entry import MULTICHIP_CROP, dryrun_multichip
+
+    # -- dryrun_multichip(2) over gloo, both ranks on this card -------------
+    t0 = time.perf_counter()
+    losses, acc, sp_losses, sp_acc = dryrun_multichip(2, device=dev,
+                                                      backend="gloo")
+    n_pix = 4 * MULTICHIP_CROP ** 2
+    log(f"dryrun_multichip(2) over gloo on cuda:0 "
+        f"({time.perf_counter() - t0:.1f} s): dp2 loss "
+        f"{np.mean(losses[:3]):.4f} -> {np.mean(losses[-3:]):.4f}; dp1 x "
+        f"sp2 loss {np.mean(sp_losses[:3]):.4f} -> "
+        f"{np.mean(sp_losses[-3:]):.4f} ({sp_losses}); sp2 whole eval "
+        f"histogram {int(sp_acc.hist.sum())} pixels (4 x {MULTICHIP_CROP}x"
+        f"{MULTICHIP_CROP}), mIoU {sp_acc.scores()[1]:.4f}")
+    if int(sp_acc.hist.sum()) != n_pix or int(acc.hist.sum()) != n_pix:
+        fail(f"dryrun_multichip(2) histograms {int(acc.hist.sum())} and "
+             f"{int(sp_acc.hist.sum())} pixels, expected {n_pix}")
+
+    # -- the one-process steps and the one-rank eval, the references --------
+    trainer, check_data, check_loss, check_grads = reference_step(
+        dev, CHECK_CROP, CHECK_BATCH, CHECK_SEED)
+    del trainer
+    trainer, data, ref_loss, ref_grads = reference_step(
+        dev, TRAIN_CROP, TRAIN_BATCH, 0)
+    one_step = step_ms(trainer, data, SP_STEPS)
+    del trainer
+    emodel, ecfg = eval_model(dev)
+    ev = Evaluator(lambda m, x: m(x), emodel, ecfg.num_classes,
+                   ecfg.image_mean, ecfg.image_std, device=dev)
+    images = sp_images(ecfg.num_classes)
+    one_labels = [ev.whole_eval(*img).cpu().numpy() for img in images]
+    one_eval = forward_ms(ev.whole_eval, images, SP_EVAL_ROUNDS)
+    del emodel, ev
+    torch.cuda.empty_cache()
+    batches = {k: {n: t.cpu() for n, t in v.items()}
+               for k, v in (("check", check_data), ("full", data))}
+    del check_data, data
+
+    # -- the two ranks -------------------------------------------------------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    q = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    ctx = mp.spawn(sp_rank, args=(2, port, str(dev), batches, q), nprocs=2,
+                   join=False)
+    got = []
+    while True:  # drain before the join: rank 0's gradients outgrow a pipe
+        while not q.empty():
+            got.append(q.get())
+        if ctx.join(timeout=1):
+            break
+    while not q.empty():
+        got.append(q.get())
+    if len(got) != 2:
+        fail(f"the dp1 x sp2 ranks returned {len(got)} results")
+    r0, r1 = sorted(got, key=lambda r: r["rank"])
+    log(f"dp1 x sp2 phase: two gloo ranks on cuda:0 "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the well-conditioned step against the one-process step: JAX's bars
+    loss_rel = abs(r0["check_loss"] - check_loss) / abs(check_loss)
+    errs, l2 = grad_errors(r0["check_grads"], check_grads)
+    log(f"dp1 x sp2 step vs the one-process step at {CHECK_BATCH} x "
+        f"{CHECK_CROP[0]}x{CHECK_CROP[1]}, seed {CHECK_SEED} (same weights "
+        f"and batch, deterministic cuDNN, float32): loss "
+        f"{r0['check_loss']:.6f} vs {check_loss:.6f} (relative "
+        f"{loss_rel:.3e}, bar {SP_LOSS_RTOL}); largest gradient-leaf max "
+        f"|diff| / max |value| {[(n, f'{e:.3e}') for e, n in errs[:4]]} "
+        f"(bar {SP_GRAD_BAR}); whole-gradient L2 {l2:.3e}")
+    if not loss_rel <= SP_LOSS_RTOL or not errs[0][0] < SP_GRAD_BAR:
+        fail(f"dp1 x sp2 step at {CHECK_CROP}: loss off by {loss_rel:.3e}, "
+             f"gradient leaf {errs[0][1]} by {errs[0][0]:.3e}")
+
+    # launches: K8 and K9 once per BN, nothing else; K8 sums only
+    want = dict.fromkeys(r0["launches"], 0)
+    want.update(channel_sum_sumsq=BN_LAUNCHES,
+                fused_scale_bias_act=BN_LAUNCHES)
+    want_groups = {"2-D": BN_LAUNCHES - SP_GATE_BNS, "data": SP_GATE_BNS}
+    for r in (r0, r1):
+        log(f"dp1 x sp2 step at {TRAIN_BATCH} x {TRAIN_CROP[0]}x"
+            f"{TRAIN_CROP[1]}, rank {r['rank']}: launches {r['launches']}; "
+            f"SyncBN groups {r['groups']}; K9 with the ReLU fused "
+            f"{r['relu']}; space-context exchanges {r['space'][0]}, host "
+            f"ms {({k: round(v * 1e3, 3) for k, v in r['space'][1].items()})}")
+        if r["launches"] != want:
+            fail(f"dp1 x sp2 rank {r['rank']} launches {r['launches']}, "
+                 f"expected {want}")
+        if r["groups"] != want_groups or r["relu"] != BN_RELU or \
+                r["k8_folded"]:
+            fail(f"dp1 x sp2 rank {r['rank']}: SyncBN groups {r['groups']} "
+                 f"(expected {want_groups}), {r['relu']} K9 ReLUs "
+                 f"(expected {BN_RELU}), {r['k8_folded']} K8 calls with a "
+                 f"fold (expected 0: the group route sums only)")
+    log(f"dp1 x sp2 step: fused_scale_bias_act bit-exact to its plain "
+        f"version on the step's {BN_LAUNCHES} BN inputs (float32 and "
+        f"bfloat16); channel_sum_sumsq's sums within its bars "
+        f"({r0['k8_err']:.3e} absolute), the same bits twice")
+
+    # the full-size step against the one-process step
+    loss_rel = abs(r0["loss"] - ref_loss) / abs(ref_loss)
+    errs, l2 = grad_errors(r0["grads"], ref_grads)
+    log(f"dp1 x sp2 step vs the one-process step at {TRAIN_BATCH} x "
+        f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]} (same weights and batch, "
+        f"deterministic cuDNN, float32): loss {r0['loss']:.6f} vs "
+        f"{ref_loss:.6f} (relative {loss_rel:.3e}, bar {SP_LOSS_RTOL}); "
+        f"whole-gradient L2 {l2:.3e} (bar {SP_L2_BAR}); largest "
+        f"gradient-leaf max |diff| / max |value| "
+        f"{[(n, f'{e:.3e}') for e, n in errs[:6]]}, median leaf "
+        f"{errs[len(errs) // 2][0]:.3e} (recorded: the float32 step's own "
+        f"noise at this size, see SP_L2_BAR)")
+    if not loss_rel <= SP_LOSS_RTOL or not l2 < SP_L2_BAR:
+        fail(f"dp1 x sp2 step at {TRAIN_CROP}: loss off by {loss_rel:.3e}, "
+             f"whole gradient by {l2:.3e}")
+
+    # timing, memory, exchanges
+    for r in (r0, r1):
+        med, p90, mean_ms, enq = r["step"]
+        log(f"dp1 x sp2 step, rank {r['rank']} ({SP_STEPS} steps back to "
+            f"back, both ranks on the one card): median {med:.4f} ms, p90 "
+            f"{p90:.4f} ms, mean {mean_ms:.4f} ms, host enqueue {enq:.4f} "
+            f"ms; halo exchanges {r['halo'][1]} a step, {r['halo'][0]:.3f} "
+            f"ms of host time; all the context's collectives "
+            f"{r['collectives_ms']:.3f} ms; peak device memory "
+            f"{r['peak_mib']:.1f} MiB")
+    log(f"one-process step, deterministic cuDNN (same call, {SP_STEPS} "
+        f"steps): median {one_step[0]:.4f} ms, p90 {one_step[1]:.4f} ms")
+
+    # the sp2 whole-image eval against the one-rank eval
+    shares = [float((a == b).mean()) for a, b in zip(r0["labels"],
+                                                     one_labels)]
+    log(f"sp2 whole-image eval at {H}x{W}: labels agree with the one-rank "
+        f"Evaluator on {shares} of pixels (bar {SP_AGREE}); "
+        f"{r0['eval'][0]:.4f} ms an image on rank 0 (p90 "
+        f"{r0['eval'][1]:.4f}), {r1['eval'][0]:.4f} on rank 1; one rank "
+        f"{one_eval[0]:.4f} ms (p90 {one_eval[1]:.4f}) in this call")
+    if min(shares) < SP_AGREE:
+        fail(f"sp2 eval labels agree on {min(shares)} < {SP_AGREE}")
+
+    rows = r0["rows"]
+    rows[0]["max_abs_err"], rows[1]["max_abs_err"] = (r0["k8_err"],
+                                                      r0["k9_diff"])
     return rows
 
 

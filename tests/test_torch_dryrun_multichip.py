@@ -5,9 +5,9 @@
   evaluate whole-image, sharded, with the histograms summed over the group;
   it passes its own checks (finite losses, the loss falls, every pixel
   counted once);
-* the two-process leg (``parallel._multihost_worker``), two worker
-  processes in one gloo group: equal, falling losses and equal merged pixel
-  counts;
+* the four-rank leg (``parallel._multihost_worker``), four worker
+  processes in one gloo group: dp4 and dp2 x sp2 losses equal on every
+  rank and falling, equal merged pixel counts;
   (the same ``Tiny`` step against JAX: ``test_torch_multihost.py``);
 * the deterministic resize backward (ROADMAP C1): the gradient of the
   port's ``upsample_by_scale`` / ``resize_bilinear_align_corners`` equals
@@ -36,20 +36,31 @@ from torchseg_tpu_torch.parallel import _multihost_worker as W
 
 
 def test_dryrun_multichip_two_gloo_ranks(capsys):
-    losses, acc = dryrun_multichip(2, device="cpu")
+    losses, acc, sp_losses, sp_acc = dryrun_multichip(2, device="cpu")
     assert len(losses) == 20 and np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
     assert acc.hist.shape == (19, 19)
     assert int(acc.hist.sum()) == 4 * 32 * 32
     assert int(acc.labeled) == 4 * 32 * 32
     assert 0 <= int(acc.correct) <= int(acc.labeled)
+    # the dp1 x sp2 leg: its own falling curve, its sharded eval counting
+    # every pixel of the four 32x32 images once
+    assert len(sp_losses) == 20 and np.isfinite(sp_losses).all()
+    assert np.mean(sp_losses[-3:]) < np.mean(sp_losses[:3])
+    assert int(sp_acc.hist.sum()) == int(sp_acc.labeled) == 4 * 32 * 32
 
 
 def test_two_process_leg_on_the_cpu():
-    a, b = W.run_two_process_leg("cpu")
-    assert a["losses"] == b["losses"] and len(a["losses"]) == W.N_STEPS
-    assert a["local_pixels"] + b["local_pixels"] == a["merged_pixels"]
-    assert a["merged_pixels"] == 6 * 8 * 8
+    """The leg is four ranks since the dp x sp half came (JAX's two
+    processes hold two devices each)."""
+    outs = W.run_four_rank_leg("cpu")
+    assert len(outs) == W.N_RANKS == 4
+    for o in outs:
+        assert o["losses"] == outs[0]["losses"]
+        assert o["sp_losses"] == outs[0]["sp_losses"]
+        assert o["merged_pixels"] == 6 * 8 * 8
+    assert len(outs[0]["losses"]) == len(outs[0]["sp_losses"]) == W.N_STEPS
+    assert sum(o["local_pixels"] for o in outs) == 6 * 8 * 8
 
 
 # -- C1: the resize backward through the interpolation matrices -----------

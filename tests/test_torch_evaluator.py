@@ -1,7 +1,7 @@
 """PyTorch port, the whole-image ``Evaluator`` (``engine/evaluator.py``) and
 ``ops.resize.resize_linear`` against the JAX package on the CPU.
 
-The model is the two-process leg's ``Tiny`` (ConvBnRelu(3 -> 8) and a 1x1
+The model is the multi-process leg's ``Tiny`` (ConvBnRelu(3 -> 8) and a 1x1
 conv to 3 classes, log-softmax out) with the JAX module's variables (random
 BN statistics) carried by ``utils.jax_params.from_jax_variables``.  Against
 ``torchseg_tpu.engine.evaluator.Evaluator``: ``whole_eval`` at 8x8, at a
@@ -217,7 +217,9 @@ def test_unported_protocols_raise(models):
             ev.run_dataset(ds, mode="whole", **kw)
     with pytest.raises(NotImplementedError, match="A7"):
         _evaluators(models, False, shard_crops=True)
-    with pytest.raises(NotImplementedError, match="A2b"):
+    # spatial_shards is ported (test_torch_spatial.py); without a process
+    # group of a multiple of its ranks it raises
+    with pytest.raises(ValueError, match="ranks"):
         _evaluators(models, False, spatial_shards=2)
 
 

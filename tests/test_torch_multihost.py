@@ -1,4 +1,4 @@
-"""PyTorch port, the two-process leg's ``Tiny`` step
+"""PyTorch port, the multi-process leg's ``Tiny`` step
 (``parallel._multihost_worker.train_and_eval``) on two gloo ranks (DDP,
 SyncBN over the group) against JAX's ``Trainer`` on a two-device CPU mesh
 (BN synced over the mesh axis, as the JAX multi-host worker builds it),
@@ -8,6 +8,13 @@ stat within 1e-5 of its largest entry on both ranks, and the ranks'
 sharded whole-image evaluation merged to the whole dataset's pixels (and a
 numpy histogram summed over the group by ``gather_metrics``).  One JAX
 train-step compile.
+
+The four-rank leg's dp2 x sp2 half (``_multihost_worker.sp_train``: Tiny
+under ``SpatialTrainer``, its BN over the space context's groups) on four
+gloo ranks against JAX's ``SpatialTrainer`` running the JAX worker's
+``TinyG`` (global-batch BN) on a dp2 x sp2 mesh of four of the CPU
+devices, from the same variables on the same global batch: the
+``sp_losses`` within 1e-5 relative on every rank (float32).
 """
 
 import os
@@ -25,6 +32,8 @@ from torchseg_tpu.engine.trainer import TrainState as JTrainState
 from torchseg_tpu.engine.trainer import Trainer as JTrainer
 from torchseg_tpu.engine.trainer import make_data_mesh
 from torchseg_tpu.ops.losses import cross_entropy_with_ignore as jce
+from torchseg_tpu.parallel import SpatialTrainer as JSpatialTrainer
+from torchseg_tpu.parallel import make_dp_sp_mesh as jmake_dp_sp_mesh
 from torchseg_tpu_torch.parallel import _multihost_worker as W
 from torchseg_tpu_torch.parallel import gather_metrics
 from torchseg_tpu_torch.utils.jax_params import from_jax_variables
@@ -92,3 +101,40 @@ def test_two_rank_tiny_steps_match_jax_two_device_mesh(tmp_path):
             np.testing.assert_allclose(got[name], v.numpy(), rtol=0,
                                        atol=1e-5 * scale, err_msg=name)
     assert int(ranks[0]["c1.bn.num_batches_tracked"]) == W.N_STEPS
+
+
+def _sp_worker(rank, world, port, state_dict, out_dir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        losses = W.sp_train("cpu", state_dict=state_dict)
+        np.save(os.path.join(out_dir, f"sp{rank}.npy"), np.array(losses))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_four_rank_sp_losses_match_jax_spatial_trainer(tmp_path):
+    batch = W.global_batch()
+    images = batch["image"].permute(0, 2, 3, 1).numpy()
+    jbatch = {"image": jnp.asarray(images),
+              "label": jnp.asarray(batch["label"].numpy().astype(np.int32))}
+    trainer = JSpatialTrainer(
+        JTiny(), lambda o, b: jce(o["main"], b["label"], 255),
+        JPolyLR(0.2, 0.9, 100),
+        mesh=jmake_dp_sp_mesh(2, 2, jax.devices()[:4]), donate=False)
+    state = trainer.init_state(jax.random.PRNGKey(0),
+                               {"image": jbatch["image"][:1]})
+    start = from_jax_variables(jax.tree.map(np.asarray, {
+        "params": state.params, "batch_stats": state.batch_stats}))
+    ref = []
+    for i in range(W.N_STEPS):
+        state, loss, _ = trainer.train_step(state, jbatch,
+                                            jax.random.PRNGKey(20 + i))
+        ref.append(float(loss))
+
+    mp.spawn(_sp_worker, args=(W.N_RANKS, _free_port(), start,
+                               str(tmp_path)), nprocs=W.N_RANKS, join=True)
+    for r in range(W.N_RANKS):
+        np.testing.assert_allclose(np.load(tmp_path / f"sp{r}.npy"), ref,
+                                   rtol=1e-5)

@@ -18,7 +18,10 @@ int8 max pool.  BiSeNet-X39.speed serves in bf16 (``entry.deploy_entry``;
 ``ops/kernels/stem_conv.py`` / ``csrc/stem_conv.cu``.  Training across
 processes (``entry.dryrun_multichip``) adds the distributed layer
 (``parallel/``), whole-image evaluation (``engine/evaluator.py``,
-``ops/metrics.py``) and the synthetic dataset (``data/``).
+``ops/metrics.py``) and the synthetic dataset (``data/``); its dp x sp leg
+shards the image height over ranks (``parallel/spatial.py``: the mesh,
+the batch split, ``SpatialTrainer``; ``ops/spatial.py``: the halo
+exchanges and the other sharded ops, with SyncBN over the 2-D group).
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

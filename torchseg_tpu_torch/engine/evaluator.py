@@ -16,12 +16,25 @@ world size of the initialized process group), and the multi-device path
 (one worker thread a device, contiguous index shards, a worker's error
 re-raised).
 
+``spatial_shards=n`` (JAX :82-116, :348-440): whole-image evaluation with
+the image height split over a space group of n ranks (the initialized
+process group's ranks in consecutive blocks of n, ``parallel.spatial.
+make_dp_sp_mesh(world // n, n)``).  Every rank reads the whole image, runs
+the model on its rows under a ``SpaceContext`` (``ops.spatial``: halo
+rows, gathered small maps, space-group means and resizes), and the int32
+labels are gathered so that every rank gets the full label map (the scores
+are gathered instead when a margin or a resize follows).  The split is at
+multiples of ``ops.spatial.split_unit`` rows (``plan_rows``), where JAX
+pads uneven shards.  ``run_dataset`` then splits the images over the data
+groups, and each rank counts its own band of each label map's rows, so
+the histograms summed over the group count every pixel once.  The model is
+read at every call, so a swapped ``model_or_state`` is honoured.
+
 Not ported yet, each raising ``NotImplementedError``: the sliding-window
 protocol with its msf and flip modes and ``shard_crops`` (ROADMAP A7); the
 speed protocol's cv2 resizes (``resize_to``, ``gt_down_sampling``), the
 prediction dump (``save_pred_dir``), the submission remap (``submit_dir``)
-and ``show_image`` (A7); whole-image GSPMD over a space mesh
-(``spatial_shards``, ROADMAP A2b).
+and ``show_image`` (A7).
 """
 
 import copy
@@ -38,6 +51,7 @@ from torch import nn
 from ..data.transforms import normalize, pad_image_to_shape
 from ..ops.metrics import ConfusionAccumulator
 from ..ops.resize import resize_linear
+from ..ops.spatial import plan_rows
 from .logger import get_logger
 
 _A7 = "is not ported yet (ROADMAP A7: evaluation protocols)"
@@ -68,6 +82,10 @@ class Evaluator:
       is_flip: flip TTA.
       devices: several devices: ``run_dataset`` runs one worker thread on
         each (a model on another device is deep-copied there).
+      shard_crops: the sliding protocol's crop sharding (ROADMAP A7).
+      spatial_shards: n > 1 splits each image's height over a space group
+        of n ranks of the initialized process group (module docstring);
+        every rank of the group constructs the evaluator.
       device: where it runs without ``devices`` (default the card).
     """
 
@@ -88,12 +106,26 @@ class Evaluator:
         spatial_shards: int = 1,
         device="cuda",
     ):
+        self.spatial_shards = int(spatial_shards)
+        if shard_crops and self.spatial_shards > 1:
+            raise ValueError("spatial_shards and shard_crops are mutually "
+                             "exclusive (whole vs sliding protocol "
+                             "parallelism)")
         if shard_crops:
             raise NotImplementedError(f"shard_crops {_A7}")
-        if int(spatial_shards) > 1:
-            raise NotImplementedError(
-                "spatial_shards (whole-image GSPMD over a space mesh) is not "
-                "ported yet (ROADMAP A2b: the dp x sp leg)")
+        self._mesh = None
+        if self.spatial_shards > 1:
+            n = self.spatial_shards
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            if not world or world % n:
+                raise ValueError(
+                    f"spatial_shards={n} needs a process group of a multiple "
+                    f"of {n} ranks (devices, one a rank), have {world}")
+            if devices is not None and len(devices) > 1:
+                raise ValueError("spatial_shards runs one device a rank; "
+                                 "devices= is the multi-device path")
+            from ..parallel.spatial import make_dp_sp_mesh
+            self._mesh = make_dp_sp_mesh(world // n, n)
         self.apply_fn = apply_fn
         self.num_classes = num_classes
         self.image_mean = np.asarray(image_mean, np.float32)
@@ -135,7 +167,10 @@ class Evaluator:
     def _whole(self, img_u8: torch.Tensor, margin, output_size):
         """uint8 HWC on the device -> normalize (pad margin masked to 0) ->
         forward (+flip) -> exp -> unpad -> resize -> argmax: (H, W) int32
-        on the device (JAX ``_whole_fn``)."""
+        on the device (JAX ``_whole_fn``).  With ``spatial_shards`` the
+        forward runs on this rank's rows, and the labels (or, before an
+        unpad or a resize, the scores) are gathered over the space
+        group."""
         x = (img_u8.float() / self._255 - self._mean) / self._std
         if margin is not None:
             t, b, l, r = margin
@@ -145,13 +180,19 @@ class Evaluator:
             inside[t:h - b, l:w - r] = True
             x = torch.where(inside, x, torch.zeros((), device=x.device))
         x = x.permute(2, 0, 1)[None].contiguous()
-        if self.is_flip:
-            s = self.apply_fn(self.model_or_state,
-                              torch.cat([x, x.flip(-1)])).float()
-            score = s[0] + s[1].flip(-1)
+        space = self._space(x.shape[-2:])
+        if space is None:
+            score = self._score(x)
         else:
-            score = self.apply_fn(self.model_or_state, x)[0].float()
-        score = torch.exp(score)
+            r0, r1 = space.rows(space.levels[0])
+            with space:
+                score = self._score(x[:, :, r0:r1].contiguous())
+            # a score at a size no shard holds is whole on every rank
+            if space.level_of(score) is not None:
+                if margin is None and (output_size is None or tuple(
+                        output_size) == tuple(x.shape[-2:])):
+                    return space.gather(score.argmax(dim=0).to(torch.int32))
+                score = space.gather(score)
         if margin is not None:
             t, b, l, r = margin
             score = score[:, t:score.shape[1] - b, l:score.shape[2] - r]
@@ -159,6 +200,25 @@ class Evaluator:
                 tuple(score.shape[1:]) != tuple(output_size):
             score = resize_linear(score, output_size)
         return score.argmax(dim=0).to(torch.int32)
+
+    def _score(self, x: torch.Tensor) -> torch.Tensor:
+        """exp of the model's (flip-summed) score of one NCHW image: (C,
+        H, W) float32."""
+        if self.is_flip:
+            s = self.apply_fn(self.model_or_state,
+                              torch.cat([x, x.flip(-1)])).float()
+            score = s[0] + s[1].flip(-1)
+        else:
+            score = self.apply_fn(self.model_or_state, x)[0].float()
+        return torch.exp(score)
+
+    def _space(self, hw):
+        """The space context of an image of ``hw`` (None without
+        ``spatial_shards``, or when no map of it would be sharded)."""
+        if self._mesh is None:
+            return None
+        bounds = plan_rows(int(hw[0]), self._mesh.sp)
+        return None if bounds is None else self._mesh.context(hw, bounds)
 
     def whole_eval(self, img, output_size=None, input_size=None):
         """Single forward on the (optionally padded) image (:164-183).
@@ -233,10 +293,14 @@ class Evaluator:
             if value is not None:
                 raise NotImplementedError(f"{name} {_A7}")
         group = dist.is_initialized()
-        pidx = process_index if process_index is not None else (
-            dist.get_rank() if group else 0)
-        pcnt = process_count if process_count is not None else (
-            dist.get_world_size() if group else 1)
+        if self._mesh is not None:  # the images split over the data groups
+            group_index, group_count = self._mesh.data_index, self._mesh.dp
+        else:
+            group_index, group_count = ((dist.get_rank(),
+                                         dist.get_world_size()) if group
+                                        else (0, 1))
+        pidx = process_index if process_index is not None else group_index
+        pcnt = process_count if process_count is not None else group_count
         if self.devices is not None and len(self.devices) > 1:
             return self._run_dataset_multidevice(dataset, label_offset,
                                                  pidx, pcnt)
@@ -283,8 +347,13 @@ class Evaluator:
         if label_offset:
             label = label.astype(np.int64) + label_offset
         pred = self.whole_eval(item["image"], output_size=label.shape)
-        return pred, torch.from_numpy(
-            np.ascontiguousarray(label)).to(self.device)
+        label = torch.from_numpy(np.ascontiguousarray(label)).to(self.device)
+        if self._mesh is not None:  # this rank's band of rows is counted
+            n, s = self._mesh.sp, self._mesh.space_index
+            h = label.shape[0]
+            pred = pred[s * h // n:(s + 1) * h // n]
+            label = label[s * h // n:(s + 1) * h // n]
+        return pred, label
 
     def _run_dataset_multidevice(self, dataset, label_offset, pidx, pcnt):
         """One worker thread per device, contiguous index shards — the

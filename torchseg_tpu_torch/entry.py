@@ -38,9 +38,13 @@ dryrun_multichip``'s data-parallel legs: BiSeNet-R18 at full width on
 32x32 crops, one image a rank, trained for 20 steps over n processes (DDP,
 SyncBN over the group: K8's sums all-reduced, folded, K9), then a
 whole-image evaluation sharded over the ranks and the histograms summed
-over the group.  Its two-process gloo leg is
-``parallel._multihost_worker.run_two_process_leg``; the dp x sp leg is not
-ported yet (ROADMAP A2b).
+over the group.  For an even n it then runs the dp x sp leg
+(``__graft_entry__.py:177-247``): dp n/2 x sp 2 (``parallel.spatial``:
+``SpatialTrainer``, SyncBN of K8's sums over the 2-D group or, for whole
+maps, the data group, then K9), 20 steps on the same global batch, and the
+sp2-sharded whole-image evaluation of ``SyntheticDataset(4, (32, 32))``.
+Its four-rank gloo leg is ``parallel._multihost_worker.
+run_four_rank_leg``.
 
 TF32 is switched off for cuDNN convolutions and matmuls: calibration runs
 the float graph in float32, and TF32 would round its convolutions to ~10
@@ -68,6 +72,7 @@ from .experiments.registry import build_loss_fn, build_model, get_experiment
 from .models import init_weights
 from .ops.metrics import ConfusionAccumulator
 from .parallel.mesh import gather_metrics, shard_batch
+from .parallel.spatial import SpatialTrainer, make_dp_sp_mesh
 
 EXPERIMENT = "cityscapes.bisenet.R18.speed"
 PSP_EXPERIMENT = "ade.pspnet.R50_v1c"
@@ -262,9 +267,58 @@ def multichip_trainer(rank: int, world: int, device="cuda", seed: int = 0):
     return trainer, data
 
 
+def _check_falls(tag: str, losses):
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag}: non-finite training loss: {losses}")
+    start, end = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not end < start:
+        raise RuntimeError(
+            f"{tag} did not reduce the loss: {start:.4f} -> {end:.4f} over "
+            f"{len(losses)} steps; losses {[round(v, 4) for v in losses]}")
+    return start, end
+
+
+def _eval_merged(ev, n_img: int, **kw):
+    """``ev``'s whole-image run over ``SyntheticDataset(n_img, (32, 32))``,
+    the counts summed over the group; raises unless every pixel is counted
+    once."""
+    cfg = get_experiment(TRAIN_EXPERIMENT)
+    hw = MULTICHIP_CROP
+    ds = SyntheticDataset(num_items=n_img, image_hw=(hw, hw),
+                          num_classes=cfg.num_classes)
+    acc = ev.run_dataset(ds, mode="whole", **kw)
+    acc.hist = gather_metrics(acc.hist)
+    acc.labeled = gather_metrics(acc.labeled)
+    acc.correct = gather_metrics(acc.correct)
+    if int(acc.hist.sum()) != n_img * hw * hw:
+        raise RuntimeError(f"merged histogram holds {int(acc.hist.sum())} "
+                           f"pixels, expected {n_img * hw * hw}")
+    return acc
+
+
+def multichip_sp_trainer(world: int, device="cuda", seed: int = 0):
+    """This rank's dp (world / 2) x sp 2 trainer of ``dryrun_multichip``
+    inside the initialized group (``__graft_entry__.py:177-206``: the
+    model with global-batch BN, the loss of ``num_shards=1``, PolyLR(lr,
+    power, 100), no parameter groups), on cuDNN's deterministic
+    algorithms; its state initialized from ``seed``."""
+    dev = _rank_device(device, dist.get_rank(), dist.get_backend())
+    cfg = dataclasses.replace(get_experiment(TRAIN_EXPERIMENT),
+                              image_height=MULTICHIP_CROP,
+                              image_width=MULTICHIP_CROP, batch_size=world)
+    trainer = SpatialTrainer(
+        build_model(cfg).to(dev), build_loss_fn(cfg, num_shards=1),
+        PolyLR(cfg.lr, cfg.lr_power, MULTICHIP_TOTAL_ITERS),
+        sgd_momentum=cfg.momentum, mesh=make_dp_sp_mesh(world // 2, 2),
+        deterministic=True)
+    trainer.init_state(torch.Generator().manual_seed(seed))
+    return trainer
+
+
 def _dryrun_rank(rank: int, world: int, device, seed: int = 0):
     """This rank's part of ``dryrun_multichip``: (losses, the accumulator
-    with the group's summed counts)."""
+    with the group's summed counts, and the same two of the dp x sp leg,
+    None for an odd world)."""
     trainer, data = multichip_trainer(rank, world, device, seed)
     state, model = trainer.state, trainer.model
     dev = data["image"].device
@@ -273,42 +327,45 @@ def _dryrun_rank(rank: int, world: int, device, seed: int = 0):
     for _ in range(MULTICHIP_STEPS):
         loss, lr = trainer.train_step(data)
         losses.append(float(loss))
-    if not all(np.isfinite(losses)):
-        raise RuntimeError(f"non-finite training loss: {losses}")
     if state.step != MULTICHIP_STEPS:
         raise RuntimeError(f"step {state.step} after {MULTICHIP_STEPS} "
                            f"steps")
-    start, end = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
-    if not end < start:
-        raise RuntimeError(
-            f"multi-process training did not reduce the loss: {start:.4f} "
-            f"-> {end:.4f} over {MULTICHIP_STEPS} steps; losses "
-            f"{[round(v, 4) for v in losses]}")
+    start, end = _check_falls("multi-process training", losses)
 
     # sharded whole-image evaluation of the trained weights: each rank its
     # shard of the indices, the histograms summed over the group
     model.eval()
     ev = Evaluator(lambda m, x: m(x), model, cfg.num_classes,
                    cfg.image_mean, cfg.image_std, device=dev)
-    n_img, hw = 2 * world, MULTICHIP_CROP
-    ds = SyntheticDataset(num_items=n_img, image_hw=(hw, hw),
-                          num_classes=cfg.num_classes)
-    acc = ev.run_dataset(ds, mode="whole", process_index=rank,
-                         process_count=world)
-    acc.hist = gather_metrics(acc.hist)
-    acc.labeled = gather_metrics(acc.labeled)
-    acc.correct = gather_metrics(acc.correct)
-    if int(acc.hist.sum()) != n_img * hw * hw:
-        raise RuntimeError(f"merged histogram holds {int(acc.hist.sum())} "
-                           f"pixels, expected {n_img * hw * hw}")
-    _, miou, _, _ = acc.scores()
+    acc = _eval_merged(ev, 2 * world, process_index=rank,
+                       process_count=world)
     if rank == 0:
         print(f"dryrun_multichip dp{world} ({dist.get_backend()}, {dev}): "
               f"loss {start:.4f} -> {end:.4f} over {MULTICHIP_STEPS} "
               f"steps, lr={lr:.2e}; sharded whole eval over {world} "
-              f"rank(s): {n_img} imgs, hist ok, mIoU={miou:.4f}",
-              flush=True)
-    return losses, acc
+              f"rank(s): {2 * world} imgs, hist ok, "
+              f"mIoU={acc.scores()[1]:.4f}", flush=True)
+    if world % 2:
+        return losses, acc, None, None
+
+    # the dp x sp leg: the same global batch, the image height over two
+    # ranks, then the sp2-sharded whole-image eval of the trained weights
+    sp_trainer = multichip_sp_trainer(world, device, seed)
+    sp_losses = [float(sp_trainer.train_step(multichip_batch(world))[0])
+                 for _ in range(MULTICHIP_STEPS)]
+    sp_start, sp_end = _check_falls(f"dp{world // 2} x sp2 training",
+                                    sp_losses)
+    sp_model = sp_trainer.model.eval()
+    sp_ev = Evaluator(lambda m, x: m(x), sp_model, cfg.num_classes,
+                      cfg.image_mean, cfg.image_std, device=dev,
+                      spatial_shards=2)
+    sp_acc = _eval_merged(sp_ev, 4)
+    if rank == 0:
+        print(f"dryrun_multichip dp{world // 2} x sp2: loss {sp_start:.4f} "
+              f"-> {sp_end:.4f} over {MULTICHIP_STEPS} steps; sp2-sharded "
+              f"whole eval: 4 imgs, hist ok, "
+              f"mIoU={sp_acc.scores()[1]:.4f}", flush=True)
+    return losses, acc, sp_losses, sp_acc
 
 
 def _free_port() -> int:
@@ -323,10 +380,11 @@ def _dryrun_worker(rank, world, port, backend, device, out):
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
-        losses, acc = _dryrun_rank(rank, world, device)
+        results = _dryrun_rank(rank, world, device)
         if rank == 0:
-            out.put((losses, acc.hist.cpu().numpy(), int(acc.labeled),
-                     int(acc.correct)))
+            out.put([None if a is None else a if isinstance(a, list) else (
+                a.hist.cpu().numpy(), int(a.labeled), int(a.correct))
+                for a in results])
     finally:
         dist.destroy_process_group()
 
@@ -336,10 +394,14 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None):
     SyncBN, one 32x32 image a rank, the JAX dryrun's batch and schedule),
     evaluate the trained weights on ``SyntheticDataset(2n, (32, 32))``
     whole-image, sharded over the ranks, and sum the histograms over the
-    group; raises unless every loss is finite, the last three losses'
-    mean is below the first three's and the merged histogram counts every
-    pixel (``__graft_entry__.py:50-175``).  Returns (losses, merged
-    ``ConfusionAccumulator``).
+    group; for an even n, then the dp (n/2) x sp 2 leg: 20 steps of
+    ``SpatialTrainer`` from the same seed on the same global batch and the
+    sp2-sharded whole-image eval of ``SyntheticDataset(4, (32, 32))``.
+    Raises unless every loss is finite, each leg's last three losses' mean
+    is below its first three's and each merged histogram counts every
+    pixel once (``__graft_entry__.py:50-247``).  Returns (losses, merged
+    ``ConfusionAccumulator``, sp_losses, sp accumulator), the last two
+    None for an odd n.
 
     Inside an initialized process group (``torchrun``, or a caller's own
     group) it runs as this rank, on the group's world size, and returns
@@ -374,10 +436,12 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None):
     mp.spawn(_dryrun_worker, args=(n_devices, _free_port(), backend,
                                    str(dev), out),
              nprocs=n_devices, join=True)
-    losses, hist, labeled, correct = out.get()
+    losses, counts, sp_losses, sp_counts = out.get()
     cfg = get_experiment(TRAIN_EXPERIMENT)
-    acc = ConfusionAccumulator(cfg.num_classes, device="cpu",
-                               hist=torch.from_numpy(hist),
-                               labeled=torch.tensor(labeled),
-                               correct=torch.tensor(correct))
-    return losses, acc
+
+    def accumulator(c):
+        return None if c is None else ConfusionAccumulator(
+            cfg.num_classes, device="cpu", hist=torch.from_numpy(c[0]),
+            labeled=torch.tensor(c[1]), correct=torch.tensor(c[2]))
+
+    return losses, accumulator(counts), sp_losses, accumulator(sp_counts)

@@ -10,6 +10,9 @@ Train mode returns the three heads' logits, ``{"aux0", "aux1", "main"}``
 its head scale in float32 (JAX models/bisenet.py:163-181).  JAX's
 ``train_raw_logits`` (raw heads for the fused upsample+loss) is not ported:
 that path is off for every family there (``FUSED_UPSAMPLE_LOSS_MODELS``).
+Sizes are global (``ops.spatial.global_hw``) and the global context is
+``ops.spatial.mean_hw``, so the same forward runs with the image height
+sharded over a space group.
 """
 
 from typing import Sequence
@@ -26,6 +29,7 @@ from ..ops.blocks import (
 )
 from ..ops.norm import BatchNorm2d
 from ..ops.resize import resize_bilinear_align_corners, upsample_by_scale
+from ..ops.spatial import global_hw, mean_hw
 
 
 class SpatialPath(nn.Module):
@@ -114,14 +118,14 @@ class BiSeNet(nn.Module):
                                      stem_pooled=bb_pooled))
         context.reverse()  # [/32, /16, /8, /4]
 
-        gc = self.global_context(context[0].mean(dim=(2, 3), keepdim=True))
-        last_fm = resize_bilinear_align_corners(gc, context[0].shape[2:])
+        gc = self.global_context(mean_hw(context[0]))
+        last_fm = resize_bilinear_align_corners(gc, global_hw(context[0]))
         refined = []
         for i, (arm, refine) in enumerate(((self.arm0, self.refine0),
                                            (self.arm1, self.refine1))):
             fm = arm(context[i]) + last_fm
             last_fm = refine(resize_bilinear_align_corners(
-                fm, context[i + 1].shape[2:]))
+                fm, global_hw(context[i + 1])))
             refined.append(last_fm)
         fused = self.ffm(spatial_out, last_fm)
         if self.training:

@@ -12,7 +12,9 @@ in row-major order, JAX's tie rule (ops/maxpool.py:93-107 there).
 Submodule names are the flax names (``conv1``/``bn1`` or ``stem_conv1``,
 ``stem_bn1``, ``stem_conv2``, ``stem_bn2``, ``stem_conv3`` and ``bn1``;
 ``layer1_0`` ... with ``conv1/bn1/conv2/bn2[/conv3/bn3]`` and
-``downsample_conv/downsample_bn``).  Tensors are NCHW.
+``downsample_conv/downsample_bn``).  Tensors are NCHW.  The convs and the
+stem pool go through ``ops.spatial`` (halo rows when a space context
+shards the map).
 """
 
 from typing import Sequence, Tuple
@@ -23,6 +25,7 @@ from torch import nn
 from ..ops.blocks import NormFactory
 from ..ops.maxpool import stem_pool
 from ..ops.norm import BatchNorm2d, bn_act
+from ..ops.spatial import conv2d
 
 
 def _conv(cin: int, cout: int, ksize: int, stride: int = 1,
@@ -54,12 +57,12 @@ class BasicBlock(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = bn_act(self.bn1, self.conv1(x), relu=True)
-        out = bn_act(self.bn2, self.conv2(out), relu=False)
+        out = bn_act(self.bn1, conv2d(self.conv1, x), relu=True)
+        out = bn_act(self.bn2, conv2d(self.conv2, out), relu=False)
         residual = x
         if self.downsample_conv is not None:
-            residual = bn_act(self.downsample_bn, self.downsample_conv(x),
-                              relu=False)
+            residual = bn_act(self.downsample_bn,
+                              conv2d(self.downsample_conv, x), relu=False)
         return torch.relu(out + residual)
 
 
@@ -89,13 +92,13 @@ class Bottleneck(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = bn_act(self.bn1, self.conv1(x), relu=True)
-        out = bn_act(self.bn2, self.conv2(out), relu=True)
-        out = bn_act(self.bn3, self.conv3(out), relu=False)
+        out = bn_act(self.bn1, conv2d(self.conv1, x), relu=True)
+        out = bn_act(self.bn2, conv2d(self.conv2, out), relu=True)
+        out = bn_act(self.bn3, conv2d(self.conv3, out), relu=False)
         residual = x
         if self.downsample_conv is not None:
-            residual = bn_act(self.downsample_bn, self.downsample_conv(x),
-                              relu=False)
+            residual = bn_act(self.downsample_bn,
+                              conv2d(self.downsample_conv, x), relu=False)
         return torch.relu(out + residual)
 
 
@@ -141,10 +144,10 @@ class ResNet(nn.Module):
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         if not self.deep_stem:
-            return bn_act(self.bn1, self.conv1(x), relu=True)
-        x = bn_act(self.stem_bn1, self.stem_conv1(x), relu=True)
-        x = bn_act(self.stem_bn2, self.stem_conv2(x), relu=True)
-        return bn_act(self.bn1, self.stem_conv3(x), relu=True)
+            return bn_act(self.bn1, conv2d(self.conv1, x), relu=True)
+        x = bn_act(self.stem_bn1, conv2d(self.stem_conv1, x), relu=True)
+        x = bn_act(self.stem_bn2, conv2d(self.stem_conv2, x), relu=True)
+        return bn_act(self.bn1, conv2d(self.stem_conv3, x), relu=True)
 
     def forward(self, x: torch.Tensor, stem_features=None,
                 stem_pooled=None) -> Tuple[torch.Tensor, ...]:

@@ -10,7 +10,10 @@ are the flax module names (``conv``, ``bn``, ``conv_3x3``,
 calibration paths.  Tensors are NCHW.  In train mode a
 ConvBnRelu hands its ReLU to the BN (``ops.norm.bn_act``), whose affine
 kernel applies it; the ARM and FFM gates normalize (B, C, 1, 1) tensors,
-n = B per channel, which the port's BN accepts down to n = 1.
+n = B per channel, which the port's BN accepts down to n = 1.  The convs
+of ConvBnRelu and SeparableConvBnRelu and the ARM and FFM global means go
+through ``ops.spatial`` (halo rows and space-group sums when a space
+context shards the map; the plain ops otherwise).
 """
 
 from typing import Callable
@@ -19,6 +22,7 @@ import torch
 from torch import nn
 
 from .norm import BatchNorm2d, bn_act
+from .spatial import conv2d, mean_hw
 
 NormFactory = Callable[[int], nn.Module]
 
@@ -38,7 +42,7 @@ class ConvBnRelu(nn.Module):
         self.has_relu = has_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        x = conv2d(self.conv, x)
         if self.bn is not None:
             return bn_act(self.bn, x, self.has_relu)
         return torch.relu(x) if self.has_relu else x
@@ -63,7 +67,7 @@ class SeparableConvBnRelu(nn.Module):
                                     has_relu=has_relu, norm=norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.depthwise(x)
+        x = conv2d(self.depthwise, x)
         if self.bn is not None:
             x = bn_act(self.bn, x, relu=False)
         return self.pointwise(x)
@@ -82,8 +86,7 @@ class AttentionRefinement(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fm = self.conv_3x3(x)
-        se = torch.sigmoid(self.channel_attention(
-            fm.mean(dim=(2, 3), keepdim=True)))
+        se = torch.sigmoid(self.channel_attention(mean_hw(fm)))
         return fm * se
 
 
@@ -102,7 +105,7 @@ class FeatureFusion(nn.Module):
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         fm = self.conv_1x1(torch.cat([x1, x2], dim=1))
-        se = fm.mean(dim=(2, 3), keepdim=True)
+        se = mean_hw(fm)
         se = torch.sigmoid(self.ca2(self.ca1(se)))
         return fm + fm * se
 

@@ -11,14 +11,24 @@ The histogram approximation (``approx_threshold``) is a TPU knob and is not
 ported.  Ported so far: the losses BiSeNet and DFN train with (CE with
 ignore, OHEM, DFN's border focal loss); the upsampled (fused) variants are
 not ported, that path being off for every family in JAX (ROADMAP A8).
+
+Under a space context (``ops.spatial``: the image height sharded over a
+dp x sp group of ranks) the scores and labels are this rank's pixels of
+the global batch, and every mean is the global one: the local sum over the
+weight (or pixel) count summed over the full group, so the ranks' losses
+add up to the one-process loss.  OHEM's threshold is the global k-th
+smallest target-class probability: it lies among each rank's own k
+smallest, which are gathered over the full group, so the kept set is the
+one-process ``torch.sort`` one exactly.
 """
 
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from . import wide
+from . import spatial, wide
 
 # Cityscapes 19-class weights used by ProbOhemCrossEntropy2d(use_weight=True)
 # (reference loss_opr.py:57-60).
@@ -49,7 +59,11 @@ def _weighted_mean(nll, keep, safe, class_weights):
         table = torch.as_tensor(class_weights, dtype=nll.dtype,
                                 device=nll.device)
         w = w * table[safe]
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    total = w.sum()
+    space = spatial.active()
+    if space is not None:
+        total = space.sum_full(total)
+    return (nll * w).sum() / torch.clamp(total, min=1e-12)
 
 
 def cross_entropy_with_ignore(scores: torch.Tensor, labels: torch.Tensor,
@@ -90,13 +104,36 @@ def _ohem_tail(gt_logp, valid, safe, thresh, min_kept, class_weights):
         with torch.no_grad():
             gt_prob = torch.where(valid, gt_logp.exp(),
                                   torch.ones_like(gt_logp))
-            k = min(gt_prob.numel(), int(min_kept))
-            kth = torch.sort(gt_prob).values[k - 1]
+            space = spatial.active()
+            if space is None:
+                n_valid = valid.sum()
+                k = min(gt_prob.numel(), int(min_kept))
+                kth = torch.sort(gt_prob).values[k - 1]
+            else:
+                n_valid, kth = _global_kth(space, gt_prob, valid,
+                                           int(min_kept))
             threshold = torch.clamp(kth, min=thresh)
             kept = valid & (gt_prob <= threshold)
             # min_kept > num_valid: no filtering (reference loss_opr.py:80)
-            keep = torch.where(valid.sum() < min_kept, valid, kept)
+            keep = torch.where(n_valid < min_kept, valid, kept)
     return _weighted_mean(-gt_logp, keep, safe, class_weights)
+
+
+def _global_kth(space, gt_prob, valid, min_kept):
+    """(valid pixels, k-th smallest probability) of the global batch, k =
+    min(pixels, min_kept): each rank's k smallest (padded with +inf),
+    gathered over the full group in a zero buffer, sorted."""
+    counts = space.sum_full(torch.stack([
+        torch.tensor(gt_prob.numel(), device=gt_prob.device),
+        valid.sum()]).to(torch.float64))
+    k = min(int(counts[0]), min_kept)
+    rank = dist.get_rank(space.full_group)
+    buf = gt_prob.new_zeros((dist.get_world_size(space.full_group), k))
+    buf[rank] = float("inf")
+    mine = torch.sort(gt_prob).values[:k]
+    buf[rank, :mine.numel()] = mine
+    space.all_reduce(buf, space.full_group, "loss")
+    return counts[1], torch.sort(buf.reshape(-1)).values[k - 1]
 
 
 def sigmoid_focal_loss_border(pred: torch.Tensor, target: torch.Tensor,

@@ -2,13 +2,15 @@
 torchseg_tpu/ops/maxpool.py ``stem_pool``).
 
 The JAX module carries a scatter-free custom backward, a TPU workaround;
-here the semantics are ``F.max_pool2d`` (implicit -inf padding).
+here the semantics are ``F.max_pool2d`` (implicit -inf padding), with
+halo rows when a space context shards the map (``ops.spatial``).
 """
 
 import torch
-import torch.nn.functional as F
+
+from .spatial import max_pool_3x3s2
 
 
 def stem_pool(x: torch.Tensor) -> torch.Tensor:
     """NCHW 3x3 stride-2 pad-1 max pool."""
-    return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+    return max_pool_3x3s2(x)

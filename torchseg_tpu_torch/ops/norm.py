@@ -30,13 +30,17 @@ process group as torch's SyncBatchNorm does, so that with DDP's averaging
 of the parameter gradients it equals JAX's ``pmean`` inside the forward.
 A channel of one element (n = 1, e.g. a (1, C, 1, 1) gate at batch 1) gets
 var = 0, as in JAX; ``nn.BatchNorm2d`` refuses it.
+Under a space context (``ops.spatial``: the image height sharded over a
+space group) the group is the context's: the full dp x sp group for a
+sharded map, the data group for a whole one (gathered or pooled, held by
+every space rank), so that n and the moments count each pixel once.
 """
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from . import wide
+from . import spatial, wide
 from .kernels import bn_kernels as K
 
 
@@ -118,7 +122,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         if self.training:
-            group = self.process_group
+            space = spatial.active()
+            group = (self.process_group if space is None
+                     else space.bn_group(x))
             if group is not None and not dist.is_initialized():
                 group = None
             return SyncBatchNormFn.apply(

@@ -19,6 +19,13 @@ and takes NHWC logits as the JAX function does.
 centres, and when downscaling a triangle kernel widened by the scale
 (antialiased), which ``F.interpolate(mode="bilinear")`` is not; it is the
 evaluator's score resize, as matrices.
+
+Under a space context (``ops.spatial``: the image height sharded over
+ranks) the sizes are global: a sharded input is gathered over the space
+group, then ``_ResizeRowsAlignCorners`` computes only this shard's rows of
+a sharded output (the height pass as those rows of the interpolation
+matrix, in the input's precision as ``F.interpolate`` weighs, then the
+width pass by ``F.interpolate``; the backward the matrix form's rows).
 """
 
 import functools
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import wide
+from . import spatial, wide
 
 
 def _interpolate(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -71,6 +78,14 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     backward is JAX's, through the interpolation matrices (deterministic
     on the card)."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    space = spatial.active()
+    if space is not None:
+        return _resize_sharded(space, x, (oh, ow))
+    return _resize_whole(x, (oh, ow))
+
+
+def _resize_whole(x: torch.Tensor, out_hw) -> torch.Tensor:
+    oh, ow = out_hw
     if (oh, ow) == tuple(x.shape[-2:]):
         return x
     if torch.is_grad_enabled() and x.requires_grad:
@@ -79,11 +94,77 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 
 def upsample_by_scale(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """Upsample NCHW by an integer factor (output size = input size * s)."""
+    """Upsample NCHW by an integer factor (output size = input size * s;
+    the global size under a space context)."""
     if scale == 1:
         return x
-    h, w = x.shape[-2:]
+    h, w = spatial.global_hw(x)
     return resize_bilinear_align_corners(x, (h * scale, w * scale))
+
+
+def _resize_sharded(space, x: torch.Tensor, out_hw) -> torch.Tensor:
+    """The resize of a map to the global size ``out_hw`` under a space
+    context: a sharded input is gathered first; a sharded output level
+    gets this shard's rows, any other output the whole map."""
+    level = space.level_of(x)
+    out = space.level_for_hw(*out_hw)
+    if level is not None:
+        if out is level:
+            return x
+        x = space.gather(x, level)
+    if out is None:
+        return _resize_whole(x, out_hw)
+    r0, r1 = space.rows(out)
+    space.counts["resize_rows"] += 1
+    return _ResizeRowsAlignCorners.apply(x, out_hw, r0, r1)
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_matrix_np(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64 align-corners weights as ``F.interpolate``
+    computes them in double: scale (n_in - 1) / (n_out - 1), source
+    ``i * scale``, the lower index clamped to the last row, the fraction to
+    [0, 1]; a single output or input row reads row 0."""
+    w = np.zeros((n_out, n_in))
+    scale = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+    src = np.arange(n_out) * scale
+    i0 = np.minimum(src.astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    frac = np.clip(src - i0, 0.0, 1.0)
+    rows = np.arange(n_out)
+    np.add.at(w, (rows, i0), 1.0 - frac)
+    np.add.at(w, (rows, i1), frac)
+    return w
+
+
+class _ResizeRowsAlignCorners(torch.autograd.Function):
+    """Rows [r0, r1) of the align-corners resize of a whole map to
+    ``out_hw``: the height pass is those rows of ``_forward_matrix_np``
+    (cast to the working precision), the width pass ``F.interpolate``;
+    backward ``R_h[r0:r1]^T . g . R_w`` with the JAX matrices, as
+    ``_ResizeAlignCorners``."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw, r0, r1):
+        ctx.in_hw, ctx.oh, ctx.r, ctx.dtype = (tuple(x.shape[-2:]),
+                                                out_hw[0], (r0, r1), x.dtype)
+        xf = wide(x)
+        rh = torch.from_numpy(_forward_matrix_np(x.shape[-2], out_hw[0])
+                              [r0:r1]).to(device=xf.device, dtype=xf.dtype)
+        y = torch.matmul(rh, xf)
+        if out_hw[1] != x.shape[-1]:
+            y = F.interpolate(y, size=(r1 - r0, out_hw[1]), mode="bilinear",
+                              align_corners=True)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        g = wide(gy)
+        (h, w), (r0, r1), ow = ctx.in_hw, ctx.r, gy.shape[-1]
+        if ow != w:
+            g = torch.matmul(g, _matrix(w, ow, g))
+        g = torch.matmul(_matrix(h, ctx.oh, g)[r0:r1].t(), g)
+        return g.to(ctx.dtype), None, None, None
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,9 @@
 """Distributed layer (counterpart of torchseg_tpu/parallel/).
 
-Ported: the process-group and collective helpers of ``mesh.py`` and the
-two-process leg (``_multihost_worker``).  The dp x sp spatial trainer
-(``spatial.py``: ``SpatialTrainer``, ``make_dp_sp_mesh``) is not ported
-yet (ROADMAP A2b).
+The process-group and collective helpers of ``mesh.py``, the dp x sp
+spatial trainer of ``spatial.py`` (``make_dp_sp_mesh``, ``place_batch``,
+``SpatialTrainer``; its sharded ops are ``ops/spatial.py``) and the
+four-rank leg (``_multihost_worker``).
 """
 
 from .mesh import (
@@ -13,3 +13,4 @@ from .mesh import (
     reduce_mean,
     shard_batch,
 )
+from .spatial import DpSpMesh, SpatialTrainer, make_dp_sp_mesh, place_batch

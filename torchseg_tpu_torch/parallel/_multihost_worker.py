@@ -1,24 +1,29 @@
-"""The two-process leg of the multichip dry run (counterpart of the JAX
+"""The multi-process leg of the multichip dry run (counterpart of the JAX
 package's ``tests/_multihost_worker.py`` and ``__graft_entry__.py:249-291``):
-two OS processes join one gloo group and run the real Trainer, Evaluator
-and metric gather over it.
+OS processes join one gloo group and run the real Trainer, SpatialTrainer,
+Evaluator and metric gather over it.  JAX's worker is two processes of two
+devices each, one global mesh of four; the port takes one device a rank,
+so its leg is four ranks.
 
     python -m torchseg_tpu_torch.parallel._multihost_worker PID PORT [DEVICE]
 
-is one worker (``PID`` 0 or 1, rank 0 listening on localhost:``PORT``;
-``DEVICE`` "cuda", the default, puts both ranks on the first card, which
+is one worker (``PID`` 0 to 3, rank 0 listening on localhost:``PORT``;
+``DEVICE`` "cuda", the default, puts every rank on the first card, which
 gloo allows and NCCL does not; "cpu" runs on the CPU).  Each worker trains
 ``Tiny`` (a ConvBnRelu(3 -> 8, 3x3) with SyncBN over the group, then a 1x1
 conv to 3 classes; cross entropy with ignore 255; PolyLR(0.2, 0.9, 100),
-SGD momentum 0.9) for 4 steps on its half of the same global (8, 8, 8, 3)
-batch, evaluates its process shard of ``SyntheticDataset(6, (8, 8), 3)``
-whole-image, sums the histograms over the group and prints one JSON line
-``{"pid", "losses", "local_pixels", "merged_pixels"}``.
+SGD momentum 0.9) for 4 steps on its quarter of the same global (8, 8, 8,
+3) batch (dp4, as JAX's), evaluates its process shard of
+``SyntheticDataset(6, (8, 8), 3)`` whole-image and sums the histograms
+over the group; then, as JAX's ``TinyG`` on the same mesh, trains a fresh
+``Tiny`` dp2 x sp2 (``parallel.spatial.SpatialTrainer``: the batch over
+two data ranks, the 8 rows over two space ranks, its BN over the 2-D
+group) for 4 steps on the same global batch, and prints one JSON line
+``{"pid", "losses", "local_pixels", "merged_pixels", "sp_losses"}``.
 
-``run_two_process_leg(device)`` starts both workers and checks them: the
-losses equal on both ranks and falling, the merged pixel counts equal on
-both and above 0.  The JAX worker's dp x sp half (``sp_losses``) is not
-ported yet (ROADMAP A2b).
+``run_four_rank_leg(device)`` starts the four workers and checks them:
+each leg's losses equal on every rank and falling, the merged pixel counts
+equal on every rank and above 0.
 """
 
 import functools
@@ -42,7 +47,9 @@ from ..ops.blocks import ConvBnRelu
 from ..ops.losses import cross_entropy_with_ignore
 from ..ops.norm import BatchNorm2d
 from .mesh import gather_metrics, shard_batch
+from .spatial import SpatialTrainer, make_dp_sp_mesh
 
+N_RANKS = 4
 N_STEPS = 4
 N_CLASSES = 3
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -108,6 +115,27 @@ def train_and_eval(rank: int, world: int, device, state_dict=None,
     return losses, int(acc.hist.sum()), int(merged.sum()), model
 
 
+def sp_train(device, state_dict=None, seed: int = 0):
+    """This rank's dp2 x sp2 leg inside an initialized group of four (the
+    JAX worker's ``TinyG`` on its ``make_dp_sp_mesh(2, 2)``): the losses
+    of 4 ``SpatialTrainer`` steps of ``Tiny`` (BN over the space context's
+    groups) on the global batch.  ``state_dict``: the starting weights
+    (else seeded ``init_weights``)."""
+    from ..models import init_weights
+
+    model = Tiny()
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    trainer = SpatialTrainer(model.to(device), loss_fn,
+                             PolyLR(0.2, 0.9, 100),
+                             mesh=make_dp_sp_mesh(2, 2))
+    trainer.init_state()
+    batch = global_batch()
+    return [float(trainer.train_step(batch)[0]) for _ in range(N_STEPS)]
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     pid, port = int(argv[0]), int(argv[1])
@@ -120,13 +148,15 @@ def main(argv=None):
     else:
         torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=pid, world_size=2)
+                            rank=pid, world_size=N_RANKS)
     try:
-        losses, local, merged, _ = train_and_eval(pid, 2, device)
+        losses, local, merged, _ = train_and_eval(pid, N_RANKS, device)
+        sp_losses = sp_train(device)
     finally:
         dist.destroy_process_group()
     print(json.dumps({"pid": pid, "losses": losses, "local_pixels": local,
-                      "merged_pixels": merged}), flush=True)
+                      "merged_pixels": merged, "sp_losses": sp_losses}),
+          flush=True)
 
 
 def _free_port() -> int:
@@ -135,10 +165,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_two_process_leg(device="cuda", timeout: float = 420.0):
-    """Start the two workers on ``device`` and check them; returns their
-    JSON results, rank 0's first.  Raises if a worker fails or a check
-    does not hold."""
+def run_four_rank_leg(device="cuda", timeout: float = 420.0):
+    """Start the four workers on ``device`` and check them; returns their
+    JSON results in rank order.  Raises if a worker fails or a check does
+    not hold."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [_ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
@@ -146,8 +176,9 @@ def run_two_process_leg(device="cuda", timeout: float = 420.0):
     procs = [subprocess.Popen(
         [sys.executable, "-m", "torchseg_tpu_torch.parallel._multihost_worker",
          str(pid), str(port), str(device)], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, env=env, text=True) for pid in (0, 1)]
-    results = [None, None]
+        stderr=subprocess.PIPE, env=env, text=True)
+        for pid in range(N_RANKS)]
+    results = [None] * N_RANKS
 
     def wait(i):
         try:
@@ -156,7 +187,8 @@ def run_two_process_leg(device="cuda", timeout: float = 420.0):
             procs[i].kill()
             results[i] = procs[i].communicate()
 
-    threads = [threading.Thread(target=wait, args=(i,)) for i in (0, 1)]
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(N_RANKS)]
     for t in threads:
         t.start()
     for t in threads:
@@ -164,24 +196,25 @@ def run_two_process_leg(device="cuda", timeout: float = 420.0):
     outs = []
     for p, (out, err) in zip(procs, results):
         if p.returncode != 0:
-            raise RuntimeError(f"two-process worker failed ({p.returncode})"
+            raise RuntimeError(f"four-rank worker failed ({p.returncode})"
                                f": {err[-2000:]}")
         payload = [line for line in out.splitlines() if line.startswith("{")]
         if not payload:
-            raise RuntimeError(f"two-process worker printed no result: "
+            raise RuntimeError(f"four-rank worker printed no result: "
                                f"{out[-1000:]} {err[-1000:]}")
         outs.append(json.loads(payload[-1]))
-    a, b = sorted(outs, key=lambda d: d["pid"])
-    if a["losses"] != b["losses"]:
-        raise RuntimeError(f"the ranks' losses differ: {a['losses']} vs "
-                           f"{b['losses']}")
-    if not a["losses"][-1] < a["losses"][0]:
-        raise RuntimeError(f"the two-process loss did not fall: "
-                           f"{a['losses']}")
-    if not a["merged_pixels"] == b["merged_pixels"] > 0:
-        raise RuntimeError(f"merged pixel counts {a['merged_pixels']} and "
-                           f"{b['merged_pixels']}")
-    return a, b
+    outs.sort(key=lambda d: d["pid"])
+    for key in ("losses", "sp_losses"):
+        curves = [o[key] for o in outs]
+        if any(c != curves[0] for c in curves):
+            raise RuntimeError(f"the ranks' {key} differ: {curves}")
+        if not curves[0][-1] < curves[0][0]:
+            raise RuntimeError(f"the four-rank {key} did not fall: "
+                               f"{curves[0]}")
+    merged = [o["merged_pixels"] for o in outs]
+    if not merged[0] > 0 or any(m != merged[0] for m in merged):
+        raise RuntimeError(f"merged pixel counts {merged}")
+    return outs
 
 
 if __name__ == "__main__":
