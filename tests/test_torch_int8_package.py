@@ -50,6 +50,24 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def round_trip(path, pkg):
+    """``pkg`` kept by ``save_int8_package`` at ``path`` and loaded on the
+    CPU: every tensor equal in value and dtype, every static equal in value
+    and type.  Returns the loaded package."""
+    from torchseg_tpu_torch.deploy.int8_serve import (load_int8_package,
+                                                      save_int8_package)
+
+    back = load_int8_package(save_int8_package(str(path), pkg), device="cpu")
+    got, ref = dict(_leaves(back)), dict(_leaves(pkg))
+    assert set(got) == set(ref)
+    for key, v in ref.items():
+        if torch.is_tensor(v):
+            assert got[key].dtype == v.dtype and torch.equal(got[key], v), key
+        else:
+            assert got[key] == v and type(got[key]) is type(v), key
+    return back
+
+
 def _as_np(v):
     if torch.is_tensor(v):
         if v.dtype == torch.bfloat16:

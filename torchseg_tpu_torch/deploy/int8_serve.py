@@ -1,6 +1,6 @@
 """Int8-through serving (counterpart of torchseg_tpu/deploy/int8_serve.py)
-for classic-stem BiSeNet-R18 and for PSPNet on the dilated deep-stem
-Bottleneck ResNet.
+for classic-stem BiSeNet-R18 and for every family on the deep-stem
+Bottleneck ResNet: PSPNet, PSANet, FCN, DFN and BiSeNet-R101.
 
 BiSeNet-R18: the raw uint8 image in the pre-padded s2d layout, the fused
 7x7/2 dual stem with its backbone max pool (kernel K1), the two SpatialPath
@@ -11,14 +11,22 @@ and the int8 ARM / refine / FFM / head decoder, then the head's logits: at
 (``argmax=True``) or handed raw to the upsample-argmax kernel K7
 (``argmax="tiled"``).
 
-PSPNet-R50/R101 (``build_int8_backbone_package``,
+The Bottleneck body (``build_int8_backbone_package``,
 ``make_int8_pspnet_infer``): the raw uint8 image pre-padded by one pixel,
 the deep stem's first 3x3/2 conv in bf16 with the normalization folded
 (an XLA conv in JAX; ``F.conv2d`` here), the stem's two int8 3x3 CBRs
 (``cbr_i8``), the standalone int8 3x3/2 max pool (K10), the 16 (R50) or 33
-(R101) dilated Bottlenecks (``bottleneck_i8``, three launches each, the
-last block emitting float), then the PPM head in ``dtype`` through the
-model's ``context_blocks`` passthrough, x8 upsampled in float32.
+(R101) Bottlenecks (``bottleneck_i8``, three launches each, the last block
+emitting float), dilated (PSPNet, PSANet: strides (1, 2, 1, 1), dilations
+(1, 1, 2, 4)) or at the standard strides (1, 2, 2, 2) (FCN, DFN), then
+the model's head in ``dtype`` through its ``context_blocks`` passthrough:
+PSPNet's PPM, PSANet's PSA, FCN's head (raw x32 logits), or DFN's decoder,
+which reads the values of all four stages (``dequant_all``).  BiSeNet-R101
+(``build_int8_bisenet_r101_package``, ``make_int8_bisenet_r101_infer``):
+the image pre-padded by three pixels; the SpatialPath's 7x7/2 stem in bf16
+like stem1, its two 3x3/2 CBRs and its 1x1 on ``cbr_i8``; the standard-
+stride R101 body on the pad-1 window of the same input; the BiSeNet
+decoder in ``dtype`` through ``spatial_out`` and ``context_blocks``.
 
 Every conv consumes int8 and produces int8; BN, ReLU and the requant to
 the consumer's scale fold into a per-channel epilogue on the int32
@@ -28,9 +36,9 @@ glue between them (GAP, gates, resizes, requants, concat, SE, the final
 1x1) stays PyTorch, as JAX leaves it to XLA.  The TPU-only arms of the JAX
 module (stem modes, carrier dtypes, the ``_L3_ENABLE``/``_L4_ENABLE``
 gates, block-size and layout knobs) have no counterpart.  Still to port
-(ROADMAP A4): the X39 kind,
-the BiSeNet bf16-decoder branch, BiSeNet-R101, and the PSANet, DFN and
-FCN heads over the Bottleneck body.
+(ROADMAP A4): the X39 kind and the classic-stem BiSeNet bf16-decoder
+branch.  ``save_int8_package`` / ``load_int8_package`` keep a package in
+the port's own file format (not JAX's flax-msgpack ``.int8pkg``).
 
 Weights: per-output-channel symmetric int8 (scale = absmax/127).
 Activations: per-tensor scales from a float-graph calibration run.
@@ -40,6 +48,7 @@ same int8 codes.
 """
 
 import copy
+import pickle
 from typing import Dict, Tuple
 
 import numpy as np
@@ -66,10 +75,9 @@ from ..ops.kernels.upsample_argmax import fused_upsample_argmax
 from ..ops.resize import resize_bilinear_align_corners, upsample_by_scale
 from .fused_stem import _stem_weights, fold_bn_affine, hwio
 
-_NOT_PORTED = ("not ported yet (ROADMAP A4: the port's int8-through graph "
-               "has only the R18 kind with the int8 decoder)")
-_NOT_PORTED_A4 = ("not ported yet (ROADMAP A4: the port's int8 Bottleneck "
-                  "body serves only the PSPNet head)")
+_NOT_PORTED = ("not ported yet (ROADMAP A4: the port's classic-stem "
+               "int8-through graph has only the R18 kind with the int8 "
+               "decoder)")
 
 
 # ----------------------------------------------------------------------
@@ -344,20 +352,24 @@ def build_int8_package(model: nn.Module, stats: Dict[str, np.ndarray], *,
 # ----------------------------------------------------------------------
 
 RESNET_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+# PSPNet and PSANet (output stride 8); FCN, DFN and BiSeNet-R101
 DILATED = {"strides": (1, 2, 1, 1), "dilations": (1, 1, 2, 4)}
+STANDARD = {"strides": (1, 2, 2, 2), "dilations": (1, 1, 1, 1)}
 
 
-def block_statics(depth: int):
-    """{"l{li}_{bi}": (stride, dilation)} of each Bottleneck of the
-    dilated body (JAX int8_serve.py:564-595): a dilated stage's first
-    block gets dilation // 2 and the stage's stride, every later block
-    stride 1 and the full dilation."""
+def block_statics(depth: int, strides=DILATED["strides"],
+                  dilations=DILATED["dilations"]):
+    """{"l{li}_{bi}": (stride, dilation)} of each Bottleneck of the body
+    at these stage strides and dilations (JAX int8_serve.py:564-595): a
+    stage's first block gets the stage's stride and dilation // 2 (1 for
+    an undilated stage), every later block stride 1 and the full
+    dilation."""
     out = {}
     for li, nblocks in enumerate(RESNET_LAYERS[depth]):
-        dilation = DILATED["dilations"][li]
+        dilation = dilations[li]
         first_dil = max(dilation // 2, 1) if dilation > 1 else 1
         for bi in range(nblocks):
-            out[f"l{li + 1}_{bi}"] = ((DILATED["strides"][li], first_dil)
+            out[f"l{li + 1}_{bi}"] = ((strides[li], first_dil)
                                       if bi == 0 else (1, dilation))
     return out
 
@@ -367,10 +379,14 @@ def build_int8_backbone_package(model: nn.Module,
                                 eps: float = 1e-5,
                                 image_mean=(0.485, 0.456, 0.406),
                                 image_std=(0.229, 0.224, 0.225),
+                                strides=DILATED["strides"],
+                                dilations=DILATED["dilations"],
                                 device=None):
     """Int8-through package for a v1c deep-stem Bottleneck ResNet at
-    ``model.backbone`` with PSPNet's dilated strides (``DILATED``; JAX
-    int8_serve.py:512-609), on ``device`` (default: the model's).
+    ``model.backbone`` with these stage strides and dilations (PSPNet's
+    and PSANet's dilated ones by default, ``STANDARD`` for FCN, DFN and
+    BiSeNet-R101; JAX int8_serve.py:512-609), on ``device`` (default: the
+    model's).
 
     stem1 (3x3/2 over the raw image) keeps bf16 weights with /255, mean
     and std folded in and the 128 shift in its bias; stem2, stem3 and
@@ -386,21 +402,10 @@ def build_int8_backbone_package(model: nn.Module,
         device = next(model.parameters()).device
     layers = RESNET_LAYERS[depth]
     st = lambda path: _scale(stats, path)  # noqa: E731
-    mean = np.asarray(image_mean, np.float32)
-    std = np.asarray(image_std, np.float32)
     pkg = {"kind": f"bottleneck{depth}"}
-
-    k1 = hwio(bb.stem_conv1)  # (3, 3, 3, 64)
-    kf = k1 / (255.0 * std)[None, None, :, None]
-    cshift = (128.0 / 255.0 - mean) / std
-    shift = np.einsum("hwio,i->o", k1, cshift)
-    a1, b1 = fold_bn_affine(bb.stem_bn1, eps)
     s_c2 = st("backbone/stem_conv2")
-    pkg["stem1"] = {
-        "wf": _to_dev(kf, device, torch.float32).to(torch.bfloat16),
-        "m": _to_dev(a1 / s_c2, device, torch.float32),
-        "c": _to_dev((shift * a1 + b1) / s_c2, device, torch.float32),
-    }
+    pkg["stem1"] = _bf16_stem_pack(bb.stem_conv1, bb.stem_bn1, eps,
+                                   image_mean, image_std, s_c2, device)
     s_c3 = st("backbone/stem_conv3")
     pkg["stem2"] = _convbn_pack(bb.stem_conv2, bb.stem_bn2, eps, s_c2, s_c3,
                                 device)
@@ -408,7 +413,7 @@ def build_int8_backbone_package(model: nn.Module,
     pkg["stem3"] = _convbn_pack(bb.stem_conv3, bb.bn1, eps, s_c3, s_l1,
                                 device)
 
-    statics = block_statics(depth)
+    statics = block_statics(depth, strides, dilations)
     s_block_in = s_l1  # post-maxpool (max is monotone)
     for li, nblocks in enumerate(layers):
         for bi in range(nblocks):
@@ -443,9 +448,60 @@ def build_int8_backbone_package(model: nn.Module,
             if s_out is not None:
                 s_block_in = s_out
     pkg["s_c16"] = _f32(st("backbone/layer4_0/conv1"))
+    # the earlier stages' dequant scales (DFN's decoder reads their values)
     pkg["s_c4"] = _f32(st("backbone/layer2_0/conv1"))
     pkg["s_c8"] = _f32(st("backbone/layer3_0/conv1"))
     pkg["layers"] = layers
+    return pkg
+
+
+def _bf16_stem_pack(conv, bn, eps, image_mean, image_std, s_out, device):
+    """A stem conv over the raw uint8 codes (value - 128): bf16 weights
+    with /255, the mean and the std folded in, the 128 shift folded into
+    the epilogue's bias, requantized to ``s_out``."""
+    k = hwio(conv)
+    mean = np.asarray(image_mean, np.float32)
+    std = np.asarray(image_std, np.float32)
+    kf = k / (255.0 * std)[None, None, :, None]
+    shift = np.einsum("hwio,i->o", k, (128.0 / 255.0 - mean) / std)
+    a, b = fold_bn_affine(bn, eps)
+    return {"wf": _to_dev(kf, device, torch.float32).to(torch.bfloat16),
+            "m": _to_dev(a / s_out, device, torch.float32),
+            "c": _to_dev((shift * a + b) / s_out, device, torch.float32)}
+
+
+def build_int8_bisenet_r101_package(model: nn.Module,
+                                    stats: Dict[str, np.ndarray], *,
+                                    eps: float = 1e-5,
+                                    image_mean=(0.485, 0.456, 0.406),
+                                    image_std=(0.229, 0.224, 0.225),
+                                    device=None):
+    """BiSeNet-R101 (JAX int8_serve.py:612-656): the standard-stride
+    deep-stem R101 body's package under ``bb``, and the int8 spatial path:
+    its 7x7/2 stem in bf16 over the raw uint8 codes (``sp_stem``, the
+    normalization folded), its two 3x3/2 CBRs (``sp1``, ``sp2``) and its
+    1x1 (``sp3``, emitting float)."""
+    if not (hasattr(model, "spatial_path")
+            and getattr(model.backbone, "deep_stem", False)):
+        raise ValueError(
+            "expects a deep-stem BiSeNet (spatial_path + "
+            "backbone.stem_conv1) — use build_int8_package for the "
+            "classic-stem R18/X39 variants")
+    if device is None:
+        device = next(model.parameters()).device
+    pkg = {"kind": "bisenet_r101",
+           "bb": build_int8_backbone_package(
+               model, stats, depth=101, eps=eps, image_mean=image_mean,
+               image_std=image_std, device=device, **STANDARD)}
+    sp = model.spatial_path
+    s_sp = _scale(stats, "spatial_path/conv_3x3_1/conv")
+    s_m1 = _scale(stats, "spatial_path/conv_3x3_2/conv")
+    s_m2 = _scale(stats, "spatial_path/conv_1x1/conv")
+    pkg["sp_stem"] = _bf16_stem_pack(sp.conv_7x7.conv, sp.conv_7x7.bn, eps,
+                                     image_mean, image_std, s_sp, device)
+    pkg["sp1"] = _cbr_pack(sp.conv_3x3_1, eps, s_sp, s_m1, device)
+    pkg["sp2"] = _cbr_pack(sp.conv_3x3_2, eps, s_m1, s_m2, device)
+    pkg["sp3"] = _cbr_pack(sp.conv_1x1, eps, s_m2, None, device)
     return pkg
 
 
@@ -583,25 +639,28 @@ def make_int8_through_infer(model, pkg, *, argmax=True):
 
 
 def stem1_i8(x_i8, s1):
-    """The deep stem's first conv, 3x3/2 valid over the pre-padded codes
-    with the bf16 weights, then fma + ReLU + requant (JAX int8_serve.py:
-    749-755, an XLA bf16 conv with a float32 accumulator).  The products
-    of codes and bf16 weights are exact in float32, so only the order of
-    the sum is free: on the card a float32 cuDNN conv (TF32 keeps them
-    exact too), on the CPU a float64 conv rounded once to float32, as
-    ``stem_pool_i8_plain`` does."""
+    """A bf16 stem conv over the pre-padded codes (the deep stem's first
+    3x3/2, or BiSeNet-R101's SpatialPath 7x7/2), valid at stride 2 with
+    the bf16 weights, then fma + ReLU + requant (JAX int8_serve.py:
+    664-672, 749-755, an XLA bf16 conv with a float32 accumulator).  The
+    products of codes and bf16 weights are exact in float32, so only the
+    order of the sum is free: on the card a float32 cuDNN conv (TF32 keeps
+    them exact too), on the CPU a float64 conv rounded once to float32, as
+    ``stem_pool_i8_plain`` does.  Returns NHWC-contiguous codes."""
     dt = torch.float64 if x_i8.device.type == "cpu" else torch.float32
     y = F.conv2d(x_i8.permute(0, 3, 1, 2).to(dt),
                  s1["wf"].permute(3, 2, 0, 1).to(dt), stride=2)
     y = y.float().permute(0, 2, 3, 1)
-    return _requant(torch.relu(_fma(y, s1["m"], s1["c"])))
+    return _requant(torch.relu(_fma(y, s1["m"], s1["c"]))).contiguous()
 
 
-def int8_backbone(pkg, x_i8, dtype=torch.bfloat16):
+def int8_backbone(pkg, x_i8, dtype=torch.bfloat16, dequant_all=False):
     """The int8 Bottleneck body (JAX make_int8_backbone_fn's ``run``):
     the pre-padded (1, H+2, W+2, 3) int8 image -> the four stage features
-    NHWC, the first two as int8 codes, the third dequantized and the last
-    (the float emitted by the final block) in ``dtype``."""
+    NHWC, the first two as int8 codes (or, with ``dequant_all``, dequantized
+    by ``s_c4`` / ``s_c8`` into ``dtype``: DFN's decoder reads their
+    values), the third dequantized and the last (the float emitted by the
+    final block) in ``dtype``."""
     q = stem1_i8(x_i8, pkg["stem1"])
     q = cbr_i8(q, pkg["stem2"], 1, 1)
     q = cbr_i8(q, pkg["stem3"], 1, 1)
@@ -616,36 +675,101 @@ def int8_backbone(pkg, x_i8, dtype=torch.bfloat16):
                               emit_int8=not last)
         feats.append(x)
     c16_f = (feats[2].float() * pkg["s_c16"]).to(dtype)
+    if dequant_all:
+        return ((feats[0].float() * pkg["s_c4"]).to(dtype),
+                (feats[1].float() * pkg["s_c8"]).to(dtype),
+                c16_f, feats[3].to(dtype))
     return feats[0], feats[1], c16_f, feats[3].to(dtype)
 
 
-def make_int8_pspnet_infer(model, pkg, *, argmax=True, dtype=torch.bfloat16):
-    """Int8-through PSPNet serving (JAX int8_serve.py:778-797): the int8
-    Bottleneck body, then the model's PPM head in ``dtype`` through its
-    ``context_blocks`` passthrough (a copy of the model in ``dtype`` when
-    it is in another type), x8 upsampled in float32.
+def _head_in(model, dtype):
+    """The model in ``dtype`` for the head (a copy when it is in another
+    type), in eval mode."""
+    if next(model.parameters()).dtype != dtype:
+        model = copy.deepcopy(model).to(dtype)
+    return model.eval()
+
+
+def _labels_or_scores(out, argmax):
+    """(1, C, H, W) head output -> (1, H, W) int32 labels, or the (1, H, W,
+    C) float32 scores."""
+    if argmax:
+        return out.argmax(dim=1).to(torch.int32)
+    return wide(out).permute(0, 2, 3, 1)
+
+
+def make_int8_pspnet_infer(model, pkg, *, argmax=True, dtype=torch.bfloat16,
+                           dequant_all=False):
+    """Int8-through serving for any model with a ``context_blocks``
+    passthrough over the Bottleneck body (JAX int8_serve.py:778-797):
+    PSPNet's PPM head, PSANet's PSA head, FCN's head, and DFN's decoder
+    with ``dequant_all``.  The int8 body, then the model's head in
+    ``dtype`` (a copy of the model in ``dtype`` when it is in another
+    type).
 
     Returns ``(infer, pkg)``: ``infer(pkg, x_i8)`` takes the pre-padded
     int8 image from ``prepare_u8_input`` on the package's device and
     returns (1, H, W) int32 labels, or with ``argmax=False`` the (1, H, W,
-    classes) float32 log-probs."""
+    classes) float32 scores (log-probs; FCN's raw logits)."""
     if not str(pkg.get("kind", "")).startswith("bottleneck"):
-        raise NotImplementedError(f"this package is {_NOT_PORTED_A4}")
-    head_model = model
-    if next(model.parameters()).dtype != dtype:
-        head_model = copy.deepcopy(model).to(dtype)
-    head_model.eval()
+        raise ValueError(
+            f"make_int8_pspnet_infer serves a Bottleneck body package "
+            f"(kind bottleneck50/101), got kind {pkg.get('kind')!r}: serve "
+            f"classic-stem BiSeNet packages with make_int8_through_infer "
+            f"and BiSeNet-R101's with make_int8_bisenet_r101_infer")
+    head_model = _head_in(model, dtype)
 
     @torch.inference_mode()
     def infer(pkg, x_i8):
-        feats = int8_backbone(pkg, x_i8, dtype)
+        feats = int8_backbone(pkg, x_i8, dtype, dequant_all)
         blocks = tuple(f.permute(0, 3, 1, 2) for f in feats)
-        logp = head_model(None, context_blocks=blocks)
-        if argmax:
-            return logp.argmax(dim=1).to(torch.int32)
-        return wide(logp).permute(0, 2, 3, 1)
+        return _labels_or_scores(head_model(None, context_blocks=blocks),
+                                 argmax)
 
     return infer, pkg
+
+
+def make_int8_bisenet_r101_infer(model, pkg, *, argmax=True,
+                                 dtype=torch.bfloat16):
+    """Int8-through BiSeNet-R101 serving (JAX int8_serve.py:659-698).  The
+    input is the image pre-padded by three pixels (``prepare_u8_input(img,
+    pad=3)``, the 7x7 stem's padding); the deep stem reads its pad-1
+    window ``[2:-2]`` of the same tensor.  The spatial path: the bf16 7x7/2
+    stem, sp1 and sp2 (3x3/2 ``cbr_i8``), sp3 (1x1 ``cbr_i8`` emitting
+    float); the standard-stride R101 body; then the BiSeNet decoder in
+    ``dtype`` through ``spatial_out`` and ``context_blocks``, every stage
+    cast to ``dtype`` as JAX casts them (the /4 and /8 int8 codes as they
+    are: the decoder reads the /8 stage's shape only).
+
+    Returns ``(infer, pkg)``: ``infer(pkg, x_i8)`` gives (1, H, W) int32
+    labels, or with ``argmax=False`` the (1, H, W, classes) float32
+    log-probs."""
+    if pkg.get("kind") != "bisenet_r101":
+        raise ValueError(f"make_int8_bisenet_r101_infer serves a "
+                         f"bisenet_r101 package, got kind "
+                         f"{pkg.get('kind')!r}")
+    head_model = _head_in(model, dtype)
+
+    @torch.inference_mode()
+    def infer(pkg, x_i8):
+        q = stem1_i8(x_i8, pkg["sp_stem"])
+        q = cbr_i8(q, pkg["sp1"], 2, 1)
+        q = cbr_i8(q, pkg["sp2"], 2, 1)
+        spatial = cbr_i8(q, pkg["sp3"], 1, 0, emit_int8=False)
+        feats = int8_backbone(pkg["bb"], x_i8[:, 2:-2, 2:-2, :], dtype)
+        blocks = tuple(f.to(dtype).permute(0, 3, 1, 2) for f in feats)
+        out = head_model(None, spatial_out=spatial.to(dtype).permute(
+            0, 3, 1, 2), context_blocks=blocks)
+        return _labels_or_scores(out, argmax)
+
+    return infer, pkg
+
+
+# ----------------------------------------------------------------------
+# the family dispatch
+# ----------------------------------------------------------------------
+
+_BOTTLENECK_FAMILIES = ("pspnet", "psanet", "dfn", "fcn")
 
 
 def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
@@ -653,27 +777,31 @@ def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
                                       calib_shape=(1, 256, 512, 3),
                                       seed: int = 0):
     """Calibrate, pack and wrap the int8-through graph for an experiment,
-    on the model's device: BiSeNet-R18 (int8 decoder) or PSPNet-R50/R101
-    (the int8 Bottleneck body and the PPM head in bf16; JAX
-    int8_serve.py:1541-1556).  Calibration runs the float model as it is.
+    on the model's device, with JAX's routing (int8_serve.py:1509-1566):
+    BiSeNet-R18 (the int8 decoder); PSPNet and PSANet on the dilated
+    Bottleneck body and FCN and DFN on the standard-stride one, every
+    stage dequantized for DFN and FCN (``dequant_all``), the head in bf16;
+    BiSeNet-R101 with its int8 spatial path, the input pre-padded by 3.
+    Calibration runs the float model as it is.
+
+    decoder: None picks "int8" for the classic-stem BiSeNets and "bf16"
+    for every other family; "int8" for any other family is a ValueError,
+    as in JAX.  The X39 int8 kind and the classic-stem bf16 decoder raise
+    NotImplementedError (ROADMAP A4).
 
     calib_images: uint8 NHWC arrays (None: two random images of
     ``calib_shape`` from ``np.random.default_rng(seed)``, as the JAX
     function draws them).  Returns ``(infer, pkg, prepare)``:
     ``infer(pkg, xs)`` serves and ``prepare(img_u8)`` is the host-side
-    input prep onto the model's device.  PSANet, DFN, FCN and
-    BiSeNet-R101 raise NotImplementedError (ROADMAP A4)."""
-    if cfg.model.startswith(("psanet", "dfn", "fcn")) or \
-            cfg.model == "bisenet_r101":
-        raise NotImplementedError(f"{cfg.model} is {_NOT_PORTED_A4}")
-    psp = cfg.model.startswith("pspnet")
-    classic_stem = cfg.model in ("bisenet_r18", "bisenet_x39")
+    input prep onto the model's device."""
+    bottleneck = cfg.model.startswith(_BOTTLENECK_FAMILIES)
+    classic_stem = not (bottleneck or cfg.model == "bisenet_r101")
     if decoder is None:
         decoder = "int8" if classic_stem else "bf16"
-    if psp and decoder != "bf16":
+    if decoder == "int8" and not classic_stem:
         raise ValueError("decoder='int8' only applies to the classic-stem "
                          f"BiSeNet int8-through path (got {cfg.model})")
-    if not psp and (cfg.model != "bisenet_r18" or decoder != "int8"):
+    if classic_stem and (cfg.model != "bisenet_r18" or decoder != "int8"):
         raise NotImplementedError(
             f"{cfg.model} with decoder={decoder!r} is {_NOT_PORTED}")
     device = next(model.parameters()).device
@@ -687,26 +815,110 @@ def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
              .permute(0, 3, 1, 2).contiguous().to(device)
              for u in calib_images]
     stats = calibrate_channelwise(model.eval(), calib)
-    if psp:
+    norm = dict(eps=cfg.bn_eps, image_mean=cfg.image_mean,
+                image_std=cfg.image_std, device=device)
+    pad = 1
+    if cfg.model == "bisenet_r101":
+        pkg = build_int8_bisenet_r101_package(model, stats, **norm)
+        infer, pkg = make_int8_bisenet_r101_infer(model, pkg)
+        pad = 3
+    elif bottleneck:
+        standard = cfg.model.startswith(("dfn", "fcn"))
         pkg = build_int8_backbone_package(
             model, stats, depth=int(cfg.model.rsplit("r", 1)[-1]),
-            eps=cfg.bn_eps, image_mean=cfg.image_mean,
-            image_std=cfg.image_std, device=device)
-        infer, pkg = make_int8_pspnet_infer(model, pkg)
+            **(STANDARD if standard else DILATED), **norm)
+        infer, pkg = make_int8_pspnet_infer(model, pkg,
+                                            dequant_all=standard)
+    else:
+        pkg = build_int8_package(model, stats, decoder=decoder, **norm)
+        infer, pkg = make_int8_through_infer(model, pkg)
 
         def prepare(u8):
-            return prepare_u8_input(u8, image_mean=cfg.image_mean,
-                                    device=device)
+            return prepare_s2d_input_u8(u8, image_mean=cfg.image_mean,
+                                        device=device)
 
         return infer, pkg, prepare
-    pkg = build_int8_package(model, stats, eps=cfg.bn_eps,
-                             image_mean=cfg.image_mean,
-                             image_std=cfg.image_std, decoder=decoder,
-                             device=device)
-    infer, pkg = make_int8_through_infer(model, pkg)
 
     def prepare(u8):
-        return prepare_s2d_input_u8(u8, image_mean=cfg.image_mean,
-                                    device=device)
+        return prepare_u8_input(u8, pad=pad, image_mean=cfg.image_mean,
+                                device=device)
 
     return infer, pkg, prepare
+
+
+# ----------------------------------------------------------------------
+# keeping a package
+# ----------------------------------------------------------------------
+
+INT8PKG_FORMAT = "torchseg_tpu_torch int8 package"
+INT8PKG_FORMAT_VERSION = 1
+
+
+def _split_statics(tree: dict):
+    """(arrays, statics) of a package tree, recursively: the statics are
+    the graph's structure (str, bool and int values, int tuples: ``kind``,
+    ``stride``, ``dilation``, ``n_sp``, ``layers``), the arrays every
+    tensor and float scalar (JAX int8_serve.py:800-825)."""
+    arrays, statics = {}, {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            arrays[k], sub = _split_statics(v)
+            if sub:
+                statics[k] = sub
+        elif isinstance(v, (str, bool, int)):
+            statics[k] = v
+        elif isinstance(v, (tuple, list)) and all(
+                isinstance(i, (int, bool)) for i in v):
+            statics[k] = list(v)
+        elif torch.is_tensor(v):
+            arrays[k] = v.detach().cpu()
+        else:
+            arrays[k] = float(v)
+    return arrays, statics
+
+
+def _merge_statics(arrays, statics, device):
+    out = {k: (v.to(device) if torch.is_tensor(v) else v)
+           for k, v in arrays.items() if not isinstance(v, dict)}
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            out[k] = _merge_statics(v, statics.get(k, {}), device)
+    for k, v in statics.items():
+        if not isinstance(v, dict):
+            out[k] = tuple(v) if isinstance(v, list) else v
+    return out
+
+
+def save_int8_package(path: str, pkg: dict) -> str:
+    """Keep a built package (quantized weights and epilogue constants), so
+    that a serving host loads it instead of calibrating again.  The port's
+    own format, not JAX's ``.int8pkg`` (flax msgpack, which the port cannot
+    read without flax): ``torch.save`` of the CPU tensors and float
+    scalars beside the statics tree (JAX's split, int8_serve.py:800-845),
+    under a format name and version.  Every package kind: r18, the
+    Bottleneck bodies at both stride sets, bisenet_r101's nested ``bb``."""
+    arrays, statics = _split_statics(pkg)
+    torch.save({"format": INT8PKG_FORMAT, "v": INT8PKG_FORMAT_VERSION,
+                "statics": statics, "arrays": arrays}, path)
+    return path
+
+
+def load_int8_package(path: str, device="cuda") -> dict:
+    """A package kept by ``save_int8_package``, its tensors on ``device``
+    (the card unless the caller asks for the CPU).  ValueError naming the
+    path for another file or format version."""
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError, EOFError) as err:
+        raise ValueError(f"{path}: not a {INT8PKG_FORMAT} file ({err}); "
+                         "JAX's .int8pkg files are flax msgpack, which the "
+                         "port does not read") from err
+    ok = isinstance(blob, dict) and blob.get("format") == INT8PKG_FORMAT
+    v = blob.get("v") if isinstance(blob, dict) else None
+    if not ok or v != INT8PKG_FORMAT_VERSION or "arrays" not in blob \
+            or "statics" not in blob:
+        raise ValueError(
+            f"{path}: unsupported int8 package format (version={v!r}, "
+            f"expected {INT8PKG_FORMAT_VERSION}); re-export the package "
+            "with save_int8_package")
+    return _merge_statics(blob["arrays"], blob["statics"], device)

@@ -4,10 +4,14 @@
 graph, the graph ``torchseg_tpu.tools.speed --int8-through`` builds in
 JAX, with random weights from ``seed``, calibrated on two random 256x512
 images from ``np.random.default_rng(0)`` as the JAX function is.  It returns
-``infer, (pkg, xs)`` for a zero image of ``image_hw``.  Served so far:
-BiSeNet-R18 (``infer(pkg, xs)`` gives (1, H/8, W/8) int32 labels for the
-.speed model) and PSPNet-R50/R101 on ADE (``PSP_EXPERIMENT``, 480x480;
-(1, H, W) int32 labels, the PPM head in bf16).
+``infer, (pkg, xs)`` for a zero image of ``image_hw`` (by default the
+experiment's crop, ``SERVE_CROPS``).  Served: BiSeNet-R18 (``infer(pkg,
+xs)`` gives (1, H/8, W/8) int32 labels for the .speed model) and every
+family on the Bottleneck body, (1, H, W) int32 labels with the head in
+bf16: PSPNet-R50/R101 and PSANet-R50/R101 on ADE (``PSP_EXPERIMENT``,
+``PSANET_EXPERIMENT``, 480x480), FCN-32s-R101 on VOC (``FCN_EXPERIMENT``,
+512x512), DFN-R101 and BiSeNet-R101 on Cityscapes (``DFN_EXPERIMENT``,
+800x800; ``BISENET_R101_EXPERIMENT``, 1024x1024).
 
 ``entry()`` is ``serve_entry`` for the flagship model, BiSeNet-R18
 real-time (``cityscapes.bisenet.R18.speed``) at 1024x2048.
@@ -79,6 +83,20 @@ PSP_EXPERIMENT = "ade.pspnet.R50_v1c"
 DEPLOY_EXPERIMENT = "cityscapes.bisenet.X39.speed"
 TRAIN_EXPERIMENT = "cityscapes.bisenet.R18"
 DFN_EXPERIMENT = "cityscapes.dfn.R101_v1c"
+PSANET_EXPERIMENT = "ade.psanet.R50_v1c"
+FCN_EXPERIMENT = "voc.fcn32s.R101_v1c"
+BISENET_R101_EXPERIMENT = "cityscapes.bisenet.R101"
+# each family's published crop, its config's eval_crop_size: PSANet's
+# 60x60 features are exactly its 3600 attention channels
+PSANET_HW = (480, 480)
+FCN_HW = (512, 512)
+DFN_HW = (800, 800)
+BISENET_R101_HW = (1024, 1024)
+SERVE_CROPS = {PSP_EXPERIMENT: (480, 480), "ade.pspnet.R101_v1c": (480, 480),
+               PSANET_EXPERIMENT: PSANET_HW,
+               "ade.psanet.R101_v1c": PSANET_HW,
+               FCN_EXPERIMENT: FCN_HW, DFN_EXPERIMENT: DFN_HW,
+               BISENET_R101_EXPERIMENT: BISENET_R101_HW}
 BORDER_BAND = 2  # the synthetic border label's half-width, in pixels
 
 
@@ -87,15 +105,21 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def serve_entry(experiment: str = PSP_EXPERIMENT, image_hw=(480, 480),
-                device="cuda", seed: int = 0):
+def serve_entry(experiment: str = PSP_EXPERIMENT, image_hw=None,
+                device="cuda", seed: int = 0, calib_shape=(1, 256, 512, 3)):
     """The int8-through serving graph of ``experiment`` on ``device``;
-    returns ``infer, (pkg, xs)``."""
+    returns ``infer, (pkg, xs)``, ``xs`` a zero image of ``image_hw``
+    (None: ``SERVE_CROPS[experiment]``, else the config's image size).  ``calib_shape``: the two random
+    calibration images' (1, H, W, 3)."""
     _no_tf32()
     cfg = get_experiment(experiment)
+    if image_hw is None:
+        image_hw = SERVE_CROPS.get(experiment,
+                                   (cfg.image_height, cfg.image_width))
     model = init_weights(build_model(cfg),
                          torch.Generator().manual_seed(seed)).to(device)
-    infer, pkg, prepare = build_int8_serving_for_experiment(cfg, model)
+    infer, pkg, prepare = build_int8_serving_for_experiment(
+        cfg, model, calib_shape=calib_shape)
     xs = prepare(np.zeros((1, *image_hw, 3), np.uint8))
     return infer, (pkg, xs)
 
@@ -121,11 +145,36 @@ def deploy_entry(experiment: str = DEPLOY_EXPERIMENT, image_hw=(768, 1536),
     return infer, xs
 
 
+def _align_corners_taps(n_in: int, n_out: int):
+    """(lower index, upper index, lower weight, upper weight) of each output
+    position of an align-corners linear resize, in float64."""
+    pos = np.arange(n_out, dtype=np.float64) * (
+        (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0)
+    i0 = np.minimum(np.floor(pos).astype(np.int64), n_in - 2)
+    w1 = pos - i0
+    return i0, i0 + 1, 1.0 - w1, w1
+
+
+def smooth_field(grid: np.ndarray, out_hw) -> np.ndarray:
+    """The align-corners bilinear upsample of (B, C, gh, gw) ``grid`` to
+    ``out_hw``, computed elementwise in float64 (the two neighbours on each
+    axis, ``w0*a + w1*b``, rows then columns) and rounded once to float32,
+    so that it gives the same bits on every host and thread count (a
+    float32 ``F.interpolate`` on the CPU gives other bits with one thread
+    than with eight)."""
+    g = np.asarray(grid, np.float64)
+    r0, r1, a0, a1 = _align_corners_taps(g.shape[-2], int(out_hw[0]))
+    c0, c1, b0, b1 = _align_corners_taps(g.shape[-1], int(out_hw[1]))
+    rows = a0[:, None] * g[..., r0, :] + a1[:, None] * g[..., r1, :]
+    return (b0 * rows[..., c0] + b1 * rows[..., c1]).astype(np.float32)
+
+
 def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda",
                     border: bool = False):
     """{"image": (B, 3, H, W) float32, "label": (B, H, W) int64} from
     ``np.random.default_rng(seed)``: each image a smooth normal field (a
-    grid of one sample per 32x32 pixels, upsampled bilinearly) plus pixel
+    grid of one sample per 32x32 pixels, upsampled bilinearly with aligned
+    corners by ``smooth_field``, the same bits on every host) plus pixel
     noise of std 0.1, and the label (smooth field's channel 0 > 0).
 
     The JAX dryrun draws i.i.d. normal pixels and labels them the same way;
@@ -141,10 +190,8 @@ def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda",
     the data pipeline (ROADMAP A6)."""
     rng = np.random.default_rng(seed)
     grid = (max(crop[0] // 32, 2), max(crop[1] // 32, 2))
-    field = torch.nn.functional.interpolate(
-        torch.from_numpy(rng.normal(size=(batch, 3, *grid)).astype(
-            np.float32)), size=tuple(crop), mode="bilinear",
-        align_corners=True)
+    field = torch.from_numpy(smooth_field(
+        rng.normal(size=(batch, 3, *grid)).astype(np.float32), crop))
     noise = torch.from_numpy(rng.normal(0, 0.1, size=(batch, 3, *crop))
                              .astype(np.float32))
     label = (field[:, 0] > 0).long()

@@ -1,10 +1,11 @@
 """Experiment registry (counterpart of torchseg_tpu/experiments/registry.py).
 
-The config dataclass is copied field for field from the JAX registry; so
-far the two BiSeNet-R18 Cityscapes entries (JAX registry.py:146 and :163),
-the two BiSeNet-X39 entries (:153, :170), the two PSPNet ADE entries
-(:139-140) and the two DFN entries (:178-199) are registered.  Other
-experiments come with their families (ROADMAP A4).
+The config dataclass is copied field for field from the JAX registry;
+registered: the FCN VOC entry (JAX registry.py:125-138), the two PSPNet
+and the two PSANet ADE entries (:139-142), the BiSeNet-R18, R101 and X39
+Cityscapes entries (:145-157) with the two real-time ones (:158-175), and
+the two DFN entries (:178-199).  The CamVid and PASCAL-Context entries
+come with their datasets (ROADMAP A6).
 ``build_model`` binds the model's BatchNorms to a process group (SyncBN)
 when given one; ``build_loss_fn`` gives the per-process training loss
 (``ce``, ``ohem`` and ``dfn``).  JAX's fused upsample+loss branch is off for
@@ -29,6 +30,8 @@ from ..ops.norm import BatchNorm2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+# quirk preserved: FCN's config has std blue channel 0.224 (not 0.225)
+FCN_STD = (0.229, 0.224, 0.224)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,12 +118,32 @@ def _register(cfg: ExperimentConfig) -> ExperimentConfig:
     return cfg
 
 
+_register(ExperimentConfig(
+    name="voc.fcn32s.R101_v1c",
+    model="fcn32s_r101", dataset="voc", num_classes=21, ignore_label=255,
+    image_std=FCN_STD,
+    image_height=512, image_width=512,
+    train_scale_array=(0.5, 0.75, 1, 1.5, 1.75, 2),
+    lr=1e-2, weight_decay=1e-4, batch_size=32, nepochs=60,
+    niters_per_epoch=330,  # ceil(10582 // 32)
+    business_lr_mult=1.0, lr_scale_by_world=True,
+    loss="ce", aux_loss_ratio=0.5,
+    eval_base_size=512, eval_crop_size=512, eval_stride_rate=2 / 3,
+))
 _register(ExperimentConfig(name="ade.pspnet.R50_v1c", model="pspnet_r50",
                            **_ADE))
 _register(ExperimentConfig(name="ade.pspnet.R101_v1c", model="pspnet_r101",
                            **_ADE))
+_register(ExperimentConfig(name="ade.psanet.R50_v1c", model="psanet_r50",
+                           **_ADE))
+_register(ExperimentConfig(name="ade.psanet.R101_v1c", model="psanet_r101",
+                           **_ADE))
 _register(ExperimentConfig(
     name="cityscapes.bisenet.R18", model="bisenet_r18", loss="ohem",
+    nepochs=80, **_CITY,
+))
+_register(ExperimentConfig(
+    name="cityscapes.bisenet.R101", model="bisenet_r101", loss="ohem",
     nepochs=80, **_CITY,
 ))
 _register(ExperimentConfig(

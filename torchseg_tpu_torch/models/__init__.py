@@ -1,9 +1,10 @@
 """Model zoo (counterpart of torchseg_tpu/models/__init__.py).
 
-Ported so far: BiSeNet-R18 and BiSeNet-X39 with their real-time ``.speed``
-variants, PSPNet on the dilated deep-stem ResNet-50/101 (eval), and DFN on
-the deep-stem ResNet-101 (train and eval).  The other families (PSANet,
-FCN, BiSeNet-R101) come with ROADMAP A4.
+Every family of the JAX zoo: BiSeNet-R18 and BiSeNet-X39 with their
+real-time ``.speed`` variants and BiSeNet-R101 (train and eval), PSPNet
+and PSANet on the dilated deep-stem ResNet-50/101 and FCN-32s on the
+deep-stem ResNet-101 (eval; their training forwards come with ROADMAP
+A4), and DFN on the deep-stem ResNet-101 (train and eval).
 """
 
 import torch
@@ -13,6 +14,8 @@ from ..ops.blocks import NormFactory
 from ..ops.norm import BatchNorm2d
 from .bisenet import BiSeNet
 from .dfn import DFN
+from .fcn import FCN
+from .psanet import PSANet
 from .pspnet import PSPNet
 from .resnet import ResNet, resnet18, resnet50, resnet101
 from .xception import Xception, xception39
@@ -50,6 +53,29 @@ def bisenet_x39(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
     )
 
 
+def bisenet_r101(num_classes: int = 19,
+                 norm: NormFactory = BatchNorm2d) -> BiSeNet:
+    """BiSeNet on the v1c deep-stem ResNet-101 with the standard strides
+    (stage outputs 256/512/1024/2048), aux and main heads 256 wide
+    (models/__init__.py:82-93 of the JAX package)."""
+    return BiSeNet(
+        num_classes, resnet101(norm=norm, deep_stem=True),
+        stage_channels=(256, 512, 1024, 2048),
+        conv_channel=128,
+        aux_mid=256,
+        main_mid=256,
+        head_scales=(16, 8, 8),
+        norm=norm,
+    )
+
+
+def fcn32s_r101(num_classes: int = 21,
+                norm: NormFactory = BatchNorm2d) -> FCN:
+    """FCN-32s on the v1c deep-stem ResNet-101 with the standard strides
+    (models/__init__.py:28-33 of the JAX package)."""
+    return FCN(num_classes, resnet101(norm=norm, deep_stem=True), norm=norm)
+
+
 def pspnet_r50(num_classes: int = 150,
                norm: NormFactory = BatchNorm2d) -> PSPNet:
     """PSPNet on the v1c deep-stem ResNet-50 at output stride 8
@@ -64,6 +90,23 @@ def pspnet_r101(num_classes: int = 150,
                                          **_DILATED), norm=norm)
 
 
+def psanet_r50(num_classes: int = 150, norm: NormFactory = BatchNorm2d,
+               att_channels: int = 3600) -> PSANet:
+    """PSANet on the v1c deep-stem ResNet-50 at output stride 8, 3600
+    attention channels (the 60x60 features of a 480x480 crop;
+    models/__init__.py:52-59 of the JAX package)."""
+    return PSANet(num_classes, resnet50(norm=norm, deep_stem=True,
+                                        **_DILATED),
+                  att_channels=att_channels, norm=norm)
+
+
+def psanet_r101(num_classes: int = 150, norm: NormFactory = BatchNorm2d,
+                att_channels: int = 3600) -> PSANet:
+    return PSANet(num_classes, resnet101(norm=norm, deep_stem=True,
+                                         **_DILATED),
+                  att_channels=att_channels, norm=norm)
+
+
 def dfn_r101(num_classes: int = 19, norm: NormFactory = BatchNorm2d) -> DFN:
     """DFN on the v1c deep-stem ResNet-101 with the standard strides (1, 2,
     2, 2) and no dilation (models/__init__.py:109-114 of the JAX
@@ -72,10 +115,14 @@ def dfn_r101(num_classes: int = 19, norm: NormFactory = BatchNorm2d) -> DFN:
 
 
 MODEL_REGISTRY = {
-    "bisenet_r18": bisenet_r18,
-    "bisenet_x39": bisenet_x39,
+    "fcn32s_r101": fcn32s_r101,
     "pspnet_r50": pspnet_r50,
     "pspnet_r101": pspnet_r101,
+    "psanet_r50": psanet_r50,
+    "psanet_r101": psanet_r101,
+    "bisenet_r18": bisenet_r18,
+    "bisenet_r101": bisenet_r101,
+    "bisenet_x39": bisenet_x39,
     "dfn_r101": dfn_r101,
 }
 
@@ -98,15 +145,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     variance-scaling 1/3 fan_in uniform; JAX ``models/resnet.py:28-60``);
     every bias U(+-1/sqrt(fan_in)) (``torch_default_bias_init``); BN
     gamma=1 / beta=0 with running stats (0, 1) as a freshly initialized
-    JAX model."""
+    JAX model.  A module with ``kernel_init_mode = "fan_out"`` (FCN's
+    heads, JAX models/fcn.py:22) has its convs drawn kaiming-normal with
+    fan_out instead."""
     backbone = {id(m) for r in model.modules() if isinstance(r, ResNet)
                 for m in r.modules()}
+    fan_out = {id(m) for r in model.modules()
+               if getattr(r, "kernel_init_mode", "fan_in") == "fan_out"
+               for m in r.modules()}
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             w = torch.empty(mod.weight.shape)
             if isinstance(mod, nn.Conv2d) and id(mod) not in backbone:
-                nn.init.kaiming_normal_(w, nonlinearity="relu",
-                                        generator=generator)
+                nn.init.kaiming_normal_(
+                    w, mode="fan_out" if id(mod) in fan_out else "fan_in",
+                    nonlinearity="relu", generator=generator)
             else:
                 nn.init.kaiming_uniform_(w, a=5 ** 0.5, generator=generator)
             mod.weight.copy_(w)
@@ -118,6 +171,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-__all__ = ["BiSeNet", "DFN", "PSPNet", "ResNet", "Xception", "bisenet_r18",
-           "bisenet_x39", "dfn_r101", "pspnet_r50", "pspnet_r101",
-           "xception39", "init_weights", "MODEL_REGISTRY"]
+__all__ = ["BiSeNet", "DFN", "FCN", "PSANet", "PSPNet", "ResNet",
+           "Xception", "bisenet_r18", "bisenet_r101", "bisenet_x39",
+           "dfn_r101", "fcn32s_r101", "psanet_r50", "psanet_r101",
+           "pspnet_r50", "pspnet_r101", "xception39", "init_weights",
+           "MODEL_REGISTRY"]

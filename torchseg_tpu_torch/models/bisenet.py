@@ -97,7 +97,8 @@ class BiSeNet(nn.Module):
                                  main_mid, norm=norm)
 
     def forward(self, x: torch.Tensor, stem_outs=None,
-                raw_logits: bool = False):
+                raw_logits: bool = False, spatial_out=None,
+                context_blocks=None):
         """NCHW normalized image -> NCHW main-head log-probs (eval), or the
         dict of the three upsampled head logits (train).
 
@@ -106,16 +107,29 @@ class BiSeNet(nn.Module):
         both 7x7/2 stems as one conv; with it, ``x`` is unused.  One of the
         two backbone entries is None.  raw_logits: return the main head's
         logits before its x-scale upsample and log_softmax, for an epilogue
-        that fuses upsample and argmax (ops/kernels/upsample_argmax.py)."""
-        if self.training and (stem_outs is not None or raw_logits):
+        that fuses upsample and argmax (ops/kernels/upsample_argmax.py).
+
+        spatial_out: the whole SpatialPath output (/8, 128 channels),
+        computed outside; context_blocks: the backbone's stage features in
+        forward order (NCHW), computed outside (JAX models/bisenet.py:
+        107-138).  The int8-through BiSeNet-R101 graph hands both
+        (deploy/int8_serve.py); the decoder reads the values of the /32
+        and /16 stages and only the shape of the /8 one."""
+        if self.training and (stem_outs is not None or raw_logits
+                              or spatial_out is not None
+                              or context_blocks is not None):
             raise NotImplementedError(
-                "stem_outs and raw_logits are eval-only; raw train heads "
-                "(JAX train_raw_logits) are not ported (ROADMAP A8)")
+                "stem_outs, raw_logits, spatial_out and context_blocks are "
+                "eval-only; raw train heads (JAX train_raw_logits) are not "
+                "ported (ROADMAP A8)")
         sp_stem, bb_stem, bb_pooled = (stem_outs if stem_outs is not None
                                        else (None, None, None))
-        spatial_out = self.spatial_path(x, stem_features=sp_stem)
-        context = list(self.backbone(x, stem_features=bb_stem,
-                                     stem_pooled=bb_pooled))
+        if spatial_out is None:
+            spatial_out = self.spatial_path(x, stem_features=sp_stem)
+        if context_blocks is None:
+            context_blocks = self.backbone(x, stem_features=bb_stem,
+                                           stem_pooled=bb_pooled)
+        context = list(context_blocks)
         context.reverse()  # [/32, /16, /8, /4]
 
         gc = self.global_context(mean_hw(context[0]))

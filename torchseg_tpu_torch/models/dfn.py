@@ -84,11 +84,15 @@ class DFN(nn.Module):
             self.add_module(f"border_head{i}", DFNHead(
                 border_inner, 1, 4, norm=norm))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, context_blocks=None):
         """NCHW normalized image -> eval log-probs, or the train dict.
-        JAX's ``context_blocks`` serving hook comes with DFN's int8
-        serving (ROADMAP A4)."""
-        blocks = list(self.backbone(x))  # x4, x8, x16, x32
+        context_blocks: precomputed backbone stage features in forward
+        order (NCHW), in place of ``backbone(x)``, with ``x`` unused (JAX
+        models/dfn.py:73-81): the int8-through serving graph's, which
+        dequantizes every stage, since the decoder reads the values of all
+        four (``dequant_all``)."""
+        blocks = list(context_blocks if context_blocks is not None
+                      else self.backbone(x))  # x4, x8, x16, x32
         top_down = blocks[::-1]
         gc = self.global_context(top_down[0].mean(dim=(2, 3), keepdim=True))
         last_fm = resize_bilinear_align_corners(gc, top_down[0].shape[2:])

@@ -70,10 +70,11 @@ def _convert(tree, device):
     return out
 
 
-def _bottleneck_package(pkg, device) -> dict:
+def _bottleneck_package(pkg, device, strides, dilations) -> dict:
     """A ``bottleneck{50,101}`` package (or its run package); the depth
-    comes from stage 3's block count, the strides and dilations are the
-    dilated body's (``DILATED``, the PSPNet layout)."""
+    comes from stage 3's block count, each block's stride and dilation
+    from its entry where it has them (a built package), else from these
+    stage strides and dilations (a run package, its statics stripped)."""
     from ..deploy.int8_serve import RESNET_LAYERS, block_statics
 
     n3 = sum(1 for k in pkg if k.startswith("l3_"))
@@ -84,36 +85,59 @@ def _bottleneck_package(pkg, device) -> dict:
         raise NotImplementedError(
             f"a Bottleneck package with {n3} stage-3 blocks is not ported "
             "(ROADMAP A4)")
-    statics = block_statics(depth)
+    statics = block_statics(depth, strides, dilations)
     out = _convert({k: v for k, v in pkg.items()
                     if k not in ("kind", "layers")}, device)
     out["kind"] = f"bottleneck{depth}"
     out["layers"] = RESNET_LAYERS[depth]
     for name, (stride, dilation) in statics.items():
-        out[name]["stride"], out[name]["dilation"] = stride, dilation
+        out[name]["stride"] = int(pkg[name].get("stride", stride))
+        out[name]["dilation"] = int(pkg[name].get("dilation", dilation))
     return out
 
 
-def int8_package_from_numpy(pkg, device) -> dict:
+def int8_package_from_numpy(pkg, device, strides=None,
+                            dilations=None) -> dict:
     """A JAX int8-through package (``build_int8_package`` /
-    ``build_int8_backbone_package`` output, or the ``run_pkg`` of
-    ``make_int8_through_infer`` / ``make_int8_pspnet_infer`` with its
+    ``build_int8_backbone_package`` / ``build_int8_bisenet_r101_package``
+    output, or the ``run_pkg`` of ``make_int8_through_infer`` /
+    ``make_int8_pspnet_infer`` / ``make_int8_bisenet_r101_infer`` with its
     statics stripped), as numpy arrays -> the port's package on
     ``device``.  Scalars become Python floats.
 
     BiSeNet-R18 with the int8 decoder: the stripped statics (``kind``,
     ``n_sp``, block strides) are restored from the shapes, and entries the
     port's graph does not read (the int8 stem variant, the bf16 decoder's
-    ``s_c16``, TPU weight packings) are dropped.  The dilated Bottleneck
-    body of PSPNet (``bottleneck50``/``bottleneck101``, recognized by its
-    ``stem1``): ``kind``, ``layers`` and each block's ``stride`` and
-    ``dilation`` are restored from ``RESNET_LAYERS`` and ``DILATED``."""
+    ``s_c16``, TPU weight packings) are dropped.  The Bottleneck body
+    (``bottleneck50``/``bottleneck101``, recognized by its ``stem1``):
+    ``kind`` and ``layers`` are restored from ``RESNET_LAYERS``, and a
+    block's ``stride`` and ``dilation`` from its entry, else from
+    ``strides`` / ``dilations`` (a run package's are stripped; None:
+    ``DILATED``, the PSPNet and PSANet layout; FCN's and DFN's run packages
+    need ``STANDARD``).  BiSeNet-R101 (recognized by its ``bb``): the
+    spatial path's entries and the body under ``bb``, at ``STANDARD``
+    unless told otherwise."""
+    from ..deploy.int8_serve import DILATED, STANDARD
+
+    if "bb" in pkg:
+        if pkg.get("kind", "bisenet_r101") != "bisenet_r101":
+            raise NotImplementedError(
+                f"package kind {pkg['kind']!r} is not ported (ROADMAP A4)")
+        out = _convert({k: pkg[k] for k in ("sp_stem", "sp1", "sp2",
+                                            "sp3")}, device)
+        out["kind"] = "bisenet_r101"
+        out["bb"] = _bottleneck_package(
+            pkg["bb"], device, strides or STANDARD["strides"],
+            dilations or STANDARD["dilations"])
+        return out
     if "stem1" in pkg:
-        return _bottleneck_package(pkg, device)
+        return _bottleneck_package(pkg, device,
+                                   strides or DILATED["strides"],
+                                   dilations or DILATED["dilations"])
     if pkg.get("kind", "r18") != "r18" or "dec" not in pkg:
         raise NotImplementedError(
-            "only R18 packages with the int8 decoder and the PSPNet "
-            "Bottleneck body are ported (ROADMAP A4)")
+            "only R18 packages with the int8 decoder, the Bottleneck body "
+            "and BiSeNet-R101 are ported (ROADMAP A4)")
     blocks = [f"l{li}_{bi}" for li in range(1, 5) for bi in range(2)]
     out = _convert({k: pkg[k] for k in ("sp1", "sp2", "sp3", "dec",
                                         *blocks)}, device)
