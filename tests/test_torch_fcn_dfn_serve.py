@@ -249,8 +249,12 @@ def test_fcn_std_and_registry_entry_copy_jax():
 
 
 def test_fcn_training_forward_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmodels.fcn32s_r101().train()(torch.zeros(1, 3, 32, 32))
+    """The training forward is ported now (tests/test_torch_train_forwards.py
+    holds it against flax): train mode gives the raw x32 and x16 logits."""
+    outs = tmodels.fcn32s_r101().train()(torch.zeros(2, 3, 64, 64))
+    assert set(outs) == {"main", "aux"}
+    for v in outs.values():
+        assert v.shape == (2, 21, 64, 64) and v.dtype == torch.float32
 
 
 def test_standard_package_round_trips(tmp_path, r101):

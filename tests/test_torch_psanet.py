@@ -166,9 +166,14 @@ def test_psanet_registry_entries_copy_jax(name):
 
 
 def test_psanet_training_forward_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmodels.psanet_r50(att_channels=16).train()(
-            torch.zeros(1, 3, 32, 32))
+    """The training forward is ported now (tests/test_torch_train_forwards.py
+    holds it against flax): train mode gives {"main", "aux"} log-probs."""
+    outs = tmodels.psanet_r50(att_channels=16).train()(
+        torch.zeros(2, 3, 32, 32))
+    assert set(outs) == {"main", "aux"}
+    for v in outs.values():
+        assert v.shape == (2, 150, 32, 32)
+        torch.testing.assert_close(v.exp().sum(1), torch.ones(2, 32, 32))
 
 
 # -- int8 serving -------------------------------------------------------------

@@ -17,6 +17,14 @@ The group must be initialized before the trainer is built.
 another: each updates the BN running stats in turn, and the gradients and
 the loss are the microbatches' mean (JAX ``trainer.py:144-171``).
 
+``train_step(batch, generator)``: the heads' dropouts (PSPNet, PSANet,
+FCN) draw their masks from ``generator`` (``ops.dropout``), the
+microbatches one after another from the same stream (JAX splits the step
+key per microbatch, :164-168).  Under a group each rank passes its own
+generator, seeded from the run's seed and its rank (``ops.dropout.
+make_generator``: JAX folds the device index into the step key,
+:126-129).  With no generator the dropouts are the identity.
+
 ``deterministic`` runs each step with cuDNN's deterministic convolution
 algorithms: the same steps then give the same bits on every run, as the
 JAX step does (ROADMAP C1).  cuDNN's default choices for the backward
@@ -33,6 +41,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..models import init_weights
+from ..ops.dropout import dropout_generator
 from .optim import make_optimizer
 
 
@@ -106,11 +115,11 @@ class Trainer:
             self.model, self.sgd_momentum, self.lr_mult, self.wd))
         return self.state
 
-    def train_step(self, batch):
+    def train_step(self, batch, generator: Optional[torch.Generator] = None):
         """One step on ``batch``; returns (loss, lr): the loss as a 0-d
         tensor on the batch's device (averaged over the group), the lr the
-        step used (schedule at the step before it).  Unlike the JAX step it
-        takes no random key: BiSeNet draws no random numbers in a step."""
+        step used (schedule at the step before it).  ``generator``: the
+        step's dropout stream, on the model's device (None: no dropout)."""
         st = self.state
         if st is None:
             raise RuntimeError("call init_state() first")
@@ -119,7 +128,7 @@ class Trainer:
             raise ValueError(f"batch {n} not divisible by accum_steps "
                              f"{self.accum_steps}")
         with (_cudnn_deterministic() if self.deterministic
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), dropout_generator(generator):
             return self._step(st, batch, n)
 
     def _step(self, st, batch, n):

@@ -186,8 +186,8 @@ def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda",
     ``border``: also an "aux_label" (B, H, W) int64 for DFN's border
     heads, 1 within ``BORDER_BAND`` pixels of a pixel whose label differs
     from a 4-neighbour's, else 0: again a function of the image.  It is
-    not the Canny edge label of JAX's ``DFNTrainPre``, which comes with
-    the data pipeline (ROADMAP A6)."""
+    not the Canny edge label of ``data.preprocess.DFNTrainPre``, which the
+    training CLI's data pipeline (``train.py``) gives its batches."""
     rng = np.random.default_rng(seed)
     grid = (max(crop[0] // 32, 2), max(crop[1] // 32, 2))
     field = torch.from_numpy(smooth_field(

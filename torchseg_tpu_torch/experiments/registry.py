@@ -4,12 +4,13 @@ The config dataclass is copied field for field from the JAX registry;
 registered: the FCN VOC entry (JAX registry.py:125-138), the two PSPNet
 and the two PSANet ADE entries (:139-142), the BiSeNet-R18, R101 and X39
 Cityscapes entries (:145-157) with the two real-time ones (:158-175), and
-the two DFN entries (:178-199).  The CamVid and PASCAL-Context entries
-come with their datasets (ROADMAP A6).
-``build_model`` binds the model's BatchNorms to a process group (SyncBN)
-when given one; ``build_loss_fn`` gives the per-process training loss
-(``ce``, ``ohem`` and ``dfn``).  JAX's fused upsample+loss branch is off for
-every family there (``_use_fused_head_loss``, registry.py:235-250), so
+the two DFN entries (:178-199), and the CamVid and PASCAL-Context ones
+(:200-217).  ``DATASETS`` maps a config's dataset to its class and
+``build_preprocess`` gives its train-time pipeline (JAX :222-228,
+:276-287).  ``build_model`` binds the model's BatchNorms to a process
+group (SyncBN) when given one; ``build_loss_fn`` gives the per-process
+training loss (``ce``, ``ohem`` and ``dfn``).  JAX's fused upsample+loss
+branch is off for every family there (``_use_fused_head_loss``, registry.py:235-250), so
 the port has none.
 """
 
@@ -20,6 +21,12 @@ from typing import Optional, Sequence, Tuple
 from torch import nn
 
 from .. import models
+from ..data.ade import ADE
+from ..data.camvid import CamVid
+from ..data.cityscapes import Cityscapes
+from ..data.pascal_context import PascalContext
+from ..data.preprocess import ADETrainPre, DFNTrainPre, SegTrainPre
+from ..data.voc import VOC
 from ..ops.losses import (
     CITYSCAPES_CLASS_WEIGHTS,
     cross_entropy_with_ignore,
@@ -191,8 +198,55 @@ _register(ExperimentConfig(
 ))
 
 
+# --- extensions beyond the reference code (its README claims CamVid and
+# PASCAL-Context support but ships neither; SURVEY.md preamble) -------------
+_register(ExperimentConfig(
+    name="camvid.bisenet.R18", model="bisenet_r18", dataset="camvid",
+    num_classes=11, ignore_label=255, loss="ohem",
+    image_height=720, image_width=960,
+    train_scale_array=(0.75, 1, 1.25, 1.5, 1.75, 2.0),
+    lr=1e-2, weight_decay=5e-4, batch_size=16, nepochs=80,
+    niters_per_epoch=23,  # ceil(367 / 16)
+    eval_mode="whole", eval_resize_to=(720, 960),
+    eval_base_size=720, eval_crop_size=720,
+))
+_register(ExperimentConfig(
+    name="pcontext.pspnet.R101_v1c", model="pspnet_r101", dataset="pcontext",
+    num_classes=59, ignore_label=-1, preprocess="ade",
+    image_height=480, image_width=480,
+    train_scale_array=(0.5, 0.75, 1, 1.5, 1.75, 2),
+    lr=1e-2, weight_decay=1e-4, batch_size=16, nepochs=120,
+    niters_per_epoch=312,  # ceil(4998 / 16)
+    loss="ce", aux_loss_ratio=0.4,
+    eval_base_size=480, eval_crop_size=480, eval_stride_rate=2 / 3,
+    eval_label_offset=-1,
+))
+
+DATASETS = {
+    "cityscapes": Cityscapes,
+    "voc": VOC,
+    "ade": ADE,
+    "camvid": CamVid,
+    "pcontext": PascalContext,
+}
+
+
 def get_experiment(name: str) -> ExperimentConfig:
     return EXPERIMENTS[name]
+
+
+def build_preprocess(cfg: ExperimentConfig):
+    """The experiment's train-time pipeline (``data.preprocess``)."""
+    crop = (cfg.image_height, cfg.image_width)
+    if cfg.preprocess == "ade":
+        return ADETrainPre(cfg.image_mean, cfg.image_std, crop,
+                           cfg.train_scale_array)
+    if cfg.preprocess == "dfn":
+        return DFNTrainPre(cfg.image_mean, cfg.image_std, crop,
+                           cfg.train_scale_array)
+    return SegTrainPre(cfg.image_mean, cfg.image_std, crop,
+                       cfg.train_scale_array,
+                       gt_down_sampling=cfg.gt_down_sampling)
 
 
 def build_model(cfg: ExperimentConfig, process_group=None) -> nn.Module:

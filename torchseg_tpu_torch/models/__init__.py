@@ -1,10 +1,10 @@
 """Model zoo (counterpart of torchseg_tpu/models/__init__.py).
 
 Every family of the JAX zoo: BiSeNet-R18 and BiSeNet-X39 with their
-real-time ``.speed`` variants and BiSeNet-R101 (train and eval), PSPNet
-and PSANet on the dilated deep-stem ResNet-50/101 and FCN-32s on the
-deep-stem ResNet-101 (eval; their training forwards come with ROADMAP
-A4), and DFN on the deep-stem ResNet-101 (train and eval).
+real-time ``.speed`` variants and BiSeNet-R101, PSPNet and PSANet on the
+dilated deep-stem ResNet-50/101, FCN-32s and DFN on the deep-stem
+ResNet-101, each in train and eval mode (the heads' dropouts draw from
+the step's generator, ``ops.dropout``).
 """
 
 import torch

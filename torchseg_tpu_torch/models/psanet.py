@@ -19,9 +19,10 @@ to the feature size by ``jax.image.resize(..., "linear")`` (half-pixel
 centres, antialiased when it downscales), here ``ops.resize.
 resize_linear`` over the last two axes.
 
-Eval returns the x8-upsampled float32 log-probs, NCHW (JAX :146-152).
-Only eval is ported: PSANet's training forward (``{"main", "aux"}``) comes
-with ROADMAP A4; the aux head exists so that the JAX parameters load.
+Eval returns the x8-upsampled float32 log-probs, NCHW (JAX :146-152);
+train mode ``{"main", "aux"}`` of them (JAX :153-164), with the conv6
+dropout (p 0.1, :121) and the aux head's drawn from the step's generator.
+The off-size fallback holds in train mode too.
 Submodule names are the flax names (``psa_layer.collect.reduction``,
 ``.att_cbr``, ``.att_out``, the same under ``distribute``,
 ``psa_layer.proj``, ``.conv6_cbr``, ``.conv6_out``, ``aux_layer``).
@@ -33,11 +34,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import wide
 from ..ops.blocks import ConvBnRelu, NormFactory
+from ..ops.dropout import Dropout
 from ..ops.norm import BatchNorm2d
-from ..ops.resize import resize_linear, upsample_by_scale
-from .pspnet import AuxHead
+from ..ops.resize import resize_linear
+from .pspnet import AuxHead, log_probs_x8
 
 # the fallback materializes a (b, h*w, h*w) float32 attention tensor; JAX
 # refuses one over this many bytes an item (models/psanet.py:71-84)
@@ -117,12 +118,13 @@ class PointwiseSpatialAttention(nn.Module):
         self.proj = ConvBnRelu(2 * 512, 2048, 1, 1, 0, norm=norm)
         self.conv6_cbr = ConvBnRelu(in_planes + 2048, 512, 3, 1, 1,
                                     norm=norm)
+        self.dropout = Dropout(0.1)
         self.conv6_out = nn.Conv2d(512, out_planes, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         psa = torch.cat([self.collect(x), self.distribute(x)], dim=1)
         fm = self.conv6_cbr(torch.cat([x, self.proj(psa)], dim=1))
-        return self.conv6_out(fm)  # dropout 0.1 is the identity in eval
+        return self.conv6_out(self.dropout(fm))
 
 
 class PSANet(nn.Module):
@@ -136,16 +138,15 @@ class PSANet(nn.Module):
             stage_channels[-1], num_classes, att_channels, norm=norm)
         self.aux_layer = AuxHead(stage_channels[-2], num_classes, norm=norm)
 
-    def forward(self, x, context_blocks=None) -> torch.Tensor:
+    def forward(self, x, context_blocks=None):
         """NCHW normalized image -> NCHW float32 log-probs at the input's
-        size.  context_blocks: precomputed backbone stage features in
-        forward order (NCHW), in place of ``backbone(x)``; the int8-through
-        serving graph hands its body's stages here (deploy/int8_serve.py),
-        with ``x`` unused."""
-        if self.training:
-            raise NotImplementedError(
-                "PSANet's training forward is not ported (ROADMAP A4)")
+        size (train mode: ``{"main", "aux"}`` of them).  context_blocks:
+        precomputed backbone stage features in forward order (NCHW), in
+        place of ``backbone(x)``; the int8-through serving graph hands its
+        body's stages here (deploy/int8_serve.py), with ``x`` unused."""
         blocks = (context_blocks if context_blocks is not None
                   else self.backbone(x))
-        psa = upsample_by_scale(wide(self.psa_layer(blocks[-1])), 8)
-        return torch.log_softmax(psa, dim=1)
+        psa = log_probs_x8(self.psa_layer(blocks[-1]))
+        if not self.training:
+            return psa
+        return {"main": psa, "aux": log_probs_x8(self.aux_layer(blocks[-2]))}

@@ -9,8 +9,13 @@ lock in the build directory (concurrent processes build once).  The C entry
 points take raw device pointers and the CUDA stream as ``void*`` and return
 ``cudaGetLastError()``; ``ready(device, name)`` also runs the library's
 one-time set-up (``tsg_init``, where it has one) on that device.
+
+``host_library(source)`` builds a C++ host library (the data pipeline's
+``native/augment.cpp``) the same way with g++: hash-named by its source
+and flags, into the same directory, under the same lock.
 """
 
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -32,6 +37,10 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+# the host libraries' flags: the JAX package's native build's
+# (torchseg_tpu/native/__init__.py), so that the arithmetic compiles alike
+GXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
 
 # library (= source stem) -> {entry point: argtypes}
 LIBRARIES = {
@@ -145,17 +154,53 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """One build at a time: processes that start together (the ranks of a
+    multi-process run, the tests' workers) wait for the first one's
+    compiler and load its files."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> dict:
     """Compile every library that is not cached, one nvcc each, in
     parallel; returns {name: library path}.  Raises if any nvcc fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {name: _lib_path(name) for name in LIBRARIES}
-    # one build at a time: processes that start together (the ranks of a
-    # multi-process run) wait for the first one's nvcc and load its files
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with _build_lock():
         return _build_locked(paths)
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(source: str) -> str:
+    """Compile the C++ file ``source`` with g++ (``GXX_FLAGS``) into a
+    shared library in ``BUILD_DIR`` unless it is cached; returns its path.
+    Raises RuntimeError with the compiler's message if g++ fails."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(source, "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+    with _build_lock():
+        if os.path.exists(path):
+            return path
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = ["g++", *GXX_FLAGS, source, "-o", tmp]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            os.unlink(tmp)
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    return path
 
 
 def _build_locked(paths: dict) -> dict:

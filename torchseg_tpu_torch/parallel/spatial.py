@@ -21,11 +21,14 @@ all-reduce.  The reported loss is the sum of the ``L_r``, the global one.
 
 ``SpatialTrainer`` is the port's ``engine.trainer.Trainer`` step (SGD with
 momentum, the parameter groups' lr multipliers and weight decay) over such
-a mesh; its BNs sync over the context's groups (the model is built with
-no process group, as JAX's with ``axis_name=None``).  Maps whose global
-height is under ``ops.spatial.MIN_ROWS_PER_SHARD`` (4) times sp are
-gathered (JAX's ``space_unshard_interceptor`` rule; here it spares the
-halo exchanges of the small deep maps).
+a mesh, for the families without dropout (BiSeNet, DFN): a model with
+live dropout (PSPNet, PSANet, FCN) raises, its masks having to agree over
+one image's space shards (ROADMAP A5); its BNs sync over the context's
+groups (the model is built with no process group, as JAX's with
+``axis_name=None``).  Maps whose global height is under
+``ops.spatial.MIN_ROWS_PER_SHARD`` (4) times sp are gathered (JAX's
+``space_unshard_interceptor`` rule; here it spares the halo exchanges of
+the small deep maps).
 """
 
 import contextlib
@@ -39,6 +42,7 @@ from torch import nn
 from ..engine.optim import make_optimizer
 from ..engine.trainer import TrainState, _cudnn_deterministic
 from ..models import init_weights
+from ..ops.dropout import has_live_dropout
 from ..ops.spatial import MIN_ROWS_PER_SHARD, SpaceContext, split_unit
 
 
@@ -143,6 +147,11 @@ class SpatialTrainer:
                  deterministic: bool = False):
         if mesh is None:
             raise ValueError("SpatialTrainer needs a mesh (make_dp_sp_mesh)")
+        if has_live_dropout(model):
+            raise NotImplementedError(
+                "SpatialTrainer does not train a model with live dropout "
+                "(PSPNet, PSANet, FCN): one image's masks would have to "
+                "agree over its space shards (ROADMAP A5)")
         self.model, self.loss_fn = model, loss_fn
         self.lr_schedule = lr_schedule
         self.sgd_momentum = sgd_momentum
