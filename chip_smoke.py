@@ -7,7 +7,9 @@ check them.
 Besides serving, it drives two training steps: BiSeNet-R18 and DFN-R101
 (with the multi-class sigmoid focal loss run on the DFN step's logits), the
 training command line for BiSeNet-R18, PSPNet-R50 and DFN-R101 on PNG
-files it writes (with PSANet's and FCN's steps), and
+files it writes (with PSANet's and FCN's steps), the evaluation command
+line on those files and the CLI's snapshots (sliding window, msf and
+flip, the speed protocol), and
 the training half across processes (``dryrun_multichip``, the four-rank
 leg, whole-image evaluation) with its dp x sp leg (the image height
 sharded over two ranks: the step, the dryrun, whole-image evaluation).
@@ -221,6 +223,30 @@ script
      CLI run logs its median step (CUDA events), the host time a step
      waited for the loader, the card's idle share over its last steps
      (profiler) and its peak memory.
+  16. the evaluation command line (``torchseg_tpu_torch.eval``,
+     ``eval_city_phase`` and ``eval_ade_phase``, run inside the CLI phase
+     on its PNG trees and snapshots before they are removed): (a) the
+     main path's protocol, ``cityscapes.bisenet.R18.speed`` whole-image at
+     ``resize_to`` 768x1536 with the labels cut by 8 (a snapshot of one
+     CLI step), over the four Cityscapes-shaped images; (b) BiSeNet-R18's
+     sliding protocol at 1024x2048 (crop 1024, stride 854: 3 crops) and
+     then ``--msf`` (6 scales with flip: 28 crops, 56 forwards an image),
+     each over the CLI run's snapshot sweep (``--epochs 0-``) with ``-p``
+     and ``--submit``: every dumped PNG read back by the port's decoder
+     has the label map's shape and values in the train ids (predictions)
+     or in Cityscapes' label ids (submissions), the ``val_*.log`` holds
+     one table an epoch and ``val_last.log`` links to it, and each
+     epoch's logged mIoU equals ``Evaluator.run_dataset`` on a model
+     restored from that epoch alone (at least two epochs' histograms
+     differ, else one image's scores must); (c) PSPNet-R50's ADE protocol
+     (``ade.pspnet.R50_v1c``: crop 480, ``label_offset`` -1) single-scale
+     and ``--msf`` (5 scales with flip) on the ADE-shaped images with the
+     CLI's snapshot; (d) each protocol on one small seeded image (crop 96)
+     on the card against the same protocol on the CPU with the same
+     weights, labels equal on >= 99 % of pixels, and ``tools/
+     eval_speed`` for each at the full size (ms an image, the profiler's
+     device time an image and the top kernels, the idle share, peak
+     memory); ``cv2`` never imported.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -3550,6 +3576,298 @@ def entry_step_rows(tag, suffix, dev, trainer, data, generator, all_kernels,
     return rows
 
 
+# -- the evaluation command line (eval.py) on the CLI's trees and snapshots ---
+
+EVAL_SPEED_EXPERIMENT = "cityscapes.bisenet.R18.speed"
+# card vs CPU: one small seeded image a protocol, (image hw, crop)
+EVAL_SMALL = {"city": ((96, 192), 96), "speed": ((128, 256), 96),
+              "ade": ((96, 128), 96)}
+EVAL_SMALL_RESIZE_TO = (96, 192)  # the speed protocol's target there
+EVAL_AGREE = 0.99
+EVAL_SPEED_N, EVAL_SPEED_PASSES = 2, 2  # tools/eval_speed, images a pass
+
+
+def eval_flags(root, trees, name):
+    """The eval CLI's data flags for a tree written by ``write_trees``.
+    Cityscapes: a val list whose labels are links named
+    ``<name>_gtFine.png``, so that ``--submit``'s rename
+    (``Cityscapes.transform_label``: the last ``_`` part dropped) keeps the
+    images apart."""
+    img_dir, gt_dir, manifest = trees[name][1], trees[name][3], trees[name][5]
+    if name == "ade":
+        return ["--img-root", img_dir, "--gt-root", gt_dir, "--eval-source",
+                manifest]
+    named = os.path.join(root, name, "val_labels")
+    os.makedirs(named, exist_ok=True)
+    lines = []
+    for fname in sorted(os.listdir(gt_dir)):
+        stem = fname[:-len(".png")]
+        link = os.path.join(named, f"{stem}_gtFine.png")
+        if not os.path.lexists(link):
+            os.symlink(os.path.join(gt_dir, fname), link)
+        lines.append(f"{fname}\t{stem}_gtFine.png")
+    val = os.path.join(root, name, "val.txt")
+    with open(val, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return ["--img-root", img_dir, "--gt-root", named, "--eval-source", val]
+
+
+def eval_cli(tag, argv):
+    """``eval.main(argv)`` on the card; returns [(epoch, mIoU)], each
+    finite, and logs the seconds it took."""
+    from torchseg_tpu_torch import eval as teval
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = teval.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not got or not all(np.isfinite(m) for _, m in got):
+        fail(f"{tag}: eval.main gave {got}")
+    log(f"{tag}: eval.main {seconds:.2f} s; (epoch, mIoU) "
+        f"{[(e, round(float(m), 6)) for e, m in got]}")
+    return got
+
+
+def eval_logs(tag, log_dir, n_epochs):
+    """The newest ``val_*.log`` holds ``n_epochs`` tables (a multiple: two
+    runs in one second share a log) and ``val_last.log`` links to it."""
+    link = os.path.join(log_dir, "val_last.log")
+    logs = sorted(f for f in os.listdir(log_dir)
+                  if f.startswith("val_2") and f.endswith(".log"))
+    if not os.path.islink(link) or os.readlink(link) != logs[-1]:
+        fail(f"{tag}: val_last.log does not link to the newest of {logs}")
+    with open(os.path.join(log_dir, logs[-1])) as f:
+        text = f.read()
+    n = text.count("== epoch ")
+    if not n or n % n_epochs or "mean_IU" not in text:
+        fail(f"{tag}: {logs[-1]} holds {n} tables, expected {n_epochs}")
+
+
+def check_dumps(tag, pred_dir, submit_dir, n, hw, num_classes):
+    """The ``-p`` and ``--submit`` PNGs, read back by the port's decoder:
+    ``n`` of each, of the label map's shape, the predictions in the train
+    ids and the submissions in Cityscapes' label ids."""
+    from torchseg_tpu_torch.data import image_io
+    from torchseg_tpu_torch.data.cityscapes import Cityscapes
+
+    for d, allowed in ((pred_dir, set(range(num_classes))),
+                       (submit_dir, set(Cityscapes.trans_labels))):
+        files = sorted(os.listdir(d))
+        if len(files) != n:
+            fail(f"{tag}: {len(files)} PNGs in {d}, expected {n}")
+        for f in files:
+            a = image_io.imread(os.path.join(d, f), image_io.GRAYSCALE)
+            seen = set(np.unique(a).tolist())
+            if a.shape != tuple(hw) or not seen <= allowed:
+                fail(f"{tag}: {f} is {a.shape} with values {sorted(seen)}")
+
+
+def eval_small_image(name, seed):
+    """A seeded smooth uint8 image of ``EVAL_SMALL[name]`` (as
+    ``write_trees`` draws them)."""
+    from torchseg_tpu_torch.entry import smooth_field
+
+    hw = EVAL_SMALL[name][0]
+    grid = np.random.default_rng(seed).normal(size=(1, 3, hw[0] // 16,
+                                                    hw[1] // 16))
+    field = smooth_field(grid, hw)[0]
+    return np.clip(128 + 60 * field, 0, 255).astype(np.uint8).transpose(
+        1, 2, 0).copy()
+
+
+def eval_card_vs_cpu(tag, dev, cfg, model, name, msf, seed):
+    """The protocol of ``cfg`` (crop ``EVAL_SMALL``) on one small seeded
+    image with the same weights on the card and on the CPU: labels agree
+    on >= EVAL_AGREE of the pixels."""
+    from torchseg_tpu_torch import native
+    from torchseg_tpu_torch.eval import make_evaluator
+
+    crop = EVAL_SMALL[name][1]
+    over = dict(eval_crop_size=crop, eval_base_size=crop)
+    if cfg.eval_resize_to is not None:
+        over["eval_resize_to"] = EVAL_SMALL_RESIZE_TO
+    cfg = dataclasses.replace(cfg, **over)
+    img = eval_small_image(name, seed)
+    preds = []
+    for device, m in ((dev, model), (torch.device("cpu"),
+                                     copy.deepcopy(model).cpu())):
+        ev = make_evaluator(cfg, m, msf=msf, device=device)
+        if cfg.eval_mode == "whole":
+            h, w = cfg.eval_resize_to
+            k = cfg.eval_gt_down_sampling
+            pred = ev.whole_eval(native.resize_linear_cv(img, (w, h)),
+                                 output_size=(h // k, w // k))
+        else:
+            pred = ev.sliding_eval(img)
+        preds.append(pred.cpu())
+    agree = float((preds[0] == preds[1]).float().mean())
+    log(f"{tag} at {img.shape[0]}x{img.shape[1]}, crop {crop}: card labels "
+        f"{tuple(preds[0].shape)} agree with the CPU's on {agree:.6f} of "
+        f"pixels (bar {EVAL_AGREE})")
+    if agree < EVAL_AGREE:
+        fail(f"{tag}: card vs CPU label agreement {agree} < {EVAL_AGREE}")
+
+
+def eval_speed_run(tag, argv):
+    """``tools/eval_speed.main`` on the card: ms an image, the device time
+    an image (profiler), the idle share, the top kernels and peak memory
+    (printed by the tool)."""
+    from torchseg_tpu_torch.tools import eval_speed
+
+    log(f"{tag}: tools/eval_speed {' '.join(argv)}")
+    out = eval_speed.main(argv + ["--n", str(EVAL_SPEED_N), "--passes",
+                                  str(EVAL_SPEED_PASSES), "--device-time"])
+    if not (out["ms_per_img"] > 0 and out.get("device_ms_per_img", 0) > 0):
+        fail(f"{tag}: eval_speed gave {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_city_phase(dev, root, trees, log_dir, snap):
+    """The evaluation phase's Cityscapes half (module docstring, item 16,
+    (a), (b) and their part of (d)) on the BiSeNet-R18 CLI's snapshots."""
+    from torchseg_tpu_torch import train
+    from torchseg_tpu_torch.engine.checkpoint import restore_checkpoint
+    from torchseg_tpu_torch.engine.trainer import TrainState
+    from torchseg_tpu_torch.entry import TRAIN_EXPERIMENT
+    from torchseg_tpu_torch.eval import make_evaluator
+    from torchseg_tpu_torch.experiments.registry import (
+        DATASETS,
+        build_model,
+        get_experiment,
+    )
+
+    t0 = time.perf_counter()
+    flags = eval_flags(root, trees, "city")
+    epochs = sorted(int(f[len("epoch-"):-len(".ckpt")])
+                    for f in os.listdir(snap) if f[len("epoch-"):-len(
+                        ".ckpt")].isdigit())
+
+    # (a) the main path's protocol: R18.speed whole at resize_to, labels /8
+    speed_cfg = get_experiment(EVAL_SPEED_EXPERIMENT)
+    train.main(["-e", EVAL_SPEED_EXPERIMENT, "--synthetic", "--epochs", "1",
+                "--iters", "1", "--batch-size", "2", "--num-workers", "1",
+                "--log-dir", log_dir, "--device", "cuda"])
+    speed_snap = os.path.join(log_dir, EVAL_SPEED_EXPERIMENT, "snapshot")
+    eval_cli("R18.speed whole (resize_to 768x1536, labels /8)",
+             ["-e", EVAL_SPEED_EXPERIMENT, *flags, "--snapshot-dir",
+              speed_snap, "--log-dir", log_dir])
+    eval_logs("R18.speed", os.path.join(log_dir, EVAL_SPEED_EXPERIMENT), 1)
+    state = TrainState(model=build_model(speed_cfg).to(dev), optimizer=None)
+    restore_checkpoint(os.path.join(speed_snap, "epoch-last.ckpt"), state)
+    eval_card_vs_cpu("R18.speed whole", dev, speed_cfg, state.model,
+                     "speed", False, 11)
+
+    # (b) BiSeNet-R18's sliding protocol over the snapshot sweep
+    cfg = get_experiment(TRAIN_EXPERIMENT)
+    exp_log = os.path.join(log_dir, TRAIN_EXPERIMENT)
+    pred_dir, submit_dir = (os.path.join(root, "eval_pred"),
+                            os.path.join(root, "eval_submit"))
+    sweep = ["-e", TRAIN_EXPERIMENT, *flags, "--snapshot-dir", snap,
+             "--log-dir", log_dir, "--epochs", "0-", "-p", pred_dir,
+             "--submit", submit_dir]
+    got = eval_cli(f"R18 sliding (crop 1024, 3 crops) over epochs {epochs}",
+                   sweep)
+    if [e for e, _ in got] != epochs:
+        fail(f"R18 sweep scored epochs {[e for e, _ in got]}, not {epochs}")
+    eval_logs("R18 sliding", exp_log, len(epochs))
+    check_dumps("R18 sliding", pred_dir, submit_dir, CLI_IMAGES,
+                CLI_CITY_HW, cfg.num_classes)
+    # each epoch's mIoU is that epoch's own checkpoint evaluated alone
+    ds = DATASETS[cfg.dataset](
+        {"img_root": flags[1], "gt_root": flags[3],
+         "train_source": flags[5], "eval_source": flags[5]}, "val")
+    hists = []
+    for (epoch, miou) in got:
+        alone = TrainState(model=build_model(cfg).to(dev), optimizer=None)
+        restore_checkpoint(os.path.join(snap, f"epoch-{epoch}.ckpt"), alone)
+        acc = make_evaluator(cfg, alone.model, device=dev).run_dataset(
+            ds, mode=cfg.eval_mode)
+        hists.append(acc.hist.cpu())
+        if acc.scores()[1] != miou:
+            fail(f"R18 sweep: epoch {epoch} logged mIoU {miou}, its "
+                 f"checkpoint alone {acc.scores()[1]} (stale weights?)")
+    differ = [i for i in range(1, len(hists))
+              if not torch.equal(hists[i], hists[0])]
+    log(f"R18 sweep: every epoch's mIoU equals its checkpoint evaluated "
+        f"alone; epochs {[epochs[i] for i in differ]} give a histogram other "
+        f"than epoch {epochs[0]}'s")
+    if not differ:
+        img = ds[0]["image"]
+        scores = []
+        for epoch in epochs:
+            alone = TrainState(model=build_model(cfg).to(dev), optimizer=None)
+            restore_checkpoint(os.path.join(snap, f"epoch-{epoch}.ckpt"),
+                               alone)
+            scores.append(make_evaluator(cfg, alone.model, device=dev)
+                          .scale_process(img, img.shape[:2],
+                                         cfg.eval_crop_size,
+                                         cfg.eval_stride_rate))
+        if all(np.array_equal(scores[0], s) for s in scores[1:]):
+            fail("R18 sweep: every epoch gives the same scores; the "
+                 "stale-weights check shows nothing")
+    got_msf = eval_cli("R18 sliding msf (6 scales + flip, 28 crops, 56 "
+                       "forwards an image)", sweep + ["--msf"])
+    if [e for e, _ in got_msf] != epochs:
+        fail(f"R18 msf sweep scored epochs {[e for e, _ in got_msf]}")
+    eval_logs("R18 msf", exp_log, len(epochs))
+    check_dumps("R18 msf", pred_dir, submit_dir, CLI_IMAGES, CLI_CITY_HW,
+                cfg.num_classes)
+    model = TrainState(model=build_model(cfg).to(dev), optimizer=None)
+    restore_checkpoint(os.path.join(snap, "epoch-last.ckpt"), model)
+    for msf in (False, True):
+        eval_card_vs_cpu(f"R18 sliding{' msf' if msf else ''}", dev, cfg,
+                         model.model, "city", msf, 12)
+    del state, model
+    torch.cuda.empty_cache()
+
+    # (d) the timings, at the full sizes
+    eval_speed_run("R18.speed whole", ["-e", EVAL_SPEED_EXPERIMENT])
+    eval_speed_run("R18 sliding", ["-e", TRAIN_EXPERIMENT])
+    eval_speed_run("R18 sliding msf", ["-e", TRAIN_EXPERIMENT, "--msf"])
+    if "cv2" in sys.modules:
+        fail("the evaluation phase imported cv2")
+    log(f"evaluation phase, Cityscapes half: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def eval_ade_phase(dev, root, trees, log_dir, snap):
+    """The evaluation phase's ADE half (module docstring, item 16, (c) and
+    its part of (d)) on the PSPNet-R50 CLI's snapshot."""
+    from torchseg_tpu_torch.engine.checkpoint import restore_checkpoint
+    from torchseg_tpu_torch.engine.trainer import TrainState
+    from torchseg_tpu_torch.entry import PSP_EXPERIMENT
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+
+    t0 = time.perf_counter()
+    cfg = get_experiment(PSP_EXPERIMENT)
+    argv = ["-e", PSP_EXPERIMENT, *eval_flags(root, trees, "ade"),
+            "--snapshot-dir", snap, "--log-dir", log_dir]
+    eval_cli("PSPNet-R50 ADE sliding (crop 480, label_offset -1)", argv)
+    eval_cli("PSPNet-R50 ADE sliding msf (5 scales + flip)",
+             argv + ["--msf"])
+    eval_logs("PSPNet-R50", os.path.join(log_dir, PSP_EXPERIMENT), 1)
+    state = TrainState(model=build_model(cfg).to(dev), optimizer=None)
+    restore_checkpoint(os.path.join(snap, "epoch-last.ckpt"), state)
+    for msf in (False, True):
+        eval_card_vs_cpu(f"PSPNet-R50 sliding{' msf' if msf else ''}", dev,
+                         cfg, state.model, "ade", msf, 13)
+    del state
+    torch.cuda.empty_cache()
+    size = f"{CLI_ADE_HW[0]}x{CLI_ADE_HW[1]}"
+    eval_speed_run("PSPNet-R50 sliding", ["-e", PSP_EXPERIMENT, "--size",
+                                          size])
+    eval_speed_run("PSPNet-R50 sliding msf", ["-e", PSP_EXPERIMENT, "--msf",
+                                              "--size", size])
+    if "cv2" in sys.modules:
+        fail("the evaluation phase imported cv2")
+    log(f"evaluation phase, ADE half: {time.perf_counter() - t0:.1f} s")
+
+
 def cli_phase(dev, all_kernels, reset_all):
     """The training CLI (see the module docstring, item 15); returns the
     kernels line's K8 and K9 rows at the PSPNet, PSANet and FCN steps."""
@@ -3636,6 +3954,7 @@ def cli_phase(dev, all_kernels, reset_all):
                  f"last")
         log(f"BiSeNet-R18 CLI resumed at epoch {CLI_R18_EPOCHS} with lr "
             f"{lrs[0]} (PolyLR at step {n_steps}); snapshots {files}")
+        eval_city_phase(dev, root, trees, log_dir, snap)
         shutil.rmtree(os.path.join(log_dir, TRAIN_EXPERIMENT))
 
         # -- PSPNet-R50 at 480x480; its dropout generator on the card ------
@@ -3677,6 +3996,9 @@ def cli_phase(dev, all_kernels, reset_all):
                                 trainer, data, make_generator(3, dev),
                                 all_kernels, reset_all)
         del trainer, data
+        torch.cuda.empty_cache()
+        eval_ade_phase(dev, root, trees, log_dir,
+                       os.path.dirname(psp_snap))
         shutil.rmtree(os.path.join(log_dir, PSP_EXPERIMENT))
         torch.cuda.empty_cache()
 

@@ -5,7 +5,8 @@ on tiny PNG trees written here (CPU):
       experiment's preprocess, the ``file_length`` oversampling and its
       ``reshuffle``, ADE's float32 labels and derived label path with the
       -1 shift of its pipeline, PASCAL-Context's, DFN's border label (its
-      image within one code: JAX's DFN pipeline resizes through cv2),
+      image bit-exact too: the port resizes as cv2 does, as JAX's DFN
+      pipeline does through cv2),
       Cityscapes' ``labelid_to_trainid`` and ``transform_label``, CamVid's
       ``remap_void``, every class's colours and names;
   ``TrainLoader``: the batches of two epochs equal JAX's (one worker:
@@ -84,16 +85,11 @@ def trees(tmp_path_factory):
                               ade=True)}
 
 
-def _assert_items_equal(got, ref, image_codes=0):
-    """Equal items; ``image_codes``: the normalized images may differ by
-    that many uint8 codes (DFN's pipeline resizes through JAX's cv2 route,
-    within one code of the port's)."""
+def _assert_items_equal(got, ref):
+    """Equal items, every array bit for bit."""
     assert set(got) == set(ref)
     for k in ref:
-        if k == "image" and image_codes:
-            assert float(np.abs(got[k] - ref[k]).max()) <= (
-                image_codes * 1.0001 / 255 / 0.224)
-        elif isinstance(ref[k], np.ndarray):
+        if isinstance(ref[k], np.ndarray):
             assert got[k].dtype == ref[k].dtype, k
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
         else:
@@ -131,8 +127,7 @@ def test_dataset_items_match_jax(trees, tree, tcls, jcls, exp):
         jds.reshuffle(seed)
         assert tds._epoch_names == jds._epoch_names
         for i in (0, 5, 11):
-            _assert_items_equal(tds[i], jds[i],
-                                image_codes=int(cfg.preprocess == "dfn"))
+            _assert_items_equal(tds[i], jds[i])
     if cfg.preprocess == "ade":  # unlabeled (0) is -1 after the shift
         assert min(int(tds[i]["label"].min()) for i in range(12)) == -1
 

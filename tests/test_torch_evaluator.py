@@ -11,8 +11,8 @@ without flip — labels equal wherever JAX's top-two score margin exceeds
 and one process's shard) — histograms equal when no pixel is that close;
 the multi-device path over ``devices=["cpu", "cpu"]`` gives the
 single-device histogram; a dead worker (multi-device) or a failing dataset
-read (prefetch) raises; the unported protocols raise
-``NotImplementedError``.  ``resize_linear`` equals ``jax.image.resize(...,
+read (prefetch) raises; ``show_image="window"`` and ``spatial_shards``
+without a process group raise ``ValueError``.  ``resize_linear`` equals ``jax.image.resize(...,
 "linear")`` within 1e-6 of the largest magnitude, up and down (antialiased).
 """
 
@@ -203,22 +203,15 @@ def test_a_dead_worker_raises(models):
 
 
 def test_unported_protocols_raise(models):
+    # the sliding protocol, the speed protocol, the dumps and shard_crops
+    # are ported (tests/test_torch_sliding_eval.py); what stays refused:
+    # the interactive window, and spatial_shards without a process group
+    # of a multiple of its ranks (ported: tests/test_torch_spatial.py)
     _, ev, _ = _evaluators(models, False)
     ds = SyntheticDataset(2, (8, 8), 3)
-    img = ds[0]["image"]
-    with pytest.raises(NotImplementedError, match="A7"):
-        ev.run_dataset(ds, mode="sliding")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ev.sliding_eval(img)
-    for kw in ({"resize_to": (4, 4)}, {"gt_down_sampling": 2},
-               {"save_pred_dir": "preds"}, {"submit_dir": "sub"},
-               {"show_image": "comp"}):
-        with pytest.raises(NotImplementedError, match="A7"):
-            ev.run_dataset(ds, mode="whole", **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        _evaluators(models, False, shard_crops=True)
-    # spatial_shards is ported (test_torch_spatial.py); without a process
-    # group of a multiple of its ranks it raises
+    for mode in ("whole", "sliding"):
+        with pytest.raises(ValueError, match="GUI"):
+            ev.run_dataset(ds, mode=mode, show_image="window")
     with pytest.raises(ValueError, match="ranks"):
         _evaluators(models, False, spatial_shards=2)
 

@@ -7,8 +7,9 @@ exactly what the JAX function draws, in the same order.  The padding is
 BORDER_CONSTANT, value=value)``: a scalar ``value`` fills the first
 channel of a multi-channel image and 0 the others, as OpenCV reads a
 scalar as ``Scalar(value, 0, 0, 0)``.  Images resize through the port's
-native library (``native.resize_bilinear``: uint8, JAX's native route bit
-for bit, within one code of cv2's INTER_LINEAR).  Labels resize nearest by
+native library's copy of cv2's INTER_LINEAR (``native.resize_linear_cv``:
+uint8, cv2's fixed-point arithmetic bit for bit), as JAX's functions here
+call ``cv2.resize``.  Labels resize nearest by
 cv2's INTER_NEAREST index rule, ``sx = floor(dx * (1 / (dw / sw)))``, a
 gather in numpy, exact for any label type: JAX's functions here call cv2,
 and the native library's rule, ``floor(dx * (sw / dw))``, picks the next
@@ -119,19 +120,19 @@ def resize_ensure_shortest_edge(img, edge_length: int):
         th, tw = edge_length, max(1, int(edge_length / h * w))
     else:
         th, tw = max(1, int(edge_length / w * h)), edge_length
-    return native.resize_bilinear(img, th, tw)
+    return native.resize_linear_cv(img, (tw, th))
 
 
 def random_scale(rng: np.random.Generator, img, gt, scales: Sequence[float]):
     scale = float(scales[int(rng.integers(0, len(scales)))])
     sh, sw = int(img.shape[0] * scale), int(img.shape[1] * scale)
-    return (native.resize_bilinear(img, sh, sw), resize_labels(gt, sh, sw),
-            scale)
+    return (native.resize_linear_cv(img, (sw, sh)),
+            resize_labels(gt, sh, sw), scale)
 
 
 def random_scale_with_length(rng, img, gt, lengths: Sequence[int]):
     size = int(lengths[int(rng.integers(0, len(lengths)))])
-    return (native.resize_bilinear(img, size, size),
+    return (native.resize_linear_cv(img, (size, size)),
             resize_labels(gt, size, size), size)
 
 

@@ -63,7 +63,8 @@ def link_last(snapshot_dir: str, path: str):
 
 def restore_checkpoint(path: str, state: TrainState, strict: bool = True):
     """Load ``path`` into ``state`` (its model and optimizer, on their own
-    devices) and set its step; returns (state, epoch, extra).  ``epoch``
+    devices; a ``state.optimizer`` of None loads the model alone) and set
+    its step; returns (state, epoch, extra).  ``epoch``
     is the epoch that was saved: resume at epoch + 1 as the reference does
     (engine.py:145-146).
 
@@ -85,6 +86,7 @@ def restore_checkpoint(path: str, state: TrainState, strict: bool = True):
                 f"checkpoint {path}: {len(problems)} mismatches: "
                 f"{problems[:5]} (+{max(len(problems) - 5, 0)} more)")
     state.model.load_state_dict(saved, strict=strict)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.optimizer is not None:  # None: the model alone (evaluation)
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"]), payload.get("extra", {})

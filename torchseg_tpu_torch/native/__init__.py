@@ -5,10 +5,14 @@ host_library``: hash-named, under the build lock) and bound with ctypes.
 
 It is the port's only route for the uint8 resizes, the fused
 crop/normalize/pad and the PNG unfilter: the route JAX's ``SegTrainPre``
-takes wherever its library builds.  (The copy keeps ``hflip_u8`` unbound:
-the pipelines mirror with numpy views, as JAX's do.)  There is no fallback: if the library
-cannot be built, ``lib()`` raises with the compiler's message (the port
-never carries on through cv2).
+takes wherever its library builds (``resize_bilinear``, within one code
+of cv2), and, for the JAX functions that call ``cv2.resize(...,
+INTER_LINEAR)`` (the transforms, the evaluator's scales and the speed
+protocol's resize), ``resize_linear_cv``: cv2's own fixed-point
+arithmetic, bit for bit.  (The copy keeps ``hflip_u8`` unbound: the
+pipelines mirror with numpy views, as JAX's do.)  There is no fallback:
+if the library cannot be built, ``lib()`` raises with the compiler's
+message (the port never carries on through cv2).
 """
 
 import ctypes
@@ -30,9 +34,13 @@ def lib() -> ctypes.CDLL:
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
     i = ctypes.c_int
     signatures = {
         "resize_bilinear_u8": [u8p, i, i, i, u8p, i, i],
+        "resize_linear_fixed_u8": [u8p, i, i, i, u8p, i, i, i32p, i16p, i32p,
+                                   i16p],
+        "resize_area2_u8": [u8p, i, i, i, u8p, i, i],
         "resize_nearest_u8": [u8p, i, i, i, u8p, i, i],
         "crop_normalize_pad_f32": [u8p, i, i, i, f32p, f32p, f32p, i, i, i,
                                    i, ctypes.c_float],
@@ -69,6 +77,63 @@ def _resize(fn_name: str, img: np.ndarray, dh: int, dw: int) -> np.ndarray:
 def resize_bilinear(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
     """uint8 (H, W[, C]) -> (dh, dw[, C]), half-pixel bilinear."""
     return _resize("resize_bilinear_u8", img, dh, dw)
+
+
+def _linear_table(n_out: int, scale: float):
+    """OpenCV's source index and 11-bit weight pair of each output
+    position, in its float order: the coordinate ``(d + 0.5) * scale -
+    0.5`` in double, cast to float, floored; the fraction and ``1 - f`` in
+    float, times 2048 and rounded half to even (``saturate_cast<short>``)."""
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(
+        np.float32)
+    s = np.floor(f)
+    f = f - s
+    w = np.stack([(np.float32(1) - f) * np.float32(2048),
+                  f * np.float32(2048)], axis=1)
+    return s.astype(np.int32), np.rint(w).astype(np.int16)
+
+
+def resize_linear_cv(img: np.ndarray, dsize=None, fx: float = 0.0,
+                     fy: float = 0.0) -> np.ndarray:
+    """``cv2.resize(img, dsize, fx=fx, fy=fy, interpolation=
+    cv2.INTER_LINEAR)`` for uint8 (H, W[, C]) images of 1-4 channels, bit
+    for bit (one channel comes back (H, W), as from cv2).  ``dsize`` is
+    cv2's (width, height), the scale then in / out; without it the output
+    is ``round(in * f)`` and the scale ``1 / f``.  Scales of exactly 2 take
+    cv2's 2x area route; otherwise its fixed-point bilinear route, edge
+    rows blended with themselves as OpenCV does (see ``augment.cpp``)."""
+    img, h, w, c = _hwc(img)
+    if not 1 <= c <= 4:
+        raise ValueError(f"{c} channels: cv2's INTER_LINEAR port takes 1-4")
+    if dsize is None:
+        if fx <= 0 or fy <= 0:
+            raise ValueError("resize_linear_cv needs dsize or fx, fy > 0")
+        dw, dh = round(w * fx), round(h * fy)
+        inv_x, inv_y = float(fx), float(fy)
+    else:
+        dw, dh = int(dsize[0]), int(dsize[1])
+        inv_x, inv_y = dw / w, dh / h
+    if dh < 1 or dw < 1:
+        raise ValueError(f"resize to {dh}x{dw}")
+    # cv2 gives a one-channel image back without its channel axis
+    shape = (dh, dw) if c == 1 else (dh, dw, c)
+    if (dh, dw) == (h, w):
+        return img.reshape((h, w) if c == 1 else (h, w, c)).copy()
+    out = np.empty(shape, np.uint8)
+    scale_x, scale_y = 1.0 / inv_x, 1.0 / inv_y
+    if scale_x == 2.0 and scale_y == 2.0:
+        lib().resize_area2_u8(img.reshape(h, w, c), h, w, c,
+                              out.reshape(dh, dw, c), dh, dw)
+        return out
+    xofs, xa = _linear_table(dw, scale_x)
+    clamped = (xofs < 0) | (xofs >= w - 1)  # cv2 clamps columns, not rows
+    xofs = np.clip(xofs, 0, w - 1).astype(np.int32)
+    xa[clamped] = (2048, 0)
+    yofs, yb = _linear_table(dh, scale_y)
+    lib().resize_linear_fixed_u8(img.reshape(h, w, c), h, w, c,
+                                 out.reshape(dh, dw, c), dh, dw, xofs,
+                                 np.ascontiguousarray(xa), yofs, yb)
+    return out
 
 
 def resize_nearest(img: np.ndarray, dh: int, dw: int) -> np.ndarray:

@@ -4,13 +4,16 @@
 // A copy of the JAX package's torchseg_tpu/native/src/augment.cpp (the
 // uint8 resizes, the flip and the fused crop/normalize/pad), whose
 // arithmetic it keeps line for line, so that the port's data pipeline
-// gives the bits of JAX's native route; plus the PNG scanline unfilter
-// that the port's PNG reader (data/image_io.py) runs.  OpenMP-parallel,
-// GIL-free loops.
+// gives the bits of JAX's native route; plus cv2's own INTER_LINEAR (the
+// route of the JAX functions that call cv2.resize) and the PNG scanline
+// unfilter that the port's PNG reader (data/image_io.py) runs.
+// OpenMP-parallel, GIL-free loops.
 //
 // Semantics:
 //   * bilinear resize: half-pixel centers, edge clamp (cv2 INTER_LINEAR,
 //     within one code of it)
+//   * cv2's INTER_LINEAR exactly: 11-bit fixed-point weights, its 2x area
+//     route
 //   * nearest resize:  sx = floor(dx * scale) (cv2 INTER_NEAREST)
 //   * normalize: /255 then (x - mean) / std   (img_utils.py:181-187)
 //   * crop+pad: fixed window with constant pad value (img_utils.py:24-39)
@@ -53,6 +56,81 @@ void resize_bilinear_u8(const uint8_t* src, int sh, int sw, int c,
         double v = (1 - wy) * ((1 - wx) * p00[k] + wx * p01[k]) +
                    wy * ((1 - wx) * p10[k] + wx * p11[k]);
         out[k] = (uint8_t)std::min(255.0, std::max(0.0, std::round(v)));
+      }
+    }
+  }
+}
+
+// cv2.resize(..., INTER_LINEAR) of uint8 images, bit for bit: OpenCV's
+// fixed-point route (imgproc/src/resize.cpp, resizeGeneric_ with
+// HResizeLinear and VResizeLinear<uchar, int, short>).  The caller builds
+// the tables in OpenCV's float order (native/__init__.py): xofs the left
+// source column of each output column, already clamped onto the image,
+// xa its two 11-bit weights (2048 and 0 where OpenCV clamps the column);
+// yofs the floor of each output row's source coordinate, NOT clamped, and
+// yb its two weights.  Each source row's horizontal pass sums in int32
+// (x0 * a0 + x1 * a1); the two rows clip(sy) and clip(sy + 1) are then
+// blended as OpenCV does, each product of the weight and the row >> 4
+// shifted down by 16 before the sum, so that an edge row blended with
+// itself can differ by one code from the row itself, as in OpenCV.
+void resize_linear_fixed_u8(const uint8_t* src, int sh, int sw, int c,
+                            uint8_t* dst, int dh, int dw,
+                            const int32_t* xofs, const int16_t* xa,
+                            const int32_t* yofs, const int16_t* yb) {
+  const int width = dw * c;
+#pragma omp parallel
+  {
+    int32_t* rows = (int32_t*)std::malloc(sizeof(int32_t) * 2 * width);
+#pragma omp for schedule(static)
+    for (int dy = 0; dy < dh; ++dy) {
+      for (int k = 0; k < 2; ++k) {
+        const int sy = std::min(std::max(yofs[dy] + k, 0), sh - 1);
+        const uint8_t* s = src + (size_t)sy * sw * c;
+        int32_t* r = rows + k * width;
+        for (int dx = 0; dx < dw; ++dx) {
+          const int x0 = xofs[dx], x1 = std::min(x0 + 1, sw - 1);
+          const int a0 = xa[2 * dx], a1 = xa[2 * dx + 1];
+          for (int ch = 0; ch < c; ++ch)
+            r[dx * c + ch] = s[x0 * c + ch] * a0 + s[x1 * c + ch] * a1;
+        }
+      }
+      const int b0 = yb[2 * dy], b1 = yb[2 * dy + 1];
+      const int32_t* s0 = rows;
+      const int32_t* s1 = rows + width;
+      uint8_t* out = dst + (size_t)dy * width;
+      for (int i = 0; i < width; ++i)
+        out[i] = (uint8_t)((((b0 * (s0[i] >> 4)) >> 16) +
+                            ((b1 * (s1[i] >> 4)) >> 16) + 2) >> 2);
+    }
+    std::free(rows);
+  }
+}
+
+// cv2.resize(..., INTER_LINEAR) where both scales are exactly 2: OpenCV
+// takes its fast area route (resizeAreaFast_).  A whole 2x2 block is
+// (sum + 2) >> 2 for 1, 3 or 4 channels and rint(sum * 0.25f) for 2; a
+// block cut by the image's edge (an odd size rounded up) is
+// rint(sum / count) in float.
+void resize_area2_u8(const uint8_t* src, int sh, int sw, int c,
+                     uint8_t* dst, int dh, int dw) {
+#pragma omp parallel for schedule(static)
+  for (int dy = 0; dy < dh; ++dy) {
+    for (int dx = 0; dx < dw; ++dx) {
+      const int y0 = 2 * dy, x0 = 2 * dx;
+      const int ny = std::min(2, sh - y0), nx = std::min(2, sw - x0);
+      for (int ch = 0; ch < c; ++ch) {
+        int sum = 0;
+        for (int y = 0; y < ny; ++y)
+          for (int x = 0; x < nx; ++x)
+            sum += src[((size_t)(y0 + y) * sw + x0 + x) * c + ch];
+        int v;
+        if (ny * nx == 4 && c != 2)
+          v = (sum + 2) >> 2;
+        else if (ny * nx == 4)
+          v = (int)std::nearbyint((float)sum * 0.25f);
+        else
+          v = (int)std::nearbyint((float)sum / (float)(ny * nx));
+        dst[((size_t)dy * dw + dx) * c + ch] = (uint8_t)v;
       }
     }
   }
