@@ -247,6 +247,33 @@ script
      eval_speed`` for each at the full size (ms an image, the profiler's
      device time an image and the top kernels, the idle share, peak
      memory); ``cv2`` never imported.
+  17. the deployment and measurement tools (``tools_phase``): ``tools/
+     speed.py`` on R18.speed at 1x1024x2048x3 ``--int8-through`` (each
+     kernel's launches per forward equal to the main path's; its ms/iter
+     beside the main path's median), ``--deploy`` (K11 once a forward and
+     nothing else) and plain bf16 X39.speed at 1x768x1536x3 (no kernel);
+     ``--int8`` (``deploy/quantize.py``): each conv's route fixed when the
+     model was quantized and one forward's convs by route equal to it,
+     ``conv_i8_affine`` (the no-ReLU float32 mode of the tensor-core conv)
+     bit-exact against its plain version on every call of a forward, timed
+     (CUDA events, and its device time by the profiler) against its bound
+     and ``torch._int_mm`` of the same GEMMs, and the card against the CPU
+     plain run at 128x256: in float64 every conv's codes and every label
+     equal; in float32 the first conv whose codes differ differs only at
+     rounding midpoints (the float glue rounds otherwise on the two) and
+     the labels agree on PTQ_F32_FLOOR;
+     ``deploy/export.py``: the int8-through artifact exported with
+     ``--platforms cuda`` and loaded in a fresh process that imports only
+     the kernel module, its codes and labels equal to the live main-path
+     graph's bit for bit on two images, and the bf16 float artifact equal
+     to its live forward (``--check``); a seeded reference-layout
+     BiSeNet-R18 ``.pth`` through ``eval.py --torch-checkpoint`` (card vs
+     CPU mIoU within 1e-3) and ``export --torch-checkpoint`` (card vs CPU
+     log-probs within REF_BAR); ``tools/roofline.py`` of the main path
+     (its bound, the profiler's device time, the median); ``tools/
+     train_speed.py`` on BiSeNet-R18 at 2 x 512x1024 (K8/K9 35 launches a
+     step); ``--summary``; a DCP save and restore
+     (``engine/checkpoint_orbax.py``) whose resumed step is bit-identical.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -364,8 +391,9 @@ TPU_K7 = "torchseg_tpu/ops/pallas/upsample_argmax.py:49"
 TPU_BN = "torchseg_tpu/ops/pallas/bn_kernel.py"
 TPU_K11 = "torchseg_tpu/ops/pallas/stem_conv.py:75"
 TPU_FOCAL = "torchseg_tpu/ops/pallas/focal_loss.py"
-HBM = 3.35e12  # bytes/s
-PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense, ops/s
+# the card's memory rate, its dense peaks by type, and a kernel call's
+# bound: tools/roofline.py, the yardstick the tools and this script share
+from torchseg_tpu_torch.tools.roofline import HBM, PEAK, bound  # noqa: E402
 
 
 def log(msg):
@@ -451,16 +479,6 @@ def conv_weights(tree):
     elif isinstance(tree, (tuple, list)):
         for v in tree:
             yield from conv_weights(v)
-
-
-def bound(n_bytes, ops, kind):
-    """(least ms the card could take, what sets it): the larger of the
-    bytes over the memory rate and the operations over the peak rate for
-    their type."""
-    t_bytes = n_bytes / HBM * 1e3
-    t_ops = ops / PEAK[kind] * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def to_device(tree, device):
@@ -923,7 +941,8 @@ def main():
                 "maxpool2d_3x3s2_i8": 0, "cbr_i8": 7, "bottleneck_i8": 0,
                 "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
                 "fused_scale_bias_act": 0, "stem_conv7x7_s2": 0,
-                "sigmoid_focal_loss_fwd": 0, "sigmoid_focal_loss_bwd": 0}
+                "conv_i8_affine": 0, "sigmoid_focal_loss_fwd": 0,
+                "sigmoid_focal_loss_bwd": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
@@ -1039,6 +1058,7 @@ def main():
 
     # -- timings: served forward and the plain-PyTorch parts --------------
     med, p90, fwd_ms = forward_ms(infer, [(pkg, x) for x in xss], FWD_ROUNDS)
+    main_med = med
     log(f"served forward (device input, {N_IMAGES} distinct images, "
         f"{FWD_ROUNDS * N_IMAGES} forwards back to back): median {med:.4f} "
         f"ms, p90 {p90:.4f} ms, mean {fwd_ms:.4f} ms = "
@@ -1253,6 +1273,8 @@ def main():
     rows += sp_phase(dev)
     rows += dfn_phase(dev, all_kernels, reset_all)
     rows += cli_phase(dev, all_kernels, reset_all)
+    rows += tools_phase(dev, all_kernels, reset_all, main_med, infer, pkg,
+                        expected)
     log(f"chip_smoke: {time.perf_counter() - SCRIPT_T0:.1f} s in all")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4037,6 +4059,532 @@ def cli_phase(dev, all_kernels, reset_all):
     log(f"training CLI phase: {time.perf_counter() - phase_t0:.1f} s; cv2 "
         f"was not imported")
     return rows
+
+
+# ----------------------------------------------------------------------
+# the deployment and measurement tools (item 17)
+# ----------------------------------------------------------------------
+
+SPEED_EXPERIMENT = "cityscapes.bisenet.R18.speed"
+SPEED_SIZE = "1x1024x2048x3"
+X39_SIZE = "1x768x1536x3"
+TOOLS_CHAIN = ["--chain", "50", "--reps", "2"]  # 103 forwards a route
+PTQ_SMALL = (1, 3, 128, 256)  # the generic int8 graph's card-vs-CPU input
+REF_SIZE = "1x256x512x3"  # the reference checkpoint's export
+REF_BAR = 1e-4  # log-probs, card vs CPU, float32 (the float graphs' bar)
+TRAIN_SPEED_ARGS = ["-e", "cityscapes.bisenet.R18", "--crop", "512",
+                    "1024", "--batch-size", "2", "--steps", "3", "--reps",
+                    "2", "--memory", "--top-ops", "8"]
+DCP_CROP = (256, 256)
+# the generic int8 graph, card vs CPU at PTQ_SMALL in float32, free runs
+# (scripts/torch_ptq_probe.py, seeds 7-11; PERF.md, Findings): the
+# farthest a flipped code's value may sit from a rounding midpoint, in code
+# units (read: 1.9e-6 to 2.3e-5; a conv missing a tap or scales rounded to
+# bf16: 0.2-0.5), and the labels' floor (read: 0.9805-0.9941).  The floor
+# only guards gross faults: with those two faults the labels still agree on
+# 0.9746-0.9961; the check of each conv on the CPU's inputs finds them
+PTQ_TIE = 1e-4
+PTQ_F32_FLOOR = 0.97
+
+
+def speed_run(dev, tag, argv, all_kernels, reset_all, per_forward):
+    """``tools.speed.main(argv)`` on the card with every launch counted;
+    each kernel's launches must be ``per_forward`` (a dict, or a function
+    of the tool's info giving one) times the forwards the tool ran, the
+    rest 0.  Returns (its dict, its info)."""
+    from torchseg_tpu_torch.tools import speed
+
+    info = {}
+    reset_all()
+    res = speed.main(argv + ["--device", dev.type], info=info)
+    torch.cuda.synchronize()
+    got = launch_counts(all_kernels)
+    n = info["forwards"]
+    if callable(per_forward):
+        per_forward = per_forward(info)
+    want = dict.fromkeys(got, 0) | {k: v * n for k, v in per_forward.items()}
+    if got != want:
+        fail(f"speed {tag}: launches {got} over {n} forwards, expected "
+             f"{want}")
+    log(f"speed {tag}: {res['ms_per_iter']:.4f} ms/iter, {res['fps']:.2f} "
+        f"FPS; launches {per_forward} a forward over {n} forwards")
+    return res, info
+
+
+@contextlib.contextmanager
+def record_ptq_calls(q):
+    """The arguments of every conv_i8_affine call the quantized model
+    makes while the context is open."""
+    fed, fn = [], q.conv_i8_affine
+
+    def spy(*args):
+        fed.append(args)
+        return fn(*args)
+
+    q.conv_i8_affine = spy
+    try:
+        yield fed
+    finally:
+        q.conv_i8_affine = fn
+
+
+def ptq_device_ms(dev, fed, gemms, fn, args, K):
+    """torch.profiler device ms of: the ``fed`` conv_i8_affine calls (its
+    kernel alone), ``torch._int_mm`` of the same im2col GEMMs (``gemms``:
+    (m, k, n) each, seeded operands), and one whole ``--int8`` forward
+    ``fn(*args)``; returns (conv, int_mm, forward, the forward's
+    conv_i8_affine kernels)."""
+    from torchseg_tpu_torch.tools.profile import collect_op_times
+
+    def mode3(ops):
+        return sum(v for k, v in ops.items() if "conv_i8_mma_kernel<3," in k)
+
+    _, ops = collect_op_times(
+        lambda: [K.conv_i8_affine(*c) for c in fed], runs=3)
+    conv = mode3(ops)
+    if conv <= 0:
+        fail(f"the profiler saw no conv_i8_affine kernel: {ops}")
+    if sum(ops.values()) > conv:
+        log(f"conv_i8_affine's calls also ran {ops}")
+    g = torch.Generator(device=dev).manual_seed(0)
+    mats = [(torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8),
+             torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                           dtype=torch.int8).t()) for m, k, n in gemms]
+    mm, _ = collect_op_times(
+        lambda: [torch._int_mm(a, b) for a, b in mats], runs=3)
+    fwd, ops = collect_op_times(fn, *args, runs=3)
+    return conv, mm, fwd, mode3(ops)
+
+
+def ptq_phase(dev, all_kernels, reset_all, K):
+    """``--int8`` on R18.speed: the routes fixed at quantization and
+    counted, every tensor-core conv of a forward bit-exact against its
+    plain version on its own tensors and timed, the card against the CPU
+    plain run on a small input (``ptq_card_vs_cpu``); returns the kernels
+    line's row."""
+    import torchseg_tpu_torch.deploy.quantize as Q
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+
+    import collections
+
+    res, info = speed_run(dev, "--int8", [
+        "-e", SPEED_EXPERIMENT, "--input-size", SPEED_SIZE, "--int8",
+        *TOOLS_CHAIN], all_kernels, reset_all, lambda info: {
+            "conv_i8_affine": Q.route_counts(info["routes"])["mma"]})
+    counts = Q.route_counts(info["routes"])
+    n_mma = counts["mma"]
+    fn, args = info["fn"], info["args"]
+    calls, forward = collections.Counter(), Q.QuantConv2d.forward
+
+    def counted(self, x):
+        calls[self.route] += 1
+        return forward(self, x)
+
+    reset_all()
+    Q.QuantConv2d.forward = counted
+    try:
+        with record_ptq_calls(Q) as fed:
+            fn(*args)
+    finally:
+        Q.QuantConv2d.forward = forward
+    torch.cuda.synchronize()
+    launches = launch_counts(all_kernels)["conv_i8_affine"]
+    log(f"generic int8 R18.speed: the {len(info['routes'])} quantized convs "
+        f"by route when the model was quantized {counts}; one forward's "
+        f"calls by route {dict(calls)}; conv_i8_affine launches {launches}")
+    if {r: calls.get(r, 0) for r in counts} != counts or \
+            launches != n_mma or len(fed) != n_mma:
+        fail("one --int8 forward's convs by route differ from the routes "
+             "fixed when the model was quantized")
+    for call in fed:
+        got, ref = K.conv_i8_affine(*call), K.conv_i8_affine_plain(*call)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            fail(f"conv_i8_affine {tuple(call[1].shape)} differs from its "
+                 f"plain version on {int((got != ref).sum())} elements")
+    log(f"conv_i8_affine: bit-exact to its plain version on all {len(fed)} "
+        f"calls of one --int8 forward")
+    ms = cuda_ms(lambda: [K.conv_i8_affine(*c) for c in fed], [()], reps=5)
+    plain_ms = cuda_ms(lambda: [K.conv_i8_affine_plain(*c) for c in fed],
+                       [()])
+    n_bytes = ops = 0
+    lib_ms = 0.0
+    gemms = []
+    for call in fed:
+        x, w = call[:2]
+        out = K.conv_i8_affine(*call)
+        k, cin, cout = w.shape[0], w.shape[2], w.shape[3]
+        m = out.shape[1] * out.shape[2]
+        n_bytes += nbytes(list(call[:4]), out)
+        ops += 2 * m * k * k * cin * cout
+        gemms.append((max(m, 17), k * k * cin, cout))
+        lib_ms += int_mm_ms(dev, *gemms[-1])
+    b_ms, b_by = bound(n_bytes, ops, "int8")
+    log(f"conv_i8_affine, the {len(fed)} convs of a forward: kernel "
+        f"{ms:.4f} ms (wrapper included) = {ops / ms / 1e9:.1f} TOP/s, "
+        f"plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.2f} G int8 operations) = "
+        f"{100 * b_ms / ms:.2f} %; torch._int_mm of the same GEMMs "
+        f"{lib_ms:.4f} ms; the forward {res['ms_per_iter']:.4f} ms")
+    dev_ms, mm_dev, fwd_dev, fwd_conv = ptq_device_ms(dev, fed, gemms, fn,
+                                                      args, K)
+    log(f"conv_i8_affine device time (profiler): the {len(fed)} launches "
+        f"{dev_ms:.4f} ms = {ops / dev_ms / 1e9:.1f} TOP/s, "
+        f"{100 * b_ms / dev_ms:.2f} % of its bound; torch._int_mm of the "
+        f"same GEMMs {mm_dev:.4f} ms; one --int8 forward's kernels "
+        f"{fwd_dev:.4f} ms, of which conv_i8_affine {fwd_conv:.4f} ms")
+    row = {"name": "conv_i8_affine:r18_speed_ptq", "route": "cuda",
+           "source": SRC, "replaces": "torchseg_tpu/deploy/quantize.py:100 "
+           "(XLA, no TPU kernel)", "launches": launches,
+           "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+    # the card against the CPU plain run on a small input.  The int8 convs
+    # give the same values on both (exact sums, one fused multiply-add):
+    # each conv run on the card on the CPU run's input of that conv must
+    # give the CPU's output bit for bit.  The float glue between them
+    # rounds otherwise on the two (the float32 spatial-path stem, a cuDNN
+    # conv, is the first module whose output differs on equal inputs), so
+    # in free runs a value on a rounding midpoint of a conv's input can
+    # take the other code, and the difference grows from that conv on.  In
+    # float64 every code and label must be equal; in float32 the first conv
+    # whose codes differ must differ only at midpoints (within PTQ_TIE),
+    # and the labels must agree on PTQ_F32_FLOOR.
+    cfg = get_experiment(SPEED_EXPERIMENT)
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+    for dtype in (torch.float64, torch.float32):
+        r = ptq_card_vs_cpu(dev, model, 7, dtype)
+        log(f"generic int8 R18.speed at {PTQ_SMALL[2]}x{PTQ_SMALL[3]} in "
+            f"{dtype}: each of the {r['convs']} convs fed the CPU's input "
+            f"gives the CPU's output bit for bit except {r['forced']}; "
+            f"free runs: labels equal on {r['share']:.6f} of pixels, the "
+            f"first conv whose codes differ {r['flip']}")
+        if r["forced"]:
+            fail(f"generic int8 in {dtype}: on the CPU's inputs the card's "
+                 f"convs {r['forced']} differ from the CPU's")
+        flip = r["flip"]
+        if dtype == torch.float64 and (r["share"] != 1.0 or flip):
+            fail("generic int8 in float64: the card's codes or labels "
+                 "differ from the CPU's")
+        if flip is not None and flip["tie"] > PTQ_TIE:
+            fail(f"generic int8 in {dtype}: a code differs at "
+                 f"{flip['tie']} code units from a rounding midpoint (bar "
+                 f"{PTQ_TIE})")
+        if r["share"] < PTQ_F32_FLOOR:
+            fail(f"generic int8 in {dtype}: card vs CPU labels agree on "
+                 f"{r['share']} < {PTQ_F32_FLOOR}")
+    return row
+
+
+def ptq_card_vs_cpu(dev, model, seed, dtype, tamper=None):
+    """The generic int8 graph of ``model`` (in ``dtype``) calibrated on two
+    seeded batches at PTQ_SMALL, run on the card and on the CPU (plain)
+    on a third; ``tamper(qmodel)`` edits the card's copy (a control).
+    Returns {"share": the label share, "convs": the number of convs,
+    "forced": the convs whose card output, fed the CPU run's input of
+    that conv, is not the CPU's bit for bit, "flip": None, or the first
+    conv in call order whose int8 codes differ in the free runs: {"conv",
+    "n", "of", "tie": the largest distance, in code units, of a flipped
+    value from a rounding midpoint on either side, "max_rel": the largest
+    |card - CPU| of that conv's input over its max |x|}}."""
+    import torchseg_tpu_torch.deploy.quantize as Q
+
+    rng = np.random.default_rng(seed)
+    calib = [torch.from_numpy(rng.normal(size=PTQ_SMALL)).to(dtype)
+             for _ in range(2)]
+    x = torch.from_numpy(rng.normal(size=PTQ_SMALL)).to(dtype)
+    infer_cpu, _, qcpu, _ = Q.make_int8_infer(
+        copy.deepcopy(model).to(dtype).eval(), calib)
+    qcard = copy.deepcopy(qcpu).to(dev)
+    if tamper is not None:
+        tamper(qcard)
+    recs = []
+    for q, xin in ((qcpu, x), (qcard, x.to(dev))):
+        rec, hooks = [], []
+        for name, mod in q.named_modules():
+            if isinstance(mod, Q.QuantConv2d):
+                hooks.append(mod.register_forward_hook(
+                    lambda m, a, y, name=name, rec=rec: rec.append(
+                        (name, a[0].detach().cpu(), y.detach().cpu()))))
+        try:
+            with torch.inference_mode():
+                y = q(xin).argmax(dim=1).to(torch.int32).cpu()
+        finally:
+            for h in hooks:
+                h.remove()
+        recs.append((rec, y))
+    (cpu_rec, cpu_y), (card_rec, card_y) = recs
+    if not torch.equal(infer_cpu(x), cpu_y):
+        fail("the generic int8 graph's serving function differs from its "
+             "model on the CPU")
+    if [r[0] for r in cpu_rec] != [r[0] for r in card_rec]:
+        fail("the card ran other convs than the CPU, or in another order")
+    cpu_convs, card_convs = dict(qcpu.named_modules()), \
+        dict(qcard.named_modules())
+    out = {"share": float((card_y == cpu_y).float().mean()),
+           "convs": len(cpu_rec), "forced": [], "flip": None}
+    with torch.inference_mode():
+        for name, a, y in cpu_rec:
+            got = card_convs[name](a.to(dev)).cpu()
+            if got.dtype != y.dtype or not torch.equal(got, y):
+                out["forced"].append(Q.conv_path(name))
+    for (name, a, _), (_, b, _) in zip(cpu_rec, card_rec):
+        q = cpu_convs[name]
+        diff = q.quantize_input(a) != q.quantize_input(b)
+        if diff.any():
+            def tie(v):
+                v = v.permute(0, 2, 3, 1).float() / q.s_in
+                return ((v - v.floor()) - 0.5).abs()[diff]
+            out["flip"] = {
+                "conv": Q.conv_path(name), "n": int(diff.sum()),
+                "of": diff.numel(),
+                "tie": float(torch.maximum(tie(a), tie(b)).max()),
+                "max_rel": float((a - b).abs().max() / a.abs().max())}
+            break
+    return out
+
+
+def export_phase(dev, root, main_infer, main_pkg, all_kernels, reset_all):
+    """The int8-through artifact (cuda) loaded in a fresh process that
+    imports only the kernel module, against the live main-path graph; the
+    bf16 float artifact against its live forward (``--check``)."""
+    from torchseg_tpu_torch.deploy import export as E
+    from torchseg_tpu_torch.deploy.int8_serve import prepare_s2d_input_u8
+    from torchseg_tpu_torch.experiments.registry import get_experiment
+
+    cfg = get_experiment(SPEED_EXPERIMENT)
+    art = os.path.join(root, "r18_int8")
+    t0 = time.perf_counter()
+    E.main(["-e", SPEED_EXPERIMENT, "-o", art, "--int8-through",
+            "--platforms", dev.type, "--input-size", SPEED_SIZE, "--check"])
+    log(f"export --int8-through --platforms cuda: "
+        f"{time.perf_counter() - t0:.1f} s (with --check, exact)")
+    with open(os.path.join(art, E.META_FILE)) as f:
+        meta = json.load(f)
+    ops = sorted({str(n.target) for n in torch.export.load(os.path.join(
+        art, E.GRAPH_FILE)).graph.nodes if "torchseg_cuda" in str(n.target)})
+    log(f"int8-through artifact: {meta['graph_bytes'] / 1e6:.1f} MB, "
+        f"platforms {meta['platforms']}, in {meta['in_avals']}, out "
+        f"{meta['out_avals']}; kernel ops {ops}")
+    rng = np.random.default_rng(11)
+    shape = tuple(int(s) for s in SPEED_SIZE.split("x"))
+    imgs = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(2)]
+    for i, img in enumerate(imgs):
+        np.save(os.path.join(root, f"img{i}.npy"), img)
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from torchseg_tpu_torch.ops.kernels import custom_ops\n"
+        "art, root = sys.argv[1], sys.argv[2]\n"
+        "main = torch.export.load(art + '/graph.pt2').module()\n"
+        "prep = torch.export.load(art + '/prepare.pt2').module()\n"
+        "for i in range(2):\n"
+        "    img = torch.from_numpy(np.load(f'{root}/img{i}.npy')).to("
+        "sys.argv[3])\n"
+        "    codes = prep(img)\n"
+        "    torch.save({'codes': codes.cpu(), 'labels': main(codes).cpu()},"
+        " f'{root}/out{i}.pt')\n"
+        "mods = sorted(m for m in sys.modules if m.startswith("
+        "'torchseg_tpu_torch'))\n"
+        "print('imported', mods)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, art, root,
+                           dev.type],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode:
+        fail(f"the artifact's fresh process failed: {proc.stderr[-2000:]}")
+    log(f"fresh process ({time.perf_counter() - t0:.1f} s): "
+        f"{proc.stdout.strip()}")
+    if "torchseg_tpu_torch.deploy" in proc.stdout:
+        fail("the artifact's process imported the deploy package")
+    for i, img in enumerate(imgs):
+        out = torch.load(os.path.join(root, f"out{i}.pt"))
+        xs = prepare_s2d_input_u8(img, image_mean=cfg.image_mean, device=dev)
+        want = main_infer(main_pkg, xs).cpu()
+        if not torch.equal(out["codes"], xs.cpu()):
+            fail("the artifact's prepare graph's codes differ from the "
+                 "host prep's")
+        if out["labels"].dtype != want.dtype or not torch.equal(
+                out["labels"], want):
+            fail(f"the int8-through artifact's labels differ from the live "
+                 f"graph's on {int((out['labels'] != want).sum())} pixels")
+    log("int8-through artifact, loaded in a fresh process: codes and labels "
+        "equal the live main-path graph's bit for bit on 2 images")
+    t0 = time.perf_counter()
+    E.main(["-e", SPEED_EXPERIMENT, "-o", os.path.join(root, "r18_bf16"),
+            "--platforms", dev.type, "--input-size", SPEED_SIZE, "--check"])
+    log(f"export bf16 float artifact: {time.perf_counter() - t0:.1f} s; its "
+        f"labels equal the live forward's (--check)")
+
+
+def ref_checkpoint_phase(dev, root):
+    """A seeded reference-layout BiSeNet-R18 .pth through eval.py
+    --torch-checkpoint and export --torch-checkpoint; the card's log-probs
+    against the CPU's from the same file."""
+    from torchseg_tpu_torch import eval as teval
+    from torchseg_tpu_torch.deploy import export as E
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+    from torchseg_tpu_torch.utils.torch_convert import (
+        graft_full_checkpoint,
+        reference_state_dict,
+    )
+
+    exp = "cityscapes.bisenet.R18"
+    cfg = get_experiment(exp)
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(5))
+    sd = reference_state_dict(model, "bisenet")
+    rng = np.random.default_rng(5)
+    for k in sd:
+        if k.endswith("running_var"):
+            sd[k] = torch.from_numpy(rng.uniform(0.5, 2.0, sd[k].shape)
+                                     .astype(np.float32))
+        elif k.endswith("running_mean"):
+            sd[k] = torch.from_numpy(rng.normal(0, 0.1, sd[k].shape)
+                                     .astype(np.float32))
+    path = os.path.join(root, "bisenet_r18.pth")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               path)
+    common = ["-e", exp, "--torch-checkpoint", path, "--synthetic", "1",
+              "--eval-crop", "256", "--eval-base", "256", "--log-dir",
+              os.path.join(root, "log")]
+    card = teval.main(common + ["--device", dev.type])
+    cpu = teval.main(common + ["--device", "cpu"])
+    log(f"eval.py --torch-checkpoint: mIoU on the card {card}, on the CPU "
+        f"{cpu}")
+    if card[0][0] != "torch" or abs(card[0][1] - cpu[0][1]) > 1e-3:
+        fail(f"eval --torch-checkpoint: card {card} vs CPU {cpu}")
+    art = os.path.join(root, "r18_ref")
+    E.main(["-e", exp, "-o", art, "--torch-checkpoint", path, "--platforms",
+            dev.type, "--f32", "--scores", "--input-size", REF_SIZE,
+            "--check"])
+    infer, _ = E.load_artifact(art, dev.type)
+    img = rng.integers(0, 256, tuple(int(s) for s in REF_SIZE.split("x")),
+                       dtype=np.uint8)
+    got = infer(torch.from_numpy(img).to(dev)).float().cpu()
+    cpu_model = graft_full_checkpoint(path, build_model(cfg), "bisenet")
+    serve = E.build_serving_fn(cpu_model, image_mean=cfg.image_mean,
+                               image_std=cfg.image_std, output="scores",
+                               dtype=torch.float32)
+    with torch.inference_mode():
+        want = serve(torch.from_numpy(img))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"export --torch-checkpoint (f32 scores {tuple(got.shape)}): card vs "
+        f"CPU max |diff| {err:.3e} (log-probs up to {scale:.3e}; bar "
+        f"{REF_BAR} absolute and relative)")
+    if err > REF_BAR * max(1.0, scale):
+        fail(f"the reference checkpoint's card log-probs differ from the "
+             f"CPU's by {err}")
+
+
+def dcp_phase(dev, root):
+    """A DCP save at step 2, one more step; the same state restored into a
+    fresh trainer and stepped once: bit-identical (deterministic cuDNN)."""
+    from torchseg_tpu_torch.engine.checkpoint_orbax import OrbaxCheckpointer
+    from torchseg_tpu_torch.entry import train_entry
+
+    trainer, (state, data) = train_entry("cityscapes.bisenet.R18",
+                                         device=dev, crop=DCP_CROP, batch=2,
+                                         deterministic=True)
+    for _ in range(2):
+        trainer.train_step(data)
+    ck = OrbaxCheckpointer(os.path.join(root, "dcp"), keep=2)
+    t0 = time.perf_counter()
+    ck.save(2, state)
+    t_async = time.perf_counter() - t0
+    loss_a = trainer.train_step(data)[0]
+    ck.wait()
+    want = {k: v.clone() for k, v in state.model.state_dict().items()}
+    other, (fresh, _) = train_entry("cityscapes.bisenet.R18", device=dev,
+                                    crop=DCP_CROP, batch=2, seed=9,
+                                    deterministic=True)
+    ck.restore(fresh)
+    if fresh.step != 2:
+        fail(f"DCP restored step {fresh.step}, expected 2")
+    loss_b = other.train_step(data)[0]
+    got = fresh.model.state_dict()
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    log(f"DCP checkpoint: save returned in {t_async * 1e3:.1f} ms (async), "
+        f"committed steps {ck.steps()}; the resumed step's loss "
+        f"{float(loss_b)!r} vs {float(loss_a)!r}, {len(bad)} of {len(want)} "
+        f"state tensors differ")
+    if bad or not torch.equal(loss_a, loss_b):
+        fail(f"the resumed step differs: {bad[:5]}")
+    ck.close()
+
+
+def tools_phase(dev, all_kernels, reset_all, main_med, main_infer, main_pkg,
+                main_launches):
+    """The deployment and measurement tools (the module docstring, item
+    17); returns the kernels line's row of the post-training int8 conv."""
+    import shutil
+    import tempfile
+
+    from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+    from torchseg_tpu_torch.tools import roofline, train_speed
+
+    phase_t0 = time.perf_counter()
+    log(f"tools phase on {roofline.card()}")
+    per_forward = {k: v for k, v in main_launches.items() if v}
+    res, _ = speed_run(dev, "--int8-through", [
+        "-e", SPEED_EXPERIMENT, "--input-size", SPEED_SIZE,
+        "--int8-through"], all_kernels, reset_all, per_forward)
+    log(f"speed --int8-through {res['ms_per_iter']:.4f} ms/iter beside the "
+        f"main path's median forward {main_med:.4f} ms (chip_smoke's CUDA "
+        f"events, 4 images)")
+    speed_run(dev, "--deploy", ["-e", SPEED_EXPERIMENT, "--input-size",
+                           SPEED_SIZE, "--deploy", *TOOLS_CHAIN],
+              all_kernels, reset_all, {"stem_conv7x7_s2": 1})
+    speed_run(dev, "X39.speed bf16", ["-e", "cityscapes.bisenet.X39.speed",
+                                 "--input-size", X39_SIZE, *TOOLS_CHAIN],
+              all_kernels, reset_all, {})
+    row = ptq_phase(dev, all_kernels, reset_all, K)
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        export_phase(dev, root, main_infer, main_pkg, all_kernels, reset_all)
+        torch.cuda.empty_cache()
+        ref_checkpoint_phase(dev, root)
+        dcp_phase(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    rl = roofline.main(["-e", SPEED_EXPERIMENT, "--int8-through",
+                        "--input-size", SPEED_SIZE, "--measured-ms",
+                        str(main_med), "--device", dev.type, "--trace"])
+    log(f"roofline of the main path: bound {rl['sol_ms']:.4f} ms "
+        f"({rl['bound']}), device {rl.get('trace_device_ms', 0.0):.4f} ms a "
+        f"forward, the median forward {main_med:.4f} ms")
+    reset_all()
+    ts = train_speed.main(TRAIN_SPEED_ARGS + ["--device", dev.type])
+    got = launch_counts(all_kernels)
+    # the warm-up step, 3 x 2 timed, the profiler's warm-up and profiled
+    n_steps = 1 + 3 * 2 + 2
+    for name in ("channel_sum_sumsq", "fused_scale_bias_act"):
+        if got[name] != BN_LAUNCHES * n_steps:
+            fail(f"train_speed: {name} launched {got[name]} times in "
+                 f"{n_steps} steps, expected {BN_LAUNCHES} a step")
+    log(f"train_speed BiSeNet-R18 2 x 512x1024: {ts['ms_per_step']:.2f} ms a "
+        f"step, {ts['img_per_s']:.1f} img/s, peak {ts['peak_hbm_gib']} GiB; "
+        f"K8/K9 {BN_LAUNCHES} launches a step")
+    speed_run(dev, "--summary (bf16)", ["-e", SPEED_EXPERIMENT,
+                                        "--input-size", SPEED_SIZE,
+                                        "--summary", "--chain", "10",
+                                        "--reps", "1"], all_kernels,
+              reset_all, {})
+    log(f"tools phase: {time.perf_counter() - phase_t0:.1f} s")
+    return [row]
+
 
 if __name__ == "__main__":
     main()

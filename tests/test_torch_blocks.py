@@ -1,6 +1,8 @@
 """PyTorch port, float blocks and ops against the JAX package (CPU, float32):
-ConvBnRelu, AttentionRefinement, FeatureFusion and the align-corners
-resize, with the weights carried across by ``from_jax_variables``.
+ConvBnRelu, AttentionRefinement, FeatureFusion, the public blocks no model
+uses (DeConvBnRelu, GlobalAvgPool2d, BNRefine) and the align-corners
+resize, with the weights carried across by ``from_jax_variables`` (the
+transposed conv's kernel flipped into torch's layout).
 Tolerance 1e-5 (absolute and relative): float32 with a different summation
 order on both sides.  Plus the import-boundary scan: the port never imports
 JAX, flax or the JAX package."""
@@ -17,6 +19,8 @@ from torchseg_tpu.ops import blocks as jblocks
 from torchseg_tpu.ops import resize as jresize
 from torchseg_tpu_torch.ops import blocks as tblocks
 from torchseg_tpu_torch.ops import resize as tresize
+
+from torchseg_tpu_torch.utils.jax_params import from_jax_variables
 
 from test_torch_parity import init_flax, load_port, nchw, nhwc
 
@@ -65,6 +69,57 @@ def test_feature_fusion_matches_jax():
     tm = load_port(tblocks.FeatureFusion(32, 32, 1), variables)
     with torch.no_grad():
         got = nhwc(tm(nchw(x1), nchw(x2)))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("cin,cout,k,s,p,bias", [
+    (16, 8, 4, 2, 1, False),   # the x2 upsampling geometry
+    (8, 12, 3, 1, 1, True),
+    (6, 6, 3, 2, 0, False),
+])
+def test_deconv_bn_relu_matches_jax(cin, cout, k, s, p, bias):
+    x = np.random.default_rng(5).normal(size=(2, 7, 9, cin)).astype(
+        np.float32)
+    jm = jblocks.DeConvBnRelu(cout, k, s, p, has_bias=bias)
+    variables = init_flax(jm, (jnp.asarray(x),))
+    ref = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
+    kernel = variables["params"]["conv"]["kernel"]  # (k, k, cin, cout)
+    sd = from_jax_variables({"params": {"bn": variables["params"]["bn"]},
+                             "batch_stats": variables["batch_stats"]})
+    # flax's ConvTranspose applies its kernel as given; torch's is the
+    # adjoint of a conv: the same kernel flipped in both spatial axes
+    sd["conv.weight"] = torch.from_numpy(np.ascontiguousarray(
+        kernel[::-1, ::-1].transpose(2, 3, 0, 1)))
+    if bias:
+        sd["conv.bias"] = torch.from_numpy(variables["params"]["conv"]["bias"])
+    tm = tblocks.DeConvBnRelu(cin, cout, k, s, p, has_bias=bias)
+    tm.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        got = nhwc(tm.eval()(nchw(x)))
+    assert got.shape == ref.shape == (2, (7 - 1) * s - 2 * p + k,
+                                      (9 - 1) * s - 2 * p + k, cout)
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_global_avg_pool_matches_jax():
+    x = np.random.default_rng(6).normal(size=(2, 5, 7, 4)).astype(np.float32)
+    ref = np.asarray(jblocks.GlobalAvgPool2d().apply({}, jnp.asarray(x)))
+    got = nhwc(tblocks.GlobalAvgPool2d()(nchw(x)))
+    assert got.shape == ref.shape == (2, 1, 1, 4)
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("k,bias,relu", [(3, False, False), (1, True, True)])
+def test_bn_refine_matches_jax(k, bias, relu):
+    x = np.random.default_rng(7).normal(size=(1, 9, 11, 16)).astype(
+        np.float32)
+    jm = jblocks.BNRefine(16, k, has_bias=bias, has_relu=relu)
+    variables = init_flax(jm, (jnp.asarray(x),))
+    ref = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
+    tm = load_port(tblocks.BNRefine(16, 16, k, has_bias=bias,
+                                    has_relu=relu), variables)
+    with torch.no_grad():
+        got = nhwc(tm(nchw(x)))
     np.testing.assert_allclose(got, ref, **TOL)
 
 

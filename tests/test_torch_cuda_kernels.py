@@ -1431,3 +1431,89 @@ def test_focal_loss_kernels_many_trips_of_the_persistent_grid(dev):
     _focal_close(FL.sigmoid_focal_loss_bwd(x, t, scalar),
                  FL.sigmoid_focal_loss_multiclass_bwd_plain(
                      x, t, torch.full_like(x, 0.5)))
+
+
+# ----------------------------------------------------------------------
+# the post-training int8 conv's epilogue (mode 3: float32 out, no ReLU)
+# and the kernels as torch.library ops
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("cout", [8, 64, 200, 512])
+@pytest.mark.parametrize("k,dilation", [(1, 1), (3, 1), (3, 2)])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_i8_affine_bit_exact(dev, k, dilation, stride, cout):
+    """Against the plain version (one float32 rounding of the exact sum,
+    then one fused multiply-add); negative outputs stay (no ReLU)."""
+    g = _gen(100 + cout + 7 * k + dilation + stride)
+    cin = 48
+    x = _codes(g, (1, 13, 37, cin), lo=-127).to(dev)
+    e = _cbr(g, k, cin, cout, dev)
+    pad = dilation if k == 3 else 0
+    K.reset_launches()
+    got = K.conv_i8_affine(x, e["w"], e["m"], e["c"], stride, pad, dilation)
+    assert K.conv_i8_affine.launches == 1
+    ref = K.conv_i8_affine_plain(x.cpu(), e["w"].cpu(), e["m"].cpu(),
+                                 e["c"].cpu(), stride, pad, dilation)
+    _exact(got.cpu(), ref)
+    assert bool((ref < 0).any())
+
+
+def test_conv_i8_affine_refuses_widths_before_launch(dev):
+    g = _gen(7)
+    e = _cbr(g, 3, 20, 16, dev)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="cin must be a positive multiple"):
+        K.conv_i8_affine(_codes(g, (1, 8, 8, 20)).to(dev), e["w"], e["m"],
+                         e["c"], 1, 1)
+    assert K.conv_i8_affine.launches == 0
+
+
+def test_quant_conv_routes_on_the_card(dev):
+    """Each QuantConv2d route on the card equals the plain version."""
+    from torchseg_tpu_torch.deploy.quantize import QuantConv2d
+
+    torch.manual_seed(0)
+    for conv in (torch.nn.Conv2d(32, 24, 3, padding=1),
+                 torch.nn.Conv2d(3, 16, 7, stride=2, padding=3),
+                 torch.nn.Conv2d(24, 24, 3, padding=1, groups=24),
+                 torch.nn.Conv2d(120, 24, 3, stride=2, padding=1)):
+        q = QuantConv2d(conv.to(dev), absmax=3.0)
+        x = torch.randn(2, conv.in_channels, 19, 23, generator=_gen(1)).to(
+            dev)
+        xq = q.quantize_input(x)
+        ref = torch.cat([K.conv_i8_affine_plain(
+            xq[i:i + 1].cpu(), q.wq.cpu(), q.m.cpu(), q.c.cpu(),
+            conv.stride[0], conv.padding[0], 1, conv.groups)
+            for i in range(2)])
+        with torch.no_grad():
+            got = q(x).permute(0, 2, 3, 1).cpu()
+        _exact(got, ref)
+
+
+def test_custom_ops_fake_shapes_and_traced_graphs(dev):
+    """Each kernel op's fake output matches its real output (opcheck), and
+    the int8-through graphs exported with the ops run on the card as the
+    live graphs do, bit for bit."""
+    from torchseg_tpu_torch.deploy import export as E
+    from torchseg_tpu_torch.entry import serve_entry
+    from torchseg_tpu_torch.ops.kernels import custom_ops  # noqa: F401
+
+    g = _gen(9)
+    x = _codes(g, (1, 16, 24, 64), lo=-127).to(dev)
+    e = _cbr(g, 3, 64, 64, dev)
+    ops = torch.ops.torchseg_cuda
+    torch.library.opcheck(ops.cbr_i8, (x, e["w"], e["m"], e["c"], 2, 1,
+                                       False, 1))
+    torch.library.opcheck(ops.maxpool2d_3x3s2_i8, (x,))
+    blk = _block(g, 64, 64, 1, dev)
+    torch.library.opcheck(ops.res_block_i8, (
+        x, custom_ops.flat_entry(blk), blk["res_ratio"]))
+    for exp, hw in (("cityscapes.bisenet.R18.speed", (128, 256)),
+                    ("ade.pspnet.R50_v1c", (96, 96))):
+        infer, (pkg, xs) = serve_entry(exp, image_hw=hw, device=dev,
+                                       calib_shape=(1, *hw, 3))
+        ep = E.export_serving(E.Int8ServingModule(infer, pkg), (xs,),
+                              "cuda")
+        xr = torch.randint(-128, 128, xs.shape, generator=g,
+                           dtype=torch.int8).to(dev)
+        _exact(ep.module()(xr), infer(pkg, xr))

@@ -11,8 +11,10 @@ eval.py``), ``utils/visualize.print_iou``, ``utils/misc``,
       epoch's mIoU that of an ``Evaluator.run_dataset`` on a model restored
       from that epoch alone (the two epochs' histograms differ, so a stale
       model would show), the ``-p`` and ``-s`` dumps;
-  the refused flags raise ``NotImplementedError`` quoting their ROADMAP
-      item (A5, A8);
+  ``--eval-dtype bf16`` raises ``NotImplementedError`` quoting A5; the
+      flags A8 ported run: ``-speed``/``--speed``/``--summary`` (the FPS
+      line and dict, the stats table) and ``--torch-checkpoint`` (a
+      reference-layout file scored as its model scores alone);
   the slice as a whole: JAX's ``make_evaluator`` + ``evaluate_checkpoint``
       and the port's on the same ``cityscapes.bisenet.R18`` variables
       (``from_jax_variables``), ``--eval-crop 64``, sliding with flip, on
@@ -27,6 +29,7 @@ eval.py``), ``utils/visualize.print_iou``, ``utils/misc``,
 import dataclasses
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -49,9 +52,11 @@ from torchseg_tpu_torch.data.cityscapes import Cityscapes
 from torchseg_tpu_torch.engine.checkpoint import restore_checkpoint
 from torchseg_tpu_torch.engine.trainer import TrainState
 from torchseg_tpu_torch.experiments.registry import build_model, get_experiment
-from torchseg_tpu_torch.tools import eval_speed, make_manifest
+from torchseg_tpu_torch.models import init_weights
+from torchseg_tpu_torch.tools import eval_speed, make_manifest, speed
 from torchseg_tpu_torch.utils import misc
 from torchseg_tpu_torch.utils.jax_params import from_jax_variables
+from torchseg_tpu_torch.utils.torch_convert import reference_state_dict
 from torchseg_tpu_torch.utils.visualize import print_iou
 
 from test_torch_parity import init_flax
@@ -214,10 +219,45 @@ def test_two_processes_split_the_val_set(snapshots):
 @pytest.mark.parametrize("flag,item", [
     (["--eval-dtype", "bf16"], "A5"), (["--speed"], "A8"), (["-speed"], "A8"),
     (["--summary"], "A8"), (["--torch-checkpoint", "x.pth"], "A8")])
-def test_refused_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        teval.main(["-e", EXP, "--device", "cpu", "--synthetic", "1",
-                    *flag])
+def test_refused_flags_raise(flag, item, tmp_path, monkeypatch, capsys):
+    """``--eval-dtype bf16`` is refused quoting A5.  The flags A8 ported run
+    on the CPU: ``-speed``/``--speed`` print the FPS line and return its
+    dict, ``--summary`` prints the stats table too, and
+    ``--torch-checkpoint x.pth`` scores a reference-layout file of a seeded
+    model (written here) as that model scores alone."""
+    argv = ["-e", EXP, "--device", "cpu", "--synthetic", "1", *flag]
+    if item == "A5":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            teval.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)
+    torch.set_num_threads(1)
+    if "--torch-checkpoint" in flag:
+        cfg = dataclasses.replace(get_experiment(EXP), eval_crop_size=64,
+                                  eval_base_size=64)
+        model = init_weights(build_model(cfg),
+                             torch.Generator().manual_seed(0))
+        torch.save({"model": reference_state_dict(model, "bisenet")},
+                   "x.pth")
+        got = teval.main(argv + SMALL + ["--log-dir", str(tmp_path)])
+        ev = teval.make_evaluator(cfg, model.eval(), device="cpu")
+        acc = ev.run_dataset(SyntheticDataset(1, (64, 64), cfg.num_classes),
+                             mode=cfg.eval_mode)
+        assert got == [("torch", acc.scores()[1])]
+        with open(tmp_path / EXP / "val_last.log") as f:
+            assert f.read().startswith("== torch ckpt x.pth: mIoU")
+        return
+    # the hook runs the speed tool's protocol, cut here to 2 forwards
+    protocol = speed.compute_speed
+    monkeypatch.setattr(speed, "compute_speed",
+                        lambda fn, args, chain, reps: protocol(fn, args, 2, 1))
+    res = teval.main(argv + ["--input-size", "1x32x32x3"])
+    assert set(res) == {"ms_per_iter", "fps"} and res["fps"] > 0
+    out = capsys.readouterr().out.splitlines()
+    assert re.fullmatch(re.escape(f"{EXP} @ 1x32x32x3: ")
+                        + r"\d+\.\d{3} ms/iter, \d+\.\d FPS", out[-1])
+    assert any(ln.startswith("total params:") for ln in out) == (
+        "--summary" in flag)
 
 
 def test_slice_matches_jax_evaluate_checkpoint():

@@ -9,9 +9,12 @@
       PSPNet-R50 (its heads' dropout drawn from the step generator):
       finite losses, a snapshot an epoch, and ``-c`` resuming at epoch 2
       with PolyLR's lr at step 4 (the schedule continuing from the
-      restored step) from the restored weights; the flags that are not
-      ported raise quoting their ROADMAP item, and ``--sp`` refuses as
-      JAX's does;
+      restored step) from the restored weights; ``--pretrained`` (a
+      reference ``.pth``, a GluonCV ``.params``) grafts the backbone after
+      the seeded init; ``--orbax`` snapshots an epoch with DCP and ``-c
+      orbax`` resumes at epoch 2 from the restored weights; the flags that
+      are not ported (``--bf16``, ``--device-augment``) raise quoting their
+      ROADMAP item, and ``--sp`` refuses as JAX's does;
   two gloo ranks (one spawn) run ``train.main`` for two synthetic
       iterations: both report the same losses, and only rank 0 writes a
       snapshot.
@@ -37,10 +40,15 @@ from torchseg_tpu_torch.engine.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from torchseg_tpu_torch.engine.checkpoint_orbax import OrbaxCheckpointer
 from torchseg_tpu_torch.engine.lr_policy import PolyLR
 from torchseg_tpu_torch.engine.trainer import Trainer
-from torchseg_tpu_torch.experiments.registry import get_experiment
+from torchseg_tpu_torch.experiments.registry import build_model, get_experiment
+from torchseg_tpu_torch.models import init_weights
 from torchseg_tpu_torch.ops.norm import BatchNorm2d
+from torchseg_tpu_torch.utils import gluon_convert, torch_convert
+from torchseg_tpu_torch.utils.gluon_convert import save_mxnet_params
+from torchseg_tpu_torch.utils.torch_convert import reference_state_dict
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -167,9 +175,7 @@ def test_cli_trains_snapshots_and_resumes(tmp_path, exp):
 def test_cli_refusals(tmp_path):
     base = ["-e", "cityscapes.bisenet.R18", "--device", "cpu", "--synthetic",
             "--log-dir", str(tmp_path)]
-    for flags, item in ((["--bf16"], "A5"), (["--device-augment"], "A6"),
-                        (["--pretrained", "x.pth"], "A8"),
-                        (["--orbax"], "A8")):
+    for flags, item in ((["--bf16"], "A5"), (["--device-augment"], "A6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             train.main(base + flags)
     with pytest.raises(ValueError, match="--sp 2 does not divide 1"):
@@ -179,6 +185,84 @@ def test_cli_refusals(tmp_path):
         train.main(base + ["--batch-size", "3", "--accum-steps", "2",
                            "--crop", "32", "32", "--iters", "1",
                            "--epochs", "1"])
+
+
+@pytest.mark.parametrize("fmt", ["pth", "params"])
+def test_cli_pretrained_grafts_the_backbone(tmp_path, monkeypatch, fmt):
+    """``--pretrained`` (a reference ``.pth``, a GluonCV ``.params``) grafts
+    the file's ResNet-18 into the backbone after the seeded init: the
+    backbone holds the file's values when training starts."""
+    exp = "cityscapes.bisenet.R18"
+    src = init_weights(build_model(get_experiment(exp)),
+                       torch.Generator().manual_seed(3))
+    sd = {k[len("context_path."):]: v for k, v in
+          reference_state_dict(src, "bisenet").items()
+          if k.startswith("context_path.")}
+    if fmt == "pth":
+        path = str(tmp_path / "r18.pth")
+        torch.save(sd, path)
+        mod, name = torch_convert, "graft_torch_checkpoint"
+    else:
+        path = save_mxnet_params(str(tmp_path / "r18.params"), {
+            k.replace(".weight", ".gamma") if "bn" in k else k: v.numpy()
+            for k, v in sd.items()})
+        mod, name = gluon_convert, "graft_gluon_backbone"
+    grafted = {}
+    graft = getattr(mod, name)
+
+    def spy(arg, model):
+        graft(arg, model)
+        grafted.update({k: v.clone() for k, v in
+                        model.backbone.state_dict().items()})
+        return model
+
+    monkeypatch.setattr(mod, name, spy)
+    _, steps = _run(tmp_path, exp, 1, "--pretrained", path, iters=1)
+    assert len(steps) == 1 and math.isfinite(steps[0][2])
+    want = src.backbone.state_dict()
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(grafted[k], v), k
+
+
+def test_cli_orbax_snapshots_and_resumes(tmp_path):
+    """``--orbax``: a DCP step an epoch under ``snapshot-orbax`` (no
+    ``torch.save`` snapshot), and ``-c orbax`` resuming at epoch 2 with the
+    schedule continuing from the restored step."""
+    exp = "cityscapes.bisenet.R18"
+    state, _ = _run(tmp_path, exp, 2, "--orbax")
+    orbax = tmp_path / exp / "snapshot-orbax"
+    assert sorted(os.listdir(orbax)) == ["0", "1"]
+    assert not os.path.exists(tmp_path / exp / "snapshot")
+    saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+    cfg = get_experiment(exp)
+    seen = {}
+
+    def first(s):
+        if not seen:  # the restored weights, before the first step's
+            seen.update(lr=s["lr"])
+
+    restored = {}
+    orig = OrbaxCheckpointer.restore
+
+    def spy(self, st, step=None):
+        out = orig(self, st, step)
+        restored.update({k: v.clone()
+                         for k, v in st.model.state_dict().items()})
+        return out
+
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setattr(OrbaxCheckpointer, "restore", spy)
+        resumed = train.main(
+            ["-e", exp, "--device", "cpu", "--synthetic", "--crop", "32",
+             "32", "--epochs", "3", "--iters", "2", "--batch-size", "2",
+             "--num-workers", "1", "--log-dir", str(tmp_path), "--orbax",
+             "-c", "orbax"], on_step=first)
+    assert seen["lr"] == PolyLR(cfg.lr, cfg.lr_power, 3 * 2)(4)
+    assert resumed.step == 6
+    for k, v in saved.items():
+        assert torch.equal(restored[k], v), k
+    assert sorted(os.listdir(orbax)) == ["0", "1", "2"]
 
 
 def _free_port():

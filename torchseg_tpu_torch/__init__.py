@@ -22,6 +22,14 @@ processes (``entry.dryrun_multichip``) adds the distributed layer
 shards the image height over ranks (``parallel/spatial.py``: the mesh,
 the batch split, ``SpatialTrainer``; ``ops/spatial.py``: the halo
 exchanges and the other sharded ops, with SyncBN over the 2-D group).
+The training and evaluation command lines (``train.py``, ``eval.py``)
+come with the deployment and measurement tools: reference ``.pth`` and
+GluonCV ``.params`` checkpoints in (``utils/``), generic per-conv int8
+(``deploy/quantize.py``, on the int8 tensor-core conv's float32 mode),
+``torch.export`` artifacts with the kernels as ``torchseg_cuda`` ops
+(``deploy/export.py``, ``ops/kernels/custom_ops.py``), DCP checkpoints
+(``engine/checkpoint_orbax.py``) and ``tools/`` (speed, stats, profile,
+roofline, train_speed).
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

@@ -3,7 +3,8 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Five kernels, nine entry points of the serving graphs:
+// Five kernels behind ten wrappers: nine of the int8-through serving
+// graphs and the post-training int8 conv:
 //
 //   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
@@ -35,7 +36,11 @@
 //                         with stride and dilation, 1x1 with the residual
 //                         or the 1x1/s projection in its epilogue (XLA
 //                         in JAX, deploy/int8_serve.py:716 _apply_bottleneck);
-//                         the last block of the body writes float32.
+//                         the last block of the body writes float32;
+//       conv_i8_affine    the generic post-training int8 conv
+//                         (deploy/quantize.py; an XLA conv in JAX,
+//                         deploy/quantize.py:100-146): mode 3, float32
+//                         out with no ReLU.
 //   conv_i8_mma_res_kernel         the int8 tensor-core conv with the
 //       link's whole weight resident in shared memory, persistent blocks
 //       (stride 1 or 2; the same windows and outputs); launched by
@@ -449,14 +454,17 @@ size_t stem_smem_bytes(int cout, int n_sp) {
 // What it computes: y = conv(x, w) over NHWC int8 codes x (h, w, cin) and
 // HWIO int8 weights (k, k, cin, cout), exact in int32, for one of three
 // windows (kWin): 3x3 pad 1 (kWin3, K2-K6's), 3x3 with dilation d and pad
-// d (kWinDil), or 1x1 pad 0 (kWin1), at any stride; then one of three
-// epilogues, all ending in ReLU and either the requant to int8 codes or
-// (kF32) the float32 value itself:
+// d (kWinDil), or 1x1 pad 0 (kWin1), at any stride; then one of four
+// epilogues, the first three ending in ReLU and either the requant to
+// int8 codes or (kF32) the float32 value itself:
 //   mode 0 (CBR):        z = fma(y, m, c)
 //   mode 1 (identity):   z = fma(res, rr, fma(y, m, c)), res (ho, wo, cout)
 //   mode 2 (projection): z = fma(yd, md, fma(y, m, c)) + cd, with
 //        yd = 1x1/sd conv of the block input xd (hd, wd, cdin) by wd,
-//        a second GEMM into its own int32 accumulators.
+//        a second GEMM into its own int32 accumulators;
+//   mode 3 (affine):     z = fma(y, m, c), no ReLU, float32 out only: the
+//        post-training int8 conv of deploy/quantize.py, m = s_in * s_w
+//        and c = the conv's bias (or 0).
 // XLA contracts exactly these multiply-adds on the CPU, so the chain is
 // written with __fmaf_rn/__fadd_rn under -fmad=false.
 //
@@ -834,7 +842,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
             z[e] = __fadd_rn(__fmaf_rn(__int2float_rn(accd[i][j][2 * hh + e]), mdv[e], z[e]),
                              cdv[e]);
           }
-          z[e] = fmaxf(z[e], 0.f);
+          if (kMode != 3) z[e] = fmaxf(z[e], 0.f);  // mode 3: no ReLU
         }
         if constexpr (kF32)
           *reinterpret_cast<float2*>(o_f + ml * kMmaOutPitchF + nl) = make_float2(z[0], z[1]);
@@ -1346,7 +1354,9 @@ int window_of(int k, int dil) {
 // The tensor-core conv instantiations, by (mode, window, float32 out):
 // every window in mode 0 (a CBR); in modes 1 and 2 (a block's last conv)
 // the 3x3 pad-1 window with codes out (K3-K6) and the 1x1 with either
-// output (the Bottleneck's conv3).  No other combination is compiled: its
+// output (the Bottleneck's conv3); in mode 3 (the affine epilogue without
+// ReLU) every window with float32 out, on the streaming kernel only.  No
+// other combination is compiled: its
 // lookup gives null and the entry point returns cudaErrorInvalidValue.
 using MmaKernel = void (*)(const int8_t*, int, int, int, const int8_t*, int, int, int,
                            const float*, const float*, const int8_t*, float,
@@ -1358,6 +1368,13 @@ using ResKernel = void (*)(const int8_t*, int, int, int, int, int, const int8_t*
 
 template <int kMode, int kSplit>
 MmaKernel mma_kernel_of(int win, int f32) {
+  if constexpr (kMode == 3) {  // the post-training int8 conv: float32 only
+    if (!f32) return nullptr;
+    if (win == kWin3) return conv_i8_mma_kernel<3, kSplit, kWin3, true>;
+    if (win == kWin1) return conv_i8_mma_kernel<3, kSplit, kWin1, true>;
+    if (win == kWinDil) return conv_i8_mma_kernel<3, kSplit, kWinDil, true>;
+    return nullptr;
+  }
   if (win == kWin3 && !f32) return conv_i8_mma_kernel<kMode, kSplit, kWin3, false>;
   if (win == kWin1)
     return f32 ? conv_i8_mma_kernel<kMode, kSplit, kWin1, true>
@@ -1376,6 +1393,7 @@ MmaKernel mma_kernel_split(int mode, int win, int f32) {
   return mode == 0   ? mma_kernel_of<0, kSplit>(win, f32)
          : mode == 1 ? mma_kernel_of<1, kSplit>(win, f32)
          : mode == 2 ? mma_kernel_of<2, kSplit>(win, f32)
+         : mode == 3 ? mma_kernel_of<3, kSplit>(win, f32)
                      : nullptr;
 }
 
@@ -1423,7 +1441,7 @@ int tsg_init(void) {
     return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   };
   err = allow(reinterpret_cast<const void*>(stem_pool_i8_mma_kernel));
-  for (int mode = 0; mode < 3; ++mode)
+  for (int mode = 0; mode < 4; ++mode)
     for (int win = 0; win < 3; ++win)
       for (int f32 = 0; f32 < 2; ++f32) {
         for (int split = 1; split <= 2; ++split)
@@ -1491,7 +1509,8 @@ int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
 // dil) or k = 1 (pad 0, dil 1); any stride; cout % 8 == 0; mode 2's xd
 // (hd, wd, cdin) with cdin % 16 == 0, 16-byte aligned; out (ho, wo, cout)
 // int8 codes, or float32 values with out_f32 != 0 (in modes 1 and 2 only
-// for k = 1, and dil > 1 only in mode 0: see mma_kernel_of).  split: the
+// for k = 1, dil > 1 only in modes 0 and 3, and mode 3 float32 only: see
+// mma_kernel_of).  split: the
 // blocks of a cluster that share a tile's K walk, 1 or 2 (any mode; in
 // mode 2 the first block takes the projection's chunks), or 0: 2 where
 // the launch has no more tiles than the device has SMs, else 1.

@@ -710,7 +710,9 @@ def make_int8_pspnet_infer(model, pkg, *, argmax=True, dtype=torch.bfloat16,
     Returns ``(infer, pkg)``: ``infer(pkg, x_i8)`` takes the pre-padded
     int8 image from ``prepare_u8_input`` on the package's device and
     returns (1, H, W) int32 labels, or with ``argmax=False`` the (1, H, W,
-    classes) float32 scores (log-probs; FCN's raw logits)."""
+    classes) float32 scores (log-probs; FCN's raw logits).  ``infer.head``
+    is the module whose weights the head reads (``deploy/export.py``
+    registers it)."""
     if not str(pkg.get("kind", "")).startswith("bottleneck"):
         raise ValueError(
             f"make_int8_pspnet_infer serves a Bottleneck body package "
@@ -726,6 +728,7 @@ def make_int8_pspnet_infer(model, pkg, *, argmax=True, dtype=torch.bfloat16,
         return _labels_or_scores(head_model(None, context_blocks=blocks),
                                  argmax)
 
+    infer.head = head_model  # the module whose weights the graph reads
     return infer, pkg
 
 
@@ -743,7 +746,7 @@ def make_int8_bisenet_r101_infer(model, pkg, *, argmax=True,
 
     Returns ``(infer, pkg)``: ``infer(pkg, x_i8)`` gives (1, H, W) int32
     labels, or with ``argmax=False`` the (1, H, W, classes) float32
-    log-probs."""
+    log-probs; ``infer.head`` is the decoder module it reads."""
     if pkg.get("kind") != "bisenet_r101":
         raise ValueError(f"make_int8_bisenet_r101_infer serves a "
                          f"bisenet_r101 package, got kind "
@@ -762,6 +765,7 @@ def make_int8_bisenet_r101_infer(model, pkg, *, argmax=True,
             0, 3, 1, 2), context_blocks=blocks)
         return _labels_or_scores(out, argmax)
 
+    infer.head = head_model  # the module whose weights the graph reads
     return infer, pkg
 
 

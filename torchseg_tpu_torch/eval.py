@@ -24,10 +24,13 @@ N ranks (the whole protocol only).  Each epoch is restored into the module
 the evaluator reads, so an epoch sweep never scores stale weights.
 Evaluation runs in float32 with TF32 off, as training does.
 
-Not ported, and refused with the ROADMAP item that ports them:
-``--eval-dtype bf16`` (A5), ``-speed``/``--speed`` and ``--summary`` (A8:
-``tools/speed.py``, ``tools/stats.py``), ``--torch-checkpoint`` (A8:
-``utils/torch_convert.py``).  JAX's ``enable_compile_cache`` has no
+``-speed``/``--speed`` runs the FPS protocol (``tools/speed.py``) on
+``--input-size`` and ``--summary`` adds its parameter/FLOP table and top
+kernels (``tools/stats.py``, ``tools/profile.py``), as the reference's
+``-speed`` hook; ``--torch-checkpoint`` evaluates a reference ``.pth``
+grafted into the model (``utils/torch_convert.py``) in place of the
+snapshots.  Not ported, and refused with the ROADMAP item that ports it:
+``--eval-dtype bf16`` (A5).  JAX's ``enable_compile_cache`` has no
 counterpart (``utils/misc.py``).
 """
 
@@ -52,9 +55,6 @@ from .parallel import gather_metrics, initialize_multihost
 from .utils.misc import link_file, parse_devices
 from .utils.visualize import print_iou
 
-# flag -> (the value that is not ported, the ROADMAP item that ports it)
-UNPORTED = {"eval_dtype": ("bf16", "A5"), "speed": (True, "A8"),
-            "summary": (True, "A8"), "torch_checkpoint": (None, "A8")}
 
 
 def parse_epochs(spec: str, snapshot_dir: str):
@@ -106,7 +106,8 @@ def build_argparser():
     p.add_argument("--msf", action="store_true",
                    help="multi-scale + flip protocol")
     p.add_argument("--torch-checkpoint", default=None,
-                   help="a reference torch .pth (not ported: ROADMAP A8)")
+                   help="evaluate a reference torch .pth (grafted, "
+                        "non-strict) instead of the snapshots")
     p.add_argument("-d", "--devices", default=None,
                    help="cards of this process, e.g. '0-3' or '*' "
                         "(reference eval.py -d)")
@@ -123,9 +124,9 @@ def build_argparser():
     p.add_argument("--eval-dtype", choices=("f32", "bf16"), default="f32",
                    help="compute dtype; bf16 is not ported (ROADMAP A5)")
     p.add_argument("-speed", "--speed", action="store_true",
-                   help="the FPS benchmark (not ported: ROADMAP A8)")
+                   help="the FPS benchmark (tools/speed.py) at --input-size")
     p.add_argument("--summary", action="store_true",
-                   help="parameter/FLOPs table (not ported: ROADMAP A8)")
+                   help="the parameter/FLOPs table and top kernels too")
     p.add_argument("--input-size", default="1x1024x2048x3",
                    help="input shape for --speed/--summary")
     p.add_argument("--coordinator", default=None,
@@ -207,12 +208,9 @@ def evaluate_checkpoint(cfg, model, dataset, save_path=None, msf=False,
 def main(argv=None):
     """Evaluate; returns [(epoch, mIoU), ...]."""
     args = build_argparser().parse_args(argv)
-    for flag, (value, item) in UNPORTED.items():
-        got = getattr(args, flag)
-        if (got is not None) if value is None else got == value:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported (ROADMAP "
-                f"{item})")
+    if args.eval_dtype == "bf16":
+        raise NotImplementedError(
+            "--eval-dtype bf16 is not ported (ROADMAP A5)")
     cfg = get_experiment(args.experiment)
     over = {}
     if args.eval_crop:
@@ -226,6 +224,20 @@ def main(argv=None):
             f"--sp shards the whole-image forward; {cfg.name} evaluates "
             f"with the '{cfg.eval_mode}' protocol — use --shard-crops for "
             f"sliding experiments")
+    if args.speed or args.summary:
+        # the reference's -speed/--summary hooks (model/bisenet/*.speed/
+        # eval.py)
+        if args.sp > 1:
+            raise SystemExit(
+                "-speed/--summary benchmarks the single-device forward; "
+                "--sp does not apply")
+        from .tools import speed as speed_tool
+
+        speed_args = ["-e", args.experiment, "--input-size",
+                      args.input_size, "--device", args.device]
+        if args.summary:
+            speed_args.append("--summary")
+        return speed_tool.main(speed_args)
     own_group = False
     if args.num_processes and args.num_processes > 1:
         if not dist.is_initialized():
@@ -281,8 +293,20 @@ def _evaluate(args, cfg):
     names = (DATASETS[cfg.dataset].get_class_names()
              if not args.synthetic else None)
     results, ev = [], None
-    for path in parse_epochs(str(args.epochs), snapshot_dir):
-        state, epoch, _ = restore_checkpoint(path, state)
+    if args.torch_checkpoint:
+        from .utils.torch_convert import graft_full_checkpoint, model_family
+
+        graft_full_checkpoint(args.torch_checkpoint, state.model,
+                              model_family(cfg.model))
+        paths = [(args.torch_checkpoint, None)]
+    else:
+        paths = [(p, p) for p in parse_epochs(str(args.epochs),
+                                               snapshot_dir)]
+    for src, path in paths:
+        if path is not None:
+            state, epoch, _ = restore_checkpoint(path, state)
+        else:
+            epoch = "torch"  # the reference checkpoint (JAX's tag)
         if ev is None:
             ev = make_evaluator(cfg, state.model, msf=args.msf,
                                 devices=devices,
@@ -294,7 +318,8 @@ def _evaluate(args, cfg):
         iou, miou, _, pixacc = acc.scores()
         table = print_iou(iou, pixacc, names,
                           show_no_back=cfg.dataset != "cityscapes")
-        line = f"== epoch {epoch}: mIoU {miou * 100:.2f} ==\n{table}\n"
+        head = (f"torch ckpt {src}" if path is None else f"epoch {epoch}")
+        line = f"== {head}: mIoU {miou * 100:.2f} ==\n{table}\n"
         logger.info("\n%s", line)
         if rank == 0:
             with open(val_log, "a") as f:

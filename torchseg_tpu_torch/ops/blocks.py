@@ -1,8 +1,9 @@
 """Composite conv blocks (counterpart of torchseg_tpu/ops/blocks.py).
 
-Ported here: the three blocks BiSeNet uses, Xception39's
-SeparableConvBnRelu and DFN's SELayer, ChannelAttention and
-RefineResidual; the other three come with their users.  Submodule names
+Every block of the JAX module: the three BiSeNet uses, Xception39's
+SeparableConvBnRelu, DFN's SELayer, ChannelAttention and RefineResidual,
+and the public blocks no model uses (DeConvBnRelu, GlobalAvgPool2d,
+BNRefine).  Submodule names
 are the flax module names (``conv``, ``bn``, ``conv_3x3``,
 ``channel_attention``, ``conv_1x1``, ``ca1``, ``ca2``, ``depthwise``,
 ``pointwise``, ``fc1``, ``fc2``, ``se``, ``cbr``, ``conv_refine``), so
@@ -43,6 +44,31 @@ class ConvBnRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv2d(self.conv, x)
+        if self.bn is not None:
+            return bn_act(self.bn, x, self.has_relu)
+        return torch.relu(x) if self.has_relu else x
+
+
+class DeConvBnRelu(nn.Module):
+    """ConvTranspose2d -> BN -> ReLU (reference seg_oprs.py:49-73, JAX
+    ops/blocks.py:94-130): out = (in - 1) * stride - 2 * pad + ksize.  The
+    weight is torch's (cin, cout, k, k) transposed-conv kernel; JAX's flax
+    ``ConvTranspose`` kernel is the same one flipped in both spatial axes,
+    (k, k, cin, cout)."""
+
+    def __init__(self, in_planes: int, out_planes: int, ksize: int,
+                 stride: int = 1, pad: int = 0, has_bn: bool = True,
+                 has_relu: bool = True, has_bias: bool = False,
+                 norm: NormFactory = BatchNorm2d):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(in_planes, out_planes, ksize,
+                                       stride=stride, padding=pad,
+                                       bias=has_bias)
+        self.bn = norm(out_planes) if has_bn else None
+        self.has_relu = has_relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
         if self.bn is not None:
             return bn_act(self.bn, x, self.has_relu)
         return torch.relu(x) if self.has_relu else x
@@ -110,6 +136,14 @@ class FeatureFusion(nn.Module):
         return fm + fm * se
 
 
+class GlobalAvgPool2d(nn.Module):
+    """Global average pooling keeping a 1x1 map (reference
+    seg_oprs.py:97-107, JAX ops/blocks.py:187-193)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mean_hw(x)
+
+
 class SELayer(nn.Module):
     """Squeeze-and-excite gate: global mean -> fc1 -> ReLU -> fc2 ->
     sigmoid; returns the (B, out, 1, 1) gate (reference seg_oprs.py:110-126,
@@ -135,6 +169,26 @@ class ChannelAttention(nn.Module):
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         return x1 * self.se(torch.cat([x1, x2], dim=1)) + x2
+
+
+class BNRefine(nn.Module):
+    """CBR -> conv -> (+x) [-> ReLU] (reference seg_oprs.py:143-162, JAX
+    ops/blocks.py:246-280); the input has ``out_planes`` channels."""
+
+    def __init__(self, in_planes: int, out_planes: int, ksize: int,
+                 has_bias: bool = False, has_relu: bool = False,
+                 norm: NormFactory = BatchNorm2d):
+        super().__init__()
+        pad = ksize // 2
+        self.cbr = ConvBnRelu(in_planes, out_planes, ksize, 1, pad,
+                              has_bias=has_bias, norm=norm)
+        self.conv_refine = nn.Conv2d(out_planes, out_planes, ksize,
+                                     padding=pad, bias=has_bias)
+        self.has_relu = has_relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv_refine(self.cbr(x)) + x
+        return torch.relu(out) if self.has_relu else out
 
 
 class RefineResidual(nn.Module):

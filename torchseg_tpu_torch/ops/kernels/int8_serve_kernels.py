@@ -13,6 +13,7 @@ version, plus the exact integer primitives both are specified by.
 | maxpool2d_3x3s2_i8 | maxpool_i8_vec16_kernel (16-byte loads) or maxpool_i8_kernel (4-byte), K10 | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_mma_res_kernel or conv_i8_mma_kernel, mode 0 (int8 mma; 1x1, 3x3, dilated 3x3; codes or float32 out) | none: an XLA conv in JAX |
 | bottleneck_i8    | the same, x3 (modes 0,0,1 or 2)      | none: XLA (_apply_bottleneck) |
+| conv_i8_affine   | conv_i8_mma_kernel, mode 3 (float32 out, no ReLU) | none: XLA (deploy/quantize.py:100-146) |
 
 Line numbers are in the JAX file.  Every conv runs on the int8 tensor
 cores and takes only the widths its kernels tile
@@ -826,9 +827,54 @@ def bottleneck_i8(x, e, stride: int, dilation: int, emit_int8: bool = True):
     return out
 
 
+# ----------------------------------------------------------------------
+# the generic post-training int8 conv (deploy/quantize.py): the int32 sum
+# times the per-channel m = s_in * s_w, plus the bias, no ReLU
+# ----------------------------------------------------------------------
+
+def conv_i8_affine_plain(x, w, m, c, stride: int, pad: int,
+                         dilation: int = 1, groups: int = 1):
+    """fma(conv(x, w), m, c) in float32: NHWC codes x HWIO int8 weights
+    (``(k, k, cin / groups, cout)``), the exact int32 sum (a float64 conv,
+    rounded) rounded once to float32, then one fused multiply-add (JAX
+    quantize.py:135-140 as XLA compiles it)."""
+    xf = x.permute(0, 3, 1, 2).to(torch.float64)
+    wf = w.permute(3, 2, 0, 1).to(torch.float64)
+    y = torch.round(F.conv2d(xf, wf, stride=stride, padding=pad,
+                             dilation=dilation, groups=groups))
+    return fma(y.float().permute(0, 2, 3, 1), m, c).contiguous()
+
+
+def conv_i8_affine(x, w, m, c, stride: int, pad: int, dilation: int = 1):
+    """conv_i8_affine_plain(x, w, m, c, stride, pad, dilation) in one
+    launch: (1, H, W, cin) s8 codes and HWIO s8 weights -> (1, Ho, Wo,
+    cout) float32, z = fma(y, m, c) with no ReLU.  Plain version: any
+    widths and window.  On the card, one launch of the streaming
+    tensor-core conv in mode 3: cin % 16 == 0, cout % 8 == 0, a 3x3 at pad
+    = dilation or a 1x1 at pad 0 (``conv_i8_mma_shape_error``), ValueError
+    otherwise, before launching."""
+    _check_codes(x)
+    _check("w", w, torch.int8, ndim=4)
+    k, cout = w.shape[0], w.shape[3]
+    _check_conv_entry("e", {"w": w, "m": m, "c": c}, k, x.shape[3], cout)
+    if stride < 1 or dilation < 1:
+        raise ValueError(f"stride and dilation must be >= 1, got {stride}, "
+                         f"{dilation}")
+    if not _on_cuda(x, w, m, c):
+        return conv_i8_affine_plain(x, w, m, c, stride, pad, dilation)
+    why = conv_i8_mma_shape_error(x.shape[3], cout, k=k, dilation=dilation,
+                                  pad=pad)
+    if why:
+        raise ValueError(f"conv_i8_affine (int8 tensor cores): {why}")
+    out = _launch_conv_mma(x, {"w": w, "m": m, "c": c}, stride, mode=3,
+                           dilation=dilation, out_f32=True)
+    conv_i8_affine.launches += 1
+    return out
+
+
 KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8,
            down_block_i8, res_block_i8, maxpool2d_3x3s2_i8, cbr_i8,
-           bottleneck_i8)
+           bottleneck_i8, conv_i8_affine)
 
 
 def reset_launches():

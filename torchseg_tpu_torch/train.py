@@ -27,8 +27,14 @@ and every ``snapshot_iter``-th, and ``-c`` resumes at the saved epoch + 1
 with the schedule continuing from the restored step.  Training runs in
 float32 with TF32 off, as ``entry.train_entry``.
 
-Not ported, and refused: ``--bf16`` (ROADMAP A5), ``--device-augment``
-(A6), ``--pretrained`` and ``--orbax`` (A8).  JAX's
+``--pretrained`` grafts a backbone checkpoint after the seeded init: a
+reference torch ``.pth`` (``utils/torch_convert.py``) or a GluonCV
+``.params`` (``utils/gluon_convert.py``), non-strict with the missing and
+unused keys logged.  ``--orbax`` snapshots into ``<snapshot>-orbax`` with
+``engine/checkpoint_orbax.py`` (backed by ``torch.distributed.checkpoint``:
+atomic directory commits, asynchronous saves, the newest 20 kept), and
+``-c orbax`` resumes from its latest step.  Not ported, and refused:
+``--bf16`` (ROADMAP A5), ``--device-augment`` (A6).  JAX's
 ``enable_compile_cache`` has no counterpart: nothing here is compiled per
 run but the kernels, and their build is already cached by a hash of the
 source (``ops/kernels/_build.py``).
@@ -66,8 +72,7 @@ from .parallel import (
 )
 
 # flag -> the ROADMAP item that ports it
-UNPORTED = {"bf16": "A5", "device_augment": "A6", "pretrained": "A8",
-            "orbax": "A8"}
+UNPORTED = {"bf16": "A5", "device_augment": "A6"}
 
 
 def build_argparser():
@@ -97,10 +102,12 @@ def build_argparser():
     p.add_argument("--device-augment", action="store_true",
                    help="augment on the device (not ported: ROADMAP A6)")
     p.add_argument("--pretrained", default=None,
-                   help="backbone checkpoint to graft (not ported: ROADMAP "
-                        "A8)")
+                   help="backbone checkpoint to graft: a reference .pth or "
+                        "a GluonCV .params")
     p.add_argument("--orbax", action="store_true",
-                   help="Orbax checkpointing (not ported: ROADMAP A8)")
+                   help="async keep-N snapshots with atomic commits, backed "
+                        "by torch.distributed.checkpoint (-c orbax "
+                        "resumes)")
     p.add_argument("--sp", type=int, default=1,
                    help="spatial parallelism: shard the image height over "
                         "SP ranks (mesh = data x space, parallel/spatial.py)")
@@ -226,9 +233,31 @@ def _train(args, cfg, logger, on_step):
                           accum_steps=args.accum_steps, **groups)
     state = trainer.init_state(torch.Generator().manual_seed(args.seed))
 
+    if args.pretrained:
+        if args.pretrained.endswith(".params"):
+            from .utils.gluon_convert import graft_gluon_backbone
+
+            graft_gluon_backbone(args.pretrained, model)
+        else:
+            from .utils.torch_convert import graft_torch_checkpoint
+
+            graft_torch_checkpoint(args.pretrained, model)
+        logger.info("grafted the backbone from %s", args.pretrained)
+
     start_epoch = 0
     snapshot_dir = os.path.join(args.log_dir, cfg.name, "snapshot")
-    if args.continue_from:
+    orbax_ck = None
+    if args.orbax:
+        from .engine.checkpoint_orbax import OrbaxCheckpointer
+
+        orbax_ck = OrbaxCheckpointer(snapshot_dir + "-orbax", keep=20)
+        if args.continue_from == "orbax" and \
+                orbax_ck.latest_step() is not None:
+            saved_epoch = orbax_ck.latest_step()
+            state = orbax_ck.restore(state, saved_epoch)
+            start_epoch = saved_epoch + 1
+            logger.info("orbax: resumed at epoch %d", start_epoch)
+    if args.continue_from and args.continue_from != "orbax":
         state, saved_epoch, _ = restore_checkpoint(args.continue_from, state)
         start_epoch = saved_epoch + 1
         logger.info("restored %s, resuming at epoch %d", args.continue_from,
@@ -259,8 +288,14 @@ def _train(args, cfg, logger, on_step):
                     (time.time() - t0) / (it + 1))
         if rank == 0 and (epoch > nepochs - 20
                           or epoch % cfg.snapshot_iter == 0):
-            path = save_checkpoint(snapshot_dir, state, epoch)
-            logger.info("saved %s", path)
+            if orbax_ck is not None:
+                orbax_ck.save(epoch, state)  # async
+                logger.info("orbax: saving epoch %d (async)", epoch)
+            else:
+                path = save_checkpoint(snapshot_dir, state, epoch)
+                logger.info("saved %s", path)
+    if orbax_ck is not None:
+        orbax_ck.close()
     return state
 
 

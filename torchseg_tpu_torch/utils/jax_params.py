@@ -1,8 +1,10 @@
 """Carry JAX-side arrays into the port (counterpart of
-torchseg_tpu/utils/torch_convert.py, in the other direction).
+torchseg_tpu/utils/torch_convert.py, in the other direction), and the
+port's parameters back out in the flax layout (``to_jax_variables``, the
+tree ``utils/torch_convert.py`` grafts reference checkpoints onto).
 
-Both functions take trees of numpy arrays (``jax.device_get`` output), so
-this module imports no JAX.  The port's submodules carry the flax module
+The functions take and give trees of numpy arrays (``jax.device_get``
+output), so this module imports no JAX.  The port's submodules carry the flax module
 names, so a flax path maps to a ``state_dict`` key mechanically:
 ``params/a/b/kernel`` -> ``a.b.weight`` (conv HWIO -> OIHW, dense (in,
 out) -> (out, in)), ``scale`` ->
@@ -48,6 +50,44 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
             if leaf == "mean":
                 sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def flax_leaves(model: torch.nn.Module):
+    """Every parameter and BN statistic of ``model`` as (collection, flax
+    module path, flax leaf name, tensor in the port's layout, its
+    module): ``weight`` -> ``kernel`` (a conv's, a linear's) or ``scale``
+    (a norm's), ``running_mean``/``running_var`` -> ``batch_stats``
+    ``mean``/``var``; ``num_batches_tracked`` left out."""
+    for name, mod in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        own = list(mod.named_parameters(recurse=False)) + [
+            (k, v) for k, v in mod.named_buffers(recurse=False)
+            if k in ("running_mean", "running_var")]
+        for leaf, t in own:
+            if leaf == "weight":
+                kernel = t.dim() == 4 or isinstance(mod, torch.nn.Linear)
+                yield ("params", path, "kernel" if kernel else "scale", t,
+                       mod)
+            elif leaf == "bias":
+                yield "params", path, "bias", t, mod
+            else:
+                yield ("batch_stats", path, leaf[len("running_"):], t, mod)
+
+
+def to_jax_variables(model: torch.nn.Module) -> dict:
+    """The model's ``{"params", "batch_stats"}`` tree in the flax layout
+    as float32 numpy arrays: ``from_jax_variables``'s inverse (conv OIHW ->
+    HWIO, linear (out, in) -> (in, out))."""
+    out = {"params": {}, "batch_stats": {}}
+    for coll, path, key, t, _ in flax_leaves(model):
+        a = t.detach().float().cpu().numpy()
+        if key == "kernel":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = out[coll]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(a)
+    return out
 
 
 def _tensor(a: np.ndarray, device):
