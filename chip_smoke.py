@@ -274,6 +274,46 @@ script
      train_speed.py`` on BiSeNet-R18 at 2 x 512x1024 (K8/K9 35 launches a
      step); ``--summary``; a DCP save and restore
      (``engine/checkpoint_orbax.py``) whose resumed step is bit-identical.
+  18. bf16 training (``bf16_phase``): ``train_entry(dtype=torch.bfloat16)``
+     BiSeNet-R18 at TRAIN_BATCH x TRAIN_CROP, remat off and then on
+     (``remat=True``: every backbone block recomputed in the backward, its
+     BNs frozen), BF16_STEPS spied steps an arm: K8 and K9 launch 35 times
+     each a step (54 with remat: the recompute's 19 BNs), nothing else,
+     every K9 input bfloat16, every BN's ``num_batches_tracked`` one a
+     step; the first loss within BF16_LOSS_RTOL of the float32 step's
+     first loss on the same seed and batch; K8 and K9 held against their
+     plain versions on the first step's bf16 tensors with the training
+     phase's bars; the memory the forward keeps read (the allocator just
+     after the model's forward against just before the step, after the
+     spies' references are dropped), the step timed (median, p90,
+     enqueue), profiled (the idle share) and its peak memory read; rows
+     ``<kernel>:bf16`` and
+     ``<kernel>:bf16_remat`` (per step, against the plain versions,
+     ``torch.batch_norm_stats`` / ``batch_norm_elemt`` on the same bf16
+     tensors and the bounds); the remat step's running-statistic changes
+     within REMAT_STAT_BAR of the plain step's, and what its forward
+     keeps at least REMAT_SAVES_GIB under the plain step's;
+  19. the bf16 sliding-window evaluation of one H x W image
+     (``make_evaluator`` around ``build_model(cfg, dtype=torch.bfloat16)``,
+     crop 1024): labels in range, agreeing with the float32 arm's on >=
+     BF16_EVAL_AGREE of pixels; both timed an image;
+  20. device augment (``augment_phase``): ``augment_sample`` of an H x W
+     uint8 image to TRAIN_CROP on the card against the CPU for AUG_CASES
+     (flip, scale, offsets; ``gt_down`` 1 and 8): the image within AUG_TOL,
+     the labels equal; then ``train.py --bf16 --remat --device-augment``
+     for AUG_STEPS steps on synthetic data (finite losses, the batches
+     float32 NCHW and int64 on the card, K8/K9 54 launches a step);
+  21. dp1 x sp2 with live dropout (``dropout_sp_phase``): PSPNet-R50 at
+     DROP_BATCH x DROP_CROP on two gloo ranks of this card
+     (``SpatialTrainer``, deterministic cuDNN, the step generator of
+     ``ops.dropout.step_generator`` shared by the space ranks) against the
+     one-process step drawing the same global masks: the loss within
+     SP_LOSS_RTOL and the whole gradient within the larger of SP_L2_BAR and
+     three times the one-process float32 step's own distance between cuDNN
+     and torch's own convs (the exact check is the CPU test's, float64, in
+     tests/test_torch_spatial.py); each rank's two
+     dropout masks its rows of the global masks; K8/K9 once per BN on each
+     rank.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -1275,6 +1315,9 @@ def main():
     rows += cli_phase(dev, all_kernels, reset_all)
     rows += tools_phase(dev, all_kernels, reset_all, main_med, infer, pkg,
                         expected)
+    rows += bf16_phase(dev, all_kernels, reset_all)
+    augment_phase(dev, all_kernels, reset_all)
+    dropout_sp_phase(dev)
     log(f"chip_smoke: {time.perf_counter() - SCRIPT_T0:.1f} s in all")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2090,9 +2133,9 @@ def spied_step(trainer, data, all_kernels, reset_all, hooks=()):
     fed, acts, torch_bn, folds = [], [], [], []
     f_bn, t_bn = F.batch_norm, torch.batch_norm
 
-    def spy_k8(x, bn=None):
+    def spy_k8(x, bn=None, update=True):
         folds.append((x, None if bn is None else clone_bn(bn)))
-        return B.channel_sum_sumsq(x, bn)
+        return B.channel_sum_sumsq(x, bn, update)
 
     def spy_k9(x, a, b, act="none"):
         fed.append((x, a.detach().clone(), b.detach().clone()))
@@ -2566,13 +2609,13 @@ def spy_bn_calls():
 
     k8, folds, fed, acts = [], [], [], []
 
-    def spy_k8(x, bn=None):
+    def spy_k8(x, bn=None, update=True):
         k8.append((x.detach(), None if bn is None else clone_bn(bn)))
-        return B.channel_sum_sumsq(x, bn)
+        return B.channel_sum_sumsq(x, bn, update)
 
-    def spy_fold(sums, n, *bn):
+    def spy_fold(sums, n, *bn, update=True):
         before = (sums.clone(), n.clone(), clone_bn(bn))
-        out = B.bn_fold_plain(sums, n, *bn)
+        out = B.bn_fold_plain(sums, n, *bn, update=update)
         folds.append(before + (out.clone(),))
         return out
 
@@ -4584,6 +4627,439 @@ def tools_phase(dev, all_kernels, reset_all, main_med, main_infer, main_pkg,
               reset_all, {})
     log(f"tools phase: {time.perf_counter() - phase_t0:.1f} s")
     return [row]
+
+
+# -- the rest of training: bf16 compute, remat, device augment, dp x sp with
+# live dropout (module docstring, items 18-21) ------------------------------
+BF16_STEPS = 3  # spied steps an arm (remat off, then on)
+BF16_TIMED = 6  # timed steps an arm (after two warm-up steps)
+BF16_PROFILED = 2
+BF16_LOSS_RTOL = 0.05  # the first bf16 loss against the float32 one
+# the recompute of BiSeNet-R18's backbone blocks: 19 BNs (8 BasicBlocks'
+# two, three projections), 8 of them with the block's first ReLU
+REMAT_BNS, REMAT_RELU = 19, 8
+# the remat step's running-statistic changes against the plain step's
+# (the same start and batch): a recompute that updated them again would
+# move them ~0.9 of a change further
+REMAT_STAT_BAR = 0.1
+# the least GiB remat must take off what the bf16 step's forward keeps at
+# 2 x 1024x1024: the backbone blocks' activations are ~0.26 GiB, their
+# inputs (kept) ~0.06 (scripts/torch_remat_memory.py)
+REMAT_SAVES_GIB = 0.1
+BF16_EVAL_AGREE = 0.99  # bf16 vs float32 sliding labels at H x W
+BF16_EVAL_ROUNDS = 3
+AUG_TOL = 1e-5  # card vs CPU augmented image
+AUG_CASES = ((False, 0.75, 0, 250), (True, 1.25, 180, 1333),
+             (True, 2.0, 1025, 3073), (False, 0.5, 0, 0))
+AUG_STEPS = 3  # train.py --bf16 --remat --device-augment iterations
+DROP_EXPERIMENT = "ade.pspnet.R50_v1c"
+DROP_CROP, DROP_BATCH, DROP_SEED = (256, 256), 2, 5
+
+
+def bn_modules(model):
+    from torchseg_tpu_torch.ops.norm import BatchNorm2d
+
+    return [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+
+
+def forward_memory(trainer, data):
+    """GiB the allocator holds just after the model's forward of one step
+    over what it held just before the step with the gradients freed: what
+    the forward keeps for the backward, and its outputs."""
+    got = {}
+
+    def after(*_):
+        got.setdefault("fwd", torch.cuda.memory_allocated())
+
+    handle = trainer.model.register_forward_hook(after)
+    trainer.state.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        trainer.train_step(data)
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    return (got["fwd"] - before) / 2 ** 30
+
+
+def bf16_arm(dev, all_kernels, reset_all, remat, loss32):
+    """One arm of the bf16 training phase: BiSeNet-R18 at TRAIN_BATCH x
+    TRAIN_CROP in bf16, ``remat`` on or off; BF16_STEPS spied steps (K8/K9
+    launches, every BN's counter one a step), the first loss against the
+    float32 one, K8/K9 on the first step's bf16 tensors against their
+    plain versions; the memory the forward keeps, the step timed and
+    profiled, its peak memory; returns (the kernels line's rows, the first
+    step's running-statistic changes, the step's median ms, the peak GiB,
+    the forward's GiB)."""
+    from torchseg_tpu_torch.entry import train_entry
+
+    tag = f"BiSeNet-R18 bf16 step, remat {'on' if remat else 'off'}"
+    trainer, (_, data) = train_entry(device=dev, crop=TRAIN_CROP,
+                                     batch=TRAIN_BATCH,
+                                     dtype=torch.bfloat16, remat=remat)
+    bns = bn_modules(trainer.model)
+    n_bn = BN_LAUNCHES + (REMAT_BNS if remat else 0)
+    n_relu = BN_RELU + (REMAT_RELU if remat else 0)
+    losses = []
+    for step in range(BF16_STEPS):
+        before = [(int(bn.num_batches_tracked), bn.running_var.clone())
+                  for bn in bns]
+        loss, got, fed, acts, torch_bn, folds = spied_step(
+            trainer, data, all_kernels, reset_all)
+        check_step_launches(tag, loss, got, acts, torch_bn, n_bn, n_relu)
+        moved = [int(bn.num_batches_tracked) - n for bn, (n, _) in
+                 zip(bns, before)]
+        if set(moved) != {1}:
+            fail(f"{tag}: BN counters moved by {sorted(set(moved))} in one "
+                 f"step, expected 1 each")
+        losses.append(float(loss))
+        if step == 0:
+            first = (got, fed, acts, folds, [bn.running_var - rv for bn, (
+                _, rv) in zip(bns, before)])
+    got, fed, acts, folds, deltas = first
+    dtypes = {x.dtype for x, _, _ in fed}
+    if dtypes != {torch.bfloat16}:
+        fail(f"{tag}: K9 was fed {dtypes}, expected bfloat16 only")
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    log(f"{tag}: losses {losses}; the first against the float32 step's "
+        f"{loss32:.6f}: {rel:.4f} relative (bar {BF16_LOSS_RTOL}); every BN "
+        f"counter moved once a step; {n_bn} K8 and K9 launches a step "
+        f"({n_relu} K9 with the ReLU), all K9 inputs bfloat16")
+    if not rel <= BF16_LOSS_RTOL:
+        fail(f"{tag}: first loss {losses[0]} vs float32 {loss32}")
+    k8_err, k9_diff = check_bn_kernels(tag, fed, acts, folds)
+    rows = bn_kernel_rows(tag, dev, fed, acts, folds, got)
+    suffix = ":bf16_remat" if remat else ":bf16"
+    for row, err in zip(rows, (k8_err, k9_diff)):
+        row.update(name=row["name"] + suffix, max_abs_err=err)
+    # the spies kept every K8/K9 input of the step: let them go before the
+    # memory is read
+    del first, fed, folds
+    torch.cuda.empty_cache()
+    fwd = forward_memory(trainer, data)
+    torch.cuda.reset_peak_memory_stats()
+    med, p90, mean_ms, enq = step_ms(trainer, data, BF16_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} ({BF16_TIMED} steps back to back): median {med:.4f} ms, "
+        f"p90 {p90:.4f} ms, mean {mean_ms:.4f} ms = "
+        f"{1000.0 * TRAIN_BATCH / mean_ms:.2f} images/s; host enqueue "
+        f"{enq:.4f} ms a step; device memory: the forward keeps "
+        f"{fwd:.4f} GiB, peak {peak:.4f} GiB")
+    profile_steps(tag, trainer, data, BF16_PROFILED, BN_KERNEL_NAMES)
+    del trainer, data
+    torch.cuda.empty_cache()
+    return rows, deltas, med, peak, fwd
+
+
+def bf16_phase(dev, all_kernels, reset_all):
+    """bf16 training, remat off and on, and the bf16 sliding evaluation
+    (module docstring, items 18 and 19); returns the kernels line's rows
+    for K8 and K9 on their bf16 route."""
+    from torchseg_tpu_torch.data.base import SyntheticDataset
+    from torchseg_tpu_torch.entry import train_entry
+    from torchseg_tpu_torch.eval import make_evaluator
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+
+    phase_t0 = time.perf_counter()
+    trainer, (_, data) = train_entry(device=dev, crop=TRAIN_CROP,
+                                     batch=TRAIN_BATCH)
+    loss32 = float(trainer.train_step(data)[0])
+    del trainer, data
+    torch.cuda.empty_cache()
+    rows, deltas, med, peak, fwd = bf16_arm(dev, all_kernels, reset_all,
+                                            False, loss32)
+    r_rows, r_deltas, r_med, r_peak, r_fwd = bf16_arm(
+        dev, all_kernels, reset_all, True, loss32)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-12)
+                for a, b in zip(r_deltas, deltas))
+    log(f"remat on vs off, first step from the same start: running_var "
+        f"changes differ by at most {worst:.4f} of the change (bar "
+        f"{REMAT_STAT_BAR}; a second update would be ~0.9); step median "
+        f"{r_med:.4f} ms vs {med:.4f} ms ({r_med / med:.3f}x); the forward "
+        f"keeps {r_fwd:.4f} GiB vs {fwd:.4f} GiB ({fwd - r_fwd:.4f} less, "
+        f"bar {REMAT_SAVES_GIB}), peak memory {r_peak:.4f} GiB vs "
+        f"{peak:.4f} GiB ({peak - r_peak:.4f} less)")
+    if not worst <= REMAT_STAT_BAR:
+        fail(f"remat: running statistics moved {worst:.4f} of a change "
+             f"away from the plain step's")
+    if not fwd - r_fwd >= REMAT_SAVES_GIB:
+        fail(f"remat: the forward keeps {r_fwd:.4f} GiB, {fwd - r_fwd:.4f} "
+             f"less than without remat (bar {REMAT_SAVES_GIB})")
+
+    # -- the bf16 sliding-window evaluation at H x W -------------------------
+    cfg = get_experiment("cityscapes.bisenet.R18")
+    m32 = init_weights(build_model(cfg), torch.Generator().manual_seed(
+        0)).to(dev).eval()
+    m16 = build_model(cfg, dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    m16 = m16.to(dev).eval()
+    img = SyntheticDataset(1, (H, W), cfg.num_classes)[0]["image"]
+    ev32 = make_evaluator(cfg, m32, device=dev)
+    ev16 = make_evaluator(cfg, m16, device=dev)
+    y32, y16 = ev32.sliding_eval(img), ev16.sliding_eval(img)
+    for y in (y32, y16):
+        check_labels("bf16 eval", y[None], (H, W), cfg.num_classes)
+    agree = float((y32 == y16).float().mean())
+    t32 = forward_ms(ev32.sliding_eval, [(img,)], BF16_EVAL_ROUNDS)
+    t16 = forward_ms(ev16.sliding_eval, [(img,)], BF16_EVAL_ROUNDS)
+    log(f"sliding eval at {H}x{W} (crop {cfg.eval_crop_size}, stride rate "
+        f"{cfg.eval_stride_rate:.4f}): bf16 labels agree with the float32 "
+        f"arm on {agree:.6f} of pixels (bar {BF16_EVAL_AGREE}); bf16 "
+        f"{t16[0]:.4f} ms an image (p90 {t16[1]:.4f}), float32 "
+        f"{t32[0]:.4f} ms (p90 {t32[1]:.4f})")
+    if agree < BF16_EVAL_AGREE:
+        fail(f"bf16 sliding eval labels agree on {agree} < "
+             f"{BF16_EVAL_AGREE}")
+    log(f"bf16 phase: {time.perf_counter() - phase_t0:.1f} s")
+    return rows + r_rows
+
+
+def augment_phase(dev, all_kernels, reset_all):
+    """``augment_sample`` on the card against the CPU, then the training
+    CLI with --bf16 --remat --device-augment (module docstring, item
+    20)."""
+    import tempfile
+
+    from torchseg_tpu_torch import train
+    from torchseg_tpu_torch.data import device_augment as DA
+    from torchseg_tpu_torch.experiments.registry import get_experiment
+
+    phase_t0 = time.perf_counter()
+    cfg = get_experiment("cityscapes.bisenet.R18")
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.integers(0, 256, (3, H, W), dtype=np.uint8))
+    gt = torch.from_numpy(rng.integers(0, 19, (H, W), dtype=np.uint8))
+    img_d, gt_d = img.to(dev), gt.to(dev)
+    worst = 0.0
+    for flip, scale, oy, ox in AUG_CASES:
+        p = DA.AugmentParams(flip, scale, oy, ox)
+        for gt_down in (1, 8):
+            args = (p, TRAIN_CROP, cfg.image_mean, cfg.image_std, 255,
+                    gt_down)
+            ci, cg = DA.augment_sample(img_d, gt_d, *args)
+            ri, rg = DA.augment_sample(img, gt, *args)
+            err = float((ci.cpu() - ri).abs().max())
+            worst = max(worst, err)
+            if err > AUG_TOL or not torch.equal(cg.cpu(), rg):
+                fail(f"augment_sample {p} gt_down {gt_down}: card vs CPU "
+                     f"image {err:.3e} (bar {AUG_TOL}), labels equal "
+                     f"{torch.equal(cg.cpu(), rg)}")
+    ms = cuda_ms(lambda *a: DA.augment_sample(img_d, gt_d, *a), [(
+        DA.AugmentParams(*c), TRAIN_CROP, cfg.image_mean, cfg.image_std)
+        for c in AUG_CASES], reps=3)
+    log(f"augment_sample on the card vs the CPU, a {H}x{W} image to "
+        f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}, {len(AUG_CASES)} parameter sets x "
+        f"gt_down 1 and 8: image within {worst:.3e} (bar {AUG_TOL}), labels "
+        f"equal; {ms:.4f} ms a sample on the card")
+
+    seen = []
+    with tempfile.TemporaryDirectory() as log_dir:
+        reset_all()
+        state = train.main(
+            ["-e", cfg.name, "--device", dev.type, "--synthetic", "--bf16",
+             "--remat", "--device-augment", "--crop", *map(str, TRAIN_CROP),
+             "--epochs", "1", "--iters",
+             str(AUG_STEPS), "--batch-size", str(TRAIN_BATCH),
+             "--num-workers", "2", "--log-dir", log_dir],
+            on_step=lambda d: seen.append((float(d["loss"]), d["wait_s"], {
+                k: (tuple(v.shape), v.dtype, v.device.type)
+                for k, v in d["batch"].items()})))
+        got = launch_counts(all_kernels)
+    want_bn = (BN_LAUNCHES + REMAT_BNS) * AUG_STEPS
+    log(f"train.py --bf16 --remat --device-augment ({AUG_STEPS} steps at "
+        f"{TRAIN_BATCH}x{TRAIN_CROP[0]}x{TRAIN_CROP[1]}): losses "
+        f"{[round(l, 4) for l, _, _ in seen]}, batches {seen[0][2]}; loader "
+        f"wait {[round(w, 3) for _, w, _ in seen]} s; launches {got}")
+    if len(seen) != AUG_STEPS or state.step != AUG_STEPS or not all(
+            np.isfinite(l) for l, _, _ in seen):
+        fail(f"train.py --device-augment: {len(seen)} steps, losses "
+             f"{[l for l, _, _ in seen]}")
+    if seen[0][2] != {"image": ((TRAIN_BATCH, 3, *TRAIN_CROP),
+                                torch.float32, dev.type),
+                      "label": ((TRAIN_BATCH, *TRAIN_CROP), torch.int64,
+                                dev.type)}:
+        fail(f"train.py --device-augment batches {seen[0][2]}")
+    if got["channel_sum_sumsq"] != want_bn or \
+            got["fused_scale_bias_act"] != want_bn:
+        fail(f"train.py --bf16 --remat: K8/K9 launches {got}, expected "
+             f"{want_bn} each")
+    log(f"augment phase: {time.perf_counter() - phase_t0:.1f} s")
+
+
+def drop_config():
+    from torchseg_tpu_torch.experiments.registry import get_experiment
+
+    return dataclasses.replace(get_experiment(DROP_EXPERIMENT),
+                               image_height=DROP_CROP[0],
+                               image_width=DROP_CROP[1],
+                               batch_size=DROP_BATCH)
+
+
+def drop_trainer(dev, cls, **kw):
+    """PSPNet-R50's ``cls`` trainer on ``dev`` from seed 0 (deterministic
+    cuDNN), and the list its two dropouts' (input != 0, output != 0)
+    masks land in."""
+    from torchseg_tpu_torch.engine.lr_policy import PolyLR
+    from torchseg_tpu_torch.engine.optim import (
+        make_lr_mult_tree,
+        make_wd_tree,
+    )
+    from torchseg_tpu_torch.experiments.registry import (
+        build_loss_fn,
+        build_model,
+    )
+    from torchseg_tpu_torch.models import init_weights
+    from torchseg_tpu_torch.ops.dropout import Dropout
+
+    cfg = drop_config()
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(
+        0)).to(dev)
+    masks = []
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            # numpy: a rank's results go through a queue, where a torch
+            # tensor would travel as a file descriptor of its process
+            m.register_forward_hook(lambda mod, i, o: masks.append(
+                ((i[0] != 0).cpu().numpy(), (o != 0).cpu().numpy())))
+    trainer = cls(model, build_loss_fn(cfg, num_shards=1),
+                  PolyLR(cfg.lr, cfg.lr_power, 100),
+                  sgd_momentum=cfg.momentum,
+                  lr_mult=make_lr_mult_tree(model, cfg.business_lr_mult),
+                  wd=make_wd_tree(model, cfg.weight_decay),
+                  deterministic=True, **kw)
+    trainer.init_state()
+    return trainer, masks
+
+
+def drop_rank(rank, world, port, dev, batch, out):
+    """One of the two gloo ranks of the live-dropout dp1 x sp2 step, both
+    on cuda:0: the step with the step generator the space ranks share;
+    puts the loss, the masks, its rows of the /8 level, the launches and
+    (rank 0) the gradients on ``out``."""
+    import torch.distributed as dist
+
+    from torchseg_tpu_torch.ops.dropout import step_generator
+    from torchseg_tpu_torch.parallel.spatial import (
+        SpatialTrainer,
+        make_dp_sp_mesh,
+    )
+
+    dev = torch.device(dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        all_kernels, reset_all = kernel_counters()
+        mesh = make_dp_sp_mesh(1, 2)
+        trainer, masks = drop_trainer(dev, SpatialTrainer, mesh=mesh)
+        reset_all()
+        loss, _ = trainer.train_step(
+            {k: v.to(dev) for k, v in batch.items()},
+            step_generator(DROP_SEED, 0, mesh.data_index, dev))
+        torch.cuda.synchronize()
+        space = trainer.space
+        lv = space.level_for_hw(DROP_CROP[0] // 8, DROP_CROP[1] // 8)
+        res = {"rank": rank, "loss": float(loss), "masks": masks,
+               "rows": space.rows(lv), "launches": launch_counts(all_kernels),
+               "n_bn": len(bn_modules(trainer.model))}
+        if rank == 0:
+            res["grads"] = grads_of(trainer.model)
+        out.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def dropout_sp_phase(dev):
+    """PSPNet-R50's dp1 x sp2 step with live dropout on two gloo ranks of
+    this card against the one-process step (module docstring, item 21)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from torchseg_tpu_torch.engine.trainer import Trainer
+    from torchseg_tpu_torch.ops.dropout import step_generator
+
+    phase_t0 = time.perf_counter()
+    cfg = drop_config()
+    rng = np.random.default_rng(DROP_SEED)
+    batch = {"image": torch.from_numpy(rng.normal(size=(
+        DROP_BATCH, 3, *DROP_CROP)).astype(np.float32)),
+        "label": torch.from_numpy(rng.integers(
+            0, cfg.num_classes, (DROP_BATCH, *DROP_CROP)))}
+    refs = []
+    for cudnn in (True, False):  # the second: the float32 step's own noise
+        trainer, ref_masks = drop_trainer(dev, Trainer)
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            loss = float(trainer.train_step(
+                {k: v.to(dev) for k, v in batch.items()},
+                step_generator(DROP_SEED, 0, 0, dev))[0])
+        refs.append((loss, grads_of(trainer.model), ref_masks))
+        del trainer
+        torch.cuda.empty_cache()
+    (ref_loss, ref_grads, ref_masks), (_, own_grads, _) = refs
+    own = grad_errors(own_grads, ref_grads)[1]
+    l2_bar = max(SP_L2_BAR, 3 * own)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    q = mp.get_context("spawn").SimpleQueue()
+    ctx = mp.spawn(drop_rank, args=(2, port, str(dev), batch, q), nprocs=2,
+                   join=False)
+    got = []
+    while True:  # drain before the join: rank 0's gradients outgrow a pipe
+        while not q.empty():
+            got.append(q.get())
+        if ctx.join(timeout=1):
+            break
+    while not q.empty():
+        got.append(q.get())
+    if len(got) != 2:
+        fail(f"the live-dropout dp1 x sp2 ranks returned {len(got)} results")
+    r0, r1 = sorted(got, key=lambda r: r["rank"])
+    loss_rel = abs(r0["loss"] - ref_loss) / abs(ref_loss)
+    errs, l2 = grad_errors(r0["grads"], ref_grads)
+    log(f"PSPNet-R50 dp1 x sp2 step with live dropout at {DROP_BATCH} x "
+        f"{DROP_CROP[0]}x{DROP_CROP[1]} (two gloo ranks on cuda:0, the "
+        f"step generator shared, deterministic cuDNN, float32) vs one "
+        f"process drawing the same global masks: loss {r0['loss']:.6f} vs "
+        f"{ref_loss:.6f} (relative {loss_rel:.3e}, bar {SP_LOSS_RTOL}); "
+        f"whole-gradient L2 {l2:.3e} (bar {l2_bar:.3e}: the larger of "
+        f"{SP_L2_BAR} and three times the one-process step's own distance "
+        f"with cuDNN off, {own:.3e}); largest leaves "
+        f"{[(n, f'{e:.3e}') for e, n in errs[:4]]}")
+    if not loss_rel <= SP_LOSS_RTOL or not l2 < l2_bar:
+        fail(f"live-dropout dp1 x sp2 step: loss off by {loss_rel:.3e}, "
+             f"whole gradient by {l2:.3e}")
+    for r in (r0, r1):
+        want = dict.fromkeys(r["launches"], 0)
+        want.update(channel_sum_sumsq=r["n_bn"],
+                    fused_scale_bias_act=r["n_bn"])
+        if r["launches"] != want:
+            fail(f"live-dropout dp1 x sp2 rank {r['rank']} launches "
+                 f"{r['launches']}, expected {want}")
+        r0_, r1_ = r["rows"]
+        if len(r["masks"]) != len(ref_masks) or len(ref_masks) != 2:
+            fail(f"rank {r['rank']}: {len(r['masks'])} dropout calls, the "
+                 f"one process {len(ref_masks)}, expected 2")
+        for (nz, kept), (rnz, rkept) in zip(r["masks"], ref_masks):
+            both = nz & rnz[..., r0_:r1_, :]
+            if not np.array_equal(kept & both,
+                                  rkept[..., r0_:r1_, :] & both):
+                fail(f"rank {r['rank']}: dropout mask rows {r0_}-{r1_} "
+                     f"differ from the global mask's")
+    log(f"each rank's dropout masks are the global masks' rows "
+        f"({r0['rows']}, {r1['rows']} of the /8 level); K8/K9 "
+        f"{r0['n_bn']} launches each a step on each rank; "
+        f"{time.perf_counter() - phase_t0:.1f} s")
 
 
 if __name__ == "__main__":

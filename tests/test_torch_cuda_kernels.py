@@ -946,6 +946,26 @@ def test_channel_sum_sumsq_fold_bit_exact(dev, shape, dtype):
     _exact(again, got)
 
 
+@pytest.mark.parametrize("shape", K8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_sum_sumsq_fold_without_update(dev, shape, dtype):
+    """K8's no-update route (``update=False``: no running-stat pointers,
+    the rematerialized forward's): the same (mean, inv, a, b, d) as the
+    updating fold, bit for bit, and the running stats and the counter
+    untouched (one launch)."""
+    x = _bn_input(shape, dtype, dev, seed=19)
+    bn = _bn_operands(shape[1], dev, seed=20)
+    k_bn, u_bn = _clone_bn(bn), _clone_bn(bn)
+    before = B.channel_sum_sumsq.launches
+    got = B.channel_sum_sumsq(x, k_bn, update=False)
+    torch.cuda.synchronize()
+    assert B.channel_sum_sumsq.launches == before + 1
+    _exact(got, B.channel_sum_sumsq(x, u_bn))
+    for k, b in zip(k_bn[:5], bn[:5]):
+        _exact(k, b)
+    assert int(u_bn[4]) == 4 and int(k_bn[4]) == 3
+
+
 def test_channel_sum_sumsq_fold_misaligned_and_no_counter(dev):
     for x in (_misaligned((2, 21, 25, 25), dev),
               _misaligned((2, 64, 200, 200), dev)):

@@ -3,15 +3,22 @@ flax's semantics (keep 1 - p, kept elements scaled by 1 / (1 - p)); the
 masks drawn from the generator made active for the step, the same masks
 from the same generator state, others for another seed or rank; nothing
 drawn in eval mode or with no generator; the Trainer's microbatches draw
-one after another from the step's generator; ``SpatialTrainer`` refuses a
-model with live dropout.  JAX's threefry bits are not reproduced (the
+one after another from the step's generator; under a space context (the
+image height split over space ranks) each rank's mask is its rows of the
+whole map's, drawn from the step generator the space ranks share
+(``step_generator``), and ``SpatialTrainer`` takes a model with live
+dropout (its dp1 x sp2 step against one process:
+tests/test_torch_spatial.py); ``train.py`` seeds each step's generator
+from the seed, the step and the rank, and a resumed run goes on with the
+steps' generators.  JAX's threefry bits are not reproduced (the
 parity tests run with dropout off), so nothing here compares with JAX."""
 
-import pytest
 import torch
 from torch import nn
 
 from torchseg_tpu_torch import models as tmodels
+from torchseg_tpu_torch import train
+from torchseg_tpu_torch.engine.checkpoint import LAST_LINK
 from torchseg_tpu_torch.engine.lr_policy import PolyLR
 from torchseg_tpu_torch.engine.trainer import Trainer
 from torchseg_tpu_torch.experiments import registry as treg
@@ -20,7 +27,9 @@ from torchseg_tpu_torch.ops.dropout import (
     dropout_generator,
     has_live_dropout,
     make_generator,
+    step_generator,
 )
+from torchseg_tpu_torch.ops.spatial import SpaceContext
 from torchseg_tpu_torch.parallel.spatial import SpatialTrainer
 
 
@@ -130,7 +139,59 @@ def test_accumulated_microbatches_draw_one_after_another():
 
 
 def test_spatial_trainer_refuses_live_dropout():
+    """No longer refused: ``SpatialTrainer`` takes PSPNet, and a sharded
+    map's mask is this rank's rows of the whole map's, from the shared
+    step generator (a whole map's is drawn as one process draws it)."""
     cfg = treg.get_experiment("ade.pspnet.R50_v1c")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        SpatialTrainer(treg.build_model(cfg), None, PolyLR(0.01, 0.9, 10),
-                       mesh=object())
+    model = treg.build_model(cfg)
+    assert has_live_dropout(model)
+    SpatialTrainer(model, None, PolyLR(0.01, 0.9, 10), mesh=object())
+    x = torch.ones(2, 3, 64, 16)  # /1 of a 64x16 image, sharded in two
+    whole = _drop(x, step_generator(5, 3, 1), p=0.5)
+    for index, rows in ((0, slice(0, 32)), (1, slice(32, 64))):
+        space = SpaceContext((64, 16), (0, 32, 64), index, None)
+        with space:
+            got = _drop(x[..., rows, :], step_generator(5, 3, 1), p=0.5)
+            # a map no space rank holds in part: the whole map's draw
+            small = _drop(torch.ones(2, 3, 4, 1), step_generator(5, 3, 1),
+                          p=0.5)
+        assert torch.equal(got, whole[..., rows, :])
+        assert torch.equal(small, _drop(torch.ones(2, 3, 4, 1),
+                                        step_generator(5, 3, 1), p=0.5))
+    # the step generator: one per (seed, step, data index)
+    draws = {k: float(torch.rand((), generator=step_generator(*k)))
+             for k in ((5, 3, 1), (5, 3, 0), (5, 4, 1), (6, 3, 1))}
+    assert len(set(draws.values())) == 4
+    assert float(torch.rand((), generator=step_generator(5, 3, 1))) == \
+        draws[(5, 3, 1)]
+
+
+def test_train_cli_seeds_each_step_from_seed_step_and_rank(tmp_path,
+                                                           monkeypatch):
+    """``train.main`` gives each step the generator of (``--seed``, the
+    step, the rank), on every path: a run resumed with ``-c`` goes on with
+    the steps' own generators (2, 3), the ones the uninterrupted run
+    would have drawn from, and the trainer is handed that generator."""
+    made, handed = [], []
+
+    def spy_generator(seed, step, index, device):
+        gen = step_generator(seed, step, index, device)
+        made.append(((seed, step, index, str(device)), gen))
+        return gen
+
+    real_step = Trainer.train_step
+
+    def spy_step(self, batch, generator=None):
+        handed.append(generator)
+        return real_step(self, batch, generator)
+
+    monkeypatch.setattr(train, "step_generator", spy_generator)
+    monkeypatch.setattr(Trainer, "train_step", spy_step)
+    argv = ["-e", "cityscapes.bisenet.R18", "--device", "cpu", "--synthetic",
+            "--crop", "32", "32", "--iters", "2", "--batch-size", "2",
+            "--num-workers", "1", "--log-dir", str(tmp_path), "--seed", "7"]
+    train.main(argv + ["--epochs", "1"])
+    snap = tmp_path / "cityscapes.bisenet.R18" / "snapshot"
+    train.main(argv + ["--epochs", "2", "-c", str(snap / LAST_LINK)])
+    assert [k for k, _ in made] == [(7, s, 0, "cpu") for s in range(4)]
+    assert [id(g) for _, g in made] == [id(g) for g in handed]

@@ -11,8 +11,9 @@ eval.py``), ``utils/visualize.print_iou``, ``utils/misc``,
       epoch's mIoU that of an ``Evaluator.run_dataset`` on a model restored
       from that epoch alone (the two epochs' histograms differ, so a stale
       model would show), the ``-p`` and ``-s`` dumps;
-  ``--eval-dtype bf16`` raises ``NotImplementedError`` quoting A5; the
-      flags A8 ported run: ``-speed``/``--speed``/``--summary`` (the FPS
+  ``--eval-dtype bf16`` scores a reference-layout file as the bf16 model
+      scores alone (the evaluator around ``build_model(cfg,
+      dtype=torch.bfloat16)``); the flags A8 ported run: ``-speed``/``--speed``/``--summary`` (the FPS
       line and dict, the stats table) and ``--torch-checkpoint`` (a
       reference-layout file scored as its model scores alone);
   the slice as a whole: JAX's ``make_evaluator`` + ``evaluate_checkpoint``
@@ -220,26 +221,32 @@ def test_two_processes_split_the_val_set(snapshots):
     (["--eval-dtype", "bf16"], "A5"), (["--speed"], "A8"), (["-speed"], "A8"),
     (["--summary"], "A8"), (["--torch-checkpoint", "x.pth"], "A8")])
 def test_refused_flags_raise(flag, item, tmp_path, monkeypatch, capsys):
-    """``--eval-dtype bf16`` is refused quoting A5.  The flags A8 ported run
-    on the CPU: ``-speed``/``--speed`` print the FPS line and return its
-    dict, ``--summary`` prints the stats table too, and
-    ``--torch-checkpoint x.pth`` scores a reference-layout file of a seeded
-    model (written here) as that model scores alone."""
+    """The flags ported since they were refused run on the CPU: ``--eval-dtype
+    bf16`` (A5) and ``--torch-checkpoint x.pth`` (A8) score a
+    reference-layout file of a seeded model (written here) as that model
+    scores alone, in bf16 (the evaluator around the bf16 model) and in
+    float32; ``-speed``/``--speed`` print the FPS line and return its
+    dict, ``--summary`` prints the stats table too."""
     argv = ["-e", EXP, "--device", "cpu", "--synthetic", "1", *flag]
-    if item == "A5":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            teval.main(argv)
-        return
     monkeypatch.chdir(tmp_path)
     torch.set_num_threads(1)
-    if "--torch-checkpoint" in flag:
+    if item == "A5" or "--torch-checkpoint" in flag:
         cfg = dataclasses.replace(get_experiment(EXP), eval_crop_size=64,
                                   eval_base_size=64)
         model = init_weights(build_model(cfg),
                              torch.Generator().manual_seed(0))
         torch.save({"model": reference_state_dict(model, "bisenet")},
                    "x.pth")
+        built = []
+        if item == "A5":
+            argv += ["--torch-checkpoint", "x.pth"]
+            bf16 = build_model(cfg, dtype=torch.bfloat16)
+            bf16.load_state_dict(model.state_dict())
+            model = bf16
+            monkeypatch.setattr(teval, "build_model", lambda c, **kw: (
+                built.append(kw.get("dtype")) or build_model(c, **kw)))
         got = teval.main(argv + SMALL + ["--log-dir", str(tmp_path)])
+        assert built == ([torch.bfloat16] if item == "A5" else [])
         ev = teval.make_evaluator(cfg, model.eval(), device="cpu")
         acc = ev.run_dataset(SyntheticDataset(1, (64, 64), cfg.num_classes),
                              mode=cfg.eval_mode)

@@ -22,13 +22,18 @@ on four CPU gloo ranks, one spawn shared by the file (``ranks``):
   single-device ``Evaluator.whole_eval`` on >= 0.999 of pixels (JAX's own
   bar, ``tests/test_spatial.py:343-370``); a weight swap
   (``model_or_state`` reassigned) is honoured;
+* training with live dropout, dp1 x sp2 (each pair of ranks a mesh):
+  PSPNet at depth 1 a stage, 2 x 64x32 in float64, its heads' masks
+  drawn from the shared step generator, against one process drawing the
+  same global masks (1e-10), each rank's masks the global ones' rows;
 * the counterparts of ``test_dp_sp_mesh_shape_and_validation``,
   ``test_spatial_step_validates_divisibility`` and
   ``test_spatial_shards_validation``, and the row plan and batch split.
 
 Out of scope: ``test_train_cli_sp`` and
-``test_sp_lr_scales_by_data_axis_not_mesh`` belong to ``train.py``
-(ROADMAP A5) and wait for it.  The dryrun's dp x sp leg is
+``test_sp_lr_scales_by_data_axis_not_mesh`` belong to the training CLI
+(``tests/test_torch_train_cli.py`` holds its ``--sp`` refusals).  The
+dryrun's dp x sp leg is
 ``test_torch_dryrun_multichip.py``; the four-rank worker's ``sp_losses``
 against JAX's ``SpatialTrainer``, ``test_torch_multihost.py``.
 """
@@ -58,7 +63,14 @@ from torchseg_tpu_torch.experiments.registry import (
     get_experiment,
 )
 from torchseg_tpu_torch.models import init_weights
+from torchseg_tpu_torch.models.pspnet import PSPNet
+from torchseg_tpu_torch.models.resnet import Bottleneck, ResNet
+from torchseg_tpu_torch.ops.dropout import Dropout, step_generator
 from torchseg_tpu_torch.ops.losses import cross_entropy_with_ignore
+from torchseg_tpu_torch.ops.resize import (
+    _resize_bf16,
+    resize_bilinear_align_corners,
+)
 from torchseg_tpu_torch.ops.spatial import conv2d, plan_rows, split_unit
 from torchseg_tpu_torch.parallel import (
     DpSpMesh,
@@ -96,9 +108,14 @@ LOSSES = {"ce": _ce, "ohem": build_loss_fn(
     dataclasses.replace(CFG, ohem_thresh=0.0), num_shards=1)}
 
 
-def _trainer(cls, loss_fn, **kw):
-    model = init_weights(build_model(CFG),
-                         torch.Generator().manual_seed(0)).double()
+def _trainer(cls, loss_fn, remat=False, dtype=None, **kw):
+    """BiSeNet-R18 from seed 0 and its trainer: float64, or with ``dtype``
+    computed in it on float32 parameters."""
+    model = init_weights(build_model(dataclasses.replace(CFG, remat=remat),
+                                     dtype=dtype),
+                         torch.Generator().manual_seed(0))
+    if dtype is None:
+        model = model.double()
     return model, cls(model, loss_fn, PolyLR(CFG.lr, CFG.lr_power, 100),
                       sgd_momentum=CFG.momentum,
                       lr_mult=make_lr_mult_tree(model, CFG.business_lr_mult),
@@ -112,10 +129,11 @@ def _worst(ref, got):
                for n, r in ref.items())
 
 
-def _train_errors(loss_fn, mesh, batch, n_steps=2):
-    """``n_steps`` dp x sp steps; rank 0 also runs as many one-process
-    steps and returns how far apart they are."""
-    model, tr = _trainer(SpatialTrainer, loss_fn, mesh=mesh)
+def _train_errors(loss_fn, mesh, batch, n_steps=2, remat=False):
+    """``n_steps`` dp x sp steps (``remat``: the backbone's blocks
+    recomputed in the backward); rank 0 also runs as many one-process
+    steps, remat off, and returns how far apart they are."""
+    model, tr = _trainer(SpatialTrainer, loss_fn, remat, mesh=mesh)
     tr.init_state()
     steps = []
     for _ in range(n_steps):
@@ -185,6 +203,135 @@ def _evaluator(model, **kw):
                      cfg.image_mean, cfg.image_std, device="cpu", **kw)
 
 
+PSP_CFG = dataclasses.replace(get_experiment("ade.pspnet.R50_v1c"),
+                              image_height=64, image_width=32, batch_size=2)
+PSP_HW = (64, 32)  # /8 is 8 rows: sharded over two space ranks
+DROP_SEED = 17
+
+
+def _psp_model():
+    """PSPNet at depth 1 a stage (full width, output stride 8), float64."""
+    model = PSPNet(PSP_CFG.num_classes, ResNet(
+        (1, 1, 1, 1), block=Bottleneck, deep_stem=True,
+        layer_strides=(1, 2, 1, 1), layer_dilations=(1, 1, 2, 4)))
+    return init_weights(model, torch.Generator().manual_seed(3)).double()
+
+
+def _psp_batch():
+    rng = np.random.default_rng(5)
+    return {"image": torch.from_numpy(rng.normal(size=(2, 3, *PSP_HW))),
+            "label": torch.from_numpy(rng.integers(
+                0, PSP_CFG.num_classes, (2, *PSP_HW)))}
+
+
+def _record_masks(model):
+    """Each dropout's (input, output) of the step, by a forward hook."""
+    seen = []
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.register_forward_hook(
+                lambda mod, inp, out: seen.append((inp[0].detach().clone(),
+                                                   out.detach().clone())))
+    return seen
+
+
+def _psp_trainer(cls, model, **kw):
+    return cls(model, build_loss_fn(PSP_CFG), PolyLR(
+        PSP_CFG.lr, PSP_CFG.lr_power, 100), sgd_momentum=PSP_CFG.momentum,
+        lr_mult=make_lr_mult_tree(model, PSP_CFG.business_lr_mult),
+        wd=make_wd_tree(model, PSP_CFG.weight_decay), **kw)
+
+
+def _pair_mesh(rank):
+    """dp1 x sp2 meshes: ranks (0, 1) and (2, 3) each form a mesh of one
+    data index."""
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    singles = [dist.new_group([r]) for r in range(4)]
+    pair = rank // 2
+    return DpSpMesh(1, 2, 0, rank % 2, (2 * pair, 2 * pair + 1),
+                    singles[rank], pairs[pair], pairs[pair])
+
+
+def _dropout_sp2(mesh):
+    """dp1 x sp2 PSPNet steps with live dropout, the same step on both
+    pairs of ranks; each rank then runs the one-process step with the same
+    step generator and keeps how far apart the two are, and both steps'
+    dropout masks."""
+    model = _psp_model()
+    masks = _record_masks(model)
+    tr = _psp_trainer(SpatialTrainer, model, mesh=mesh)
+    tr.init_state()
+    batch = _psp_batch()
+    loss, _ = tr.train_step(batch, step_generator(DROP_SEED, 0, 0))
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    ref_model = _psp_model()
+    ref_masks = _record_masks(ref_model)
+    ref = _psp_trainer(Trainer, ref_model)
+    ref.init_state()
+    ref_loss, _ = ref.train_step(batch, step_generator(DROP_SEED, 0, 0))
+    with torch.no_grad():
+        return {
+            "loss": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+            "grad": _worst({n: p.grad for n, p in
+                            ref_model.named_parameters()}, grads),
+            "state": _worst({k: v for k, v in ref_model.state_dict().items()
+                             if v.is_floating_point()}, model.state_dict()),
+            "rows": tr.space.rows(tr.space.level_for_hw(8, 4)),
+            "masks": [(i != 0, o != 0) for i, o in masks],
+            "ref_masks": [(i != 0, o != 0) for i, o in ref_masks]}
+
+
+def _bf16_batch():
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in _global_batch(DEEP_HW).items()}
+
+
+def _bf16_sp2(rank, mesh):
+    """The bf16 route under a space context, on the pair (0, 1): a sharded
+    /8 map resized in bf16 to the sharded /1 level and to a size that is
+    no level, against the whole map's bf16 resize; then one dp1 x sp2
+    BiSeNet-R18 step in bf16 with remat at 4 x 256x64 (every map sharded)
+    and rank 0's one-process bf16 step, remat off, on the same batch."""
+    if rank > 1:
+        return None
+    space = mesh.context(DEEP_HW, plan_rows(DEEP_HW[0], 2))
+    whole = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(2, 5, 32, 8))).to(torch.bfloat16)
+    r0, r1 = space.rows(space.level_for_hw(32, 8))
+    o0, o1 = space.rows(space.level_for_hw(*DEEP_HW))
+    with space:
+        rows = resize_bilinear_align_corners(whole[..., r0:r1, :], DEEP_HW,
+                                             torch.bfloat16)
+        other = resize_bilinear_align_corners(whole[..., r0:r1, :],
+                                              (100, 30), torch.bfloat16)
+    out = {"resize": (rows, (o0, o1), other)}
+    batch = _bf16_batch()
+    model, tr = _trainer(SpatialTrainer, _ce, True, torch.bfloat16,
+                         mesh=mesh)
+    tr.init_state()
+    loss, _ = tr.train_step(batch)
+    out["counts"] = dict(tr.space.counts)
+    if rank:
+        return out
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    ref_model, ref = _trainer(Trainer, _ce, False, torch.bfloat16)
+    ref.init_state()
+    ref_loss, _ = ref.train_step(batch)
+    ref_grads = {n: p.grad for n, p in ref_model.named_parameters()}
+    flat = torch.cat([g.flatten() for g in grads.values()]).double()
+    ref_flat = torch.cat([ref_grads[n].flatten() for n in grads]).double()
+    with torch.no_grad():
+        out.update(
+            loss=abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+            grad=float((flat - ref_flat).norm() / ref_flat.norm()),
+            stats=_worst({k: v for k, v in ref_model.state_dict().items()
+                          if "running" in k}, model.state_dict()),
+            tracked={k: int(v) for k, v in model.state_dict().items()
+                     if k.endswith("num_batches_tracked")},
+            dtypes={p.grad.dtype for p in model.parameters()})
+    return out
+
+
 def _rank(rank, world, port, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -231,6 +378,10 @@ def _rank(rank, world, port, out_dir):
         ev.model_or_state = _eval_model(weights[1])
         img = _eval_images()[0]
         out["swapped"] = ev.whole_eval(img, output_size=img.shape[:2]).numpy()
+        pair_mesh = _pair_mesh(rank)
+        out["dropout"] = _dropout_sp2(pair_mesh)
+        out["bf16"] = _bf16_sp2(rank, pair_mesh)
+        out["remat"] = _train_errors(_ce, mesh, batch, 1, remat=True)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -324,6 +475,73 @@ def test_spatial_eval_honours_a_weight_swap(ranks):
     for out in outs:
         np.testing.assert_array_equal(out["swapped"], want)
         assert (out["swapped"] != out["labels"][0]).any()
+
+
+def test_dp1_sp2_live_dropout_step_matches_one_process(ranks):
+    """PSPNet (depth 1 a stage, full width) at 2 x 64x32 over dp1 x sp2 in
+    float64, its two heads' dropouts live, drawn from the step generator
+    the space ranks share: the loss, every gradient and the state after
+    the step within 1e-10 of the one-process step that draws the same
+    global masks (of each leaf's largest magnitude); and each rank's kept
+    pixels are the global masks' rows (where neither input is 0, the
+    dropout's output says nothing of its mask)."""
+    for out in ranks[0]:
+        got = out["dropout"]
+        assert got["loss"] < 1e-10
+        assert got["grad"][0] < 1e-10, got["grad"]
+        assert got["state"][0] < 1e-10, got["state"]
+        r0, r1 = got["rows"]
+        assert (r1 - r0) * 2 == 8
+        assert len(got["masks"]) == len(got["ref_masks"]) == 2
+        for (nz, kept), (rnz, rkept) in zip(got["masks"], got["ref_masks"]):
+            both = nz & rnz[..., r0:r1, :]
+            assert torch.equal(kept & both, rkept[..., r0:r1, :] & both)
+            assert 0.85 < float(kept[both].double().mean()) < 0.95
+
+
+def test_dp2_sp2_remat_step_matches_one_process_float64(ranks):
+    """The backbone's blocks recomputed in the backward under the space
+    context: the step equals the one-process step without remat (1e-8,
+    float64), the BN statistics and ``num_batches_tracked`` moved once,
+    and the recompute repeats the blocks' halo exchanges (18 without
+    remat; the 32x32 image keeps /1 to /4 sharded)."""
+    got = ranks[0][0]["remat"]
+    assert got["loss"][0] < BAR, got["loss"]
+    assert got["grad"][0][0] < BAR, got["grad"]
+    assert got["param"][0] < BAR and got["buffer"][0] < BAR
+    assert got["counts"]["halo"] == 23 and got["counts"]["gather"] == 8
+
+
+def test_dp1_sp2_bf16_remat_step_matches_one_process(ranks):
+    """bf16 under a space context: a sharded map's bf16 resize is the
+    whole map's bf16 resize (JAX's matmul route: bf16 matrices, float32
+    accumulation, one rounding a pass), its rows for a sharded output,
+    bit for bit; and a dp1 x sp2 BiSeNet-R18 step in bf16 with remat at
+    4 x 256x64 agrees with the one-process bf16 step without remat (the
+    loss within 1e-5 relative, measured 0; the whole gradient within
+    2.5e-2 relative, measured 1.2e-2: the halo and gather backwards add
+    bf16 partial gradients where the whole map's conv backward accumulates
+    in float32; the running statistics within 1e-5 of each leaf's largest
+    magnitude, measured 1.7e-7), every ``num_batches_tracked`` 1, the
+    gradients float32.  With the float32 resize route in this context
+    (``F.interpolate``'s weights, one rounding) the step is 4.0e-5,
+    4.4e-2 and 4.2e-3 away."""
+    rank0, rank1 = ranks[0][0]["bf16"], ranks[0][1]["bf16"]
+    whole = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(2, 5, 32, 8))).to(torch.bfloat16)
+    want = _resize_bf16(whole, DEEP_HW)
+    for got in (rank0, rank1):
+        rows, (o0, o1), other = got["resize"]
+        assert rows.dtype == torch.bfloat16 and other.dtype == torch.bfloat16
+        assert torch.equal(rows, want[..., o0:o1, :])
+        assert torch.equal(other, _resize_bf16(whole, (100, 30)))
+        assert got["counts"]["resize_rows"] == 6 and got["counts"]["mean"]
+    assert rank0["resize"][1] != rank1["resize"][1]
+    assert rank0["loss"] < 1e-5, rank0["loss"]
+    assert rank0["grad"] < 2.5e-2, rank0["grad"]
+    assert rank0["stats"][0] < 1e-5, rank0["stats"]
+    assert set(rank0["tracked"].values()) == {1}
+    assert rank0["dtypes"] == {torch.float32}
 
 
 def test_dp_sp_mesh_shape_and_validation(ranks):

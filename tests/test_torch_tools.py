@@ -13,8 +13,8 @@ has a counterpart.
   roofline: ``bound`` gives the numbers ``chip_smoke.py``'s formula gave
       (and ``chip_smoke.bound`` is it); the int8-through graph's work is
       charged to its types; ``--trace`` needs a card;
-  train_speed: ``--steps 2`` runs and the refused flags quote their
-      ROADMAP items;
+  train_speed: ``--steps 2`` runs, in float32 and with ``--bf16
+      --remat``, and ``--fused-loss`` quotes ROADMAP A8;
   profile: ``top_ops_table`` renders JAX's table character for character;
       ``collect_op_times`` reports the CPU's ops when no kernel runs;
       ``start_server`` has no counterpart and says so.
@@ -149,16 +149,21 @@ def test_roofline_int8_through_charges_each_type(capsys):
                        "cpu", "--f32", "--trace"])
 
 
-def test_train_speed_runs_and_refuses():
+def test_train_speed_runs_and_refuses(capsys):
     res = train_speed.main(["-e", "cityscapes.bisenet.R18", "--crop", "32",
                             "32", "--batch-size", "2", "--steps", "2",
                             "--reps", "1", "--device", "cpu"])
     assert set(res) == {"ms_per_step", "img_per_s", "peak_hbm_gib"}
     assert res["ms_per_step"] > 0 and res["peak_hbm_gib"] is None
-    for flag, item in (("--bf16", "A5"), ("--remat", "A5"),
-                       ("--fused-loss", "A8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            train_speed.main(["-e", "cityscapes.bisenet.R18", flag])
+    # bf16 compute and rematerialization run (parameters float32)
+    res = train_speed.main(["-e", "cityscapes.bisenet.R18", "--crop", "32",
+                            "32", "--batch-size", "2", "--steps", "1",
+                            "--reps", "1", "--device", "cpu", "--bf16",
+                            "--remat"])
+    assert res["ms_per_step"] > 0
+    assert "32x32 bf16 remat on 1 dev" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        train_speed.main(["-e", "cityscapes.bisenet.R18", "--fused-loss"])
     with pytest.raises(NotImplementedError, match="--memory"):
         train_speed.main(["-e", "cityscapes.bisenet.R18", "--memory-only"])
 
@@ -174,3 +179,18 @@ def test_profile_tables_and_refusals(tmp_path):
     assert os.listdir(tmp_path)
     with pytest.raises(NotImplementedError, match="trace"):
         profile.start_server()
+
+
+def test_roofline_train_step_is_float32_unless_bf16(capsys):
+    """``--train`` analyses the float32 step, as before bf16 training was
+    ported; ``--bf16`` asks for the bf16 step (convs charged at the bf16
+    rate)."""
+    argv = ["-e", "cityscapes.bisenet.R18", "--train", "--crop", "32", "32",
+            "--batch-size", "2", "--device", "cpu"]
+    f32 = roofline.main(argv)
+    assert "(f32, device cpu" in capsys.readouterr().out
+    assert f32["flops_by_kind"].get("bf16", 0) == 0
+    bf16 = roofline.main(argv + ["--bf16"])
+    assert "(bf16, device cpu" in capsys.readouterr().out
+    assert bf16["flops_by_kind"]["bf16"] > 0
+    assert roofline.main(argv + ["--f32"])["flops"] == f32["flops"]

@@ -12,9 +12,10 @@
       restored step) from the restored weights; ``--pretrained`` (a
       reference ``.pth``, a GluonCV ``.params``) grafts the backbone after
       the seeded init; ``--orbax`` snapshots an epoch with DCP and ``-c
-      orbax`` resumes at epoch 2 from the restored weights; the flags that
-      are not ported (``--bf16``, ``--device-augment``) raise quoting their
-      ROADMAP item, and ``--sp`` refuses as JAX's does;
+      orbax`` resumes at epoch 2 from the restored weights; ``--sp``
+      refuses as JAX's does (``--bf16`` and ``--device-augment`` run in
+      tests/test_torch_bf16_train.py and
+      tests/test_torch_device_augment.py);
   two gloo ranks (one spawn) run ``train.main`` for two synthetic
       iterations: both report the same losses, and only rank 0 writes a
       snapshot.
@@ -175,9 +176,6 @@ def test_cli_trains_snapshots_and_resumes(tmp_path, exp):
 def test_cli_refusals(tmp_path):
     base = ["-e", "cityscapes.bisenet.R18", "--device", "cpu", "--synthetic",
             "--log-dir", str(tmp_path)]
-    for flags, item in ((["--bf16"], "A5"), (["--device-augment"], "A6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            train.main(base + flags)
     with pytest.raises(ValueError, match="--sp 2 does not divide 1"):
         train.main(base + ["--sp", "2"])
     # a batch that the microbatches cannot split raises in the step

@@ -29,7 +29,13 @@ GluonCV ``.params`` checkpoints in (``utils/``), generic per-conv int8
 ``torch.export`` artifacts with the kernels as ``torchseg_cuda`` ops
 (``deploy/export.py``, ``ops/kernels/custom_ops.py``), DCP checkpoints
 (``engine/checkpoint_orbax.py``) and ``tools/`` (speed, stats, profile,
-roofline, train_speed).
+roofline, train_speed).  Every model takes JAX's compute ``dtype``
+(bfloat16 on float32 parameters, cast at use; K8/K9 on their bf16 route)
+and ``remat`` (``models/resnet.py``: the blocks recomputed with their BN
+statistics frozen); dp x sp trains the families with dropout; the train
+augmentation can run on the device (``data/device_augment.py``); the
+reference's ``Engine`` facade is ``engine/engine.py`` and its
+initializers ``utils/init.py``.
 
 Nothing here imports jax, flax or torchseg_tpu.
 """

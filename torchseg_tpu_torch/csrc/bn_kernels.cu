@@ -308,7 +308,7 @@ __device__ __forceinline__ void block_sum2(double* s, double* ss) {
 struct Fold {
   const float* weight;
   const float* bias;
-  float* running_mean;
+  float* running_mean;             // nullptr: no running-stat update
   float* running_var;
   long long* num_batches_tracked;  // may be nullptr
   float n, eps, m, keep, unbias;   // keep = 1 - m
@@ -318,6 +318,8 @@ struct Fold {
 // finishing thread before the sums so that their latency hides behind them.
 __device__ __forceinline__ float4 fold_operands(int c, const Fold& f) {
   if (f.weight == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if (f.running_mean == nullptr)
+    return make_float4(f.weight[c], f.bias[c], 0.f, 0.f);
   return make_float4(f.weight[c], f.bias[c], f.running_mean[c],
                      f.running_var[c]);
 }
@@ -346,6 +348,7 @@ __device__ __forceinline__ void finish(int c, int c_dim, double s_acc,
   out[2 * c_dim + c] = a;
   out[3 * c_dim + c] = b;
   out[4 * c_dim + c] = d;
+  if (f.running_mean == nullptr) return;  // the forward without an update
   f.running_mean[c] = __fadd_rn(__fmul_rn(f.keep, op.z),
                                 __fmul_rn(f.m, mean));
   f.running_var[c] = __fadd_rn(__fmul_rn(f.keep, op.w),
@@ -645,7 +648,8 @@ extern "C" {
 // NULL: out (2, c) float32 (sum, sum of squares).  Otherwise out (5, c)
 // float32 (mean, inv, a, b, d), running_mean and running_var (c,) float32
 // updated in place, num_batches_tracked (int64 scalar, or NULL) + 1; eps and
-// momentum as torch's BatchNorm takes them.  One launch on the caller's
+// momentum as torch's BatchNorm takes them.  running_mean == NULL folds
+// without touching any running statistic (the rematerialized forward).  One launch on the caller's
 // stream; returns the launch's CUDA error (0: none).
 int tsg_channel_sums(const void* x, int n, int c, long long hw, int bf16,
                      void* out, const void* weight, const void* bias,

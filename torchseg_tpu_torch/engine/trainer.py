@@ -21,9 +21,9 @@ the loss are the microbatches' mean (JAX ``trainer.py:144-171``).
 FCN) draw their masks from ``generator`` (``ops.dropout``), the
 microbatches one after another from the same stream (JAX splits the step
 key per microbatch, :164-168).  Under a group each rank passes its own
-generator, seeded from the run's seed and its rank (``ops.dropout.
-make_generator``: JAX folds the device index into the step key,
-:126-129).  With no generator the dropouts are the identity.
+generator; ``train.py`` seeds it from the run's seed, the step and the
+rank (``ops.dropout.step_generator``: JAX folds the device index into the
+step key, :126-129).  With no generator the dropouts are the identity.
 
 ``deterministic`` runs each step with cuDNN's deterministic convolution
 algorithms: the same steps then give the same bits on every run, as the

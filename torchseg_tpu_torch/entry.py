@@ -213,16 +213,21 @@ def synthetic_batch(batch: int, crop, seed: int = 0, device="cuda",
 
 def train_entry(experiment: str = TRAIN_EXPERIMENT, device="cuda",
                 crop=(1024, 1024), batch: int = 2, seed: int = 0,
-                deterministic: bool = False):
+                deterministic: bool = False, dtype=None, remat=None):
     """The training step of ``experiment`` on one device; returns
     ``trainer, (state, batch)``: ``trainer.train_step(batch)`` gives (loss,
     lr).  ``deterministic``: cuDNN's deterministic algorithms in each
-    step (the same bits on every run, slower)."""
+    step (the same bits on every run, slower).  ``dtype``: the compute
+    dtype (None: float32; ``torch.bfloat16`` on float32 parameters);
+    ``remat``: recompute the backbone blocks in the backward pass (None:
+    the config's)."""
     _no_tf32()
     cfg = dataclasses.replace(get_experiment(experiment),
                               image_height=crop[0], image_width=crop[1],
                               batch_size=batch)
-    model = build_model(cfg).to(device)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    model = build_model(cfg, dtype=dtype).to(device)
     trainer = Trainer(
         model, build_loss_fn(cfg),
         PolyLR(cfg.lr, cfg.lr_power, cfg.nepochs * cfg.niters_per_epoch),

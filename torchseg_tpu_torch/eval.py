@@ -22,16 +22,18 @@ that splits the val set by rank and sums the histograms and counts
 (``parallel.gather_metrics``); ``--sp N`` splits each image's height over
 N ranks (the whole protocol only).  Each epoch is restored into the module
 the evaluator reads, so an epoch sweep never scores stale weights.
-Evaluation runs in float32 with TF32 off, as training does.
+Evaluation runs in float32 with TF32 off, as training does;
+``--eval-dtype bf16`` computes the model in bfloat16 on its float32
+parameters (JAX's ``eval_dtype``), the evaluator's score canvases and its
+flip and multi-scale sums staying float32 (docs/MODEL_ZOO.md:66-68).
 
 ``-speed``/``--speed`` runs the FPS protocol (``tools/speed.py``) on
 ``--input-size`` and ``--summary`` adds its parameter/FLOP table and top
 kernels (``tools/stats.py``, ``tools/profile.py``), as the reference's
 ``-speed`` hook; ``--torch-checkpoint`` evaluates a reference ``.pth``
 grafted into the model (``utils/torch_convert.py``) in place of the
-snapshots.  Not ported, and refused with the ROADMAP item that ports it:
-``--eval-dtype bf16`` (A5).  JAX's ``enable_compile_cache`` has no
-counterpart (``utils/misc.py``).
+snapshots.  JAX's ``enable_compile_cache`` has no counterpart
+(``utils/misc.py``).
 """
 
 import argparse
@@ -55,6 +57,7 @@ from .parallel import gather_metrics, initialize_multihost
 from .utils.misc import link_file, parse_devices
 from .utils.visualize import print_iou
 
+EVAL_DTYPES = {"f32": None, "bf16": torch.bfloat16}  # --eval-dtype
 
 
 def parse_epochs(spec: str, snapshot_dir: str):
@@ -122,7 +125,8 @@ def build_argparser():
     p.add_argument("--eval-base", type=int, default=None,
                    help="override cfg.eval_base_size (with --eval-crop)")
     p.add_argument("--eval-dtype", choices=("f32", "bf16"), default="f32",
-                   help="compute dtype; bf16 is not ported (ROADMAP A5)")
+                   help="model compute dtype: f32 is the reference "
+                        "protocol; bf16 on float32 parameters")
     p.add_argument("-speed", "--speed", action="store_true",
                    help="the FPS benchmark (tools/speed.py) at --input-size")
     p.add_argument("--summary", action="store_true",
@@ -208,9 +212,6 @@ def evaluate_checkpoint(cfg, model, dataset, save_path=None, msf=False,
 def main(argv=None):
     """Evaluate; returns [(epoch, mIoU), ...]."""
     args = build_argparser().parse_args(argv)
-    if args.eval_dtype == "bf16":
-        raise NotImplementedError(
-            "--eval-dtype bf16 is not ported (ROADMAP A5)")
     cfg = get_experiment(args.experiment)
     over = {}
     if args.eval_crop:
@@ -278,7 +279,8 @@ def _evaluate(args, cfg):
 
     # the module every epoch is restored into (no optimizer: the model
     # alone), the one the evaluator reads
-    state = TrainState(model=build_model(cfg).to(device), optimizer=None)
+    state = TrainState(model=build_model(cfg, dtype=EVAL_DTYPES[
+        args.eval_dtype]).to(device), optimizer=None)
     devices = None
     if args.devices:
         idx = parse_devices(args.devices)

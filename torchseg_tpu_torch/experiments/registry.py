@@ -8,7 +8,8 @@ the two DFN entries (:178-199), and the CamVid and PASCAL-Context ones
 (:200-217).  ``DATASETS`` maps a config's dataset to its class and
 ``build_preprocess`` gives its train-time pipeline (JAX :222-228,
 :276-287).  ``build_model`` binds the model's BatchNorms to a process
-group (SyncBN) when given one; ``build_loss_fn`` gives the per-process
+group (SyncBN) when given one, and takes JAX's compute ``dtype`` and the
+config's ``remat``; ``build_loss_fn`` gives the per-process
 training loss (``ce``, ``ohem`` and ``dfn``).  JAX's fused upsample+loss
 branch is off for every family there (``_use_fused_head_loss``, registry.py:235-250), so
 the port has none.
@@ -249,17 +250,21 @@ def build_preprocess(cfg: ExperimentConfig):
                        gt_down_sampling=cfg.gt_down_sampling)
 
 
-def build_model(cfg: ExperimentConfig, process_group=None) -> nn.Module:
+def build_model(cfg: ExperimentConfig, process_group=None,
+                dtype=None) -> nn.Module:
     """Instantiate the model with the experiment's BN eps and momentum, in
     eval mode, on the CPU (move it with ``.to(device)``).  In train mode its
     BatchNorms sync their moments over ``process_group`` (SyncBN) when it is
-    given and ``torch.distributed`` is initialized."""
+    given and ``torch.distributed`` is initialized.  ``dtype``: the compute
+    dtype (None: float32; ``torch.bfloat16`` on float32 parameters);
+    ``cfg.remat`` recomputes the backbone blocks in the backward pass (JAX
+    registry.py:273)."""
     norm = functools.partial(BatchNorm2d, eps=cfg.bn_eps,
                              momentum=cfg.bn_momentum,
                              process_group=process_group)
     factory = models.MODEL_REGISTRY[cfg.model]
-    return factory(num_classes=cfg.num_classes, norm=norm,
-                   **cfg.model_kwargs).eval()
+    return factory(num_classes=cfg.num_classes, norm=norm, dtype=dtype,
+                   remat=cfg.remat, **cfg.model_kwargs).eval()
 
 
 def build_loss_fn(cfg: ExperimentConfig, num_shards: int = 1):

@@ -12,7 +12,10 @@ its head scale in float32 (JAX models/bisenet.py:163-181).  JAX's
 that path is off for every family there (``FUSED_UPSAMPLE_LOSS_MODELS``).
 Sizes are global (``ops.spatial.global_hw``) and the global context is
 ``ops.spatial.mean_hw``, so the same forward runs with the image height
-sharded over a space group.
+sharded over a space group.  ``dtype`` is the compute dtype of every
+module (JAX's): with bfloat16 the decoder's resizes take JAX's bf16 route
+(``ops.resize``), the heads upsample in float32 (JAX
+models/bisenet.py:86) and eval's log_softmax reads float32.
 """
 
 from typing import Sequence
@@ -20,7 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import wide
+from ..ops import run_in, wide
 from ..ops.blocks import (
     AttentionRefinement,
     ConvBnRelu,
@@ -36,13 +39,14 @@ class SpatialPath(nn.Module):
     """7x7/2 -> 3x3/2 -> 3x3/2 -> 1x1, 128 ch out (network.py:114-137)."""
 
     def __init__(self, in_planes: int = 3, out_planes: int = 128,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         inner = 64
-        self.conv_7x7 = ConvBnRelu(in_planes, inner, 7, 2, 3, norm=norm)
-        self.conv_3x3_1 = ConvBnRelu(inner, inner, 3, 2, 1, norm=norm)
-        self.conv_3x3_2 = ConvBnRelu(inner, inner, 3, 2, 1, norm=norm)
-        self.conv_1x1 = ConvBnRelu(inner, out_planes, 1, 1, 0, norm=norm)
+        kw = dict(norm=norm, dtype=dtype)
+        self.conv_7x7 = ConvBnRelu(in_planes, inner, 7, 2, 3, **kw)
+        self.conv_3x3_1 = ConvBnRelu(inner, inner, 3, 2, 1, **kw)
+        self.conv_3x3_2 = ConvBnRelu(inner, inner, 3, 2, 1, **kw)
+        self.conv_1x1 = ConvBnRelu(inner, out_planes, 1, 1, 0, **kw)
 
     def forward(self, x: torch.Tensor, stem_features=None) -> torch.Tensor:
         """stem_features: the deploy-time fused stem's SpatialPath half
@@ -58,14 +62,16 @@ class BiSeNetHead(nn.Module):
     (network.py:140-168), in float32 as the JAX head upsamples."""
 
     def __init__(self, in_planes: int, out_planes: int, scale: int, mid: int,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
-        self.conv_3x3 = ConvBnRelu(in_planes, mid, 3, 1, 1, norm=norm)
+        self.conv_3x3 = ConvBnRelu(in_planes, mid, 3, 1, 1, norm=norm,
+                                   dtype=dtype)
         self.conv_1x1 = nn.Conv2d(mid, out_planes, 1, bias=True)
         self.scale = scale
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, upsample: bool = True) -> torch.Tensor:
-        out = self.conv_1x1(self.conv_3x3(x))
+        out = run_in(self.conv_1x1, self.conv_3x3(x), self.dtype)
         if upsample and self.scale > 1:
             out = upsample_by_scale(wide(out), self.scale)
         return out
@@ -76,25 +82,27 @@ class BiSeNet(nn.Module):
                  stage_channels: Sequence[int] = (64, 128, 256, 512),
                  conv_channel: int = 128, aux_mid: int = 256,
                  main_mid: int = 64, head_scales: Sequence[int] = (16, 8, 8),
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         cc = conv_channel
+        kw = dict(norm=norm, dtype=dtype)
+        self.dtype = dtype
         self.head_scales = tuple(head_scales)
-        self.spatial_path = SpatialPath(3, 128, norm=norm)
+        self.spatial_path = SpatialPath(3, 128, **kw)
         self.backbone = backbone
         c32, c16 = stage_channels[-1], stage_channels[-2]
-        self.global_context = ConvBnRelu(c32, cc, 1, 1, 0, norm=norm)
-        self.arm0 = AttentionRefinement(c32, cc, norm=norm)
-        self.arm1 = AttentionRefinement(c16, cc, norm=norm)
-        self.refine0 = ConvBnRelu(cc, cc, 3, 1, 1, norm=norm)
-        self.refine1 = ConvBnRelu(cc, cc, 3, 1, 1, norm=norm)
-        self.ffm = FeatureFusion(128 + cc, cc * 2, 1, norm=norm)
+        self.global_context = ConvBnRelu(c32, cc, 1, 1, 0, **kw)
+        self.arm0 = AttentionRefinement(c32, cc, **kw)
+        self.arm1 = AttentionRefinement(c16, cc, **kw)
+        self.refine0 = ConvBnRelu(cc, cc, 3, 1, 1, **kw)
+        self.refine1 = ConvBnRelu(cc, cc, 3, 1, 1, **kw)
+        self.ffm = FeatureFusion(128 + cc, cc * 2, 1, **kw)
         self.head0 = BiSeNetHead(cc, num_classes, head_scales[0], aux_mid,
-                                 norm=norm)
+                                 **kw)
         self.head1 = BiSeNetHead(cc, num_classes, head_scales[1], aux_mid,
-                                 norm=norm)
+                                 **kw)
         self.head2 = BiSeNetHead(cc * 2, num_classes, head_scales[2],
-                                 main_mid, norm=norm)
+                                 main_mid, **kw)
 
     def forward(self, x: torch.Tensor, stem_outs=None,
                 raw_logits: bool = False, spatial_out=None,
@@ -133,13 +141,14 @@ class BiSeNet(nn.Module):
         context.reverse()  # [/32, /16, /8, /4]
 
         gc = self.global_context(mean_hw(context[0]))
-        last_fm = resize_bilinear_align_corners(gc, global_hw(context[0]))
+        last_fm = resize_bilinear_align_corners(gc, global_hw(context[0]),
+                                                self.dtype)
         refined = []
         for i, (arm, refine) in enumerate(((self.arm0, self.refine0),
                                            (self.arm1, self.refine1))):
             fm = arm(context[i]) + last_fm
             last_fm = refine(resize_bilinear_align_corners(
-                fm, global_hw(context[i + 1])))
+                fm, global_hw(context[i + 1]), self.dtype))
             refined.append(last_fm)
         fused = self.ffm(spatial_out, last_fm)
         if self.training:

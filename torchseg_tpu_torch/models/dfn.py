@@ -23,12 +23,15 @@ Submodule names are the flax names (``global_context``,
 ``smooth_pre_rrb{i}``, ``cab{i}``, ``smooth_aft_rrb{i}``,
 ``smooth_head{i}`` with ``rrb`` and ``conv``, ``border_pre_rrb{i}``,
 ``border_aft_rrb{i}`` (i >= 1), ``border_head{i}``).  Tensors are NCHW.
+``dtype`` is the compute dtype of every module (JAX's): the heads
+upsample in float32, the decoder's other resizes in ``dtype``, and eval's
+log_softmax reads float32 (JAX models/dfn.py:111-113).
 """
 
 import torch
 from torch import nn
 
-from ..ops import wide
+from ..ops import run_in, wide
 from ..ops.blocks import (
     ChannelAttention,
     ConvBnRelu,
@@ -44,15 +47,17 @@ class DFNHead(nn.Module):
     upsample in float32 (network.py:157-172)."""
 
     def __init__(self, in_planes: int, out_planes: int, scale: int,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.rrb = RefineResidual(in_planes, out_planes * 9, 3,
-                                  has_relu=False, norm=norm)
+                                  has_relu=False, norm=norm, dtype=dtype)
         self.conv = nn.Conv2d(out_planes * 9, out_planes, 1, bias=True)
         self.scale = scale
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample_by_scale(wide(self.conv(self.rrb(x))), self.scale)
+        return upsample_by_scale(
+            wide(run_in(self.conv, self.rrb(x), self.dtype)), self.scale)
 
 
 STAGE_CHANNELS = (256, 512, 1024, 2048)  # the Bottleneck ResNet's stages
@@ -61,28 +66,30 @@ STAGE_CHANNELS = (256, 512, 1024, 2048)  # the Bottleneck ResNet's stages
 class DFN(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  smooth_inner: int = 512, border_inner: int = 21,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.backbone = backbone
+        self.dtype = dtype
+        kw = dict(norm=norm, dtype=dtype)
         self.global_context = ConvBnRelu(STAGE_CHANNELS[-1], smooth_inner, 1,
-                                         1, 0, norm=norm)
+                                         1, 0, **kw)
         for i, cin in enumerate(reversed(STAGE_CHANNELS)):
             self.add_module(f"smooth_pre_rrb{i}", RefineResidual(
-                cin, smooth_inner, 3, has_relu=True, norm=norm))
+                cin, smooth_inner, 3, has_relu=True, **kw))
             self.add_module(f"cab{i}", ChannelAttention(
-                2 * smooth_inner, smooth_inner, 1))
+                2 * smooth_inner, smooth_inner, 1, dtype=dtype))
             self.add_module(f"smooth_aft_rrb{i}", RefineResidual(
-                smooth_inner, smooth_inner, 3, has_relu=True, norm=norm))
+                smooth_inner, smooth_inner, 3, has_relu=True, **kw))
             self.add_module(f"smooth_head{i}", DFNHead(
-                smooth_inner, num_classes, 2 ** (5 - i), norm=norm))
+                smooth_inner, num_classes, 2 ** (5 - i), **kw))
         for i, cin in enumerate(STAGE_CHANNELS):
             self.add_module(f"border_pre_rrb{i}", RefineResidual(
-                cin, border_inner, 3, has_relu=True, norm=norm))
+                cin, border_inner, 3, has_relu=True, **kw))
             if i:
                 self.add_module(f"border_aft_rrb{i}", RefineResidual(
-                    border_inner, border_inner, 3, has_relu=True, norm=norm))
+                    border_inner, border_inner, 3, has_relu=True, **kw))
             self.add_module(f"border_head{i}", DFNHead(
-                border_inner, 1, 4, norm=norm))
+                border_inner, 1, 4, **kw))
 
     def forward(self, x: torch.Tensor, context_blocks=None):
         """NCHW normalized image -> eval log-probs, or the train dict.
@@ -95,7 +102,8 @@ class DFN(nn.Module):
                       else self.backbone(x))  # x4, x8, x16, x32
         top_down = blocks[::-1]
         gc = self.global_context(top_down[0].mean(dim=(2, 3), keepdim=True))
-        last_fm = resize_bilinear_align_corners(gc, top_down[0].shape[2:])
+        last_fm = resize_bilinear_align_corners(gc, top_down[0].shape[2:],
+                                                self.dtype)
         smooth = []
         for i, fm in enumerate(top_down):
             fm = getattr(self, f"smooth_pre_rrb{i}")(fm)
@@ -104,7 +112,7 @@ class DFN(nn.Module):
             if self.training or i == 3:
                 smooth.append(getattr(self, f"smooth_head{i}")(fm))
             if i != 3:
-                last_fm = upsample_by_scale(fm, 2)
+                last_fm = upsample_by_scale(fm, 2, self.dtype)
         if not self.training:
             return torch.log_softmax(smooth[-1], dim=1)
 
@@ -116,6 +124,6 @@ class DFN(nn.Module):
                 last_fm = fm
             else:
                 last_fm = getattr(self, f"border_aft_rrb{i}")(
-                    last_fm + upsample_by_scale(fm, 2 ** i))
+                    last_fm + upsample_by_scale(fm, 2 ** i, self.dtype))
             border.append(getattr(self, f"border_head{i}")(last_fm))
         return {"smooth": smooth, "border": border}

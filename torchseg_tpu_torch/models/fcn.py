@@ -11,7 +11,9 @@ logits, "aux": x16 logits}`` of the stage-3 ``aux_head``, raw (JAX
 generator.  The heads' conv kernels are drawn kaiming-normal with fan_out
 (the reference's train.py:57; JAX :22, :34, :43): ``kernel_init_mode``
 tells ``models.init_weights``.  Submodule names are the flax names
-(``head.cbr``, ``head.conv1x1``, ``aux_head``).
+(``head.cbr``, ``head.conv1x1``, ``aux_head``).  ``dtype`` is the
+compute dtype of the backbone and the heads (JAX's); the upsamples run in
+float32.
 """
 
 from typing import Sequence
@@ -19,7 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import wide
+from ..ops import run_in, wide
 from ..ops.blocks import ConvBnRelu, NormFactory
 from ..ops.dropout import Dropout
 from ..ops.norm import BatchNorm2d
@@ -32,25 +34,29 @@ class FCNHead(nn.Module):
     kernel_init_mode = "fan_out"  # read by models.init_weights
 
     def __init__(self, in_planes: int, out_planes: int,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         inter = in_planes // 4
-        self.cbr = ConvBnRelu(in_planes, inter, 3, 1, 1, norm=norm)
+        self.cbr = ConvBnRelu(in_planes, inter, 3, 1, 1, norm=norm,
+                              dtype=dtype)
         self.dropout = Dropout(0.1)
         self.conv1x1 = nn.Conv2d(inter, out_planes, 1, bias=True)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv1x1(self.dropout(self.cbr(x)))
+        return run_in(self.conv1x1, self.dropout(self.cbr(x)), self.dtype)
 
 
 class FCN(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  stage_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.backbone = backbone
-        self.head = FCNHead(stage_channels[-1], num_classes, norm=norm)
-        self.aux_head = FCNHead(stage_channels[-2], num_classes, norm=norm)
+        self.head = FCNHead(stage_channels[-1], num_classes, norm=norm,
+                            dtype=dtype)
+        self.aux_head = FCNHead(stage_channels[-2], num_classes, norm=norm,
+                                dtype=dtype)
 
     def forward(self, x, context_blocks=None):
         """NCHW normalized image -> NCHW float32 raw logits at the input's

@@ -22,7 +22,8 @@ resize_linear`` over the last two axes.
 Eval returns the x8-upsampled float32 log-probs, NCHW (JAX :146-152);
 train mode ``{"main", "aux"}`` of them (JAX :153-164), with the conv6
 dropout (p 0.1, :121) and the aux head's drawn from the step's generator.
-The off-size fallback holds in train mode too.
+The off-size fallback holds in train mode too.  ``dtype`` is the compute
+dtype of the backbone and the heads (JAX's).
 Submodule names are the flax names (``psa_layer.collect.reduction``,
 ``.att_cbr``, ``.att_out``, the same under ``distribute``,
 ``psa_layer.proj``, ``.conv6_cbr``, ``.conv6_out``, ``aux_layer``).
@@ -34,10 +35,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops import run_in
 from ..ops.blocks import ConvBnRelu, NormFactory
 from ..ops.dropout import Dropout
 from ..ops.norm import BatchNorm2d
 from ..ops.resize import resize_linear
+from ..ops.spatial import gathered
 from .pspnet import AuxHead, log_probs_x8
 
 # the fallback materializes a (b, h*w, h*w) float32 attention tensor; JAX
@@ -52,13 +55,14 @@ class PSABranch(nn.Module):
     _offsize_warned = False
 
     def __init__(self, in_planes: int, att_channels: int, inner: int = 512,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.att_channels = att_channels
-        self.reduction = ConvBnRelu(in_planes, inner, 1, 1, 0, norm=norm)
-        self.att_cbr = ConvBnRelu(inner, 512, 1, 1, 0, norm=norm)
+        kw = dict(norm=norm, dtype=dtype)
+        self.reduction = ConvBnRelu(in_planes, inner, 1, 1, 0, **kw)
+        self.att_cbr = ConvBnRelu(inner, 512, 1, 1, 0, **kw)
         self.att_out = ConvBnRelu(512, att_channels, 1, 1, 0, has_bn=False,
-                                  has_relu=False, norm=norm)
+                                  has_relu=False, **kw)
 
     def _attention(self, att: torch.Tensor) -> torch.Tensor:
         """(B, att_channels, h, w) -> (B, h*w, h*w): att[b, i, j], how much
@@ -111,32 +115,41 @@ class PointwiseSpatialAttention(nn.Module):
     the 3x3 conv6 CBR and the 1x1 classifier (network.py:75-144)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 att_channels: int = 3600, norm: NormFactory = BatchNorm2d):
+                 att_channels: int = 3600, norm: NormFactory = BatchNorm2d,
+                 dtype=None):
         super().__init__()
-        self.collect = PSABranch(in_planes, att_channels, norm=norm)
-        self.distribute = PSABranch(in_planes, att_channels, norm=norm)
-        self.proj = ConvBnRelu(2 * 512, 2048, 1, 1, 0, norm=norm)
-        self.conv6_cbr = ConvBnRelu(in_planes + 2048, 512, 3, 1, 1,
-                                    norm=norm)
+        kw = dict(norm=norm, dtype=dtype)
+        self.collect = PSABranch(in_planes, att_channels, **kw)
+        self.distribute = PSABranch(in_planes, att_channels, **kw)
+        self.proj = ConvBnRelu(2 * 512, 2048, 1, 1, 0, **kw)
+        self.conv6_cbr = ConvBnRelu(in_planes + 2048, 512, 3, 1, 1, **kw)
         self.dropout = Dropout(0.1)
         self.conv6_out = nn.Conv2d(512, out_planes, 1, bias=True)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        psa = torch.cat([self.collect(x), self.distribute(x)], dim=1)
+        """Under a space context the attention reads the whole (gathered)
+        map; each shard keeps its rows of the result."""
+        whole, rows = gathered(x)
+        psa = torch.cat([self.collect(whole), self.distribute(whole)], dim=1)
+        if rows is not None:
+            psa = psa[..., rows[0]:rows[1], :]
         fm = self.conv6_cbr(torch.cat([x, self.proj(psa)], dim=1))
-        return self.conv6_out(self.dropout(fm))
+        return run_in(self.conv6_out, self.dropout(fm), self.dtype)
 
 
 class PSANet(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  att_channels: int = 3600,
                  stage_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.backbone = backbone
         self.psa_layer = PointwiseSpatialAttention(
-            stage_channels[-1], num_classes, att_channels, norm=norm)
-        self.aux_layer = AuxHead(stage_channels[-2], num_classes, norm=norm)
+            stage_channels[-1], num_classes, att_channels, norm=norm,
+            dtype=dtype)
+        self.aux_layer = AuxHead(stage_channels[-2], num_classes, norm=norm,
+                                 dtype=dtype)
 
     def forward(self, x, context_blocks=None):
         """NCHW normalized image -> NCHW float32 log-probs at the input's

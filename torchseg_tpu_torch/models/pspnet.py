@@ -12,7 +12,10 @@ reference's quirk, kept.  Both heads' dropouts (``ops.dropout.Dropout``,
 p 0.1) draw from the step's generator in train mode and are the identity
 in eval.  Submodule names are the flax names (``psp_layer.ppm{i}_cbr``,
 ``psp_layer.conv6_cbr``, ``psp_layer.conv6_out``, ``aux_layer.cbr``,
-``aux_layer.out``).
+``aux_layer.out``).  ``dtype`` is the compute dtype of the backbone and
+both heads (JAX's); the pyramid's resizes run in float32 and are rounded
+to the features' dtype (JAX models/pspnet.py:39-41), and the x8 upsample
+and log_softmax in float32.
 """
 
 from typing import Sequence
@@ -20,12 +23,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import wide
+from ..ops import run_in, wide
 from ..ops.blocks import ConvBnRelu, NormFactory
 from ..ops.dropout import Dropout
 from ..ops.norm import BatchNorm2d
 from ..ops.pool import adaptive_avg_pool
 from ..ops.resize import resize_bilinear_align_corners, upsample_by_scale
+from ..ops.spatial import gathered, global_hw
 
 
 class PyramidPooling(nn.Module):
@@ -33,50 +37,58 @@ class PyramidPooling(nn.Module):
 
     def __init__(self, in_planes: int, out_planes: int,
                  pool_scales: Sequence[int] = (1, 2, 3, 6),
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.pool_scales = tuple(pool_scales)
         for i in range(len(self.pool_scales)):
             self.add_module(f"ppm{i}_cbr",
-                            ConvBnRelu(in_planes, 512, 1, 1, 0, norm=norm))
+                            ConvBnRelu(in_planes, 512, 1, 1, 0, norm=norm,
+                                       dtype=dtype))
         self.conv6_cbr = ConvBnRelu(in_planes + 512 * len(self.pool_scales),
-                                    512, 3, 1, 1, norm=norm)
+                                    512, 3, 1, 1, norm=norm, dtype=dtype)
         self.dropout = Dropout(0.1)
         self.conv6_out = nn.Conv2d(512, out_planes, 1, bias=True)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hw = x.shape[2:]
+        """Under a space context the pools read the whole (gathered) map
+        and the pyramid's resizes give this shard's rows."""
+        hw = global_hw(x)
+        whole, _ = gathered(x)
         outs = [x]
         for i, s in enumerate(self.pool_scales):
-            p = getattr(self, f"ppm{i}_cbr")(adaptive_avg_pool(x, s))
+            p = getattr(self, f"ppm{i}_cbr")(adaptive_avg_pool(whole, s))
             outs.append(resize_bilinear_align_corners(p, hw))
         x = self.conv6_cbr(torch.cat(outs, dim=1))
-        return self.conv6_out(self.dropout(x))
+        return run_in(self.conv6_out, self.dropout(x), self.dtype)
 
 
 class AuxHead(nn.Module):
     """3x3 CBR (same width) -> dropout -> 1x1 (reference network.py:29-35)."""
 
     def __init__(self, in_planes: int, out_planes: int,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
-        self.cbr = ConvBnRelu(in_planes, in_planes, 3, 1, 1, norm=norm)
+        self.cbr = ConvBnRelu(in_planes, in_planes, 3, 1, 1, norm=norm,
+                              dtype=dtype)
         self.dropout = Dropout(0.1)
         self.out = nn.Conv2d(in_planes, out_planes, 1, bias=True)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(self.dropout(self.cbr(x)))
+        return run_in(self.out, self.dropout(self.cbr(x)), self.dtype)
 
 
 class PSPNet(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  stage_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         self.backbone = backbone
         self.psp_layer = PyramidPooling(stage_channels[-1], num_classes,
-                                        norm=norm)
-        self.aux_layer = AuxHead(stage_channels[-2], num_classes, norm=norm)
+                                        norm=norm, dtype=dtype)
+        self.aux_layer = AuxHead(stage_channels[-2], num_classes, norm=norm,
+                                 dtype=dtype)
 
     def forward(self, x, context_blocks=None):
         """NCHW normalized image -> NCHW float32 log-probs at the input's

@@ -7,7 +7,9 @@ separable convs have no BN after the depthwise conv (xception.py:10-26).
 The stem is a 3x3/2 ConvBnRelu to 8 channels and the 3x3/2 max pool.
 
 Returns the three stage feature maps (64, 128, 256 channels) at strides 8,
-16 and 32.  Submodule names are the flax names (``conv1``,
+16 and 32.  ``dtype`` is the compute dtype of every conv (JAX's); JAX's
+``remat`` has no effect on this backbone (models/__init__.py:97-98
+there), so it takes none.  Submodule names are the flax names (``conv1``,
 ``layer{i}_{j}`` with ``proj``, ``sep1``, ``sep2``, ``sep3``).  Tensors
 are NCHW.
 """
@@ -30,14 +32,14 @@ class XceptionBlock(nn.Module):
 
     def __init__(self, in_planes: int, mid: int, has_proj: bool,
                  stride: int, dilation: int = 1,
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
         out = mid * self.expansion
 
         def sep(cin, cout, s, pad, dil, relu):
             return SeparableConvBnRelu(cin, cout, 3, s, pad, dil,
                                        has_relu=relu, depthwise_bn=False,
-                                       norm=norm)
+                                       norm=norm, dtype=dtype)
 
         self.proj = (sep(in_planes, out, stride, 1, 1, False) if has_proj
                      else None)
@@ -52,9 +54,9 @@ class XceptionBlock(nn.Module):
 
 class Xception(nn.Module):
     def __init__(self, layers: Sequence[int], channels: Sequence[int],
-                 norm: NormFactory = BatchNorm2d):
+                 norm: NormFactory = BatchNorm2d, dtype=None):
         super().__init__()
-        self.conv1 = ConvBnRelu(3, 8, 3, 2, 1, norm=norm)
+        self.conv1 = ConvBnRelu(3, 8, 3, 2, 1, norm=norm, dtype=dtype)
         inplanes = 8
         self.stage_names = []
         for li, (nblocks, mid) in enumerate(zip(layers, channels)):
@@ -63,7 +65,7 @@ class Xception(nn.Module):
                 name = f"layer{li + 1}_{bi}"
                 self.add_module(name, XceptionBlock(
                     inplanes, mid, has_proj=bi == 0,
-                    stride=2 if bi == 0 else 1, norm=norm))
+                    stride=2 if bi == 0 else 1, norm=norm, dtype=dtype))
                 inplanes = mid * XceptionBlock.expansion
                 names.append(name)
             self.stage_names.append(names)
@@ -88,5 +90,5 @@ class Xception(nn.Module):
         return tuple(feats)
 
 
-def xception39(norm: NormFactory = BatchNorm2d) -> Xception:
-    return Xception((4, 8, 4), (16, 32, 64), norm=norm)
+def xception39(norm: NormFactory = BatchNorm2d, dtype=None) -> Xception:
+    return Xception((4, 8, 4), (16, 32, 64), norm=norm, dtype=dtype)

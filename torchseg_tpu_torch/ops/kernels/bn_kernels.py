@@ -17,13 +17,17 @@ K8 gives the per-channel sums, or, given a BN layer's parameters and
 running stats (``bn``), folds them as the JAX module does
 (``bn_fold_plain``, its plain version, is the formula) and updates the
 running stats in place: one SyncBN forward without a process group is then
-K8 and K9, two launches.  K8's sums are taken in another order than its
-plain version's (the kernel in float64 per thread, rounded once), so the
-two agree to float32 rounding of the sums, not bit for bit; the kernel's
-fold is bit-exact against ``bn_fold_plain`` on the kernel's own sums (both
-round every float32 operation once, the square root too).  K9 is bit-exact
-against its plain version: both compute one correctly rounded float32
-fused multiply-add, as XLA's CPU backend contracts ``x * a + b``
+K8 and K9, two launches. With ``update=False`` K8 folds without touching
+the running statistics or ``num_batches_tracked`` (the kernel is handed no
+running-stat pointers): the rematerialized forward of a backbone block
+(``models/resnet.py``) recomputes its BNs that way, as flax's remat
+discards the recompute's ``batch_stats``. K8's sums are taken in another
+order than its plain version's (the kernel in float64 per thread, rounded
+once), so the two agree to float32 rounding of the sums, not bit for bit;
+the kernel's fold is bit-exact against ``bn_fold_plain`` on the kernel's
+own sums (both round every float32 operation once, the square root too). K9
+is bit-exact against its plain version: both compute one correctly rounded
+float32 fused multiply-add, as XLA's CPU backend contracts ``x * a + b``
 (``fma_f32``).
 
 The CUDA paths keep the host short (ROADMAP: the wrappers' host time was
@@ -136,7 +140,7 @@ def _sqrt_rn(v):
 
 
 def bn_fold_plain(sums, n, weight, bias, running_mean, running_var,
-                  num_batches_tracked, eps, momentum):
+                  num_batches_tracked, eps, momentum, update=True):
     """The SyncBN fold (JAX ``ops/norm.py:76-104``, in its term order) of
     the per-channel (sum x, sum x^2) over ``n`` elements (an int, or a
     float64 tensor under a process group): returns (5, C) rows (mean, inv,
@@ -145,7 +149,8 @@ def bn_fold_plain(sums, n, weight, bias, running_mean, running_var,
         mean = s/n, d = ss/n - mean*mean, var = max(d, 0),
         inv = 1/sqrt(var + eps), a = inv*gamma, b = beta - mean*a,
 
-    and updates the running stats in place, ``running = (1 - m) * running
+    and (unless ``update`` is False) updates the running stats in place,
+    ``running = (1 - m) * running
     + m * batch``, the variance unbiased by n / max(n - 1, 1), and
     ``num_batches_tracked`` (or None) by one.  Every operation rounds once
     in sums' dtype (the unbiasing factor once from float64, as torch rounds
@@ -167,6 +172,8 @@ def bn_fold_plain(sums, n, weight, bias, running_mean, running_var,
     inv = 1.0 / _sqrt_rn(var + eps)
     a = inv * weight
     b = bias - mean * a
+    if not update:
+        return torch.stack([mean, inv, a, b, d])
     unbias = (nt / torch.clamp(nt - 1, min=1)).to(sums.dtype)
     with torch.no_grad():
         running_mean.mul_(1.0 - momentum).add_(momentum * mean)
@@ -176,13 +183,13 @@ def bn_fold_plain(sums, n, weight, bias, running_mean, running_var,
     return torch.stack([mean, inv, a, b, d])
 
 
-def channel_sum_sumsq_plain(x, bn=None):
+def channel_sum_sumsq_plain(x, bn=None, update=True):
     xf = wide(x)
     dims = (0, 2, 3) if x.dim() == 4 else (0,)
     sums = torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
     if bn is None:
         return sums
-    return bn_fold_plain(sums, x.numel() // x.shape[1], *bn)
+    return bn_fold_plain(sums, x.numel() // x.shape[1], *bn, update=update)
 
 
 def _vectors_ok(c, dev, *vs):
@@ -197,13 +204,13 @@ def _vectors_ok(c, dev, *vs):
     return True
 
 
-def channel_sum_sumsq(x, bn=None):
+def channel_sum_sumsq(x, bn=None, update=True):
     """NCHW (or (N, C)) float32/bfloat16 -> (2, C) float32 per-channel
     (sum x, sum x^2) over N*H*W (float64 in and out for a float64 CPU
     tensor).  With ``bn = (weight, bias, running_mean, running_var,
     num_batches_tracked or None, eps, momentum)``: the (5, C) rows (mean,
     inv, a, b, d) of ``bn_fold_plain``, the running stats updated in
-    place."""
+    place unless ``update`` is False."""
     n, c, hw, kind = _geometry(x)
     dev = x.get_device()
     if bn is None:
@@ -222,7 +229,7 @@ def channel_sum_sumsq(x, bn=None):
         if bn is not None:
             _check_bn(c, bn)
         if _device_of(x, *([] if bn is None else bn[:4])) is None:
-            return channel_sum_sumsq_plain(x, bn)
+            return channel_sum_sumsq_plain(x, bn, update)
         if kind == 2 or bn[0].dtype != _F32:
             raise TypeError("the CUDA kernels take float32 or bfloat16 x "
                             "and float32 BN vectors, got float64")
@@ -236,9 +243,10 @@ def channel_sum_sumsq(x, bn=None):
         out = torch.empty((5, c), dtype=_F32, device=x.device)
         rc = _build.ready(dev, "bn_kernels").tsg_channel_sums(
             x.data_ptr(), n, c, hw, kind, out.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), rmean.data_ptr(), rvar.data_ptr(),
-            None if nbt is None else nbt.data_ptr(), eps, momentum,
-            _raw_stream(dev))
+            bias.data_ptr(), rmean.data_ptr() if update else None,
+            rvar.data_ptr() if update else None,
+            None if nbt is None or not update else nbt.data_ptr(), eps,
+            momentum, _raw_stream(dev))
     _raise_on(rc, "channel_sums_kernel")
     channel_sum_sumsq.launches += 1
     return out

@@ -34,7 +34,25 @@ Under a space context (``ops.spatial``: the image height sharded over a
 space group) the group is the context's: the full dp x sp group for a
 sharded map, the data group for a whole one (gathered or pooled, held by
 every space rank), so that n and the moments count each pixel once.
+
+Compute dtype (JAX ops/norm.py:45-102): a bfloat16 activation stays
+bfloat16.  The moments are float32 sums of it (K8 reads bf16), ``a`` and
+``b`` are formed in float32 and rounded to the activation's dtype, and
+the affine is applied in it (K9's bf16 route; the eval fold likewise);
+the running statistics and the parameters stay float32, and so do the
+gradients of gamma and beta.  ``BatchNorm2d`` follows the dtype of its
+input.
+
+``frozen_stats()``: within it a train-mode forward normalizes with the
+batch moments as usual but updates no running statistic and not
+``num_batches_tracked`` (K8's ``update=False``): the recompute of a
+rematerialized block (``models/resnet.py``), which flax's remat runs
+without keeping its ``batch_stats``.  Under a process group the recompute
+still all-reduces its moments, as JAX's recomputed ``pmean`` does.
 """
+
+import contextlib
+import contextvars
 
 import torch
 import torch.distributed as dist
@@ -42,6 +60,19 @@ from torch import nn
 
 from . import spatial, wide
 from .kernels import bn_kernels as K
+
+_FROZEN = contextvars.ContextVar("bn_frozen_stats", default=False)
+
+
+@contextlib.contextmanager
+def frozen_stats():
+    """Train-mode BN forwards within the block leave the running
+    statistics and ``num_batches_tracked`` as they are."""
+    token = _FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _FROZEN.reset(token)
 
 
 def _group_sums(sums, n, group):
@@ -60,17 +91,18 @@ class SyncBatchNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var,
-                num_batches_tracked, eps, momentum, relu, group):
+                num_batches_tracked, eps, momentum, relu, group,
+                update=True):
         x = x.contiguous()
         bn = (weight, bias, running_mean, running_var, num_batches_tracked,
               eps, momentum)
         if group is None:
             n_total = x.numel() // x.shape[1]
-            stats = K.channel_sum_sumsq(x, bn)
+            stats = K.channel_sum_sumsq(x, bn, update)
         else:
             sums, n_total = _group_sums(K.channel_sum_sumsq(x),
                                         x.numel() // x.shape[1], group)
-            stats = K.bn_fold_plain(sums, n_total, *bn)
+            stats = K.bn_fold_plain(sums, n_total, *bn, update=update)
             n_total = n_total.to(sums.dtype)
         # stats rows: mean, inv, a, b, d
         y = K.fused_scale_bias_act(x, stats[2], stats[3],
@@ -107,7 +139,7 @@ class SyncBatchNormFn(torch.autograd.Function):
         dx = (g * a.reshape(shape) + (dmean / n).reshape(shape)
               + xf * (2.0 * dmean_sq / n).reshape(shape))
         return (dx.to(x.dtype), dweight, dbias, None, None, None, None, None,
-                None, None)
+                None, None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -130,9 +162,11 @@ class BatchNorm2d(nn.BatchNorm2d):
             return SyncBatchNormFn.apply(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, self.num_batches_tracked, self.eps,
-                self.momentum, relu, group)
+                self.momentum, relu, group, not _FROZEN.get())
         a = torch.rsqrt(self.running_var + self.eps) * self.weight
         b = self.bias - self.running_mean * a
+        # formed in float32, applied in the activation's dtype
+        a, b = a.to(x.dtype), b.to(x.dtype)
         y = x * a[None, :, None, None] + b[None, :, None, None]
         return torch.relu(y) if relu else y
 

@@ -25,7 +25,8 @@ ranks) the sizes are global: a sharded input is gathered over the space
 group, then ``_ResizeRowsAlignCorners`` computes only this shard's rows of
 a sharded output (the height pass as those rows of the interpolation
 matrix, in the input's precision as ``F.interpolate`` weighs, then the
-width pass by ``F.interpolate``; the backward the matrix form's rows).
+width pass by ``F.interpolate``; the backward the matrix form's rows; the
+bf16 route computes those rows of its own matmuls).
 """
 
 import functools
@@ -67,21 +68,51 @@ class _ResizeAlignCorners(torch.autograd.Function):
         return g.to(ctx.dtype), None
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw,
+                                  dtype=None) -> torch.Tensor:
     """Resize an NCHW tensor to ``out_hw`` (align_corners=True).
 
-    Interpolates in float32 (float64 for a float64 input) and rounds once
-    to the input's dtype, as the
-    JAX matmul form accumulates: PyTorch's CPU kernel rounds a bf16
-    input's intermediates in bf16 (half its outputs then differ from the
-    once-rounded value), its CUDA kernel does not.  Under autograd the
-    backward is JAX's, through the interpolation matrices (deterministic
-    on the card)."""
+    ``dtype`` is JAX's compute dtype.  None (and float32, after casting
+    the input): interpolates in float32 (float64 for a float64 input) and
+    rounds once to the input's dtype, as the JAX matmul form accumulates:
+    PyTorch's CPU kernel rounds a bf16 input's intermediates in bf16 (half
+    its outputs then differ from the once-rounded value), its CUDA kernel
+    does not.  Under autograd the backward is JAX's, through the
+    interpolation matrices (deterministic on the card).  bfloat16: JAX's
+    bf16 route (``_resize_bf16``), the route of a bf16 model's resizes."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
     space = spatial.active()
+    if dtype is not None:
+        x = x.to(dtype)
+    bf16 = dtype == torch.bfloat16
     if space is not None:
-        return _resize_sharded(space, x, (oh, ow))
+        return _resize_sharded(space, x, (oh, ow), bf16)
+    if bf16:
+        return _resize_bf16(x, (oh, ow))
     return _resize_whole(x, (oh, ow))
+
+
+def _resize_bf16(x: torch.Tensor, out_hw, rows=None) -> torch.Tensor:
+    """JAX's ``resize_bilinear_align_corners(..., dtype=bfloat16)``: the
+    input and the ``_interp_matrix_np`` matrices rounded to bfloat16, then
+    the height pass and the width pass, each a matmul whose products
+    accumulate in float32 and whose result is rounded once to bfloat16 (a
+    bf16 dot on XLA's CPU and TPU backends).  ``rows`` (r0, r1): only those
+    rows of the output (a space shard's; a bf16 product is exact in
+    float32 and each output sums two of them, so they are the whole
+    resize's rows bit for bit).  Autograd differentiates the matmuls
+    (deterministic on the card)."""
+    (h, w), (oh, ow) = x.shape[-2:], out_hw
+    r0, r1 = rows or (0, oh)
+    if oh != h:
+        rh = _matrix(h, oh, x).float()[r0:r1]
+        x = torch.matmul(rh, x.float()).to(torch.bfloat16)
+    elif rows is not None:
+        x = x[..., r0:r1, :]
+    if ow != w:
+        rw = _matrix(w, ow, x).float()
+        x = torch.matmul(x.float(), rw.t()).to(torch.bfloat16)
+    return x
 
 
 def _resize_whole(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -93,19 +124,23 @@ def _resize_whole(x: torch.Tensor, out_hw) -> torch.Tensor:
     return _interpolate(x, (oh, ow))
 
 
-def upsample_by_scale(x: torch.Tensor, scale: int) -> torch.Tensor:
+def upsample_by_scale(x: torch.Tensor, scale: int,
+                      dtype=None) -> torch.Tensor:
     """Upsample NCHW by an integer factor (output size = input size * s;
-    the global size under a space context)."""
+    the global size under a space context), in ``dtype`` as
+    ``resize_bilinear_align_corners``."""
     if scale == 1:
         return x
     h, w = spatial.global_hw(x)
-    return resize_bilinear_align_corners(x, (h * scale, w * scale))
+    return resize_bilinear_align_corners(x, (h * scale, w * scale), dtype)
 
 
-def _resize_sharded(space, x: torch.Tensor, out_hw) -> torch.Tensor:
+def _resize_sharded(space, x: torch.Tensor, out_hw,
+                    bf16: bool = False) -> torch.Tensor:
     """The resize of a map to the global size ``out_hw`` under a space
     context: a sharded input is gathered first; a sharded output level
-    gets this shard's rows, any other output the whole map."""
+    gets this shard's rows, any other output the whole map.  ``bf16``:
+    JAX's bf16 route (``_resize_bf16``), as without a context."""
     level = space.level_of(x)
     out = space.level_for_hw(*out_hw)
     if level is not None:
@@ -113,9 +148,11 @@ def _resize_sharded(space, x: torch.Tensor, out_hw) -> torch.Tensor:
             return x
         x = space.gather(x, level)
     if out is None:
-        return _resize_whole(x, out_hw)
+        return _resize_bf16(x, out_hw) if bf16 else _resize_whole(x, out_hw)
     r0, r1 = space.rows(out)
     space.counts["resize_rows"] += 1
+    if bf16:
+        return _resize_bf16(x, out_hw, (r0, r1))
     return _ResizeRowsAlignCorners.apply(x, out_hw, r0, r1)
 
 

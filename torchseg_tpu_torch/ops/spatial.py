@@ -52,6 +52,7 @@ gathers and means are counted and their host time summed per context
 (``counts``, ``seconds``).
 """
 
+import contextlib
 import contextvars
 import dataclasses
 import time
@@ -63,6 +64,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from . import cast_operands, run_in, wide
+
 MAX_STRIDE = 32  # the deepest map of the port's models (BiSeNet's /32)
 MIN_ROWS_PER_SHARD = 4  # JAX space_unshard_interceptor's default
 
@@ -72,6 +75,18 @@ _ACTIVE = contextvars.ContextVar("space_context", default=None)
 def active() -> Optional["SpaceContext"]:
     """The space context of the running forward, or None."""
     return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def using(space: Optional["SpaceContext"]):
+    """``space`` active within the block (None: no context), whatever is
+    active outside it: a rematerialized block's recompute runs in the
+    backward pass, after its forward's ``with context:`` has closed."""
+    token = _ACTIVE.set(space)
+    try:
+        yield space
+    finally:
+        _ACTIVE.reset(token)
 
 
 def _level_sizes(h: int, w: int):
@@ -371,18 +386,20 @@ def _window(space: SpaceContext, x: torch.Tensor, level: Level, k: int,
     return y if out.sharded else _GatherRows.apply(y, space, out)
 
 
-def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)``, on a sharded map with its halo exchange."""
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``conv(x)``, on a sharded map with its halo exchange; computed in
+    ``dtype`` when given (``ops.run_in``)."""
     space = active()
     level = space.level_of(x) if space is not None else None
     if level is None:
-        return conv(x)
+        return run_in(conv, x, dtype)
     if conv.padding_mode != "zeros":
         raise NotImplementedError(f"padding_mode {conv.padding_mode!r} on "
                                   f"a sharded map")
+    x, weight, bias = cast_operands(conv, x, dtype)
     return _window(space, x, level, conv.kernel_size[0], conv.stride[0],
                    conv.padding[0], conv.dilation[0], 0.0,
-                   lambda xe: F.conv2d(xe, conv.weight, conv.bias,
+                   lambda xe: F.conv2d(xe, weight, bias,
                                        conv.stride, (0, conv.padding[1]),
                                        conv.dilation, conv.groups))
 
@@ -401,14 +418,29 @@ def max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
 
 def mean_hw(x: torch.Tensor) -> torch.Tensor:
     """The (B, C, 1, 1) mean over height and width; on a sharded map the
-    local sum all-reduced over the space group, over the global H * W."""
+    local sum (float32 for a bf16 map, as ``mean`` accumulates)
+    all-reduced over the space group, over the global H * W, rounded once
+    to the map's dtype."""
     space = active()
     level = space.level_of(x) if space is not None else None
     if level is None:
         return x.mean(dim=(2, 3), keepdim=True)
-    s = _AllReduce.apply(x.sum(dim=(2, 3), keepdim=True), space,
+    s = _AllReduce.apply(wide(x).sum(dim=(2, 3), keepdim=True), space,
                          space.space_group, "mean")
-    return s / (level.height * level.width)
+    return (s / (level.height * level.width)).to(x.dtype)
+
+
+def gathered(x: torch.Tensor):
+    """(the whole map of ``x``, this rank's rows (r0, r1) of it) for a
+    sharded map under a space context; (x, None) otherwise.  For the ops
+    that read the whole map at once (PSPNet's adaptive pools, PSANet's
+    attention): each space rank computes them on the whole map, then
+    keeps its rows."""
+    space = active()
+    level = space.level_of(x) if space is not None else None
+    if level is None:
+        return x, None
+    return space.gather(x, level), space.rows(level)
 
 
 def global_hw(x: torch.Tensor) -> Tuple[int, int]:

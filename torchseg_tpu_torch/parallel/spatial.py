@@ -21,10 +21,12 @@ all-reduce.  The reported loss is the sum of the ``L_r``, the global one.
 
 ``SpatialTrainer`` is the port's ``engine.trainer.Trainer`` step (SGD with
 momentum, the parameter groups' lr multipliers and weight decay) over such
-a mesh, for the families without dropout (BiSeNet, DFN): a model with
-live dropout (PSPNet, PSANet, FCN) raises, its masks having to agree over
-one image's space shards (ROADMAP A5); its BNs sync over the context's
-groups (the model is built with no process group, as JAX's with
+a mesh, for every family.  The heads' dropouts of PSPNet, PSANet and FCN
+draw from the step's generator, which all the space ranks of one data
+rank share (``ops.dropout.step_generator(seed, step, data_index)``): each
+draws the mask of the whole map and keeps its rows, so one image's shards
+drop what one process drawing that mask drops.  Its BNs sync over the
+context's groups (the model is built with no process group, as JAX's with
 ``axis_name=None``).  Maps whose global height is under
 ``ops.spatial.MIN_ROWS_PER_SHARD`` (4) times sp are gathered (JAX's
 ``space_unshard_interceptor`` rule; here it spares the halo exchanges of
@@ -42,7 +44,7 @@ from torch import nn
 from ..engine.optim import make_optimizer
 from ..engine.trainer import TrainState, _cudnn_deterministic
 from ..models import init_weights
-from ..ops.dropout import has_live_dropout
+from ..ops.dropout import dropout_generator
 from ..ops.spatial import MIN_ROWS_PER_SHARD, SpaceContext, split_unit
 
 
@@ -147,11 +149,6 @@ class SpatialTrainer:
                  deterministic: bool = False):
         if mesh is None:
             raise ValueError("SpatialTrainer needs a mesh (make_dp_sp_mesh)")
-        if has_live_dropout(model):
-            raise NotImplementedError(
-                "SpatialTrainer does not train a model with live dropout "
-                "(PSPNet, PSANet, FCN): one image's masks would have to "
-                "agree over its space shards (ROADMAP A5)")
         self.model, self.loss_fn = model, loss_fn
         self.lr_schedule = lr_schedule
         self.sgd_momentum = sgd_momentum
@@ -194,11 +191,13 @@ class SpatialTrainer:
         return self.mesh.context(image_hw, [i * (h // sp)
                                             for i in range(sp + 1)])
 
-    def train_step(self, batch):
+    def train_step(self, batch, generator: Optional[torch.Generator] = None):
         """One step on the GLOBAL ``batch`` dict (every rank passes the
         same; B divisible by the data axis, H by the space axis): returns
         (loss, lr), the global loss as a 0-d tensor on the model's device
-        and the lr the step used."""
+        and the lr the step used.  ``generator``: the step's dropout
+        stream on the model's device, the same on every space rank of a
+        data rank (``ops.dropout.step_generator``); None: no dropout."""
         st = self.state
         if st is None:
             raise RuntimeError("call init_state() first")
@@ -218,7 +217,7 @@ class SpatialTrainer:
         self.model.train()
         with (_cudnn_deterministic() if self.deterministic
               else contextlib.nullcontext()):
-            with space:
+            with space, dropout_generator(generator):
                 loss = self.loss_fn(self.model(local["image"]), local)
             loss.backward()
             self._sum_grads()

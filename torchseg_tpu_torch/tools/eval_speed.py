@@ -17,7 +17,8 @@ family (convolutions, GEMMs such as ``resize_linear``'s, elementwise
 kernels such as the canvas adds, copies) and the top kernels.  The host
 time of drawing the synthetic items is printed too: the prefetch thread
 draws them while the device works, so it bounds a light protocol.
-Weights are random, drawn from seed 0.
+Weights are random, drawn from seed 0.  ``--eval-dtype bf16`` computes the
+model in bfloat16 on its float32 parameters, as eval.py's flag.
 
 Usage:
   python -m torchseg_tpu_torch.tools.eval_speed -e cityscapes.bisenet.R18 \\
@@ -86,7 +87,7 @@ def main(argv=None):
     p.add_argument("--sp", type=int, default=1,
                    help="spatial shards for the whole protocol")
     p.add_argument("--eval-dtype", choices=("f32", "bf16"), default="f32",
-                   help="compute dtype; bf16 is not ported (ROADMAP A5)")
+                   help="model compute dtype (eval.py --eval-dtype)")
     p.add_argument("--device-time", action="store_true",
                    help="also report the device time an image (the sum of "
                         "the card's kernel times over one profiled pass)")
@@ -94,15 +95,12 @@ def main(argv=None):
                    help="override cfg.eval_crop_size (eval.py's flag)")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     args = p.parse_args(argv)
-    if args.eval_dtype == "bf16":
-        raise NotImplementedError(
-            "--eval-dtype bf16 is not ported (ROADMAP A5)")
 
     import torch
 
     from ..data.base import SyntheticDataset
     from ..entry import _no_tf32
-    from ..eval import make_evaluator
+    from ..eval import EVAL_DTYPES, make_evaluator
     from ..experiments.registry import build_model, get_experiment
     from ..models import init_weights
 
@@ -127,8 +125,8 @@ def main(argv=None):
     device = torch.device(args.device)
     cuda = device.type == "cuda"
     _no_tf32()
-    model = init_weights(build_model(cfg), torch.Generator().manual_seed(
-        0)).to(device)
+    model = init_weights(build_model(cfg, dtype=EVAL_DTYPES[args.eval_dtype]),
+                         torch.Generator().manual_seed(0)).to(device)
     dataset = SyntheticDataset(num_items=args.n, image_hw=(h, w),
                                num_classes=cfg.num_classes)
     ev = make_evaluator(cfg, model, msf=args.msf,

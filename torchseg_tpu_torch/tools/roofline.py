@@ -29,7 +29,11 @@ Usage:
         -e cityscapes.bisenet.R18.speed --int8-through \\
         --input-size 1x1024x2048x3 --trace
     python -m torchseg_tpu_torch.tools.roofline -e cityscapes.bisenet.R18 \\
-        --train --batch-size 2 --crop 512 512 --f32
+        --train --batch-size 2 --crop 512 512 [--bf16]
+
+The forward graphs run in bfloat16 unless ``--f32`` is given; the train
+step runs in float32 unless ``--bf16`` is given (bf16 compute on float32
+parameters, as ``train.py --bf16``).
 """
 
 import argparse
@@ -93,7 +97,10 @@ def build_argparser():
                         "instead of the serving forward")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--crop", type=int, nargs=2, default=None)
-    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--bf16", action="store_true", default=None,
+                   help="bfloat16 compute (the default of the forward "
+                        "graphs; the train step runs in float32 unless "
+                        "this is given)")
     p.add_argument("--f32", dest="bf16", action="store_false")
     p.add_argument("--deploy", action="store_true",
                    help="the bf16 fused-stem serving graph (s2d input, K11 "
@@ -118,14 +125,11 @@ def _graph(args, cfg, dev, dtype, kind):
     from ..models import init_weights
 
     rng = np.random.default_rng(0)
-    if args.train:
-        if dtype != torch.float32:
-            raise SystemExit("--train analyses the float32 step (bf16 "
-                             "training is not ported: ROADMAP A5); pass "
-                             "--f32")
+    if args.train:  # the float32 step, or with --bf16 the bf16 one
         b = args.batch_size or 2
         trainer, (_, batch) = train_entry(
-            cfg.name, dev, (cfg.image_height, cfg.image_width), b)
+            cfg.name, dev, (cfg.image_height, cfg.image_width), b,
+            dtype=None if dtype == torch.float32 else dtype)
         return (trainer.train_step, (batch,),
                 f"train step bs={b} @{cfg.image_height}x{cfg.image_width}",
                 False)
@@ -181,7 +185,8 @@ def main(argv=None):
     if args.crop:
         cfg = dataclasses.replace(cfg, image_height=args.crop[0],
                                   image_width=args.crop[1])
-    dtype = torch.bfloat16 if args.bf16 and not args.train else torch.float32
+    bf16 = (not args.train) if args.bf16 is None else args.bf16
+    dtype = torch.bfloat16 if bf16 else torch.float32
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     fn, fargs, what, kernel_graph = _graph(args, cfg, dev, dtype, kind)
     fn(*fargs)  # warm-up: the kernels' build, cuDNN's plans

@@ -5,7 +5,9 @@ train_speed.py, which chains its steps in one compiled ``fori_loop`` over
 a device mesh).
 
 Protocol: ``entry.train_entry``'s trainer and seeded synthetic batch at
-the crop and batch asked for (float32, TF32 off), one warm-up step, then
+the crop and batch asked for (float32, TF32 off; ``--bf16`` computes in
+bfloat16 on float32 parameters, ``--remat`` / ``--no-remat`` set the
+config's backbone rematerialization), one warm-up step, then
 ``--reps`` repetitions of ``--steps`` steps back to back, each timed with
 CUDA events (the host clock on the CPU); the result is the minimum over
 the repetitions of the mean step.  ``--memory`` adds the peak device
@@ -13,11 +15,8 @@ memory of the timed steps (``torch.cuda.max_memory_allocated``);
 ``--top-ops N`` the top device kernels of one more step
 (``tools/profile.py``).
 
-Refused, with the ROADMAP item that would port them: ``--bf16`` (A5),
-``--fused-loss`` (A8: the fused upsample+loss path, off for every family,
-JAX ``losses.py:243``), ``--remat`` (A5: activation rematerialization;
-``torch.utils.checkpoint`` would recompute each BN forward, which under
-SyncBN updates the running statistics twice) and ``--memory-only`` (XLA's
+Refused: ``--fused-loss`` (ROADMAP A8: the fused upsample+loss path, off
+for every family, JAX ``losses.py:243``) and ``--memory-only`` (XLA's
 compile-time memory analysis has no eager counterpart).
 
 Usage: python -m torchseg_tpu_torch.tools.train_speed \\
@@ -39,11 +38,11 @@ def build_argparser():
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported: ROADMAP A5)")
+                   help="bfloat16 compute (parameters stay float32)")
     p.add_argument("--remat", dest="remat", action="store_true",
                    default=None,
-                   help="rematerialize the backbone blocks (not ported: "
-                        "ROADMAP A5)")
+                   help="rematerialize the backbone blocks (default: the "
+                        "config's)")
     p.add_argument("--no-remat", dest="remat", action="store_false")
     p.add_argument("--top-ops", type=int, default=0,
                    help="print the top-N device kernels of one step")
@@ -66,12 +65,9 @@ def main(argv=None):
     """Time the step; returns {"ms_per_step", "img_per_s",
     "peak_hbm_gib"} (the peak None without ``--memory`` or a card)."""
     args = build_argparser().parse_args(argv)
-    refused = {"bf16": (args.bf16, "A5"), "remat": (args.remat, "A5"),
-               "fused-loss": (args.fused_loss, "A8")}
-    for flag, (on, item) in refused.items():
-        if on:
-            raise NotImplementedError(
-                f"--{flag} is not ported (ROADMAP {item})")
+    if args.fused_loss:
+        raise NotImplementedError(
+            "--fused-loss is not ported (ROADMAP A8)")
     if args.memory_only:
         raise NotImplementedError(
             "--memory-only is XLA's compile-time memory analysis, which "
@@ -85,7 +81,9 @@ def main(argv=None):
     batch = args.batch_size or cfg.batch_size
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
-    trainer, (_, data) = train_entry(args.experiment, dev, crop, batch)
+    trainer, (_, data) = train_entry(
+        args.experiment, dev, crop, batch,
+        dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat)
     t0 = time.perf_counter()
     float(trainer.train_step(data)[0])
     print(f"first step {time.perf_counter() - t0:.1f}s")
@@ -117,7 +115,10 @@ def main(argv=None):
         _, ops = collect_op_times(trainer.train_step, data, runs=1)
         print("--- top train ops (ms/step) ---")
         print(top_ops_table(ops, args.top_ops))
-    print(f"{args.experiment} bs={batch} {crop[0]}x{crop[1]} on 1 dev: "
+    remat = getattr(trainer.model.backbone, "remat", False)
+    print(f"{args.experiment} bs={batch} {crop[0]}x{crop[1]} "
+          f"{'bf16' if args.bf16 else 'f32'}{' remat' if remat else ''}"
+          f" on 1 dev: "
           f"{dt * 1000:.1f} ms/step, {batch / dt:.1f} img/s"
           + (f", peak device memory {peak:.2f} GiB" if peak else ""))
     return {"ms_per_step": dt * 1000, "img_per_s": batch / dt,

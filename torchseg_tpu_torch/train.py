@@ -11,33 +11,44 @@ Usage:
   ... -c log/<exp>/snapshot/epoch-last.ckpt   # resume
   ... --device cpu                            # on the CPU (tests)
 
-The flags, defaults and rules are JAX's.  One process drives one device
-(``--device``, by default ``cuda``); several processes (``--num-processes``,
-``--process-id``, ``--coordinator``, one per rank) form a
-``torch.distributed`` group (NCCL on the card, gloo on the CPU) that
+The flags, defaults and rules are JAX's. One process drives one device
+(``--device``, by default ``cuda``); several processes
+(``--num-processes``, ``--process-id``, ``--coordinator``, one per rank)
+form a ``torch.distributed`` group (NCCL on the card, gloo on the CPU) that
 splits each global batch into equal rows (``parallel.shard_batch``), with
-DDP and SyncBN over it.  ``--sp N`` shards the image height over N ranks
-(``parallel.spatial.SpatialTrainer``) with JAX's refusals.  Each step's
-dropout masks come from this rank's generator, seeded from ``--seed`` and
-the rank (``ops.dropout.make_generator``).  OHEM's ``min_kept`` follows the
-per-forward batch (``num_shards = world * accum_steps``; 1 under
-``--sp``), FCN's lr scales with the data width, PolyLR runs over
-``nepochs * niters``, rank 0 snapshots each epoch after ``nepochs - 20``
-and every ``snapshot_iter``-th, and ``-c`` resumes at the saved epoch + 1
-with the schedule continuing from the restored step.  Training runs in
-float32 with TF32 off, as ``entry.train_entry``.
+DDP and SyncBN over it. ``--sp N`` shards the image height over N ranks
+(``parallel.spatial.SpatialTrainer``) with JAX's refusals. Each step's
+dropout masks come from the step's generator (``ops.dropout.
+step_generator``, seeded from ``--seed``, the step and the data index: the
+rank, or under ``--sp`` the data rank that its space ranks share), the
+counterpart of JAX's ``fold_in(step_key, axis_index)``; a run resumed with
+``-c`` draws the masks the uninterrupted run would have.
+OHEM's ``min_kept`` follows the per-forward batch (``num_shards = world *
+accum_steps``; 1 under ``--sp``), FCN's lr scales with the data width,
+PolyLR runs over ``nepochs * niters``, rank 0 snapshots each epoch after
+``nepochs - 20`` and every ``snapshot_iter``-th, and ``-c`` resumes at the
+saved epoch + 1 with the schedule continuing from the restored step.
+Training runs in float32 with TF32 off, as ``entry.train_entry``;
+``--bf16`` computes in bfloat16 on float32 parameters (JAX's ``dtype``: the
+master weights, the gradients, the BN statistics and the losses stay
+float32, no loss scaling), ``--remat`` recomputes the backbone blocks in
+the backward pass (the config's ``remat``; JAX sets it in the registry
+only). ``--device-augment`` decodes on the host only and runs mirror,
+scale, crop-pad and normalize on the device at each step (``data/
+device_augment.py``, its parameters drawn from a CPU generator seeded from
+``--seed`` and the rank); as in JAX it refuses DFN experiments and
+``--sp``.
 
 ``--pretrained`` grafts a backbone checkpoint after the seeded init: a
 reference torch ``.pth`` (``utils/torch_convert.py``) or a GluonCV
 ``.params`` (``utils/gluon_convert.py``), non-strict with the missing and
-unused keys logged.  ``--orbax`` snapshots into ``<snapshot>-orbax`` with
+unused keys logged. ``--orbax`` snapshots into ``<snapshot>-orbax`` with
 ``engine/checkpoint_orbax.py`` (backed by ``torch.distributed.checkpoint``:
-atomic directory commits, asynchronous saves, the newest 20 kept), and
-``-c orbax`` resumes from its latest step.  Not ported, and refused:
-``--bf16`` (ROADMAP A5), ``--device-augment`` (A6).  JAX's
-``enable_compile_cache`` has no counterpart: nothing here is compiled per
-run but the kernels, and their build is already cached by a hash of the
-source (``ops/kernels/_build.py``).
+atomic directory commits, asynchronous saves, the newest 20 kept), and ``-c
+orbax`` resumes from its latest step. JAX's ``enable_compile_cache`` has no
+counterpart: nothing here is compiled per run but the kernels, and their
+build is already cached by a hash of the source
+(``ops/kernels/_build.py``).
 """
 
 import argparse
@@ -49,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from .data.base import SyntheticDataset
+from .data.device_augment import augment_generator, make_device_augment
 from .data.loader import TrainLoader, prefetch_to_device
 from .engine.checkpoint import restore_checkpoint, save_checkpoint
 from .engine.logger import get_logger
@@ -63,17 +75,13 @@ from .experiments.registry import (
     build_preprocess,
     get_experiment,
 )
-from .ops.dropout import make_generator
+from .ops.dropout import step_generator
 from .parallel import (
     SpatialTrainer,
     initialize_multihost,
     make_dp_sp_mesh,
     shard_batch,
 )
-
-# flag -> the ROADMAP item that ports it
-UNPORTED = {"bf16": "A5", "device_augment": "A6"}
-
 
 def build_argparser():
     p = argparse.ArgumentParser()
@@ -95,12 +103,16 @@ def build_argparser():
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--seed", type=int, default=12345)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported: ROADMAP A5)")
+                   help="bfloat16 compute (parameters stay float32)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the backbone blocks in the backward pass "
+                        "(activation-memory lever)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation: split each rank's batch "
                         "into N sequential microbatches")
     p.add_argument("--device-augment", action="store_true",
-                   help="augment on the device (not ported: ROADMAP A6)")
+                   help="mirror/scale/crop/normalize on the device "
+                        "(uniform-size datasets, e.g. Cityscapes)")
     p.add_argument("--pretrained", default=None,
                    help="backbone checkpoint to graft: a reference .pth or "
                         "a GluonCV .params")
@@ -126,14 +138,15 @@ def main(argv=None, on_step=None):
     the device), ``lr``, ``batch`` (this rank's, on the device) and
     ``wait_s`` (host seconds the step waited for its batch)."""
     args = build_argparser().parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported (ROADMAP {item})")
+    if args.sp > 1 and args.device_augment:
+        raise SystemExit("--sp does not support --device-augment "
+                         "(host preprocessing feeds the dp x sp mesh)")
     cfg = get_experiment(args.experiment)
     if args.crop:
         cfg = dataclasses.replace(cfg, image_height=args.crop[0],
                                   image_width=args.crop[1])
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     logger = get_logger(os.path.join(args.log_dir, cfg.name),
                         f"log_{time.strftime('%Y_%m_%d_%H_%M_%S')}.log")
 
@@ -193,13 +206,30 @@ def _train(args, cfg, logger, on_step):
     # under --sp the model's BNs take the space context's groups, as JAX's
     # global-batch BN (axis_name=None); else SyncBN over the data group
     group = dist.group.WORLD if world > 1 and sp == 1 else None
-    model = build_model(cfg, process_group=group).to(device)
+    model = build_model(cfg, process_group=group,
+                        dtype=torch.bfloat16 if args.bf16 else None
+                        ).to(device)
     # OHEM's min_kept follows the per-forward batch (the reference's
     # per-GPU rule, train.py:48-52); the sp trainer's loss sees the global
     # batch, so num_shards=1 keeps the reference's kept fraction
     loss_fn = build_loss_fn(
         cfg, num_shards=1 if sp > 1 else world * args.accum_steps)
-    preprocess = build_preprocess(cfg)
+    device_aug = None
+    if args.device_augment:
+        if cfg.preprocess == "dfn":
+            raise SystemExit(
+                "--device-augment does not support DFN experiments: the DFN "
+                "pipeline derives Canny border aux labels on the host "
+                "(data/preprocess.py DFNTrainPre); drop --device-augment")
+        preprocess = None  # the host only decodes; the device transforms
+        device_aug = make_device_augment(
+            (cfg.image_height, cfg.image_width),
+            cfg.train_scale_array or (1.0,), cfg.image_mean, cfg.image_std,
+            gt_pad=cfg.ignore_label if cfg.ignore_label >= 0 else 255,
+            gt_down=cfg.gt_down_sampling)
+        aug_gen = augment_generator(args.seed, rank)
+    else:
+        preprocess = build_preprocess(cfg)
     if args.synthetic:
         dataset = SyntheticDataset(
             num_items=batch_size * niters,
@@ -263,8 +293,7 @@ def _train(args, cfg, logger, on_step):
         logger.info("restored %s, resuming at epoch %d", args.continue_from,
                     start_epoch)
 
-    generator = make_generator(args.seed, device, rank)
-    step_args = () if sp > 1 else (generator,)
+    data_index = mesh.data_index if sp > 1 else rank
     place = ((lambda b: shard_batch(b, rank, world)) if group is not None
              else None)
     for epoch in range(start_epoch, nepochs):
@@ -277,7 +306,12 @@ def _train(args, cfg, logger, on_step):
             if batch is None:
                 break
             wait_s = time.perf_counter() - t_wait
-            loss, lr = trainer.train_step(batch, *step_args)
+            if device_aug is not None:
+                batch["image"], batch["label"] = device_aug(
+                    aug_gen, batch["image"], batch["label"])
+            gen = step_generator(args.seed, trainer.state.step, data_index,
+                                 device)
+            loss, lr = trainer.train_step(batch, gen)
             if on_step is not None:
                 on_step({"epoch": epoch, "it": it, "loss": loss, "lr": lr,
                          "batch": batch, "wait_s": wait_s})
