@@ -7,7 +7,9 @@ check them.
 Besides serving, it drives two training steps: BiSeNet-R18 and DFN-R101
 (with the multi-class sigmoid focal loss run on the DFN step's logits), the
 training command line for BiSeNet-R18, PSPNet-R50 and DFN-R101 on PNG
-files it writes (with PSANet's and FCN's steps), the evaluation command
+files it writes (with PSANet's and FCN's steps) and for PSPNet-R50 on the
+committed JPEG fixtures, the fused upsample+loss path against the
+materialized one, the evaluation command
 line on those files and the CLI's snapshots (sliding window, msf and
 flip, the speed protocol), and
 the training half across processes (``dryrun_multichip``, the four-rank
@@ -313,7 +315,21 @@ script
      and torch's own convs (the exact check is the CPU test's, float64, in
      tests/test_torch_spatial.py); each rank's two
      dropout masks its rows of the global masks; K8/K9 once per BN on each
-     rank.
+     rank;
+  22. JPEG reading and the fused upsample+loss (``jpeg_fused_phase``): the
+     port's decoder (``native/jpeg.cpp``, through ``data/image_io.imread``;
+     this machine has no cv2) on every committed fixture of
+     ``tests/fixtures/torch_jpeg/`` in COLOR and GRAYSCALE, each array's
+     sha256 the one cv2 gave when the fixtures were written
+     (``expected.json``), the EXIF-oriented JPEG and PNG included; the
+     decode's host time of the 512x683 4:2:0 fixture (median of
+     JPEG_DECODES); ``train.main`` for PSPNet-R50 for JPEG_CLI_STEPS steps
+     on an ADE tree whose images are those JPEGs (PNG labels), through
+     ``cli_run`` (K8/K9 once per BN a step, the loader's wait logged);
+     then ``tools/train_speed.py`` ``--fused-loss`` and ``--no-fused-loss``
+     with ``--memory`` for each of FUSED_AB (float32, TF32 off): the first
+     step's losses (same weights and batch) within FUSED_LOSS_RTOL, equal
+     K8/K9 launch counts, each arm's ms a step and peak memory logged.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -1318,6 +1334,7 @@ def main():
     rows += bf16_phase(dev, all_kernels, reset_all)
     augment_phase(dev, all_kernels, reset_all)
     dropout_sp_phase(dev)
+    jpeg_fused_phase(dev, all_kernels, reset_all)
     log(f"chip_smoke: {time.perf_counter() - SCRIPT_T0:.1f} s in all")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5060,6 +5077,181 @@ def dropout_sp_phase(dev):
         f"({r0['rows']}, {r1['rows']} of the /8 level); K8/K9 "
         f"{r0['n_bn']} launches each a step on each rank; "
         f"{time.perf_counter() - phase_t0:.1f} s")
+
+
+
+# ----------------------------------------------------------------------
+# JPEG reading and the fused upsample+loss (item 22)
+# ----------------------------------------------------------------------
+JPEG_FIXTURES = "tests/fixtures/torch_jpeg"
+JPEG_TIMED = "ade_baseline_420.jpg"  # 512x683, quality 90, 4:2:0
+JPEG_DECODES = 20
+JPEG_CLI_STEPS = 2
+FUSED_AB = (("cityscapes.bisenet.R18", (1024, 1024)),
+            ("ade.pspnet.R50_v1c", (480, 480)))
+FUSED_STEPS, FUSED_REPS = 3, 2
+FUSED_LOSS_RTOL = 1e-4
+
+
+def jpeg_fixture_checks():
+    """Every fixture read in both modes against its recorded cv2 digest;
+    returns the fixture directory, the JPEG names and the timed decode's
+    median ms."""
+    import hashlib
+
+    from torchseg_tpu_torch.data import image_io
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JPEG_FIXTURES)
+    with open(os.path.join(root, "expected.json")) as f:
+        expected = json.load(f)
+    for name, want in sorted(expected["files"].items()):
+        for key, mode in (("color", image_io.COLOR),
+                          ("grayscale", image_io.GRAYSCALE)):
+            img = image_io.imread(os.path.join(root, name), mode)
+            got = {"shape": list(img.shape),
+                   "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+            if got != want[key]:
+                fail(f"{name} read {key}: {got}, cv2 read {want[key]}")
+    log(f"JPEG fixtures: {len(expected['files'])} files read in COLOR and "
+        f"GRAYSCALE, every array's sha256 equal to cv2's (OpenCV "
+        f"{expected['opencv']}, libjpeg-turbo {expected['libjpeg_turbo']}; "
+        f"the EXIF-oriented JPEG and PNG included)")
+    path = os.path.join(root, JPEG_TIMED)
+    times = []
+    for _ in range(JPEG_DECODES):
+        t0 = time.perf_counter()
+        image_io.imread(path)
+        times.append(time.perf_counter() - t0)
+    ms = 1000.0 * float(np.median(times))
+    log(f"JPEG decode of {JPEG_TIMED} (512x683, 4:2:0, q90) on this host: "
+        f"median {ms:.3f} ms of {JPEG_DECODES} reads (file read, decode, "
+        f"EXIF; min {1000.0 * min(times):.3f} ms)")
+    jpegs = sorted(n for n in expected["files"] if n.startswith("ade_"))
+    return root, jpegs, ms
+
+
+def write_jpeg_tree(root, fixtures, jpegs):
+    """An ADE tree whose images are the JPEG fixtures (``*.jpg``) and whose
+    labels are PNGs (0-150, a function of the decoded image); returns the
+    CLI's dataset flags."""
+    import shutil
+
+    from torchseg_tpu_torch.data import image_io
+
+    img_dir = os.path.join(root, "ade_jpeg", "images")
+    gt_dir = os.path.join(root, "ade_jpeg", "labels")
+    os.makedirs(img_dir)
+    os.makedirs(gt_dir)
+    names = []
+    for i, src in enumerate(jpegs):
+        name = f"ade_jpeg_{i:02d}.jpg"
+        shutil.copy(os.path.join(fixtures, src), os.path.join(img_dir, name))
+        img = image_io.imread(os.path.join(img_dir, name))
+        gt = np.clip(img[..., 1].astype(np.int32) * 151 // 256, 0,
+                     150).astype(np.uint8)
+        write_png(os.path.join(gt_dir, f"ade_jpeg_{i:02d}.png"), gt)
+        names.append(name)
+    manifest = os.path.join(root, "ade_jpeg", "train.txt")
+    with open(manifest, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return ["--img-root", img_dir, "--gt-root", gt_dir, "--train-source",
+            manifest]
+
+
+def fused_ab(experiment, crop, all_kernels, reset_all):
+    """``tools/train_speed.py`` with the fused upsample+loss forced on, then
+    off (float32, TF32 off, ``--memory``); fails unless the first losses
+    agree within FUSED_LOSS_RTOL and both arms launch K8/K9 alike."""
+    import gc
+
+    from torchseg_tpu_torch.ops import losses
+    from torchseg_tpu_torch.tools import train_speed
+
+    arms = {}
+    for arm in ("--fused-loss", "--no-fused-loss"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_all()
+        res = train_speed.main([
+            "-e", experiment, "--crop", str(crop[0]), str(crop[1]),
+            "--batch-size", "2", "--steps", str(FUSED_STEPS), "--reps",
+            str(FUSED_REPS), "--memory", "--device", "cuda", arm])
+        torch.cuda.synchronize()
+        arms[arm] = (res, launch_counts(all_kernels))
+    if losses.FUSED_UPSAMPLE_LOSS is not None:
+        fail("train_speed left the fused-loss switch set")
+    (fused, k_f), (plain, k_p) = arms["--fused-loss"], arms["--no-fused-loss"]
+    rel = abs(fused["first_loss"] - plain["first_loss"]) / abs(
+        plain["first_loss"])
+    n_steps = 1 + FUSED_STEPS * FUSED_REPS
+    log(f"{experiment} 2x{crop[0]}x{crop[1]} float32: fused upsample+loss "
+        f"{fused['ms_per_step']:.2f} ms a step, peak "
+        f"{fused['peak_hbm_gib']:.3f} GiB; materialized "
+        f"{plain['ms_per_step']:.2f} ms a step, peak "
+        f"{plain['peak_hbm_gib']:.3f} GiB (min over {FUSED_REPS} reps of "
+        f"{FUSED_STEPS} steps); first loss {fused['first_loss']!r} vs "
+        f"{plain['first_loss']!r} (relative {rel:.3e}); K8/K9 launches over "
+        f"the {n_steps} steps {k_f.get('channel_sum_sumsq')} / "
+        f"{k_f.get('fused_scale_bias_act')} fused, "
+        f"{k_p.get('channel_sum_sumsq')} / "
+        f"{k_p.get('fused_scale_bias_act')} materialized")
+    if not rel <= FUSED_LOSS_RTOL:
+        fail(f"{experiment}: fused first loss {fused['first_loss']} vs "
+             f"materialized {plain['first_loss']}: relative {rel:.3e} > "
+             f"{FUSED_LOSS_RTOL}")
+    if k_f != k_p or not k_f.get("channel_sum_sumsq") or not k_f.get(
+            "fused_scale_bias_act"):
+        fail(f"{experiment}: kernel launches fused {k_f}, materialized "
+             f"{k_p}")
+
+
+def jpeg_fused_phase(dev, all_kernels, reset_all):
+    """Item 22: the fixtures' digests, the JPEG decode's host time, a
+    JPEG-fed PSPNet-R50 CLI run and the fused upsample+loss A/B."""
+    import shutil
+    import tempfile
+
+    from torchseg_tpu_torch.entry import PSP_EXPERIMENT
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+
+    phase_t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", os.environ["CUDA_VISIBLE_DEVICES"],
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    log(f"JPEG and fused-loss phase on {smi.stdout.strip()}")
+    fixtures, jpegs, _ = jpeg_fixture_checks()
+    root = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
+    try:
+        flags = write_jpeg_tree(root, fixtures, jpegs)
+
+        def jpeg_batch(info):
+            shape = tuple(info["batch"]["image"].shape)
+            if shape != (2, 3, 480, 480):
+                fail(f"JPEG-fed PSPNet batch images {shape}")
+
+        cli_run("PSPNet-R50 CLI on JPEGs",
+                ["-e", PSP_EXPERIMENT, *flags, "--batch-size", "2",
+                 "--num-workers", str(CLI_WORKERS), "--log-dir",
+                 os.path.join(root, "log"), "--epochs", "1", "--iters",
+                 str(JPEG_CLI_STEPS)],
+                JPEG_CLI_STEPS, (2, JPEG_CLI_STEPS), all_kernels, reset_all,
+                bn_count(build_model(get_experiment(PSP_EXPERIMENT))),
+                check=jpeg_batch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for experiment, crop in FUSED_AB:
+        fused_ab(experiment, crop, all_kernels, reset_all)
+    if "cv2" in sys.modules:
+        fail("the JPEG and fused-loss phase imported cv2")
+    log(f"JPEG and fused-loss phase: {time.perf_counter() - phase_t0:.1f} s; "
+        f"cv2 was not imported")
 
 
 if __name__ == "__main__":

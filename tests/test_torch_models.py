@@ -104,5 +104,32 @@ def test_registry_entries_copy_jax(name):
 
 def test_eval_only_forward_raises_in_train_mode():
     tm = tmodels.bisenet_r18(speed=True).train()
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="eval-only"):
         tm(torch.zeros(1, 3, 32, 64), raw_logits=True)
+
+
+def test_train_raw_logits_heads_match_jax(r18_speed, monkeypatch):
+    """``train_raw_logits`` (set by the registry where the fused
+    upsample+loss is on): the three train heads before their upsample, as
+    JAX's BiSeNet(train_raw_logits=True) emits them, from the same
+    variables (train-mode BN, float32); aux0 is /16, not its x2 upsample."""
+    from torchseg_tpu_torch.ops import losses
+
+    jm, variables = r18_speed
+    jraw = jm.clone(train_raw_logits=True)
+    monkeypatch.setattr(losses, "FUSED_UPSAMPLE_LOSS", True)
+    tm = load_port(treg.build_model(
+        treg.get_experiment("cityscapes.bisenet.R18.speed")), variables)
+    assert tm.train_raw_logits
+    x = np.random.default_rng(3).normal(size=(2, 64, 128, 3)).astype(
+        np.float32)
+    jout, _ = jax.jit(lambda v, x: jraw.apply(
+        v, x, train=True, mutable=["batch_stats"]))(variables, jnp.asarray(x))
+    with torch.no_grad():
+        tout = tm.train()(nchw(x))
+    assert tuple(tout["aux0"].shape) == (2, 19, 4, 8)
+    for key in ("aux0", "aux1", "main"):
+        ref = np.asarray(jout[key])
+        # within 1e-4 of the head's largest magnitude (test_torch_train_step)
+        np.testing.assert_allclose(nhwc(tout[key]), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max(), err_msg=key)

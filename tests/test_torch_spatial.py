@@ -26,6 +26,10 @@ on four CPU gloo ranks, one spawn shared by the file (``ranks``):
   PSPNet at depth 1 a stage, 2 x 64x32 in float64, its heads' masks
   drawn from the shared step generator, against one process drawing the
   same global masks (1e-10), each rank's masks the global ones' rows;
+* the fused upsample+loss, dp1 x sp2: BiSeNet-R18 with raw train heads
+  and the row-tiled OHEM (``ohem_thresh`` 0) at 4 x 256x64 in float64,
+  each rank upsampling the gathered heads' rows of its own band, against
+  one process's fused step (1e-8);
 * the counterparts of ``test_dp_sp_mesh_shape_and_validation``,
   ``test_spatial_step_validates_divisibility`` and
   ``test_spatial_shards_validation``, and the row plan and batch split.
@@ -65,6 +69,7 @@ from torchseg_tpu_torch.experiments.registry import (
 from torchseg_tpu_torch.models import init_weights
 from torchseg_tpu_torch.models.pspnet import PSPNet
 from torchseg_tpu_torch.models.resnet import Bottleneck, ResNet
+from torchseg_tpu_torch.ops import losses
 from torchseg_tpu_torch.ops.dropout import Dropout, step_generator
 from torchseg_tpu_torch.ops.losses import cross_entropy_with_ignore
 from torchseg_tpu_torch.ops.resize import (
@@ -332,6 +337,43 @@ def _bf16_sp2(rank, mesh):
     return out
 
 
+def _fused_sp2(rank, mesh):
+    """One dp1 x sp2 BiSeNet-R18 step through the fused upsample+loss (raw
+    heads; ``build_loss_fn``'s OHEM, ``ohem_thresh`` 0) in float64 at 4 x
+    256x64, every map sharded, on the pair (0, 1); rank 0 also runs the
+    one-process fused step and keeps how far apart the two are."""
+    if rank > 1:
+        return None
+    saved = losses.FUSED_UPSAMPLE_LOSS
+    losses.FUSED_UPSAMPLE_LOSS = True
+    try:
+        loss_fn = build_loss_fn(dataclasses.replace(
+            CFG, image_height=DEEP_HW[0], image_width=DEEP_HW[1],
+            ohem_thresh=0.0), num_shards=1)
+        batch = _global_batch(DEEP_HW)
+        model, tr = _trainer(SpatialTrainer, loss_fn, mesh=mesh)
+        tr.init_state()
+        loss, _ = tr.train_step(batch)
+        out = {"raw": model.train_raw_logits,
+               "counts": dict(tr.space.counts)}
+        if rank:
+            return out
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        ref_model, ref = _trainer(Trainer, loss_fn)
+        ref.init_state()
+        ref_loss, _ = ref.train_step(batch)
+        with torch.no_grad():
+            out.update(
+                loss=abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+                grad=_worst({n: p.grad for n, p in
+                             ref_model.named_parameters()}, grads),
+                state=_worst({k: v for k, v in ref_model.state_dict().items()
+                              if v.is_floating_point()}, model.state_dict()))
+        return out
+    finally:
+        losses.FUSED_UPSAMPLE_LOSS = saved
+
+
 def _rank(rank, world, port, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -381,6 +423,7 @@ def _rank(rank, world, port, out_dir):
         pair_mesh = _pair_mesh(rank)
         out["dropout"] = _dropout_sp2(pair_mesh)
         out["bf16"] = _bf16_sp2(rank, pair_mesh)
+        out["fused"] = _fused_sp2(rank, pair_mesh)
         out["remat"] = _train_errors(_ce, mesh, batch, 1, remat=True)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -542,6 +585,22 @@ def test_dp1_sp2_bf16_remat_step_matches_one_process(ranks):
     assert rank0["stats"][0] < 1e-5, rank0["stats"]
     assert set(rank0["tracked"].values()) == {1}
     assert rank0["dtypes"] == {torch.float32}
+
+
+def test_dp1_sp2_fused_loss_step_matches_one_process_float64(ranks):
+    """The fused upsample+loss under a space context: the raw heads (/16
+    and /8, sharded) are gathered and each rank's row pass computes the
+    rows of its own band of the 256x64 labels (three ``resize_rows``
+    besides the decoder's three), the column tiles are local, and the
+    OHEM's threshold and the means are global: the step equals the
+    one-process fused step (float64, 1e-8)."""
+    rank0, rank1 = ranks[0][0]["fused"], ranks[0][1]["fused"]
+    assert rank0["raw"] and rank1["raw"]
+    assert rank0["loss"] < BAR, rank0["loss"]
+    assert rank0["grad"][0] < BAR, rank0["grad"]
+    assert rank0["state"][0] < BAR, rank0["state"]
+    for got in (rank0, rank1):
+        assert got["counts"]["resize_rows"] == 6, got["counts"]
 
 
 def test_dp_sp_mesh_shape_and_validation(ranks):

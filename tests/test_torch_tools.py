@@ -33,6 +33,7 @@ import torch
 from torchseg_tpu.experiments import registry as jreg
 from torchseg_tpu.tools.profile import top_ops_table as jtop_ops_table
 from torchseg_tpu_torch.experiments import registry as treg
+from torchseg_tpu_torch.ops import losses
 from torchseg_tpu_torch.ops.blocks import ConvBnRelu
 from torchseg_tpu_torch.tools import profile, roofline, speed, stats
 from torchseg_tpu_torch.tools import train_speed
@@ -153,8 +154,10 @@ def test_train_speed_runs_and_refuses(capsys):
     res = train_speed.main(["-e", "cityscapes.bisenet.R18", "--crop", "32",
                             "32", "--batch-size", "2", "--steps", "2",
                             "--reps", "1", "--device", "cpu"])
-    assert set(res) == {"ms_per_step", "img_per_s", "peak_hbm_gib"}
+    assert set(res) == {"ms_per_step", "img_per_s", "peak_hbm_gib",
+                        "first_loss"}
     assert res["ms_per_step"] > 0 and res["peak_hbm_gib"] is None
+    plain_loss = res["first_loss"]
     # bf16 compute and rematerialization run (parameters float32)
     res = train_speed.main(["-e", "cityscapes.bisenet.R18", "--crop", "32",
                             "32", "--batch-size", "2", "--steps", "1",
@@ -162,8 +165,15 @@ def test_train_speed_runs_and_refuses(capsys):
                             "--remat"])
     assert res["ms_per_step"] > 0
     assert "32x32 bf16 remat on 1 dev" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        train_speed.main(["-e", "cityscapes.bisenet.R18", "--fused-loss"])
+    # the fused upsample+loss arm runs, on the same first step's loss,
+    # and leaves the switch as it found it
+    fused = train_speed.main(["-e", "cityscapes.bisenet.R18", "--crop", "32",
+                              "32", "--batch-size", "2", "--steps", "1",
+                              "--reps", "1", "--device", "cpu",
+                              "--fused-loss"])
+    assert "32x32 f32 fused-loss on 1 dev" in capsys.readouterr().out
+    assert abs(fused["first_loss"] - plain_loss) <= 1e-5 * plain_loss
+    assert losses.FUSED_UPSAMPLE_LOSS is None
     with pytest.raises(NotImplementedError, match="--memory"):
         train_speed.main(["-e", "cityscapes.bisenet.R18", "--memory-only"])
 

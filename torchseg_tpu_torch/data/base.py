@@ -2,8 +2,8 @@
 furnace/datasets/BaseDataset.py).
 
 ``ManifestDataset``: each manifest line is ``img_path<TAB>gt_path``;
-images are read BGR (``data.image_io.imread``, which decodes PNG itself
-and reads other formats through cv2 where it is installed) and reversed
+images are read BGR (``data.image_io.imread``, which decodes PNG and
+JPEG itself, as ``cv2.imread`` does) and reversed
 to RGB (BaseDataset.py:45); a preprocess callable maps ``(rng, img, gt) ->
 (img, gt, extra)``.  Items are plain numpy dicts; device transfer is the
 loader's job.  As in JAX, the items of an epoch draw from one shared

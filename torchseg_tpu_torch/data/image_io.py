@@ -16,12 +16,22 @@ palette.  The result is what ``cv2.imread`` gives:
     what cv2's PNG decoder asks libpng for; grey below 8 bits scaled to
     0-255.
 
-16-bit and Adam7-interlaced PNGs raise ValueError naming the file.  Every
-other format (the JPEG images of ADE, VOC and PASCAL-Context) goes
-through ``cv2.imread`` when cv2 is importable, and otherwise raises
-RuntimeError: the port has no JPEG decoder of its own yet (ROADMAP A6).
-Cityscapes (PNG images and labels) and every dataset's PNG labels need no
-cv2.
+16-bit and Adam7-interlaced PNGs raise ValueError naming the file.
+
+JPEG (the images of ADE, VOC and PASCAL-Context) is decoded by the port's
+own decoder (``native/jpeg.cpp``, ``native.decode_jpeg``), which gives what
+``cv2.imread`` gives through libjpeg-turbo bit for bit: (H, W, 3) BGR for
+``COLOR``, the Y plane for a colour file read as ``GRAYSCALE``.  A
+truncated progressive file that libjpeg would block-smooth decodes
+unsmoothed, with a warning.  Any other format raises ValueError naming the
+file: the port reads PNG and JPEG, which is every dataset's.
+
+EXIF orientation, as cv2 applies it in both read modes: the tag 0x0112 of
+IFD0 of a PNG's ``eXIf`` chunk or of a JPEG's APP1 ``Exif`` segment (either
+TIFF byte order), applied as OpenCV's ``ApplyExifOrientation`` does (2
+flip left-right, 3 rotate 180, 4 flip up-down, 5 transpose, 6 rotate 90
+clockwise, 7 transverse, 8 rotate 90 counter-clockwise); a missing or
+malformed block, or another value, means 1 (as read).
 
 Writing (``imwrite``, ``encode_png``; the evaluator's ``cv2.imwrite`` of
 predictions, submissions and composites): 8-bit grey and 3-channel PNGs,
@@ -31,6 +41,7 @@ holds RGB.
 """
 
 import struct
+import warnings
 import zlib
 
 import numpy as np
@@ -41,6 +52,8 @@ COLOR = 1       # cv2.IMREAD_COLOR
 GRAYSCALE = 0   # cv2.IMREAD_GRAYSCALE
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SOI = b"\xff\xd8"
+EXIF_ORIENTATION = 0x0112
 # libpng's png_set_rgb_to_gray_fixed(29900, 58700): (w * 32768) / 100000
 # truncated, blue the rest of 32768
 RED_15, GREEN_15 = 29900 * 32768 // 100000, 58700 * 32768 // 100000
@@ -72,7 +85,7 @@ def decode_png(data: bytes, mode: int = COLOR, path: str = "<bytes>"
     """PNG bytes -> the array ``cv2.imread(path, mode)`` gives."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    header, palette, idat = None, None, []
+    header, palette, idat, exif = None, None, [], None
     for ctype, payload in _chunks(data, path):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
@@ -80,6 +93,8 @@ def decode_png(data: bytes, mode: int = COLOR, path: str = "<bytes>"
             palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(payload)
+        elif ctype == b"eXIf" and exif is None:
+            exif = payload
     if header is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
@@ -121,11 +136,74 @@ def decode_png(data: bytes, mode: int = COLOR, path: str = "<bytes>"
         rgb = px[..., :3]
     else:  # grey, grey + alpha
         grey = px[..., 0]
-        return (np.ascontiguousarray(grey) if mode == GRAYSCALE
-                else np.repeat(grey[..., None], 3, axis=2))
-    if mode == GRAYSCALE:
-        return rgb_to_grey(rgb)
-    return np.ascontiguousarray(rgb[..., ::-1])
+        img = (grey if mode == GRAYSCALE
+               else np.repeat(grey[..., None], 3, axis=2))
+        return orient(img, exif_orientation(exif))
+    img = rgb_to_grey(rgb) if mode == GRAYSCALE else rgb[..., ::-1]
+    return orient(img, exif_orientation(exif))
+
+
+def exif_orientation(tiff) -> int:
+    """The orientation (1-8) in IFD0 of a TIFF-structured EXIF block; 1 for
+    None, a malformed block, no tag or a value outside 1-8."""
+    if not tiff or len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    end = "<" if tiff[:2] == b"II" else ">"
+    magic, ifd = struct.unpack(end + "HI", tiff[2:8])
+    if magic != 42 or ifd + 2 > len(tiff):
+        return 1
+    count, = struct.unpack(end + "H", tiff[ifd:ifd + 2])
+    for pos in range(ifd + 2, ifd + 2 + 12 * count, 12):
+        if pos + 12 > len(tiff):
+            return 1
+        tag, = struct.unpack(end + "H", tiff[pos:pos + 2])
+        if tag == EXIF_ORIENTATION:
+            value, = struct.unpack(end + "H", tiff[pos + 8:pos + 10])
+            return value if 1 <= value <= 8 else 1
+    return 1
+
+
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """``img`` (H, W[, C]) as OpenCV's ``ApplyExifOrientation`` turns it
+    for an EXIF orientation; a contiguous array."""
+    if orientation >= 5:  # 5-8 transpose first
+        img = img.swapaxes(0, 1)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    for axis in flips.get(orientation, ()):
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
+def jpeg_exif(data: bytes):
+    """The TIFF block of a JPEG's first APP1 ``Exif`` segment before its
+    first scan, or None."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        if marker in (0xDA, 0xD9):
+            return None
+        length, = struct.unpack(">H", data[pos + 2:pos + 4])
+        if marker == 0xE1 and data[pos + 4:pos + 10] == b"Exif\0\0":
+            return data[pos + 10:pos + 2 + length]
+        pos += 2 + length
+    return None
+
+
+def decode_jpeg(data: bytes, mode: int = COLOR, path: str = "<bytes>"
+                ) -> np.ndarray:
+    """JPEG bytes -> the array ``cv2.imread(path, mode)`` gives."""
+    img, unsmoothed = native.decode_jpeg(data, mode == COLOR, path)
+    if unsmoothed:
+        warnings.warn(f"{path}: a truncated progressive JPEG, decoded "
+                      f"without libjpeg's block smoothing (cv2 reads other "
+                      f"pixels)", stacklevel=3)
+    return orient(img, exif_orientation(jpeg_exif(data)))
 
 
 def rgb_to_grey(rgb: np.ndarray) -> np.ndarray:
@@ -139,9 +217,9 @@ def rgb_to_grey(rgb: np.ndarray) -> np.ndarray:
 
 
 def imread(path: str, mode: int = COLOR) -> np.ndarray:
-    """``cv2.imread(path, mode)`` for ``COLOR`` and ``GRAYSCALE``; PNG
-    decoded here, anything else through cv2 when it is importable.
-    Raises FileNotFoundError for a missing file."""
+    """``cv2.imread(path, mode)`` for ``COLOR`` and ``GRAYSCALE`` of a PNG
+    or JPEG file.  Raises FileNotFoundError for a missing file and
+    ValueError naming the file for any other format."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -149,18 +227,10 @@ def imread(path: str, mode: int = COLOR) -> np.ndarray:
         raise FileNotFoundError(path) from None
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, mode, path)
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: not a PNG, and this machine has no JPEG (or other "
-            f"image) decoder: the port decodes PNG itself and reads other "
-            f"formats through cv2, which is not installed (a decoder of "
-            f"the port's own is ROADMAP A6)") from None
-    img = cv2.imread(path, mode)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img
+    if data.startswith(JPEG_SOI):
+        return decode_jpeg(data, mode, path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file (the port "
+                     f"reads those two formats)")
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:

@@ -17,10 +17,14 @@ source pixel where the product lands on an integer and the two
 reciprocals round apart (45 -> 70 columns, column 14: 8.99... against 9).
 ``SegTrainPre``, which follows JAX's native route, uses the native rule
 (``native.resize_nearest``).  ``random_rotation`` and
-``random_gaussian_blur`` (used by no pipeline) wait for a port of cv2's
-fixed-point ``warpAffine`` and ``GaussianBlur`` (ROADMAP A6).
+``random_gaussian_blur`` (used by no pipeline, ported because JAX has
+them) take cv2's ``getRotationMatrix2D`` (``rotation_matrix_2d``, double
+math), ``warpAffine`` (``native.warp_affine``) and ``GaussianBlur``
+(``native.gaussian_blur``), bit for bit, on uint8 images of 1 or 3
+channels and uint8 labels; other dtypes raise TypeError.
 """
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -141,6 +145,46 @@ def random_mirror(rng: np.random.Generator, img, gt):
         img = img[:, ::-1]
         gt = gt[:, ::-1]
     return img, gt
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: the centre read
+    as float32 (cv2's Point2f), the rest in double."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    rad = angle * (math.pi / 180)
+    alpha, beta = math.cos(rad) * scale, math.sin(rad) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _uint8(*arrays):
+    for a in arrays:
+        if a.dtype != np.uint8:
+            raise TypeError(f"the rotation and blur take uint8 arrays (as "
+                            f"cv2's fixed routes do), not {a.dtype}")
+
+
+def random_rotation(rng: np.random.Generator, img, gt):
+    """A uniform angle in [-10, 10) degrees about the image centre, the
+    image bilinear and the labels nearest, zero outside (JAX
+    transforms.py:103-109)."""
+    _uint8(img, gt)
+    angle = rng.random() * 20 - 10
+    h, w = img.shape[:2]
+    m = rotation_matrix_2d((w / 2, h / 2), angle, 1)
+    img = native.warp_affine(img, m, (w, h), nearest=False)
+    gt = native.warp_affine(gt, m, (w, h), nearest=True)
+    return img, gt
+
+
+def random_gaussian_blur(rng: np.random.Generator, img):
+    """A Gaussian blur of a kernel drawn from 1, 3, 5, 7 at sigma 0 (JAX
+    transforms.py:112-116)."""
+    _uint8(img)
+    k = int(rng.choice([1, 3, 5, 7]))
+    if k > 1:
+        img = native.gaussian_blur(img, k)
+    return img
 
 
 def center_crop(img, shape):

@@ -10,9 +10,10 @@ the two DFN entries (:178-199), and the CamVid and PASCAL-Context ones
 :276-287).  ``build_model`` binds the model's BatchNorms to a process
 group (SyncBN) when given one, and takes JAX's compute ``dtype`` and the
 config's ``remat``; ``build_loss_fn`` gives the per-process
-training loss (``ce``, ``ohem`` and ``dfn``).  JAX's fused upsample+loss
-branch is off for every family there (``_use_fused_head_loss``, registry.py:235-250), so
-the port has none.
+training loss (``ce``, ``ohem`` and ``dfn``).  Where ``_use_fused_head_loss``
+says so (``ops.losses.FUSED_UPSAMPLE_LOSS``; JAX registry.py:235-250) the
+model emits raw train heads and the loss owns their upsample (the fused
+upsample+loss); both are chosen when they are built.
 """
 
 import dataclasses
@@ -28,10 +29,13 @@ from ..data.cityscapes import Cityscapes
 from ..data.pascal_context import PascalContext
 from ..data.preprocess import ADETrainPre, DFNTrainPre, SegTrainPre
 from ..data.voc import VOC
+from ..ops import losses as _losses
 from ..ops.losses import (
     CITYSCAPES_CLASS_WEIGHTS,
     cross_entropy_with_ignore,
+    cross_entropy_with_ignore_upsampled,
     prob_ohem_cross_entropy,
+    prob_ohem_cross_entropy_upsampled,
     sigmoid_focal_loss_border,
 )
 from ..ops.norm import BatchNorm2d
@@ -236,6 +240,27 @@ def get_experiment(name: str) -> ExperimentConfig:
     return EXPERIMENTS[name]
 
 
+def _use_fused_head_loss(cfg: ExperimentConfig) -> bool:
+    """Whether an upsample-then-loss experiment trains with raw heads and
+    the fused upsample+loss (JAX registry.py:235-250): forced on or off by
+    ``ops.losses.FUSED_UPSAMPLE_LOSS``, else the per-family defaults
+    (``FUSED_UPSAMPLE_LOSS_MODELS``)."""
+    eligible = ((cfg.loss == "ohem" and cfg.model.startswith("bisenet"))
+                or (cfg.loss == "ce" and cfg.model.startswith(
+                    ("pspnet", "psanet", "fcn")))
+                or cfg.loss == "dfn")
+    if not eligible:
+        return False
+    if _losses.FUSED_UPSAMPLE_LOSS is not None:
+        return bool(_losses.FUSED_UPSAMPLE_LOSS)
+    return cfg.model.startswith(tuple(_losses.FUSED_UPSAMPLE_LOSS_MODELS))
+
+
+def _bisenet_head_scales(cfg: ExperimentConfig) -> Tuple[int, int, int]:
+    """BiSeNet's train-head upsample factors (JAX registry.py:253-256)."""
+    return (2, 1, 1) if cfg.model_kwargs.get("speed") else (16, 8, 8)
+
+
 def build_preprocess(cfg: ExperimentConfig):
     """The experiment's train-time pipeline (``data.preprocess``)."""
     crop = (cfg.image_height, cfg.image_width)
@@ -258,21 +283,48 @@ def build_model(cfg: ExperimentConfig, process_group=None,
     given and ``torch.distributed`` is initialized.  ``dtype``: the compute
     dtype (None: float32; ``torch.bfloat16`` on float32 parameters);
     ``cfg.remat`` recomputes the backbone blocks in the backward pass (JAX
-    registry.py:273)."""
+    registry.py:273); the train heads are raw where the fused
+    upsample+loss is on (``_use_fused_head_loss``, JAX :270-271)."""
     norm = functools.partial(BatchNorm2d, eps=cfg.bn_eps,
                              momentum=cfg.bn_momentum,
                              process_group=process_group)
     factory = models.MODEL_REGISTRY[cfg.model]
+    kwargs = dict(cfg.model_kwargs)
+    if _use_fused_head_loss(cfg):
+        kwargs["train_raw_logits"] = True
     return factory(num_classes=cfg.num_classes, norm=norm, dtype=dtype,
-                   remat=cfg.remat, **cfg.model_kwargs).eval()
+                   remat=cfg.remat, **kwargs).eval()
 
 
 def build_loss_fn(cfg: ExperimentConfig, num_shards: int = 1):
     """Per-process loss ``(outputs, batch) -> scalar`` with the reference's
     per-process criterion semantics: OHEM's min_kept counts the pixels of
     this process's share of the global batch (model/bisenet/*/train.py:
-    48-52; JAX registry.py:329-365)."""
+    48-52; JAX registry.py:329-365).  Where ``_use_fused_head_loss`` is on
+    (as it was when the model was built) the losses take the raw heads and
+    upsample them themselves: ce at x8 (FCN x32 / x16) with PSPNet's and
+    PSANet's extra log-softmax, ohem at BiSeNet's head scales, dfn's
+    smooth heads at x32 / x16 / x8 / x4, its border heads materialized
+    (JAX :298-313, :338-352, :372-384)."""
     ignore = cfg.ignore_label
+    fused = _use_fused_head_loss(cfg)
+    if cfg.loss == "ce" and fused:
+        ratio = cfg.aux_loss_ratio
+        pre_ls = cfg.model.startswith(("pspnet", "psanet"))
+        main_scale, aux_scale = ((32, 16) if cfg.model.startswith("fcn")
+                                 else (8, 8))
+
+        def ce_fused_loss(outs, batch):
+            loss = cross_entropy_with_ignore_upsampled(
+                outs["main"], batch["label"], main_scale, ignore,
+                pre_log_softmax=pre_ls)
+            if "aux" in outs:
+                loss = loss + ratio * cross_entropy_with_ignore_upsampled(
+                    outs["aux"], batch["label"], aux_scale, ignore,
+                    pre_log_softmax=pre_ls)
+            return loss
+
+        return ce_fused_loss
     if cfg.loss == "ce":
         ratio = cfg.aux_loss_ratio
 
@@ -291,6 +343,17 @@ def build_loss_fn(cfg: ExperimentConfig, num_shards: int = 1):
         w = cfg.image_width // cfg.gt_down_sampling
         min_kept = int(local_b * h * w // cfg.ohem_min_kept_divisor)
         weights = CITYSCAPES_CLASS_WEIGHTS if cfg.ohem_use_weight else None
+        if fused:
+            scales = _bisenet_head_scales(cfg)
+
+            def ohem_fused_loss(outs, batch):
+                return sum(prob_ohem_cross_entropy_upsampled(
+                    outs[key], batch["label"], scale, ignore,
+                    thresh=cfg.ohem_thresh, min_kept=min_kept,
+                    class_weights=weights, approx_threshold=cfg.ohem_approx)
+                    for key, scale in zip(("aux0", "aux1", "main"), scales))
+
+            return ohem_fused_loss
 
         def ohem_loss(outs, batch):
             return sum(prob_ohem_cross_entropy(
@@ -309,8 +372,13 @@ def build_loss_fn(cfg: ExperimentConfig, num_shards: int = 1):
             ``dfn_alpha`` times the border focal loss of each border head
             against ``aux_label`` (JAX registry.py:369-393)."""
             label = batch["label"]
-            loss = sum(cross_entropy_with_ignore(s, label, ignore)
-                       for s in outs["smooth"])
+            if fused:  # raw smooth heads, /32, /16, /8, /4
+                loss = sum(cross_entropy_with_ignore_upsampled(
+                    s, label, 2 ** (5 - i), ignore)
+                    for i, s in enumerate(outs["smooth"]))
+            else:
+                loss = sum(cross_entropy_with_ignore(s, label, ignore)
+                           for s in outs["smooth"])
             aux = sum(sigmoid_focal_loss_border(b, batch["aux_label"],
                                                 border_ignore)
                       for b in outs["border"])

@@ -6,8 +6,10 @@ dilated deep-stem ResNet-50/101, FCN-32s and DFN on the deep-stem
 ResNet-101, each in train and eval mode (the heads' dropouts draw from
 the step's generator, ``ops.dropout``).  Every factory takes JAX's
 ``dtype`` (the compute dtype: None is float32, ``torch.bfloat16`` the bf16
-graph on float32 parameters) and ``remat`` (recompute the ResNet blocks
-in the backward pass; Xception39 ignores it, as in JAX).
+graph on float32 parameters), ``remat`` (recompute the ResNet blocks
+in the backward pass; Xception39 ignores it, as in JAX) and
+``train_raw_logits`` (raw train heads for the fused upsample+loss; JAX
+models/__init__.py:29-113).
 """
 
 import torch
@@ -32,8 +34,8 @@ _DILATED = dict(layer_strides=(1, 2, 1, 1), layer_dilations=(1, 1, 2, 4))
 
 
 def bisenet_r18(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
-                speed: bool = False, dtype=None,
-                remat: bool = False) -> BiSeNet:
+                speed: bool = False, dtype=None, remat: bool = False,
+                train_raw_logits: bool = False) -> BiSeNet:
     """BiSeNet-R18; ``speed`` is the real-time variant (/8 logits, aux mid
     128), models/__init__.py:70-78 of the JAX package."""
     return BiSeNet(
@@ -42,13 +44,13 @@ def bisenet_r18(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
         aux_mid=128 if speed else 256,
         main_mid=64,
         head_scales=(2, 1, 1) if speed else (16, 8, 8),
-        norm=norm, dtype=dtype,
+        train_raw_logits=train_raw_logits, norm=norm, dtype=dtype,
     )
 
 
 def bisenet_x39(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
-                speed: bool = False, dtype=None,
-                remat: bool = False) -> BiSeNet:
+                speed: bool = False, dtype=None, remat: bool = False,
+                train_raw_logits: bool = False) -> BiSeNet:
     """BiSeNet on Xception39 (stage outputs 64/128/256 channels); ``speed``
     is the real-time variant, models/__init__.py:96-106 of the JAX
     package, which ignores ``remat`` (the backbone is small)."""
@@ -60,12 +62,13 @@ def bisenet_x39(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
         aux_mid=128,
         main_mid=64,
         head_scales=(2, 1, 1) if speed else (16, 8, 8),
-        norm=norm, dtype=dtype,
+        train_raw_logits=train_raw_logits, norm=norm, dtype=dtype,
     )
 
 
 def bisenet_r101(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
-                 dtype=None, remat: bool = False) -> BiSeNet:
+                 dtype=None, remat: bool = False,
+                 train_raw_logits: bool = False) -> BiSeNet:
     """BiSeNet on the v1c deep-stem ResNet-101 with the standard strides
     (stage outputs 256/512/1024/2048), aux and main heads 256 wide
     (models/__init__.py:82-93 of the JAX package)."""
@@ -77,62 +80,72 @@ def bisenet_r101(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
         aux_mid=256,
         main_mid=256,
         head_scales=(16, 8, 8),
-        norm=norm, dtype=dtype,
+        train_raw_logits=train_raw_logits, norm=norm, dtype=dtype,
     )
 
 
 def fcn32s_r101(num_classes: int = 21, norm: NormFactory = BatchNorm2d,
-                dtype=None, remat: bool = False) -> FCN:
+                dtype=None, remat: bool = False,
+                train_raw_logits: bool = False) -> FCN:
     """FCN-32s on the v1c deep-stem ResNet-101 with the standard strides
     (models/__init__.py:28-33 of the JAX package)."""
     return FCN(num_classes, resnet101(norm=norm, deep_stem=True, dtype=dtype,
-                                      remat=remat), norm=norm, dtype=dtype)
+                                      remat=remat), norm=norm, dtype=dtype,
+               train_raw_logits=train_raw_logits)
 
 
 def pspnet_r50(num_classes: int = 150, norm: NormFactory = BatchNorm2d,
-               dtype=None, remat: bool = False) -> PSPNet:
+               dtype=None, remat: bool = False,
+               train_raw_logits: bool = False) -> PSPNet:
     """PSPNet on the v1c deep-stem ResNet-50 at output stride 8
     (models/__init__.py:36-41 of the JAX package)."""
     return PSPNet(num_classes, resnet50(norm=norm, deep_stem=True,
                                         dtype=dtype, remat=remat,
-                                        **_DILATED), norm=norm, dtype=dtype)
+                                        **_DILATED), norm=norm, dtype=dtype,
+                  train_raw_logits=train_raw_logits)
 
 
 def pspnet_r101(num_classes: int = 150, norm: NormFactory = BatchNorm2d,
-                dtype=None, remat: bool = False) -> PSPNet:
+                dtype=None, remat: bool = False,
+                train_raw_logits: bool = False) -> PSPNet:
     return PSPNet(num_classes, resnet101(norm=norm, deep_stem=True,
                                          dtype=dtype, remat=remat,
-                                         **_DILATED), norm=norm, dtype=dtype)
+                                         **_DILATED), norm=norm, dtype=dtype,
+                  train_raw_logits=train_raw_logits)
 
 
 def psanet_r50(num_classes: int = 150, norm: NormFactory = BatchNorm2d,
-               att_channels: int = 3600, dtype=None,
-               remat: bool = False) -> PSANet:
+               att_channels: int = 3600, dtype=None, remat: bool = False,
+               train_raw_logits: bool = False) -> PSANet:
     """PSANet on the v1c deep-stem ResNet-50 at output stride 8, 3600
     attention channels (the 60x60 features of a 480x480 crop;
     models/__init__.py:52-59 of the JAX package)."""
     return PSANet(num_classes, resnet50(norm=norm, deep_stem=True,
                                         dtype=dtype, remat=remat,
                                         **_DILATED),
-                  att_channels=att_channels, norm=norm, dtype=dtype)
+                  att_channels=att_channels, norm=norm, dtype=dtype,
+                  train_raw_logits=train_raw_logits)
 
 
 def psanet_r101(num_classes: int = 150, norm: NormFactory = BatchNorm2d,
-                att_channels: int = 3600, dtype=None,
-                remat: bool = False) -> PSANet:
+                att_channels: int = 3600, dtype=None, remat: bool = False,
+                train_raw_logits: bool = False) -> PSANet:
     return PSANet(num_classes, resnet101(norm=norm, deep_stem=True,
                                          dtype=dtype, remat=remat,
                                          **_DILATED),
-                  att_channels=att_channels, norm=norm, dtype=dtype)
+                  att_channels=att_channels, norm=norm, dtype=dtype,
+                  train_raw_logits=train_raw_logits)
 
 
 def dfn_r101(num_classes: int = 19, norm: NormFactory = BatchNorm2d,
-             dtype=None, remat: bool = False) -> DFN:
+             dtype=None, remat: bool = False,
+             train_raw_logits: bool = False) -> DFN:
     """DFN on the v1c deep-stem ResNet-101 with the standard strides (1, 2,
     2, 2) and no dilation (models/__init__.py:109-114 of the JAX
     package)."""
     return DFN(num_classes, resnet101(norm=norm, deep_stem=True, dtype=dtype,
-                                      remat=remat), norm=norm, dtype=dtype)
+                                      remat=remat), norm=norm, dtype=dtype,
+               train_raw_logits=train_raw_logits)
 
 
 MODEL_REGISTRY = {

@@ -7,9 +7,9 @@ convs, fused with the spatial path by a FeatureFusion module; three heads.
 Eval returns ``log_softmax`` of the main head (reference :111), NCHW.
 Train mode returns the three heads' logits, ``{"aux0", "aux1", "main"}``
 (head0 on refine0, head1 on refine1, head2 on the FFM), each upsampled by
-its head scale in float32 (JAX models/bisenet.py:163-181).  JAX's
-``train_raw_logits`` (raw heads for the fused upsample+loss) is not ported:
-that path is off for every family there (``FUSED_UPSAMPLE_LOSS_MODELS``).
+its head scale in float32 (JAX models/bisenet.py:163-181); with
+``train_raw_logits`` (JAX :101, :174) the three heads' raw logits, for the
+fused upsample+loss.
 Sizes are global (``ops.spatial.global_hw``) and the global context is
 ``ops.spatial.mean_hw``, so the same forward runs with the image height
 sharded over a space group.  ``dtype`` is the compute dtype of every
@@ -82,11 +82,13 @@ class BiSeNet(nn.Module):
                  stage_channels: Sequence[int] = (64, 128, 256, 512),
                  conv_channel: int = 128, aux_mid: int = 256,
                  main_mid: int = 64, head_scales: Sequence[int] = (16, 8, 8),
-                 norm: NormFactory = BatchNorm2d, dtype=None):
+                 norm: NormFactory = BatchNorm2d, dtype=None,
+                 train_raw_logits: bool = False):
         super().__init__()
         cc = conv_channel
         kw = dict(norm=norm, dtype=dtype)
         self.dtype = dtype
+        self.train_raw_logits = train_raw_logits
         self.head_scales = tuple(head_scales)
         self.spatial_path = SpatialPath(3, 128, **kw)
         self.backbone = backbone
@@ -108,7 +110,8 @@ class BiSeNet(nn.Module):
                 raw_logits: bool = False, spatial_out=None,
                 context_blocks=None):
         """NCHW normalized image -> NCHW main-head log-probs (eval), or the
-        dict of the three upsampled head logits (train).
+        dict of the three upsampled head logits (train; raw with
+        ``train_raw_logits``).
 
         stem_outs: optional (spatial_stem, backbone_stem, backbone_pooled)
         from the deploy-time fused stem (deploy/fused_stem.py), which runs
@@ -128,8 +131,8 @@ class BiSeNet(nn.Module):
                               or context_blocks is not None):
             raise NotImplementedError(
                 "stem_outs, raw_logits, spatial_out and context_blocks are "
-                "eval-only; raw train heads (JAX train_raw_logits) are not "
-                "ported (ROADMAP A8)")
+                "eval-only; raw train heads are the model's "
+                "train_raw_logits")
         sp_stem, bb_stem, bb_pooled = (stem_outs if stem_outs is not None
                                        else (None, None, None))
         if spatial_out is None:
@@ -152,9 +155,10 @@ class BiSeNet(nn.Module):
             refined.append(last_fm)
         fused = self.ffm(spatial_out, last_fm)
         if self.training:
-            return {"aux0": self.head0(refined[0]),
-                    "aux1": self.head1(refined[1]),
-                    "main": self.head2(fused)}
+            up = not self.train_raw_logits
+            return {"aux0": self.head0(refined[0], upsample=up),
+                    "aux1": self.head1(refined[1], upsample=up),
+                    "main": self.head2(fused, upsample=up)}
         main = self.head2(fused, upsample=not raw_logits)
         if raw_logits:
             return main

@@ -14,11 +14,11 @@ Eval returns the log_softmax of the last smooth head, NCHW float32 (:152;
 JAX ``models/dfn.py:111-114``); the three other smooth heads and the
 border branch are not computed then.  Train mode returns ``{"smooth": [4
 x (B, C, H, W)], "border": [4 x (B, 1, H, W)]}``, float32 (float64 for a
-float64 model), upsampled as in JAX.  JAX's ``train_raw_logits`` (raw
-smooth heads for the fused upsample+loss) is not ported: that path is off
-for every family there (``FUSED_UPSAMPLE_LOSS_MODELS``, JAX
-ops/losses.py:243).  The global-context CBR normalizes a (B, 512, 1, 1)
-tensor, n = B per channel in train mode, which the port's BN accepts.
+float64 model), upsampled as in JAX; with ``train_raw_logits`` (JAX
+:68, :101-102) the smooth heads are raw (/32, /16, /8, /4), for the fused
+upsample+loss, and the border heads stay upsampled.  The global-context
+CBR normalizes a (B, 512, 1, 1) tensor, n = B per channel in train mode,
+which the port's BN accepts.
 Submodule names are the flax names (``global_context``,
 ``smooth_pre_rrb{i}``, ``cab{i}``, ``smooth_aft_rrb{i}``,
 ``smooth_head{i}`` with ``rrb`` and ``conv``, ``border_pre_rrb{i}``,
@@ -55,9 +55,11 @@ class DFNHead(nn.Module):
         self.scale = scale
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, upsample: bool = True
+                ) -> torch.Tensor:
         return upsample_by_scale(
-            wide(run_in(self.conv, self.rrb(x), self.dtype)), self.scale)
+            wide(run_in(self.conv, self.rrb(x), self.dtype)),
+            self.scale if upsample else 1)
 
 
 STAGE_CHANNELS = (256, 512, 1024, 2048)  # the Bottleneck ResNet's stages
@@ -66,10 +68,12 @@ STAGE_CHANNELS = (256, 512, 1024, 2048)  # the Bottleneck ResNet's stages
 class DFN(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  smooth_inner: int = 512, border_inner: int = 21,
-                 norm: NormFactory = BatchNorm2d, dtype=None):
+                 norm: NormFactory = BatchNorm2d, dtype=None,
+                 train_raw_logits: bool = False):
         super().__init__()
         self.backbone = backbone
         self.dtype = dtype
+        self.train_raw_logits = train_raw_logits
         kw = dict(norm=norm, dtype=dtype)
         self.global_context = ConvBnRelu(STAGE_CHANNELS[-1], smooth_inner, 1,
                                          1, 0, **kw)
@@ -110,7 +114,9 @@ class DFN(nn.Module):
             fm = getattr(self, f"cab{i}")(fm, last_fm)
             fm = getattr(self, f"smooth_aft_rrb{i}")(fm)
             if self.training or i == 3:
-                smooth.append(getattr(self, f"smooth_head{i}")(fm))
+                smooth.append(getattr(self, f"smooth_head{i}")(
+                    fm, upsample=not (self.training
+                                      and self.train_raw_logits)))
             if i != 3:
                 last_fm = upsample_by_scale(fm, 2, self.dtype)
         if not self.training:

@@ -50,9 +50,11 @@ class FCNHead(nn.Module):
 class FCN(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  stage_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 norm: NormFactory = BatchNorm2d, dtype=None):
+                 norm: NormFactory = BatchNorm2d, dtype=None,
+                 train_raw_logits: bool = False):
         super().__init__()
         self.backbone = backbone
+        self.train_raw_logits = train_raw_logits
         self.head = FCNHead(stage_channels[-1], num_classes, norm=norm,
                             dtype=dtype)
         self.aux_head = FCNHead(stage_channels[-2], num_classes, norm=norm,
@@ -66,8 +68,11 @@ class FCN(nn.Module):
         ``x`` unused."""
         blocks = (context_blocks if context_blocks is not None
                   else self.backbone(x))
-        pred = upsample_by_scale(wide(self.head(blocks[-1])), 32)
+        main = self.head(blocks[-1])
         if not self.training:
-            return pred
-        return {"main": pred,
-                "aux": upsample_by_scale(wide(self.aux_head(blocks[-2])), 16)}
+            return upsample_by_scale(wide(main), 32)
+        aux = self.aux_head(blocks[-2])
+        if self.train_raw_logits:  # the fused upsample+loss's (JAX :77-78)
+            return {"main": main, "aux": aux}
+        return {"main": upsample_by_scale(wide(main), 32),
+                "aux": upsample_by_scale(wide(aux), 16)}

@@ -21,7 +21,9 @@ resize_linear`` over the last two axes.
 
 Eval returns the x8-upsampled float32 log-probs, NCHW (JAX :146-152);
 train mode ``{"main", "aux"}`` of them (JAX :153-164), with the conv6
-dropout (p 0.1, :121) and the aux head's drawn from the step's generator.
+dropout (p 0.1, :121) and the aux head's drawn from the step's generator;
+with ``train_raw_logits`` (JAX :140) the two heads' raw /8 logits, for the
+fused upsample+loss.
 The off-size fallback holds in train mode too.  ``dtype`` is the compute
 dtype of the backbone and the heads (JAX's).
 Submodule names are the flax names (``psa_layer.collect.reduction``,
@@ -142,9 +144,11 @@ class PSANet(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  att_channels: int = 3600,
                  stage_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 norm: NormFactory = BatchNorm2d, dtype=None):
+                 norm: NormFactory = BatchNorm2d, dtype=None,
+                 train_raw_logits: bool = False):
         super().__init__()
         self.backbone = backbone
+        self.train_raw_logits = train_raw_logits
         self.psa_layer = PointwiseSpatialAttention(
             stage_channels[-1], num_classes, att_channels, norm=norm,
             dtype=dtype)
@@ -159,7 +163,10 @@ class PSANet(nn.Module):
         body's stages here (deploy/int8_serve.py), with ``x`` unused."""
         blocks = (context_blocks if context_blocks is not None
                   else self.backbone(x))
-        psa = log_probs_x8(self.psa_layer(blocks[-1]))
+        psa = self.psa_layer(blocks[-1])
         if not self.training:
-            return psa
-        return {"main": psa, "aux": log_probs_x8(self.aux_layer(blocks[-2]))}
+            return log_probs_x8(psa)
+        aux = self.aux_layer(blocks[-2])
+        if self.train_raw_logits:
+            return {"main": psa, "aux": aux}
+        return {"main": log_probs_x8(psa), "aux": log_probs_x8(aux)}

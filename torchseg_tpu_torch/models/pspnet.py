@@ -8,14 +8,17 @@ upsamples the main logits x8 in float32 and returns their log_softmax,
 NCHW (JAX models/pspnet.py:107-109).  Train mode returns ``{"main",
 "aux"}``, each head upsampled x8 in float32 and log_softmaxed (JAX
 :110-117); the ``ce`` loss then takes a second log_softmax over them, the
-reference's quirk, kept.  Both heads' dropouts (``ops.dropout.Dropout``,
-p 0.1) draw from the step's generator in train mode and are the identity
-in eval.  Submodule names are the flax names (``psp_layer.ppm{i}_cbr``,
-``psp_layer.conv6_cbr``, ``psp_layer.conv6_out``, ``aux_layer.cbr``,
-``aux_layer.out``).  ``dtype`` is the compute dtype of the backbone and
-both heads (JAX's); the pyramid's resizes run in float32 and are rounded
-to the features' dtype (JAX models/pspnet.py:39-41), and the x8 upsample
-and log_softmax in float32.
+reference's quirk, kept.  With ``train_raw_logits`` (JAX :91) train mode
+returns the two heads' raw /8 logits instead, for the fused upsample+loss
+(``ops.losses.cross_entropy_with_ignore_upsampled``, which applies both
+log_softmaxes itself); eval is unchanged.  Both heads' dropouts
+(``ops.dropout.Dropout``, p 0.1) draw from the step's generator in train
+mode and are the identity in eval.  Submodule names are the flax names
+(``psp_layer.ppm{i}_cbr``, ``psp_layer.conv6_cbr``, ``psp_layer.conv6_out``,
+``aux_layer.cbr``, ``aux_layer.out``).  ``dtype`` is the compute dtype of
+the backbone and both heads (JAX's); the pyramid's resizes run in float32
+and are rounded to the features' dtype (JAX models/pspnet.py:39-41), and
+the x8 upsample and log_softmax in float32.
 """
 
 from typing import Sequence
@@ -82,9 +85,11 @@ class AuxHead(nn.Module):
 class PSPNet(nn.Module):
     def __init__(self, num_classes: int, backbone: nn.Module,
                  stage_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 norm: NormFactory = BatchNorm2d, dtype=None):
+                 norm: NormFactory = BatchNorm2d, dtype=None,
+                 train_raw_logits: bool = False):
         super().__init__()
         self.backbone = backbone
+        self.train_raw_logits = train_raw_logits
         self.psp_layer = PyramidPooling(stage_channels[-1], num_classes,
                                         norm=norm, dtype=dtype)
         self.aux_layer = AuxHead(stage_channels[-2], num_classes, norm=norm,
@@ -99,10 +104,13 @@ class PSPNet(nn.Module):
         (deploy/int8_serve.py), with ``x`` unused."""
         blocks = (context_blocks if context_blocks is not None
                   else self.backbone(x))
-        psp = log_probs_x8(self.psp_layer(blocks[-1]))
+        psp = self.psp_layer(blocks[-1])
         if not self.training:
-            return psp
-        return {"main": psp, "aux": log_probs_x8(self.aux_layer(blocks[-2]))}
+            return log_probs_x8(psp)
+        aux = self.aux_layer(blocks[-2])
+        if self.train_raw_logits:
+            return {"main": psp, "aux": aux}
+        return {"main": log_probs_x8(psp), "aux": log_probs_x8(aux)}
 
 
 def log_probs_x8(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """Host image kernels of the data pipeline (counterpart of
-torchseg_tpu/native/): ``augment.cpp``, built with g++ at first use into
-the git-ignored ``torchseg_tpu_torch/_build/`` (``ops.kernels._build.
-host_library``: hash-named, under the build lock) and bound with ctypes.
+torchseg_tpu/native/): ``augment.cpp`` and the JPEG decoder ``jpeg.cpp``,
+each built with g++ at first use into the git-ignored
+``torchseg_tpu_torch/_build/`` (``ops.kernels._build.host_library``:
+hash-named, under the build lock) and bound with ctypes.
 
 It is the port's only route for the uint8 resizes, the fused
-crop/normalize/pad and the PNG unfilter: the route JAX's ``SegTrainPre``
+crop/normalize/pad, the PNG unfilter, JPEG decoding (``decode_jpeg``: what
+``cv2.imread`` gives through libjpeg-turbo, bit for bit), and cv2's
+``warpAffine`` and ``GaussianBlur`` (``warp_affine``, ``gaussian_blur``,
+for the transforms that call them): the route JAX's ``SegTrainPre``
 takes wherever its library builds (``resize_bilinear``, within one code
 of cv2), and, for the JAX functions that call ``cv2.resize(...,
 INTER_LINEAR)`` (the transforms, the evaluator's scales and the speed
@@ -23,6 +27,7 @@ import numpy as np
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "augment.cpp")
+JPEG_SOURCE = os.path.join(os.path.dirname(SOURCE), "jpeg.cpp")
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,11 +51,31 @@ def lib() -> ctypes.CDLL:
                                    i, ctypes.c_float],
         "crop_pad_i32": [i32p, i, i, i32p, i, i, i, i, ctypes.c_int32],
         "png_unfilter": [u8p, i, i, i, u8p],
+        "warp_affine_u8": [u8p, i, i, i, u8p, i, i,
+                           np.ctypeslib.ndpointer(np.float64), i],
+        "gaussian_blur_u8": [u8p, i, i, i, u8p, i],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lb, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int if name == "png_unfilter" else None
+        fn.restype = (ctypes.c_int if name in ("png_unfilter",
+                                               "gaussian_blur_u8") else None)
+    return lb
+
+
+@functools.lru_cache(maxsize=None)
+def jpeg_lib() -> ctypes.CDLL:
+    """The built and loaded JPEG decoder (``jpeg.cpp``)."""
+    from ..ops.kernels._build import host_library
+
+    lb = ctypes.CDLL(host_library(JPEG_SOURCE))
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    buf, size = ctypes.c_char_p, ctypes.c_long
+    lb.jpeg_header.argtypes = [buf, size, np.ctypeslib.ndpointer(np.int32),
+                               ctypes.c_char_p, ctypes.c_int]
+    lb.jpeg_decode.argtypes = [buf, size, ctypes.c_int, u8p, ctypes.c_char_p,
+                               ctypes.c_int]
+    lb.jpeg_header.restype = lb.jpeg_decode.restype = ctypes.c_int
     return lb
 
 
@@ -181,4 +206,50 @@ def png_unfilter(raw: np.ndarray, rows: int, stride: int, bpp: int
     if bad:
         kind = raw[(bad - 1) * (stride + 1)]
         raise ValueError(f"unknown PNG filter type {kind} on row {bad - 1}")
+    return out
+
+
+def decode_jpeg(data: bytes, color: bool, path: str = "<bytes>"):
+    """JPEG bytes -> ((H, W, 3) BGR if ``color`` else (H, W) uint8, whether
+    libjpeg would have block-smoothed it): ``cv2.imdecode`` before any EXIF
+    orientation.  Raises ValueError naming ``path`` for what the decoder
+    refuses (see ``jpeg.cpp``)."""
+    lb = jpeg_lib()
+    err = ctypes.create_string_buffer(256)
+    info = np.zeros(3, np.int32)
+    if lb.jpeg_header(data, len(data), info, err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    h, w = int(info[0]), int(info[1])
+    out = np.empty((h, w, 3) if color else (h, w), np.uint8)
+    rc = lb.jpeg_decode(data, len(data), int(color), out, err, len(err))
+    if rc == 1:
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return out, rc == 2
+
+
+def warp_affine(img: np.ndarray, m, dsize, nearest: bool) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize, flags=INTER_NEAREST if nearest else
+    INTER_LINEAR)`` (BORDER_CONSTANT 0) for uint8 (H, W) or (H, W, 3)
+    images, bit for bit; ``dsize`` is cv2's (width, height)."""
+    img, h, w, c = _hwc(img)
+    if c not in (1, 3):
+        raise ValueError(f"warp_affine takes 1 or 3 channels, not {c}")
+    dw, dh = int(dsize[0]), int(dsize[1])
+    out = np.empty((dh, dw) if img.ndim == 2 else (dh, dw, c), np.uint8)
+    m = np.ascontiguousarray(np.asarray(m, np.float64).reshape(6))
+    lib().warp_affine_u8(img.reshape(h, w, c), h, w, c,
+                         out.reshape(dh, dw, c), dh, dw, m, int(nearest))
+    return out
+
+
+def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), 0)`` for uint8 (H, W[, C]) images
+    and k = 3, 5 or 7, bit for bit."""
+    img, h, w, c = _hwc(img)
+    if k not in (3, 5, 7):
+        raise ValueError(f"gaussian_blur takes k = 3, 5 or 7, not {k}")
+    out = np.empty_like(img)
+    if lib().gaussian_blur_u8(img.reshape(h, w, c), h, w, c,
+                              out.reshape(h, w, c), k):
+        raise MemoryError("gaussian_blur: no memory for the row pass")
     return out

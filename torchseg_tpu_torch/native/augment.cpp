@@ -6,7 +6,8 @@
 // arithmetic it keeps line for line, so that the port's data pipeline
 // gives the bits of JAX's native route; plus cv2's own INTER_LINEAR (the
 // route of the JAX functions that call cv2.resize) and the PNG scanline
-// unfilter that the port's PNG reader (data/image_io.py) runs.
+// unfilter that the port's PNG reader (data/image_io.py) runs, and cv2's
+// warpAffine and GaussianBlur for the transforms that call them.
 // OpenMP-parallel, GIL-free loops.
 //
 // Semantics:
@@ -18,6 +19,10 @@
 //   * normalize: /255 then (x - mean) / std   (img_utils.py:181-187)
 //   * crop+pad: fixed window with constant pad value (img_utils.py:24-39)
 //   * PNG unfilter: the five filter types of the PNG specification
+//   * cv2.warpAffine, uint8, INTER_LINEAR / INTER_NEAREST, BORDER_CONSTANT
+//     0: OpenCV 5's float32 kernels (see warp_affine_u8)
+//   * cv2.GaussianBlur((k, k), 0), uint8, k = 3, 5, 7, BORDER_REFLECT_101:
+//     OpenCV's bit-exact fixed-point route (see gaussian_blur_u8)
 
 #include <algorithm>
 #include <cmath>
@@ -249,6 +254,124 @@ int png_unfilter(const uint8_t* src, int rows, int stride, int bpp,
         return y + 1;
     }
   }
+  return 0;
+}
+
+// cv2.warpAffine(src, m, (dw, dh), flags, BORDER_CONSTANT, 0) for uint8
+// (h, w, c) images, m the forward 2x3 map in double.  OpenCV 5's kernels:
+// the map inverted in double (its formula), cast to float; the source
+// coordinate of pixel (x, y) in float32, in its SIMD loop (16 pixels a
+// step on this build) fma(x, M0, y * M1 + M2), in its scalar tail (the
+// last dw % 16 columns) fma(x, M0, y * M1) + M2; INTER_NEAREST reads
+// round-half-even(coordinate), INTER_LINEAR blends the four neighbours
+// (zero outside the image) as v0 = fma(a, p01 - p00, p00), v1 likewise,
+// fma(b, v1 - v0, v0), rounded half to even.  Contraction is off here:
+// every fused multiply-add is written out.
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+void warp_affine_u8(const uint8_t* src, int h, int w, int c, uint8_t* dst,
+                    int dh, int dw, const double* m, int nearest) {
+  double d = m[0] * m[4] - m[1] * m[3];
+  d = d != 0 ? 1. / d : 0;
+  double a11 = m[4] * d, a22 = m[0] * d;
+  double a12 = m[1] * -d, a21 = m[3] * -d;
+  double b1 = -a11 * m[2] - a12 * m[5];
+  double b2 = -a21 * m[2] - a22 * m[5];
+  const float M[6] = {(float)a11, (float)a12, (float)b1,
+                      (float)a21, (float)a22, (float)b2};
+  const int simd_end = dw - dw % 16;
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < dh; ++y) {
+    const float fy = (float)y;
+    const float mx = fy * M[1] + M[2], my = fy * M[4] + M[5];
+    const float tx = fy * M[1], ty = fy * M[4];
+    for (int x = 0; x < dw; ++x) {
+      const float fx = (float)x;
+      float sx, sy;
+      if (x < simd_end) {
+        sx = std::fmaf(fx, M[0], mx);
+        sy = std::fmaf(fx, M[3], my);
+      } else {
+        sx = std::fmaf(fx, M[0], tx) + M[2];
+        sy = std::fmaf(fx, M[3], ty) + M[5];
+      }
+      uint8_t* out = dst + ((size_t)y * dw + x) * c;
+      if (nearest) {
+        const long ix = std::lrint(sx), iy = std::lrint(sy);
+        const bool in = ix >= 0 && ix < w && iy >= 0 && iy < h;
+        for (int k = 0; k < c; ++k)
+          out[k] = in ? src[((size_t)iy * w + ix) * c + k] : 0;
+        continue;
+      }
+      const float flx = std::floor(sx), fly = std::floor(sy);
+      const long ix = (long)flx, iy = (long)fly;
+      const float a = sx - flx, b = sy - fly;
+      for (int k = 0; k < c; ++k) {
+        float p[4];
+        for (int j = 0; j < 4; ++j) {
+          const long yy = iy + (j >> 1), xx = ix + (j & 1);
+          p[j] = (yy >= 0 && yy < h && xx >= 0 && xx < w)
+                     ? (float)src[((size_t)yy * w + xx) * c + k]
+                     : 0.f;
+        }
+        const float v0 = std::fmaf(a, p[1] - p[0], p[0]);
+        const float v1 = std::fmaf(a, p[3] - p[2], p[2]);
+        const long v = std::lrint(std::fmaf(b, v1 - v0, v0));
+        out[k] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+      }
+    }
+  }
+}
+#pragma GCC pop_options
+
+// OpenCV's borderInterpolate for BORDER_REFLECT_101 (a one-pixel axis reads
+// its pixel)
+static inline int reflect101(int p, int n) {
+  if (n == 1) return 0;
+  while (p < 0 || p >= n) p = p < 0 ? -p : 2 * n - 2 - p;
+  return p;
+}
+
+// cv2.GaussianBlur(src, (k, k), 0) for uint8 (h, w, c), k = 3, 5 or 7,
+// BORDER_REFLECT_101: OpenCV's fixed-point route with its small-kernel
+// table at sigma 0 (1/4 1/2 1/4; 1/16 4/16 6/16 4/16 1/16; 1/32 3.5/32
+// 7/32 9/32 7/32 3.5/32 1/32), every weight a whole number of 1/256: the
+// row pass sums exactly in 1/256 units, the column pass in 1/65536 units,
+// the result rounded half up.  Returns 1 for another k.
+int gaussian_blur_u8(const uint8_t* src, int h, int w, int c, uint8_t* dst,
+                     int k) {
+  static const int k3[3] = {64, 128, 64};
+  static const int k5[5] = {16, 64, 96, 64, 16};
+  static const int k7[7] = {8, 28, 56, 72, 56, 28, 8};
+  const int* kt = k == 3 ? k3 : k == 5 ? k5 : k == 7 ? k7 : nullptr;
+  if (!kt) return 1;
+  const int r = k / 2;
+  const size_t row = (size_t)w * c;
+  uint32_t* tmp = (uint32_t*)std::malloc(sizeof(uint32_t) * h * row);
+  if (!tmp) return 2;
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* in = src + y * row;
+    for (int x = 0; x < w; ++x)
+      for (int ch = 0; ch < c; ++ch) {
+        uint32_t s = 0;
+        for (int j = 0; j < k; ++j)
+          s += (uint32_t)kt[j] * in[(size_t)reflect101(x + j - r, w) * c + ch];
+        tmp[y * row + (size_t)x * c + ch] = s;
+      }
+  }
+#pragma omp parallel for schedule(static)
+  for (int y = 0; y < h; ++y) {
+    uint8_t* out = dst + y * row;
+    for (size_t i = 0; i < row; ++i) {
+      uint32_t s = 0;
+      for (int j = 0; j < k; ++j)
+        s += (uint32_t)kt[j] * tmp[(size_t)reflect101(y + j - r, h) * row + i];
+      const uint32_t v = (s + 32768) >> 16;
+      out[i] = (uint8_t)(v > 255 ? 255 : v);
+    }
+  }
+  std::free(tmp);
   return 0;
 }
 

@@ -8,9 +8,16 @@ smallest probability.  (``torch.kthvalue`` gives the same value, but on
 CUDA it reduces a single slice in one block: 10 ms per call on 2M pixels
 on an H100, against well under 1 ms for the sort.)
 The histogram approximation (``approx_threshold``) is a TPU knob and is not
-ported.  Ported so far: the losses BiSeNet and DFN train with (CE with
-ignore, OHEM, DFN's border focal loss); the upsampled (fused) variants are
-not ported, that path being off for every family in JAX (ROADMAP A8).
+ported.  The losses: CE with ignore, OHEM, DFN's border focal loss, and
+the fused upsample+loss variants of the first two
+(``cross_entropy_with_ignore_upsampled``,
+``prob_ohem_cross_entropy_upsampled``; JAX :228-369), which take a raw
+head (the models' ``train_raw_logits``) and never hold its
+full-resolution scores: the align-corners row pass over the whole head in
+float32, then row tiles of the column pass, log-softmax and GT gather
+under ``torch.utils.checkpoint``, recomputed in the backward.  Whether an
+experiment trains through them is ``FUSED_UPSAMPLE_LOSS`` (the
+experiments registry's ``_use_fused_head_loss``).
 
 Under a space context (``ops.spatial``: the image height sharded over a
 dp x sp group of ranks) the scores and labels are this rank's pixels of
@@ -28,7 +35,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torch.utils.checkpoint import checkpoint
+
 from . import spatial, wide
+from .resize import _resize_whole, resize_rows_align_corners
 
 # Cityscapes 19-class weights used by ProbOhemCrossEntropy2d(use_weight=True)
 # (reference loss_opr.py:57-60).
@@ -134,6 +144,111 @@ def _global_kth(space, gt_prob, valid, min_kept):
     buf[rank, :mine.numel()] = mine
     space.all_reduce(buf, space.full_group, "loss")
     return counts[1], torch.sort(buf.reshape(-1)).values[k - 1]
+
+
+# The switch of the fused upsample+loss training path (raw train heads; the
+# loss owns the x-scale upsample, row-tiled), JAX :228-243:
+#   None  -> the per-family defaults, FUSED_UPSAMPLE_LOSS_MODELS
+#   True  -> on for every upsample-then-loss experiment (an A/B arm)
+#   False -> off (an A/B arm)
+# tools/train_speed.py --fused-loss / --no-fused-loss set the forced arms.
+FUSED_UPSAMPLE_LOSS = None
+
+# Model-name prefixes that train fused by default: none, as in JAX, where
+# the path measured slower on every family; the card's own A/B is in
+# PERF.md.
+FUSED_UPSAMPLE_LOSS_MODELS: tuple = ()
+
+
+def _tile_gt_logp(zt, lt, ignore_label, pre_log_softmax):
+    """The GT-class log-probs (B, rt, OW) of one row tile: the column pass
+    of the rows ``zt`` (B, C, rt, w) to the labels' width, (an extra
+    log-softmax,) log-softmax and the gather at the labels ``lt`` (B, rt,
+    OW)."""
+    s = _resize_whole(zt, tuple(lt.shape[1:]))
+    if pre_log_softmax:
+        s = torch.log_softmax(s, dim=1)
+    safe = torch.where(lt != ignore_label, lt, torch.zeros_like(lt)).long()
+    return torch.log_softmax(s, dim=1).gather(1, safe[:, None]).squeeze(1)
+
+
+def _upsampled_gt_logp(scores, labels, scale, ignore_label, row_tile,
+                       pre_log_softmax=False):
+    """Per-pixel GT-class log-prob of the x``scale`` align-corners upsample
+    of the raw head ``scores`` (B, C, h, w), without its full-resolution
+    scores (JAX :246-294).  The rows upsample first, over the whole head in
+    float32 (float64 stays), through ``ops.resize``'s route (under a space
+    context this rank's rows); then each tile of ``row_tile`` rows (shrunk
+    until it divides the rows) gets the column pass (the same route: the
+    resizes' forward, JAX's matrices in the backward),
+    ``pre_log_softmax``'s extra log-softmax (the PSPNet/PSANet quirk),
+    log-softmax and the gather, under ``checkpoint``, so no tile's scores
+    stay alive for the backward.  Returns the flat (B * rows * OW,)
+    log-probs in the labels' order (ignored pixels read class 0), the
+    valid mask and the labels with ignored pixels set to 0, flat, as
+    ``_gt_log_prob`` gives them."""
+    scores = wide(scores)
+    h, w = spatial.global_hw(scores)
+    oh, ow = h * scale, w * scale
+    z = resize_rows_align_corners(scores, (oh, ow))  # (B, C, rows, w)
+    rows = z.shape[-2]
+    if tuple(labels.shape[1:]) != (rows, ow):
+        raise ValueError(f"labels {tuple(labels.shape)} do not match a x"
+                         f"{scale} upsample of {tuple(scores.shape)} "
+                         f"({rows} rows of {ow})")
+    rt = min(row_tile, rows)
+    while rows % rt:
+        rt -= 1
+    tiles = [checkpoint(_tile_gt_logp, z[:, :, r:r + rt], labels[:, r:r + rt],
+                        ignore_label, pre_log_softmax,
+                        use_reentrant=False, preserve_rng_state=False)
+             for r in range(0, rows, rt)]
+    valid = labels != ignore_label
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    return (torch.cat(tiles, dim=1).reshape(-1), valid.reshape(-1),
+            safe.reshape(-1))
+
+
+def cross_entropy_with_ignore_upsampled(
+        scores: torch.Tensor, labels: torch.Tensor, scale: int,
+        ignore_label: int, class_weights: Optional[np.ndarray] = None,
+        pre_log_softmax: bool = False, row_tile: int = 128):
+    """``cross_entropy_with_ignore(upsample_by_scale(scores, scale))`` of a
+    raw head without its full-resolution scores (JAX :296-332), equal up
+    to the association of the sums.  ``pre_log_softmax``: the PSPNet and
+    PSANet train graph's log-softmax before the loss's own (their
+    materialized heads are log-probs)."""
+    if scale == 1:
+        if pre_log_softmax:
+            scores = torch.log_softmax(wide(scores), dim=1)
+        return cross_entropy_with_ignore(scores, labels, ignore_label,
+                                         class_weights=class_weights)
+    gt_logp, valid, safe = _upsampled_gt_logp(
+        scores, labels, scale, ignore_label, row_tile,
+        pre_log_softmax=pre_log_softmax)
+    return _weighted_mean(-gt_logp, valid, safe, class_weights)
+
+
+def prob_ohem_cross_entropy_upsampled(
+        scores: torch.Tensor, labels: torch.Tensor, scale: int,
+        ignore_label: int, thresh: float = 0.7, min_kept: int = 256,
+        class_weights: Optional[np.ndarray] = None,
+        approx_threshold: bool = False, row_tile: int = 128):
+    """OHEM CE of the x``scale`` align-corners upsample of a raw head
+    without its full-resolution scores (JAX :335-369): BiSeNet's train
+    heads; the kept set and mean of ``prob_ohem_cross_entropy`` through
+    the same ``_ohem_tail``."""
+    if scale == 1:
+        return prob_ohem_cross_entropy(
+            scores, labels, ignore_label, thresh=thresh, min_kept=min_kept,
+            class_weights=class_weights, approx_threshold=approx_threshold)
+    if approx_threshold:
+        raise NotImplementedError(
+            "the histogram OHEM threshold (ohem_approx) is a TPU knob and is "
+            "not ported; the exact threshold is the default")
+    gt_logp, valid, safe = _upsampled_gt_logp(scores, labels, scale,
+                                              ignore_label, row_tile)
+    return _ohem_tail(gt_logp, valid, safe, thresh, min_kept, class_weights)
 
 
 def sigmoid_focal_loss_border(pred: torch.Tensor, target: torch.Tensor,

@@ -156,6 +156,28 @@ def _resize_sharded(space, x: torch.Tensor, out_hw,
     return _ResizeRowsAlignCorners.apply(x, out_hw, r0, r1)
 
 
+def resize_rows_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """The height pass of the align-corners resize of NCHW ``x`` to the
+    global size ``out_hw``: (B, C, rows, W), ``x``'s own width, in its
+    precision (the fused upsample+loss's row pass; ``ops.losses``).  Under
+    a space context the rows are this rank's band of the sharded level of
+    size ``out_hw`` (a sharded input gathered first), computed as
+    ``resize_bilinear_align_corners`` computes them; else all of them."""
+    oh, w = int(out_hw[0]), x.shape[-1]
+    space = spatial.active()
+    if space is None:
+        return _resize_whole(x, (oh, w))
+    level = space.level_of(x)
+    if level is not None:
+        x = space.gather(x, level)
+    out = space.level_for_hw(oh, int(out_hw[1]))
+    if out is None:
+        return _resize_whole(x, (oh, w))
+    r0, r1 = space.rows(out)
+    space.counts["resize_rows"] += 1
+    return _ResizeRowsAlignCorners.apply(x, (oh, w), r0, r1)
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) float64 align-corners weights as ``F.interpolate``

@@ -13,11 +13,14 @@ CUDA events (the host clock on the CPU); the result is the minimum over
 the repetitions of the mean step.  ``--memory`` adds the peak device
 memory of the timed steps (``torch.cuda.max_memory_allocated``);
 ``--top-ops N`` the top device kernels of one more step
-(``tools/profile.py``).
+(``tools/profile.py``).  ``--fused-loss`` / ``--no-fused-loss`` force the
+fused upsample+loss path on or off (``ops.losses.FUSED_UPSAMPLE_LOSS``,
+as JAX's tool does, for this run only; the default is the per-family
+setting, off for every family): the model's raw train heads and the
+row-tiled loss against the upsampled heads and the materialized loss.
 
-Refused: ``--fused-loss`` (ROADMAP A8: the fused upsample+loss path, off
-for every family, JAX ``losses.py:243``) and ``--memory-only`` (XLA's
-compile-time memory analysis has no eager counterpart).
+Refused: ``--memory-only`` (XLA's compile-time memory analysis has no
+eager counterpart).
 
 Usage: python -m torchseg_tpu_torch.tools.train_speed \\
            -e cityscapes.bisenet.R18 --crop 512 512 --batch-size 8 \\
@@ -48,8 +51,8 @@ def build_argparser():
                    help="print the top-N device kernels of one step")
     p.add_argument("--fused-loss", dest="fused_loss", action="store_true",
                    default=None,
-                   help="the fused upsample+loss path (not ported: "
-                        "ROADMAP A8)")
+                   help="train through the fused upsample+loss path (raw "
+                        "heads, row-tiled loss)")
     p.add_argument("--no-fused-loss", dest="fused_loss",
                    action="store_false")
     p.add_argument("--memory", action="store_true",
@@ -63,17 +66,28 @@ def build_argparser():
 
 def main(argv=None):
     """Time the step; returns {"ms_per_step", "img_per_s",
-    "peak_hbm_gib"} (the peak None without ``--memory`` or a card)."""
+    "peak_hbm_gib", "first_loss"} (the peak None without ``--memory`` or
+    a card; the loss of the warm-up step, the first on the seeded weights
+    and batch)."""
     args = build_argparser().parse_args(argv)
-    if args.fused_loss:
-        raise NotImplementedError(
-            "--fused-loss is not ported (ROADMAP A8)")
     if args.memory_only:
         raise NotImplementedError(
             "--memory-only is XLA's compile-time memory analysis, which "
             "eager PyTorch has no counterpart of: use --memory")
+    from ..ops import losses
+
+    saved = losses.FUSED_UPSAMPLE_LOSS
+    if args.fused_loss is not None:
+        losses.FUSED_UPSAMPLE_LOSS = args.fused_loss
+    try:
+        return _run(args)
+    finally:
+        losses.FUSED_UPSAMPLE_LOSS = saved
+
+
+def _run(args):
     from ..entry import train_entry
-    from ..experiments.registry import get_experiment
+    from ..experiments.registry import _use_fused_head_loss, get_experiment
 
     cfg = get_experiment(args.experiment)
     crop = tuple(args.crop) if args.crop else (cfg.image_height,
@@ -85,8 +99,8 @@ def main(argv=None):
         args.experiment, dev, crop, batch,
         dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat)
     t0 = time.perf_counter()
-    float(trainer.train_step(data)[0])
-    print(f"first step {time.perf_counter() - t0:.1f}s")
+    first_loss = float(trainer.train_step(data)[0])
+    print(f"first step {time.perf_counter() - t0:.1f}s, loss {first_loss!r}")
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -118,11 +132,11 @@ def main(argv=None):
     remat = getattr(trainer.model.backbone, "remat", False)
     print(f"{args.experiment} bs={batch} {crop[0]}x{crop[1]} "
           f"{'bf16' if args.bf16 else 'f32'}{' remat' if remat else ''}"
-          f" on 1 dev: "
+          f"{' fused-loss' if _use_fused_head_loss(cfg) else ''} on 1 dev: "
           f"{dt * 1000:.1f} ms/step, {batch / dt:.1f} img/s"
           + (f", peak device memory {peak:.2f} GiB" if peak else ""))
     return {"ms_per_step": dt * 1000, "img_per_s": batch / dt,
-            "peak_hbm_gib": peak}
+            "peak_hbm_gib": peak, "first_loss": first_loss}
 
 
 if __name__ == "__main__":
