@@ -35,7 +35,8 @@ script
      kernel wrapper's launches over exactly one served forward (stem_pool_i8
      1, conv3x3s2_i8 2, l1_stage_i8 1, down_stage_i8 2 (stages 2 and 3),
      down_block_i8 1, res_block_i8 1, cbr_i8 7 (sp3 and the decoder's six
-     convs), K7 0) and checks that the forward runs no float64 conv (no
+     convs), K7, K14, sep_i8, xblock_i8 0) and checks that the forward runs
+     no float64 conv (no
      plain version); lists the device kernels of the forwards
      (torch.profiler) with their device time, and checks that the int8
      convs are exactly MAIN_PATH_CONVS (no CUDA-core conv_i8_kernel; K5's
@@ -330,6 +331,26 @@ script
      with ``--memory`` for each of FUSED_AB (float32, TF32 off): the first
      step's losses (same weights and batch) within FUSED_LOSS_RTOL, equal
      K8/K9 launch counts, each arm's ms a step and peak memory logged.
+  23. the last int8-through serving kinds (``a4_phase``, run after the X39
+     path): X39.speed int8-through at 768x1536 through ``serve_entry``
+     (JAX's default, the int8 decoder; the 8-channel backbone stem padded
+     to 16): one forward launches K1 once, K2 twice, cbr_i8 7 times, K14
+     (``dwconv3x3_i8``) 51 times (48 separables, 3 projections), sep_i8 32
+     and xblock_i8 16 times (X39_LAUNCHES) and nothing else, and runs no
+     float64 conv; labels (1, 96, 192) in [0, 19); every K14, sep_i8 and
+     xblock_i8 call of one forward bit-exact against its plain version on
+     the recorded inputs (every separable pointwise launch: modes 0, 1 and
+     the projection's mode 4); K1 at X39's width within one code on <= 1e-3
+     of codes; card vs CPU labels at 256x512 >= A4_AGREE; the forward
+     timed (median, p90, enqueue) and profiled (device ms, kernels, idle
+     share); K14's row (one forward's 51 calls against the plain version,
+     cuDNN's float32 depthwise conv + requant as the library yardstick,
+     the bound by their bytes) and sep_i8's and xblock_i8's; then X39.speed
+     and R18.speed (1024x2048) with ``decoder="bf16"``: launches, labels,
+     the forward timed and profiled, the X39 body's last block's float32
+     values and K6's float32 route bit-equal to their plain versions (K6's
+     row); then ``cityscapes.bisenet.X39`` with ``argmax="tiled"``: K7 once,
+     card vs CPU labels at 256x512 >= A4_AGREE.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -998,7 +1019,8 @@ def main():
                 "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
                 "fused_scale_bias_act": 0, "stem_conv7x7_s2": 0,
                 "conv_i8_affine": 0, "sigmoid_focal_loss_fwd": 0,
-                "sigmoid_focal_loss_bwd": 0}
+                "sigmoid_focal_loss_bwd": 0, "dwconv3x3_i8": 0, "sep_i8": 0,
+                "xblock_i8": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
@@ -1322,6 +1344,7 @@ def main():
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     rows += x39_phase(dev, all_kernels, reset_all)
+    rows += a4_phase(dev, all_kernels, reset_all)
     rows += psp_phase(dev, all_kernels, reset_all)
     rows += families_phase(dev, all_kernels, reset_all)
     rows += train_phase(dev, all_kernels, reset_all)
@@ -5252,6 +5275,376 @@ def jpeg_fused_phase(dev, all_kernels, reset_all):
         fail("the JPEG and fused-loss phase imported cv2")
     log(f"JPEG and fused-loss phase: {time.perf_counter() - phase_t0:.1f} s; "
         f"cv2 was not imported")
+
+
+# ----------------------------------------------------------------------
+# item 23: the last int8-through serving kinds (the X39 int8 body, the
+# classic-stem bf16 decoder)
+# ----------------------------------------------------------------------
+
+X39_EXPERIMENT = "cityscapes.bisenet.X39.speed"
+X39_FULL_EXPERIMENT = "cityscapes.bisenet.X39"
+R18_SPEED_EXPERIMENT = "cityscapes.bisenet.R18.speed"
+A4_ROUNDS = 10  # 40 timed forwards a graph
+A4_AGREE = 0.99  # card vs CPU labels, the int8 decoder on both
+# one X39 forward: K1, K2 twice (sp1, sp2), sp3 and the int8 decoder's six
+# convs on cbr_i8, then 16 Xception blocks: K14 before each of the 48
+# separables and the 3 projections, sep1's and sep2's 1x1 on sep_i8 (32),
+# sep3's with the shortcut on xblock_i8 (16)
+X39_LAUNCHES = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "cbr_i8": 7,
+                "dwconv3x3_i8": 51, "sep_i8": 32, "xblock_i8": 16}
+# the bf16 decoder: sp3 alone on cbr_i8 (float32 out), the decoder in bf16
+X39_BF16_LAUNCHES = dict(X39_LAUNCHES, cbr_i8=1)
+R18_BF16_LAUNCHES = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "l1_stage_i8": 1,
+                     "down_stage_i8": 2, "down_block_i8": 1,
+                     "res_block_i8": 1, "cbr_i8": 1}
+XLA_DW = "torchseg_tpu/deploy/int8_serve.py:961 (XLA, no TPU kernel)"
+XLA_SEP = "torchseg_tpu/deploy/int8_serve.py:971 (XLA, no TPU kernel)"
+XLA_XBLOCK = "torchseg_tpu/deploy/int8_serve.py:986 (XLA, no TPU kernel)"
+
+
+class CallSpy:
+    """A kernel wrapper that records each call's arguments (positional,
+    then keyword values) and runs it; its attributes are the wrapper's, so
+    the wrapper's own ``launches += 1`` through its module's global name
+    still counts on the wrapper."""
+
+    def __init__(self, fn, calls):
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "calls", calls)
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append(args + tuple(kwargs.values()))
+        return self.fn(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+
+@contextlib.contextmanager
+def record_x39_calls(i8, K):
+    """Collect the arguments of every K14, sep_i8 and xblock_i8 call (and
+    let them run) while the context is open: (dw calls, sep calls, block
+    calls).  sep_i8 and xblock_i8 call K14 and sep_i8 through the kernel
+    module's globals, so those spies sit there."""
+    fed = ([], [], [])
+    saved = (K.dwconv3x3_i8, K.sep_i8, i8.xblock_i8)
+    K.dwconv3x3_i8, K.sep_i8, i8.xblock_i8 = (
+        CallSpy(fn, calls) for fn, calls in zip(saved, fed))
+    try:
+        yield fed
+    finally:
+        K.dwconv3x3_i8, K.sep_i8, i8.xblock_i8 = saved
+
+
+def exact_calls(name, kern, plain, calls):
+    """Kernel against plain version on every recorded call, bit for bit."""
+    for args in calls:
+        g, r = kern(*args), plain(*args)
+        if g.dtype != r.dtype or not torch.equal(g, r.contiguous()):
+            fail(f"{name} {tuple(args[0].shape)} differs from its plain "
+                 f"version on {int((g != r).sum())} of {r.numel()} elements")
+
+
+def check_launches(tag, got, launches):
+    want = dict.fromkeys(got, 0) | launches
+    if got != want:
+        fail(f"{tag}: launches {got}, expected {want}")
+
+
+def served_forward(tag, infer, pkg, xss, all_kernels, reset_all, launches,
+                   hw, num_classes):
+    """One forward's launches (``launches``, the rest 0), the labels of every
+    image, the forward timed (median, p90, enqueue) and profiled (device
+    ms, kernels a forward, idle share); returns its summary."""
+    infer(pkg, xss[0])  # warm-up: cuDNN plans for the float glue
+    torch.cuda.synchronize()
+    reset_all()
+    infer(pkg, xss[0])
+    torch.cuda.synchronize()
+    got = launch_counts(all_kernels)
+    check_launches(tag, got, launches)
+    outs = [infer(pkg, x) for x in xss]
+    for y in outs:
+        check_labels(tag, y, hw, num_classes)
+    inputs = [(pkg, x) for x in xss]
+    med, p90, mean_ms = forward_ms(infer, inputs, A4_ROUNDS)
+    enq = enqueue_ms(infer, inputs)
+    busy, n_kern, top = device_time(infer, inputs)
+    idle = max(0.0, 1 - busy / mean_ms)
+    log(f"{tag}: launches in one forward {launches} (the rest 0); labels "
+        f"{tuple(outs[0].shape)}, distinct labels per image "
+        f"{[int(y.unique().numel()) for y in outs]}; forward "
+        f"({len(xss)} distinct images, {A4_ROUNDS * len(xss)} forwards) "
+        f"median {med:.4f} ms, p90 {p90:.4f} ms, mean {mean_ms:.4f} ms; "
+        f"enqueue {enq:.4f} ms; device {busy:.4f} ms a forward in {n_kern} "
+        f"kernels (profiler), idle {idle:.3f}")
+    for ms, calls, key in top:
+        log(f"  device {ms:9.4f} ms per forward, {calls:4d} calls: {key}")
+    return {"median": med, "p90": p90, "mean": mean_ms, "enqueue": enq,
+            "busy": busy, "kernels": n_kern, "idle": idle, "launches": got}
+
+
+def dw_row(fed_dw, launches, K):
+    """K14's row over one forward's calls: the kernel, its plain version and
+    cuDNN's float32 depthwise conv of the codes plus the requant (exact:
+    9 x 127^2 < 2^24) each timed per call and summed; the bound by the
+    calls' bytes and their int8 operations."""
+    import torch.nn.functional as F
+
+    def cudnn_dw(x, w, dm, stride):
+        y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                     w.permute(3, 2, 0, 1).float(), stride=stride,
+                     padding=1, groups=x.shape[3])
+        return K.requant(y.permute(0, 2, 3, 1) * dm)
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        exact_calls("cuDNN's depthwise yardstick", K.dwconv3x3_i8, cudnn_dw,
+                    fed_dw)
+        lib_ms = sum(cuda_ms(cudnn_dw, [a], reps=5) for a in fed_dw)
+    ms = sum(cuda_ms(K.dwconv3x3_i8, [a], reps=5) for a in fed_dw)
+    plain_ms = sum(cuda_ms(K.dwconv3x3_i8_plain, [a]) for a in fed_dw)
+    n_bytes = ops = 0
+    for a in fed_dw:
+        out = K.dwconv3x3_i8(*a)
+        n_bytes += nbytes(a[:3], out)
+        ops += 2 * 9 * out.numel()
+    b_ms, b_by = bound(n_bytes, ops, "int8")
+    shapes = sorted({(tuple(a[0].shape[1:]), a[3]) for a in fed_dw})
+    log(f"dwconv3x3_i8 (K14), the {len(fed_dw)} calls of one X39 forward "
+        f"(shapes and strides {shapes}): kernel {ms:.4f} ms (wrapper "
+        f"included), plain float64 {plain_ms:.4f} ms, cuDNN float32 "
+        f"depthwise + requant {lib_ms:.4f} ms; {n_bytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.4f} G int8 operations, bound {b_ms:.5f} ms ({b_by}) "
+        f"= {100 * b_ms / ms:.2f} %")
+    return {"name": "dwconv3x3_i8", "route": "cuda", "source": SRC,
+            "replaces": XLA_DW, "launches": launches, "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def sep_work(x, e, out):
+    """(bytes, int8 operations) of one separable: the input, the depthwise
+    and pointwise operands and the output once; its 3x3 depthwise and 1x1
+    pointwise at the output's size."""
+    hw = out.shape[1] * out.shape[2]
+    cin, cout = e["w"].shape[2], e["w"].shape[3]
+    return nbytes(x, e, out), 2 * hw * (9 * cin + cin * cout)
+
+
+def x39_pointwise_rows(fed_sep, fed_block, launches, K):
+    """Rows of sep_i8's and xblock_i8's launches over one forward's calls
+    (each against its plain version, timed per call and summed), their
+    bounds by the calls' bytes and int8 operations."""
+    rows = []
+    for name, kern, plain, calls, replaces in (
+            ("sep_i8", K.sep_i8, K.apply_sep, fed_sep, XLA_SEP),
+            ("xblock_i8", K.xblock_i8, K.apply_xblock, fed_block,
+             XLA_XBLOCK)):
+        ms = sum(cuda_ms(kern, [a], reps=3) for a in calls)
+        plain_ms = sum(cuda_ms(plain, [a]) for a in calls)
+        n_bytes = ops = 0
+        for a in calls:
+            out = kern(*a)
+            if name == "sep_i8":
+                b, o = sep_work(a[0], a[1], out)
+            else:
+                seps = [a[1][k] for k in ("sep1", "sep2", "sep3", "proj")
+                        if k in a[1]]
+                b = nbytes(a[0], seps, out)
+                o = sum(sep_work(a[0], s, out)[1] for s in seps)
+            n_bytes, ops = n_bytes + b, ops + o
+        b_ms, b_by = bound(n_bytes, ops, "int8")
+        log(f"{name}, the {len(calls)} calls of one X39 forward (K14 "
+            f"included): {ms:.4f} ms (wrappers included), plain float64 "
+            f"{plain_ms:.4f} ms; {n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+            f"int8 operations, bound {b_ms:.5f} ms ({b_by}) = "
+            f"{100 * b_ms / ms:.2f} %")
+        rows.append({"name": f"{name}:x39", "route": "cuda", "source": SRC,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    return rows
+
+
+def a4_phase(dev, all_kernels, reset_all):
+    """Item 23 of the module docstring; returns the kernels line's rows:
+    K14, X39's sep_i8 and xblock_i8 launches, and K6's float route."""
+    from torchseg_tpu_torch.deploy import int8_serve as i8
+    from torchseg_tpu_torch.entry import serve_entry
+    from torchseg_tpu_torch.experiments.registry import (
+        build_model,
+        get_experiment,
+    )
+    from torchseg_tpu_torch.models import init_weights
+    from torchseg_tpu_torch.ops.kernels import int8_serve_kernels as K
+
+    phase_t0 = time.perf_counter()
+    cfg = get_experiment(X39_EXPERIMENT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer, (pkg, _) = serve_entry(X39_EXPERIMENT, image_hw=X39_HW,
+                                  device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    images = [rng.integers(0, 256, (1, *X39_HW, 3), dtype=np.uint8)
+              for _ in range(N_IMAGES)]
+    xss = [i8.prepare_s2d_input_u8(u, image_mean=cfg.image_mean, device=dev)
+           for u in images]
+    hw8 = (X39_HW[0] // 8, X39_HW[1] // 8)
+    log(f"X39 int8-through ({X39_EXPERIMENT}, {X39_HW[0]}x{X39_HW[1]}, "
+        f"seeded weights, int8 decoder): built in {build_s:.2f} s; stem "
+        f"{tuple(pkg['stem']['wf'].shape)} (64 SpatialPath + 8 Xception "
+        f"channels padded to 16)")
+    x39 = served_forward("X39 int8-through", infer, pkg, xss, all_kernels,
+                         reset_all, X39_LAUNCHES, hw8, cfg.num_classes)
+    with count_float64_convs(K) as f64:
+        infer(pkg, xss[1])
+        torch.cuda.synchronize()
+    if f64:
+        fail(f"X39 int8-through: a served forward ran float64 convs {f64}")
+
+    # every K14, sep_i8 and xblock_i8 call of one forward against its
+    # plain version on the recorded inputs; K1 at X39's width
+    with record_x39_calls(i8, K) as (fed_dw, fed_sep, fed_block), \
+            torch.inference_mode():
+        infer(pkg, xss[0])
+    if (len(fed_dw), len(fed_sep), len(fed_block)) != (51, 32, 16):
+        fail(f"X39 forward: {len(fed_dw)} K14, {len(fed_sep)} sep_i8 and "
+             f"{len(fed_block)} xblock_i8 calls, expected 51, 32, 16")
+    with torch.inference_mode():
+        exact_calls("dwconv3x3_i8", K.dwconv3x3_i8, K.dwconv3x3_i8_plain,
+                    fed_dw)
+        exact_calls("sep_i8", K.sep_i8, K.apply_sep, fed_sep)
+        exact_calls("xblock_i8", K.xblock_i8, K.apply_xblock, fed_block)
+    log(f"X39: all {len(fed_dw)} K14 calls, {len(fed_sep)} sep_i8 and "
+        f"{len(fed_block)} xblock_i8 calls of one forward (every separable "
+        f"pointwise launch, the 3 projection blocks on mode 4 and 13 "
+        f"identity blocks on mode 1) bit-exact against their plain versions")
+    st = pkg["stem"]
+    k1_err = compare_codes("stem_pool_i8", K.stem_pool_i8,
+                           K.stem_pool_i8_plain,
+                           [(x, st["wf"], st["mf"], st["cf"], st["n_sp"])
+                            for x in xss])
+    log(f"X39: K1 at cout {st['wf'].shape[3]} within {k1_err} code of its "
+        f"plain version")
+    with torch.inference_mode():
+        rows = [dw_row(fed_dw, x39["launches"]["dwconv3x3_i8"], K)]
+        rows += x39_pointwise_rows(fed_sep, fed_block, x39["launches"], K)
+    del fed_dw, fed_sep, fed_block
+
+    # the card against the CPU, the same package, at a small size
+    cpu_pkg = to_device(pkg, "cpu")
+    su8 = np.random.default_rng(14).integers(0, 256, (1, *X39_SMALL, 3),
+                                             dtype=np.uint8)
+    sxs = i8.prepare_s2d_input_u8(su8, image_mean=cfg.image_mean)
+    agree = float((infer(pkg, sxs.to(dev)).cpu()
+                   == infer(cpu_pkg, sxs)).float().mean())
+    log(f"X39 int8-through at {X39_SMALL[0]}x{X39_SMALL[1]}: card labels "
+        f"agree with the CPU on {agree:.6f} of pixels (bar {A4_AGREE})")
+    if agree < A4_AGREE:
+        fail(f"X39 int8-through card vs CPU {agree} < {A4_AGREE}")
+    del infer, pkg, cpu_pkg
+
+    # the bf16 decoder: X39.speed at 768x1536, R18.speed at 1024x2048
+    summaries = {"X39 int8 decoder": x39}
+    k6 = None
+    for exp, hw, launches in ((X39_EXPERIMENT, X39_HW, X39_BF16_LAUNCHES),
+                              (R18_SPEED_EXPERIMENT, (H, W),
+                               R18_BF16_LAUNCHES)):
+        ecfg = get_experiment(exp)
+        model = init_weights(build_model(ecfg),
+                             torch.Generator().manual_seed(0)).to(dev)
+        binfer, bpkg, prepare = i8.build_int8_serving_for_experiment(
+            ecfg, model, decoder="bf16")
+        brng = np.random.default_rng(15)
+        bxss = [prepare(brng.integers(0, 256, (1, *hw, 3), dtype=np.uint8))
+                for _ in range(N_IMAGES)]
+        tag = f"{exp} bf16 decoder"
+        summaries[tag] = served_forward(
+            tag, binfer, bpkg, bxss, all_kernels, reset_all, launches,
+            (hw[0] // 8, hw[1] // 8), ecfg.num_classes)
+        if bpkg["kind"] == "x39":
+            with record_x39_calls(i8, K) as (_, _, fed_block), \
+                    torch.inference_mode():
+                binfer(bpkg, bxss[0])
+            exact_calls("xblock_i8 (float32 out)", K.xblock_i8,
+                        K.apply_xblock, [a for a in fed_block if not a[3]])
+            log(f"{tag}: the last block's float32 values bit-equal to "
+                f"apply_xblock's")
+            continue
+        fed_k6, k6_fn = [], i8.res_block_i8
+
+        def spy_k6(x, e, emit_int8=True):
+            fed_k6.append((x, e, emit_int8))
+            return k6_fn(x, e, emit_int8)
+
+        i8.res_block_i8 = spy_k6
+        try:
+            with torch.inference_mode():
+                for x in bxss:
+                    binfer(bpkg, x)
+        finally:
+            i8.res_block_i8 = k6_fn
+        if [a[2] for a in fed_k6] != [False] * len(bxss):
+            fail(f"{tag}: K6 calls {[a[2] for a in fed_k6]}, expected the "
+                 f"float route once a forward")
+        with torch.inference_mode():
+            exact_calls("res_block_i8 (float32 out)", K.res_block_i8,
+                        K.res_block_i8_plain, fed_k6)
+            ms = cuda_ms(K.res_block_i8, fed_k6, reps=5)
+            plain_ms = cuda_ms(K.res_block_i8_plain, fed_k6)
+            x, e, _ = fed_k6[0]
+            out = K.res_block_i8(*fed_k6[0])
+            ops = 2 * out.shape[1] * out.shape[2] * sum(
+                w.numel() for w in conv_weights(e))
+            b_ms, b_by = bound(nbytes(x, e, out), ops, "int8")
+        log(f"res_block_i8, float32 out ({tuple(x.shape)}): bit-equal to "
+            f"its plain version on {len(fed_k6)} calls; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}) = "
+            f"{100 * b_ms / ms:.2f} %")
+        k6 = {"name": "res_block_i8:f32_out", "route": "cuda",
+              "source": SRC, "replaces": f"{TPU}:1226",
+              "launches": summaries[tag]["launches"]["res_block_i8"],
+              "max_abs_err": 0,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+              "bound_by": b_by, "library_ms": None}
+        del model, binfer, bpkg, bxss, fed_k6
+        torch.cuda.empty_cache()
+    rows.append(k6)
+
+    # full-resolution X39, argmax="tiled" (K7): card vs CPU at 256x512
+    fcfg = get_experiment(X39_FULL_EXPERIMENT)
+    fmodel = init_weights(build_model(fcfg),
+                          torch.Generator().manual_seed(0)).to(dev)
+    _, fpkg, fprepare = i8.build_int8_serving_for_experiment(fcfg, fmodel)
+    finfer, _ = i8.make_int8_through_infer(fmodel, fpkg, argmax="tiled")
+    fxs = fprepare(su8)
+    reset_all()
+    card_y = finfer(fpkg, fxs)
+    torch.cuda.synchronize()
+    check_launches(f"{X39_FULL_EXPERIMENT} tiled", launch_counts(all_kernels),
+                   X39_LAUNCHES | {"fused_upsample_argmax": 1})
+    check_labels(f"{X39_FULL_EXPERIMENT} tiled", card_y, X39_SMALL,
+                 fcfg.num_classes)
+    agree = float((card_y.cpu() == finfer(to_device(fpkg, "cpu"),
+                                          fxs.cpu())).float().mean())
+    log(f"{X39_FULL_EXPERIMENT} int8-through, argmax='tiled', at "
+        f"{X39_SMALL[0]}x{X39_SMALL[1]}: K7 once; card labels agree with the "
+        f"CPU on {agree:.6f} of pixels (bar {A4_AGREE})")
+    if agree < A4_AGREE:
+        fail(f"X39 tiled card vs CPU {agree} < {A4_AGREE}")
+    for tag, s in summaries.items():
+        log(f"a4: {tag}: median {s['median']:.4f} ms, p90 {s['p90']:.4f}, "
+            f"enqueue {s['enqueue']:.4f}, device {s['busy']:.4f} ms in "
+            f"{s['kernels']} kernels, idle {s['idle']:.3f}")
+    log(f"a4 phase: {time.perf_counter() - phase_t0:.1f} s")
+    return rows
 
 
 if __name__ == "__main__":

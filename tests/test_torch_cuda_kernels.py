@@ -509,19 +509,26 @@ def test_conv_1x1_residual_waits_for_a_short_tile(dev, route):
     {"mode": 1, "out_f32": True}, {"mode": 0, "dilation": 2, "k": 1},
     {"mode": 1, "dilation": 2}])
 def test_conv_refuses_combinations_it_has_no_kernel_for(dev, kw):
-    """Float32 out from a 3x3 in mode 1, a dilated 1x1 and a dilated
-    residual link have no compiled instantiation: the entry points refuse
-    them at launch, on both kernels."""
+    """A dilated 1x1 and a dilated residual link have no compiled
+    instantiation: the entry points refuse them at launch, on both
+    kernels.  Float32 out from a 3x3 in mode 1 is refused by the resident
+    kernel only: the streaming kernel has it (K6 writing float32, the
+    last block of the bf16 decoder's R18 body), bit-exact, whole and
+    split."""
     g = _gen(33)
     k = kw.get("k", 3)
     x = _codes(g, (1, 6, 10, 64)).to(dev)
     e = _cbr(g, k, 64, 64, dev)
     res = _codes(g, (1, 6, 10, 64)).to(dev)
     extra = {"res": res, "rr": 0.75} if kw["mode"] == 1 else {}
-    for route in ("resident", "split1"):
+    args = (x, e, 1, kw.get("dilation", 1), kw["mode"],
+            kw.get("out_f32", False))
+    k6_f32 = kw == {"mode": 1, "out_f32": True}
+    for route in ("resident",) if k6_f32 else ("resident", "split1"):
         with pytest.raises(RuntimeError, match="CUDA error"):
-            _launch(route, x, e, 1, kw.get("dilation", 1), kw["mode"],
-                    kw.get("out_f32", False), **extra)
+            _launch(route, *args, **extra)
+    for route in ("split1", "split2") if k6_f32 else ():
+        _exact(_launch(route, *args, **extra), _plain_conv(*args, **extra))
 
 
 # the main path's sp3 and decoder convs at 1024x2048 and PSPNet's stem2 and
@@ -1534,6 +1541,169 @@ def test_custom_ops_fake_shapes_and_traced_graphs(dev):
                                        calib_shape=(1, *hw, 3))
         ep = E.export_serving(E.Int8ServingModule(infer, pkg), (xs,),
                               "cuda")
+        xr = torch.randint(-128, 128, xs.shape, generator=g,
+                           dtype=torch.int8).to(dev)
+        _exact(ep.module()(xr), infer(pkg, xr))
+
+
+# -- K14 and the Xception39 body (sep_i8, xblock_i8), K6's float route --
+
+def _sep(g, cin, cout, dev):
+    """A random separable entry: depthwise codes and a requant to mid codes
+    that spans the int8 range, a pointwise CBR."""
+    e = _cbr(g, 1, cin, cout, dev)
+    e["dw"] = torch.randint(-127, 128, (3, 3, 1, cin), generator=g,
+                            dtype=torch.int8).to(dev)
+    e["dm"] = (torch.rand(cin, generator=g) * 0.007 + 0.003).to(dev)
+    return e
+
+
+# X39's depthwise shapes at 768x1536 (layer1_0's 16 padded channels at
+# stride 2, the stages' 64/128/256 and mid 16/32/64 channels) and ragged
+# ones: odd sizes, one row or column, C = 16 alone
+@pytest.mark.parametrize("h,w,c,stride", [
+    (192, 384, 16, 2), (96, 192, 64, 1), (96, 192, 16, 1), (96, 192, 64, 2),
+    (48, 96, 128, 1), (24, 48, 256, 1), (24, 48, 64, 1), (13, 17, 48, 2),
+    (1, 9, 16, 1), (7, 1, 32, 2), (5, 5, 16, 2)])
+def test_dwconv3x3_kernel_bit_exact(dev, h, w, c, stride):
+    g = _gen(h + w + c + stride)
+    x = _codes(g, (1, h, w, c), lo=-127).to(dev)
+    e = _sep(g, c, 16, dev)
+    before = K.dwconv3x3_i8.launches
+    got = K.dwconv3x3_i8(x, e["dw"], e["dm"], stride)
+    torch.cuda.synchronize()
+    assert K.dwconv3x3_i8.launches == before + 1
+    ref = K.dwconv3x3_i8_plain(x.cpu(), e["dw"].cpu(), e["dm"].cpu(), stride)
+    _exact(got.cpu(), ref)
+    assert bool((ref > 0).any()) and bool((ref < 0).any())
+
+
+def test_dwconv3x3_kernel_refuses_before_launch(dev):
+    g = _gen(50)
+    e = _sep(g, 24, 16, dev)
+    before = K.dwconv3x3_i8.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K.dwconv3x3_i8(_codes(g, (1, 8, 8, 24)).to(dev), e["dw"], e["dm"], 1)
+    e = _sep(g, 32, 16, dev)
+    x = torch.zeros(1 + 8 * 8 * 32, dtype=torch.int8, device=dev)[1:].view(
+        1, 8, 8, 32)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.dwconv3x3_i8(x, e["dw"], e["dm"], 1)
+    with pytest.raises(ValueError, match="stride"):
+        K.dwconv3x3_i8(x.clone(), e["dw"], e["dm"], 3)
+    assert K.dwconv3x3_i8.launches == before
+
+
+@pytest.mark.parametrize("h,w,cin,cout,stride", [
+    (96, 192, 64, 16, 1), (192, 384, 16, 16, 2), (24, 48, 256, 64, 1),
+    (13, 17, 32, 200, 2)])
+def test_sep_i8_bit_exact(dev, h, w, cin, cout, stride):
+    g = _gen(60 + cin)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = _sep(g, cin, cout, dev)
+    got = K.sep_i8(x, e, stride)
+    torch.cuda.synchronize()
+    ref = K.apply_sep(x.cpu(), {k: v.cpu() for k, v in e.items()}, stride)
+    _exact(got.cpu(), ref.contiguous())
+
+
+# X39's blocks at 768x1536: each stage's strided first block (the
+# projection, mode 4) and its identity blocks (mode 1), the body's last
+# block writing float32 (the bf16 decoder), and ragged sizes
+@pytest.mark.parametrize("h,w,cin,mid,proj,stride,emit_int8", [
+    (192, 384, 16, 16, True, 2, True), (96, 192, 64, 16, False, 1, True),
+    (96, 192, 64, 32, True, 2, True), (48, 96, 128, 32, False, 1, True),
+    (48, 96, 128, 64, True, 2, True), (24, 48, 256, 64, False, 1, False),
+    (24, 48, 256, 64, False, 1, True), (13, 19, 32, 16, True, 2, True),
+    (11, 7, 64, 16, False, 1, False)])
+def test_xblock_i8_bit_exact(dev, h, w, cin, mid, proj, stride, emit_int8):
+    g = _gen(70 + cin + mid)
+    x = _codes(g, (1, h, w, cin)).to(dev)
+    e = {"sep1": _sep(g, cin, mid, dev), "sep2": _sep(g, mid, mid, dev),
+         "sep3": _sep(g, mid, 4 * mid, dev)}
+    if proj:
+        e["proj"] = _sep(g, cin, 4 * mid, dev)
+    else:
+        e["res_ratio"] = float(torch.rand((), generator=g)) + 0.3
+    counts = (K.dwconv3x3_i8.launches, K.sep_i8.launches,
+              K.xblock_i8.launches)
+    got = K.xblock_i8(x, e, stride, emit_int8)
+    torch.cuda.synchronize()
+    assert (K.dwconv3x3_i8.launches - counts[0], K.sep_i8.launches
+            - counts[1], K.xblock_i8.launches - counts[2]) == (3 + proj, 2, 1)
+    cpu = {k: ({f: t.cpu() for f, t in v.items()} if isinstance(v, dict)
+               else v) for k, v in e.items()}
+    _exact(got.cpu(), K.apply_xblock(x.cpu(), cpu, stride,
+                                     emit_int8).contiguous())
+
+
+def test_xblock_i8_refuses_before_launch(dev):
+    g = _gen(80)
+    e = {"sep1": _sep(g, 16, 16, dev), "sep2": _sep(g, 16, 16, dev),
+         "sep3": _sep(g, 16, 64, dev), "proj": _sep(g, 16, 64, dev)}
+    counts = (K.dwconv3x3_i8.launches, K.sep_i8.launches,
+              K.xblock_i8.launches)
+    with pytest.raises(ValueError, match="codes only"):
+        K.xblock_i8(_codes(g, (1, 8, 8, 16)).to(dev), e, 2, emit_int8=False)
+    e = {"sep1": _sep(g, 8, 16, dev), "sep2": _sep(g, 16, 16, dev),
+         "sep3": _sep(g, 16, 64, dev), "proj": _sep(g, 8, 64, dev)}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K.xblock_i8(_codes(g, (1, 8, 8, 8)).to(dev), e, 2)
+    assert counts == (K.dwconv3x3_i8.launches, K.sep_i8.launches,
+                      K.xblock_i8.launches)
+
+
+@pytest.mark.parametrize("h,w,c", [(32, 64, 512), (17, 9, 512), (8, 8, 64)])
+def test_res_block_float_route_bit_exact(dev, h, w, c):
+    """K6 writing float32 (the bf16 decoder's last R18 block): the streaming
+    kernel's mode 1 with the 3x3 window and float32 out, at R18's stage-4
+    shape (1024x2048 serving), ragged, and at a width that codes out would
+    run on the resident kernel."""
+    g = _gen(90 + c)
+    x = _codes(g, (1, h, w, c)).to(dev)
+    blk = _block(g, c, c, 1, dev)
+    got = K.res_block_i8(x, blk, emit_int8=False)
+    torch.cuda.synchronize()
+    cpu = {k: ({f: t.cpu() for f, t in v.items()} if isinstance(v, dict)
+               else v) for k, v in blk.items()}
+    ref = K.res_block_i8_plain(x.cpu(), cpu, emit_int8=False)
+    _exact(got.cpu(), ref.contiguous())
+    assert got.dtype == torch.float32 and bool((ref > 0).any())
+
+
+def test_x39_and_bf16_decoder_ops_and_graphs(dev):
+    """K14's op, the Xception block's and K6's float route: fake outputs
+    match real ones (opcheck); the X39 int8-through graph and the R18
+    bf16-decoder graph exported with the ops run as the live graphs do."""
+    from torchseg_tpu_torch.deploy import export as E
+    from torchseg_tpu_torch.deploy import int8_serve as i8
+    from torchseg_tpu_torch.experiments.registry import (build_model,
+                                                         get_experiment)
+    from torchseg_tpu_torch.models import init_weights
+    from torchseg_tpu_torch.ops.kernels import custom_ops
+
+    g = _gen(95)
+    ops = torch.ops.torchseg_cuda
+    x = _codes(g, (1, 16, 24, 64), lo=-127).to(dev)
+    e = _sep(g, 64, 16, dev)
+    torch.library.opcheck(ops.dwconv3x3_i8, (x, e["dw"], e["dm"], 2))
+    blk = {"sep1": _sep(g, 64, 16, dev), "sep2": _sep(g, 16, 16, dev),
+           "sep3": _sep(g, 16, 64, dev), "res_ratio": 0.5}
+    torch.library.opcheck(ops.xblock_i8, (
+        x, custom_ops.flat_sep_entry(blk), 0.5, 1, False))
+    rb = _block(g, 64, 64, 1, dev)
+    torch.library.opcheck(ops.res_block_i8, (
+        x, custom_ops.flat_entry(rb), rb["res_ratio"], False))
+    for exp, decoder in (("cityscapes.bisenet.X39.speed", "int8"),
+                         ("cityscapes.bisenet.R18.speed", "bf16")):
+        cfg = get_experiment(exp)
+        model = init_weights(build_model(cfg),
+                             torch.Generator().manual_seed(0)).to(dev)
+        infer, pkg, prepare = i8.build_int8_serving_for_experiment(
+            cfg, model, decoder=decoder, calib_shape=(1, 128, 256, 3))
+        xs = prepare(torch.zeros((1, 128, 256, 3), dtype=torch.uint8)
+                     .numpy())
+        ep = E.export_serving(E.Int8ServingModule(infer, pkg), (xs,), "cuda")
         xr = torch.randint(-128, 128, xs.shape, generator=g,
                            dtype=torch.int8).to(dev)
         _exact(ep.module()(xr), infer(pkg, xr))

@@ -161,15 +161,18 @@ def test_quant_w_bit_identical():
 
 
 def test_unported_arms_raise(models, jax_stats):
+    """What ``build_int8_package`` and the serving function refuse: a
+    decoder other than "int8" and "bf16" (as JAX does), missing
+    statistics, and a package of a kind this graph does not serve."""
     _, _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ti8.build_int8_package(tm, jax_stats, decoder="bf16")
+    with pytest.raises(ValueError, match="decoder must be"):
+        ti8.build_int8_package(tm, jax_stats, decoder="fp8")
     with pytest.raises(KeyError, match="refine0/conv"):
         ti8.build_int8_package(
             tm, {k: v for k, v in jax_stats.items() if k != "refine0/conv"})
     pkg = ti8.build_int8_package(tm, jax_stats)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ti8.make_int8_through_infer(tm, {**pkg, "kind": "x39"})
+    with pytest.raises(ValueError, match="classic-stem package"):
+        ti8.make_int8_through_infer(tm, {**pkg, "kind": "bottleneck50"})
     # the full-resolution epilogue is ported; .speed heads refuse it, as
     # in JAX
     with pytest.raises(ValueError, match="full-res"):

@@ -477,14 +477,8 @@ def test_serve_entry_on_cpu():
 
 
 def test_unported_families_raise(psp, packages):
-    """What the port still does not serve raises before calibrating: the
-    X39 int8 kind and the classic-stem bf16 decoder (ROADMAP A4); the
-    Bottleneck infer refuses a package of another kind."""
-    for name, decoder in (("cityscapes.bisenet.X39.speed", None),
-                          ("cityscapes.bisenet.R18.speed", "bf16")):
-        with pytest.raises(NotImplementedError, match="A4"):
-            ti8.build_int8_serving_for_experiment(
-                treg.get_experiment(name), psp["tm"], decoder=decoder)
+    """The Bottleneck infer refuses a package of another kind, and
+    ``build_int8_backbone_package`` a classic-stem model."""
     with pytest.raises(ValueError, match="Bottleneck body package"):
         ti8.make_int8_pspnet_infer(psp["tm"], {"kind": "r18"})
     with pytest.raises(ValueError, match="deep-stem"):

@@ -15,9 +15,12 @@ upsample-argmax kernel (``ops/kernels/upsample_argmax.py``,
 serves int8-through (``entry.serve_entry``) on the same conv kernel and an
 int8 max pool.  BiSeNet-X39.speed serves in bf16 (``entry.deploy_entry``;
 ``models/xception.py``), the fused stem of both classic-stem BiSeNets on
-``ops/kernels/stem_conv.py`` / ``csrc/stem_conv.cu``.  Training across
-processes (``entry.dryrun_multichip``) adds the distributed layer
-(``parallel/``), whole-image evaluation (``engine/evaluator.py``,
+``ops/kernels/stem_conv.py`` / ``csrc/stem_conv.cu``, and int8-through
+(``entry.serve_entry``), its separable convs on an int8 depthwise kernel
+and the int8 tensor-core convs; both classic-stem BiSeNets serve
+int8-through with either decoder (int8, or the model's in bf16).
+Training across processes (``entry.dryrun_multichip``) adds the
+distributed layer (``parallel/``), whole-image evaluation (``engine/evaluator.py``,
 ``ops/metrics.py``) and the synthetic dataset (``data/``); its dp x sp leg
 shards the image height over ranks (``parallel/spatial.py``: the mesh,
 the batch split, ``SpatialTrainer``; ``ops/spatial.py``: the halo

@@ -3,7 +3,7 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Five kernels behind ten wrappers: nine of the int8-through serving
+// Six kernels behind thirteen wrappers: twelve of the int8-through serving
 // graphs and the post-training int8 conv:
 //
 //   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
@@ -40,7 +40,18 @@
 //       conv_i8_affine    the generic post-training int8 conv
 //                         (deploy/quantize.py; an XLA conv in JAX,
 //                         deploy/quantize.py:100-146): mode 3, float32
-//                         out with no ReLU.
+//                         out with no ReLU;
+//       sep_i8, xblock_i8 the Xception39 body's separable convs' 1x1
+//                         pointwise convs (XLA in JAX, deploy/int8_serve.py:
+//                         971 _apply_sep, :986 _apply_xblock), after K14:
+//                         sep1 and sep2 in mode 0, sep3 in mode 1 (the
+//                         identity shortcut; these three on this kernel or
+//                         the resident one by cbr_i8's rule) or mode 4 (the
+//                         separable projection's pointwise as the second
+//                         GEMM, on this kernel).
+//   dwconv3x3_i8_kernel  (K14) the int8 3x3 depthwise conv and requant of
+//       every separable conv of the Xception39 body (an XLA conv in JAX,
+//       deploy/int8_serve.py:961 _qconv_dw): 51 launches an X39 forward.
 //   conv_i8_mma_res_kernel         the int8 tensor-core conv with the
 //       link's whole weight resident in shared memory, persistent blocks
 //       (stride 1 or 2; the same windows and outputs); launched by
@@ -92,7 +103,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 __device__ __forceinline__ int8_t requant(float z) {
-  // z is post-ReLU (>= 0); clip(round(z), -127, 127)
+  // clip(round(z), -127, 127); z >= 0 after a ReLU, either sign in K14
   float q = fmaxf(fminf(rintf(z), 127.f), -127.f);
   return static_cast<int8_t>(static_cast<int>(q));
 }
@@ -464,7 +475,12 @@ size_t stem_smem_bytes(int cout, int n_sp) {
 //        a second GEMM into its own int32 accumulators;
 //   mode 3 (affine):     z = fma(y, m, c), no ReLU, float32 out only: the
 //        post-training int8 conv of deploy/quantize.py, m = s_in * s_w
-//        and c = the conv's bias (or 0).
+//        and c = the conv's bias (or 0);
+//   mode 4 (separable projection): z = fma(y, m, c) + fma(yd, md, cd),
+//        yd as in mode 2: the Xception block's sep3 pointwise with its
+//        separable projection's pointwise (xd the projection's depthwise
+//        codes, sd = 1) as the second GEMM, the two affines summed as XLA
+//        contracts JAX's _apply_xblock (deploy/int8_serve.py:986).
 // XLA contracts exactly these multiply-adds on the CPU, so the chain is
 // written with __fmaf_rn/__fadd_rn under -fmad=false.
 //
@@ -566,6 +582,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
                    const float* __restrict__ md, const float* __restrict__ cd,
                    void* __restrict__ out, int ho, int wo) {
   constexpr int kTaps = kWin == kWin1 ? 1 : 9;  // the projection is "tap" kTaps
+  constexpr bool kProj = kMode == 2 || kMode == 4;  // a second GEMM of xd
   const int dil = kWin == kWinDil ? dilation : 1;
   const int pad = kWin == kWin1 ? 0 : dil;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -577,7 +594,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   const int rank = blockIdx.x % kSplit;          // rank in the K-split cluster
   const int cch = (cin + kMmaBK - 1) / kMmaBK;   // chunks per tap
   const int n_main = kTaps * cch;
-  const int n_proj = kMode == 2 ? (cdin + kMmaBK - 1) / kMmaBK : 0;
+  const int n_proj = kProj ? (cdin + kMmaBK - 1) / kMmaBK : 0;
   // This block's main chunks [mc0, mc1), then (rank 0) the projection's:
   // rank 0 takes main chunks [0, lead) and every projection chunk, so only
   // main sums cross the cluster; the other ranks share [lead, n_main).
@@ -612,7 +629,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
       }
       a_mask[i] |= 1 << 9;  // the pixel exists: its projection row is read
       a_off[i] = (static_cast<long long>(iy0) * w + ix0) * cin;
-      if (kMode == 2) a_doff[i] = (static_cast<long long>(oy) * sd * wd_ + ox * sd) * cdin;
+      if (kProj) a_doff[i] = (static_cast<long long>(oy) * sd * wd_ + ox * sd) * cdin;
     }
   }
 
@@ -624,7 +641,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   int ld_tap = nk_main > 0 ? mc0 / cch : kTaps;
   int ld_c0 = nk_main > 0 ? mc0 % cch * kMmaBK : 0;
   auto next_chunk = [&]() {
-    if (kMode == 2 && kSplit > 1 && ld_tap < kTaps && --ld_main == 0) {
+    if (kProj && kSplit > 1 && ld_tap < kTaps && --ld_main == 0) {
       ld_tap = kTaps;
       ld_c0 = 0;
       return;
@@ -650,7 +667,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // Stage the chunk (ld_tap, ld_c0): its A rows by cp.async into `slot`,
   // its B words into registers; then advance to the next chunk.
   auto load_chunk = [&](int slot, uint32_t (&breg)[kMmaBBlocks][4]) {
-    const bool proj = kMode == 2 && ld_tap == kTaps;
+    const bool proj = kProj && ld_tap == kTaps;
     const int ch = ld_c0 + a_col * 16;
     const int8_t* a_src =
         proj ? xd + ch
@@ -758,7 +775,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     const int nxt = kc + kMmaStages - 1;
     if (nxt < nk) load_chunk(nxt % kMmaStages, ld);
     cp_async_commit();
-    if (kMode == 2 && kc >= nk_main)
+    if (kProj && kc >= nk_main)
       compute(kc % kMmaStages, accd);
     else
       compute(kc % kMmaStages, acc);
@@ -819,7 +836,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     for (int e = 0; e < 2; ++e) {
       mv[e] = m[n + e];
       cv[e] = c[n + e];
-      if (kMode == 2) {
+      if (kProj) {
         mdv[e] = md[n + e];
         cdv[e] = cd[n + e];
       }
@@ -841,6 +858,9 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
           } else if (kMode == 2) {
             z[e] = __fadd_rn(__fmaf_rn(__int2float_rn(accd[i][j][2 * hh + e]), mdv[e], z[e]),
                              cdv[e]);
+          } else if (kMode == 4) {
+            z[e] = __fadd_rn(z[e],
+                             __fmaf_rn(__int2float_rn(accd[i][j][2 * hh + e]), mdv[e], cdv[e]));
           }
           if (kMode != 3) z[e] = fmaxf(z[e], 0.f);  // mode 3: no ReLU
         }
@@ -1344,6 +1364,93 @@ maxpool_i8_kernel(const unsigned int* __restrict__ x, int h, int w, int c4,
   out[i] = mx;
 }
 
+// ---------------------------------------------------------------------------
+// K14: the int8 3x3 depthwise conv of the Xception39 body's separable convs
+// (dwconv3x3_i8_kernel).  It replaces no TPU kernel: JAX runs it as an XLA
+// conv (deploy/int8_serve.py:961 _qconv_dw, feature_group_count = C), but
+// every int8 conv of a served graph here is a hand-written launch, and
+// PyTorch has no int8 depthwise conv on CUDA that gives int32 sums.
+//
+// What it computes: NHWC int8 codes x (h, w, C), HWIO weights (3, 3, 1,
+// C), pad 1, stride 1 or 2, batch 1: y = the exact int32 sum of the nine
+// taps of each channel, then q = clip(rint(y * dm), -127, 127) with the
+// float32 per-channel dm (JAX's _requant(ydw * dm), :975-976: one float32
+// multiply, no add, so nothing to contract; rintf rounds half to even).
+//
+// What bounds it on an H100: bytes.  Nine multiply-adds a code read, so
+// ~9 operations a byte at stride 1, far below the ~590 int8 operations a
+// byte of the card's balance; the largest call of the X39 body at 768x1536
+// moves ~3.5 MB (~1 us at 3.35 TB/s), and a launch costs several us, so
+// one launch a call and coalesced 16-byte accesses are what matter.
+//
+// Design: one thread an output pixel and 16 channels (C % 16 == 0);
+// neighbouring threads take neighbouring 16-channel groups of a pixel, then
+// neighbouring pixels, so each tap is a coalesced 16-byte load a thread
+// (read-only path); the nine taps' 16 weights are 16-byte __ldg loads
+// (the whole weight is 9 C bytes and stays in L1), the 16 sums are int32
+// registers, and the codes leave in one 16-byte store.
+// ---------------------------------------------------------------------------
+
+constexpr int kDwThreads = 256;
+
+// acc[4 q + b] += byte b of word q of x times byte b of word q of w, both
+// signed
+__device__ __forceinline__ void dw_mac16(int (&acc)[16], const uint4 xv,
+                                         const uint4 wv) {
+  const unsigned int xs[4] = {xv.x, xv.y, xv.z, xv.w};
+  const unsigned int ws[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc[4 * q + b] += static_cast<int>(static_cast<int8_t>(xs[q] >> (8 * b))) *
+                        static_cast<int>(static_cast<int8_t>(ws[q] >> (8 * b)));
+}
+
+__global__ void __launch_bounds__(kDwThreads)
+dwconv3x3_i8_kernel(const int8_t* __restrict__ x, int h, int w, int c16,
+                    const int8_t* __restrict__ wt, const float* __restrict__ dm,
+                    int stride, int8_t* __restrict__ out, int ho, int wo) {
+  const long long t = static_cast<long long>(blockIdx.x) * kDwThreads + threadIdx.x;
+  if (t >= static_cast<long long>(ho) * wo * c16) return;
+  const int g = static_cast<int>(t % c16);
+  const long long p = t / c16;
+  const int oy = static_cast<int>(p / wo), ox = static_cast<int>(p % wo);
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  const uint4* w4 = reinterpret_cast<const uint4*>(wt);
+  int acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0;
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+    const int iy = oy * stride - 1 + ky;
+    if (iy < 0 || iy >= h) continue;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const int ix = ox * stride - 1 + kx;
+      if (ix < 0 || ix >= w) continue;
+      dw_mac16(acc, __ldg(x4 + (static_cast<long long>(iy) * w + ix) * c16 + g),
+               __ldg(w4 + (ky * 3 + kx) * c16 + g));
+    }
+  }
+  const float4* dm4 = reinterpret_cast<const float4*>(dm) + 4 * g;
+  unsigned int words[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 d = __ldg(dm4 + q);
+    const float dv[4] = {d.x, d.y, d.z, d.w};
+    unsigned int word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      word |= static_cast<unsigned int>(static_cast<uint8_t>(
+                  requant(__fmul_rn(__int2float_rn(acc[4 * q + b]), dv[b]))))
+              << (8 * b);
+    words[q] = word;
+  }
+  reinterpret_cast<uint4*>(out)[p * c16 + g] = make_uint4(words[0], words[1], words[2],
+                                                          words[3]);
+}
+
 // The conv window of a launch, from its kernel size and dilation (-1: no
 // kernel takes it).
 int window_of(int k, int dil) {
@@ -1354,10 +1461,14 @@ int window_of(int k, int dil) {
 // The tensor-core conv instantiations, by (mode, window, float32 out):
 // every window in mode 0 (a CBR); in modes 1 and 2 (a block's last conv)
 // the 3x3 pad-1 window with codes out (K3-K6) and the 1x1 with either
-// output (the Bottleneck's conv3); in mode 3 (the affine epilogue without
-// ReLU) every window with float32 out, on the streaming kernel only.  No
-// other combination is compiled: its
-// lookup gives null and the entry point returns cudaErrorInvalidValue.
+// output (the Bottleneck's conv3, the Xception block's sep3), and in mode
+// 1 the 3x3 pad-1 window with float32 out too (K6 as the last block of
+// the bf16 decoder's body), on the streaming kernel; in mode 3 (the affine
+// epilogue without ReLU) every window with float32 out, on the streaming
+// kernel only; in mode 4 (the separable projection) the 1x1 with codes
+// out, unsplit, on the streaming kernel only.  No other combination is
+// compiled: its lookup gives null and the entry point returns
+// cudaErrorInvalidValue.
 using MmaKernel = void (*)(const int8_t*, int, int, int, const int8_t*, int, int, int,
                            const float*, const float*, const int8_t*, float,
                            const int8_t*, int, int, int, const int8_t*,
@@ -1375,7 +1486,14 @@ MmaKernel mma_kernel_of(int win, int f32) {
     if (win == kWinDil) return conv_i8_mma_kernel<3, kSplit, kWinDil, true>;
     return nullptr;
   }
+  if constexpr (kMode == 4) {  // the Xception block's sep3: a 1x1, unsplit
+    if constexpr (kSplit == 1)
+      if (win == kWin1 && !f32) return conv_i8_mma_kernel<4, 1, kWin1, false>;
+    return nullptr;
+  }
   if (win == kWin3 && !f32) return conv_i8_mma_kernel<kMode, kSplit, kWin3, false>;
+  if constexpr (kMode == 1)  // K6 writing float32 (the bf16 decoder's body)
+    if (win == kWin3) return conv_i8_mma_kernel<1, kSplit, kWin3, true>;
   if (win == kWin1)
     return f32 ? conv_i8_mma_kernel<kMode, kSplit, kWin1, true>
                : conv_i8_mma_kernel<kMode, kSplit, kWin1, false>;
@@ -1394,6 +1512,7 @@ MmaKernel mma_kernel_split(int mode, int win, int f32) {
          : mode == 1 ? mma_kernel_of<1, kSplit>(win, f32)
          : mode == 2 ? mma_kernel_of<2, kSplit>(win, f32)
          : mode == 3 ? mma_kernel_of<3, kSplit>(win, f32)
+         : mode == 4 ? mma_kernel_of<4, kSplit>(win, f32)
                      : nullptr;
 }
 
@@ -1441,7 +1560,7 @@ int tsg_init(void) {
     return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   };
   err = allow(reinterpret_cast<const void*>(stem_pool_i8_mma_kernel));
-  for (int mode = 0; mode < 4; ++mode)
+  for (int mode = 0; mode < 5; ++mode)
     for (int win = 0; win < 3; ++win)
       for (int f32 = 0; f32 < 2; ++f32) {
         for (int split = 1; split <= 2; ++split)
@@ -1506,14 +1625,15 @@ int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
 
 // The int8 conv on tensor cores, the weights streamed: x (h, w, cin), cin
 // % 16 == 0, 16-byte aligned; weights (k, k, cin, cout) with k = 3 (pad =
-// dil) or k = 1 (pad 0, dil 1); any stride; cout % 8 == 0; mode 2's xd
-// (hd, wd, cdin) with cdin % 16 == 0, 16-byte aligned; out (ho, wo, cout)
-// int8 codes, or float32 values with out_f32 != 0 (in modes 1 and 2 only
-// for k = 1, dil > 1 only in modes 0 and 3, and mode 3 float32 only: see
-// mma_kernel_of).  split: the
-// blocks of a cluster that share a tile's K walk, 1 or 2 (any mode; in
-// mode 2 the first block takes the projection's chunks), or 0: 2 where
-// the launch has no more tiles than the device has SMs, else 1.
+// dil) or k = 1 (pad 0, dil 1); any stride; cout % 8 == 0; mode 2's and
+// mode 4's xd (hd, wd, cdin) with cdin % 16 == 0, 16-byte aligned; out
+// (ho, wo, cout) int8 codes, or float32 values with out_f32 != 0 (in mode
+// 2 only for k = 1, in mode 1 for k = 1 or the 3x3 pad 1, dil > 1 only in
+// modes 0 and 3, mode 3 float32 only, mode 4 k = 1 with codes out and
+// split 1: see mma_kernel_of).  split: the blocks of a cluster that share
+// a tile's K walk, 1 or 2 (any mode but 4; in mode 2 the first block
+// takes the projection's chunks), or 0: 2 where the launch has no more
+// tiles than the device has SMs, else 1.
 int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt, int k,
                     int stride, int dil, int cout, const void* m, const void* c,
                     int mode, const void* res, float rr, const void* xd,
@@ -1613,6 +1733,22 @@ int tsg_maxpool_i8(const void* x, int h, int w, int c, void* out, int ho,
   maxpool_i8_vec16_kernel<<<grid, kPoolThreads, 0, s>>>(
       static_cast<const uint4*>(x), h, w, c16, static_cast<uint4*>(out), ho,
       wo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K14: x (h, w, c) int8 codes, c % 16 == 0, wt (3, 3, 1, c) int8, dm (c)
+// float32, all three and out (ho, wo, c) 16-byte aligned; pad 1, stride 1
+// or 2.
+int tsg_dwconv3x3_i8(const void* x, int h, int w, int c, const void* wt,
+                     const void* dm, int stride, void* out, int ho, int wo,
+                     void* stream) {
+  if (c % 16 || (stride != 1 && stride != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(ho) * wo * (c / 16);
+  const int blocks = static_cast<int>((n + kDwThreads - 1) / kDwThreads);
+  dwconv3x3_i8_kernel<<<blocks, kDwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), h, w, c / 16, static_cast<const int8_t*>(wt),
+      static_cast<const float*>(dm), stride, static_cast<int8_t*>(out), ho, wo);
   return static_cast<int>(cudaGetLastError());
 }
 

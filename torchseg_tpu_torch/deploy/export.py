@@ -44,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.kernels.custom_ops import flat_entry
+from ..ops.kernels.custom_ops import flat_entry, flat_sep_entry
 
 GRAPH_FILE = "graph.pt2"
 PREPARE_FILE = "prepare.pt2"
@@ -233,11 +233,14 @@ SHIMS = {
     "down_stage_i8": lambda x, e0, e1: _op("down_stage_i8")(
         x, flat_entry(e0), flat_entry(e1), float(e1["res_ratio"])),
     "down_block_i8": lambda x, e: _op("down_block_i8")(x, flat_entry(e)),
-    "res_block_i8": lambda x, e: _op("res_block_i8")(
-        x, flat_entry(e), float(e["res_ratio"])),
+    "res_block_i8": lambda x, e, emit_int8=True: _op("res_block_i8")(
+        x, flat_entry(e), float(e["res_ratio"]), emit_int8),
     "maxpool2d_3x3s2_i8": lambda x: _op("maxpool2d_3x3s2_i8")(x),
     "cbr_i8": _cbr_i8,
     "bottleneck_i8": _bottleneck_i8,
+    "xblock_i8": lambda x, e, stride, emit_int8=True: _op("xblock_i8")(
+        x, flat_sep_entry(e), float(e.get("res_ratio", 0.0)), stride,
+        emit_int8),
     "fused_upsample_argmax": lambda x, out_hw: _op("fused_upsample_argmax")(
         x, [int(out_hw[0]), int(out_hw[1])]),
     "stem_conv7x7_s2": _stem_conv7x7_s2,
@@ -435,8 +438,7 @@ def main(argv=None):
         prep_exported = torch.export.export(
             prep_graph, (torch.zeros(shape, dtype=torch.uint8,
                                      device=device),), strict=False)
-        mode = ("int8-through+dec" if prep["format"] == "s2d"
-                else "int8-through")
+        mode = "int8-through+dec" if "dec" in pkg else "int8-through"
 
         def live(img):
             return infer(pkg, prepare(img))

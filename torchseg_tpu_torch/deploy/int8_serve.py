@@ -1,15 +1,25 @@
 """Int8-through serving (counterpart of torchseg_tpu/deploy/int8_serve.py)
-for classic-stem BiSeNet-R18 and for every family on the deep-stem
-Bottleneck ResNet: PSPNet, PSANet, FCN, DFN and BiSeNet-R101.
+for the classic-stem BiSeNets (R18 and X39, .speed or not) and for every
+family on the deep-stem Bottleneck ResNet: PSPNet, PSANet, FCN, DFN and
+BiSeNet-R101.
 
-BiSeNet-R18: the raw uint8 image in the pre-padded s2d layout, the fused
-7x7/2 dual stem with its backbone max pool (kernel K1), the two SpatialPath
-3x3/2 CBRs (K2, twice) and its 1x1, ResNet-18 stage 1 (K3), stages 2 and 3
-(K4, twice), stage 4 as its strided block (K5) and its stride-1 block (K6),
-and the int8 ARM / refine / FFM / head decoder, then the head's logits: at
-/8 for the .speed heads, and for the full-resolution heads either upsampled
-(``argmax=True``) or handed raw to the upsample-argmax kernel K7
-(``argmax="tiled"``).
+Classic-stem BiSeNet: the raw uint8 image in the pre-padded s2d layout, the
+fused dual stem with its backbone max pool (kernel K1), the two
+SpatialPath 3x3/2 CBRs (K2, twice) and its 1x1, then the body: ResNet-18's
+stage 1 (K3), stages 2 and 3 (K4, twice), stage 4 as its strided block
+(K5) and its stride-1 block (K6); or Xception39's three stages of (4, 8,
+4) blocks (``xblock_i8``: K14, the int8 depthwise conv, before each
+separable conv's 1x1 on the tensor-core convs).  X39's 8-channel stem
+output is padded to 16 channels at package build (``_pad_x39_input``:
+zero weights and constants, so the padding stays code 0 and the codes of
+the real channels are unchanged), which the tensor-core convs need.  Then
+the decoder: the int8 ARM / refine / FFM / head decoder (``decoder=
+"int8"``, the default), or the model's own decoder in ``dtype`` on the
+dequantized /16 stage and the float /32 stage (``decoder="bf16"``; the
+spatial path's 1x1 and the body's last block then emit float32), then the
+head's logits: at /8 for the .speed heads, and for the full-resolution
+heads either upsampled (``argmax=True``) or handed raw to the
+upsample-argmax kernel K7 (``argmax="tiled"``).
 
 The Bottleneck body (``build_int8_backbone_package``,
 ``make_int8_pspnet_infer``): the raw uint8 image pre-padded by one pixel,
@@ -35,10 +45,9 @@ kernel, the decoder's six CBRs and sp3 too (``cbr_i8``), while the float
 glue between them (GAP, gates, resizes, requants, concat, SE, the final
 1x1) stays PyTorch, as JAX leaves it to XLA.  The TPU-only arms of the JAX
 module (stem modes, carrier dtypes, the ``_L3_ENABLE``/``_L4_ENABLE``
-gates, block-size and layout knobs) have no counterpart.  Still to port
-(ROADMAP A4): the X39 kind and the classic-stem BiSeNet bf16-decoder
-branch.  ``save_int8_package`` / ``load_int8_package`` keep a package in
-the port's own file format (not JAX's flax-msgpack ``.int8pkg``).
+gates, block-size and layout knobs) have no counterpart.
+``save_int8_package`` / ``load_int8_package`` keep a package in the port's
+own file format (not JAX's flax-msgpack ``.int8pkg``).
 
 Weights: per-output-channel symmetric int8 (scale = absmax/127).
 Activations: per-tensor scales from a float-graph calibration run.
@@ -49,6 +58,7 @@ same int8 codes.
 
 import copy
 import pickle
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -57,6 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.resnet import BasicBlock, ResNet
+from ..models.xception import Xception
 from ..ops import wide
 from ..ops.kernels.int8_serve_kernels import (
     bottleneck_i8,
@@ -70,14 +81,11 @@ from ..ops.kernels.int8_serve_kernels import (
     res_block_i8,
     spatial_path_i8,
     stem_pool_i8,
+    xblock_i8,
 )
 from ..ops.kernels.upsample_argmax import fused_upsample_argmax
 from ..ops.resize import resize_bilinear_align_corners, upsample_by_scale
 from .fused_stem import _stem_weights, fold_bn_affine, hwio
-
-_NOT_PORTED = ("not ported yet (ROADMAP A4: the port's classic-stem "
-               "int8-through graph has only the R18 kind with the int8 "
-               "decoder)")
 
 
 # ----------------------------------------------------------------------
@@ -100,6 +108,20 @@ def _scale(stats: Dict[str, np.ndarray], path: str) -> float:
             f"the plain float model (available: {sorted(stats)[:8]}...)"
         )
     return max(float(np.max(stats[path])), 1e-8) / 127.0
+
+
+def _scale_vec(stats: Dict[str, np.ndarray], path: str) -> np.ndarray:
+    """Per-channel activation scales (the separable convs' mid tensors):
+    needs ``calibrate_channelwise`` stats."""
+    if path not in stats:
+        raise KeyError(f"calibration stats missing conv input '{path}'")
+    v = np.asarray(stats[path], np.float32)
+    if v.ndim == 0:
+        raise ValueError(
+            f"'{path}' needs per-channel calibration stats (the separable "
+            "mid scales fold into the pointwise kernel): use "
+            "calibrate_channelwise")
+    return np.maximum(v, 1e-8) / 127.0
 
 
 @torch.no_grad()
@@ -160,6 +182,37 @@ def _convbn_pack(conv, bn, eps, s_in, s_out, device):
 def _cbr_pack(cbr, eps, s_in, s_out, device):
     """ConvBnRelu module -> (wq, M, C)."""
     return _convbn_pack(cbr.conv, cbr.bn, eps, s_in, s_out, device)
+
+
+def _quant_w_depthwise(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(k, k, 1, C) depthwise kernel -> per-channel int8."""
+    w = np.asarray(w, np.float32)
+    s = np.maximum(np.abs(w).max(axis=(0, 1, 2)), 1e-12) / 127.0
+    wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return wq, s
+
+
+def _sep_pack(sep, eps, s_in, s_mid_vec, s_out, device):
+    """An Xception separable (no depthwise BN) -> the int8 depthwise
+    (``dw``) with its per-channel requant to the mid scales (``dm``), and
+    the int8 pointwise with its BN epilogue (``w``, ``m``, ``c``); the
+    per-channel mid scales fold into the pointwise kernel's input axis
+    before it is quantized (JAX int8_serve.py:243-268).  ``s_out`` None
+    emits float (``m``, ``c`` in real units)."""
+    wq_dw, s_dw = _quant_w_depthwise(hwio(sep.depthwise))
+    m_dw = (s_in * s_dw / s_mid_vec).astype(np.float32)
+    kf = hwio(sep.pointwise.conv) * s_mid_vec[None, None, :, None]
+    wq_pw, s_pw = _quant_w(kf)
+    a, b = fold_bn_affine(sep.pointwise.bn, eps)
+    m = s_pw * a
+    c = b.copy()
+    if s_out is not None:
+        m, c = m / s_out, c / s_out
+    return {"dw": _to_dev(wq_dw, device),
+            "dm": _to_dev(m_dw, device, torch.float32),
+            "w": _to_dev(wq_pw, device),
+            "m": _to_dev(m, device, torch.float32),
+            "c": _to_dev(c, device, torch.float32)}
 
 
 def _stem_pack(model, eps, image_mean, image_std, s_sp_out, s_bb_out,
@@ -273,11 +326,68 @@ def _dec_pack(model, stats, eps, s_c16_body, s_c32, device):
 # building the package
 # ----------------------------------------------------------------------
 
-def _is_r18(model) -> bool:
+def _body_kind(model) -> str:
+    """The classic-stem body's kind from ``layer1_0``'s children (JAX
+    int8_serve.py:360-371): "r18" for ResNet-18's BasicBlocks (conv1 and
+    bn1, four stages of two), "x39" for Xception39's separable blocks
+    (sep1).  ValueError for any other backbone."""
     bb = getattr(model, "backbone", None)
-    return (isinstance(bb, ResNet)
-            and [len(n) for n in bb.stage_names] == [2, 2, 2, 2]
-            and isinstance(bb.layer1_0, BasicBlock))
+    blk0 = getattr(bb, "layer1_0", None)
+    if (isinstance(bb, ResNet) and isinstance(blk0, BasicBlock)
+            and [len(n) for n in bb.stage_names] == [2, 2, 2, 2]):
+        return "r18"
+    if isinstance(bb, Xception) and hasattr(blk0, "sep1"):
+        return "x39"
+    raise ValueError(
+        "int8-through serving of the classic-stem BiSeNets packs the "
+        "BasicBlock ResNet-18 and Xception39 bodies; this backbone is "
+        "neither (the deep-stem Bottleneck bodies have "
+        "build_int8_backbone_package)")
+
+
+def block_keys(pkg):
+    """[(key, stage)] of a classic-stem package's blocks (``l{stage}_{i}``)
+    in forward order."""
+    keys = [k for k in pkg if re.fullmatch(r"l\d+_\d+", k)]
+    return [(k, int(k[1:].split("_")[0])) for k in sorted(
+        keys, key=lambda k: tuple(int(v) for v in k[1:].split("_")))]
+
+
+def _stage_blocks(bb):
+    """[(package key, module name, stage, index in the stage)] of the
+    body's blocks in forward order."""
+    return [(f"l{li}_{bi}", name, li, bi)
+            for li, names in enumerate(bb.stage_names, 1)
+            for bi, name in enumerate(names)]
+
+
+def _pad_x39_input(pkg):
+    """Pad X39's 8-channel backbone stem to 16 channels, in place: the
+    stem's extra output channels get zero weights and zero m, c (code 0
+    through ReLU and K1's max pool), and ``l1_0``'s separables (sep1 and
+    the projection, which read the pooled stem) zero depthwise weights, a
+    zero ``dm`` (their depthwise codes stay 0) and zero pointwise input
+    rows.  Exact: the codes of every real channel are unchanged.  The
+    tensor-core 1x1s and K14 take 16-channel multiples, K1 a backbone half
+    of one.  Returns ``pkg``."""
+    stem = pkg["stem"]
+    n_bb = stem["wf"].shape[3] - stem["n_sp"]
+    pad = -n_bb % 16
+    if not pad:
+        return pkg
+
+    def grow(t, dim):
+        shape = list(t.shape)
+        shape[dim] = pad
+        return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+    stem["wf"] = grow(stem["wf"], 3)
+    stem["mf"], stem["cf"] = grow(stem["mf"], 0), grow(stem["cf"], 0)
+    for key in ("sep1", "proj"):
+        e = pkg["l1_0"][key]
+        e["dw"], e["dm"] = grow(e["dw"], 3), grow(e["dm"], 0)
+        e["w"] = grow(e["w"], 2)
+    return pkg
 
 
 def build_int8_package(model: nn.Module, stats: Dict[str, np.ndarray], *,
@@ -286,21 +396,32 @@ def build_int8_package(model: nn.Module, stats: Dict[str, np.ndarray], *,
                        image_std=(0.229, 0.224, 0.225),
                        decoder: str = "int8", device=None):
     """Quantized weights and fused epilogue constants for a classic-stem
-    BiSeNet-R18, on ``device`` (default: the model's).  ``stats`` is the
-    conv-input absmax table from ``calibrate_channelwise``.  Scalars (the
-    residual ratios and decoder scales) are float32 values held as Python
-    floats; ``stride``/``n_sp``/``kind`` are the graph's static structure."""
-    if decoder != "int8":
-        raise NotImplementedError(f"decoder={decoder!r} is {_NOT_PORTED}")
-    if not _is_r18(model):
-        raise NotImplementedError(f"this backbone is {_NOT_PORTED}")
+    BiSeNet (JAX int8_serve.py:340-509), on ``device`` (default: the
+    model's): the dual stem, the spatial path and the body, ResNet-18's
+    (kind "r18") or Xception39's (kind "x39", its stem padded to 16
+    backbone channels by ``_pad_x39_input``).  ``stats`` is the conv-input
+    absmax table from ``calibrate_channelwise``.
+
+    decoder="int8" (the port's default) also packs the int8 ARM / refine /
+    FFM / head decoder (``dec``): the body emits the /32 and /16 stages as
+    codes at the decoder's input scales and the spatial path codes at the
+    FFM's concat scale.  decoder="bf16" leaves the decoder to the model:
+    the spatial path's 1x1 and the body's last block emit float32 and
+    ``s_c16`` dequantizes the /16 stage.  Scalars (the residual ratios and
+    scales) are float32 values held as Python floats; ``stride``/``n_sp``/
+    ``kind`` are the graph's static structure."""
+    if decoder not in ("bf16", "int8"):
+        raise ValueError(f"decoder must be 'bf16' or 'int8', got {decoder!r}")
+    kind = _body_kind(model)
     if device is None:
         device = next(model.parameters()).device
     st = lambda path: _scale(stats, path)  # noqa: E731
+    int8_dec = decoder == "int8"
 
-    pkg = {"kind": "r18"}
+    pkg = {"kind": kind}
     s_sp = st("spatial_path/conv_3x3_1/conv")
-    s_bb = st("backbone/layer1_0/conv1")
+    s_bb = st("backbone/layer1_0/conv1" if kind == "r18"
+              else "backbone/layer1_0/sep1/depthwise")
     pkg["stem"] = _stem_pack(model, eps, image_mean, image_std, s_sp, s_bb,
                              device)
 
@@ -310,41 +431,62 @@ def build_int8_package(model: nn.Module, stats: Dict[str, np.ndarray], *,
     pkg["sp1"] = _cbr_pack(sp.conv_3x3_1, eps, s_sp, s_mid1, device)
     pkg["sp2"] = _cbr_pack(sp.conv_3x3_2, eps, s_mid1, s_mid2, device)
     pkg["sp3"] = _cbr_pack(sp.conv_1x1, eps, s_mid2,
-                           st("ffm/conv_1x1/conv"), device)
-    s_c32 = st("arm0/conv_3x3/conv")
+                           st("ffm/conv_1x1/conv") if int8_dec else None,
+                           device)
+    s_c32 = st("arm0/conv_3x3/conv") if int8_dec else None
 
     bb = model.backbone
+    blocks = _stage_blocks(bb)
+    # the input scale of each block's first conv: the block before emits at it
+    first = "conv1" if kind == "r18" else "sep1/depthwise"
     s_block_in = s_bb  # post-maxpool == stem scale (max is monotone)
-    for li in range(1, 5):
-        for bi in range(2):
-            name = f"layer{li}_{bi}"
-            blk = getattr(bb, name)
-            stride = 2 if (li > 1 and bi == 0) else 1
+    for i, (key, name, li, bi) in enumerate(blocks):
+        blk = getattr(bb, name)
+        s_out = (st(f"backbone/{blocks[i + 1][1]}/{first}")
+                 if i + 1 < len(blocks) else s_c32)
+        if kind == "r18":
             s_mid = st(f"backbone/{name}/conv2")
-            if li == 4 and bi == 1:
-                s_out = s_c32
-            elif bi == 0:
-                s_out = st(f"backbone/layer{li}_1/conv1")
-            else:
-                s_out = st(f"backbone/layer{li + 1}_0/conv1")
-            e = {
-                "conv1": _convbn_pack(blk.conv1, blk.bn1, eps, s_block_in,
-                                      s_mid, device),
-                "conv2": _convbn_pack(blk.conv2, blk.bn2, eps, s_mid, s_out,
-                                      device),
-                # identity-shortcut dequant ratio in output units
-                "res_ratio": _f32(s_block_in / s_out),
-                "stride": stride,
-            }
+            e = {"conv1": _convbn_pack(blk.conv1, blk.bn1, eps, s_block_in,
+                                       s_mid, device),
+                 "conv2": _convbn_pack(blk.conv2, blk.bn2, eps, s_mid, s_out,
+                                       device),
+                 "stride": 2 if (li > 1 and bi == 0) else 1}
             if blk.downsample_conv is not None:
                 e["down"] = _convbn_pack(blk.downsample_conv,
                                          blk.downsample_bn, eps, s_block_in,
                                          s_out, device)
-            pkg[f"l{li}_{bi}"] = e
+        else:
+            s1_out = st(f"backbone/{name}/sep2/depthwise")
+            s2_out = st(f"backbone/{name}/sep3/depthwise")
+
+            def sep(sub, s_in, s_o):
+                mid = _scale_vec(stats,
+                                 f"backbone/{name}/{sub}/pointwise/conv")
+                return _sep_pack(getattr(blk, sub), eps, s_in, mid, s_o,
+                                 device)
+
+            e = {"sep1": sep("sep1", s_block_in, s1_out),
+                 "sep2": sep("sep2", s1_out, s2_out),
+                 "sep3": sep("sep3", s2_out, s_out),
+                 "stride": 2 if bi == 0 else 1}
+            if blk.proj is not None:
+                e["proj"] = sep("proj", s_block_in, s_out)
+        if kind == "r18" or "proj" not in e:
+            # the identity shortcut's dequant ratio in the last conv's
+            # output units (real units when the block emits float; JAX
+            # packs it into every R18 block)
+            e["res_ratio"] = _f32(s_block_in / (s_out if s_out is not None
+                                                else 1.0))
+        pkg[key] = e
+        if s_out is not None:
             s_block_in = s_out
-    pkg["dec"] = _dec_pack(model, stats, eps,
-                           st("backbone/layer4_0/conv1"), s_c32, device)
-    return pkg
+    # the /16 stage's scale: the input of the last stage's first block
+    s_c16 = st(f"backbone/{bb.stage_names[-1][0]}/{first}")
+    if int8_dec:
+        pkg["dec"] = _dec_pack(model, stats, eps, s_c16, s_c32, device)
+    else:
+        pkg["s_c16"] = _f32(s_c16)
+    return _pad_x39_input(pkg) if kind == "x39" else pkg
 
 
 # ----------------------------------------------------------------------
@@ -582,24 +724,40 @@ def _apply_int8_decoder(dec, spatial_q, c16q, c32q):
 
 
 def int8_body(pkg, xs):
-    """Stem, spatial path and backbone: returns the int8 codes
-    ``(spatial_out, (c4, c8, c16, c32))``, every tensor NHWC."""
+    """Stem, spatial path and body: returns ``(spatial_out, feats)``, every
+    tensor NHWC, ``feats`` the stages (R18: c4, c8, c16, c32; X39: c8, c16,
+    c32) as int8 codes.  With the bf16 decoder (no ``dec`` in the package)
+    ``spatial_out`` and the last stage are the float32 values their convs
+    emit."""
     stem = pkg["stem"]
-    sp_q, pooled = stem_pool_i8(xs, stem["wf"], stem["mf"], stem["cf"],
-                                stem["n_sp"])
+    use_dec = "dec" in pkg
+    sp_q, x = stem_pool_i8(xs, stem["wf"], stem["mf"], stem["cf"],
+                           stem["n_sp"])
     spatial_out = cbr_i8(spatial_path_i8(sp_q, pkg["sp1"], pkg["sp2"]),
-                         pkg["sp3"], 1, 0)
-    feats = [l1_stage_i8(pooled, pkg["l1_0"], pkg["l1_1"])]
-    for li in (2, 3):
-        feats.append(down_stage_i8(feats[-1], pkg[f"l{li}_0"],
-                                   pkg[f"l{li}_1"]))
-    feats.append(res_block_i8(down_block_i8(feats[-1], pkg["l4_0"]),
-                              pkg["l4_1"]))
+                         pkg["sp3"], 1, 0, emit_int8=use_dec)
+    if pkg["kind"] == "r18":
+        feats = [l1_stage_i8(x, pkg["l1_0"], pkg["l1_1"])]
+        for li in (2, 3):
+            feats.append(down_stage_i8(feats[-1], pkg[f"l{li}_0"],
+                                       pkg[f"l{li}_1"]))
+        feats.append(res_block_i8(down_block_i8(feats[-1], pkg["l4_0"]),
+                                  pkg["l4_1"], use_dec))
+        return spatial_out, tuple(feats)
+    feats = []
+    keys = block_keys(pkg)
+    for i, (key, li) in enumerate(keys):
+        e = pkg[key]
+        last = i == len(keys) - 1
+        x = xblock_i8(x, e, e["stride"], emit_int8=use_dec or not last)
+        if last or keys[i + 1][1] != li:
+            feats.append(x)
     return spatial_out, tuple(feats)
 
 
-def make_int8_through_infer(model, pkg, *, argmax=True):
-    """The int8-through serving function.
+def make_int8_through_infer(model, pkg, *, argmax=True,
+                            dtype=torch.bfloat16):
+    """The classic-stem int8-through serving function (JAX int8_serve.py:
+    1086-1456), over both kinds (R18, X39) and both decoders.
 
     Returns ``(infer, pkg)``: ``infer(pkg, xs)`` takes the pre-padded int8
     s2d input from ``prepare_s2d_input_u8`` on the package's device and
@@ -608,7 +766,14 @@ def make_int8_through_infer(model, pkg, *, argmax=True):
     with ``argmax=False`` the (1, H/s, W/s, classes) float32 log-probs.
     ``argmax="tiled"`` (full-resolution heads only) skips the head's
     x-scale upsample and takes the labels from the /8 logits with K7,
-    ``fused_upsample_argmax``: the (H, W, classes) scores never exist."""
+    ``fused_upsample_argmax``: the (H, W, classes) scores never exist.
+
+    A package with ``dec`` runs the int8 decoder; one without (built with
+    ``decoder="bf16"``) hands the model's decoder, in ``dtype`` (a copy of
+    the model in ``dtype`` when it is in another type; ``infer.head``),
+    the float spatial path, the /16 stage dequantized by ``s_c16``, the
+    float /32 stage and the earlier stages for their shapes, as JAX's
+    bf16-decoder handoff does (:1440-1456)."""
     scale = model.head_scales[2]
     if argmax == "tiled" and scale <= 1:
         raise ValueError(
@@ -617,24 +782,44 @@ def make_int8_through_infer(model, pkg, *, argmax=True):
     if argmax not in (True, False, "tiled"):
         raise ValueError(f"argmax must be True, False or 'tiled', got "
                          f"{argmax!r}")
-    if pkg.get("kind") != "r18" or "dec" not in pkg:
-        raise NotImplementedError(f"this package is {_NOT_PORTED}")
+    if pkg.get("kind") not in ("r18", "x39"):
+        raise ValueError(f"make_int8_through_infer serves a classic-stem "
+                         f"package (kind r18 or x39), got kind "
+                         f"{pkg.get('kind')!r}")
+    head_model = None if "dec" in pkg else _head_in(model, dtype)
+
+    def scores_of(pkg, spatial_out, feats):
+        """The /8 raw logits NHWC float32, or (bf16 decoder, not tiled) the
+        model's upsampled log-probs NCHW."""
+        if head_model is None:
+            return _apply_int8_decoder(pkg["dec"], spatial_out, feats[-2],
+                                       feats[-1])
+        c_prev = feats[-2].float() * pkg["s_c16"]
+        blocks = tuple(f.to(dtype).permute(0, 3, 1, 2) for f in (
+            *feats[:-2], c_prev, feats[-1]))
+        out = head_model(None, spatial_out=spatial_out.to(dtype).permute(
+            0, 3, 1, 2), context_blocks=blocks, raw_logits=argmax == "tiled")
+        if argmax == "tiled":
+            return wide(out).permute(0, 2, 3, 1)
+        return out
 
     @torch.inference_mode()
     def infer(pkg, xs):
         spatial_out, feats = int8_body(pkg, xs)
-        scores = _apply_int8_decoder(pkg["dec"], spatial_out, feats[-2],
-                                     feats[-1])
+        scores = scores_of(pkg, spatial_out, feats)
         if argmax == "tiled":
             h, w = scores.shape[1:3]
-            return fused_upsample_argmax(scores.contiguous(),
+            return fused_upsample_argmax(scores.float().contiguous(),
                                          (h * scale, w * scale))
+        if head_model is not None:
+            return _labels_or_scores(scores, argmax)
         scores = upsample_by_scale(scores.permute(0, 3, 1, 2), scale
                                    ).permute(0, 2, 3, 1)
         if argmax:
             return scores.argmax(dim=-1).to(torch.int32)
         return torch.log_softmax(scores, dim=-1)
 
+    infer.head = head_model  # the module whose weights the graph reads
     return infer, pkg
 
 
@@ -782,16 +967,16 @@ def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
                                       seed: int = 0):
     """Calibrate, pack and wrap the int8-through graph for an experiment,
     on the model's device, with JAX's routing (int8_serve.py:1509-1566):
-    BiSeNet-R18 (the int8 decoder); PSPNet and PSANet on the dilated
-    Bottleneck body and FCN and DFN on the standard-stride one, every
-    stage dequantized for DFN and FCN (``dequant_all``), the head in bf16;
-    BiSeNet-R101 with its int8 spatial path, the input pre-padded by 3.
-    Calibration runs the float model as it is.
+    the classic-stem BiSeNets (R18 and X39) with either decoder; PSPNet
+    and PSANet on the dilated Bottleneck body and FCN and DFN on the
+    standard-stride one, every stage dequantized for DFN and FCN
+    (``dequant_all``), the head in bf16; BiSeNet-R101 with its int8
+    spatial path, the input pre-padded by 3.  Calibration runs the float
+    model as it is.
 
     decoder: None picks "int8" for the classic-stem BiSeNets and "bf16"
     for every other family; "int8" for any other family is a ValueError,
-    as in JAX.  The X39 int8 kind and the classic-stem bf16 decoder raise
-    NotImplementedError (ROADMAP A4).
+    as in JAX.
 
     calib_images: uint8 NHWC arrays (None: two random images of
     ``calib_shape`` from ``np.random.default_rng(seed)``, as the JAX
@@ -805,9 +990,8 @@ def build_int8_serving_for_experiment(cfg, model, *, decoder: str = None,
     if decoder == "int8" and not classic_stem:
         raise ValueError("decoder='int8' only applies to the classic-stem "
                          f"BiSeNet int8-through path (got {cfg.model})")
-    if classic_stem and (cfg.model != "bisenet_r18" or decoder != "int8"):
-        raise NotImplementedError(
-            f"{cfg.model} with decoder={decoder!r} is {_NOT_PORTED}")
+    if decoder not in ("bf16", "int8"):
+        raise ValueError(f"decoder must be 'bf16' or 'int8', got {decoder!r}")
     device = next(model.parameters()).device
     if calib_images is None:
         rng = np.random.default_rng(seed)
@@ -899,8 +1083,9 @@ def save_int8_package(path: str, pkg: dict) -> str:
     own format, not JAX's ``.int8pkg`` (flax msgpack, which the port cannot
     read without flax): ``torch.save`` of the CPU tensors and float
     scalars beside the statics tree (JAX's split, int8_serve.py:800-845),
-    under a format name and version.  Every package kind: r18, the
-    Bottleneck bodies at both stride sets, bisenet_r101's nested ``bb``."""
+    under a format name and version.  Every package kind: r18 and x39 with
+    either decoder, the Bottleneck bodies at both stride sets,
+    bisenet_r101's nested ``bb``."""
     arrays, statics = _split_statics(pkg)
     torch.save({"format": INT8PKG_FORMAT, "v": INT8PKG_FORMAT_VERSION,
                 "statics": statics, "arrays": arrays}, path)

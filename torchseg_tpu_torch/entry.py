@@ -5,13 +5,16 @@ graph, the graph ``torchseg_tpu.tools.speed --int8-through`` builds in
 JAX, with random weights from ``seed``, calibrated on two random 256x512
 images from ``np.random.default_rng(0)`` as the JAX function is.  It returns
 ``infer, (pkg, xs)`` for a zero image of ``image_hw`` (by default the
-experiment's crop, ``SERVE_CROPS``).  Served: BiSeNet-R18 (``infer(pkg,
-xs)`` gives (1, H/8, W/8) int32 labels for the .speed model) and every
-family on the Bottleneck body, (1, H, W) int32 labels with the head in
-bf16: PSPNet-R50/R101 and PSANet-R50/R101 on ADE (``PSP_EXPERIMENT``,
-``PSANET_EXPERIMENT``, 480x480), FCN-32s-R101 on VOC (``FCN_EXPERIMENT``,
-512x512), DFN-R101 and BiSeNet-R101 on Cityscapes (``DFN_EXPERIMENT``,
-800x800; ``BISENET_R101_EXPERIMENT``, 1024x1024).
+experiment's crop, ``SERVE_CROPS``).  Served: the classic-stem BiSeNets,
+R18 and X39, with JAX's int8 decoder (``infer(pkg, xs)`` gives (1, H/8,
+W/8) int32 labels for the .speed models; ``serve_entry(
+"cityscapes.bisenet.X39.speed", image_hw=(768, 1536))`` is X39's own
+protocol's size), and every family on the Bottleneck body, (1, H, W)
+int32 labels with the head in bf16: PSPNet-R50/R101 and PSANet-R50/R101
+on ADE (``PSP_EXPERIMENT``, ``PSANET_EXPERIMENT``, 480x480), FCN-32s-R101
+on VOC (``FCN_EXPERIMENT``, 512x512), DFN-R101 and BiSeNet-R101 on
+Cityscapes (``DFN_EXPERIMENT``, 800x800; ``BISENET_R101_EXPERIMENT``,
+1024x1024).
 
 ``entry()`` is ``serve_entry`` for the flagship model, BiSeNet-R18
 real-time (``cityscapes.bisenet.R18.speed``) at 1024x2048.

@@ -69,6 +69,10 @@ LIBRARIES = {
         # x, h, w, c, out, ho, wo, route (bytes a load: 16 or 4), stream
         "tsg_maxpool_i8": ([c_void_p] + [c_int] * 3 + [c_void_p]
                            + [c_int] * 3 + [c_void_p]),
+        # x, h, w, c, wt, dm, stride, out, ho, wo, stream
+        "tsg_dwconv3x3_i8": ([c_void_p] + [c_int] * 3 + [c_void_p] * 2
+                             + [c_int, c_void_p] + [c_int] * 2
+                             + [c_void_p]),
     },
     "bn_kernels": {
         # x, n, c, hw, bf16, out, weight, bias, running_mean,

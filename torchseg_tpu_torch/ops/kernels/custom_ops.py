@@ -8,8 +8,9 @@ tensors, the plain version on CPU tensors, with the wrapper's launch
 count), its ``register_fake`` gives the output's shape and type, and its
 flop formula (``torch.utils.flop_counter``) counts 2 operations a
 multiply-add of its convs, as the conv formula does.  A package entry
-(``{"w", "m", "c"}`` dicts and a residual ratio) goes in as a flat tensor
-list and a float.  Every output is contiguous.
+(``{"w", "m", "c"}`` dicts, an Xception block's ``{"dw", "dm", "w", "m",
+"c"}`` separables, and a residual ratio) goes in as a flat tensor list
+and a float.  Every output is contiguous.
 
 The live serving graphs keep their direct wrapper calls: an op costs
 more host time a call than its wrapper (PERF.md, Findings).
@@ -31,12 +32,20 @@ from . import upsample_argmax as U
 
 NS = "torchseg_cuda"
 _CONVS = ("conv1", "conv2", "conv3", "down")
+_SEPS = ("sep1", "sep2", "sep3", "proj")
+_SEP_FIELDS = ("dw", "dm", "w", "m", "c")
 
 
 def flat_entry(e: dict) -> List[Tensor]:
     """A block entry's conv tensors in a fixed order: (w, m, c) of conv1,
     conv2, conv3 and down, those it has."""
     return [e[k][f] for k in _CONVS if k in e for f in ("w", "m", "c")]
+
+
+def flat_sep_entry(e: dict) -> List[Tensor]:
+    """An Xception block entry's tensors in a fixed order: (dw, dm, w, m, c)
+    of sep1, sep2, sep3 and proj, those it has."""
+    return [e[k][f] for k in _SEPS if k in e for f in _SEP_FIELDS]
 
 
 def _unflat(t, keys, rr=None):
@@ -160,17 +169,20 @@ def _(x_shape, t_shape, out_shape=None, **kwargs):
 
 
 @custom_op(f"{NS}::res_block_i8", mutates_args=())
-def res_block_i8(x: Tensor, t: List[Tensor], rr: float) -> Tensor:
-    return K.res_block_i8(x, _unflat(t, ("conv1", "conv2"), rr)).contiguous()
+def res_block_i8(x: Tensor, t: List[Tensor], rr: float,
+                 emit_int8: bool = True) -> Tensor:
+    return K.res_block_i8(x, _unflat(t, ("conv1", "conv2"), rr),
+                          emit_int8).contiguous()
 
 
 @res_block_i8.register_fake
-def _(x, t, rr):
-    return torch.empty_like(x)
+def _(x, t, rr, emit_int8=True):
+    return torch.empty_like(x, dtype=torch.int8 if emit_int8
+                            else torch.float32)
 
 
 @register_flop_formula(torch.ops.torchseg_cuda.res_block_i8)
-def _(x_shape, t_shape, rr, out_shape=None, **kwargs):
+def _(x_shape, t_shape, rr, emit_int8=True, out_shape=None, **kwargs):
     return sum(_conv_flops(x_shape, s, out_shape)
                for s in (t_shape[0], t_shape[3]))
 
@@ -238,6 +250,53 @@ def _(x_shape, t_shape, rr, stride, dilation, emit_int8, out_shape=None,
     if len(t_shape) > 9:
         n += _conv_flops(None, t_shape[9], out_shape)
     return n
+
+
+# -- K14 and the Xception39 block -------------------------------------
+
+@custom_op(f"{NS}::dwconv3x3_i8", mutates_args=())
+def dwconv3x3_i8(x: Tensor, w: Tensor, dm: Tensor, stride: int) -> Tensor:
+    return K.dwconv3x3_i8(x, w, dm, stride).contiguous()
+
+
+@dwconv3x3_i8.register_fake
+def _(x, w, dm, stride):
+    return x.new_empty((1, _out(x.shape[1], 3, stride, 1, 1),
+                        _out(x.shape[2], 3, stride, 1, 1), x.shape[3]))
+
+
+@register_flop_formula(torch.ops.torchseg_cuda.dwconv3x3_i8)
+def _(x_shape, w_shape, dm_shape, stride, out_shape=None, **kwargs):
+    return 2 * out_shape[1] * out_shape[2] * out_shape[3] * 9
+
+
+@custom_op(f"{NS}::xblock_i8", mutates_args=())
+def xblock_i8(x: Tensor, t: List[Tensor], rr: float, stride: int,
+              emit_int8: bool) -> Tensor:
+    n = len(t) // len(_SEP_FIELDS)
+    e = {k: dict(zip(_SEP_FIELDS, t[len(_SEP_FIELDS) * i:]))
+         for i, k in enumerate(_SEPS[:n])}
+    if n == 3:
+        e["res_ratio"] = rr
+    return K.xblock_i8(x, e, stride, emit_int8).contiguous()
+
+
+@xblock_i8.register_fake
+def _(x, t, rr, stride, emit_int8):
+    shape = (1, _out(x.shape[1], 3, stride, 1, 1),
+             _out(x.shape[2], 3, stride, 1, 1), t[12].shape[3])
+    return x.new_empty(shape, dtype=torch.int8 if emit_int8
+                       else torch.float32)
+
+
+@register_flop_formula(torch.ops.torchseg_cuda.xblock_i8)
+def _(x_shape, t_shape, rr, stride, emit_int8, out_shape=None, **kwargs):
+    # each separable at the output's resolution: its 3x3 depthwise (9
+    # multiply-adds a channel) and its 1x1 pointwise
+    hw = out_shape[1] * out_shape[2]
+    return sum(2 * hw * (9 * t_shape[i + 2][2] + t_shape[i + 2][2]
+                         * t_shape[i + 2][3])
+               for i in range(0, len(t_shape), len(_SEP_FIELDS)))
 
 
 # -- K7, K11 ----------------------------------------------------------

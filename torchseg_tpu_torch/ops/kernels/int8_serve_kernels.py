@@ -9,11 +9,14 @@ version, plus the exact integer primitives both are specified by.
 | l1_stage_i8      | conv_i8_mma_res_kernel x4 (modes 0,1,0,1; int8 mma) | l1_stage_i8_paired_view (:763) |
 | down_stage_i8    | conv_i8_mma_kernel x4 (modes 0,2,0,1; int8 mma) | down_stage_i8_from_paired (:986) |
 | down_block_i8    | conv_i8_mma_kernel x2 (modes 0,2; int8 mma, K split) | down_block_i8_from_paired (:1136) |
-| res_block_i8     | conv_i8_mma_kernel x2 (modes 0,1; int8 mma, K split) | res_block_i8_std (:1226) |
+| res_block_i8     | conv_i8_mma_kernel x2 (modes 0,1; int8 mma, K split; codes or float32 out) | res_block_i8_std (:1226) |
 | maxpool2d_3x3s2_i8 | maxpool_i8_vec16_kernel (16-byte loads) or maxpool_i8_kernel (4-byte), K10 | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_mma_res_kernel or conv_i8_mma_kernel, mode 0 (int8 mma; 1x1, 3x3, dilated 3x3; codes or float32 out) | none: an XLA conv in JAX |
 | bottleneck_i8    | the same, x3 (modes 0,0,1 or 2)      | none: XLA (_apply_bottleneck) |
 | conv_i8_affine   | conv_i8_mma_kernel, mode 3 (float32 out, no ReLU) | none: XLA (deploy/quantize.py:100-146) |
+| dwconv3x3_i8     | dwconv3x3_i8_kernel, K14 (CUDA cores, 16-byte loads) | none: XLA (deploy/int8_serve.py:961 _qconv_dw) |
+| sep_i8           | K14, then the tensor-core conv's 1x1 in mode 0 | none: XLA (_apply_sep, :971) |
+| xblock_i8        | sep_i8 x2, K14 (x2 with a projection), then the 1x1 in mode 1 (identity) or 4 (projection) | none: XLA (_apply_xblock, :986) |
 
 Line numbers are in the JAX file.  Every conv runs on the int8 tensor
 cores and takes only the widths its kernels tile
@@ -23,16 +26,19 @@ before launching for any other.  Each conv launch picks its kernel by one
 rule (``_conv_launch``): the resident-weight kernel up to 64 input
 channels, the streaming one above (and for the projection).  ``cbr_i8``
 (the R18 decoder's convs, the spatial path's 1x1 sp3, the deep stem's
-stem2 and stem3) and ``bottleneck_i8`` (the dilated Bottleneck body of
-PSPNet) replace what JAX computes with XLA convs (deploy/int8_serve.py:716-
-758, :940, :1038).  Every public function takes and returns NHWC int8
+stem2 and stem3), ``bottleneck_i8`` (the dilated Bottleneck body of
+PSPNet) and ``dwconv3x3_i8`` / ``sep_i8`` / ``xblock_i8`` (the Xception39
+body) replace what JAX computes with XLA convs (deploy/int8_serve.py:716-
+758, :940, :961-996, :1038).  Every public function takes and returns NHWC int8
 codes (float32 values where a conv emits them) and HWIO weights, batch 1,
 as the JAX functions do.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts in ``.launches`` the
 calls in which it launched its CUDA kernel (or kernel chain);
-``bottleneck_i8`` counts each of its three launches.
+``bottleneck_i8`` counts each of its three launches; ``sep_i8`` its
+pointwise launch and ``xblock_i8`` its sep3 launch (K14's launches count
+in ``dwconv3x3_i8``, sep1's and sep2's pointwise launches in ``sep_i8``).
 
 The plain int8 convolution (``qconv``) runs in float64 because
 ``F.conv2d`` takes no int8: every partial sum is an integer below 2**53,
@@ -129,6 +135,59 @@ def apply_bottleneck(xq, e, stride: int, dilation: int,
     q2 = apply_cbr(q1, e["conv2"], stride, dilation, dilation=dilation)
     y3 = qconv(q2, e["conv3"]["w"], 1, 0).float()
     return _shortcut_epilogue(y3, e["conv3"], xq, e, stride, emit_int8)
+
+
+def qconv_dw(xq: torch.Tensor, wq: torch.Tensor, stride: int,
+             pad: int) -> torch.Tensor:
+    """Exact int8 depthwise conv (JAX ``_qconv_dw``): NHWC codes x (k, k, 1,
+    C) int8 weights -> NHWC int32, a float64 grouped conv (exact, as
+    ``qconv``) rounded before the cast."""
+    x = xq.permute(0, 3, 1, 2).to(torch.float64)
+    w = wq.permute(3, 2, 0, 1).to(torch.float64)
+    y = F.conv2d(x, w, stride=stride, padding=pad, groups=xq.shape[3])
+    return torch.round(y).permute(0, 2, 3, 1).to(torch.int32)
+
+
+def dwconv3x3_i8_plain(x, w, dm, stride: int) -> torch.Tensor:
+    """The separable conv's first half (JAX _apply_sep's first two lines):
+    the 3x3 pad-1 depthwise sum times the float32 per-channel ``dm`` (one
+    float32 multiply), requantized; NHWC-contiguous codes."""
+    return requant(qconv_dw(x, w, stride, 1).float() * dm).contiguous()
+
+
+def _sep_sum(xq, e, stride: int):
+    """A separable conv's pointwise int32 sum as float32: the depthwise
+    codes (``dwconv3x3_i8_plain``) through the 1x1 ``e["w"]``."""
+    q_mid = dwconv3x3_i8_plain(xq, e["dw"], e["dm"], stride)
+    return qconv(q_mid, e["w"], 1, 0).float()
+
+
+def apply_sep(xq, e, stride: int, relu: bool = True, emit_int8: bool = True):
+    """Xception separable int8-through (JAX ``_apply_sep`` without
+    ``extra``): depthwise, requant to the mid codes, pointwise,
+    fma(y, m, c), optional ReLU, requantized or float32."""
+    z = fma(_sep_sum(xq, e, stride), e["m"], e["c"])
+    if relu:
+        z = torch.relu(z)
+    return requant(z) if emit_int8 else z
+
+
+def apply_xblock(xq, e, stride: int, emit_int8: bool = True):
+    """XceptionBlock int8-through (JAX ``_apply_xblock``): sep1 (strided)
+    and sep2 as CBRs, then sep3's pointwise epilogue with the shortcut
+    joined as XLA contracts it on the CPU: fma(x, rr, fma(y, m, c)) (the
+    identity) or fma(y, m, c) + fma(yd, md, cd) (the separable projection,
+    yd its pointwise sum), ReLU, requantized or float32."""
+    r = apply_sep(xq, e["sep1"], stride)
+    r = apply_sep(r, e["sep2"], 1)
+    z = fma(_sep_sum(r, e["sep3"], 1), e["sep3"]["m"], e["sep3"]["c"])
+    if "proj" in e:
+        z = z + apply_sep(xq, e["proj"], stride, relu=False, emit_int8=False)
+    else:
+        rr = float(torch.tensor(e["res_ratio"], dtype=torch.float32))
+        z = fma(xq.float(), rr, z)
+    z = torch.relu(z)
+    return requant(z) if emit_int8 else z
 
 
 def maxpool_i8(xq: torch.Tensor) -> torch.Tensor:
@@ -251,7 +310,9 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
                      down=None, sd=1, split=0, dilation=1, out_f32=False):
     """One launch of the streaming tensor-core conv (the 3x3 at pad =
     ``dilation``, or the 1x1 at pad 0, by the weights' shape); returns the
-    new codes, or with ``out_f32`` the float32 values.  ``split``: 0 lets
+    new codes, or with ``out_f32`` the float32 values.  Modes 2 and 4 take
+    the second GEMM's input ``xd`` and weights ``down`` at stride ``sd``.
+    ``split``: 0 lets
     the kernel's host code share each tile's K walk between a two-block
     cluster where the launch has no more tiles than the device has SMs (any
     mode: K5 and K6; K4's launches on the serving path have 256 or more
@@ -262,7 +323,7 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     wd = cdin = 0
     _aligned("x", x, 16)
-    if mode == 2:
+    if mode in (2, 4):
         _, _, wd, cdin = xd.shape
         _aligned("xd", xd, 16)
     lib = _build.ready(x.device.index)
@@ -531,20 +592,22 @@ def _shortcut_launch(t, last, x, e, stride, out_f32=False):
                         out_f32=out_f32)
 
 
-def _identity_block_launches(x, e):
+def _identity_block_launches(x, e, out_f32=False):
     """apply_block(x, e, 1) as two tensor-core launches: conv1, then conv2
-    with the identity residual in its epilogue.  Up to RESIDENT_MAX_CIN
-    channels (K3) on the resident-weight kernel; wider (K6) on the
-    streaming kernel, its K walk split over a cluster where the launch has
-    no more tiles than the device has SMs (at the serving shapes,
-    ``conv_route``'s choice too: K3's links have 512 resident tiles)."""
-    if x.shape[3] <= RESIDENT_MAX_CIN:
+    with the identity residual in its epilogue, writing codes or (with
+    ``out_f32``) the float32 values.  Up to RESIDENT_MAX_CIN channels (K3)
+    with codes out on the resident-weight kernel; wider (K6), or float32
+    out, on the streaming kernel, its K walk split over a cluster where the
+    launch has no more tiles than the device has SMs (at the serving
+    shapes, ``conv_route``'s choice too: K3's links have 512 resident
+    tiles)."""
+    if x.shape[3] <= RESIDENT_MAX_CIN and not out_f32:
         t = _launch_conv_mma_res(x, e["conv1"])
         return _launch_conv_mma_res(t, e["conv2"], mode=1, res=x,
                                     rr=e["res_ratio"])
     t = _launch_conv_mma(x, e["conv1"], 1)
     return _launch_conv_mma(t, e["conv2"], 1, mode=1, res=x,
-                            rr=e["res_ratio"])
+                            rr=e["res_ratio"], out_f32=out_f32)
 
 
 def res_block_i8_shape_error(c: int):
@@ -664,24 +727,26 @@ def down_block_i8(x, e):
     return out
 
 
-def res_block_i8_plain(x, e):
-    return apply_block(x, e, 1)
+def res_block_i8_plain(x, e, emit_int8: bool = True):
+    return apply_block(x, e, 1, emit_int8)
 
 
-def res_block_i8(x, e):
-    """apply_block(x, e, 1), a stride-1 identity BasicBlock on (1, H, W, C)
-    s8 (stage 4: C = 512).  Plain version: any C % 4 == 0.  On the card,
-    two tensor-core launches (``_identity_block_launches``): C % 16 == 0
+def res_block_i8(x, e, emit_int8: bool = True):
+    """apply_block(x, e, 1, emit_int8), a stride-1 identity BasicBlock on
+    (1, H, W, C) s8 (stage 4: C = 512), writing codes or, with
+    ``emit_int8=False`` (the last block of the bf16 decoder's body), the
+    float32 values.  Plain version: any C % 4 == 0.  On the card, two
+    tensor-core launches (``_identity_block_launches``): C % 16 == 0
     (``res_block_i8_shape_error``), ValueError otherwise, before
     launching."""
     _check_codes(x)
     _check_res_block("e", e, x.shape[3])
     if not _on_cuda(*_block_tensors(x, e)):
-        return res_block_i8_plain(x, e)
+        return res_block_i8_plain(x, e, emit_int8)
     why = res_block_i8_shape_error(x.shape[3])
     if why:
         raise ValueError(f"res_block_i8 (int8 tensor cores): {why}")
-    out = _identity_block_launches(x, e)
+    out = _identity_block_launches(x, e, out_f32=not emit_int8)
     res_block_i8.launches += 1
     return out
 
@@ -872,9 +937,153 @@ def conv_i8_affine(x, w, m, c, stride: int, pad: int, dilation: int = 1):
     return out
 
 
+# ----------------------------------------------------------------------
+# K14 and the Xception39 body: the int8 3x3 depthwise conv, then the
+# separable convs' pointwise 1x1s on the tensor-core convs
+# ----------------------------------------------------------------------
+
+def dwconv3x3_i8_shape_error(c: int):
+    """Why K14 does not take C channels, or None: a thread takes 16
+    channels in 16-byte accesses (C % 16 == 0)."""
+    if c <= 0 or c % 16:
+        return f"C must be a positive multiple of 16, got {c}"
+    return None
+
+
+def dwconv3x3_i8(x, w, dm, stride: int):
+    """dwconv3x3_i8_plain(x, w, dm, stride) in one launch of K14: (1, H, W,
+    C) s8 codes and (3, 3, 1, C) s8 weights -> (1, ceil(H/s), ceil(W/s), C)
+    s8 codes, clip(rint(y * dm), -127, 127) of the exact pad-1 depthwise
+    sum y, stride 1 or 2.  Plain version: any C % 4 == 0.  On the card: C
+    % 16 == 0 and every operand on a 16-byte boundary
+    (``dwconv3x3_i8_shape_error``), ValueError otherwise, before
+    launching."""
+    _check_codes(x)
+    c = x.shape[3]
+    _check("w", w, torch.int8, (3, 3, 1, c))
+    _check("dm", dm, torch.float32, (c,))
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if not _on_cuda(x, w, dm):
+        return dwconv3x3_i8_plain(x, w, dm, stride)
+    why = dwconv3x3_i8_shape_error(c)
+    if why:
+        raise ValueError(f"dwconv3x3_i8_kernel: {why}")
+    for name, t in (("x", x), ("w", w), ("dm", dm)):
+        _aligned(name, t, 16)
+    _, h, wd, _ = x.shape
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
+    out = torch.empty((1, ho, wo, c), dtype=torch.int8, device=x.device)
+    rc = _build.ready(x.device.index).tsg_dwconv3x3_i8(
+        x.data_ptr(), h, wd, c, w.data_ptr(), dm.data_ptr(), stride,
+        out.data_ptr(), ho, wo, _stream(x))
+    _raise_on(rc, "dwconv3x3_i8_kernel")
+    dwconv3x3_i8.launches += 1
+    return out
+
+
+def _check_sep(name, e, cin):
+    """A separable entry (3x3 depthwise ``dw``/``dm`` over cin channels,
+    1x1 pointwise ``w``/``m``/``c`` cin -> cout); returns cout."""
+    _check(f"{name}['dw']", e["dw"], torch.int8, (3, 3, 1, cin))
+    _check(f"{name}['dm']", e["dm"], torch.float32, (cin,))
+    _check(f"{name}['w']", e["w"], torch.int8, ndim=4)
+    cout = e["w"].shape[3]
+    _check_conv_entry(name, e, 1, cin, cout)
+    return cout
+
+
+def _sep_tensors(x, *entries):
+    return [x] + [e[f] for e in entries for f in ("dw", "dm", "w", "m", "c")]
+
+
+def sep_i8_shape_error(cin: int, cout: int):
+    """Why K14 and the tensor-core 1x1 do not take a separable conv cin ->
+    cout, or None: cin % 16 == 0, cout % 8 == 0."""
+    return (dwconv3x3_i8_shape_error(cin)
+            or conv_i8_mma_shape_error(cin, cout, k=1))
+
+
+def sep_i8(x, e, stride: int):
+    """apply_sep(x, e, stride), a separable CBR (sep1 and sep2 of an
+    Xception block), as K14, then one tensor-core 1x1 launch
+    (``_conv_launch``, mode 0): (1, H, W, cin) s8 -> (1, ceil(H/s),
+    ceil(W/s), cout) s8.  Plain version: cin % 4 == 0.  On the card: cin %
+    16 == 0, cout % 8 == 0 (``sep_i8_shape_error``), ValueError otherwise,
+    before launching."""
+    _check_codes(x)
+    cout = _check_sep("e", e, x.shape[3])
+    if not _on_cuda(*_sep_tensors(x, e)):
+        return apply_sep(x, e, stride)
+    why = sep_i8_shape_error(x.shape[3], cout)
+    if why:
+        raise ValueError(f"sep_i8: {why}")
+    q = dwconv3x3_i8(x, e["dw"], e["dm"], stride)
+    out = _conv_launch(q, e, 1)
+    sep_i8.launches += 1
+    return out
+
+
+def xblock_i8_shape_error(cin: int, mid: int, cout: int,
+                          projection: bool = True, emit_int8: bool = True):
+    """Why the launches of an Xception block cin -> mid -> cout do not take
+    these widths, or None: K14 and the 1x1 of sep1 (cin -> mid), sep2 (mid
+    -> mid) and sep3 (mid -> cout, with the projection's cin -> cout as the
+    second GEMM), and a projection block writes codes only (its mode-4
+    launch has no float32 instantiation)."""
+    if projection and not emit_int8:
+        return "a block with a projection writes codes only"
+    return (sep_i8_shape_error(cin, mid) or sep_i8_shape_error(mid, mid)
+            or dwconv3x3_i8_shape_error(mid)
+            or conv_i8_mma_shape_error(mid, cout, cin if projection else 0,
+                                       k=1))
+
+
+def xblock_i8(x, e, stride: int, emit_int8: bool = True):
+    """apply_xblock(x, e, stride, emit_int8): sep1 and sep2 through
+    ``sep_i8``, K14 for sep3 (and the projection's depthwise), then sep3's
+    1x1 with the shortcut in its epilogue: the identity residual (mode 1,
+    ``_conv_launch``, codes or float32 out) or the separable projection's
+    1x1 as a second GEMM over its depthwise codes (mode 4, the streaming
+    kernel, codes out).  (1, H, W, cin) s8 -> (1, ceil(H/s), ceil(W/s),
+    cout).  Plain version: widths % 4 == 0.  On the card
+    (``xblock_i8_shape_error``), ValueError otherwise, before launching."""
+    _check_codes(x)
+    cin = x.shape[3]
+    mid = _check_sep("e['sep1']", e["sep1"], cin)
+    if _check_sep("e['sep2']", e["sep2"], mid) != mid:
+        raise ValueError("e['sep2'] must keep the width of e['sep1']")
+    cout = _check_sep("e['sep3']", e["sep3"], mid)
+    proj = "proj" in e
+    if proj:
+        if _check_sep("e['proj']", e["proj"], cin) != cout:
+            raise ValueError("e['proj'] must have the width of e['sep3']")
+    elif stride != 1 or cin != cout:
+        raise ValueError(f"an identity block needs stride 1 and cin == cout, "
+                         f"got stride {stride}, {cin} -> {cout}")
+    seps = [e[k] for k in ("sep1", "sep2", "sep3", "proj") if k in e]
+    if not _on_cuda(*_sep_tensors(x, *seps)):
+        return apply_xblock(x, e, stride, emit_int8)
+    why = xblock_i8_shape_error(cin, mid, cout, proj, emit_int8)
+    if why:
+        raise ValueError(f"xblock_i8: {why}")
+    r = sep_i8(x, e["sep1"], stride)
+    r = sep_i8(r, e["sep2"], 1)
+    q = dwconv3x3_i8(r, e["sep3"]["dw"], e["sep3"]["dm"], 1)
+    if proj:
+        qd = dwconv3x3_i8(x, e["proj"]["dw"], e["proj"]["dm"], stride)
+        out = _launch_conv_mma(q, e["sep3"], 1, mode=4, xd=qd, down=e["proj"],
+                               split=1)
+    else:
+        out = _conv_launch(q, e["sep3"], 1, mode=1, res=x, rr=e["res_ratio"],
+                           out_f32=not emit_int8)
+    xblock_i8.launches += 1
+    return out
+
+
 KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8,
            down_block_i8, res_block_i8, maxpool2d_3x3s2_i8, cbr_i8,
-           bottleneck_i8, conv_i8_affine)
+           bottleneck_i8, conv_i8_affine, dwconv3x3_i8, sep_i8, xblock_i8)
 
 
 def reset_launches():

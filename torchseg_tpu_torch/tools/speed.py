@@ -20,8 +20,10 @@ Graphs (weights random, from seed 0):
     (``deploy/quantize.py``), calibrated on two seeded normal inputs; with
     ``--deploy`` the fused stem stays bf16 (the stems are not quantized);
   * ``--int8-through``: the int8-through serving graph
-    (``deploy/int8_serve.py``: K1-K6, K10, ``cbr_i8``, ``bottleneck_i8``),
-    calibrated in float32 on two seeded uint8 images of the input size;
+    (``deploy/int8_serve.py``: K1-K6, K10, K14, ``cbr_i8``,
+    ``bottleneck_i8``, ``xblock_i8``), calibrated in float32 on two seeded
+    uint8 images of the input size; the classic-stem BiSeNets take the
+    int8 decoder unless ``--bf16-decoder`` is given;
   * ``--summary``: also the per-module parameter and FLOP table
     (``tools/stats.py``) and the top device kernels of the graph
     (``tools/profile.py``).
@@ -149,9 +151,7 @@ def main(argv=None, info=None):
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--int8-through: {e}")
         fn, fargs = infer, (pkg, prepare(imgs[0]))
-        classic = cfg.model.startswith("bisenet") and \
-            cfg.model != "bisenet_r101"
-        tag = (" [int8-through+dec]" if classic
+        tag = (" [int8-through+dec]" if "dec" in pkg
                else " [int8-through(bf16-dec)]")
     else:
         model = model.to(dtype)

@@ -122,9 +122,9 @@ def _bottleneck_package(pkg, device, strides, dilations) -> dict:
                   if layers[2] == n3), None)
     if depth is None or pkg.get("kind", f"bottleneck{depth}") != \
             f"bottleneck{depth}":
-        raise NotImplementedError(
-            f"a Bottleneck package with {n3} stage-3 blocks is not ported "
-            "(ROADMAP A4)")
+        raise ValueError(
+            f"a Bottleneck package with {n3} stage-3 blocks and kind "
+            f"{pkg.get('kind')!r} is neither R50's nor R101's body")
     statics = block_statics(depth, strides, dilations)
     out = _convert({k: v for k, v in pkg.items()
                     if k not in ("kind", "layers")}, device)
@@ -145,10 +145,15 @@ def int8_package_from_numpy(pkg, device, strides=None,
     statics stripped), as numpy arrays -> the port's package on
     ``device``.  Scalars become Python floats.
 
-    BiSeNet-R18 with the int8 decoder: the stripped statics (``kind``,
-    ``n_sp``, block strides) are restored from the shapes, and entries the
-    port's graph does not read (the int8 stem variant, the bf16 decoder's
-    ``s_c16``, TPU weight packings) are dropped.  The Bottleneck body
+    The classic-stem BiSeNets, R18 (BasicBlocks) or X39 (recognized by
+    ``sep1`` in ``l1_0``), with the int8 decoder (``dec``) or the bf16 one
+    (no ``dec``; its ``s_c16`` kept): the stripped statics (``kind``,
+    ``n_sp``, block strides: 2 for a block with a projection) are restored
+    from the shapes, X39's stem is padded to 16 backbone channels as the
+    port's own X39 packages are (``deploy.int8_serve._pad_x39_input``),
+    and entries the port's graph does not read (the int8 stem variant, the
+    int8 decoder's ``s_c16``, TPU weight packings) are dropped.  The
+    Bottleneck body
     (``bottleneck50``/``bottleneck101``, recognized by its ``stem1``):
     ``kind`` and ``layers`` are restored from ``RESNET_LAYERS``, and a
     block's ``stride`` and ``dilation`` from its entry, else from
@@ -157,12 +162,13 @@ def int8_package_from_numpy(pkg, device, strides=None,
     need ``STANDARD``).  BiSeNet-R101 (recognized by its ``bb``): the
     spatial path's entries and the body under ``bb``, at ``STANDARD``
     unless told otherwise."""
-    from ..deploy.int8_serve import DILATED, STANDARD
+    from ..deploy.int8_serve import (DILATED, STANDARD, _pad_x39_input,
+                                     block_keys)
 
     if "bb" in pkg:
         if pkg.get("kind", "bisenet_r101") != "bisenet_r101":
-            raise NotImplementedError(
-                f"package kind {pkg['kind']!r} is not ported (ROADMAP A4)")
+            raise ValueError(f"a package with a nested body ('bb') is "
+                             f"BiSeNet-R101's, got kind {pkg['kind']!r}")
         out = _convert({k: pkg[k] for k in ("sp_stem", "sp1", "sp2",
                                             "sp3")}, device)
         out["kind"] = "bisenet_r101"
@@ -174,18 +180,19 @@ def int8_package_from_numpy(pkg, device, strides=None,
         return _bottleneck_package(pkg, device,
                                    strides or DILATED["strides"],
                                    dilations or DILATED["dilations"])
-    if pkg.get("kind", "r18") != "r18" or "dec" not in pkg:
-        raise NotImplementedError(
-            "only R18 packages with the int8 decoder, the Bottleneck body "
-            "and BiSeNet-R101 are ported (ROADMAP A4)")
-    blocks = [f"l{li}_{bi}" for li in range(1, 5) for bi in range(2)]
-    out = _convert({k: pkg[k] for k in ("sp1", "sp2", "sp3", "dec",
+    kind = "x39" if "sep1" in pkg["l1_0"] else "r18"
+    if pkg.get("kind", kind) != kind:
+        raise ValueError(f"package kind {pkg['kind']!r} does not match its "
+                         f"blocks ({kind}'s)")
+    blocks = [k for k, _ in block_keys(pkg)]
+    extra = "dec" if "dec" in pkg else "s_c16"
+    out = _convert({k: pkg[k] for k in ("sp1", "sp2", "sp3", extra,
                                         *blocks)}, device)
-    out["kind"] = "r18"
+    out["kind"] = kind
     stem = pkg["stem"]
     out["stem"] = _convert({k: stem[k] for k in ("wf", "mf", "cf")}, device)
     out["stem"]["n_sp"] = int(stem.get("n_sp", pkg["sp1"]["w"].shape[2]))
     for name in blocks:
-        out[name]["stride"] = int(pkg[name].get(
-            "stride", 2 if "down" in pkg[name] else 1))
-    return out
+        proj = "down" in pkg[name] or "proj" in pkg[name]
+        out[name]["stride"] = int(pkg[name].get("stride", 2 if proj else 1))
+    return _pad_x39_input(out) if kind == "x39" else out
