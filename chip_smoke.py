@@ -35,7 +35,8 @@ script
      kernel wrapper's launches over exactly one served forward (stem_pool_i8
      1, conv3x3s2_i8 2, l1_stage_i8 1, down_stage_i8 2 (stages 2 and 3),
      down_block_i8 1, res_block_i8 1, cbr_i8 7 (sp3 and the decoder's six
-     convs), K7, K14, sep_i8, xblock_i8 0) and checks that the forward runs
+     convs), K7, K14, sep_fused_i8, xblock_i8 0) and checks that
+     the forward runs
      no float64 conv (no
      plain version); lists the device kernels of the forwards
      (torch.profiler) with their device time, and checks that the int8
@@ -257,10 +258,14 @@ script
      nothing else) and plain bf16 X39.speed at 1x768x1536x3 (no kernel);
      ``--int8`` (``deploy/quantize.py``): each conv's route fixed when the
      model was quantized and one forward's convs by route equal to it,
-     ``conv_i8_affine`` (the no-ReLU float32 mode of the tensor-core conv)
-     bit-exact against its plain version on every call of a forward, timed
-     (CUDA events, and its device time by the profiler) against its bound
-     and ``torch._int_mm`` of the same GEMMs, and the card against the CPU
+     ``conv_i8_affine`` (the no-ReLU float32 mode of the tensor-core
+     convs, quantizing its float32 input itself, one launch a conv, no
+     PyTorch quantize of an mma conv's input: counted) bit-exact against
+     its plain version on every call of a forward (their float inputs
+     recorded), timed (CUDA events, and its device time by the profiler)
+     against its bound and ``torch._int_mm`` of the same GEMMs, the
+     forward's kernels by group (``ptq_split``: conv_i8_affine one launch
+     a conv, no cat kernel), and the card against the CPU
      plain run at 128x256: in float64 every conv's codes and every label
      equal; in float32 the first conv whose codes differ differs only at
      rounding midpoints (the float glue rounds otherwise on the two) and
@@ -334,23 +339,32 @@ script
   23. the last int8-through serving kinds (``a4_phase``, run after the X39
      path): X39.speed int8-through at 768x1536 through ``serve_entry``
      (JAX's default, the int8 decoder; the 8-channel backbone stem padded
-     to 16): one forward launches K1 once, K2 twice, cbr_i8 7 times, K14
-     (``dwconv3x3_i8``) 51 times (48 separables, 3 projections), sep_i8 32
-     and xblock_i8 16 times (X39_LAUNCHES) and nothing else, and runs no
-     float64 conv; labels (1, 96, 192) in [0, 19); every K14, sep_i8 and
-     xblock_i8 call of one forward bit-exact against its plain version on
-     the recorded inputs (every separable pointwise launch: modes 0, 1 and
-     the projection's mode 4); K1 at X39's width within one code on <= 1e-3
-     of codes; card vs CPU labels at 256x512 >= A4_AGREE; the forward
+     to 16): one forward launches K1 once, K2 twice, cbr_i8 7 times, the
+     fused separable route (``sep_fused_i8``: the depthwise codes computed
+     in the 1x1's A producer) 45 times (sep1 and sep2 of every block, sep3
+     of the 13 identity blocks), K14 (``dwconv3x3_i8``) 6 times (the 3
+     projection blocks' sep3 and projection) and xblock_i8 16 times
+     (X39_LAUNCHES) and nothing else, and runs no float64 conv; labels (1,
+     96, 192) in [0, 19); every separable (sep1, sep2: against
+     ``apply_sep``), xblock_i8 and sep_fused_i8 call of one forward
+     bit-exact against its plain version on the recorded inputs, each fused
+     launch also against the two-launch route (K14, then the 1x1); K1 at X39's width within one code on <=
+     1e-3 of codes; card vs CPU labels at 256x512 >= A4_AGREE; the forward
      timed (median, p90, enqueue) and profiled (device ms, kernels, idle
-     share); K14's row (one forward's 51 calls against the plain version,
-     cuDNN's float32 depthwise conv + requant as the library yardstick,
-     the bound by their bytes) and sep_i8's and xblock_i8's; then X39.speed
-     and R18.speed (1024x2048) with ``decoder="bf16"``: launches, labels,
-     the forward timed and profiled, the X39 body's last block's float32
-     values and K6's float32 route bit-equal to their plain versions (K6's
-     row); then ``cityscapes.bisenet.X39`` with ``argmax="tiled"``: K7 once,
-     card vs CPU labels at 256x512 >= A4_AGREE.
+     share); K14's row (bit-exact and timed on all 51 depthwise inputs of a
+     forward, the fused launches' included, against the plain version,
+     cuDNN's float32 depthwise conv + requant as the library yardstick, the
+     bound by their bytes), the fused route's (its device time against the
+     two-launch route's; what recomputing the depthwise codes for each N
+     tile costs: its calls wider than 64 channels at full width against
+     their first N tile alone, less the same for the two-launch route's
+     1x1), xblock_i8's (with its device time); then X39.speed and R18.speed
+     (1024x2048) with ``decoder="bf16"``: launches, labels, the forward
+     timed and profiled, every X39 separable and xblock_i8 call bit-exact (the last block's
+     float32 values) and K6's float32 route bit-equal to their plain
+     versions (K6's row); then ``cityscapes.bisenet.X39`` with
+     ``argmax="tiled"``: K7 once, card vs CPU labels at 256x512 >=
+     A4_AGREE.
 
 Every failed phase raises, so the exit code is non-zero.  The line before
 last is a JSON object with the kernels' numbers (each with its bound: the
@@ -738,6 +752,15 @@ def int8_convs(prof, n_calls):
 
 
 _PROFILER_WARM = []  # set once the process has run a throwaway session
+PROFILE_PAD_S = 0.05  # idle seconds at each edge of a profile's window
+
+
+def pad_window():
+    """Drain the card and idle ``PROFILE_PAD_S``: at each edge of a
+    profile's window, so that no kernel of the calls profiled sits at one
+    (``profile_calls``)."""
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
 
 
 def profile_calls(calls):
@@ -748,8 +771,13 @@ def profile_calls(calls):
     launches per call read from this one hold every counted call.  A
     session that records no device activity at all (seen once, on the
     full-resolution bf16 graph, after the main path's session had seen
-    its kernels) is run once more; the callers fail if that one is empty
-    too."""
+    its kernels; once twice in a row, on a short session) is run again, up
+    to three sessions; the callers fail if the last is empty too.  Each
+    session sleeps ``PROFILE_PAD_S`` before its trace starts, after it
+    starts and before it stops: a trace keeps only the device activity
+    inside its window, and a kernel's timestamp has been seen 110 us
+    before its launch's (``scripts/torch_profiler_window.py``), so a
+    short session's kernels sat at its window's edges."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     if not _PROFILER_WARM:
@@ -761,17 +789,21 @@ def profile_calls(calls):
                                  ProfilerActivity.CUDA]):
             calls[0]()
             torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=len(calls),
                                        repeat=1)) as prof:
-            for fn in [calls[0], *calls]:
+            for i, fn in enumerate([calls[0], *calls]):
                 fn()
                 torch.cuda.synchronize()
+                if i in (0, len(calls)):
+                    pad_window()  # before the trace starts / stops
                 prof.step()
-        if device_kernels(prof) or attempt:
+                if i == 0:
+                    pad_window()  # after it starts
+        if device_kernels(prof) or attempt == 2:
             return prof
         log("torch.profiler recorded no device activity; profiling again")
 
@@ -1019,8 +1051,8 @@ def main():
                 "fused_upsample_argmax": 0, "channel_sum_sumsq": 0,
                 "fused_scale_bias_act": 0, "stem_conv7x7_s2": 0,
                 "conv_i8_affine": 0, "sigmoid_focal_loss_fwd": 0,
-                "sigmoid_focal_loss_bwd": 0, "dwconv3x3_i8": 0, "sep_i8": 0,
-                "xblock_i8": 0}
+                "sigmoid_focal_loss_bwd": 0, "dwconv3x3_i8": 0,
+                "sep_fused_i8": 0, "xblock_i8": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
 
@@ -1536,9 +1568,10 @@ def x39_phase(dev, all_kernels, reset_all):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_window()
         for args in inputs:
             infer(*args)
-        torch.cuda.synchronize()
+        pad_window()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1000.0 / len(inputs)
@@ -2421,9 +2454,10 @@ def bn_forward_launches(folds, acts):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_window()
         for x, bn, relu in calls:
             SyncBatchNormFn.apply(x, *bn, relu, None)
-        torch.cuda.synchronize()
+        pad_window()
     n = sum(e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA)
     return n / len(calls)
@@ -2517,14 +2551,15 @@ def profile_steps(tag, trainer, data, n_steps, kernel_names):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_window()
+        t0 = time.perf_counter()
         for _ in range(n_steps):
             trainer.train_step(data)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1000.0 / n_steps
+        wall = (time.perf_counter() - t0) * 1000.0 / n_steps
+        pad_window()
     kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0 / n_steps
     log(f"{tag}: profiled {n_steps} steps: device busy {busy:.4f} ms of "
@@ -2712,9 +2747,10 @@ def group_route_rows(dev, group, k8, folds, fed, acts, launches):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_window()
         for x, bn, relu in calls:
             N.SyncBatchNormFn.apply(x, *bn, relu, group)
-        torch.cuda.synchronize()
+        pad_window()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     fwd_launches = sum(e.count for e in events) / len(calls)
@@ -4197,12 +4233,13 @@ def speed_run(dev, tag, argv, all_kernels, reset_all, per_forward):
 @contextlib.contextmanager
 def record_ptq_calls(q):
     """The arguments of every conv_i8_affine call the quantized model
-    makes while the context is open."""
+    makes while the context is open, each float input cloned (the float
+    graph may reuse or overwrite it after the conv)."""
     fed, fn = [], q.conv_i8_affine
 
-    def spy(*args):
-        fed.append(args)
-        return fn(*args)
+    def spy(x, *args):
+        fed.append((x.clone(), *args))
+        return fn(x, *args)
 
     q.conv_i8_affine = spy
     try:
@@ -4211,16 +4248,32 @@ def record_ptq_calls(q):
         q.conv_i8_affine = fn
 
 
+def ptq_gemms(fed):
+    """The im2col GEMM (m, k, n) of each recorded conv_i8_affine call (m =
+    the batch's output pixels, at least 17 for ``torch._int_mm``)."""
+    gemms = []
+    for x, _, w, _, _, stride, pad, dilation in fed:
+        k = w.shape[0]
+        ho, wo = ((n + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+                  for n in x.shape[1:3])
+        gemms.append((max(x.shape[0] * ho * wo, 17), k * k * w.shape[2],
+                      w.shape[3]))
+    return gemms
+
+
 def ptq_device_ms(dev, fed, gemms, fn, args, K):
     """torch.profiler device ms of: the ``fed`` conv_i8_affine calls (its
     kernel alone), ``torch._int_mm`` of the same im2col GEMMs (``gemms``:
     (m, k, n) each, seeded operands), and one whole ``--int8`` forward
     ``fn(*args)``; returns (conv, int_mm, forward, the forward's
-    conv_i8_affine kernels)."""
+    conv_i8_affine kernels: mode 3 of either tensor-core kernel)."""
+    import re
+
     from torchseg_tpu_torch.tools.profile import collect_op_times
 
     def mode3(ops):
-        return sum(v for k, v in ops.items() if "conv_i8_mma_kernel<3," in k)
+        return sum(v for k, v in ops.items()
+                   if re.search(r"conv_i8_mma(_res)?_kernel<3,", k))
 
     _, ops = collect_op_times(
         lambda: [K.conv_i8_affine(*c) for c in fed], runs=3)
@@ -4238,6 +4291,90 @@ def ptq_device_ms(dev, fed, gemms, fn, args, K):
         lambda: [torch._int_mm(a, b) for a, b in mats], runs=3)
     fwd, ops = collect_op_times(fn, *args, runs=3)
     return conv, mm, fwd, mode3(ops)
+
+
+# an --int8 forward's device kernels by group, by substrings of their
+# names (the first group that matches takes a kernel; the rest is "other"):
+# the eval BN is x * a + b in PyTorch (ops/norm.py), so its multiplies and
+# adds share a group with the residual and fusion adds; the speed tool's
+# graph is bf16, so its ReLUs are the clamps vectorized 8 wide, and the
+# quantize's clip (float32) is vectorized 4 wide
+PTQ_GROUPS = (
+    ("conv_i8_affine", ("conv_i8_mma",)),
+    ("cat", ("CatArrayBatchedCopy",)),
+    ("ReLU", ("clamp_min", "relu", "threshold",
+              "vectorized_elementwise_kernel<8, at::native::(anonymous "
+              "namespace)::launch_clamp_scalar")),
+    ("quantize (divide, round, clip)", ("DivFunctor", "div_true",
+                                        "round_kernel", "clamp")),
+    ("BN and adds (multiply, add)", ("MulFunctor", "mul_kernel", "add_kernel",
+                                     "AddFunctor", "CUDAFunctor_add",
+                                     "rsqrt")),
+    ("copies and casts", ("copy",)),
+)
+# the parent tree's 33 conv_i8_affine launches of a forward (codes in,
+# the streaming kernel only), device ms by the profiler (PERF.md §6)
+PTQ_PARENT_DEVICE_MS = 0.5908
+# profiler sessions of an --int8 forward in which its conv_i8_affine
+# launches must be counted exactly once (``ptq_phase``)
+PTQ_PROFILES = 3
+
+
+def ptq_split(fn, args, n=3, top=3):
+    """torch.profiler over ``n`` calls of ``fn(*args)`` (an --int8
+    forward): device ms and launches per call of each PTQ_GROUPS group and
+    "other", logged with each group's top kernels; returns {group: {"ms",
+    "launches"}}."""
+    prof = profile_calls([lambda: fn(*args)] * n)
+    groups = {name: {"ms": 0.0, "launches": 0, "kernels": []}
+              for name, _ in PTQ_GROUPS + (("other", ()),)}
+    for e in device_kernels(prof):
+        name = next((g for g, keys in PTQ_GROUPS
+                     if any(k in e.key for k in keys)), "other")
+        ms = e.self_device_time_total / 1000.0 / n
+        groups[name]["ms"] += ms
+        groups[name]["launches"] += e.count // n
+        groups[name]["kernels"].append((ms, e.count // n, e.key[:240]))
+    total = sum(g["ms"] for g in groups.values())
+    log(f"an --int8 forward's kernels by group (profiler, {n} forwards): "
+        f"{total:.4f} ms of device time in "
+        f"{sum(g['launches'] for g in groups.values())} launches")
+    for name, g in groups.items():
+        log(f"  {name}: {g['ms']:.4f} ms, {g['launches']} launches")
+        for ms, count, key in sorted(g.pop("kernels"), reverse=True)[
+                :top if name != "other" else 3 * top]:
+            log(f"    {ms:9.4f} ms, {count:4d} launches: {key}")
+    return groups
+
+
+def ptq_codes_yardstick(fed, K):
+    """Device ms (profiler) of the recorded conv_i8_affine convs run on
+    their codes quantized beforehand, through cbr_i8's launch (float32 out;
+    the ReLU a free max; split where the tiles do not fill the card), and
+    of the PyTorch quantizes that made those codes: what conv_i8_affine's
+    own quantize (each tile's footprint, once for its taps) costs beside
+    it."""
+    from torchseg_tpu_torch.tools.profile import collect_op_times
+
+    codes = [(K.quantize_codes(x, s), {"w": w, "m": m, "c": c}, stride, pad,
+              dil) for x, s, w, m, c, stride, pad, dil in fed]
+    conv_ms, _ = collect_op_times(
+        lambda: [K.cbr_i8(q, e, st, p, False, d) for q, e, st, p, d in codes],
+        runs=3)
+    quant_ms, _ = collect_op_times(
+        lambda: [K.quantize_codes(c[0], c[1]) for c in fed], runs=3)
+    # per conv (CUDA events a call, wrapper included): the convs that gain
+    # most from codes quantized beforehand
+    gaps = []
+    for call, (q, e, st, p, d) in zip(fed, codes):
+        a = cuda_ms(K.conv_i8_affine, [call], reps=10)
+        b = cuda_ms(K.cbr_i8, [(q, e, st, p, False, d)], reps=10)
+        gaps.append((a - b, a, b, tuple(call[0].shape), tuple(e["w"].shape),
+                     st))
+    for gap, a, b, xs, ws, st in sorted(gaps, reverse=True)[:8]:
+        log(f"  conv_i8_affine {xs} * {ws} /{st}: {a:.4f} ms a call, on "
+            f"codes {b:.4f} (+{gap:.4f})")
+    return conv_ms, quant_ms
 
 
 def ptq_phase(dev, all_kernels, reset_all, K):
@@ -4263,63 +4400,103 @@ def ptq_phase(dev, all_kernels, reset_all, K):
     n_mma = counts["mma"]
     fn, args = info["fn"], info["args"]
     calls, forward = collections.Counter(), Q.QuantConv2d.forward
+    quantize_input = Q.QuantConv2d.quantize_input
 
     def counted(self, x):
         calls[self.route] += 1
+        if self.route == "mma" and not x.is_contiguous(
+                memory_format=torch.channels_last):
+            calls["mma, input made channels-last"] += 1
         return forward(self, x)
+
+    def counted_quantize(self, x):
+        calls["PyTorch quantize"] += 1
+        return quantize_input(self, x)
 
     reset_all()
     Q.QuantConv2d.forward = counted
+    Q.QuantConv2d.quantize_input = counted_quantize
     try:
         with record_ptq_calls(Q) as fed:
             fn(*args)
     finally:
         Q.QuantConv2d.forward = forward
+        Q.QuantConv2d.quantize_input = quantize_input
     torch.cuda.synchronize()
     launches = launch_counts(all_kernels)["conv_i8_affine"]
     log(f"generic int8 R18.speed: the {len(info['routes'])} quantized convs "
         f"by route when the model was quantized {counts}; one forward's "
-        f"calls by route {dict(calls)}; conv_i8_affine launches {launches}")
+        f"calls {dict(calls)}; conv_i8_affine launches {launches}")
     if {r: calls.get(r, 0) for r in counts} != counts or \
             launches != n_mma or len(fed) != n_mma:
         fail("one --int8 forward's convs by route differ from the routes "
              "fixed when the model was quantized")
+    if calls["PyTorch quantize"] != len(info["routes"]) - n_mma:
+        fail(f"the --int8 forward quantized {calls['PyTorch quantize']} "
+             f"conv inputs in PyTorch, expected only the "
+             f"{len(info['routes']) - n_mma} convs off the mma route")
     for call in fed:
         got, ref = K.conv_i8_affine(*call), K.conv_i8_affine_plain(*call)
         if got.dtype != ref.dtype or not torch.equal(got, ref):
-            fail(f"conv_i8_affine {tuple(call[1].shape)} differs from its "
-                 f"plain version on {int((got != ref).sum())} elements")
+            fail(f"conv_i8_affine {tuple(call[0].shape)} * "
+                 f"{tuple(call[2].shape)} differs from its plain version on "
+                 f"{int((got != ref).sum())} elements")
     log(f"conv_i8_affine: bit-exact to its plain version on all {len(fed)} "
-        f"calls of one --int8 forward")
+        f"calls of one --int8 forward (their float inputs, quantized in the "
+        f"kernel)")
     ms = cuda_ms(lambda: [K.conv_i8_affine(*c) for c in fed], [()], reps=5)
     plain_ms = cuda_ms(lambda: [K.conv_i8_affine_plain(*c) for c in fed],
                        [()])
     n_bytes = ops = 0
     lib_ms = 0.0
-    gemms = []
-    for call in fed:
-        x, w = call[:2]
+    gemms = ptq_gemms(fed)
+    for call, (m, kk, n) in zip(fed, gemms):
         out = K.conv_i8_affine(*call)
-        k, cin, cout = w.shape[0], w.shape[2], w.shape[3]
-        m = out.shape[1] * out.shape[2]
-        n_bytes += nbytes(list(call[:4]), out)
-        ops += 2 * m * k * k * cin * cout
-        gemms.append((max(m, 17), k * k * cin, cout))
-        lib_ms += int_mm_ms(dev, *gemms[-1])
+        n_bytes += nbytes(call[0], list(call[2:5]), out)
+        ops += 2 * out.shape[0] * out.shape[1] * out.shape[2] * kk * n
+        lib_ms += int_mm_ms(dev, m, kk, n)
     b_ms, b_by = bound(n_bytes, ops, "int8")
     log(f"conv_i8_affine, the {len(fed)} convs of a forward: kernel "
         f"{ms:.4f} ms (wrapper included) = {ops / ms / 1e9:.1f} TOP/s, "
         f"plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
-        f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.2f} G int8 operations) = "
-        f"{100 * b_ms / ms:.2f} %; torch._int_mm of the same GEMMs "
-        f"{lib_ms:.4f} ms; the forward {res['ms_per_iter']:.4f} ms")
+        f"{n_bytes / 1e6:.2f} MB, the float inputs and float32 outputs; "
+        f"{ops / 1e9:.2f} G int8 operations) = {100 * b_ms / ms:.2f} %; "
+        f"torch._int_mm of the same GEMMs {lib_ms:.4f} ms; the forward "
+        f"{res['ms_per_iter']:.4f} ms")
     dev_ms, mm_dev, fwd_dev, fwd_conv = ptq_device_ms(dev, fed, gemms, fn,
                                                       args, K)
     log(f"conv_i8_affine device time (profiler): the {len(fed)} launches "
-        f"{dev_ms:.4f} ms = {ops / dev_ms / 1e9:.1f} TOP/s, "
-        f"{100 * b_ms / dev_ms:.2f} % of its bound; torch._int_mm of the "
-        f"same GEMMs {mm_dev:.4f} ms; one --int8 forward's kernels "
-        f"{fwd_dev:.4f} ms, of which conv_i8_affine {fwd_conv:.4f} ms")
+        f"{dev_ms:.4f} ms [parent, codes in: {PTQ_PARENT_DEVICE_MS}] = "
+        f"{ops / dev_ms / 1e9:.1f} TOP/s, {100 * b_ms / dev_ms:.2f} % of its "
+        f"bound; torch._int_mm of the same GEMMs {mm_dev:.4f} ms; one --int8 "
+        f"forward's kernels {fwd_dev:.4f} ms, of which conv_i8_affine "
+        f"{fwd_conv:.4f} ms")
+    codes_ms, quant_ms = ptq_codes_yardstick(fed, K)
+    log(f"the same 33 convs on codes quantized beforehand (cbr_i8's launch, "
+        f"float32 out, split where the tiles are few): {codes_ms:.4f} ms of "
+        f"device time; the 33 PyTorch quantizes of their inputs "
+        f"{quant_ms:.4f} ms; conv_i8_affine's own quantize (each tile's "
+        f"footprint, once for its taps and N tile) adds "
+        f"{dev_ms - codes_ms:.4f} ms")
+    # torch.profiler has been seen to drop ~5 % of a session's kernel
+    # events on the card, across every group (30 of 33 conv_i8_affine, 28
+    # of 29 ReLU, 360 of 381 kernels in all, the wrappers' host counts
+    # whole): a
+    # session short of the mma convs is profiled again, up to PTQ_PROFILES
+    # sessions, and the count must be exact in one of them
+    for attempt in range(PTQ_PROFILES):
+        split = ptq_split(fn, args)
+        if split["conv_i8_affine"]["launches"] == n_mma:
+            break
+        log(f"an --int8 forward's profile {attempt + 1}: "
+            f"{split['conv_i8_affine']['launches']} conv_i8_affine launches "
+            f"of {n_mma} ({sum(g['launches'] for g in split.values())} "
+            f"kernels in all); profiling again")
+    else:
+        fail(f"an --int8 forward's kernels: "
+             f"{split['conv_i8_affine']['launches']} conv_i8_affine "
+             f"launches in each of {PTQ_PROFILES} profiles, expected "
+             f"{n_mma}, one a conv")
     row = {"name": "conv_i8_affine:r18_speed_ptq", "route": "cuda",
            "source": SRC, "replaces": "torchseg_tpu/deploy/quantize.py:100 "
            "(XLA, no TPU kernel)", "launches": launches,
@@ -5288,11 +5465,12 @@ R18_SPEED_EXPERIMENT = "cityscapes.bisenet.R18.speed"
 A4_ROUNDS = 10  # 40 timed forwards a graph
 A4_AGREE = 0.99  # card vs CPU labels, the int8 decoder on both
 # one X39 forward: K1, K2 twice (sp1, sp2), sp3 and the int8 decoder's six
-# convs on cbr_i8, then 16 Xception blocks: K14 before each of the 48
-# separables and the 3 projections, sep1's and sep2's 1x1 on sep_i8 (32),
-# sep3's with the shortcut on xblock_i8 (16)
+# convs on cbr_i8, then 16 Xception blocks (xblock_i8 16): sep1 and sep2
+# (32) and the 13 identity blocks' sep3 on the fused separable route (45);
+# the 3 projection blocks' sep3 and projection through K14 (6) and the
+# streaming kernel's mode 4
 X39_LAUNCHES = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "cbr_i8": 7,
-                "dwconv3x3_i8": 51, "sep_i8": 32, "xblock_i8": 16}
+                "dwconv3x3_i8": 6, "sep_fused_i8": 45, "xblock_i8": 16}
 # the bf16 decoder: sp3 alone on cbr_i8 (float32 out), the decoder in bf16
 X39_BF16_LAUNCHES = dict(X39_LAUNCHES, cbr_i8=1)
 R18_BF16_LAUNCHES = {"stem_pool_i8": 1, "conv3x3s2_i8": 2, "l1_stage_i8": 1,
@@ -5326,18 +5504,24 @@ class CallSpy:
 
 @contextlib.contextmanager
 def record_x39_calls(i8, K):
-    """Collect the arguments of every K14, sep_i8 and xblock_i8 call (and
-    let them run) while the context is open: (dw calls, sep calls, block
-    calls).  sep_i8 and xblock_i8 call K14 and sep_i8 through the kernel
+    """Collect the arguments of every K14, xblock_i8 and sep_fused_i8 call
+    (and let them run) while the context is open: (dw calls, block calls,
+    fused calls).  xblock_i8 calls K14 and sep_fused_i8 through the kernel
     module's globals, so those spies sit there."""
     fed = ([], [], [])
-    saved = (K.dwconv3x3_i8, K.sep_i8, i8.xblock_i8)
-    K.dwconv3x3_i8, K.sep_i8, i8.xblock_i8 = (
+    saved = (K.dwconv3x3_i8, i8.xblock_i8, K.sep_fused_i8)
+    (K.dwconv3x3_i8, i8.xblock_i8, K.sep_fused_i8) = (
         CallSpy(fn, calls) for fn, calls in zip(saved, fed))
     try:
         yield fed
     finally:
-        K.dwconv3x3_i8, K.sep_i8, i8.xblock_i8 = saved
+        K.dwconv3x3_i8, i8.xblock_i8, K.sep_fused_i8 = saved
+
+
+def separable_calls(fed_fused):
+    """The fused calls that are a separable CBR (sep1, sep2: no residual),
+    as apply_sep's arguments (x, e, stride)."""
+    return [a[:3] for a in fed_fused if len(a) < 4 or a[3] is None]
 
 
 def exact_calls(name, kern, plain, calls):
@@ -5389,10 +5573,14 @@ def served_forward(tag, infer, pkg, xss, all_kernels, reset_all, launches,
 
 
 def dw_row(fed_dw, launches, K):
-    """K14's row over one forward's calls: the kernel, its plain version and
-    cuDNN's float32 depthwise conv of the codes plus the requant (exact:
-    9 x 127^2 < 2^24) each timed per call and summed; the bound by the
-    calls' bytes and their int8 operations."""
+    """K14's row over one forward's depthwise inputs (those of its K14
+    calls and of its fused separable launches): the kernel, its plain
+    version and cuDNN's float32 depthwise conv of the codes plus the
+    requant (exact: 9 x 127^2 < 2^24) each timed per call and summed, the
+    kernel's device time by the profiler; the bound by the calls' bytes
+    and their int8 operations."""
+    from torchseg_tpu_torch.tools.profile import collect_op_times
+
     import torch.nn.functional as F
 
     def cudnn_dw(x, w, dm, stride):
@@ -5405,8 +5593,12 @@ def dw_row(fed_dw, launches, K):
         exact_calls("cuDNN's depthwise yardstick", K.dwconv3x3_i8, cudnn_dw,
                     fed_dw)
         lib_ms = sum(cuda_ms(cudnn_dw, [a], reps=5) for a in fed_dw)
+    exact_calls("dwconv3x3_i8", K.dwconv3x3_i8, K.dwconv3x3_i8_plain,
+                fed_dw)
     ms = sum(cuda_ms(K.dwconv3x3_i8, [a], reps=5) for a in fed_dw)
     plain_ms = sum(cuda_ms(K.dwconv3x3_i8_plain, [a]) for a in fed_dw)
+    dev_ms, _ = collect_op_times(
+        lambda: [K.dwconv3x3_i8(*a) for a in fed_dw], runs=3)
     n_bytes = ops = 0
     for a in fed_dw:
         out = K.dwconv3x3_i8(*a)
@@ -5414,12 +5606,15 @@ def dw_row(fed_dw, launches, K):
         ops += 2 * 9 * out.numel()
     b_ms, b_by = bound(n_bytes, ops, "int8")
     shapes = sorted({(tuple(a[0].shape[1:]), a[3]) for a in fed_dw})
-    log(f"dwconv3x3_i8 (K14), the {len(fed_dw)} calls of one X39 forward "
-        f"(shapes and strides {shapes}): kernel {ms:.4f} ms (wrapper "
-        f"included), plain float64 {plain_ms:.4f} ms, cuDNN float32 "
+    log(f"dwconv3x3_i8 (K14), bit-exact on the {len(fed_dw)} depthwise "
+        f"inputs of one X39 forward ({launches} of them its launches, the "
+        f"rest its fused separables'; shapes and strides {shapes}): kernel "
+        f"{ms:.4f} ms (wrapper included), device {dev_ms:.4f} ms "
+        f"(profiler), plain float64 {plain_ms:.4f} ms, cuDNN float32 "
         f"depthwise + requant {lib_ms:.4f} ms; {n_bytes / 1e6:.2f} MB, "
         f"{ops / 1e9:.4f} G int8 operations, bound {b_ms:.5f} ms ({b_by}) "
-        f"= {100 * b_ms / ms:.2f} %")
+        f"= {100 * b_ms / ms:.2f} % ({100 * b_ms / dev_ms:.2f} % of the "
+        f"device time)")
     return {"name": "dwconv3x3_i8", "route": "cuda", "source": SRC,
             "replaces": XLA_DW, "launches": launches, "max_abs_err": 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -5435,40 +5630,146 @@ def sep_work(x, e, out):
     return nbytes(x, e, out), 2 * hw * (9 * cin + cin * cout)
 
 
-def x39_pointwise_rows(fed_sep, fed_block, launches, K):
-    """Rows of sep_i8's and xblock_i8's launches over one forward's calls
-    (each against its plain version, timed per call and summed), their
-    bounds by the calls' bytes and int8 operations."""
+def x39_pointwise_rows(fed_block, launches, K):
+    """The row of xblock_i8's launches over one forward's calls (each
+    against its plain version, timed per call and summed), its bound by
+    the calls' bytes and int8 operations, its device time by the
+    profiler."""
+    from torchseg_tpu_torch.tools.profile import collect_op_times
+
     rows = []
     for name, kern, plain, calls, replaces in (
-            ("sep_i8", K.sep_i8, K.apply_sep, fed_sep, XLA_SEP),
             ("xblock_i8", K.xblock_i8, K.apply_xblock, fed_block,
-             XLA_XBLOCK)):
+             XLA_XBLOCK),):
         ms = sum(cuda_ms(kern, [a], reps=3) for a in calls)
         plain_ms = sum(cuda_ms(plain, [a]) for a in calls)
+        dev_ms, _ = collect_op_times(lambda: [kern(*a) for a in calls],
+                                     runs=3)
         n_bytes = ops = 0
         for a in calls:
             out = kern(*a)
-            if name == "sep_i8":
-                b, o = sep_work(a[0], a[1], out)
-            else:
-                seps = [a[1][k] for k in ("sep1", "sep2", "sep3", "proj")
-                        if k in a[1]]
-                b = nbytes(a[0], seps, out)
-                o = sum(sep_work(a[0], s, out)[1] for s in seps)
+            seps = [a[1][k] for k in ("sep1", "sep2", "sep3", "proj")
+                    if k in a[1]]
+            b = nbytes(a[0], seps, out)
+            o = sum(sep_work(a[0], s, out)[1] for s in seps)
             n_bytes, ops = n_bytes + b, ops + o
         b_ms, b_by = bound(n_bytes, ops, "int8")
-        log(f"{name}, the {len(calls)} calls of one X39 forward (K14 "
-            f"included): {ms:.4f} ms (wrappers included), plain float64 "
-            f"{plain_ms:.4f} ms; {n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
-            f"int8 operations, bound {b_ms:.5f} ms ({b_by}) = "
-            f"{100 * b_ms / ms:.2f} %")
+        log(f"{name}, the {len(calls)} calls of one X39 forward (every "
+            f"launch inside): {ms:.4f} ms (wrappers included), device "
+            f"{dev_ms:.4f} ms (profiler), plain float64 {plain_ms:.4f} ms; "
+            f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G int8 operations, "
+            f"bound {b_ms:.5f} ms ({b_by}) = {100 * b_ms / ms:.2f} % "
+            f"({100 * b_ms / dev_ms:.2f} % of the device time)")
         rows.append({"name": f"{name}:x39", "route": "cuda", "source": SRC,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
     return rows
+
+
+def two_launch_sep(K, x, e, stride, res=None, rr=0.0, emit_int8=True):
+    """The separable conv as the parent tree launched it: K14, then the
+    1x1 (with the identity residual in mode 1) on the kernel cbr_i8's rule
+    picks; the fused route's yardstick."""
+    q = K.dwconv3x3_i8(x, e["dw"], e["dm"], stride)
+    return K._conv_launch(q, e, 1, mode=0 if res is None else 1, res=res,
+                          rr=rr, out_f32=not emit_int8)
+
+
+def first_n_tile(a):
+    """A fused separable call cut to its first 64 output channels (one N
+    tile: the depthwise codes computed once), the residual with it."""
+    x, e, stride, *rest = a
+    e = dict(e, w=e["w"][..., :64].contiguous(), m=e["m"][:64].contiguous(),
+             c=e["c"][:64].contiguous())
+    if rest and rest[0] is not None:
+        rest = [rest[0][..., :64].contiguous(), *rest[1:]]
+    return (x, e, stride, *rest)
+
+
+def recompute_cost(fed_fused, K):
+    """What recomputing the depthwise codes for every N tile costs the
+    fused route: over the calls of more than 64 output channels, the fused
+    launch's device time (profiler) at the full width against its first N
+    tile alone, less the same difference for the two-launch route's 1x1 on
+    K14's codes; returns (ms over all extra N tiles, the extra N tiles,
+    the calls' fused device ms)."""
+    from torchseg_tpu_torch.tools.profile import collect_op_times
+
+    wide = [a for a in fed_fused if a[1]["w"].shape[3] > 64]
+    if not wide:
+        return 0.0, 0, 0.0
+    one = [first_n_tile(a) for a in wide]
+    extra = sum(-(-a[1]["w"].shape[3] // 64) - 1 for a in wide)
+
+    def pointwise(calls):
+        q = [(K.dwconv3x3_i8(a[0], a[1]["dw"], a[1]["dm"], a[2]), a)
+             for a in calls]
+        return lambda: [K._conv_launch(
+            qq, a[1], 1, mode=0 if len(a) < 4 or a[3] is None else 1,
+            res=a[3] if len(a) > 3 else None, rr=a[4] if len(a) > 4 else 0.0,
+            out_f32=len(a) > 5 and not a[5]) for qq, a in q]
+
+    full, _ = collect_op_times(lambda: [K.sep_fused_i8(*a) for a in wide],
+                               runs=3)
+    first, _ = collect_op_times(lambda: [K.sep_fused_i8(*a) for a in one],
+                                runs=3)
+    pw_full, _ = collect_op_times(pointwise(wide), runs=3)
+    pw_first, _ = collect_op_times(pointwise(one), runs=3)
+    return (full - first) - (pw_full - pw_first), extra, full
+
+
+def fused_sep_row(fed_fused, launches, K):
+    """The fused separable route's row over one X39 forward's 45 launches:
+    each against its plain version and against the two-launch route (K14,
+    then the 1x1) bit for bit; timed per call (CUDA events, wrapper
+    included), the plain version, both routes' device time (profiler); the
+    bound by the calls' bytes (input, weights, residual, output) and their
+    int8 operations (depthwise and 1x1)."""
+    from torchseg_tpu_torch.tools.profile import collect_op_times
+
+    exact_calls("sep_fused_i8", K.sep_fused_i8, K.sep_fused_i8_plain,
+                fed_fused)
+    exact_calls("K14 + 1x1 (two launches)", K.sep_fused_i8,
+                functools.partial(two_launch_sep, K), fed_fused)
+    ms = sum(cuda_ms(K.sep_fused_i8, [a], reps=3) for a in fed_fused)
+    two_ms = sum(cuda_ms(two_launch_sep, [(K, *a)], reps=3)
+                 for a in fed_fused)
+    plain_ms = sum(cuda_ms(K.sep_fused_i8_plain, [a]) for a in fed_fused)
+    dev_ms, _ = collect_op_times(
+        lambda: [K.sep_fused_i8(*a) for a in fed_fused], runs=3)
+    two_dev, two_ops = collect_op_times(
+        lambda: [two_launch_sep(K, *a) for a in fed_fused], runs=3)
+    k14_dev = sum(v for k, v in two_ops.items() if "dwconv3x3" in k)
+    rec_ms, rec_tiles, wide_ms = recompute_cost(fed_fused, K)
+    n_bytes = ops = 0
+    for a in fed_fused:
+        out = K.sep_fused_i8(*a)
+        b, o = sep_work(a[0], a[1], out)
+        n_bytes += b + (nbytes(a[3]) if len(a) > 3 and a[3] is not None
+                        else 0)
+        ops += o
+    b_ms, b_by = bound(n_bytes, ops, "int8")
+    log(f"sep_fused_i8, the {len(fed_fused)} fused separable launches of "
+        f"one X39 forward: bit-exact against the plain version and the "
+        f"two-launch route; {ms:.4f} ms (wrappers included; two launches "
+        f"{two_ms:.4f}), device {dev_ms:.4f} ms (profiler; two launches "
+        f"{two_dev:.4f}, of which K14 {k14_dev:.4f}), plain float64 "
+        f"{plain_ms:.4f} ms; {n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} G int8 "
+        f"operations, bound {b_ms:.5f} ms ({b_by}) = {100 * b_ms / ms:.2f} % "
+        f"({100 * b_ms / dev_ms:.2f} % of the device time)")
+    log(f"sep_fused_i8: recomputing the depthwise codes for each N tile "
+        f"costs {rec_ms:.4f} ms of device time over the {rec_tiles} N tiles "
+        f"past the first of its calls wider than 64 channels "
+        f"({1000 * rec_ms / max(rec_tiles, 1):.2f} us an N tile; those calls "
+        f"take {wide_ms:.4f} ms): the fused launch's time at its full width "
+        f"less its first N tile alone, less the same difference for the 1x1 "
+        f"of the two-launch route")
+    return {"name": "sep_fused_i8:x39", "route": "cuda", "source": SRC,
+            "replaces": XLA_SEP, "launches": launches, "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def a4_phase(dev, all_kernels, reset_all):
@@ -5509,23 +5810,24 @@ def a4_phase(dev, all_kernels, reset_all):
     if f64:
         fail(f"X39 int8-through: a served forward ran float64 convs {f64}")
 
-    # every K14, sep_i8 and xblock_i8 call of one forward against its
-    # plain version on the recorded inputs; K1 at X39's width
-    with record_x39_calls(i8, K) as (fed_dw, fed_sep, fed_block), \
-            torch.inference_mode():
+    # every separable (sep1, sep2) and xblock_i8 call of one forward
+    # against its plain version on the recorded inputs; K1 at X39's width
+    with record_x39_calls(i8, K) as (fed_dw, fed_block,
+                                     fed_fused), torch.inference_mode():
         infer(pkg, xss[0])
-    if (len(fed_dw), len(fed_sep), len(fed_block)) != (51, 32, 16):
-        fail(f"X39 forward: {len(fed_dw)} K14, {len(fed_sep)} sep_i8 and "
-             f"{len(fed_block)} xblock_i8 calls, expected 51, 32, 16")
+    fed_sep = separable_calls(fed_fused)
+    got = (len(fed_dw), len(fed_sep), len(fed_block), len(fed_fused))
+    if got != (6, 32, 16, 45):
+        fail(f"X39 forward: {got} K14, separable (sep1, sep2), xblock_i8 and "
+             f"sep_fused_i8 calls, expected (6, 32, 16, 45)")
     with torch.inference_mode():
-        exact_calls("dwconv3x3_i8", K.dwconv3x3_i8, K.dwconv3x3_i8_plain,
-                    fed_dw)
-        exact_calls("sep_i8", K.sep_i8, K.apply_sep, fed_sep)
+        exact_calls("sep1/sep2", K.sep_fused_i8, K.apply_sep, fed_sep)
         exact_calls("xblock_i8", K.xblock_i8, K.apply_xblock, fed_block)
-    log(f"X39: all {len(fed_dw)} K14 calls, {len(fed_sep)} sep_i8 and "
-        f"{len(fed_block)} xblock_i8 calls of one forward (every separable "
-        f"pointwise launch, the 3 projection blocks on mode 4 and 13 "
-        f"identity blocks on mode 1) bit-exact against their plain versions")
+    log(f"X39: all {len(fed_sep)} separables (sep1, sep2) and "
+        f"{len(fed_block)} xblock_i8 calls of one forward (the 45 fused "
+        f"separable launches, 13 of them an identity block's sep3 in mode 1; "
+        f"the 3 projection blocks' K14 and mode-4 launches) bit-exact against "
+        f"their plain versions (apply_sep, apply_xblock)")
     st = pkg["stem"]
     k1_err = compare_codes("stem_pool_i8", K.stem_pool_i8,
                            K.stem_pool_i8_plain,
@@ -5533,10 +5835,13 @@ def a4_phase(dev, all_kernels, reset_all):
                             for x in xss])
     log(f"X39: K1 at cout {st['wf'].shape[3]} within {k1_err} code of its "
         f"plain version")
+    dw_inputs = [(a[0], a[1]["dw"], a[1]["dm"], a[2])
+                 for a in fed_fused] + fed_dw
     with torch.inference_mode():
-        rows = [dw_row(fed_dw, x39["launches"]["dwconv3x3_i8"], K)]
-        rows += x39_pointwise_rows(fed_sep, fed_block, x39["launches"], K)
-    del fed_dw, fed_sep, fed_block
+        rows = [dw_row(dw_inputs, x39["launches"]["dwconv3x3_i8"], K),
+                fused_sep_row(fed_fused, x39["launches"]["sep_fused_i8"], K)]
+        rows += x39_pointwise_rows(fed_block, x39["launches"], K)
+    del fed_dw, fed_sep, fed_block, fed_fused, dw_inputs
 
     # the card against the CPU, the same package, at a small size
     cpu_pkg = to_device(pkg, "cpu")
@@ -5570,13 +5875,22 @@ def a4_phase(dev, all_kernels, reset_all):
             tag, binfer, bpkg, bxss, all_kernels, reset_all, launches,
             (hw[0] // 8, hw[1] // 8), ecfg.num_classes)
         if bpkg["kind"] == "x39":
-            with record_x39_calls(i8, K) as (_, _, fed_block), \
+            with record_x39_calls(i8, K) as (_, fed_block, fed_fused), \
                     torch.inference_mode():
                 binfer(bpkg, bxss[0])
-            exact_calls("xblock_i8 (float32 out)", K.xblock_i8,
-                        K.apply_xblock, [a for a in fed_block if not a[3]])
-            log(f"{tag}: the last block's float32 values bit-equal to "
-                f"apply_xblock's")
+            fed_sep = separable_calls(fed_fused)
+            with torch.inference_mode():
+                exact_calls("sep1/sep2", K.sep_fused_i8, K.apply_sep, fed_sep)
+                exact_calls("xblock_i8", K.xblock_i8, K.apply_xblock,
+                            fed_block)
+            if [a[3] for a in fed_block] != [True] * 15 + [False]:
+                fail(f"{tag}: xblock_i8 emit_int8 {[a[3] for a in fed_block]}"
+                     f", expected codes from all but the last block")
+            log(f"{tag}: all {len(fed_sep)} separables (sep1, sep2) and "
+                f"{len(fed_block)} xblock_i8 calls bit-exact against their plain versions, "
+                f"the last block's float32 values (the fused route's mode 1 "
+                f"with float32 out) bit-equal to apply_xblock's")
+            del fed_sep, fed_block, fed_fused
             continue
         fed_k6, k6_fn = [], i8.res_block_i8
 

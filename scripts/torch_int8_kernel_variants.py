@@ -312,9 +312,13 @@ def operands(dev):
     return stem, stages, identity, spatial, k5
 
 
-# libraries whose tsg_conv_i8_mma has the older argument list (no kernel
+# libraries whose tsg_conv_i8_mma has the oldest argument list (no kernel
 # size, dilation or float32 output: the 3x3 pad-1 kernel with codes out)
 OLD_ABI = set()
+# libraries whose tsg_conv_i8_mma and tsg_conv_i8_mma_res take no batch,
+# input scale or input dtype (before the post-training conv took float
+# input)
+CODES_ABI = set()
 
 
 def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
@@ -337,12 +341,18 @@ def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
             x.data_ptr(), h, w, cin, e["w"].data_ptr(), stride, cout,
             e["m"].data_ptr(), e["c"].data_ptr(), mode, *res_args, ho, wo,
             split, K._stream(x))
-    else:
+    elif id(lib) in CODES_ABI:
         rc = lib.tsg_conv_i8_mma(
             x.data_ptr(), h, w, cin, e["w"].data_ptr(), e["w"].shape[0],
             stride, dilation, cout, e["m"].data_ptr(), e["c"].data_ptr(),
             mode, *res_args, int(out.dtype == torch.float32), ho, wo, split,
             K._stream(x))
+    else:
+        rc = lib.tsg_conv_i8_mma(
+            x.data_ptr(), 1, h, w, cin, 0.0, 0, e["w"].data_ptr(),
+            e["w"].shape[0], stride, dilation, cout, e["m"].data_ptr(),
+            e["c"].data_ptr(), mode, *res_args,
+            int(out.dtype == torch.float32), ho, wo, split, K._stream(x))
     if rc:
         raise RuntimeError(f"tsg_conv_i8_mma: CUDA error {rc}")
     return out
@@ -351,11 +361,14 @@ def mma_call(lib, x, e, stride, out, mode=0, res=None, rr=0.0, xd=None,
 def res_call(lib, x, e, out, mode=0, res=None, rr=0.0, stride=1,
              dilation=1):
     _, h, w, cin = x.shape
+    batch = () if id(lib) in CODES_ABI else (1,)
+    scale = () if id(lib) in CODES_ABI else (0.0, 0)
     rc = lib.tsg_conv_i8_mma_res(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), e["w"].shape[0], stride,
-        dilation, out.shape[3], e["m"].data_ptr(), e["c"].data_ptr(), mode,
-        res.data_ptr() if res is not None else None, float(rr),
-        out.data_ptr(), int(out.dtype == torch.float32), K._stream(x))
+        x.data_ptr(), *batch, h, w, cin, *scale, e["w"].data_ptr(),
+        e["w"].shape[0], stride, dilation, out.shape[3], e["m"].data_ptr(),
+        e["c"].data_ptr(), mode, res.data_ptr() if res is not None else None,
+        float(rr), out.data_ptr(), int(out.dtype == torch.float32),
+        K._stream(x))
     if rc:
         raise RuntimeError(f"tsg_conv_i8_mma_res: CUDA error {rc}")
     return out
@@ -791,7 +804,7 @@ def main(argv=None):
     check_imma("change", builds["change"])
     print(f"  [change] dynamic shared memory: K1 "
           f"{lib.tsg_stem_smem_bytes(128, 64)} B, K4 "
-          f"{lib.tsg_conv_mma_smem_bytes()} B a block", flush=True)
+          f"{lib.tsg_conv_mma_smem_bytes(0, 3, 1, 1)} B a block", flush=True)
     libs = {"change": lib}
     for name, (so, log) in build_variants(variants).items():
         builds[name] = report_build(name, so, log)
@@ -802,9 +815,12 @@ def main(argv=None):
         parent = import_tree(args.root, "tsg_parent")
         parent_build = importlib.import_module("tsg_parent.ops.kernels._build")
         parent_lib = parent_build.ready(dev.index)
-        if len(parent_build.LIBRARIES["int8_serve_kernels"][
-                "tsg_conv_i8_mma"]) == 24:
+        n_args = len(parent_build.LIBRARIES["int8_serve_kernels"][
+            "tsg_conv_i8_mma"])
+        if n_args == 24:
             OLD_ABI.add(id(parent_lib))
+        elif n_args == 27:
+            CODES_ABI.add(id(parent_lib))
         builds["parent"] = report_build(
             "parent", parent_build.BuildInfo.paths["int8_serve_kernels"],
             parent_build.BuildInfo.logs.get("int8_serve_kernels", ""))

@@ -148,14 +148,8 @@ def ptq_device():
     fn, args = info["fn"], info["args"]
     with C.record_ptq_calls(Q) as fed:
         fn(*args)
-    gemms = []
-    for call in fed:
-        out = K.conv_i8_affine(*call)
-        w = call[1]
-        gemms.append((max(out.shape[1] * out.shape[2], 17),
-                      w.shape[0] ** 2 * w.shape[2], w.shape[3]))
-    conv, mm, fwd, fwd_conv = C.ptq_device_ms(torch.device("cuda"), fed,
-                                              gemms, fn, args, K)
+    conv, mm, fwd, fwd_conv = C.ptq_device_ms(
+        torch.device("cuda"), fed, C.ptq_gemms(fed), fn, args, K)
     res = {"launches": len(fed), "conv_ms": conv, "int_mm_ms": mm,
            "forward_ms": fwd, "forward_conv_ms": fwd_conv}
     print(f"conv_i8_affine device time: {res}", flush=True)

@@ -22,6 +22,12 @@ the projection's chunks on the first block), are held at the main path's
 shapes and at ragged ones; the same two kernels' 1x1 and dilated 3x3
 windows and float32 epilogue (cbr_i8, bottleneck_i8) on each route, in
 each mode, at cout 8, 64 and 200 and at the served decoder's shapes;
+the post-training conv (mode 3, float32 or bf16 input quantized into each
+2-D tile's footprint by the kernel) on both kernels, the streaming one
+whole and split, at batches of 1-3 with ragged tiles and cin 16-256; the
+fused separable route (the resident kernel's separable window, its
+footprint staged by cp.async) at X39's widths, strides 1 and 2, modes 0
+and 1;
 chip_smoke.py covers the serving and training shapes, and K8/K9 are also held at every distinct BN input shape of the
 DFN-R101 and BiSeNet-R18 training steps (K8 in its one-thread-per-channel,
 one-block and cluster forms; K9 on its per-run and flat grids).  This file
@@ -1465,24 +1471,67 @@ def test_focal_loss_kernels_many_trips_of_the_persistent_grid(dev):
 # and the kernels as torch.library ops
 # ----------------------------------------------------------------------
 
+def _affine_input(g, shape, s_in):
+    """Float32 NHWC values: most within the codes' range, some exactly on
+    half-code ties (s_in a power of two), some past the clip."""
+    x = torch.randn(shape, generator=g) * 60 * s_in
+    sel = torch.rand(shape, generator=g)
+    ties = (torch.randint(-127, 127, shape, generator=g) + 0.5) * s_in
+    x = torch.where(sel < 0.2, ties, x)
+    return torch.where(sel > 0.95, x * 5, x).float()
+
+
 @pytest.mark.parametrize("cout", [8, 64, 200, 512])
 @pytest.mark.parametrize("k,dilation", [(1, 1), (3, 1), (3, 2)])
 @pytest.mark.parametrize("stride", [1, 2])
-def test_conv_i8_affine_bit_exact(dev, k, dilation, stride, cout):
-    """Against the plain version (one float32 rounding of the exact sum,
-    then one fused multiply-add); negative outputs stay (no ReLU)."""
-    g = _gen(100 + cout + 7 * k + dilation + stride)
-    cin = 48
-    x = _codes(g, (1, 13, 37, cin), lo=-127).to(dev)
+@pytest.mark.parametrize("cin", [16, 64, 128])
+def test_conv_i8_affine_bit_exact(dev, k, dilation, stride, cout, cin):
+    """From float32 input, at batch 2 with a ragged M edge, against the
+    plain version (the quantize, one float32 rounding of the exact sum,
+    then one fused multiply-add) on the route conv_route picks (resident up
+    to 64 input channels where the tiles fill the card, else streaming);
+    negative outputs stay (no ReLU)."""
+    g = _gen(100 + cout + 7 * k + dilation + stride + cin)
+    s_in = 2.0 ** -6
+    x = _affine_input(g, (2, 13, 37, cin), s_in).to(dev)
     e = _cbr(g, k, cin, cout, dev)
     pad = dilation if k == 3 else 0
     K.reset_launches()
-    got = K.conv_i8_affine(x, e["w"], e["m"], e["c"], stride, pad, dilation)
+    got = K.conv_i8_affine(x, s_in, e["w"], e["m"], e["c"], stride, pad,
+                           dilation)
     assert K.conv_i8_affine.launches == 1
-    ref = K.conv_i8_affine_plain(x.cpu(), e["w"].cpu(), e["m"].cpu(),
+    ref = K.conv_i8_affine_plain(x.cpu(), s_in, e["w"].cpu(), e["m"].cpu(),
                                  e["c"].cpu(), stride, pad, dilation)
     _exact(got.cpu(), ref)
     assert bool((ref < 0).any())
+
+
+# both kernels in mode 3 (each block quantizes its 2-D tile's footprint)
+# whatever conv_route picks, the streaming one whole and split over a
+# two-block cluster: R18.speed's widths (cin 64 resident at 256x512 and
+# sp2's stride 2; 128, 256 streaming), ragged batches and tiles, float32
+# and bf16 input
+@pytest.mark.parametrize("b,h,w,cin,cout,k,stride", [
+    (1, 64, 128, 64, 64, 3, 1), (1, 128, 256, 64, 64, 3, 2),
+    (2, 17, 23, 16, 24, 3, 1), (3, 9, 11, 64, 128, 1, 2),
+    (1, 32, 64, 128, 128, 3, 1), (2, 15, 21, 256, 64, 3, 2),
+    (1, 16, 32, 256, 256, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_i8_affine_both_kernels_bit_exact(dev, b, h, w, cin, cout, k,
+                                               stride, dtype):
+    g = _gen(300 + cin + cout + b + k)
+    s_in = 0.0371
+    x = _affine_input(g, (b, h, w, cin), s_in).to(dtype).to(dev)
+    e = _cbr(g, k, cin, cout, dev)
+    pad = 1 if k == 3 else 0
+    ref = K.conv_i8_affine_plain(x.cpu(), s_in, e["w"].cpu(), e["m"].cpu(),
+                                 e["c"].cpu(), stride, pad)
+    if cin <= K.RESIDENT_MAX_CIN:
+        _exact(K._launch_conv_mma_res(x, e, mode=3, stride=stride,
+                                      out_f32=True, s_in=s_in).cpu(), ref)
+    for split in (1, 2):
+        _exact(K._launch_conv_mma(x, e, stride, mode=3, out_f32=True,
+                                  s_in=s_in, split=split).cpu(), ref)
 
 
 def test_conv_i8_affine_refuses_widths_before_launch(dev):
@@ -1490,8 +1539,11 @@ def test_conv_i8_affine_refuses_widths_before_launch(dev):
     e = _cbr(g, 3, 20, 16, dev)
     K.reset_launches()
     with pytest.raises(ValueError, match="cin must be a positive multiple"):
-        K.conv_i8_affine(_codes(g, (1, 8, 8, 20)).to(dev), e["w"], e["m"],
-                         e["c"], 1, 1)
+        K.conv_i8_affine(torch.randn(1, 8, 8, 20, generator=g).to(dev), 0.1,
+                         e["w"], e["m"], e["c"], 1, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.conv_i8_affine(_codes(g, (1, 8, 8, 20)).to(dev), 0.1, e["w"],
+                         e["m"], e["c"], 1, 1)
     assert K.conv_i8_affine.launches == 0
 
 
@@ -1507,11 +1559,9 @@ def test_quant_conv_routes_on_the_card(dev):
         q = QuantConv2d(conv.to(dev), absmax=3.0)
         x = torch.randn(2, conv.in_channels, 19, 23, generator=_gen(1)).to(
             dev)
-        xq = q.quantize_input(x)
-        ref = torch.cat([K.conv_i8_affine_plain(
-            xq[i:i + 1].cpu(), q.wq.cpu(), q.m.cpu(), q.c.cpu(),
-            conv.stride[0], conv.padding[0], 1, conv.groups)
-            for i in range(2)])
+        ref = K.conv_i8_affine_plain(
+            x.permute(0, 2, 3, 1).cpu(), q.scale, q.wq.cpu(), q.m.cpu(),
+            q.c.cpu(), conv.stride[0], conv.padding[0], 1, conv.groups)
         with torch.no_grad():
             got = q(x).permute(0, 2, 3, 1).cpu()
         _exact(got, ref)
@@ -1546,7 +1596,7 @@ def test_custom_ops_fake_shapes_and_traced_graphs(dev):
         _exact(ep.module()(xr), infer(pkg, xr))
 
 
-# -- K14 and the Xception39 body (sep_i8, xblock_i8), K6's float route --
+# -- K14 and the Xception39 body (sep_fused_i8, xblock_i8), K6's float route --
 
 def _sep(g, cin, cout, dev):
     """A random separable entry: depthwise codes and a requant to mid codes
@@ -1596,12 +1646,13 @@ def test_dwconv3x3_kernel_refuses_before_launch(dev):
 
 @pytest.mark.parametrize("h,w,cin,cout,stride", [
     (96, 192, 64, 16, 1), (192, 384, 16, 16, 2), (24, 48, 256, 64, 1),
-    (13, 17, 32, 200, 2)])
+    (13, 17, 32, 200, 2), (48, 96, 128, 32, 1), (96, 192, 64, 32, 2),
+    (48, 96, 128, 64, 2), (7, 5, 16, 8, 1)])
 def test_sep_i8_bit_exact(dev, h, w, cin, cout, stride):
     g = _gen(60 + cin)
     x = _codes(g, (1, h, w, cin)).to(dev)
     e = _sep(g, cin, cout, dev)
-    got = K.sep_i8(x, e, stride)
+    got = K.sep_fused_i8(x, e, stride)
     torch.cuda.synchronize()
     ref = K.apply_sep(x.cpu(), {k: v.cpu() for k, v in e.items()}, stride)
     _exact(got.cpu(), ref.contiguous())
@@ -1625,23 +1676,50 @@ def test_xblock_i8_bit_exact(dev, h, w, cin, mid, proj, stride, emit_int8):
         e["proj"] = _sep(g, cin, 4 * mid, dev)
     else:
         e["res_ratio"] = float(torch.rand((), generator=g)) + 0.3
-    counts = (K.dwconv3x3_i8.launches, K.sep_i8.launches,
-              K.xblock_i8.launches)
+    counts = (K.dwconv3x3_i8.launches, K.xblock_i8.launches,
+              K.sep_fused_i8.launches)
     got = K.xblock_i8(x, e, stride, emit_int8)
     torch.cuda.synchronize()
-    assert (K.dwconv3x3_i8.launches - counts[0], K.sep_i8.launches
-            - counts[1], K.xblock_i8.launches - counts[2]) == (3 + proj, 2, 1)
+    assert (K.dwconv3x3_i8.launches - counts[0], K.xblock_i8.launches
+            - counts[1], K.sep_fused_i8.launches - counts[2]) == (
+                2 * proj, 1, 3 - proj)
     cpu = {k: ({f: t.cpu() for f, t in v.items()} if isinstance(v, dict)
                else v) for k, v in e.items()}
     _exact(got.cpu(), K.apply_xblock(x.cpu(), cpu, stride,
                                      emit_int8).contiguous())
 
 
+# the fused separable route alone: X39's widths (cin 16 to 256, mid 16 to
+# 64, cout to 256), strides 1 and 2, the identity residual (mode 1) with
+# codes or float32 out, ragged sizes (an M edge inside a tile, one row)
+@pytest.mark.parametrize("h,w,cin,cout,stride,res,emit_int8", [
+    (96, 192, 16, 64, 1, True, True), (24, 48, 64, 256, 1, True, False),
+    (48, 96, 32, 128, 1, True, True), (24, 48, 256, 64, 1, False, True),
+    (96, 192, 128, 32, 2, False, True), (11, 13, 48, 40, 2, False, False),
+    (1, 7, 16, 16, 1, True, True), (9, 1, 256, 8, 2, False, True)])
+def test_sep_fused_i8_bit_exact(dev, h, w, cin, cout, stride, res,
+                                emit_int8):
+    g = _gen(500 + cin + cout + stride)
+    x = _codes(g, (1, h, w, cin), lo=-127).to(dev)
+    e = _sep(g, cin, cout, dev)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    r = _codes(g, (1, ho, wo, cout), lo=-127).to(dev) if res else None
+    before = K.sep_fused_i8.launches
+    got = K.sep_fused_i8(x, e, stride, res=r, rr=0.7, emit_int8=emit_int8)
+    torch.cuda.synchronize()
+    assert K.sep_fused_i8.launches == before + 1
+    ref = K.sep_fused_i8_plain(x.cpu(), {k: v.cpu() for k, v in e.items()},
+                               stride, r.cpu() if res else None, 0.7,
+                               emit_int8)
+    _exact(got.cpu(), ref)
+    assert bool((ref > 0).any())
+
+
 def test_xblock_i8_refuses_before_launch(dev):
     g = _gen(80)
     e = {"sep1": _sep(g, 16, 16, dev), "sep2": _sep(g, 16, 16, dev),
          "sep3": _sep(g, 16, 64, dev), "proj": _sep(g, 16, 64, dev)}
-    counts = (K.dwconv3x3_i8.launches, K.sep_i8.launches,
+    counts = (K.dwconv3x3_i8.launches, K.sep_fused_i8.launches,
               K.xblock_i8.launches)
     with pytest.raises(ValueError, match="codes only"):
         K.xblock_i8(_codes(g, (1, 8, 8, 16)).to(dev), e, 2, emit_int8=False)
@@ -1649,7 +1727,7 @@ def test_xblock_i8_refuses_before_launch(dev):
          "sep3": _sep(g, 16, 64, dev), "proj": _sep(g, 8, 64, dev)}
     with pytest.raises(ValueError, match="multiple of 16"):
         K.xblock_i8(_codes(g, (1, 8, 8, 8)).to(dev), e, 2)
-    assert counts == (K.dwconv3x3_i8.launches, K.sep_i8.launches,
+    assert counts == (K.dwconv3x3_i8.launches, K.sep_fused_i8.launches,
                       K.xblock_i8.launches)
 
 

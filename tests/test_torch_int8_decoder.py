@@ -278,6 +278,17 @@ ROUTES = [
     ("layer4 conv2", 512, 512, 60, 60, 3, 1, 0, "split0"),
     ("stride 3", 64, 64, 80, 80, 3, 3, 0, "split0"),
     ("projection", 64, 256, 120, 120, 1, 1, 2, "split1"),
+    # conv_i8_affine (mode 3; ho counts the batch's rows): R18.speed's
+    # generic int8 convs at 1024x2048 (layer1, sp2, sp3 resident; layer2
+    # and wider streaming, a 3x3 by the host split rule, a 1x1 whole, as
+    # cbr_i8's) and a batch of four 64x256 inputs against one
+    ("ptq layer1 3x3", 64, 64, 256, 512, 3, 1, 3, "resident"),
+    ("ptq sp2", 64, 64, 256, 512, 3, 2, 3, "resident"),
+    ("ptq sp3", 64, 128, 256, 512, 1, 1, 3, "resident"),
+    ("ptq layer2 3x3", 128, 128, 128, 256, 3, 1, 3, "split0"),
+    ("ptq ffm 1x1", 256, 256, 128, 256, 1, 1, 3, "split1"),
+    ("ptq one 64x256", 64, 64, 64, 256, 3, 1, 3, "split0"),
+    ("ptq four 64x256", 64, 64, 4 * 64, 256, 3, 1, 3, "resident"),
 ]
 
 

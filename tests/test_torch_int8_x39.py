@@ -10,7 +10,7 @@ blocks) against the JAX package (CPU, 64x128, X39's real widths):
       backbone stem to 16 channels (the stem's extra outputs, ``l1_0``'s
       depthwise weights, ``dm`` and pointwise input rows) is exactly zero;
   primitives: ``dwconv3x3_i8`` (K14's plain version: ``qconv_dw`` and the
-      requant) against ``_qconv_dw`` + ``_requant``, ``sep_i8`` /
+      requant) against ``_qconv_dw`` + ``_requant``, ``sep_fused_i8`` /
       ``apply_sep`` against ``_apply_sep`` and ``xblock_i8`` against
       ``_apply_xblock``: strides 1 and 2, identity and projection
       shortcuts, codes and float32 out, all bit-exact (JAX jitted block by
@@ -264,7 +264,7 @@ def test_apply_sep_matches_jax(stride, relu, emit_int8):
     got = K.apply_sep(torch.from_numpy(x), te, stride, relu, emit_int8)
     np.testing.assert_array_equal(got.numpy(), ref)
     if relu and emit_int8:
-        got = K.sep_i8(torch.from_numpy(x), te, stride)
+        got = K.sep_fused_i8(torch.from_numpy(x), te, stride)
         np.testing.assert_array_equal(got.numpy(), ref)
     assert (ref > 0).any() and ((ref == 0) if relu else (ref < 0)).any()
 
@@ -354,6 +354,52 @@ def test_x39_body_bit_exact_given_jax_stem_codes(monkeypatch, x39):
         monkeypatch, x39["int8"]["carried"], x39["xs"], x39["int8"]["ref"])
     assert [tuple(f.shape[1:]) for f in feats] == [(8, 16, 64), (4, 8, 128),
                                                    (2, 4, 256)]
+
+
+def test_x39_card_launch_plan_on_plain_stand_ins(monkeypatch, x39):
+    """The card branch of every Xception block, with the launches replaced
+    by counting stand-ins that run their plain versions: at full depth (16
+    blocks, 3 with a projection) one forward is 45 fused separable launches
+    (sep1 and sep2 of every block, sep3 of the 13 identity blocks), 6 K14
+    launches and 3 mode-4 launches (the projection blocks' sep3), 32 of
+    the fused launches a separable CBR (sep1, sep2: no residual) and
+    xblock_i8 16; and the stages stay bit-exact against JAX given its
+    stem codes."""
+    counts = {"sep_fused_i8": 0, "dwconv3x3_i8": 0, "mode4": 0,
+              "separable": 0}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            counts[name] += 1
+            if name == "sep_fused_i8" and kwargs.get("res") is None:
+                counts["separable"] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def mode4(q, e, stride, mode, xd, down, split):
+        assert (stride, mode, split) == (1, 4, 1)
+        z = K.fma(K.qconv(q, e["w"], 1, 0).float(), e["m"], e["c"])
+        z = z + K.fma(K.qconv(xd, down["w"], 1, 0).float(), down["m"],
+                      down["c"])
+        return K.requant(torch.relu(z))
+
+    monkeypatch.setattr(K, "_on_cuda", lambda *tensors: True)
+    monkeypatch.setattr(K, "sep_fused_i8",
+                        counted("sep_fused_i8", K.sep_fused_i8_plain))
+    monkeypatch.setattr(K, "dwconv3x3_i8",
+                        counted("dwconv3x3_i8", K.dwconv3x3_i8_plain))
+    monkeypatch.setattr(K, "_launch_conv_mma", counted("mode4", mode4))
+    monkeypatch.setattr(ti8, "spatial_path_i8", lambda sp, p1, p2:
+                        K.conv3x3s2_i8_plain(K.conv3x3s2_i8_plain(
+                            sp, p1["w"], p1["m"], p1["c"]),
+                            p2["w"], p2["m"], p2["c"]))
+    monkeypatch.setattr(ti8, "cbr_i8", K.apply_cbr)
+    K.reset_launches()
+    body_bit_exact_on_jax_stem_codes(monkeypatch, x39["int8"]["carried"],
+                                     x39["xs"], x39["int8"]["ref"])
+    assert counts == {"sep_fused_i8": 45, "dwconv3x3_i8": 6, "mode4": 3,
+                      "separable": 32}
+    assert K.xblock_i8.launches == 16
 
 
 def test_x39_log_probs_and_labels_match_jax(x39):

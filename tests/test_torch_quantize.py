@@ -173,6 +173,136 @@ def test_one_conv_matches_jax_interceptor():
                                atol=1e-6 * np.abs(want).max())
 
 
+# s_in = 3.96875 / 127 = 2^-5 exactly, so an input (n + 0.5) / 32 lies
+# exactly on a half-code tie in both frameworks' float32 division
+TIE_ABSMAX = 3.96875
+
+
+def _tie_input(rng, shape):
+    """NHWC float32: random values, a quarter moved exactly onto half-code
+    ties ((n + 1/2) s_in, n in [-127, 127)) and a sixteenth beyond the
+    clip at +-127 s_in (+-127.6 s_in to +-400 s_in)."""
+    s = TIE_ABSMAX / 127.0
+    x = rng.normal(scale=1.5, size=shape)
+    sel = rng.random(shape)
+    ties = (rng.integers(-127, 127, shape) + 0.5) * s
+    far = rng.choice([-1.0, 1.0], shape) * rng.uniform(127.6, 400.0, shape) * s
+    x = np.where(sel < 0.25, ties, np.where(sel > 15 / 16, far, x))
+    return x.astype(np.float32)
+
+
+class _OneConvOf(nn.Module):
+    cout: int
+    k: int
+    stride: int
+    pad: int
+    dil: int
+    bias: bool
+
+    @nn.compact
+    def __call__(self, x, train: bool = False):
+        return nn.Conv(self.cout, (self.k, self.k), strides=self.stride,
+                       padding=[(self.pad, self.pad)] * 2,
+                       kernel_dilation=self.dil, use_bias=self.bias,
+                       name="c")(x)
+
+
+# (k, stride, pad, dilation, bias): the windows the tensor-core kernels
+# take (3x3 pad 1, the dilated 3x3, the 1x1) at strides 1 and 2
+AFFINE_CASES = [(3, 1, 1, 1, True), (3, 2, 1, 1, False), (3, 1, 2, 2, True),
+                (1, 1, 0, 1, True), (1, 2, 0, 1, False)]
+
+
+@pytest.mark.parametrize("k,stride,pad,dil,bias", AFFINE_CASES)
+def test_conv_i8_affine_plain_matches_jax_interceptor(k, stride, pad, dil,
+                                                      bias):
+    """The float-input plain version (quantize, exact sum, one fused
+    multiply-add) against JAX's interceptor, jitted (XLA contracts y * m +
+    bias), bit for bit at batch 2 on inputs with exact half-code ties and
+    values past the clip; and ``QuantConv2d`` on the same conv, fed the
+    NCHW input channels-last and contiguous, returns those values as a
+    channels-last NCHW view."""
+    rng = np.random.default_rng(30 + 7 * k + stride + dil)
+    cin, cout = 16, 8
+    x = _tie_input(rng, (2, 11, 13, cin))
+    m = _OneConvOf(cout, k, stride, pad, dil, bias)
+    v = jax.tree.map(np.asarray, m.init(jax.random.PRNGKey(0),
+                                        jnp.asarray(x)))
+    v["params"]["c"]["kernel"] = rng.normal(
+        size=(k, k, cin, cout)).astype(np.float32)
+    if bias:
+        v["params"]["c"]["bias"] = rng.normal(size=cout).astype(np.float32)
+    want = np.asarray(jax.jit(jq.quantized_apply_fn(
+        m, {"c": TIE_ABSMAX}, skip=()))(v, jnp.asarray(x)))
+
+    conv = torch.nn.Conv2d(cin, cout, k, stride=stride, padding=pad,
+                           dilation=dil, bias=bias)
+    state = {"weight": torch.from_numpy(
+        v["params"]["c"]["kernel"].transpose(3, 2, 0, 1).copy())}
+    if bias:
+        state["bias"] = torch.from_numpy(v["params"]["c"]["bias"])
+    conv.load_state_dict(state)
+    q = tq.QuantConv2d(conv, TIE_ABSMAX)
+    assert q.route == "mma" and q.scale == 2.0 ** -5
+    got = K.conv_i8_affine_plain(torch.from_numpy(x), q.scale, q.wq, q.m,
+                                 q.c, stride, pad, dil)
+    np.testing.assert_array_equal(got.numpy(), want)
+    codes = q.quantize_input(nchw(x))
+    assert int(codes.abs().max()) == 127 and (codes.int() % 2 == 0).any()
+    for fmt in (torch.channels_last, torch.contiguous_format):
+        with torch.no_grad():
+            y = q(nchw(x).contiguous(memory_format=fmt))
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_array_equal(y.permute(0, 2, 3, 1).numpy(), want)
+
+
+def test_conv_i8_affine_rounds_ties_to_even():
+    """Exact half-code ties round to the even code and values past the clip
+    take +-127 (the kernels' rintf and clamp)."""
+    s = 2.0 ** -5
+    x = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, 126.5, -126.5, 127.5, 300.0,
+                      -300.0], dtype=torch.float32) * s
+    assert K.quantize_codes(x, s).tolist() == [0, 2, 2, 0, -2, 126, -126,
+                                               127, 127, -127]
+
+
+def _kernel_quantize_rule(x, s):
+    """The tensor-core kernels' quantize (``quant_bits`` in
+    csrc/int8_serve_kernels.cu) in float32 numpy: r = x * (1 / s) clamped
+    to +-127, rounded half to even by adding 1.5 * 2^23, and where r lies
+    within 2^-14 of a half-integer the clamped true quotient instead."""
+    f32 = np.float32
+    magic = f32(12582912.0)
+    inv = f32(1.0) / f32(s)
+    r = np.clip(x * inv, f32(-127), f32(127)).astype(np.float32)
+    t = (r + magic).astype(np.float32)
+    near = np.abs(np.abs(r - (t - magic)) - f32(0.5)) < f32(2.0 ** -14)
+    exact = (np.clip(x / f32(s), f32(-127), f32(127)) + magic).astype(
+        np.float32)
+    t = np.where(near, exact, t)
+    return (t.view(np.int32) - 0x4B400000).astype(np.int8)
+
+
+@pytest.mark.parametrize("s", [2.0 ** -5, 0.0371, 0.7314, 3.1e-3])
+def test_kernel_quantize_rule_matches_the_true_division(s):
+    """The kernels quantize with a multiply by the rounded reciprocal and
+    fall back to the true quotient only near a rounding tie: on random
+    values, on every half-code tie, on the floats next to each tie and past
+    the clip, the rule gives ``quantize_codes``' codes (a true float32
+    division, half to even, clip at +-127)."""
+    rng = np.random.default_rng(int(s * 1e4))
+    f32 = np.float32
+    ties = (np.arange(-130, 130) + f32(0.5)).astype(np.float32) * f32(s)
+    x = np.concatenate([
+        (rng.normal(size=200_000) * 60 * s).astype(np.float32),
+        (rng.uniform(-300, 300, 200_000) * s).astype(np.float32),
+        ties, np.nextafter(ties, f32(np.inf)),
+        np.nextafter(ties, f32(-np.inf)),
+        np.array([0.0, -0.0, 1e30, -1e30], dtype=np.float32)])
+    want = K.quantize_codes(torch.from_numpy(x), s).numpy()
+    np.testing.assert_array_equal(_kernel_quantize_rule(x, s), want)
+
+
 @pytest.mark.parametrize("cin,cout,k,stride,pad,dil,groups,route", [
     (16, 24, 3, 1, 1, 1, 1, "mma"),
     (32, 16, 1, 2, 0, 1, 1, "mma"),
@@ -191,10 +321,8 @@ def test_routes_equal_the_plain_version(cin, cout, k, stride, pad, dil,
     assert q.route == tq.conv_route(conv) == route
     x = torch.from_numpy(np.random.default_rng(1).normal(
         size=(2, cin, 13, 11)).astype(np.float32))
-    xq = q.quantize_input(x)
-    want = torch.cat([K.conv_i8_affine_plain(
-        xq[i:i + 1], q.wq, q.m, q.c, stride, pad, dil, groups)
-        for i in range(2)])
+    want = K.conv_i8_affine_plain(x.permute(0, 2, 3, 1), q.scale, q.wq, q.m,
+                                  q.c, stride, pad, dil, groups)
     with torch.no_grad():
         got = q(x).permute(0, 2, 3, 1)
     assert torch.equal(got, want)

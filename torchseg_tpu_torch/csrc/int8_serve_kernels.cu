@@ -3,8 +3,8 @@
 // torchseg_tpu_torch/ops/kernels/int8_serve_kernels.py (wrappers, shape
 // checks, plain PyTorch versions).
 //
-// Six kernels behind thirteen wrappers: twelve of the int8-through serving
-// graphs and the post-training int8 conv:
+// Six kernels behind fourteen wrappers: thirteen of the int8-through
+// serving graphs and the post-training int8 conv:
 //
 //   stem_pool_i8_mma_kernel  (K1)  replaces the TPU kernel
 //       torchseg_tpu/ops/pallas/int8_serve_kernels.py:384
@@ -39,19 +39,18 @@
 //                         the last block of the body writes float32;
 //       conv_i8_affine    the generic post-training int8 conv
 //                         (deploy/quantize.py; an XLA conv in JAX,
-//                         deploy/quantize.py:100-146): mode 3, float32
-//                         out with no ReLU;
-//       sep_i8, xblock_i8 the Xception39 body's separable convs' 1x1
-//                         pointwise convs (XLA in JAX, deploy/int8_serve.py:
-//                         971 _apply_sep, :986 _apply_xblock), after K14:
-//                         sep1 and sep2 in mode 0, sep3 in mode 1 (the
-//                         identity shortcut; these three on this kernel or
-//                         the resident one by cbr_i8's rule) or mode 4 (the
-//                         separable projection's pointwise as the second
-//                         GEMM, on this kernel).
+//                         deploy/quantize.py:100-146): mode 3, the float
+//                         input quantized into each tile's footprint as
+//                         the kernel stages it, float32 out with no ReLU,
+//                         above 64 input channels;
+//       xblock_i8         a projection block's sep3: its 1x1 with the
+//                         separable projection's 1x1 as the second GEMM
+//                         (mode 4; XLA in JAX, deploy/int8_serve.py:986
+//                         _apply_xblock), after K14.
 //   dwconv3x3_i8_kernel  (K14) the int8 3x3 depthwise conv and requant of
-//       every separable conv of the Xception39 body (an XLA conv in JAX,
-//       deploy/int8_serve.py:961 _qconv_dw): 51 launches an X39 forward.
+//       the Xception39 body's projection blocks' sep3 and projection (an
+//       XLA conv in JAX, deploy/int8_serve.py:961 _qconv_dw): 6 launches
+//       an X39 forward.
 //   conv_i8_mma_res_kernel         the int8 tensor-core conv with the
 //       link's whole weight resident in shared memory, persistent blocks
 //       (stride 1 or 2; the same windows and outputs); launched by
@@ -62,7 +61,14 @@
 //                         forward through spatial_path_i8 (:569/:587),
 //                         at stride 2;
 //       cbr_i8, bottleneck_i8  their convs of up to 64 input channels
-//                         (sp3, stem2/stem3, layer1's).
+//                         (sp3, stem2/stem3, layer1's);
+//       conv_i8_affine    up to 64 input channels (mode 3, as above);
+//       sep_fused_i8      the separable window: the Xception39 body's
+//                         separable convs (XLA in JAX, deploy/int8_serve.py:
+//                         961-996), K14's depthwise codes computed in the
+//                         1x1's A producer: sep1 and sep2 (sep_i8) in mode
+//                         0, an identity block's sep3 (xblock_i8) in mode
+//                         1; 45 launches an X39 forward.
 //   maxpool_i8_vec16_kernel, maxpool_i8_kernel  (K10) replace
 //       maxpool2d_3x3s2_i8 (:1308), the standalone 3x3/2 pad-1 max pool
 //       after the deep stem: 16-byte loads and a strip of output rows a
@@ -112,6 +118,151 @@ __device__ __forceinline__ int8_t requant(float z) {
 __device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
   return static_cast<uint16_t>(static_cast<uint8_t>(lo) |
                                (static_cast<uint16_t>(static_cast<uint8_t>(hi)) << 8));
+}
+
+// Four codes as the little-endian word of adjacent bytes.
+__device__ __forceinline__ uint32_t pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
+  return static_cast<uint32_t>(pack2(a, b)) | (static_cast<uint32_t>(pack2(c, d)) << 16);
+}
+
+// The post-training quantization of one float32 value: clip(rint(x / s),
+// -127, 127) of the true quotient rounded to nearest, as XLA's (JAX
+// deploy/quantize.py:119-122), half to even; inv = 1 / s rounded.  Its
+// code is the low byte of the result.  Fast path, on full-rate operations
+// only: r = x * inv clamped to [-127, 127] (NaN to 127, as requant's clip
+// takes it) is within 1.5 * 2^-23 * 2^7 < 2^-14 of the clamped fl(x / s),
+// so unless r lies within 2^-14 of a half-integer both round to the same
+// integer; t = r + 1.5 * 2^23 rounds r to that integer k (half to even),
+// and t's bits are 0x4B400000 + k, whose low byte is k's.  Near a
+// half-integer the exact quotient decides (__fdiv_rn).
+__device__ __forceinline__ uint32_t quant_bits(float x, float s, float inv) {
+  constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
+  const float r = fmaxf(fminf(__fmul_rn(x, inv), 127.f), -127.f);
+  float t = __fadd_rn(r, kMagic);
+  if (fabsf(fabsf(__fadd_rn(r, -__fadd_rn(t, -kMagic))) - 0.5f) < 6.103515625e-05f)
+    t = __fadd_rn(fmaxf(fminf(__fdiv_rn(x, s), 127.f), -127.f), kMagic);
+  return __float_as_uint(t);
+}
+
+// Four values quantized (quant_bits) and packed into one word.
+__device__ __forceinline__ uint32_t quant4(float a, float b, float c, float d, float s,
+                                           float inv) {
+  return __byte_perm(__byte_perm(quant_bits(a, s, inv), quant_bits(b, s, inv), 0x0040),
+                     __byte_perm(quant_bits(c, s, inv), quant_bits(d, s, inv), 0x0040),
+                     0x5410);
+}
+
+// Two bf16 values (a word) as float32, exactly.
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// The footprint kernels (conv_i8_affine's mode 3 on either tensor-core
+// conv, and the resident kernel's separable window) tile the output in 2-D,
+// tr rows x kFpTC columns of one image, and stage the input that a tile's
+// window reads, its footprint, in shared memory once a tile (and a
+// 64-channel chunk): for a 3x3 window of dilation d at stride s, (tr - 1) s
+// + 2d + 1 input rows x (kFpTC - 1) s + 2d + 1 columns from (oy0 s - d,
+// ox0 s - d), the pad included as code 0; for a 1x1, the tr x kFpTC input
+// pixels the tile samples.  Footprint pixel f (row-major), 16-byte group g
+// (channels 16g .. 16g + 15 of the chunk) lies at fp_byte(f, g, s2): with
+// one footprint pixel between neighbouring output pixels the group is
+// XOR-swizzled by bits 1-2 of f; with two (s2: a 3x3 at stride 2) the
+// pixels of odd pairs swap places and the group is swizzled by bits 2-3.
+// So eight pixels f0 + k step (k = 0..7) at one group, as an ldmatrix or a
+// producer's quarter warp reads them, fall in distinct banks, and so do two
+// pixels a step apart at all four groups.
+constexpr int kFpTC = 16;  // output columns of a footprint tile
+
+__device__ __forceinline__ int fp_byte(int f, int g, bool s2) {
+  return s2 ? (f ^ ((f >> 1) & 1)) * 64 + ((g ^ ((f >> 2) & 3)) << 4)
+            : f * 64 + ((g ^ ((f >> 1) & 3)) << 4);
+}
+
+// The footprint of a tile of tr output rows: its rows and columns, the step
+// between neighbouring output pixels in it, and the input pixel of its
+// first element; the input row of footprint row r is iy0 + r * mul (mul =
+// the stride for a 1x1, else 1), and likewise for columns.
+struct Footprint {
+  int rows, cols, step, mul;
+};
+
+__host__ __device__ __forceinline__ Footprint footprint_of(int tr, bool one, int stride,
+                                                           int dil) {
+  const int step = one ? 1 : stride, span = one ? 1 : 2 * dil + 1;
+  return {(tr - 1) * step + span, (kFpTC - 1) * step + span, step, one ? stride : 1};
+}
+
+// Bytes of one footprint: 64 a pixel, one pixel more for the stride-2 swap.
+__host__ __device__ __forceinline__ int footprint_bytes(int tr, bool one, int stride,
+                                                        int dil) {
+  const Footprint fp = footprint_of(tr, one, stride, dil);
+  return (fp.rows * fp.cols + 1) * 64;
+}
+
+// Mode 3: channels c0 .. c0 + 63 of a tile's footprint, from the float32
+// (kBf16: bf16) activation x (batch, h, w, cin) of image b, quantized into
+// the footprint fp at smem: each element once, the 16-channel groups of
+// kU items a thread loaded (16-byte loads) before any is converted, the
+// pad and the channels past cin as code 0.  kThreads: the block's
+// threads.
+template <int kThreads, bool kBf16>
+__device__ __forceinline__ void quantize_footprint_as(
+    unsigned char* __restrict__ fp_s, const Footprint fp, const void* __restrict__ x, float s,
+    int b, int h, int w, int cin, int c0, int iy0, int ix0) {
+  constexpr int kU = kBf16 ? 4 : 2;       // items in flight
+  constexpr int kLoads = kBf16 ? 2 : 4;   // 16-byte loads an item
+  const float inv = __fdiv_rn(1.f, s);
+  const bool s2 = fp.step == 2;
+  const int n = fp.rows * fp.cols * 4;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kU * kThreads) {
+    uint4 raw[kU][kLoads];
+    bool ok[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kThreads, f = i >> 2, ch = c0 + 16 * (i & 3);
+      const int r = f / fp.cols, iy = iy0 + r * fp.mul, ix = ix0 + (f - r * fp.cols) * fp.mul;
+      ok[u] = i < n && ch < cin && iy >= 0 && iy < h && ix >= 0 && ix < w;
+      const long long e = ((static_cast<long long>(b) * h + iy) * w + ix) * cin + ch;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          static_cast<const unsigned char*>(x) + e * (kBf16 ? 2 : 4));
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k)
+        raw[u][k] = ok[u] ? __ldg(src + k) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i >= n) break;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (ok[u]) {
+        uint32_t q[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if constexpr (kBf16) {
+            const uint4 r = raw[u][k / 2];
+            const uint32_t a = k % 2 ? r.z : r.x, c = k % 2 ? r.w : r.y;
+            q[k] = quant4(bf16_lo(a), bf16_hi(a), bf16_lo(c), bf16_hi(c), s, inv);
+          } else {
+            const uint4 r = raw[u][k];
+            q[k] = quant4(__uint_as_float(r.x), __uint_as_float(r.y), __uint_as_float(r.z),
+                          __uint_as_float(r.w), s, inv);
+          }
+        }
+        v = make_uint4(q[0], q[1], q[2], q[3]);
+      }
+      *reinterpret_cast<uint4*>(fp_s + fp_byte(i >> 2, i & 3, s2)) = v;
+    }
+  }
+}
+
+template <int kThreads>
+__device__ __forceinline__ void quantize_footprint(
+    unsigned char* __restrict__ fp_s, const Footprint fp, const void* __restrict__ x,
+    int x_bf16, float s, int b, int h, int w, int cin, int c0, int iy0, int ix0) {
+  if (x_bf16)
+    quantize_footprint_as<kThreads, true>(fp_s, fp, x, s, b, h, w, cin, c0, iy0, ix0);
+  else
+    quantize_footprint_as<kThreads, false>(fp_s, fp, x, s, b, h, w, cin, c0, iy0, ix0);
 }
 
 // --- PTX wrappers for the tensor-core kernels (K1-K6) ----------------------
@@ -475,7 +626,9 @@ size_t stem_smem_bytes(int cout, int n_sp) {
 //        a second GEMM into its own int32 accumulators;
 //   mode 3 (affine):     z = fma(y, m, c), no ReLU, float32 out only: the
 //        post-training int8 conv of deploy/quantize.py, m = s_in * s_w
-//        and c = the conv's bias (or 0);
+//        and c = the conv's bias (or 0); its x is the float32 (or bf16)
+//        activation (batch, h, w, cin), quantized by the kernel as it
+//        stages it (below);
 //   mode 4 (separable projection): z = fma(y, m, c) + fma(yd, md, cd),
 //        yd as in mode 2: the Xception block's sep3 pointwise with its
 //        separable projection's pointwise (xd the projection's depthwise
@@ -558,10 +711,23 @@ static_assert(32 * kMmaThreads * 4 <= kMmaStages * kMmaSlot,
               "a split block's int32 sums fit in its ring");
 static_assert(kMmaBM * kMmaOutPitchF * 4 <= kMmaStages * kMmaSlot,
               "a float32 output tile fits in the ring");
+constexpr int kMmaTR = kMmaBM / kFpTC;  // output rows of a mode-3 tile
+
+// The streaming kernel's ring (or staged output tile).  Mode 3 reads A
+// from its footprint, so its ring holds B tiles only, and the footprint
+// follows them; the staged float32 output tile and a split's sums overlay
+// both once the MMAs are done.
+__host__ __device__ constexpr int conv_mma_ring_bytes() {
+  return kMmaStages * kMmaSlot > kMmaBM * kMmaOutPitch ? kMmaStages * kMmaSlot
+                                                       : kMmaBM * kMmaOutPitch;
+}
+constexpr int kMmaSlotB = kMmaBN * kMmaBK;  // mode 3: one stage, a B tile
 
 // The window of a tensor-core conv (a template parameter of both kernels):
-// 3x3 pad 1 (K2-K6), 3x3 with dilation d and pad d, or 1x1 pad 0.
-constexpr int kWin3 = 0, kWinDil = 1, kWin1 = 2;
+// 3x3 pad 1 (K2-K6), 3x3 with dilation d and pad d, or 1x1 pad 0; and, on
+// the resident-weight kernel only, the separable conv (a 3x3 pad-1
+// depthwise conv at the stride, then a 1x1).
+constexpr int kWin3 = 0, kWinDil = 1, kWin1 = 2, kWinSep = 3;
 
 // Byte offset of 16-byte chunk `chunk` of tile row `row` (64-byte rows).
 // ldmatrix reads 8 consecutive rows (r % 8 == 0) at one chunk; the
@@ -573,14 +739,13 @@ __device__ __forceinline__ int mma_chunk_addr(int row, int chunk) {
 
 template <int kMode, int kSplit, int kWin, bool kF32>
 __global__ void __launch_bounds__(kMmaThreads, 512 / kMmaThreads)
-conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
-                   const int8_t* __restrict__ wt, int stride, int dilation,
-                   int cout, const float* __restrict__ m,
-                   const float* __restrict__ c, const int8_t* __restrict__ res,
-                   float rr, const int8_t* __restrict__ xd, int wd_, int cdin,
-                   int sd, const int8_t* __restrict__ wdt,
-                   const float* __restrict__ md, const float* __restrict__ cd,
-                   void* __restrict__ out, int ho, int wo) {
+conv_i8_mma_kernel(const void* __restrict__ xv, int batch, int h, int w, int cin,
+                   float s_in, int x_bf16, const int8_t* __restrict__ wt, int stride,
+                   int dilation, int cout, const float* __restrict__ m,
+                   const float* __restrict__ c, const int8_t* __restrict__ res, float rr,
+                   const int8_t* __restrict__ xd, int wd_, int cdin, int sd,
+                   const int8_t* __restrict__ wdt, const float* __restrict__ md,
+                   const float* __restrict__ cd, void* __restrict__ out, int ho, int wo) {
   constexpr int kTaps = kWin == kWin1 ? 1 : 9;  // the projection is "tap" kTaps
   constexpr bool kProj = kMode == 2 || kMode == 4;  // a second GEMM of xd
   const int dil = kWin == kWinDil ? dilation : 1;
@@ -588,10 +753,31 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t s_base = smem_addr(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_pix = ho * wo;
-  const int m0 = blockIdx.x / kSplit * kMmaBM;
+  constexpr bool kFp = kMode == 3;  // A from the quantized footprint
+  const int8_t* __restrict__ x = static_cast<const int8_t*>(xv);  // the codes (not mode 3)
+  const int hw_out = ho * wo;
+  const int n_pix = batch * hw_out;  // modes 2 and 4: batch 1
+  const int tile = static_cast<int>(blockIdx.x) / kSplit;
+  const int m0 = tile * kMmaBM;
   const int n0 = blockIdx.y * kMmaBN;
-  const int rank = blockIdx.x % kSplit;          // rank in the K-split cluster
+  const int rank = static_cast<int>(blockIdx.x) % kSplit;  // rank in the K-split cluster
+  // kFp: the tile is kMmaTR x kFpTC output pixels of image fb at (fy0, fx0)
+  const int tiles_x = (wo + kFpTC - 1) / kFpTC, tiles_y = (ho + kMmaTR - 1) / kMmaTR;
+  const int fb = tile / (tiles_x * tiles_y), ft = tile - fb * tiles_x * tiles_y;
+  const int fy0 = ft / tiles_x * kMmaTR, fx0 = (ft - ft / tiles_x * tiles_x) * kFpTC;
+  const Footprint fp = footprint_of(kMmaTR, kWin == kWin1, stride, dil);
+  unsigned char* fp_s = smem + kMmaStages * kMmaSlotB;
+  // a ring slot's B tile (mode 3: the slots hold B only)
+  const int slot_bytes = kFp ? kMmaSlotB : kMmaSlot, b_off = kFp ? 0 : kMmaBM * kMmaBK;
+  // The output pixel of tile row ml, or -1 past the edge.
+  auto out_pix = [&](int ml) -> long long {
+    if constexpr (kFp) {
+      const int oy = fy0 + ml / kFpTC, ox = fx0 + ml % kFpTC;
+      return oy < ho && ox < wo ? (static_cast<long long>(fb) * ho + oy) * wo + ox : -1;
+    } else {
+      return m0 + ml < n_pix ? m0 + ml : -1;
+    }
+  };
   const int cch = (cin + kMmaBK - 1) / kMmaBK;   // chunks per tap
   const int n_main = kTaps * cch;
   const int n_proj = kProj ? (cdin + kMmaBK - 1) / kMmaBK : 0;
@@ -620,15 +806,16 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     const int p = m0 + (tid >> 2) + (kMmaThreads / 4) * i;
     a_mask[i] = 0;
     a_off[i] = a_doff[i] = 0;
-    if (p < n_pix) {
-      const int oy = p / wo, ox = p % wo;
+    if (!kFp && p < n_pix) {
+      const int b = p / hw_out, r = p - b * hw_out;
+      const int oy = r / wo, ox = r % wo;
       const int iy0 = oy * stride - pad, ix0 = ox * stride - pad;
       for (int t = 0; t < kTaps; ++t) {
         const int iy = iy0 + t / 3 * dil, ix = ix0 + t % 3 * dil;
         if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
       }
       a_mask[i] |= 1 << 9;  // the pixel exists: its projection row is read
-      a_off[i] = (static_cast<long long>(iy0) * w + ix0) * cin;
+      a_off[i] = ((static_cast<long long>(b) * h + iy0) * w + ix0) * cin;
       if (kProj) a_doff[i] = (static_cast<long long>(oy) * sd * wd_ + ox * sd) * cdin;
     }
   }
@@ -637,10 +824,20 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // tap-major over the window in channel chunks of kMmaBK, then (mode 2,
   // rank 0) the projection's channel chunks (tap kTaps).  Only a split
   // projection's rank 0 leaves the main walk early, after lead chunks.
+  // Mode 3 walks channel-chunk-major instead (main chunk j: channels
+  // j / kTaps * kMmaBK, tap j % kTaps), so that each chunk of channels is
+  // quantized into the footprint once for its taps.
   int ld_main = nk_main;   // main chunks still to stage
-  int ld_tap = nk_main > 0 ? mc0 / cch : kTaps;
-  int ld_c0 = nk_main > 0 ? mc0 % cch * kMmaBK : 0;
+  int ld_tap = nk_main > 0 ? (kFp ? mc0 % kTaps : mc0 / cch) : kTaps;
+  int ld_c0 = nk_main > 0 ? (kFp ? mc0 / kTaps : mc0 % cch) * kMmaBK : 0;
   auto next_chunk = [&]() {
+    if constexpr (kFp) {
+      if (++ld_tap == kTaps) {
+        ld_tap = 0;
+        ld_c0 += kMmaBK;
+      }
+      return;
+    }
     if (kProj && kSplit > 1 && ld_tap < kTaps && --ld_main == 0) {
       ld_tap = kTaps;
       ld_c0 = 0;
@@ -664,22 +861,24 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     return 32 * ((warp + j * kMmaWM * kMmaWN) % kMmaWN) + 4 * (lane & 7);
   };
 
-  // Stage the chunk (ld_tap, ld_c0): its A rows by cp.async into `slot`,
-  // its B words into registers; then advance to the next chunk.
+  // Stage the chunk (ld_tap, ld_c0): its A rows by cp.async into `slot`
+  // (mode 3: none, A is read from the footprint), its B words into
+  // registers; then advance to the next chunk.
   auto load_chunk = [&](int slot, uint32_t (&breg)[kMmaBBlocks][4]) {
     const bool proj = kProj && ld_tap == kTaps;
     const int ch = ld_c0 + a_col * 16;
-    const int8_t* a_src =
-        proj ? xd + ch
-             : x + (kTaps == 1 ? 0 : (ld_tap / 3 * w + ld_tap % 3) *
-                                         static_cast<long long>(dil * cin)) + ch;
+    const long long a_src =
+        proj ? ch
+             : (kTaps == 1 ? 0 : (ld_tap / 3 * w + ld_tap % 3) *
+                                     static_cast<long long>(dil * cin)) + ch;
     const bool ch_ok = ch < (proj ? cdin : cin);
 #pragma unroll
-    for (int i = 0; i < kMmaARows; ++i) {
+    for (int i = 0; i < (kFp ? 0 : kMmaARows); ++i) {
       const bool ok = ch_ok && ((a_mask[i] >> (proj ? 9 : ld_tap)) & 1);
       const int row = (tid >> 2) + (kMmaThreads / 4) * i;
       cp_async16(s_base + slot * kMmaSlot + mma_chunk_addr(row, a_col),
-                 ok ? a_src + (proj ? a_doff[i] : a_off[i]) : x, ok ? 16 : 0);
+                 ok ? (proj ? xd + a_src + a_doff[i] : x + a_src + a_off[i]) : x,
+                 ok ? 16 : 0);
     }
     const int klim = proj ? cdin : cin;
     const int8_t* b_src = proj ? wdt + static_cast<size_t>(ld_c0) * cout
@@ -697,7 +896,7 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     next_chunk();
   };
   auto store_b = [&](int slot, const uint32_t (&breg)[kMmaBBlocks][4]) {
-    unsigned char* b_s = smem + slot * kMmaSlot + kMmaBM * kMmaBK;
+    unsigned char* b_s = smem + slot * slot_bytes + b_off;
 #pragma unroll
     for (int j = 0; j < kMmaBBlocks; ++j) {
       const int kr = b_kr(j), nn = b_nn(j);
@@ -726,17 +925,32 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
         accd[i][j][e] = 0;
       }
 
-  auto compute = [&](int slot, int (&sum)[2][4][4]) {
+  // Mode 3: the footprint pixel of this lane's two ldmatrix rows at tap
+  // 0; tap t adds tap_off(t).
+  int fpix[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wm * 32 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    fpix[i] = row / kFpTC * fp.step * fp.cols + row % kFpTC * fp.step;
+  }
+  auto tap_off = [&](int t) { return kTaps == 1 ? 0 : (t / 3 * fp.cols + t % 3) * dil; };
+  const uint32_t fp_base = s_base + kMmaStages * kMmaSlotB;
+
+  // kc: the chunk's index in this block's walk (mode 3: its tap).
+  auto compute = [&](int slot, int (&sum)[2][4][4], int kc) {
     const uint32_t a_s = s_base + slot * kMmaSlot;
-    const uint32_t b_s = a_s + kMmaBM * kMmaBK;
+    const uint32_t b_s = s_base + slot * slot_bytes + b_off;
+    const int toff = kFp ? tap_off((mc0 + kc) % kTaps) : 0;
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
       uint32_t af[2][4], bf[4][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = wm * 32 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a_s + mma_chunk_addr(row, ks * 2 + (lane >> 4)), af[i][0], af[i][1],
-                    af[i][2], af[i][3]);
+        const uint32_t a_addr =
+            kFp ? fp_base + fp_byte(fpix[i] + toff, ks * 2 + (lane >> 4), fp.step == 2)
+                : a_s + mma_chunk_addr(row, ks * 2 + (lane >> 4));
+        ldmatrix_x4(a_addr, af[i][0], af[i][1], af[i][2], af[i][3]);
       }
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
@@ -770,15 +984,26 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   // one chunk: ld receives chunk kc + S - 1, st holds chunk kc + S - 2
   auto step = [&](int kc, uint32_t (&ld)[kMmaBBlocks][4],
                   const uint32_t (&st)[kMmaBBlocks][4]) {
-    cp_async_wait<kMmaStages - 2>();
-    __syncthreads();  // chunk kc staged; everyone is done with chunk kc - 1
+    if constexpr (kFp) {  // no A copies in the ring
+      __syncthreads();  // everyone is done with chunk kc - 1
+      if (kc == 0 || (mc0 + kc) % kTaps == 0) {
+        // the footprint of the chunk's channels, once for its taps
+        quantize_footprint<kMmaThreads>(fp_s, fp, xv, x_bf16, s_in, fb, h, w, cin,
+                                        (mc0 + kc) / kTaps * kMmaBK, fy0 * stride - pad,
+                                        fx0 * stride - pad);
+        __syncthreads();
+      }
+    } else {
+      cp_async_wait<kMmaStages - 2>();
+      __syncthreads();  // chunk kc staged; everyone is done with chunk kc - 1
+    }
     const int nxt = kc + kMmaStages - 1;
     if (nxt < nk) load_chunk(nxt % kMmaStages, ld);
     cp_async_commit();
     if (kProj && kc >= nk_main)
-      compute(kc % kMmaStages, accd);
+      compute(kc % kMmaStages, accd, kc);
     else
-      compute(kc % kMmaStages, acc);
+      compute(kc % kMmaStages, acc, kc);
     if (nxt - 1 < nk) store_b((nxt - 1) % kMmaStages, st);
   };
   for (int kc = 0; kc < nk; kc += 2) {
@@ -846,8 +1071,8 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int ml = wm * 32 + i * 16 + g + 8 * hh;
-        const int p = m0 + ml;
-        if (p >= n_pix) continue;
+        const long long p = out_pix(ml);
+        if (p < 0) continue;
         float z[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -877,8 +1102,8 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     float* outf = static_cast<float*>(out);
     for (int idx = tid; idx < kMmaBM * (kMmaBN / 4); idx += kMmaThreads) {
       const int row = idx / (kMmaBN / 4), n = n0 + (idx % (kMmaBN / 4)) * 4;
-      const int p = m0 + row;
-      if (p >= n_pix || n >= cout) continue;
+      const long long p = out_pix(row);
+      if (p < 0 || n >= cout) continue;
       *reinterpret_cast<float4*>(outf + static_cast<size_t>(p) * cout + n) =
           *reinterpret_cast<const float4*>(o_f + row * kMmaOutPitchF + (n - n0));
     }
@@ -887,8 +1112,8 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   int8_t* outq = static_cast<int8_t*>(out);
   for (int idx = tid; idx < kMmaBM * (kMmaBN / 16); idx += kMmaThreads) {
     const int row = idx / (kMmaBN / 16), n = n0 + (idx % (kMmaBN / 16)) * 16;
-    const int p = m0 + row;
-    if (p >= n_pix || n >= cout) continue;
+    const long long p = out_pix(row);
+    if (p < 0 || n >= cout) continue;
     int8_t* dst = outq + static_cast<size_t>(p) * cout + n;
     const int8_t* src = o_s + row * kMmaOutPitch + (n - n0);
     if ((cout & 15) == 0) {
@@ -901,10 +1126,14 @@ conv_i8_mma_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   }
 }
 
-size_t conv_mma_smem_bytes() {
-  const size_t ring = static_cast<size_t>(kMmaStages) * kMmaSlot;
-  const size_t out = static_cast<size_t>(kMmaBM) * kMmaOutPitch;
-  return ring > out ? ring : out;
+// Dynamic shared memory of a streaming launch: the ring, or in mode 3 the
+// B ring and the footprint of a k x k window at this stride and dilation
+// (at least the staged float32 output tile).
+size_t conv_mma_smem_bytes(int mode, int k, int stride, int dil) {
+  if (mode != 3) return static_cast<size_t>(conv_mma_ring_bytes());
+  const int staged = kMmaStages * kMmaSlotB + footprint_bytes(kMmaTR, k == 1, stride, dil);
+  const int out = kMmaBM * kMmaOutPitchF * 4;
+  return static_cast<size_t>(staged > out ? staged : out);
 }
 
 // ---------------------------------------------------------------------------
@@ -919,10 +1148,12 @@ size_t conv_mma_smem_bytes() {
 // two 3x3/2 CBRs, (1, 512, 1024, 64) -> (1, 256, 512, 64) and on to (1,
 // 128, 256, 64).
 //
-// What it computes: conv_i8_mma_kernel's modes 0 and 1 at stride 1 or 2
-// (the same __fmaf_rn chain), for cin % 16 == 0 and cout % 8 == 0, over
-// the same windows (kWin: 3x3 pad 1, 3x3 dilated, 1x1), int8 codes or
-// (kF32) float32 values out.  Stride, dilation and window change only the
+// What it computes: conv_i8_mma_kernel's modes 0, 1 and 3 at stride 1 or
+// 2 (the same __fmaf_rn chain; mode 3 from the float32 activation, its
+// batch folded into M, as there), for cin % 16 == 0 and cout % 8 == 0,
+// over the same windows (kWin: 3x3 pad 1, 3x3 dilated, 1x1), int8 codes or
+// (kF32) float32 values out; and a fourth window, kWinSep, the separable
+// conv (below).  Stride, dilation and window change only the
 // gather: output pixel (oy, ox)'s window starts at input (s oy - p, s ox -
 // p), its taps lie d apart, and its tap mask and the zero fill at the pad
 // follow from that; the shared-memory tiles, and so every ldmatrix, are
@@ -970,6 +1201,41 @@ size_t conv_mma_smem_bytes() {
 //     channels as one 8-byte store (a warp's store fills whole 32-byte
 //     sectors).
 // Integer sums are exact in any order: bit-exact against the plain version.
+//
+// Mode 3 (conv_i8_affine, the post-training int8 conv, up to 64 input
+// channels by conv_route's rule) and kWinSep tile the output in 2-D
+// (kResTR x kFpTC pixels) and stage each tile's footprint (fp_byte above)
+// in shared memory.  Mode 3 quantizes the float32 or bf16 activation into
+// it at the tile's first chunk, each element once a tile (quant_bits: the
+// true quotient's rounding on full-rate operations), and its ldmatrix
+// reads the A fragments of every tap straight from the footprint, so it
+// keeps no A ring.  Staging the A chunk tap by tap instead read and
+// quantized every element once a tap: the 33 convs of R18.speed's --int8
+// forward took 5.5 ms of device time on an H100 against 0.84 on codes.
+//
+// kWinSep, "dw3x3 then 1x1" (sep_fused_i8: the Xception39 separable
+// convs; replaces K14's launch and the pointwise launch that read its
+// codes back): out = the 1x1 conv (its weight resident: a row of cin
+// bytes padded to 64-byte chunks, plus 16, for each of the block's 64
+// output channels) of the depthwise codes
+// q = clip(rint(__fmul_rn(y_dw, dm)), -127, 127), y_dw the exact 3x3 pad-1
+// depthwise sum of x at the depthwise stride (K14's arithmetic); the 1x1
+// runs at stride 1 on the depthwise output grid, modes 0 and 1.  Each A
+// chunk (the tile's 256 pixels x 64 channels of depthwise codes) is
+// computed by the producer from the chunk's footprint of input codes,
+// which cp.async stages one chunk ahead (its copies fly while the MMAs of
+// the chunk before run): a thread's 16 channels of a pixel read the 9 taps
+// from shared memory, each group of four taps is byte-transposed (4 x 4
+// blocks, __byte_perm) so that one __dp4a sums four taps of one channel
+// against the resident depthwise weights (staged as three words a
+// channel: taps 0-3, taps 4-7, tap 8 in the byte of the channel's lane),
+// the ninth tap is one __dp4a a channel, and the requantized codes go into
+// the swizzled A tile that ldmatrix feeds to the int8 mma.  The depthwise
+// codes never reach device memory; each N tile (64 output channels)
+// recomputes them for its pixels.  What bounds it at X39's shapes:
+// launches and the producer's CUDA-core work (~2 x 9 integer operations a
+// depthwise code against 2 x 64 tensor-core operations of the 1x1 an N
+// tile).
 // ---------------------------------------------------------------------------
 
 constexpr int kResWM = 8;         // warps along M (32 pixels each)
@@ -984,6 +1250,7 @@ constexpr int kResSlot = kResBM * kMmaBK;           // one stage: an A chunk
 constexpr int kResOutPitch = kResBN + 16;           // bytes of a staged output / residual row
 static_assert(kResStages >= 2 && kResTN % 16 == 0, "ring depth, warp tile");
 static_assert(kResBM * 4 % kResThreads == 0, "whole copies per thread");
+constexpr int kResTR = kResBM / kFpTC;              // output rows of a footprint tile
 
 // Bytes of one resident weight row: taps x cin padded to 64-byte chunks,
 // plus 16 so the row is an odd number of 16-byte chunks.
@@ -991,32 +1258,121 @@ __host__ __device__ __forceinline__ int res_w_pitch(int cin, int taps) {
   return taps * ((cin + kMmaBK - 1) / kMmaBK) * kMmaBK + 16;
 }
 
+// The separable window's 4 x 4 byte transpose: word j of the result holds
+// byte j of a, b, c and d (the same channel of four taps).
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
+                                           uint32_t d, uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140);
+  const uint32_t t1 = __byte_perm(a, b, 0x7362);
+  const uint32_t t2 = __byte_perm(c, d, 0x5140);
+  const uint32_t t3 = __byte_perm(c, d, 0x7362);
+  col[0] = __byte_perm(t0, t2, 0x5410);
+  col[1] = __byte_perm(t0, t2, 0x7632);
+  col[2] = __byte_perm(t1, t3, 0x5410);
+  col[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4 v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// The resident kernel's shared memory, in order: the weights [kResBN][pitch];
+// the A ring (not mode 3); the staged output tile and the residual tile
+// (both for the other windows; kSep's output unless float32 out, its
+// residual in mode 1); kSep's depthwise tables (16 bytes a channel) and
+// the epilogue's m and c of the block's channels; the footprint (kSep,
+// mode 3).  off: the byte offsets of the ring, output, residual, tables
+// and footprint, then the total.
+__host__ __device__ __forceinline__ void res_smem_layout(int cin, int taps, int mode, bool f32,
+                                                         bool sep, int stride, int dil,
+                                                         int (&off)[6]) {
+  const bool fp = sep || mode == 3;
+  const int cpad = (cin + kMmaBK - 1) / kMmaBK * kMmaBK;
+  const int tile = kResBM * kResOutPitch;
+  off[0] = kResBN * res_w_pitch(cin, sep ? 1 : taps);
+  off[1] = off[0] + (mode == 3 ? 0 : kResStages * kResSlot);
+  off[2] = off[1] + (!fp || !f32 ? tile : 0);
+  off[3] = off[2] + (!fp || mode == 1 ? tile : 0);
+  off[4] = off[3] + (sep ? 16 * cpad + 8 * kResBN : 0);
+  off[5] = off[4] + (fp ? footprint_bytes(kResTR, !sep && taps == 1, stride, sep ? 1 : dil) : 0);
+}
+
+// kWinSep's grids at X39's shapes are a wave or less, so its blocks take
+// the registers of one block an SM (its producer's and the MMAs' live
+// together); every other window keeps two blocks an SM.
 template <int kMode, int kWin, bool kF32>
-__global__ void __launch_bounds__(kResThreads, 2)
-conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
-                       int stride, int dilation, const int8_t* __restrict__ wt,
-                       int cout, const float* __restrict__ m,
-                       const float* __restrict__ c, const int8_t* __restrict__ res,
-                       float rr, void* __restrict__ out, int ho, int wo) {
-  constexpr int kTaps = kWin == kWin1 ? 1 : 9;
+__global__ void __launch_bounds__(kResThreads, kWin == kWinSep ? 1 : 2)
+conv_i8_mma_res_kernel(const void* __restrict__ xv, int batch, int h, int w, int cin,
+                       int stride, int dilation, float s_in, int x_bf16,
+                       const int8_t* __restrict__ dw, const float* __restrict__ dm,
+                       const int8_t* __restrict__ wt, int cout,
+                       const float* __restrict__ m, const float* __restrict__ c,
+                       const int8_t* __restrict__ res, float rr,
+                       void* __restrict__ out, int ho, int wo) {
+  constexpr bool kSep = kWin == kWinSep;
+  constexpr bool kFp = kSep || kMode == 3;       // 2-D tiles and a staged footprint
+  constexpr bool kRing = kMode != 3;             // A chunks in a ring (mode 3: the footprint)
+  constexpr int kTaps = kWin == kWin1 ? 1 : 9;   // taps a pixel gathers
+  constexpr int kKTaps = kSep ? 1 : kTaps;       // taps along K (of the weight)
   const int dil = kWin == kWinDil ? dilation : 1;
   const int pad = kWin == kWin1 ? 0 : dil;
+  const int8_t* __restrict__ x = static_cast<const int8_t*>(xv);  // the codes (not mode 3)
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_pix = ho * wo;
+  const int hw_out = ho * wo;
+  const int n_pix = batch * hw_out;
   const int n0 = blockIdx.y * kResBN;
   const int cpad = (cin + kMmaBK - 1) / kMmaBK * kMmaBK;
-  const int nk = kTaps * cpad / kMmaBK;   // chunks per tile
-  const int pitch = res_w_pitch(cin, kTaps);
-  const int m_tiles = (n_pix + kResBM - 1) / kResBM;
-  const int my_tiles = (m_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1;
+  const int nk = kKTaps * cpad / kMmaBK;   // chunks per tile
+  const int pitch = res_w_pitch(cin, kKTaps);
+  const int tiles_x = (wo + kFpTC - 1) / kFpTC, tiles_y = (ho + kResTR - 1) / kResTR;
+  const int m_tiles = kFp ? batch * tiles_x * tiles_y : (n_pix + kResBM - 1) / kResBM;
+  const int bx = static_cast<int>(blockIdx.x);
+  const int my_tiles = (m_tiles - 1 - bx) / gridDim.x + 1;
   const int total = my_tiles * nk;    // chunks this block computes
-  unsigned char* w_s = smem;                                     // [kResBN][pitch]
+  int off[6];
+  res_smem_layout(cin, kTaps, kMode, kF32, kSep, stride, dil, off);
+  unsigned char* w_s = smem;                                   // [kResBN][pitch]
   const uint32_t w_base = smem_addr(w_s);
-  const uint32_t a_base = w_base + kResBN * pitch;               // [stages][BM][64]
-  int8_t* o_s = reinterpret_cast<int8_t*>(smem + kResBN * pitch +
-                                          kResStages * kResSlot);  // [BM][kResOutPitch]
-  const int8_t* r_s = o_s + kResBM * kResOutPitch;  // mode 1: [BM][kResOutPitch]
+  unsigned char* a_s = smem + off[0];                          // [stages][BM][64]
+  const uint32_t a_base = smem_addr(a_s);
+  int8_t* o_s = reinterpret_cast<int8_t*>(smem + off[1]);      // [BM][kResOutPitch]
+  const int8_t* r_s = reinterpret_cast<const int8_t*>(smem + off[2]);  // mode 1: as o_s
+  // kSep: the depthwise weights, three words a channel (taps 0-3, taps
+  // 4-7, tap 8 in byte c % 4), then dm, each [cpad], zero past cin; then m
+  // and c of channels n0 .. n0 + 63
+  uint32_t* dw_s = reinterpret_cast<uint32_t*>(smem + off[3]);
+  float* dm_s = reinterpret_cast<float*>(dw_s + 3 * cpad);
+  float* mc_s = dm_s + cpad;
+  unsigned char* fp_s = smem + off[4];
+  const uint32_t fp_base = smem_addr(fp_s);
+  const Footprint fp = footprint_of(kResTR, kWin == kWin1, stride, dil);
+  const bool s2 = fp.step == 2;
+
+  // A tile's place: its first pixel m0 (the flat tiles), or (kFp) its
+  // image b and first output row and column; out_pix: the output pixel of
+  // its row ml, or -1 past the edge.
+  struct Org {
+    int m0, b, oy0, ox0;
+  };
+  auto tile_org = [&](int tile) {
+    Org o{tile * kResBM, 0, 0, 0};
+    if constexpr (kFp) {
+      o.b = tile / (tiles_x * tiles_y);
+      const int t = tile - o.b * tiles_x * tiles_y, ty = t / tiles_x;
+      o.oy0 = ty * kResTR;
+      o.ox0 = (t - ty * tiles_x) * kFpTC;
+    }
+    return o;
+  };
+  auto out_pix = [&](const Org& o, int ml) -> long long {
+    if constexpr (kFp) {
+      const int oy = o.oy0 + ml / kFpTC, ox = o.ox0 + ml % kFpTC;
+      return oy < ho && ox < wo ? (static_cast<long long>(o.b) * ho + oy) * wo + ox : -1;
+    } else {
+      return o.m0 + ml < n_pix ? o.m0 + ml : -1;
+    }
+  };
 
   // The A rows this thread copies (rows tid/4 + i * threads/4, 16-byte
   // column tid % 4) of the tile being loaded: the offset of each window's
@@ -1031,31 +1387,31 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
       a_mask[i] = 0;
       a_off[i] = 0;
       if (p < n_pix) {
-        const int oy = p / wo, ox = p - oy * wo;
+        const int b = p / hw_out, r = p - b * hw_out;
+        const int oy = r / wo, ox = r - oy * wo;
         const int iy0 = oy * stride - pad, ix0 = ox * stride - pad;
 #pragma unroll
         for (int t = 0; t < kTaps; ++t) {
           const int iy = iy0 + t / 3 * dil, ix = ix0 + t % 3 * dil;
           if (iy >= 0 && iy < h && ix >= 0 && ix < w) a_mask[i] |= 1 << t;
         }
-        a_off[i] = (static_cast<long long>(iy0) * w + ix0) * cin;
+        a_off[i] = ((static_cast<long long>(b) * h + iy0) * w + ix0) * cin;
       }
     }
   };
-  setup_rows(blockIdx.x);
+  if constexpr (!kFp) setup_rows(bx);
 
   // The load cursor: the ld_i-th of this block's tiles, tap, channel chunk.
   int ld_i = 0, ld_tap = 0, ld_c0 = 0;
   auto load_chunk = [&](int slot) {
     const int ch = ld_c0 + a_col * 16;
-    const int8_t* src =
-        x + static_cast<long long>(ld_tap / 3 * w + ld_tap % 3) * (dil * cin) + ch;
+    const long long src = static_cast<long long>(ld_tap / 3 * w + ld_tap % 3) * (dil * cin) + ch;
 #pragma unroll
     for (int i = 0; i < kResARows; ++i) {
       const bool ok = ch < cin && ((a_mask[i] >> ld_tap) & 1);
       const int row = (tid >> 2) + (kResThreads / 4) * i;
       cp_async16(a_base + slot * kResSlot + mma_chunk_addr(row, a_col),
-                 ok ? src + a_off[i] : x, ok ? 16 : 0);
+                 ok ? x + src + a_off[i] : x, ok ? 16 : 0);
     }
     ld_c0 += kMmaBK;
     if (ld_c0 >= cin) {
@@ -1066,35 +1422,27 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
       }
     }
   };
-#pragma unroll
-  for (int s = 0; s < kResStages - 1; ++s) {
-    if (s < total) load_chunk(s);
-    cp_async_commit();
-  }
 
-  // The weights of channels n0 .. n0 + 63, K-major, while the first A
-  // chunks load: each 4(k) x 4(n) byte block read as four words and
-  // transposed with byte permutes.
-  for (int i = tid; i < kTaps * cpad / 4 * (kResBN / 4); i += kResThreads) {
-    const int nn = 4 * (i % (kResBN / 4)), kk = 4 * (i / (kResBN / 4));
-    const int tap = kk / cpad, ch = kk - tap * cpad, n = n0 + nn;
-    uint32_t v[4];
+  // The weights of channels n0 .. n0 + 63, K-major: each 4(k) x 4(n) byte
+  // block read as four words and transposed with byte permutes.
+  auto stage_weights = [&]() {
+    for (int i = tid; i < kKTaps * cpad / 4 * (kResBN / 4); i += kResThreads) {
+      const int nn = 4 * (i % (kResBN / 4)), kk = 4 * (i / (kResBN / 4));
+      const int tap = kk / cpad, ch = kk - tap * cpad, n = n0 + nn;
+      uint32_t v[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)  // cin % 16 == 0, cout % 8 == 0: all four or none
-      v[q] = ch < cin && n < cout
-          ? __ldg(reinterpret_cast<const uint32_t*>(
-                wt + (static_cast<long long>(tap) * cin + ch + q) * cout + n))
-          : 0u;
-    const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);
-    const uint32_t t1 = __byte_perm(v[0], v[1], 0x7362);
-    const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140);
-    const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
-    const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                             __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+      for (int q = 0; q < 4; ++q)  // cin % 16 == 0, cout % 8 == 0: all four or none
+        v[q] = ch < cin && n < cout
+            ? __ldg(reinterpret_cast<const uint32_t*>(
+                  wt + (static_cast<long long>(tap) * cin + ch + q) * cout + n))
+            : 0u;
+      uint32_t col[4];
+      transpose4(v[0], v[1], v[2], v[3], col);
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      *reinterpret_cast<uint32_t*>(w_s + (nn + q) * pitch + kk) = col[q];
-  }
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<uint32_t*>(w_s + (nn + q) * pitch + kk) = col[q];
+    }
+  };
 
   const int wm = warp % kResWM, wn = warp / kResWM;
   constexpr int kJ = kResTN / 8;   // n8 tiles a warp
@@ -1106,16 +1454,27 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
+  // Mode 3: the footprint pixel of this lane's two ldmatrix rows at tap
+  // 0 (chunk kc is tap kc: cin <= 64).
+  int fpix[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wm * 32 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    fpix[i] = row / kFpTC * fp.step * fp.cols + row % kFpTC * fp.step;
+  }
   auto compute = [&](int slot, int kc) {
-    const uint32_t a_s = a_base + slot * kResSlot;
+    const uint32_t a_sl = a_base + slot * kResSlot;
+    const int toff = kTaps == 1 ? 0 : (kc / 3 * fp.cols + kc % 3) * dil;
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
       uint32_t af[2][4], bf[kJ][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = wm * 32 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a_s + mma_chunk_addr(row, ks * 2 + (lane >> 4)), af[i][0], af[i][1],
-                    af[i][2], af[i][3]);
+        const uint32_t a_addr =
+            kRing ? a_sl + mma_chunk_addr(row, ks * 2 + (lane >> 4))
+                  : fp_base + fp_byte(fpix[i] + toff, ks * 2 + (lane >> 4), s2);
+        ldmatrix_x4(a_addr, af[i][0], af[i][1], af[i][2], af[i][3]);
       }
 #pragma unroll
       for (int p = 0; p < kJ / 2; ++p) {
@@ -1130,37 +1489,38 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     }
   };
 
-  // Mode 1: the residual tile (rows m0.., channels n0..n0+63) into r_s,
-  // 8 bytes a copy (cout % 16 may be 8), zero past the edges.
+  // Mode 1: the residual tile (the tile's rows, channels n0..n0+63) into
+  // r_s, 8 bytes a copy (cout % 16 may be 8), zero past the edges.
   auto load_res = [&](int tile) {
-    const int m0 = tile * kResBM;
+    const Org o = tile_org(tile);
     for (int idx = tid; idx < kResBM * kResBN / 8; idx += kResThreads) {
       const int row = idx / (kResBN / 8), col = 8 * (idx % (kResBN / 8));
-      const bool ok = m0 + row < n_pix && n0 + col < cout;
+      const long long p = out_pix(o, row);
+      const bool ok = p >= 0 && n0 + col < cout;
       cp_async8(smem_addr(r_s + row * kResOutPitch + col),
-                ok ? res + static_cast<size_t>(m0 + row) * cout + n0 + col : res,
-                ok ? 8 : 0);
+                ok ? res + static_cast<size_t>(p) * cout + n0 + col : res, ok ? 8 : 0);
     }
   };
 
   // The tile's epilogue (conv_i8_mma_kernel's chain), then the sums reset.
   const int g = lane >> 2, t4 = lane & 3;
   auto epilogue = [&](int tile) {
-    const int m0 = tile * kResBM;
+    const Org o = tile_org(tile);
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
       const int nl = wn * kResTN + j * 8 + 2 * t4;
       const int n = n0 + nl;
       if (n < cout) {   // cout % 8 == 0: n + 1 < cout too
-        const float mv[2] = {__ldg(m + n), __ldg(m + n + 1)};
-        const float cv[2] = {__ldg(c + n), __ldg(c + n + 1)};
+        const float mv[2] = {kSep ? mc_s[nl] : __ldg(m + n), kSep ? mc_s[nl + 1] : __ldg(m + n + 1)};
+        const float cv[2] = {kSep ? mc_s[kResBN + nl] : __ldg(c + n),
+                             kSep ? mc_s[kResBN + nl + 1] : __ldg(c + n + 1)};
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int ml = wm * 32 + i * 16 + g + 8 * hh;
-            const int p = m0 + ml;
-            if (p >= n_pix) continue;
+            const long long p = out_pix(o, ml);
+            if (p < 0) continue;
             uint32_t rv = 0;
             if (kMode == 1) rv = *reinterpret_cast<const uint16_t*>(r_s + ml * kResOutPitch + nl);
             float z[2];
@@ -1170,7 +1530,7 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
               if (kMode == 1)
                 z[e] = __fmaf_rn(static_cast<float>(static_cast<int8_t>(rv >> (8 * e))), rr,
                                  z[e]);
-              z[e] = fmaxf(z[e], 0.f);
+              if (kMode != 3) z[e] = fmaxf(z[e], 0.f);  // mode 3: no ReLU
             }
             if constexpr (kF32)
               *reinterpret_cast<float2*>(static_cast<float*>(out) + static_cast<size_t>(p) * cout +
@@ -1189,8 +1549,8 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     __syncthreads();
     for (int idx = tid; idx < kResBM * (kResBN / 16); idx += kResThreads) {
       const int row = idx / (kResBN / 16), n = n0 + (idx % (kResBN / 16)) * 16;
-      const int p = m0 + row;
-      if (p >= n_pix || n >= cout) continue;
+      const long long p = out_pix(o, row);
+      if (p < 0 || n >= cout) continue;
       int8_t* dst = static_cast<int8_t*>(out) + static_cast<size_t>(p) * cout + n;
       const int8_t* src = o_s + row * kResOutPitch + (n - n0);
       if ((cout & 15) == 0) {
@@ -1203,10 +1563,188 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
     }
   };
 
+  if constexpr (kSep) {
+    // Chunk j of this block: channels (j % nk) * 64 of its tile j / nk.
+    // stage_fp(j): the chunk's footprint of input codes by cp.async (the
+    // pad and the past-the-edge pixels zero-filled); produce(slot, j): its
+    // depthwise codes into an A slot, from the footprint.
+    auto stage_fp = [&](int j) {
+      const Org o = tile_org(bx + j / nk * gridDim.x);
+      const int c0 = j % nk * kMmaBK, groups = min(4, (cin - c0) / 16);
+      const int iy0 = o.oy0 * stride - 1, ix0 = o.ox0 * stride - 1;
+      // copy i = (row, column, group) row-major, every kResThreads-th from
+      // tid; the loop steps (row, column, group) by kResThreads without a
+      // division
+      int r = tid / (fp.cols * groups), col = tid - r * fp.cols * groups;
+      int grp = col % groups;
+      col /= groups;
+      const int adv = kResThreads % (fp.cols * groups), adv_r = kResThreads / (fp.cols * groups);
+      const int adv_c = adv / groups, adv_g = adv % groups;
+      for (; r < fp.rows;) {
+        const int iy = iy0 + r, ix = ix0 + col;
+        const bool ok = iy >= 0 && iy < h && ix >= 0 && ix < w;
+        cp_async16(fp_base + fp_byte(r * fp.cols + col, grp, s2),
+                   ok ? x + (static_cast<long long>(iy) * w + ix) * cin + c0 + 16 * grp : x,
+                   ok ? 16 : 0);
+        r += adv_r;
+        col += adv_c;
+        if ((grp += adv_g) >= groups) {
+          grp -= groups;
+          ++col;
+        }
+        if (col >= fp.cols) {
+          col -= fp.cols;
+          ++r;
+        }
+      }
+    };
+    // The chunk's (pixel, 16-channel group) items spread over the threads,
+    // neighbouring threads on neighbouring groups, then pixels, so that a
+    // thread keeps one group (unless a chunk has 3) and holds its
+    // depthwise weights and dm in registers; an item sums 9 taps of its 16
+    // channels, each four taps transposed and summed by __dp4a against
+    // them.  A chunk's columns past cin keep stale codes: their weights
+    // are zero.
+    auto produce = [&](int slot, int j) {
+      const Org o = tile_org(bx + j / nk * gridDim.x);
+      const int c0 = j % nk * kMmaBK, groups = min(4, (cin - c0) / 16);
+      int wgrp = -1;
+      uint4 wt0[4], wt1[4], wt2[4];  // taps 0-3, 4-7, 8 of the group's channels
+      float4 dmv[4];
+#pragma unroll 1
+      for (int it = tid; it < kResBM * groups; it += kResThreads) {
+        const int row = it / groups, grp = it - row * groups;
+        const int ch = c0 + 16 * grp, ty = row / kFpTC, tx = row % kFpTC;
+        if (grp != wgrp) {
+          wgrp = grp;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            wt0[q] = *reinterpret_cast<const uint4*>(dw_s + ch + 4 * q);
+            wt1[q] = *reinterpret_cast<const uint4*>(dw_s + cpad + ch + 4 * q);
+            wt2[q] = *reinterpret_cast<const uint4*>(dw_s + 2 * cpad + ch + 4 * q);
+            dmv[q] = *reinterpret_cast<const float4*>(dm_s + ch + 4 * q);
+          }
+        }
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (o.oy0 + ty < ho && o.ox0 + tx < wo) {
+          const int f = (ty * fp.cols + tx) * fp.step;
+          auto tap = [&](int t) {
+            return *reinterpret_cast<const uint4*>(
+                fp_s + fp_byte(f + t / 3 * fp.cols + t % 3, grp, s2));
+          };
+          int acc_dw[16];
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc_dw[e] = 0;
+#pragma unroll
+          for (int gg = 0; gg < 2; ++gg) {
+            const uint4 t0 = tap(4 * gg), t1 = tap(4 * gg + 1), t2 = tap(4 * gg + 2),
+                        t3 = tap(4 * gg + 3);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              uint32_t col[4];
+              transpose4(word_of(t0, q), word_of(t1, q), word_of(t2, q), word_of(t3, q), col);
+              const uint4 wv = gg ? wt1[q] : wt0[q];
+              acc_dw[4 * q + 0] = __dp4a(static_cast<int>(col[0]), static_cast<int>(wv.x), acc_dw[4 * q + 0]);
+              acc_dw[4 * q + 1] = __dp4a(static_cast<int>(col[1]), static_cast<int>(wv.y), acc_dw[4 * q + 1]);
+              acc_dw[4 * q + 2] = __dp4a(static_cast<int>(col[2]), static_cast<int>(wv.z), acc_dw[4 * q + 2]);
+              acc_dw[4 * q + 3] = __dp4a(static_cast<int>(col[3]), static_cast<int>(wv.w), acc_dw[4 * q + 3]);
+            }
+          }
+          const uint4 t8 = tap(8);
+          uint32_t words[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int xw = static_cast<int>(word_of(t8, q));
+            const uint4 wv = wt2[q];
+            const float4 d = dmv[q];
+            words[q] = pack4(
+                requant(__fmul_rn(__int2float_rn(__dp4a(xw, static_cast<int>(wv.x), acc_dw[4 * q + 0])), d.x)),
+                requant(__fmul_rn(__int2float_rn(__dp4a(xw, static_cast<int>(wv.y), acc_dw[4 * q + 1])), d.y)),
+                requant(__fmul_rn(__int2float_rn(__dp4a(xw, static_cast<int>(wv.z), acc_dw[4 * q + 2])), d.z)),
+                requant(__fmul_rn(__int2float_rn(__dp4a(xw, static_cast<int>(wv.w), acc_dw[4 * q + 3])), d.w)));
+          }
+          v = make_uint4(words[0], words[1], words[2], words[3]);
+        }
+        *reinterpret_cast<uint4*>(a_s + slot * kResSlot + mma_chunk_addr(row, grp)) = v;
+      }
+    };
+
+    // the first footprint's copies, then both weights (the 1x1's, and the
+    // depthwise ones and dm) while they fly, before the first chunk is
+    // produced
+    if (total > 0) stage_fp(0);
+    cp_async_commit();
+    stage_weights();
+    for (int ch = tid; ch < cpad; ch += kResThreads) {
+      uint32_t wd[9];
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        wd[t] = ch < cin ? static_cast<uint8_t>(dw[t * cin + ch]) : 0u;
+      dw_s[ch] = wd[0] | wd[1] << 8 | wd[2] << 16 | wd[3] << 24;
+      dw_s[cpad + ch] = wd[4] | wd[5] << 8 | wd[6] << 16 | wd[7] << 24;
+      dw_s[2 * cpad + ch] = wd[8] << (8 * (ch & 3));
+      dm_s[ch] = ch < cin ? dm[ch] : 0.f;
+    }
+    if (tid < kResBN) {
+      mc_s[tid] = n0 + tid < cout ? m[n0 + tid] : 0.f;
+      mc_s[kResBN + tid] = n0 + tid < cout ? c[n0 + tid] : 0.f;
+    }
+    if (kMode == 1 && total > 0) load_res(bx);  // the first tile's residual
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (total > 0) produce(0, 0);
+    __syncthreads();
+    if (total > 1) stage_fp(1);
+    cp_async_commit();
+
+    // Chunk q: produce chunk q + 1 from its footprint (landed), free the
+    // footprint, send chunk q + 2's copies, then chunk q's MMAs while they
+    // fly.  The first barrier also orders the MMAs of chunk q - 1 and an
+    // epilogue's reads of o_s and r_s before the slot, o_s and r_s are
+    // written again.  Mode 1's residual copies (the first tile's with the
+    // first footprint) are a group of their own, sent before the
+    // footprint's, and waited for (not the footprint) before the epilogue.
+    int kc = 0, tile_i = 0;
+    for (int q = 0; q < total; ++q) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk q produced, chunk q + 1's footprint landed
+      if (kMode == 1 && kc == 0 && q > 0) load_res(bx + tile_i * gridDim.x);
+      cp_async_commit();
+      if (q + 1 < total) produce((q + 1) % kResStages, q + 1);
+      __syncthreads();  // the footprint is free
+      if (q + 2 < total) stage_fp(q + 2);
+      cp_async_commit();
+      compute(q % kResStages, kc);
+      if (++kc == nk) {
+        if (kMode == 1) {
+          cp_async_wait<1>();  // the residual; chunk q + 2's footprint may fly
+          __syncthreads();
+        }
+        epilogue(bx + tile_i * gridDim.x);
+        kc = 0;
+        ++tile_i;
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  if constexpr (kRing) {
+#pragma unroll
+    for (int s = 0; s < kResStages - 1; ++s) {
+      if (s < total) load_chunk(s);
+      cp_async_commit();
+    }
+  }
+  stage_weights();  // while the first A chunks load
+
   // One flat walk over this block's (tile, chunk) pairs: chunk q's copies
-  // are issued kResStages - 1 chunks ahead, across tile boundaries.  The
+  // are issued kResStages - 1 chunks ahead, across tile boundaries; mode 3
+  // quantizes the tile's footprint at its first chunk instead.  The
   // barrier of each step also orders an epilogue's reads of o_s and r_s
-  // before the next tile's residual copies and epilogue writes; the
+  // before the next tile's residual copies and epilogue writes, and the
+  // MMAs of a tile's last chunk before its footprint is written again; the
   // residual copies join the group of the tile's first step, which is
   // complete before its epilogue when the tile has at least kResStages
   // chunks (every 3x3 tile: 9 or more); a 1x1 tile of fewer chunks waits
@@ -1216,8 +1754,16 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   for (int q = 0; q < total; ++q) {
     cp_async_wait<kResStages - 2>();
     __syncthreads();  // chunk q staged (and the weights); chunk q - 1's readers done
+    if constexpr (kMode == 3) {
+      if (kc == 0) {  // the tile's footprint, once for its taps
+        const Org o = tile_org(bx + tile_i * gridDim.x);
+        quantize_footprint<kResThreads>(fp_s, fp, xv, x_bf16, s_in, o.b, h, w, cin, 0,
+                                        o.oy0 * stride - pad, o.ox0 * stride - pad);
+        __syncthreads();
+      }
+    }
     if (kMode == 1 && kc == 0) load_res(blockIdx.x + tile_i * gridDim.x);
-    if (q + kResStages - 1 < total) load_chunk((q + kResStages - 1) % kResStages);
+    if (kRing && q + kResStages - 1 < total) load_chunk((q + kResStages - 1) % kResStages);
     cp_async_commit();
     compute(q % kResStages, kc);
     if (++kc == nk) {
@@ -1233,10 +1779,12 @@ conv_i8_mma_res_kernel(const int8_t* __restrict__ x, int h, int w, int cin,
   cp_async_wait<0>();
 }
 
-size_t conv_mma_res_smem_bytes(int cin, int taps) {
-  return static_cast<size_t>(kResBN) * res_w_pitch(cin, taps) +
-         static_cast<size_t>(kResStages) * kResSlot +
-         2 * static_cast<size_t>(kResBM) * kResOutPitch;
+// Dynamic shared memory of a resident launch (res_smem_layout).
+size_t conv_mma_res_smem_bytes(int cin, int taps, int mode, bool f32, bool sep, int stride,
+                               int dil) {
+  int off[6];
+  res_smem_layout(cin, taps, mode, f32, sep, stride, dil, off);
+  return static_cast<size_t>(off[5]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1461,21 +2009,22 @@ int window_of(int k, int dil) {
 // The tensor-core conv instantiations, by (mode, window, float32 out):
 // every window in mode 0 (a CBR); in modes 1 and 2 (a block's last conv)
 // the 3x3 pad-1 window with codes out (K3-K6) and the 1x1 with either
-// output (the Bottleneck's conv3, the Xception block's sep3), and in mode
-// 1 the 3x3 pad-1 window with float32 out too (K6 as the last block of
-// the bf16 decoder's body), on the streaming kernel; in mode 3 (the affine
-// epilogue without ReLU) every window with float32 out, on the streaming
-// kernel only; in mode 4 (the separable projection) the 1x1 with codes
-// out, unsplit, on the streaming kernel only.  No other combination is
+// output (the Bottleneck's conv3), and in mode 1 the 3x3 pad-1 window with
+// float32 out too (K6 as the last block of the bf16 decoder's body), on
+// the streaming kernel; in mode 3 (the affine epilogue without ReLU, from
+// float input) every window with float32 out, on both kernels; in mode 4
+// (the separable projection) the 1x1 with codes out, unsplit, on the
+// streaming kernel only; the separable window in modes 0 and 1 with
+// either output, on the resident kernel only.  No other combination is
 // compiled: its lookup gives null and the entry point returns
 // cudaErrorInvalidValue.
-using MmaKernel = void (*)(const int8_t*, int, int, int, const int8_t*, int, int, int,
-                           const float*, const float*, const int8_t*, float,
-                           const int8_t*, int, int, int, const int8_t*,
-                           const float*, const float*, void*, int, int);
-using ResKernel = void (*)(const int8_t*, int, int, int, int, int, const int8_t*, int,
-                           const float*, const float*, const int8_t*, float, void*,
-                           int, int);
+using MmaKernel = void (*)(const void*, int, int, int, int, float, int,
+                           const int8_t*, int, int, int, const float*, const float*,
+                           const int8_t*, float, const int8_t*, int, int, int,
+                           const int8_t*, const float*, const float*, void*, int, int);
+using ResKernel = void (*)(const void*, int, int, int, int, int, int, float, int,
+                           const int8_t*, const float*, const int8_t*, int, const float*,
+                           const float*, const int8_t*, float, void*, int, int);
 
 template <int kMode, int kSplit>
 MmaKernel mma_kernel_of(int win, int f32) {
@@ -1486,24 +2035,25 @@ MmaKernel mma_kernel_of(int win, int f32) {
     if (win == kWinDil) return conv_i8_mma_kernel<3, kSplit, kWinDil, true>;
     return nullptr;
   }
-  if constexpr (kMode == 4) {  // the Xception block's sep3: a 1x1, unsplit
+  else if constexpr (kMode == 4) {  // the Xception block's sep3: a 1x1, unsplit
     if constexpr (kSplit == 1)
       if (win == kWin1 && !f32) return conv_i8_mma_kernel<4, 1, kWin1, false>;
     return nullptr;
+  } else {
+    if (win == kWin3 && !f32) return conv_i8_mma_kernel<kMode, kSplit, kWin3, false>;
+    if constexpr (kMode == 1)  // K6 writing float32 (the bf16 decoder's body)
+      if (win == kWin3) return conv_i8_mma_kernel<1, kSplit, kWin3, true>;
+    if (win == kWin1)
+      return f32 ? conv_i8_mma_kernel<kMode, kSplit, kWin1, true>
+                 : conv_i8_mma_kernel<kMode, kSplit, kWin1, false>;
+    if constexpr (kMode == 0) {
+      if (win == kWin3) return conv_i8_mma_kernel<0, kSplit, kWin3, true>;
+      if (win == kWinDil)
+        return f32 ? conv_i8_mma_kernel<0, kSplit, kWinDil, true>
+                   : conv_i8_mma_kernel<0, kSplit, kWinDil, false>;
+    }
+    return nullptr;
   }
-  if (win == kWin3 && !f32) return conv_i8_mma_kernel<kMode, kSplit, kWin3, false>;
-  if constexpr (kMode == 1)  // K6 writing float32 (the bf16 decoder's body)
-    if (win == kWin3) return conv_i8_mma_kernel<1, kSplit, kWin3, true>;
-  if (win == kWin1)
-    return f32 ? conv_i8_mma_kernel<kMode, kSplit, kWin1, true>
-               : conv_i8_mma_kernel<kMode, kSplit, kWin1, false>;
-  if constexpr (kMode == 0) {
-    if (win == kWin3) return conv_i8_mma_kernel<0, kSplit, kWin3, true>;
-    if (win == kWinDil)
-      return f32 ? conv_i8_mma_kernel<0, kSplit, kWinDil, true>
-                 : conv_i8_mma_kernel<0, kSplit, kWinDil, false>;
-  }
-  return nullptr;
 }
 
 template <int kSplit>
@@ -1524,22 +2074,66 @@ MmaKernel mma_kernel(int mode, int split, int win, int f32) {
 
 template <int kMode>
 ResKernel res_kernel_of(int win, int f32) {
-  if (win == kWin3 && !f32) return conv_i8_mma_res_kernel<kMode, kWin3, false>;
-  if (win == kWin1)
-    return f32 ? conv_i8_mma_res_kernel<kMode, kWin1, true>
-               : conv_i8_mma_res_kernel<kMode, kWin1, false>;
-  if constexpr (kMode == 0) {
-    if (win == kWin3) return conv_i8_mma_res_kernel<0, kWin3, true>;
-    if (win == kWinDil)
-      return f32 ? conv_i8_mma_res_kernel<0, kWinDil, true>
-                 : conv_i8_mma_res_kernel<0, kWinDil, false>;
+  if constexpr (kMode == 3) {  // the post-training int8 conv: float32 only
+    if (!f32) return nullptr;
+    if (win == kWin3) return conv_i8_mma_res_kernel<3, kWin3, true>;
+    if (win == kWin1) return conv_i8_mma_res_kernel<3, kWin1, true>;
+    if (win == kWinDil) return conv_i8_mma_res_kernel<3, kWinDil, true>;
+    return nullptr;
+  } else {
+    if (win == kWinSep)
+      return f32 ? conv_i8_mma_res_kernel<kMode, kWinSep, true>
+                 : conv_i8_mma_res_kernel<kMode, kWinSep, false>;
+    if (win == kWin3 && !f32) return conv_i8_mma_res_kernel<kMode, kWin3, false>;
+    if (win == kWin1)
+      return f32 ? conv_i8_mma_res_kernel<kMode, kWin1, true>
+                 : conv_i8_mma_res_kernel<kMode, kWin1, false>;
+    if constexpr (kMode == 0) {
+      if (win == kWin3) return conv_i8_mma_res_kernel<0, kWin3, true>;
+      if (win == kWinDil)
+        return f32 ? conv_i8_mma_res_kernel<0, kWinDil, true>
+                   : conv_i8_mma_res_kernel<0, kWinDil, false>;
+    }
+    return nullptr;
   }
-  return nullptr;
 }
 
 ResKernel res_kernel(int mode, int win, int f32) {
-  return mode == 0 ? res_kernel_of<0>(win, f32) : mode == 1 ? res_kernel_of<1>(win, f32)
-                                                            : nullptr;
+  return mode == 0   ? res_kernel_of<0>(win, f32)
+         : mode == 1 ? res_kernel_of<1>(win, f32)
+         : mode == 3 ? res_kernel_of<3>(win, f32)
+                     : nullptr;
+}
+
+// One launch of the resident-weight kernel: as many blocks as fit on the
+// device at once, capped by the M tiles (2-D tiles where fp), times the N
+// tiles.
+int launch_res(ResKernel kernel, size_t smem, bool fp, const void* x, int batch, int h,
+               int w, int cin, int stride, int dil, float s_in, int x_bf16, const void* dw,
+               const void* dm, const void* wt, int cout, const void* m, const void* c,
+               const void* res, float rr, void* out, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kResThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
+  const long long m_tiles =
+      fp ? static_cast<long long>(batch) * ((ho + kResTR - 1) / kResTR) *
+               ((wo + kFpTC - 1) / kFpTC)
+         : (static_cast<long long>(batch) * ho * wo + kResBM - 1) / kResBM;
+  const int n_tiles = (cout + kResBN - 1) / kResBN;
+  long long gx = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms / n_tiles;
+  gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
+  kernel<<<dim3(static_cast<unsigned>(gx), n_tiles), kResThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      x, batch, h, w, cin, stride, dil, s_in, x_bf16, static_cast<const int8_t*>(dw),
+      static_cast<const float*>(dm), static_cast<const int8_t*>(wt), cout,
+      static_cast<const float*>(m), static_cast<const float*>(c),
+      static_cast<const int8_t*>(res), rr, out, ho, wo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1561,7 +2155,7 @@ int tsg_init(void) {
   };
   err = allow(reinterpret_cast<const void*>(stem_pool_i8_mma_kernel));
   for (int mode = 0; mode < 5; ++mode)
-    for (int win = 0; win < 3; ++win)
+    for (int win = 0; win < 4; ++win)
       for (int f32 = 0; f32 < 2; ++f32) {
         for (int split = 1; split <= 2; ++split)
           if (const MmaKernel fn = mma_kernel(mode, split, win, f32); fn && !err)
@@ -1588,14 +2182,20 @@ long long tsg_stem_smem_bytes(int cout, int n_sp) {
   return static_cast<long long>(stem_smem_bytes(cout, n_sp));
 }
 
-long long tsg_conv_mma_smem_bytes(void) {
-  return static_cast<long long>(conv_mma_smem_bytes());
+// Dynamic shared memory of one tsg_conv_i8_mma launch in this mode, of
+// this kernel size (1 or 3), stride and dilation (mode 3 stages a
+// footprint; every other mode takes the same).
+long long tsg_conv_mma_smem_bytes(int mode, int k, int stride, int dil) {
+  return static_cast<long long>(conv_mma_smem_bytes(mode, k, stride, dil));
 }
 
-// Dynamic shared memory of one tsg_conv_i8_mma_res launch at this cin and
-// kernel size (1 or 3).
-long long tsg_conv_mma_res_smem_bytes(int cin, int k) {
-  return static_cast<long long>(conv_mma_res_smem_bytes(cin, k * k));
+// Dynamic shared memory of one tsg_conv_i8_mma_res launch at this cin,
+// kernel size (1 or 3), mode, output, stride and dilation, or (k = 0) of
+// one tsg_sep_i8_mma_res launch.
+long long tsg_conv_mma_res_smem_bytes(int cin, int k, int mode, int out_f32, int stride,
+                                      int dil) {
+  return static_cast<long long>(conv_mma_res_smem_bytes(
+      cin, k == 0 ? 1 : k * k, mode, out_f32 != 0, k == 0, stride, k == 0 ? 1 : dil));
 }
 
 // xs (h2+3, w2+3, cin) int8, 4-byte aligned, cin <= 16, cin % 4 == 0;
@@ -1623,24 +2223,32 @@ int tsg_stem_pool_i8(const void* xs, const void* wf, const void* m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The int8 conv on tensor cores, the weights streamed: x (h, w, cin), cin
-// % 16 == 0, 16-byte aligned; weights (k, k, cin, cout) with k = 3 (pad =
-// dil) or k = 1 (pad 0, dil 1); any stride; cout % 8 == 0; mode 2's and
-// mode 4's xd (hd, wd, cdin) with cdin % 16 == 0, 16-byte aligned; out
-// (ho, wo, cout) int8 codes, or float32 values with out_f32 != 0 (in mode
-// 2 only for k = 1, in mode 1 for k = 1 or the 3x3 pad 1, dil > 1 only in
-// modes 0 and 3, mode 3 float32 only, mode 4 k = 1 with codes out and
+// The int8 conv on tensor cores, the weights streamed: x (batch, h, w,
+// cin) int8 codes (mode 3: float32 values, or bf16 with x_bf16 != 0,
+// quantized by s_in as the kernel stages them), cin % 16 == 0, 16-byte
+// aligned, batch 1 in modes 2 and 4; weights (k, k, cin, cout) with k = 3
+// (pad = dil) or k = 1 (pad 0, dil 1); any stride; cout % 8 == 0; mode
+// 2's and mode 4's xd (hd, wd, cdin) with cdin % 16 == 0, 16-byte aligned;
+// out (ho, wo, cout) int8 codes, or float32 values with out_f32 != 0 (in
+// mode 2 only for k = 1, in mode 1 for k = 1 or the 3x3 pad 1, dil > 1 only
+// in modes 0 and 3, mode 3 float32 only, mode 4 k = 1 with codes out and
 // split 1: see mma_kernel_of).  split: the blocks of a cluster that share
 // a tile's K walk, 1 or 2 (any mode but 4; in mode 2 the first block
 // takes the projection's chunks), or 0: 2 where the launch has no more
-// tiles than the device has SMs, else 1.
-int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt, int k,
-                    int stride, int dil, int cout, const void* m, const void* c,
-                    int mode, const void* res, float rr, const void* xd,
-                    int wd, int cdin, int sd, const void* wdt, const void* md,
-                    const void* cd, void* out, int out_f32, int ho, int wo,
+// tiles than the device has SMs, else 1.  Mode 3's tiles are kMmaTR x
+// kFpTC output pixels of one image.
+int tsg_conv_i8_mma(const void* x, int batch, int h, int w, int cin, float s_in,
+                    int x_bf16, const void* wt, int k, int stride, int dil, int cout,
+                    const void* m, const void* c, int mode, const void* res, float rr,
+                    const void* xd, int wd, int cdin, int sd, const void* wdt,
+                    const void* md, const void* cd, void* out, int out_f32, int ho, int wo,
                     int split, void* stream) {
-  const int m_tiles = (ho * wo + kMmaBM - 1) / kMmaBM;
+  if (batch < 1 || ((mode == 2 || mode == 4) && batch != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long m_tiles =
+      mode == 3 ? static_cast<long long>(batch) * ((ho + kMmaTR - 1) / kMmaTR) *
+                      ((wo + kFpTC - 1) / kFpTC)
+                : (static_cast<long long>(batch) * ho * wo + kMmaBM - 1) / kMmaBM;
   const int n_tiles = (cout + kMmaBN - 1) / kMmaBN;
   if (split == 0) {
     int dev = 0, sms = 0;
@@ -1653,9 +2261,9 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt, int k,
   const MmaKernel kernel = mma_kernel(mode, split, window_of(k, dil), out_f32 != 0);
   if (!kernel || stride < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(m_tiles * split, n_tiles);
+  cfg.gridDim = dim3(static_cast<unsigned>(m_tiles * split), n_tiles);
   cfg.blockDim = dim3(kMmaThreads);
-  cfg.dynamicSmemBytes = conv_mma_smem_bytes();
+  cfg.dynamicSmemBytes = conv_mma_smem_bytes(mode, k, stride, dil);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1665,11 +2273,11 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt, int k,
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const int8_t*>(x), h, w, cin,
-      static_cast<const int8_t*>(wt), stride, dil, cout, static_cast<const float*>(m),
-      static_cast<const float*>(c), static_cast<const int8_t*>(res), rr,
-      static_cast<const int8_t*>(xd), wd, cdin, sd, static_cast<const int8_t*>(wdt),
-      static_cast<const float*>(md), static_cast<const float*>(cd), out, ho, wo);
+      &cfg, kernel, x, batch, h, w, cin, s_in, x_bf16, static_cast<const int8_t*>(wt), stride,
+      dil, cout, static_cast<const float*>(m), static_cast<const float*>(c),
+      static_cast<const int8_t*>(res), rr, static_cast<const int8_t*>(xd), wd, cdin, sd,
+      static_cast<const int8_t*>(wdt), static_cast<const float*>(md),
+      static_cast<const float*>(cd), out, ho, wo);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it
     return static_cast<int>(err);
@@ -1678,38 +2286,44 @@ int tsg_conv_i8_mma(const void* x, int h, int w, int cin, const void* wt, int k,
 }
 
 // The int8 conv on tensor cores with resident weights (K3's and K2's
-// links; cbr_i8's and bottleneck_i8's up to 64 input channels): x (h, w,
-// cin), cin % 16 == 0, 16-byte aligned; weights (k, k, cin, cout) with k =
-// 3 (pad = dil) or k = 1 (pad 0, dil 1); stride 1 or 2; cout % 8 == 0;
-// mode 0 or 1 (res (ho, wo, cout), 8-byte aligned); out (ho, wo, cout)
-// int8 codes, or float32 values with out_f32 != 0 (as tsg_conv_i8_mma).
-// The grid is as many blocks as fit on the device at once, capped by the
-// M tiles.
-int tsg_conv_i8_mma_res(const void* x, int h, int w, int cin, const void* wt,
-                        int k, int stride, int dil, int cout, const void* m,
-                        const void* c, int mode, const void* res, float rr,
+// links; cbr_i8's, bottleneck_i8's and conv_i8_affine's up to 64 input
+// channels): x (batch, h, w, cin) int8 codes (mode 3: float32 or bf16
+// values quantized by s_in as the kernel stages them, cin <= 64), cin %
+// 16 == 0, 16-byte aligned; weights (k, k, cin, cout) with k = 3 (pad =
+// dil) or k = 1 (pad 0, dil 1); stride 1 or 2; cout % 8 == 0; mode 0, 1
+// (res (batch, ho, wo, cout), 8-byte aligned) or 3 (float32 out only); out
+// (batch, ho, wo, cout) int8 codes, or float32 values with out_f32 != 0
+// (as tsg_conv_i8_mma).
+int tsg_conv_i8_mma_res(const void* x, int batch, int h, int w, int cin, float s_in,
+                        int x_bf16, const void* wt, int k, int stride, int dil, int cout,
+                        const void* m, const void* c, int mode, const void* res, float rr,
                         void* out, int out_f32, void* stream) {
   const ResKernel kernel = res_kernel(mode, window_of(k, dil), out_f32 != 0);
+  if (!kernel || batch < 1 || (stride != 1 && stride != 2) || (mode == 3 && cin > kMmaBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_res(kernel,
+                    conv_mma_res_smem_bytes(cin, k * k, mode, out_f32 != 0, false, stride, dil),
+                    mode == 3, x, batch, h, w, cin, stride, dil, s_in, x_bf16, nullptr,
+                    nullptr, wt, cout, m, c, res, rr, out, stream);
+}
+
+// The fused separable conv (the resident kernel's separable window): x (h,
+// w, cin) int8 codes, cin % 16 == 0, 16-byte aligned; dw (3, 3, 1, cin)
+// int8 and dm (cin) float32, the 3x3 pad-1 depthwise conv at stride 1 or 2
+// and its requant; wt (1, 1, cin, cout), cout % 8 == 0, the 1x1 at stride
+// 1 on the depthwise output; mode 0 or 1 (res (ho, wo, cout), 8-byte
+// aligned); out (ho, wo, cout) int8 codes, or float32 with out_f32 != 0.
+int tsg_sep_i8_mma_res(const void* x, int h, int w, int cin, const void* dw,
+                       const void* dm, int stride, const void* wt, int cout,
+                       const void* m, const void* c, int mode, const void* res,
+                       float rr, void* out, int out_f32, void* stream) {
+  const ResKernel kernel = res_kernel(mode, kWinSep, out_f32 != 0);
   if (!kernel || (stride != 1 && stride != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = conv_mma_res_smem_bytes(cin, k * k);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kResThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ho = (h - 1) / stride + 1, wo = (w - 1) / stride + 1;
-  const int m_tiles = (ho * wo + kResBM - 1) / kResBM;
-  const int n_tiles = (cout + kResBN - 1) / kResBN;
-  int gx = (per_sm > 0 ? per_sm : 1) * sms / n_tiles;
-  gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
-  kernel<<<dim3(gx, n_tiles), kResThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), h, w, cin, stride, dil, static_cast<const int8_t*>(wt),
-      cout, static_cast<const float*>(m), static_cast<const float*>(c),
-      static_cast<const int8_t*>(res), rr, out, ho, wo);
-  return static_cast<int>(cudaGetLastError());
+  return launch_res(kernel,
+                    conv_mma_res_smem_bytes(cin, 1, mode, out_f32 != 0, true, stride, 1), true,
+                    x, 1, h, w, cin, stride, 1, 0.f, 0, dw, dm, wt, cout, m, c, res, rr, out,
+                    stream);
 }
 
 // x (h, w, C) int8 -> out (ho, wo, C) int8, C % 4 == 0, fewer than 2^31

@@ -22,17 +22,23 @@ convs are not calibrated here either, so both quantize the same set.
 Each ``QuantConv2d``'s route is fixed when the model is quantized, from
 its shape alone, and never changes at run time:
   * "mma": the int8 tensor-core kernel (``conv_i8_affine``, mode 3 of
-    ``conv_i8_mma_kernel``: float32 out, no ReLU) where
+    the resident-weight or the streaming tensor-core conv, by
+    ``int8_serve_kernels.conv_route``: float32 out, no ReLU) where
     ``conv_i8_mma_shape_error`` admits the conv (cin % 16 == 0, cout % 8
-    == 0, groups 1, a 3x3 at pad = dilation or a 1x1 at pad 0).  The
-    kernel takes NHWC codes at batch 1, so the conv quantizes in NHWC
-    (one permute copy of its input) and loops over the batch; its output
-    is permuted back to NCHW (another copy).
+    == 0, groups 1, a 3x3 at pad = dilation or a 1x1 at pad 0).  One
+    launch a conv: the kernel reads the float32 or bf16 activation in
+    channels-last memory (an input in another layout, or another float
+    type, is made so once, here) viewed NHWC, quantizes each output
+    tile's footprint of it into shared memory by the float scale fixed at
+    quantization as it stages it, and writes NHWC float32 at any batch,
+    returned as an NCHW view (channels-last memory), cast only where the
+    input's type differs.
   * "f32": a float32 cuDNN conv of the codes (TF32 off), where taps x
     cin_per_group x 127^2 < 2^24 makes every partial sum an exact float32
     integer (the classic 7x7 stem at cin 3, X39's depthwise convs);
     JAX computes these in XLA as well, outside any Pallas kernel;
   * "int_mm": otherwise an im2col ``torch._int_mm`` (groups 1).
+The "f32" and "int_mm" routes quantize in PyTorch (``quantize_input``).
 Every route gives the exact int32 sum, so all three are bit-identical to
 the plain version (``conv_i8_affine_plain``); on the CPU the "mma" route
 runs that plain version.
@@ -55,6 +61,7 @@ from ..ops.kernels.int8_serve_kernels import (
     conv_i8_affine,
     conv_i8_mma_shape_error,
     fma,
+    quantize_codes,
 )
 
 # head class-logit convs across the model zoo: bisenet heads ("head0..2 /
@@ -138,7 +145,9 @@ class QuantConv2d(nn.Module):
     """An ``nn.Conv2d`` run in int8 with a calibrated input scale
     (JAX quantize.py:100-146).  Buffers: ``wq`` the HWIO int8 weights,
     ``m`` = s_in * s_w and ``c`` = the bias (or 0), both float32 per
-    output channel, ``s_in`` the float32 input scale."""
+    output channel, ``s_in`` the float32 input scale (also kept as the
+    Python float ``scale``, which the "mma" route hands its kernel without
+    reading the device)."""
 
     def __init__(self, conv: nn.Conv2d, absmax: float):
         super().__init__()
@@ -155,6 +164,7 @@ class QuantConv2d(nn.Module):
                                    if conv.bias is not None
                                    else torch.zeros_like(s_w)).to(dev))
         self.register_buffer("s_in", s_in.to(dev))
+        self.scale = float(s_in)
         self.stride, self.padding = conv.stride, conv.padding
         self.dilation, self.groups = conv.dilation, conv.groups
         self.route = conv_route(conv)
@@ -165,10 +175,9 @@ class QuantConv2d(nn.Module):
                 f"stride={self.stride}, route={self.route}")
 
     def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW float -> NHWC-contiguous int8 codes (a true division by
-        the float32 scale, as XLA's)."""
-        xq = torch.round(x.permute(0, 2, 3, 1).float() / self.s_in)
-        return torch.clamp(xq, -127, 127).to(torch.int8).contiguous()
+        """NCHW float -> NHWC-contiguous int8 codes (``quantize_codes``: a
+        true division by the float32 scale, as XLA's)."""
+        return quantize_codes(x.permute(0, 2, 3, 1), self.s_in).contiguous()
 
     def sums(self, xq: torch.Tensor) -> torch.Tensor:
         """The exact conv sums of NHWC codes as float32 NHWC values, on
@@ -199,15 +208,16 @@ class QuantConv2d(nn.Module):
         return y.reshape(b, ho, wo, cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq = self.quantize_input(x)
         if self.route == "mma":
-            y = torch.cat([conv_i8_affine(
-                xq[i:i + 1], self.wq, self.m, self.c, self.stride[0],
-                self.padding[0], self.dilation[0])
-                for i in range(xq.shape[0])])
+            xf = x if x.dtype in (torch.float32, torch.bfloat16) else x.float()
+            xf = xf.contiguous(memory_format=torch.channels_last)
+            y = conv_i8_affine(xf.permute(0, 2, 3, 1), self.scale, self.wq,
+                               self.m, self.c, self.stride[0],
+                               self.padding[0], self.dilation[0])
         else:
-            y = fma(self.sums(xq), self.m, self.c)
-        return y.permute(0, 3, 1, 2).to(x.dtype)
+            y = fma(self.sums(self.quantize_input(x)), self.m, self.c)
+        y = y.permute(0, 3, 1, 2)
+        return y if y.dtype == x.dtype else y.to(x.dtype)
 
 
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

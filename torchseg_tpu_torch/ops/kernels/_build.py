@@ -49,23 +49,31 @@ LIBRARIES = {
         "tsg_smem_optin": [],
         # cout, n_sp
         "tsg_stem_smem_bytes": [c_int] * 2,
-        "tsg_conv_mma_smem_bytes": [],
-        # cin, k
-        "tsg_conv_mma_res_smem_bytes": [c_int] * 2,
+        # mode, k, stride, dilation
+        "tsg_conv_mma_smem_bytes": [c_int] * 4,
+        # cin, k (0: the separable window), mode, out_f32, stride, dilation
+        "tsg_conv_mma_res_smem_bytes": [c_int] * 6,
         # xs, wf, m, c, sp, pooled, h2, w2, cin, cout, n_sp, stream
         "tsg_stem_pool_i8": [c_void_p] * 6 + [c_int] * 5 + [c_void_p],
-        # x, h, w, cin, wt, k, stride, dilation, cout, m, c, mode, res, rr,
-        # xd, wd, cdin, sd, wdt, md, cd, out, out_f32, ho, wo, split, stream
-        "tsg_conv_i8_mma": ([c_void_p] + [c_int] * 3 + [c_void_p]
+        # x, batch, h, w, cin, s_in, x_bf16, wt, k, stride, dilation, cout,
+        # m, c, mode, res, rr, xd, wd, cdin, sd, wdt, md, cd, out, out_f32,
+        # ho, wo, split, stream
+        "tsg_conv_i8_mma": ([c_void_p] + [c_int] * 4 + [c_float, c_int, c_void_p]
                             + [c_int] * 4 + [c_void_p] * 2 + [c_int]
                             + [c_void_p, c_float, c_void_p] + [c_int] * 3
                             + [c_void_p] * 4 + [c_int] * 4 + [c_void_p]),
-        # x, h, w, cin, wt, k, stride, dilation, cout, m, c, mode, res, rr,
-        # out, out_f32, stream
-        "tsg_conv_i8_mma_res": ([c_void_p] + [c_int] * 3 + [c_void_p]
+        # x, batch, h, w, cin, s_in, x_bf16, wt, k, stride, dilation, cout,
+        # m, c, mode, res, rr, out, out_f32, stream
+        "tsg_conv_i8_mma_res": ([c_void_p] + [c_int] * 4 + [c_float, c_int, c_void_p]
                                 + [c_int] * 4 + [c_void_p] * 2 + [c_int]
                                 + [c_void_p, c_float, c_void_p, c_int]
                                 + [c_void_p]),
+        # x, h, w, cin, dw, dm, stride, wt, cout, m, c, mode, res, rr, out,
+        # out_f32, stream
+        "tsg_sep_i8_mma_res": ([c_void_p] + [c_int] * 3 + [c_void_p] * 2
+                               + [c_int, c_void_p, c_int] + [c_void_p] * 2
+                               + [c_int] + [c_void_p, c_float, c_void_p, c_int]
+                               + [c_void_p]),
         # x, h, w, c, out, ho, wo, route (bytes a load: 16 or 4), stream
         "tsg_maxpool_i8": ([c_void_p] + [c_int] * 3 + [c_void_p]
                            + [c_int] * 3 + [c_void_p]),

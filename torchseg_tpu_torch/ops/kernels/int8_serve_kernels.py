@@ -13,10 +13,10 @@ version, plus the exact integer primitives both are specified by.
 | maxpool2d_3x3s2_i8 | maxpool_i8_vec16_kernel (16-byte loads) or maxpool_i8_kernel (4-byte), K10 | maxpool2d_3x3s2_i8 (:1308) |
 | cbr_i8           | conv_i8_mma_res_kernel or conv_i8_mma_kernel, mode 0 (int8 mma; 1x1, 3x3, dilated 3x3; codes or float32 out) | none: an XLA conv in JAX |
 | bottleneck_i8    | the same, x3 (modes 0,0,1 or 2)      | none: XLA (_apply_bottleneck) |
-| conv_i8_affine   | conv_i8_mma_kernel, mode 3 (float32 out, no ReLU) | none: XLA (deploy/quantize.py:100-146) |
+| conv_i8_affine   | conv_i8_mma_res_kernel or conv_i8_mma_kernel, mode 3 (float32 or bf16 in, quantized into each tile's footprint as it is staged; float32 out, no ReLU; any batch) | none: XLA (deploy/quantize.py:100-146) |
 | dwconv3x3_i8     | dwconv3x3_i8_kernel, K14 (CUDA cores, 16-byte loads) | none: XLA (deploy/int8_serve.py:961 _qconv_dw) |
-| sep_i8           | K14, then the tensor-core conv's 1x1 in mode 0 | none: XLA (_apply_sep, :971) |
-| xblock_i8        | sep_i8 x2, K14 (x2 with a projection), then the 1x1 in mode 1 (identity) or 4 (projection) | none: XLA (_apply_xblock, :986) |
+| sep_fused_i8     | conv_i8_mma_res_kernel, separable window (the depthwise codes computed in the A producer from the staged footprint), mode 0 or 1 | none: XLA (_apply_sep, :971) |
+| xblock_i8        | sep_fused_i8 x2 (mode 0), then sep_fused_i8 in mode 1 (identity), or K14 x2 and the 1x1 in mode 4 (projection) | none: XLA (_apply_xblock, :986) |
 
 Line numbers are in the JAX file.  Every conv runs on the int8 tensor
 cores and takes only the widths its kernels tile
@@ -27,18 +27,20 @@ rule (``_conv_launch``): the resident-weight kernel up to 64 input
 channels, the streaming one above (and for the projection).  ``cbr_i8``
 (the R18 decoder's convs, the spatial path's 1x1 sp3, the deep stem's
 stem2 and stem3), ``bottleneck_i8`` (the dilated Bottleneck body of
-PSPNet) and ``dwconv3x3_i8`` / ``sep_i8`` / ``xblock_i8`` (the Xception39
+PSPNet) and ``dwconv3x3_i8`` / ``sep_fused_i8`` / ``xblock_i8`` (the Xception39
 body) replace what JAX computes with XLA convs (deploy/int8_serve.py:716-
 758, :940, :961-996, :1038).  Every public function takes and returns NHWC int8
 codes (float32 values where a conv emits them) and HWIO weights, batch 1,
-as the JAX functions do.
+as the JAX functions do; ``conv_i8_affine`` (the generic post-training
+conv) takes NHWC float32 values at any batch.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts in ``.launches`` the
 calls in which it launched its CUDA kernel (or kernel chain);
-``bottleneck_i8`` counts each of its three launches; ``sep_i8`` its
-pointwise launch and ``xblock_i8`` its sep3 launch (K14's launches count
-in ``dwconv3x3_i8``, sep1's and sep2's pointwise launches in ``sep_i8``).
+``bottleneck_i8`` counts each of its three launches; ``sep_fused_i8``
+each launch of the fused separable route (sep1, sep2 and an identity
+block's sep3) and ``xblock_i8`` one a block (its sep3 launch; K14's
+launches count in ``dwconv3x3_i8``).
 
 The plain int8 convolution (``qconv``) runs in float64 because
 ``F.conv2d`` takes no int8: every partial sum is an integer below 2**53,
@@ -298,27 +300,32 @@ def _aligned(name, t, n):
 
 
 @functools.lru_cache(maxsize=None)
-def _check_mma_smem(device_index):
-    """The streaming kernel's shared memory (one size for every launch)
-    against the device's limit, once per device."""
-    _check_smem("conv_i8_mma_kernel",
-                _build.ready(device_index).tsg_conv_mma_smem_bytes(),
-                device_index)
+def _check_mma_smem(device_index, mode=0, k=3, stride=1, dilation=1):
+    """The streaming kernel's shared memory against the device's limit,
+    once per device (and, mode 3, per window, stride and dilation: its
+    footprint); the other modes all take the same."""
+    _check_smem(f"conv_i8_mma_kernel: mode {mode}, k={k}, stride {stride}, "
+                f"dilation {dilation}",
+                _build.ready(device_index).tsg_conv_mma_smem_bytes(
+                    mode, k, stride, dilation), device_index)
 
 
 def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
-                     down=None, sd=1, split=0, dilation=1, out_f32=False):
+                     down=None, sd=1, split=0, dilation=1, out_f32=False,
+                     s_in=0.0):
     """One launch of the streaming tensor-core conv (the 3x3 at pad =
-    ``dilation``, or the 1x1 at pad 0, by the weights' shape); returns the
-    new codes, or with ``out_f32`` the float32 values.  Modes 2 and 4 take
-    the second GEMM's input ``xd`` and weights ``down`` at stride ``sd``.
+    ``dilation``, or the 1x1 at pad 0, by the weights' shape) over the
+    batch of ``x``; returns the new codes, or with ``out_f32`` the float32
+    values.  Mode 3 takes float32 or bf16 values ``x``, which the kernel
+    quantizes by ``s_in`` as it stages them.  Modes 2 and 4 take (at batch 1) the second GEMM's input
+    ``xd`` and weights ``down`` at stride ``sd``.
     ``split``: 0 lets
     the kernel's host code share each tile's K walk between a two-block
     cluster where the launch has no more tiles than the device has SMs (any
     mode: K5 and K6; K4's launches on the serving path have 256 or more
     tiles and stay whole); 1 or 2 forces it.  The caller has checked the
     widths (``conv_i8_mma_shape_error``)."""
-    _, h, w, cin = x.shape
+    b, h, w, cin = x.shape
     k, cout = e["w"].shape[0], e["w"].shape[3]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     wd = cdin = 0
@@ -327,12 +334,17 @@ def _launch_conv_mma(x, e, stride, mode=0, res=None, rr=0.0, xd=None,
         _, _, wd, cdin = xd.shape
         _aligned("xd", xd, 16)
     lib = _build.ready(x.device.index)
-    _check_mma_smem(x.device.index)
-    out = torch.empty((1, ho, wo, cout),
+    if mode == 3:
+        _check_mma_smem(x.device.index, mode, k, stride, dilation)
+    else:
+        _check_mma_smem(x.device.index)
+    out = torch.empty((b, ho, wo, cout),
                       dtype=torch.float32 if out_f32 else torch.int8,
                       device=x.device)
     rc = lib.tsg_conv_i8_mma(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, dilation, cout,
+        x.data_ptr(), b, h, w, cin, float(s_in),
+        int(x.dtype == torch.bfloat16), e["w"].data_ptr(), k, stride,
+        dilation, cout,
         e["m"].data_ptr(), e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
         xd.data_ptr() if xd is not None else None, wd, cdin, sd,
@@ -350,31 +362,67 @@ RESIDENT_MAX_CIN = 64
 
 
 def _launch_conv_mma_res(x, e, mode=0, res=None, rr=0.0, stride=1,
-                         dilation=1, out_f32=False):
+                         dilation=1, out_f32=False, s_in=0.0):
     """One launch of the resident-weight tensor-core conv (the 3x3 at pad =
     ``dilation``, or the 1x1 at pad 0, by the weights' shape) at stride 1
-    or 2 (mode 0, or 1 with the residual ``res``); returns the new codes,
-    or with ``out_f32`` the float32 values.  The caller has checked the
+    or 2 over the batch of ``x`` (mode 0, 1 with the residual ``res``, or
+    3 from float32 or bf16 values quantized by ``s_in`` as the kernel
+    stages them); returns the new codes, or with ``out_f32`` the float32
+    values.  The caller has checked the
     widths; a cin whose resident weights exceed the device's shared memory
     raises ValueError before launching."""
-    _, h, w, cin = x.shape
+    b, h, w, cin = x.shape
     k, cout = e["w"].shape[0], e["w"].shape[3]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     _aligned("x", x, 16)
     if res is not None:
         _aligned("res", res, 8)
     lib = _build.ready(x.device.index)
-    _check_smem(f"conv_i8_mma_res_kernel: cin={cin}, k={k}",
-                lib.tsg_conv_mma_res_smem_bytes(cin, k), x.device.index)
-    out = torch.empty((1, ho, wo, cout),
+    _check_smem(f"conv_i8_mma_res_kernel: cin={cin}, k={k}, mode {mode}",
+                lib.tsg_conv_mma_res_smem_bytes(cin, k, mode, int(out_f32),
+                                                stride, dilation),
+                x.device.index)
+    out = torch.empty((b, ho, wo, cout),
                       dtype=torch.float32 if out_f32 else torch.int8,
                       device=x.device)
     rc = lib.tsg_conv_i8_mma_res(
-        x.data_ptr(), h, w, cin, e["w"].data_ptr(), k, stride, dilation,
-        cout, e["m"].data_ptr(), e["c"].data_ptr(), mode,
+        x.data_ptr(), b, h, w, cin, float(s_in),
+        int(x.dtype == torch.bfloat16), e["w"].data_ptr(), k, stride,
+        dilation, cout, e["m"].data_ptr(),
+        e["c"].data_ptr(), mode,
         res.data_ptr() if res is not None else None, float(rr),
         out.data_ptr(), int(out_f32), _stream(x))
     _raise_on(rc, "conv_i8_mma_res_kernel")
+    return out
+
+
+def _launch_sep_mma_res(x, e, stride, mode=0, res=None, rr=0.0,
+                        out_f32=False):
+    """One launch of the resident-weight kernel's separable window: the
+    3x3 pad-1 depthwise conv of ``x`` by ``e["dw"]`` at ``stride`` and its
+    requant by ``e["dm"]``, then the 1x1 ``e["w"]`` with its epilogue (mode
+    0, or 1 with the residual ``res``); the depthwise codes stay on chip.
+    The caller has checked the widths; a cin whose resident weights exceed
+    the device's shared memory raises ValueError before launching."""
+    _, h, w, cin = x.shape
+    cout = e["w"].shape[3]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    _aligned("x", x, 16)
+    if res is not None:
+        _aligned("res", res, 8)
+    lib = _build.ready(x.device.index)
+    _check_smem(f"conv_i8_mma_res_kernel (separable): cin={cin}",
+                lib.tsg_conv_mma_res_smem_bytes(cin, 0, mode, int(out_f32),
+                                                stride, 1), x.device.index)
+    out = torch.empty((1, ho, wo, cout),
+                      dtype=torch.float32 if out_f32 else torch.int8,
+                      device=x.device)
+    rc = lib.tsg_sep_i8_mma_res(
+        x.data_ptr(), h, w, cin, e["dw"].data_ptr(), e["dm"].data_ptr(),
+        stride, e["w"].data_ptr(), cout, e["m"].data_ptr(),
+        e["c"].data_ptr(), mode, res.data_ptr() if res is not None else None,
+        float(rr), out.data_ptr(), int(out_f32), _stream(x))
+    _raise_on(rc, "conv_i8_mma_res_kernel (separable)")
     return out
 
 
@@ -539,7 +587,9 @@ def conv_route(cin: int, cout: int, ho: int, wo: int, k: int, stride: int,
     the ``sms`` SMs: "split0") or never ("split1").  From the probe's
     per-route times (scripts/torch_int8_kernel_variants.py, recorded in
     PERF.md) on an H100:
-      * up to RESIDENT_MAX_CIN input channels, modes 0 and 1, stride <= 2:
+      * up to RESIDENT_MAX_CIN input channels, modes 0, 1 and 3 (the
+        post-training conv; its ``ho`` counts the batch's rows), stride <=
+        2:
         resident, except a 3x3 with fewer resident tiles than SMs (each
         block then stages the whole 37 KB weight for one tile; PSPNet's
         layer1 3x3 at 120x120, 57 tiles: 0.0151 ms resident, 0.0103
@@ -552,8 +602,10 @@ def conv_route(cin: int, cout: int, ho: int, wo: int, k: int, stride: int,
       * a 1x1 streams whole: its walk is one tap of 1-32 chunks, and
         split it measured no faster (layer3's conv1, 116 tiles: 0.0136
         whole, 0.0151 split; calls this short vary 3-5 us from call to
-        call)."""
-    if cin <= RESIDENT_MAX_CIN and mode <= 1 and stride <= 2:
+        call);
+      * mode 3 follows the same rule (its tiles are 2-D, 16 x 16 pixels
+        resident and 8 x 16 streaming, but the count is the rule's)."""
+    if cin <= RESIDENT_MAX_CIN and mode in (0, 1, 3) and stride <= 2:
         tiles = (-(-ho * wo // RESIDENT_TILE[0])
                  * -(-cout // RESIDENT_TILE[1]))
         if k == 1 or tiles >= sms:
@@ -897,42 +949,75 @@ def bottleneck_i8(x, e, stride: int, dilation: int, emit_int8: bool = True):
 # times the per-channel m = s_in * s_w, plus the bias, no ReLU
 # ----------------------------------------------------------------------
 
-def conv_i8_affine_plain(x, w, m, c, stride: int, pad: int,
+def quantize_codes(x, s_in) -> torch.Tensor:
+    """clip(round(x / s_in), -127, 127) as int8: a true float32 division by
+    the float32 scale (a 0-d tensor on x's device, so that CUDA divides
+    rather than multiplying by a reciprocal), half to even, as XLA's
+    (JAX deploy/quantize.py:119-122)."""
+    s = torch.as_tensor(s_in, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+
+
+def conv_i8_affine_plain(x, s_in, w, m, c, stride: int, pad: int,
                          dilation: int = 1, groups: int = 1):
-    """fma(conv(x, w), m, c) in float32: NHWC codes x HWIO int8 weights
-    (``(k, k, cin / groups, cout)``), the exact int32 sum (a float64 conv,
-    rounded) rounded once to float32, then one fused multiply-add (JAX
-    quantize.py:135-140 as XLA compiles it)."""
-    xf = x.permute(0, 3, 1, 2).to(torch.float64)
+    """fma(conv(q, w), m, c) in float32, q = ``quantize_codes(x, s_in)`` of
+    the NHWC float activation x and HWIO int8 weights (``(k, k, cin /
+    groups, cout)``): the exact int32 sum (a float64 conv, rounded) rounded
+    once to float32, then one fused multiply-add (JAX quantize.py:119-140
+    as XLA compiles it); NHWC-contiguous float32."""
+    q = quantize_codes(x, s_in)
+    xf = q.permute(0, 3, 1, 2).to(torch.float64)
     wf = w.permute(3, 2, 0, 1).to(torch.float64)
     y = torch.round(F.conv2d(xf, wf, stride=stride, padding=pad,
                              dilation=dilation, groups=groups))
     return fma(y.float().permute(0, 2, 3, 1), m, c).contiguous()
 
 
-def conv_i8_affine(x, w, m, c, stride: int, pad: int, dilation: int = 1):
-    """conv_i8_affine_plain(x, w, m, c, stride, pad, dilation) in one
-    launch: (1, H, W, cin) s8 codes and HWIO s8 weights -> (1, Ho, Wo,
-    cout) float32, z = fma(y, m, c) with no ReLU.  Plain version: any
-    widths and window.  On the card, one launch of the streaming
-    tensor-core conv in mode 3: cin % 16 == 0, cout % 8 == 0, a 3x3 at pad
-    = dilation or a 1x1 at pad 0 (``conv_i8_mma_shape_error``), ValueError
-    otherwise, before launching."""
-    _check_codes(x)
+def conv_i8_affine(x, s_in: float, w, m, c, stride: int, pad: int,
+                   dilation: int = 1):
+    """conv_i8_affine_plain(x, s_in, w, m, c, stride, pad, dilation) in one
+    launch: (B, H, W, cin) float32 or bf16 NHWC values (the float graph's
+    channels-last activation, viewed NHWC) quantized by the float ``s_in``
+    and HWIO s8 weights -> (B, Ho, Wo, cout) float32, z = fma(y, m, c) with
+    no ReLU.  Plain version: any widths and window.  On the card, one
+    launch of the tensor-core conv in mode 3 on the kernel ``conv_route``
+    picks (the resident-weight one up to 64 input channels, else the
+    streaming one): each block quantizes its 2-D tile's footprint of the
+    input into shared memory (each element once a tile and a chunk of 64
+    channels) and reads every tap's A fragments from there: cin % 16 == 0,
+    cout % 8 == 0, a 3x3 at pad = dilation or a 1x1 at pad 0
+    (``conv_i8_mma_shape_error``), ValueError otherwise (a footprint past
+    the device's shared memory too), before launching."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _check("x", x, x.dtype, ndim=4)
     _check("w", w, torch.int8, ndim=4)
     k, cout = w.shape[0], w.shape[3]
     _check_conv_entry("e", {"w": w, "m": m, "c": c}, k, x.shape[3], cout)
     if stride < 1 or dilation < 1:
         raise ValueError(f"stride and dilation must be >= 1, got {stride}, "
                          f"{dilation}")
+    if not s_in > 0:
+        raise ValueError(f"s_in must be a positive scale, got {s_in}")
     if not _on_cuda(x, w, m, c):
-        return conv_i8_affine_plain(x, w, m, c, stride, pad, dilation)
-    why = conv_i8_mma_shape_error(x.shape[3], cout, k=k, dilation=dilation,
+        return conv_i8_affine_plain(x, s_in, w, m, c, stride, pad, dilation)
+    b, h, wd, cin = x.shape
+    why = conv_i8_mma_shape_error(cin, cout, k=k, dilation=dilation,
                                   pad=pad)
     if why:
         raise ValueError(f"conv_i8_affine (int8 tensor cores): {why}")
-    out = _launch_conv_mma(x, {"w": w, "m": m, "c": c}, stride, mode=3,
-                           dilation=dilation, out_f32=True)
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
+    e = {"w": w, "m": m, "c": c}
+    route = conv_route(cin, cout, b * ho, wo, k, stride, 3,
+                       _build.sm_count(x.device.index))
+    if route == "resident":
+        out = _launch_conv_mma_res(x, e, mode=3, stride=stride,
+                                   dilation=dilation, out_f32=True,
+                                   s_in=s_in)
+    else:
+        out = _launch_conv_mma(x, e, stride, mode=3, dilation=dilation,
+                               out_f32=True, split=int(route[-1]),
+                               s_in=s_in)
     conv_i8_affine.launches += 1
     return out
 
@@ -997,56 +1082,88 @@ def _sep_tensors(x, *entries):
     return [x] + [e[f] for e in entries for f in ("dw", "dm", "w", "m", "c")]
 
 
+def sep_fused_i8_plain(x, e, stride: int, res=None, rr=0.0,
+                       emit_int8: bool = True):
+    """A separable conv with its epilogue: fma(y, m, c) of the pointwise
+    sum y of the depthwise codes (``_sep_sum``), with the identity residual
+    joined as fma(res, rr, z) where ``res`` is given (an Xception block's
+    sep3, as ``apply_xblock``), ReLU, requantized or float32;
+    NHWC-contiguous."""
+    z = fma(_sep_sum(x, e, stride), e["m"], e["c"])
+    if res is not None:
+        z = fma(res.float(), float(torch.tensor(rr, dtype=torch.float32)), z)
+    z = torch.relu(z)
+    return (requant(z) if emit_int8 else z).contiguous()
+
+
 def sep_i8_shape_error(cin: int, cout: int):
-    """Why K14 and the tensor-core 1x1 do not take a separable conv cin ->
-    cout, or None: cin % 16 == 0, cout % 8 == 0."""
+    """Why the fused separable route does not take a separable conv cin ->
+    cout, or None: its producer computes 16 depthwise channels an item in
+    16-byte loads (cin % 16 == 0) and its 1x1 is the tensor-core conv's
+    (cout % 8 == 0).  The resident weights' shared memory (cin / 64 chunks
+    x 64 output channels) is checked at launch."""
     return (dwconv3x3_i8_shape_error(cin)
             or conv_i8_mma_shape_error(cin, cout, k=1))
 
 
-def sep_i8(x, e, stride: int):
-    """apply_sep(x, e, stride), a separable CBR (sep1 and sep2 of an
-    Xception block), as K14, then one tensor-core 1x1 launch
-    (``_conv_launch``, mode 0): (1, H, W, cin) s8 -> (1, ceil(H/s),
-    ceil(W/s), cout) s8.  Plain version: cin % 4 == 0.  On the card: cin %
-    16 == 0, cout % 8 == 0 (``sep_i8_shape_error``), ValueError otherwise,
-    before launching."""
+def sep_fused_i8(x, e, stride: int, res=None, rr=0.0, emit_int8: bool = True):
+    """sep_fused_i8_plain(x, e, stride, res, rr, emit_int8) in one launch:
+    the resident-weight tensor-core kernel's separable window computes each
+    A chunk of the 1x1's implicit GEMM from the depthwise conv of x (K14's
+    arithmetic) and never writes the depthwise codes.  (1, H, W, cin) s8 ->
+    (1, ceil(H/s), ceil(W/s), cout) s8 codes, or float32 with
+    ``emit_int8=False``; ``res`` (1, Ho, Wo, cout) s8 the identity residual
+    (mode 1) or None (mode 0).  Plain version: cin % 4 == 0.  On the card:
+    cin % 16 == 0, cout % 8 == 0 (``sep_i8_shape_error``), stride 1 or 2,
+    ValueError otherwise, before launching."""
     _check_codes(x)
     cout = _check_sep("e", e, x.shape[3])
-    if not _on_cuda(*_sep_tensors(x, e)):
-        return apply_sep(x, e, stride)
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    ts = _sep_tensors(x, e)
+    if res is not None:
+        _check("res", res, torch.int8,
+               (1, (x.shape[1] - 1) // stride + 1,
+                (x.shape[2] - 1) // stride + 1, cout))
+        ts.append(res)
+    if not _on_cuda(*ts):
+        return sep_fused_i8_plain(x, e, stride, res, rr, emit_int8)
     why = sep_i8_shape_error(x.shape[3], cout)
     if why:
-        raise ValueError(f"sep_i8: {why}")
-    q = dwconv3x3_i8(x, e["dw"], e["dm"], stride)
-    out = _conv_launch(q, e, 1)
-    sep_i8.launches += 1
+        raise ValueError(f"sep_fused_i8: {why}")
+    out = _launch_sep_mma_res(x, e, stride, mode=0 if res is None else 1,
+                              res=res, rr=rr, out_f32=not emit_int8)
+    sep_fused_i8.launches += 1
     return out
 
 
 def xblock_i8_shape_error(cin: int, mid: int, cout: int,
                           projection: bool = True, emit_int8: bool = True):
-    """Why the launches of an Xception block cin -> mid -> cout do not take
-    these widths, or None: K14 and the 1x1 of sep1 (cin -> mid), sep2 (mid
-    -> mid) and sep3 (mid -> cout, with the projection's cin -> cout as the
-    second GEMM), and a projection block writes codes only (its mode-4
-    launch has no float32 instantiation)."""
+    """Why the launches of an Xception block cin -> mid -> cout (see
+    ``xblock_i8``) do not take these widths, or None: the fused route
+    for sep1 (cin -> mid), sep2 (mid -> mid) and an identity block's sep3
+    (mid -> cout); a projection block's K14 of sep3 (mid) and of the
+    projection (cin) and its mode-4 1x1 (mid -> cout, with the projection's
+    cin -> cout as the second GEMM), which writes codes only."""
     if projection and not emit_int8:
         return "a block with a projection writes codes only"
-    return (sep_i8_shape_error(cin, mid) or sep_i8_shape_error(mid, mid)
-            or dwconv3x3_i8_shape_error(mid)
-            or conv_i8_mma_shape_error(mid, cout, cin if projection else 0,
-                                       k=1))
+    why = sep_i8_shape_error(cin, mid) or sep_i8_shape_error(mid, mid)
+    if why or not projection:
+        return why or sep_i8_shape_error(mid, cout)
+    return (dwconv3x3_i8_shape_error(mid) or dwconv3x3_i8_shape_error(cin)
+            or conv_i8_mma_shape_error(mid, cout, cin, k=1))
 
 
 def xblock_i8(x, e, stride: int, emit_int8: bool = True):
-    """apply_xblock(x, e, stride, emit_int8): sep1 and sep2 through
-    ``sep_i8``, K14 for sep3 (and the projection's depthwise), then sep3's
-    1x1 with the shortcut in its epilogue: the identity residual (mode 1,
-    ``_conv_launch``, codes or float32 out) or the separable projection's
-    1x1 as a second GEMM over its depthwise codes (mode 4, the streaming
-    kernel, codes out).  (1, H, W, cin) s8 -> (1, ceil(H/s), ceil(W/s),
-    cout).  Plain version: widths % 4 == 0.  On the card
+    """apply_xblock(x, e, stride, emit_int8) in launches fixed by the
+    block's kind: sep1 and sep2 on the fused separable route
+    (``sep_fused_i8``, mode 0); an identity
+    block's sep3 on the fused separable route with the identity residual in
+    its epilogue (codes or float32 out), or a projection block's K14 for
+    sep3 and the projection's depthwise, then sep3's 1x1 with the
+    projection's 1x1 over its depthwise codes as a second GEMM (mode 4, the
+    streaming kernel, codes out).  (1, H, W, cin) s8 -> (1, ceil(H/s),
+    ceil(W/s), cout).  Plain version: widths % 4 == 0.  On the card
     (``xblock_i8_shape_error``), ValueError otherwise, before launching."""
     _check_codes(x)
     cin = x.shape[3]
@@ -1067,23 +1184,24 @@ def xblock_i8(x, e, stride: int, emit_int8: bool = True):
     why = xblock_i8_shape_error(cin, mid, cout, proj, emit_int8)
     if why:
         raise ValueError(f"xblock_i8: {why}")
-    r = sep_i8(x, e["sep1"], stride)
-    r = sep_i8(r, e["sep2"], 1)
-    q = dwconv3x3_i8(r, e["sep3"]["dw"], e["sep3"]["dm"], 1)
+    r = sep_fused_i8(x, e["sep1"], stride)
+    r = sep_fused_i8(r, e["sep2"], 1)
     if proj:
+        q = dwconv3x3_i8(r, e["sep3"]["dw"], e["sep3"]["dm"], 1)
         qd = dwconv3x3_i8(x, e["proj"]["dw"], e["proj"]["dm"], stride)
         out = _launch_conv_mma(q, e["sep3"], 1, mode=4, xd=qd, down=e["proj"],
                                split=1)
     else:
-        out = _conv_launch(q, e["sep3"], 1, mode=1, res=x, rr=e["res_ratio"],
-                           out_f32=not emit_int8)
+        out = sep_fused_i8(r, e["sep3"], 1, res=x, rr=e["res_ratio"],
+                           emit_int8=emit_int8)
     xblock_i8.launches += 1
     return out
 
 
 KERNELS = (stem_pool_i8, conv3x3s2_i8, l1_stage_i8, down_stage_i8,
            down_block_i8, res_block_i8, maxpool2d_3x3s2_i8, cbr_i8,
-           bottleneck_i8, conv_i8_affine, dwconv3x3_i8, sep_i8, xblock_i8)
+           bottleneck_i8, conv_i8_affine, dwconv3x3_i8, sep_fused_i8,
+           xblock_i8)
 
 
 def reset_launches():

@@ -71,9 +71,22 @@ def device_memory_profile(path: str):
     return path
 
 
+# idle seconds at each edge of ``collect_op_times``' window on a card: a
+# session keeps only the device activity inside its window, and a
+# kernel's timestamp has been seen ~0.1 ms off its launch's on the host
+# clock, so the kernels of a short window sat at its edges and were lost
+PAD_S = 0.05
+
+
 def _sync():
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def _pad():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
 
 
 def collect_op_times(fn, *args, runs: int = 3, logdir: str = None):
@@ -82,17 +95,20 @@ def collect_op_times(fn, *args, runs: int = 3, logdir: str = None):
     events), then ``runs`` times under the profiler.  Returns ``(total_ms,
     ops)``: ``ops`` maps each device kernel to its mean device ms a run and
     ``total_ms`` is their sum (on the CPU, where no kernel runs, the CPU
-    ops by self time; ``total_ms`` None).  ``logdir``: also write the
-    Chrome trace there."""
+    ops by self time; ``total_ms`` None).  On a card the window idles
+    ``PAD_S`` at each edge.  ``logdir``: also write the Chrome trace
+    there."""
     fn(*args)
     _sync()
     if torch.cuda.is_available():
         with profile(activities=_activities()):
             _sync()
     with profile(activities=_activities()) as prof:
+        _pad()
         for _ in range(runs):
             fn(*args)
             _sync()
+        _pad()
     if logdir is not None:
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "op_times.json"))
